@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper card:
 
-    python3 chip_smoke.py [--out results.json] [--profile]
+    python3 chip_smoke.py [--out results.json] [--profile] [--routes]
 
 Phases (any failed check raises and the script exits nonzero):
 
@@ -19,11 +19,32 @@ Phases (any failed check raises and the script exits nonzero):
    ground manifold read from the committed cache: one operator selection
    from the empty ansatz, 5 train steps of the 12-operator ansatz
    (theta = 0.05, Adam lr 1e-2) and one short ``run()``, with every launch
-   counter set to 0 just before and read just after.  The same selection
-   and steps then run through the plain versions on the card: energy,
-   gnorm, Sz, S^2 and fidelity agree at every step (``STEP_TOLERANCES``)
-   and the selected operators match as a set.
-4. A ``kernels`` JSON line, then the device JSON line, last.
+   counter set to 0 just before and read just after (no stream kernel runs
+   at 18 qubits).  The same selection and steps then run through the
+   plain versions on the card: energy, gnorm, Sz, S^2 and fidelity agree
+   at every step (``STEP_TOLERANCES``) and the selected operators match as
+   a set.
+4. Kernels at n = 24 on the real 2x6 term arrays (the first 6 pool
+   operators and the Givens network): the stream route (local runs,
+   crossing terms, flip-mask groups) against the plain versions on the
+   same inputs (1e-5 relative), timed beside its bound, the plain
+   versions and the old per-term route on the same inputs, with the
+   launches and state passes of each call.  H, S^2 and the pool run on the
+   main path's state; Sz and S^2 also on a tilted state whose <Z_q> do not
+   cancel.
+5. 24-qubit main path: ``ADAPT`` on 2x6 (t=1, U=6, 6 up / 6 down,
+   ``ground_truth=False``): one selection from the empty ansatz and 5
+   train steps of the first 6 pool operators, with every launch counter
+   set to 0 just before and read just after and held to the counts the
+   run layouts predict; then one selection and 2 steps through the plain
+   versions: gradients within 1e-4 of max |grad|, the same selected set
+   unless a tie sits within that tolerance, energy, gnorm and S^2 within
+   1e-4 relative, Sz within 1e-4 of 0.
+6. A ``kernels`` JSON line, then the device JSON line, last.
+
+``--routes`` also times the per-term route against the stream route at
+18 (3x3), 20 (2x5) and 24 qubits (2x6), call by call and end to end;
+``--profile`` breaks a train step and a selection down by device kernel.
 
 It imports nothing of JAX or of the JAX package ``qsfh_tpu``.
 """
@@ -31,6 +52,7 @@ It imports nothing of JAX or of the JAX package ``qsfh_tpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -67,20 +89,48 @@ REPLACES = {
     "pauli_apply": f"{TPU_KERNELS}:715",
     "pauli_inner": f"{TPU_KERNELS}:645,927",
     "adjoint_rotation": f"{TPU_KERNELS}:826",
+    "rotation_local_runs": f"{TPU_KERNELS}:2268",
+    "adjoint_local_runs": f"{TPU_KERNELS}:2142",
+    "pauli_inner_grouped": f"{TPU_KERNELS}:1581,1804,1474",
 }
-# The least float32 arithmetic each function needs per (term, amplitude).
-# Rule: a complex multiply is 6 flops and a complex add 2; a factor of
-# +-1 or +-i (the parity sign, the phase (-i)^k) is a sign or a swap and
-# costs nothing.  Rotation: cos * psi[b] (2) + (+-sin or +-i sin) *
-# psi[b^x] (2) + the add (2) = 6.  Inner and apply: one complex product
-# (6) and its accumulation (2) = 8.  Adjoint: the inner product (8) and two
-# rotations (6 + 6) = 20.
+NEW_KERNELS = ("rotation_local_runs", "adjoint_local_runs", "pauli_inner_grouped")
+# The least float32 arithmetic of each function, per amplitude.  Rule: a
+# complex multiply is 6 flops and a complex add 2; a factor of +-1 or +-i
+# (the parity sign, the phase (-i)^k) is a sign or a swap and costs
+# nothing.  Rotation: cos * psi[b] (2) + (+-sin or +-i sin) * psi[b^x] (2)
+# + the add (2) = 6 per term.  Adjoint: the inner product (8) and two
+# rotations (6 + 6) = 20 per term.  The stream kernels compute the same
+# functions.  Inner products and applications share work between the terms
+# of one flip mask: see inner_flops() and apply_flops().
 FLOPS_PER_TERM_AMP = {
     "pauli_rotation": 6,
-    "pauli_apply": 8,
-    "pauli_inner": 8,
     "adjoint_rotation": 20,
+    "rotation_local_runs": 6,
+    "adjoint_local_runs": 20,
 }
+
+
+def inner_flops(xs, a_is_psi, dim):
+    """Least float32 flops of v_t = <a|P_t|psi> over the terms with flip
+    masks ``xs`` (a tensor): the terms of one mask share conj(a[b])
+    psi[b^x] (6 per mask and amplitude) and each adds it with its sign (2
+    per term and amplitude); with a = psi the x = 0 product is |psi[b]|^2
+    (3) and its terms add a real number (1)."""
+    n_masks = int(xs.unique().numel())
+    n_diag = int((xs == 0).sum()) if a_is_psi else 0
+    per_amp = 6 * n_masks + 2 * len(xs)
+    if n_diag:
+        per_amp -= 3 + n_diag  # 6 -> 3 for the product, 2 -> 1 per term
+    return per_amp * dim
+
+
+def apply_flops(xs, dim):
+    """Least float32 flops of sum_t c_t P_t psi over the terms with flip
+    masks ``xs`` (a tensor): the terms of one mask sum their signed
+    coefficients (2 per term and amplitude), multiply psi[b^x] once (6)
+    and accumulate into the output (2) per mask and amplitude."""
+    return (8 * int(xs.unique().numel()) + 2 * len(xs)) * dim
+
 
 CONFIG = dict(
     threshold1=1e-2, threshold2=1e-2, x_dimension=3, y_dimension=3, n_electrons=9,
@@ -89,6 +139,27 @@ CONFIG = dict(
 )
 N_ANSATZ = 12
 N_STEPS = 5
+
+# the JAX package's own 24-qubit configuration (benchmarks/tpu_step_fused.py)
+CONFIG_24 = dict(
+    threshold1=1e-2, threshold2=1e-2, x_dimension=2, y_dimension=6, n_electrons=12,
+    n_spin_up=6, n_spin_down=6, tunneling=1, coulomb=6, ground_truth=False,
+    plot=False, log_metrics=False,
+)
+N_ANSATZ_24 = 6
+N_PLAIN_STEPS_24 = 2
+# kernel path vs plain path at 24 qubits, per train step; S^2 of the 6 up /
+# 6 down singlet sector sits near 0, where only an absolute floor means
+# anything
+STEP_TOLERANCES_24 = (
+    ("energy", 1e-4, 0.0),
+    ("gnorm", 1e-4, 0.0),
+    ("S2", 1e-4, 1e-4),
+    ("Sz", 0.0, 1e-4),
+)
+GRAD_RTOL_24 = 1e-4  # selection gradients, relative to max |grad|
+# the 2x5 lattice (20 qubits), for the route comparison of --routes only
+CONFIG_20 = dict(CONFIG_24, y_dimension=5, n_electrons=10, n_spin_up=5, n_spin_down=5)
 
 
 def log(msg):
@@ -105,6 +176,19 @@ def max_abs(got, ref):
     return float((got - ref).abs().max())
 
 
+def inner_err(got, ref, scale):
+    """(||got - ref|| / max(||ref||, scale), max |got - ref|) of a vector of
+    inner products <a|P_t|psi>.  Each entry is bounded by scale = ||a||
+    ||psi||, and a float32 sum over 2^n products carries an absolute
+    error of that order times the rounding, whatever the value: entries
+    that cancel to ~0 (Sz and the diagonal S^2 terms on a spin-symmetric
+    state) have no relative precision, so the norm has that floor."""
+    import torch
+
+    den = max(float(torch.linalg.vector_norm(ref)), scale)
+    return float(torch.linalg.vector_norm(got - ref)) / den, max_abs(got, ref)
+
+
 def time_cuda(fn, reps, warmup=2):
     """ms per call from CUDA events around ``reps`` calls after warm-up."""
     import torch
@@ -119,6 +203,19 @@ def time_cuda(fn, reps, warmup=2):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def timed_once(fn):
+    """(ms, result) of one call, from CUDA events."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), out
 
 
 def bound(bytes_moved, flops):
@@ -192,8 +289,8 @@ def phase_kernels(adapt, dev):
 
     results = {}
 
-    def record(name, call, T, bytes_moved, errs, ms, plain_ms, library_ms=None):
-        flops = FLOPS_PER_TERM_AMP[name] * T * dim
+    def record(name, call, T, bytes_moved, errs, ms, plain_ms, library_ms=None, flops=None):
+        flops = FLOPS_PER_TERM_AMP[name] * T * dim if flops is None else flops
         b_ms, b_by = bound(bytes_moved, flops)
         entry = dict(call=call, terms=T, n=n, rel_err=max(e[0] for e in errs),
                      max_abs_err=max(e[1] for e in errs), ms=ms, plain_ms=plain_ms,
@@ -237,7 +334,7 @@ def phase_kernels(adapt, dev):
     plain_ms = time_cuda(lambda: K.pauli_apply_plain(psi, *hargs), reps=3, warmup=1)
     library_ms = library_sparse_apply(psi, h_xs, h_zs, h_c, ref)
     record("pauli_apply", "lambda = H psi", len(h_xs), 2 * 8 * dim + 16 * len(h_xs), errs,
-           ms, plain_ms, library_ms)
+           ms, plain_ms, library_ms, flops=apply_flops(h_xs, dim))
 
     # pauli_inner: expectations (a = psi) and pool screening (a = w)
     for call, a, xs, zs in (
@@ -253,7 +350,8 @@ def phase_kernels(adapt, dev):
         plain_ms = time_cuda(lambda: K.pauli_inner_plain(a, psi, xs, zs), reps=2, warmup=1)
         n_inputs = 1 if a is psi else 2
         T = len(xs)
-        record("pauli_inner", call, T, n_inputs * 8 * dim + T * (8 + 8), errs, ms, plain_ms)
+        record("pauli_inner", call, T, n_inputs * 8 * dim + T * (8 + 8), errs, ms, plain_ms,
+               flops=inner_flops(xs, a is psi, dim))
 
     # adjoint_rotation over the reversed segment, from psi and lambda = 2 H psi
     lam = 2.0 * K.pauli_apply(psi, *hargs)
@@ -306,17 +404,18 @@ def library_sparse_apply(psi, xs, zs, c, ref):
 # -- phase 3 ------------------------------------------------------------------------
 
 
-def bench_steps(adapt, dev):
-    """N_STEPS train steps of the 12-operator ansatz; per-step metrics."""
+def bench_steps(adapt, dev, n_ansatz=N_ANSATZ, n_steps=N_STEPS):
+    """``n_steps`` train steps of the first ``n_ansatz`` pool operators;
+    per-step metrics."""
     import torch
 
-    indices = tuple(range(N_ANSATZ))
+    indices = tuple(range(n_ansatz))
     adapt.selected_indices = list(indices)
-    adapt.params_t = torch.full((N_ANSATZ,), 0.05, dtype=adapt._rdt, device=dev)
+    adapt.params_t = torch.full((n_ansatz,), 0.05, dtype=adapt._rdt, device=dev)
     optimizer = torch.optim.Adam([adapt.params_t], lr=1e-2)
     step = adapt._build_step(indices)
     rows = []
-    for i in range(N_STEPS):
+    for i in range(n_steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, _, e, sz, s2, fid, gnorm = step(adapt.params_t, optimizer)
@@ -327,7 +426,9 @@ def bench_steps(adapt, dev):
     return rows
 
 
-def check_steps(rows, n_up, n_down, label):
+def check_steps(rows, n_up, n_down, label, e_floor=E_EXACT):
+    """Finite metrics, Sz at its exact value, and (where a ground truth
+    exists, ``e_floor`` not None) fidelity in [0, 1] and no energy below it."""
     sz_exact = 0.5 * (n_up - n_down)
     for r in rows:
         log(f"  [{label}] step {r['step']}: E={r['energy']:.7f} Sz={r['Sz']:.3e} "
@@ -338,44 +439,57 @@ def check_steps(rows, n_up, n_down, label):
             raise AssertionError(f"{label}: non-finite step metrics {r}")
         if abs(r["Sz"] - sz_exact) > 1e-4:
             raise AssertionError(f"{label}: Sz drifted from {sz_exact}: {r['Sz']}")
-        if not -1e-5 <= r["fidelity"] <= 1 + 1e-5:
-            raise AssertionError(f"{label}: fidelity out of [0, 1]: {r['fidelity']}")
-        if r["energy"] < E_EXACT - 1e-3:
-            raise AssertionError(f"{label}: energy below the exact ground energy")
         if r["gnorm"] <= 0:
             raise AssertionError(f"{label}: zero gradient")
+        if e_floor is None:
+            continue
+        if not -1e-5 <= r["fidelity"] <= 1 + 1e-5:
+            raise AssertionError(f"{label}: fidelity out of [0, 1]: {r['fidelity']}")
+        if r["energy"] < e_floor - 1e-3:
+            raise AssertionError(f"{label}: energy below the exact ground energy")
 
 
-def build_adapt(dev, tmp, name, **extra):
+def compare_steps(rows, plain_rows, tolerances):
+    for a, b in zip(rows, plain_rows):
+        for key, rtol, atol in tolerances:
+            if abs(a[key] - b[key]) > rtol * abs(b[key]) + atol:
+                raise AssertionError(f"step {a['step']}: {key} {a[key]} vs plain {b[key]}")
+    log("  plain path: per step " + ", ".join(
+        f"{key} within {rtol:g} relative + {atol:g}" for key, rtol, atol in tolerances))
+
+
+def build_adapt(dev, tmp, name, config=CONFIG, **extra):
     from qsfh_torch.algos.adapt import ADAPT
 
     t0 = time.time()
     adapt = ADAPT(n_epoch=1, results_root=os.path.join(tmp, name), device=dev,
-                  **CONFIG, **extra)
-    log(f"ADAPT 3x3 ({name}) built in {time.time() - t0:.2f} s: {adapt.n_qubits} qubits, "
-        f"{len(adapt.fermion_pool)} pool operators, E_exact={adapt.ground_state_energy}")
+                  **config, **extra)
+    log(f"ADAPT {config['x_dimension']}x{config['y_dimension']} ({name}) built in "
+        f"{time.time() - t0:.2f} s: {adapt.n_qubits} qubits, {len(adapt.fermion_pool)} pool "
+        f"operators, E_exact={adapt.ground_state_energy}")
     return adapt
 
 
-def timed_select(adapt, label):
-    """select_operator() twice from the empty ansatz: the first call pays
-    one-time set-up (host-to-device term arrays, lazy CUDA module loads);
-    returns the selection and the second call's host-clock ms."""
+def timed_select(adapt, label, calls=2):
+    """select_operator() ``calls`` times from the empty ansatz: the first
+    call pays one-time set-up (host-to-device term arrays, layouts, lazy
+    CUDA module loads); returns the selection, its gradients and the last
+    call's host-clock ms."""
     import torch
 
     times, picks = [], []
-    for _ in range(2):
+    for _ in range(calls):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         picks.append(adapt.select_operator())
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-    (selected, grads), again = picks
-    if again[0] != selected:
+    selected, grads = picks[0]
+    if any(again[0] != selected for again in picks[1:]):
         raise AssertionError(f"{label}: two selections from the same state differ")
     log(f"  [{label}] select_operator: {len(selected)} operators, max |g|={max(grads):.6f}, "
-        f"{times[0]:.1f} ms first call, {times[1]:.1f} ms second")
-    return selected, grads, times[1]
+        + ", ".join(f"{t:.1f}" for t in times) + " ms")
+    return selected, grads, times[-1]
 
 
 def phase_main_path(adapt, dev, tmp):
@@ -409,8 +523,8 @@ def phase_main_path(adapt, dev, tmp):
         f"{results['run_s']:.2f} s")
     log(f"  launches on the main path: {counts}")
     for name, c in counts.items():
-        if c <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+        if (c > 0) == (name in NEW_KERNELS):
+            raise AssertionError(f"{name}: {c} launches on the 18-qubit main path")
 
     # the same selection and steps through the plain versions on the card
     plain = build_adapt(dev, tmp, "plain")
@@ -423,13 +537,386 @@ def phase_main_path(adapt, dev, tmp):
         raise AssertionError("the plain path launched a CUDA kernel")
     if set(plain_selected) != set(selected):
         raise AssertionError(f"selection differs: {sorted(selected)} vs {sorted(plain_selected)}")
-    for a, b in zip(results["steps"], results["plain_steps"]):
-        for key, rtol, atol in STEP_TOLERANCES:
-            if abs(a[key] - b[key]) > rtol * abs(b[key]) + atol:
-                raise AssertionError(f"step {a['step']}: {key} {a[key]} vs plain {b[key]}")
-    log("  plain path: same operators; per step " + ", ".join(
-        f"{key} within {rtol:g} relative + {atol:g}" for key, rtol, atol in STEP_TOLERANCES))
+    log("  plain path: same operators")
+    compare_steps(results["steps"], results["plain_steps"], STEP_TOLERANCES)
     return results
+
+
+# -- phases 4 and 5: 24 qubits ------------------------------------------------------
+
+
+@contextlib.contextmanager
+def chain_cap(cap):
+    """The engine with its chain caps set to ``cap``: per-term launches up
+    to ``cap`` qubits, the stream route above."""
+    from qsfh_torch.engine import streaming
+
+    saved = streaming.CHAIN_MAX_QUBITS, streaming.INNER_CHAIN_MAX_QUBITS
+    streaming.CHAIN_MAX_QUBITS = streaming.INNER_CHAIN_MAX_QUBITS = cap
+    try:
+        yield
+    finally:
+        streaming.CHAIN_MAX_QUBITS, streaming.INNER_CHAIN_MAX_QUBITS = saved
+
+
+def per_term_route():
+    """The old route of one per-term launch at every n."""
+    from qsfh_torch.engine import kernels as K
+
+    return chain_cap(K.MAX_QUBITS)
+
+
+def tilted_state(v, n):
+    """v with every amplitude scaled by 1.5 per clear bit and 0.5 per set
+    bit, normalised: each <Z_q> is about (1.5^2 - 0.5^2) / (1.5^2 + 0.5^2)
+    = 0.8, so no spin symmetry cancels Sz or the diagonal S^2 terms."""
+    import torch
+
+    from qsfh_torch.engine.state import index_bits
+
+    idx = index_bits(n, v.device)
+    weight = torch.ones(v.shape[0], dtype=torch.float32, device=v.device)
+    for q in range(n):
+        weight *= 1.5 - ((idx >> q) & 1).to(torch.float32)
+    del idx
+    v = v * weight
+    return v / torch.linalg.vector_norm(v)
+
+
+def launches_of(fn):
+    """(result, launch counts) of one call."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    K.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in K.launch_counts().items() if v}
+
+
+def phase_kernels_24(adapt, dev):
+    """The stream route at n = 24 on the real 2x6 term arrays: against the
+    plain versions, the old per-term route and the bound."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import streaming
+    from qsfh_torch.engine.compiled import CompiledCircuit, adjoint_sweep, run_segments
+
+    n = adapt.n_qubits
+    dim = 1 << n
+    p = adapt.problem
+    seg = CompiledCircuit(adapt._ansatz_ops(range(N_ANSATZ_24)) + adapt._net_ops, n).segments[0]
+    T = len(seg)
+    thetas = torch.full((N_ANSATZ_24,), 0.05, dtype=torch.float32, device=dev)
+    d = seg.tensors(dev, torch.float32, N_ANSATZ_24)
+    angles = torch.cat([thetas, thetas.new_ones(1)])[d["pidx"]] * d["scale"]
+    rot = (d["xb"], d["zb"], angles, d["phre"], d["phim"])
+    rev = tuple(a.flip(0) for a in rot)
+    fwd_runs = seg.runs(1, streaming.ROT_LOCAL_BITS)
+    adj_runs = seg.runs(-1, streaming.ADJ_LOCAL_BITS)
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+
+    def random_state():
+        v = torch.randn(dim, dtype=torch.complex64, device=dev, generator=gen)
+        return v / torch.linalg.vector_norm(v)
+
+    psi = random_state()
+    h = p.observables["H"]
+    lam = 2.0 * h.apply_scan(psi)
+    log(f"24-qubit shapes: rot segment {T} terms; forward/inverse at "
+        f"{fwd_runs.local_bits} local bits: {fwd_runs.n_local_runs} local runs + "
+        f"{fwd_runs.n_crossing} crossing terms = {fwd_runs.passes} state passes; adjoint at "
+        f"{adj_runs.local_bits} bits: {adj_runs.n_local_runs} runs + {adj_runs.n_crossing} "
+        f"crossing = {adj_runs.passes}")
+
+    results = {}
+
+    def record(name, call, T_work, bytes_moved, errs, ms, plain_ms, old_ms, launches, passes,
+               flops=None):
+        flops = FLOPS_PER_TERM_AMP[name] * T_work * dim if flops is None else flops
+        b_ms, b_by = bound(bytes_moved, flops)
+        entry = dict(call=call, terms=T_work, n=n, rel_err=max(e[0] for e in errs),
+                     max_abs_err=max(e[1] for e in errs), ms=ms, plain_ms=plain_ms,
+                     old_route_ms=old_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     bytes=bytes_moved, flops=flops, launches=launches, passes=passes)
+        results.setdefault(name, []).append(entry)
+        log(f"  {call:34s} T={T_work:5d} rel_err={entry['rel_err']:.2e} (tol {STATE_RTOL:g}) "
+            f"ms={ms:.4f} old_route_ms="
+            + ("-" if old_ms is None else f"{old_ms:.3f}")
+            + f" plain_ms={plain_ms:.1f} bound_ms={b_ms:.5f} ({b_by}) passes={passes} "
+            f"launches={launches}")
+        if entry["rel_err"] > STATE_RTOL:
+            raise AssertionError(f"{name} ({call}) disagrees with its plain version")
+
+    def errs_of(pairs):
+        return [(rel_err(a, b), max_abs(a, b)) for a, b in pairs]
+
+    term_bytes = T * 20
+
+    # the forward segment and its inverse: local runs + crossing terms
+    for call, direction in (("forward segment (stream route)", 1),
+                            ("inverse segment (stream route)", -1)):
+        route = lambda impl: run_segments([seg], psi, thetas, n, direction=direction, impl=impl)
+        got, launches = launches_of(lambda: route(K.KERNELS))
+        plain_ms, ref = timed_once(lambda: route(K.PLAIN))
+        with per_term_route():
+            old = route(K.KERNELS)
+            old_ms = time_cuda(lambda: route(K.KERNELS), reps=2, warmup=0)
+        errs = errs_of([(got, ref), (old, ref)])
+        ms = time_cuda(lambda: route(K.KERNELS), reps=5, warmup=1)
+        record("rotation_local_runs", call, T, 2 * 8 * dim + term_bytes, errs, ms, plain_ms,
+               old_ms, launches, fwd_runs.passes)
+    back = run_segments([seg], run_segments([seg], psi, thetas, n), thetas, n, direction=-1)
+    drift = rel_err(back, psi)
+    log(f"  forward then inverse: ||back - psi|| / ||psi|| = {drift:.2e} (tol 1e-4)")
+    if drift > 1e-4:
+        raise AssertionError("the inverse segment does not undo the forward one")
+
+    # the local-run launches alone (the kernel's own time on the forward segment)
+    local = [(t0, t1) for is_local, t0, t1 in fwd_runs.spans if is_local]
+    T_local = sum(t1 - t0 for t0, t1 in local)
+    buf = psi.clone()
+
+    def local_runs_only():
+        for t0, t1 in local:
+            K.rotation_local_runs(buf, *(a[t0:t1] for a in rot), fwd_runs.local_bits)
+
+    def local_runs_plain():
+        for t0, t1 in local:
+            K.rotation_local_runs_plain(buf, *(a[t0:t1] for a in rot), fwd_runs.local_bits)
+
+    kernel_only = dict(rotation_local_runs=dict(
+        call=f"{len(local)} local runs of the forward segment", terms=T_local,
+        ms=time_cuda(local_runs_only, reps=5, warmup=1), plain_ms=timed_once(local_runs_plain)[0],
+        bound=bound(2 * 8 * dim + T_local * 20, 6 * T_local * dim)))
+
+    # the adjoint sweep: per-term <lam|P psi>, psi0 and lambda0
+    def sweep(impl):
+        p1, l1 = psi.clone(), lam.clone()
+        return adjoint_sweep(seg, p1, l1, rev, n, impl), p1, l1
+
+    (v, p1, l1), launches = launches_of(lambda: sweep(K.KERNELS))
+    plain_ms, (v_ref, p_ref, l_ref) = timed_once(lambda: sweep(K.PLAIN))
+    with per_term_route():
+        v_old, p_old, l_old = sweep(K.KERNELS)
+        old_ms = time_cuda(lambda: sweep(K.KERNELS), reps=2, warmup=0)
+    errs = errs_of([(v, v_ref), (p1, p_ref), (l1, l_ref), (v_old, v_ref), (p_old, p_ref)])
+    ms = time_cuda(lambda: sweep(K.KERNELS), reps=5, warmup=1)
+    record("adjoint_local_runs", "adjoint sweep (stream route)", T,
+           4 * 8 * dim + term_bytes + 8 * T, errs, ms, plain_ms, old_ms, launches,
+           adj_runs.passes)
+    adj_local = [(t0, t1) for is_local, t0, t1 in adj_runs.spans if is_local]
+    T_adj_local = sum(t1 - t0 for t0, t1 in adj_local)
+    pb, lb = psi.clone(), lam.clone()
+
+    def adjoint_local_only():
+        for t0, t1 in adj_local:
+            K.adjoint_local_runs(pb, lb, *(a[t0:t1] for a in rev), adj_runs.local_bits)
+
+    def adjoint_local_plain():
+        for t0, t1 in adj_local:
+            K.adjoint_local_runs_plain(pb, lb, *(a[t0:t1] for a in rev), adj_runs.local_bits)
+
+    kernel_only["adjoint_local_runs"] = dict(
+        call=f"{len(adj_local)} local runs of the adjoint sweep", terms=T_adj_local,
+        ms=time_cuda(adjoint_local_only, reps=5, warmup=1),
+        plain_ms=timed_once(adjoint_local_plain)[0],
+        bound=bound(4 * 8 * dim + T_adj_local * 28, 20 * T_adj_local * dim))
+
+    # inner products grouped by flip mask: H, S^2 (a = psi) and the pool
+    # (a = w) on the main path's state psi = U(theta) psi_0 and w = H psi.
+    # There every <Z_q> cancels to ~1e-7 (half filling, uniform density),
+    # far below the ||a|| ||psi|| floor of inner_err, so Sz and S^2 are
+    # also held on a state tilted toward empty modes, where <Z_q> ~ 0.8
+    # and a wrong Sz or diagonal S^2 term cannot hide under the floor.
+    psi = run_segments([seg], adapt._initial_state(), thetas, n)
+    w = h.apply_scan(psi)
+    tilted = tilted_state(random_state(), n)
+    pool = adapt.packed_pool
+    for call, a, b, owner in (
+        ("<psi|H|psi> terms", psi, psi, h),
+        ("<psi|S^2|psi> terms", psi, psi, p.observables["S^2"]),
+        ("<t|Sz|t> terms, tilted state", tilted, tilted, p.observables["Sz"]),
+        ("<t|S^2|t> terms, tilted state", tilted, tilted, p.observables["S^2"]),
+        ("pool screening <w|P|psi>", w, psi, pool),
+    ):
+        xs, zs = owner._tensors(b)[:2]
+        layout = owner.groups()
+        got, launches = launches_of(lambda: K.pauli_inner_grouped(a, b, xs, zs, layout))
+        plain_ms, ref = timed_once(lambda: K.pauli_inner_grouped_plain(a, b, xs, zs, layout))
+        old = K.pauli_inner(a, b, xs, zs)
+        old_ms = time_cuda(lambda: K.pauli_inner(a, b, xs, zs), reps=2, warmup=0)
+        ms = time_cuda(lambda: K.pauli_inner_grouped(a, b, xs, zs, layout), reps=5, warmup=1)
+        n_inputs = 1 if a is b else 2
+        scale = float(torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b))
+        record("pauli_inner_grouped", call, len(xs), n_inputs * 8 * dim + 16 * len(xs),
+               [inner_err(got, ref, scale), inner_err(old, ref, scale)], ms, plain_ms, old_ms,
+               launches, f"{len(layout)} groups", flops=inner_flops(xs, a is b, dim))
+    del tilted
+
+    # H psi: served by pauli_apply at every n
+    hx, hz, hc = h._tensors(psi)
+    hargs = (hx, hz, hc.real, hc.imag)
+    got, launches = launches_of(lambda: K.pauli_apply(psi, *hargs))
+    plain_ms, ref = timed_once(lambda: K.pauli_apply_plain(psi, *hargs))
+    ms = time_cuda(lambda: K.pauli_apply(psi, *hargs), reps=5, warmup=1)
+    record("pauli_apply", "lambda = H psi (pauli_apply)", len(hx), 2 * 8 * dim + 16 * len(hx),
+           errs_of([(got, ref)]), ms, plain_ms, None, launches, 1,
+           flops=apply_flops(hx, dim))
+    for name, k in kernel_only.items():
+        b_ms, b_by = k["bound"]
+        log(f"  {name} alone: {k['call']}, {k['terms']} terms: {k['ms']:.4f} ms, "
+            f"plain {k['plain_ms']:.1f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return results, kernel_only
+
+
+def empty_ansatz_gradients(adapt):
+    """The signed pool gradients that a selection from the empty ansatz
+    screens (numpy)."""
+    return adapt._screen_for(())(adapt.params_t[:0]).cpu().numpy()
+
+
+def check_selection(grads, plain_grads, selected, plain_selected):
+    """Gradients within GRAD_RTOL_24 of max |grad|; the same selected set
+    unless the gap at the selection boundary is within that tolerance."""
+    import numpy as np
+
+    tol = GRAD_RTOL_24 * float(np.abs(plain_grads).max())
+    diff = float(np.abs(grads - plain_grads).max())
+    log(f"  selection gradients: max |kernel - plain| = {diff:.3e} (tol {tol:.3e})")
+    if diff > tol:
+        raise AssertionError("the kernel path's pool gradients disagree with the plain path's")
+    if set(selected) == set(plain_selected):
+        log(f"  same selected set: {sorted(selected)}")
+        return
+    g = np.abs(plain_grads)
+    chosen = np.zeros(g.size, bool)
+    chosen[list(plain_selected)] = True
+    gap = g[chosen].min() - (g[~chosen].max() if (~chosen).any() else 0.0)
+    log(f"  selected sets differ ({sorted(selected)} vs {sorted(plain_selected)}); "
+        f"boundary gap {gap:.3e}")
+    if gap > tol:
+        raise AssertionError("the selected operators differ beyond a tie")
+
+
+def phase_main_path_24(adapt, dev, tmp):
+    """One selection and N_STEPS steps of ``adapt`` (2x6) on the kernels,
+    then one selection and N_PLAIN_STEPS_24 steps on the plain versions."""
+    import numpy as np
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import streaming
+    from qsfh_torch.engine.compiled import CompiledCircuit
+
+    up, down = CONFIG_24["n_spin_up"], CONFIG_24["n_spin_down"]
+    results = {}
+    K.reset_launch_counts()
+    selected, _, results["select_ms"] = timed_select(adapt, "kernels 24q")
+    results["steps"] = bench_steps(adapt, dev, N_ANSATZ_24, N_STEPS)
+    counts = K.launch_counts()
+    grads = empty_ansatz_gradients(adapt)
+    results["launches"] = counts
+    check_steps(results["steps"], up, down, "kernels 24q", e_floor=None)
+    log(f"  launches on the 24-qubit main path: {counts}")
+
+    # the counts the layouts predict: 2 selections (network forward and
+    # inverse, the pool) and N_STEPS steps (segment forward and adjoint;
+    # H, Sz, S^2; H psi)
+    n = adapt.n_qubits
+    net = CompiledCircuit(adapt._net_ops, n).segments[0]
+    seg = CompiledCircuit(adapt._ansatz_ops(range(N_ANSATZ_24)) + adapt._net_ops, n).segments[0]
+    rb, ab = streaming.ROT_LOCAL_BITS, streaming.ADJ_LOCAL_BITS
+    per_chunk = K.PARTIALS_CAP // K._load().qsfh_group_blocks(n)
+    obs = adapt.problem.observables
+    sel = [net.runs(1, rb), net.runs(-1, rb)]
+    expected = dict(
+        pauli_rotation=2 * sum(r.n_crossing for r in sel) + N_STEPS * seg.runs(1, rb).n_crossing,
+        adjoint_rotation=N_STEPS * seg.runs(-1, ab).n_crossing,
+        rotation_local_runs=2 * sum(r.n_local_runs for r in sel)
+        + N_STEPS * seg.runs(1, rb).n_local_runs,
+        adjoint_local_runs=N_STEPS * seg.runs(-1, ab).n_local_runs,
+        pauli_inner_grouped=2 * len(adapt.packed_pool.groups().chunks(per_chunk))
+        + N_STEPS * sum(len(obs[k].groups().chunks(per_chunk)) for k in ("H", "Sz", "S^2")),
+        pauli_apply=2 + N_STEPS,
+        pauli_inner=0,
+    )
+    if counts != expected:
+        raise AssertionError(f"24-qubit launches {counts}, the layouts predict {expected}")
+    log(f"  launches match the layouts: forward crossing terms {seg.runs(1, rb).n_crossing} "
+        f"per step, adjoint crossing terms {seg.runs(-1, ab).n_crossing} per step")
+
+    plain = build_adapt(dev, tmp, "plain24", CONFIG_24)
+    plain.impl = K.PLAIN
+    K.reset_launch_counts()
+    plain_selected, _, results["plain_select_ms"] = timed_select(plain, "plain 24q", calls=1)
+    plain_grads = empty_ansatz_gradients(plain)
+    results["plain_steps"] = bench_steps(plain, dev, N_ANSATZ_24, N_PLAIN_STEPS_24)
+    check_steps(results["plain_steps"], up, down, "plain 24q", e_floor=None)
+    if any(K.launch_counts().values()):
+        raise AssertionError("the plain path launched a CUDA kernel")
+    check_selection(grads, plain_grads, selected, plain_selected)
+    compare_steps(results["steps"], results["plain_steps"], STEP_TOLERANCES_24)
+    results["max_grad"] = float(np.abs(grads).max())
+    return results
+
+
+def phase_routes(cases, dev, out, rounds=15):
+    """The per-term route against the stream route at each size, in one
+    process: each call family of a train step and a selection, then the
+    whole step and selection.  The two routes and the engine's own caps
+    (``streaming``) take turns, one call each per round, so a slow spell
+    of the shared host falls on all three; host-clock ms per call, each
+    ended by a device sync, median and least over ``rounds`` rounds after
+    two warm-up rounds."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine.compiled import CompiledCircuit, run_rot_adjoint, run_segments
+
+    rows = out.setdefault("routes", [])
+    for label, adapt, n_ansatz in cases:
+        n = adapt.n_qubits
+        obs = adapt.problem.observables
+        seg = CompiledCircuit(adapt._ansatz_ops(range(n_ansatz)) + adapt._net_ops, n).segments[0]
+        thetas = torch.full((n_ansatz,), 0.05, dtype=adapt._rdt, device=dev)
+        psi = run_segments([seg], adapt._initial_state(), thetas, n)
+        lam = 2.0 * obs["H"].apply_scan(psi)
+        params = thetas.clone()
+        optimizer = torch.optim.Adam([params], lr=1e-2)
+        step = adapt._build_step(tuple(range(n_ansatz)))
+        select = adapt._screen_for(())
+        calls = (
+            ("forward segment", lambda: run_segments([seg], psi, thetas, n)),
+            ("adjoint sweep", lambda: run_rot_adjoint(seg, psi, lam, thetas, n)),
+            ("E, Sz, S^2", lambda: [obs[k].expectation_scan(psi) for k in ("H", "Sz", "S^2")]),
+            ("pool screen", lambda: adapt.packed_pool.screen_scan(psi, lam)),
+            ("train step", lambda: step(params, optimizer)),
+            ("selection", lambda: select(params[:0])),
+        )
+        routes = (("per-term", K.MAX_QUBITS), ("stream", n - 1), ("caps", None))
+        for call, fn in calls:
+            times = {route: [] for route, _ in routes}
+            for r in range(rounds + 2):
+                for route, cap in routes:
+                    with contextlib.nullcontext() if cap is None else chain_cap(cap):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                    if r >= 2:
+                        times[route].append(1e3 * (time.perf_counter() - t0))
+            ms = {route: sorted(t)[len(t) // 2] for route, t in times.items()}
+            least = {route: min(t) for route, t in times.items()}
+            for route, _ in routes:
+                rows.append(dict(lattice=label, n=n, call=call, route=route, ms=ms[route],
+                                 least_ms=least[route]))
+            log(f"  {label} (n={n}) {call:16s} per-term {ms['per-term']:9.3f} "
+                f"({least['per-term']:9.3f}) ms, stream {ms['stream']:9.3f} "
+                f"({least['stream']:9.3f}) ms, stream / per-term "
+                f"{ms['stream'] / ms['per-term']:.3f}, the engine's caps {ms['caps']:9.3f} ms")
 
 
 def _device_kernels(prof):
@@ -449,19 +936,19 @@ def _device_kernels(prof):
     return sorted(rows, key=lambda r: -r[2])
 
 
-def profile_phase(adapt, step_ms, select_ms, out):
+def profile_phase(adapt, n_ansatz, step_ms, select_ms, out, label):
     """Device kernel time by name over 2 train steps and 1 selection
     (torch.profiler); the idle share compares the device kernel time with
     the unprofiled host-clock time of the same work."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    step = adapt._build_step(tuple(range(N_ANSATZ)))
+    step = adapt._build_step(tuple(range(n_ansatz)))
     optimizer = torch.optim.Adam([adapt.params_t], lr=1e-2)
     step(adapt.params_t, optimizer)
     torch.cuda.synchronize()
-    out["profile"] = {}
-    for label, reps, fn, ref_ms in (
+    prof_out = out.setdefault("profile", {})
+    for what, reps, fn, ref_ms in (
         ("train step", 2, lambda: step(adapt.params_t, optimizer), step_ms),
         ("selection", 1, lambda: adapt._screen_for(())(adapt.params_t[:0]), select_ms),
     ):
@@ -471,14 +958,20 @@ def profile_phase(adapt, step_ms, select_ms, out):
             torch.cuda.synchronize()
         rows = _device_kernels(prof)
         busy_ms = sum(r[2] for r in rows) / 1e3 / reps
-        log(f"profile, {label}: device kernel time {busy_ms:.3f} ms per call against "
+        log(f"profile, {label} {what}: device kernel time {busy_ms:.3f} ms per call against "
             f"{ref_ms:.3f} ms unprofiled: idle share {1 - busy_ms / ref_ms:.3f}")
         for key, count, us in rows[:8]:
             log(f"  {us / 1e3 / reps:9.4f} ms  {count // reps:6d}x  {key[:80]}")
-        out["profile"][label] = dict(
+        prof_out[f"{label} {what}"] = dict(
             kernel_ms=busy_ms, unprofiled_ms=ref_ms, idle_share=1 - busy_ms / ref_ms,
             rows=[dict(name=k, launches=c // reps, device_ms=u / 1e3 / reps) for k, c, u in rows],
         )
+
+
+def median_ms(rows):
+    """Median host-clock ms of steps 2 and later (step 1 pays set-up)."""
+    ms = sorted(r["ms"] for r in rows[1:])
+    return ms[len(ms) // 2]
 
 
 # -- main ---------------------------------------------------------------------------------
@@ -487,7 +980,10 @@ def profile_phase(adapt, step_ms, select_ms, out):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write every measurement to this JSON file")
-    parser.add_argument("--profile", action="store_true", help="profile 2 train steps")
+    parser.add_argument("--profile", action="store_true",
+                        help="profile 2 train steps and 1 selection at each size")
+    parser.add_argument("--routes", action="store_true",
+                        help="time the per-term and the stream route at 18, 20 and 24 qubits")
     args = parser.parse_args()
 
     if not os.path.isdir(os.path.join(HERE, "qsfh_torch")):
@@ -513,15 +1009,33 @@ def main():
     main = phase_main_path(adapt, dev, tmp)
     out = dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi, kernels=kern,
                main_path=main, torch=torch.__version__)
-    step_ms = sorted(r["ms"] for r in main["steps"][1:])
-    plain_ms = sorted(r["ms"] for r in main["plain_steps"][1:])
-    out["step_ms_median"] = step_ms[len(step_ms) // 2]
-    out["plain_step_ms_median"] = plain_ms[len(plain_ms) // 2]
+    out["step_ms_median"] = median_ms(main["steps"])
+    out["plain_step_ms_median"] = median_ms(main["plain_steps"])
     log(f"main-path train step: {out['step_ms_median']:.2f} ms (median of steps 2-{N_STEPS}), "
         f"plain versions {out['plain_step_ms_median']:.2f} ms; "
         f"selection {main['select_ms']:.1f} ms vs plain {main['plain_select_ms']:.1f} ms")
+
+    adapt24 = build_adapt(dev, tmp, "kernels24", CONFIG_24)
+    log("kernels at 24 qubits, 2x6 term arrays (CUDA events, ms per call):")
+    kern24, alone24 = phase_kernels_24(adapt24, dev)
+    log("24-qubit main path:")
+    main24 = phase_main_path_24(adapt24, dev, tmp)
+    out.update(kernels_24=kern24, kernels_24_alone=alone24, main_path_24=main24)
+    out["step_ms_median_24"] = median_ms(main24["steps"])
+    out["plain_step_ms_median_24"] = median_ms(main24["plain_steps"])
+    log(f"24-qubit train step: {out['step_ms_median_24']:.2f} ms (median of steps 2-{N_STEPS}), "
+        f"plain versions {out['plain_step_ms_median_24']:.2f} ms (step 2); selection "
+        f"{main24['select_ms']:.1f} ms (second call) vs plain {main24['plain_select_ms']:.1f} ms")
+    if args.routes:
+        log("routes, host clock, median (least) of 15 interleaved rounds:")
+        adapt20 = build_adapt(dev, tmp, "routes20", CONFIG_20)
+        phase_routes([("3x3", adapt, N_ANSATZ), ("2x5", adapt20, N_ANSATZ_24),
+                      ("2x6", adapt24, N_ANSATZ_24)], dev, out)
+        del adapt20
     if args.profile:
-        profile_phase(adapt, out["step_ms_median"], main["select_ms"], out)
+        profile_phase(adapt, N_ANSATZ, out["step_ms_median"], main["select_ms"], out, "3x3")
+        profile_phase(adapt24, N_ANSATZ_24, out["step_ms_median_24"], main24["select_ms"], out,
+                      "2x6")
     log(f"smoke test took {time.time() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -529,15 +1043,32 @@ def main():
             json.dump(out, fh, indent=1)
 
     line = []
+    source = "qsfh_torch/csrc/statevec_kernels.cu"
     for name in ("pauli_rotation", "pauli_apply", "pauli_inner", "adjoint_rotation"):
         entries = kern[name]
         head = max(entries, key=lambda e: e["terms"])  # the heaviest main-path call
         line.append(dict(
-            name=name, route="cuda", source="qsfh_torch/csrc/statevec_kernels.cu",
-            replaces=REPLACES[name], launches=main["launches"][name],
+            name=name, route="cuda", source=source, replaces=REPLACES[name],
+            launches=main["launches"][name],
             max_abs_err=max(e["max_abs_err"] for e in entries), ms=head["ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], call=head["call"],
+            launches_24q=main24["launches"][name],
+        ))
+    for name in NEW_KERNELS:
+        entries = kern24[name]
+        if name in alone24:  # the run kernels' own launches over one segment
+            head = alone24[name]
+            (b_ms, b_by), call = head["bound"], head["call"]
+        else:  # the heaviest main-path call
+            head = max(entries, key=lambda e: e["terms"])
+            b_ms, b_by, call = head["bound_ms"], head["bound_by"], head["call"]
+        line.append(dict(
+            name=name, route="cuda", source=source, replaces=REPLACES[name],
+            launches=main24["launches"][name],
+            max_abs_err=max(e["max_abs_err"] for e in entries), ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            call=f"{call} (24 qubits)",
         ))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

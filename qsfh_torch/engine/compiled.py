@@ -7,6 +7,14 @@ phase), run by the ``pauli_rotation`` kernel forward and backward and by
 ``adjoint_rotation`` for gradients.  Static-angle terms carry parameter
 index -1, which selects an appended constant 1.0.
 
+Past ``streaming.CHAIN_MAX_QUBITS`` a segment is walked as the
+order-preserving runs of ``streaming.RunLayout``: each run of tile-local
+terms is one
+``rotation_local_runs`` / ``adjoint_local_runs`` launch, and the
+block-crossing terms between runs go to the per-term kernels, as the JAX
+package's ``rotation_stream_pallas`` / ``adjoint_stream_pallas`` route
+(``qsfh_tpu/engine/compiled.py:514-534, 645-667``).
+
 The TPU workarounds of the JAX module are not carried over: per-term
 angles are the plain gather ``thetas_ext[pidx]`` (no one-hot matmul),
 gradients accumulate with ``index_add_``, and terms are not regrouped.
@@ -19,6 +27,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from . import streaming
 from .kernels import KERNELS
 from .state import qmask_to_bmask, real_dtype
 
@@ -74,7 +83,8 @@ class Segment:
 
     ``data`` holds the host arrays in the JAX package's layout (uint32
     masks, float64 scalars, int32 parameter indices); ``tensors`` caches
-    them per (device, real dtype) with int64 masks.
+    them per (device, real dtype) with int64 masks, and ``runs`` the run
+    layout of each direction.
     """
 
     __slots__ = ("kind", "data", "_cache")
@@ -100,6 +110,15 @@ class Segment:
                 "phre": torch.as_tensor(d["phre"], device=device).to(rdt),
                 "phim": torch.as_tensor(d["phim"], device=device).to(rdt),
             }
+        return self._cache[key]
+
+    def runs(self, direction: int, local_bits: int) -> streaming.RunLayout:
+        """The run layout of the terms in application order (reversed for
+        direction -1, the inverse and the adjoint sweep)."""
+        key = ("runs", direction, local_bits)
+        if key not in self._cache:
+            xs = self.data["xb"] if direction == 1 else self.data["xb"][::-1]
+            self._cache[key] = streaming.RunLayout(xs, local_bits)
         return self._cache[key]
 
 
@@ -145,12 +164,50 @@ def _extended(thetas: torch.Tensor) -> torch.Tensor:
     return torch.cat([thetas, torch.ones(1, dtype=thetas.dtype, device=thetas.device)])
 
 
+def rotate_segment(seg: Segment, out, arrs, n, direction: int = 1, impl=None):
+    """Apply one segment's terms ``arrs = (xs, zs, angles, phre, phim)``,
+    given in application order (reversed for direction -1), to ``out`` IN
+    PLACE: one ``impl.rotation`` call up to the chain cap, else the spans
+    of the segment's run layout."""
+    impl = impl or KERNELS
+    if n <= streaming.CHAIN_MAX_QUBITS:
+        impl.rotation(out, *arrs)
+        return out
+    bits = min(streaming.ROT_LOCAL_BITS, n)
+    for local, t0, t1 in seg.runs(direction, bits).spans:
+        part = tuple(a[t0:t1] for a in arrs)
+        if local:
+            impl.rotation_runs(out, *part, bits)
+        else:
+            impl.rotation(out, *part)
+    return out
+
+
+def adjoint_sweep(seg: Segment, psi, lam, arrs, n, impl=None):
+    """The reverse adjoint sweep over one segment's terms ``arrs``, given
+    in REVERSED order, IN PLACE on psi and lam; returns v (T,) with
+    v_t = <lam | P_t psi> at the post-gate state, in reversed-term order:
+    one ``impl.adjoint`` call up to the chain cap, else the spans
+    of the reversed run layout."""
+    impl = impl or KERNELS
+    if n <= streaming.CHAIN_MAX_QUBITS:
+        return impl.adjoint(psi, lam, *arrs)
+    bits = min(streaming.ADJ_LOCAL_BITS, n)
+    parts = []
+    for local, t0, t1 in seg.runs(-1, bits).spans:
+        part = tuple(a[t0:t1] for a in arrs)
+        if local:
+            parts.append(impl.adjoint_runs(psi, lam, *part, bits))
+        else:
+            parts.append(impl.adjoint(psi, lam, *part))
+    return torch.cat(parts)
+
+
 def run_segments(segments, psi, thetas, n, direction: int = 1, impl=None):
     """Execute the program (direction=-1: exact inverse, reversed order).
 
     Returns a new state; ``psi`` is left untouched.
     """
-    impl = impl or KERNELS
     rdt = real_dtype(psi.dtype)
     thetas_ext = _extended(thetas.to(rdt))
     out = psi.clone()
@@ -161,7 +218,7 @@ def run_segments(segments, psi, thetas, n, direction: int = 1, impl=None):
         arrs = (d["xb"], d["zb"], angles, d["phre"], d["phim"])
         if direction == -1:
             arrs = tuple(a.flip(0) for a in arrs)
-        impl.rotation(out, *arrs)
+        rotate_segment(seg, out, arrs, n, direction, impl)
     return out
 
 
@@ -172,17 +229,13 @@ def run_rot_adjoint(segment: Segment, psi_final, lam, thetas, n, impl=None):
     <lam | P psi> evaluated at the state AFTER the gate, then both psi and
     lam are inverse-rotated.  Memory is two live statevectors.
     """
-    impl = impl or KERNELS
     rdt = real_dtype(psi_final.dtype)
     n_params = thetas.shape[0]
     d = segment.tensors(psi_final.device, rdt, n_params)
     angles = _extended(thetas.to(rdt))[d["pidx"]] * d["scale"]
     psi, lam = psi_final.clone(), lam.clone()
-    v = impl.adjoint(
-        psi, lam,
-        d["xb"].flip(0), d["zb"].flip(0), angles.flip(0),
-        d["phre"].flip(0), d["phim"].flip(0),
-    )
+    arrs = tuple(a.flip(0) for a in (d["xb"], d["zb"], angles, d["phre"], d["phim"]))
+    v = adjoint_sweep(segment, psi, lam, arrs, n, impl)
     contribs = d["scale"].flip(0) * v.imag.to(rdt)
     grads = torch.zeros(n_params + 1, dtype=rdt, device=psi.device)
     grads.index_add_(0, d["pidx"].flip(0), contribs)

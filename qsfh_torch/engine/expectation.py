@@ -10,6 +10,15 @@ so every term acts as X^x Z^z applied left to right:
 ADAPT pool screening uses dE/de_k = 2 Im <w | G_k psi> with
 w = U^dag H U psi, evaluated term by term with the ``pauli_inner`` kernel
 and summed per generator with ``index_add_``.
+
+Past ``streaming.INNER_CHAIN_MAX_QUBITS`` expectation values and
+screening take ``pauli_inner_grouped`` over the flip-mask grouping of the
+terms (built
+once, cached beside the term tensors), as the JAX package's stream route
+does (``qsfh_tpu/engine/expectation.py:240-274, 461-476``); its results
+come back in input term order, so nothing above the wrapper changes.
+``apply_scan`` keeps ``pauli_apply`` at every n: it writes each output
+amplitude once and reads psi[b ^ x] per term.
 """
 
 from __future__ import annotations
@@ -21,8 +30,23 @@ import numpy as np
 import torch
 
 from ..ops.pauli import PauliSum
+from . import streaming
 from .kernels import KERNELS
 from .state import qmask_to_bmask, real_dtype
+
+
+def _inner(impl, owner, a, psi, xs, zs):
+    """v_t = <a | P_t psi> over ``owner``'s flat terms: per term up to the
+    inner chain cap, grouped by flip mask past it."""
+    if owner.n <= streaming.INNER_CHAIN_MAX_QUBITS:
+        return impl.inner(a, psi, xs, zs)
+    return impl.inner_grouped(a, psi, xs, zs, owner.groups())
+
+
+def _groups(cache: dict, arrays) -> streaming.GroupLayout:
+    if "groups" not in cache:
+        cache["groups"] = streaming.GroupLayout(arrays[0], arrays[1])
+    return cache["groups"]
 
 
 def _device_terms(cache: dict, arrays, psi: torch.Tensor):
@@ -74,11 +98,15 @@ class Observable:
     def _tensors(self, psi):
         return _device_terms(self._tensor_cache, self._scan_terms(), psi)
 
+    def groups(self) -> streaming.GroupLayout:
+        """The flip-mask grouping of the scan terms (built once)."""
+        return _groups(self._tensor_cache, self._scan_terms())
+
     def expectation_scan(self, psi: torch.Tensor, impl=None) -> torch.Tensor:
         """Re <psi|op|psi> (a 0-d real tensor on psi's device)."""
         impl = impl or KERNELS
         xs, zs, c = self._tensors(psi)
-        v = impl.inner(psi, psi, xs, zs).to(psi.dtype)
+        v = _inner(impl, self, psi, psi, xs, zs).to(psi.dtype)
         return (c * v).real.sum()
 
     def apply_scan(self, psi: torch.Tensor, impl=None) -> torch.Tensor:
@@ -156,11 +184,15 @@ class PackedPool:
             self._tensor_cache[kkey] = torch.as_tensor(arrays[4].astype(np.int64), device=psi.device)
         return xs, zs, c, self._tensor_cache[kkey]
 
+    def groups(self) -> streaming.GroupLayout:
+        """The flip-mask grouping of the scan arrays (built once)."""
+        return _groups(self._tensor_cache, self.scan_arrays())
+
     def screen_scan(self, psi: torch.Tensor, w: torch.Tensor, impl=None) -> torch.Tensor:
         """grad_k = 2 Im <w | G_k psi> for every generator ((size,) real)."""
         impl = impl or KERNELS
         xs, zs, c, ks = self._tensors(psi)
-        v = impl.inner(w, psi, xs, zs).to(psi.dtype)
+        v = _inner(impl, self, w, psi, xs, zs).to(psi.dtype)
         contribs = 2.0 * (c * v).imag
         grads = torch.zeros(self.size, dtype=real_dtype(psi.dtype), device=psi.device)
         return grads.index_add_(0, ks, contribs)

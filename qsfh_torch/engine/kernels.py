@@ -1,18 +1,25 @@
 """Hand-written CUDA kernels of the statevector hot path, with their plain
 PyTorch versions.
 
-Counterpart of ``qsfh_tpu/engine/pallas_kernels.py`` for the five chain
-kernels of the ADAPT main path:
+Counterpart of ``qsfh_tpu/engine/pallas_kernels.py`` for the chain and
+stream kernels of the ADAPT main path:
 
-===================  ==================================================
-wrapper              replaces (``qsfh_tpu/engine/pallas_kernels.py``)
-===================  ==================================================
-``pauli_rotation``   ``pauli_chain_pallas`` (:482)
-``pauli_apply``      ``apply_chain_pallas`` (:715)
-``pauli_inner``      ``expectation_chain_pallas`` (:645) and
-                     ``screen_chain_pallas`` (:927)
-``adjoint_rotation`` ``adjoint_chain_pallas`` (:826)
-===================  ==================================================
+=======================  ==================================================
+wrapper                  replaces (``qsfh_tpu/engine/pallas_kernels.py``)
+=======================  ==================================================
+``pauli_rotation``       ``pauli_chain_pallas`` (:482); the crossing terms
+                         of ``rotation_stream_pallas`` (:2246)
+``pauli_apply``          ``apply_chain_pallas`` (:715), and
+                         ``apply_stream_pallas`` (:1870) past 18 qubits
+``pauli_inner``          ``expectation_chain_pallas`` (:645) and
+                         ``screen_chain_pallas`` (:927)
+``adjoint_rotation``     ``adjoint_chain_pallas`` (:826); the crossing terms
+                         of ``adjoint_stream_pallas`` (:2095)
+``rotation_local_runs``  ``rotation_stream_pallas`` (:2268, local :2214)
+``adjoint_local_runs``   ``adjoint_stream_pallas`` (:2142, local :2032)
+``pauli_inner_grouped``  ``expectation_stream_*`` (:1581, :1714, :1804)
+                         and ``screen_stream_pallas`` (:1474)
+=======================  ==================================================
 
 The CUDA source is ``qsfh_torch/csrc/statevec_kernels.cu``.  It is built
 with ``nvcc`` for ``sm_90a`` at first use into ``qsfh_torch/_build/`` and
@@ -23,12 +30,14 @@ become int32 at the kernel boundary; per-term scalars become float32.
 Every wrapper takes the plain version for a tensor on the CPU and launches
 its kernel for a tensor on a CUDA device, or raises: there is no fallback.
 Each wrapper keeps a plain-integer ``launches`` count of its kernel's
-launches: one per term for the two rotations, one per call for
-``pauli_apply`` and ``pauli_inner`` (their second, partial-sum pass is not
-counted).  The ``*_plain`` functions compute the same thing from
-an index gather ``psi[idx ^ x]`` and an XOR-folded popcount parity, on any
-device; the CPU tests hold them against the JAX package, and the chip
-smoke test holds every kernel against them on the card.
+launches: one per term for the two per-term rotations, one per run for the
+two local-run kernels, one per call (or per scratch-sized chunk) for
+``pauli_apply``, ``pauli_inner`` and ``pauli_inner_grouped`` (a second,
+partial-sum pass is not counted).  The ``*_plain`` functions compute the
+same thing from an index gather ``psi[idx ^ x]`` and an XOR-folded
+popcount parity, on any device; the CPU tests hold them against the JAX
+package, and the chip smoke test holds every kernel against them on the
+card.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from typing import Callable
 import torch
 
 from .state import index_bits, parity_signs, real_dtype
+from .streaming import MAX_GROUP_TERMS
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "statevec_kernels.cu")
@@ -56,6 +66,9 @@ NVCC_FLAGS = [
 ]
 # largest state the kernels index with 32-bit flat indices
 MAX_QUBITS = 30
+# float2 entries of block-partial scratch per launch (16 MiB): longer term
+# lists are cut into chunks, so the scratch never grows with T x 2^n
+PARTIALS_CAP = 1 << 21
 
 _lock = threading.Lock()
 _lib = None
@@ -120,6 +133,14 @@ def _load():
         lib.qsfh_pauli_inner.argtypes = [p, p, i, p, p, i, p, p, p]
         lib.qsfh_pauli_apply.restype = i
         lib.qsfh_pauli_apply.argtypes = [p, p, i, p, p, p, p, i, p]
+        lib.qsfh_group_blocks.restype = i
+        lib.qsfh_group_blocks.argtypes = [i]
+        lib.qsfh_rotation_local_run.restype = i
+        lib.qsfh_rotation_local_run.argtypes = [p, i, i, p, p, p, p, p, i, p]
+        lib.qsfh_adjoint_local_run.restype = i
+        lib.qsfh_adjoint_local_run.argtypes = [p, p, i, i, p, p, p, p, p, i, p, p, p]
+        lib.qsfh_pauli_inner_grouped.restype = i
+        lib.qsfh_pauli_inner_grouped.argtypes = [p, p, i, p, p, p, p, i, i, i, i, p, p, p]
         _lib = lib
         return lib
 
@@ -170,6 +191,12 @@ _SCALAR = torch.float32
 def _counted(fn: Callable) -> Callable:
     fn.launches = 0
     return fn
+
+
+def _chunks(T: int, width: int):
+    """Term chunks whose (chunk, width) partials fit ``PARTIALS_CAP``."""
+    step = max(1, PARTIALS_CAP // width)
+    return [(t0, min(t0 + step, T)) for t0 in range(0, T, step)]
 
 
 # -- pauli_rotation ---------------------------------------------------------------
@@ -277,14 +304,18 @@ def pauli_inner(a, psi, xs, zs):
     out = torch.empty(T, dtype=torch.complex64, device=psi.device)
     if T == 0:
         return out
-    args = _terms(psi, T, "pauli_inner", (xs, _MASK), (zs, _MASK))
+    xs, zs = _terms(psi, T, "pauli_inner", (xs, _MASK), (zs, _MASK))
     lib = _load()
-    partials = torch.empty((T, lib.qsfh_inner_blocks(n)), dtype=torch.complex64,
-                           device=psi.device)
-    rc = lib.qsfh_pauli_inner(a.data_ptr(), psi.data_ptr(), n, *(t.data_ptr() for t in args),
-                              T, partials.data_ptr(), out.data_ptr(), _stream())
-    _check(lib, rc, "pauli_inner")
-    pauli_inner.launches += -(-T // 65535)  # the C side chunks the 65535-term grid-y limit
+    width = lib.qsfh_inner_blocks(n)
+    chunks = _chunks(T, width)
+    partials = torch.empty((chunks[0][1], width), dtype=torch.complex64, device=psi.device)
+    for t0, t1 in chunks:
+        rc = lib.qsfh_pauli_inner(a.data_ptr(), psi.data_ptr(), n, xs[t0:].data_ptr(),
+                                  zs[t0:].data_ptr(), t1 - t0, partials.data_ptr(),
+                                  out[t0:].data_ptr(), _stream())
+        _check(lib, rc, "pauli_inner")
+        # the C side also chunks the 65535-term grid-y limit
+        pauli_inner.launches += -(-(t1 - t0) // 65535)
     return out
 
 
@@ -327,12 +358,14 @@ def adjoint_rotation(psi, lam, xs, zs, angles, phre, phim):
     args = _terms(psi, T, "adjoint_rotation", (xs, _MASK), (zs, _MASK),
                   (angles, _SCALAR), (phre, _SCALAR), (phim, _SCALAR))
     lib = _load()
-    partials = torch.empty((T, lib.qsfh_adjoint_blocks(n)), dtype=torch.complex64,
-                           device=psi.device)
-    rc = lib.qsfh_adjoint_rotation(psi.data_ptr(), lam.data_ptr(), n,
-                                   *(t.data_ptr() for t in args), T,
-                                   partials.data_ptr(), out.data_ptr(), _stream())
-    _check(lib, rc, "adjoint_rotation")
+    width = lib.qsfh_adjoint_blocks(n)
+    chunks = _chunks(T, width)
+    partials = torch.empty((chunks[0][1], width), dtype=torch.complex64, device=psi.device)
+    for t0, t1 in chunks:
+        rc = lib.qsfh_adjoint_rotation(psi.data_ptr(), lam.data_ptr(), n,
+                                       *(t[t0:].data_ptr() for t in args), t1 - t0,
+                                       partials.data_ptr(), out[t0:].data_ptr(), _stream())
+        _check(lib, rc, "adjoint_rotation")
     adjoint_rotation.launches += T
     return out
 
@@ -359,25 +392,163 @@ def adjoint_rotation_plain(psi, lam, xs, zs, angles, phre, phim):
     return v
 
 
+# -- rotation_local_runs ------------------------------------------------------------
+
+
+@_counted
+def rotation_local_runs(psi, xs, zs, angles, phre, phim, local_bits):
+    """One local run: psi <- exp(-i angles[T-1] P_{T-1}) ... exp(-i angles[0]
+    P_0) psi, IN PLACE, where every flip mask lies below bit ``local_bits``
+    (terms as in :func:`pauli_rotation`).  One launch: each tile of
+    2^local_bits amplitudes takes one pass through shared memory.  The
+    caller cuts the runs (``streaming.RunLayout``); a crossing mask is not
+    detected on the card.  Returns psi.
+    """
+    if psi.device.type == "cpu":
+        return rotation_local_runs_plain(psi, xs, zs, angles, phre, phim, local_bits)
+    n = _n_qubits(psi, "rotation_local_runs")
+    T = xs.shape[0]
+    if T == 0:
+        return psi
+    args = _terms(psi, T, "rotation_local_runs", (xs, _MASK), (zs, _MASK),
+                  (angles, _SCALAR), (phre, _SCALAR), (phim, _SCALAR))
+    lib = _load()
+    rc = lib.qsfh_rotation_local_run(psi.data_ptr(), n, min(local_bits, n),
+                                     *(a.data_ptr() for a in args), T, _stream())
+    _check(lib, rc, "rotation_local_runs")
+    rotation_local_runs.launches += 1
+    return psi
+
+
+def _check_local(xs, local_bits: int, name: str):
+    if bool((xs >> local_bits).any()):
+        raise ValueError(f"{name}: a flip mask crosses the 2^{local_bits}-amplitude tile")
+
+
+def rotation_local_runs_plain(psi, xs, zs, angles, phre, phim, local_bits):
+    """Plain version of :func:`rotation_local_runs`: the plain rotation over
+    the run (in place, any device)."""
+    _check_local(xs, local_bits, "rotation_local_runs")
+    return pauli_rotation_plain(psi, xs, zs, angles, phre, phim)
+
+
+# -- adjoint_local_runs -------------------------------------------------------------
+
+
+@_counted
+def adjoint_local_runs(psi, lam, xs, zs, angles, phre, phim, local_bits):
+    """One local run of the reverse adjoint sweep (terms in REVERSED order,
+    every flip mask below bit ``local_bits``): the contract of
+    :func:`adjoint_rotation`, in one launch per run.  psi and lam are
+    updated IN PLACE; returns v (complex, (T,)).
+    """
+    if psi.device.type == "cpu" and lam.device.type == "cpu":
+        return adjoint_local_runs_plain(psi, lam, xs, zs, angles, phre, phim, local_bits)
+    n = _n_qubits(psi, "adjoint_local_runs")
+    if _n_qubits(lam, "adjoint_local_runs") != n:
+        raise ValueError("adjoint_local_runs: states of different sizes")
+    T = xs.shape[0]
+    out = torch.empty(T, dtype=torch.complex64, device=psi.device)
+    if T == 0:
+        return out
+    bits = min(local_bits, n)
+    args = _terms(psi, T, "adjoint_local_runs", (xs, _MASK), (zs, _MASK),
+                  (angles, _SCALAR), (phre, _SCALAR), (phim, _SCALAR))
+    lib = _load()
+    width = 1 << (n - bits)
+    chunks = _chunks(T, width)
+    partials = torch.empty((chunks[0][1], width), dtype=torch.complex64, device=psi.device)
+    for t0, t1 in chunks:
+        rc = lib.qsfh_adjoint_local_run(psi.data_ptr(), lam.data_ptr(), n, bits,
+                                        *(a[t0:].data_ptr() for a in args), t1 - t0,
+                                        partials.data_ptr(), out[t0:].data_ptr(), _stream())
+        _check(lib, rc, "adjoint_local_runs")
+        adjoint_local_runs.launches += 1
+    return out
+
+
+def adjoint_local_runs_plain(psi, lam, xs, zs, angles, phre, phim, local_bits):
+    """Plain version of :func:`adjoint_local_runs`: the plain adjoint sweep
+    over the run (in place, any device)."""
+    _check_local(xs, local_bits, "adjoint_local_runs")
+    return adjoint_rotation_plain(psi, lam, xs, zs, angles, phre, phim)
+
+
+# -- pauli_inner_grouped -------------------------------------------------------------
+
+
+@_counted
+def pauli_inner_grouped(a, psi, xs, zs, layout):
+    """:func:`pauli_inner` with the terms grouped by flip mask: v in input
+    term order.  ``layout`` is the ``streaming.GroupLayout`` of (xs, zs);
+    a[b] and psi[b ^ x] are read once per group.  One launch per chunk of
+    groups whose partials fit ``PARTIALS_CAP``.
+    """
+    if psi.device.type == "cpu" and a.device.type == "cpu":
+        return pauli_inner_grouped_plain(a, psi, xs, zs, layout)
+    n = _n_qubits(psi, "pauli_inner_grouped")
+    if _n_qubits(a, "pauli_inner_grouped") != n:
+        raise ValueError("pauli_inner_grouped: states of different sizes")
+    T = xs.shape[0]
+    if T != int(layout.starts[-1]):
+        raise ValueError(f"pauli_inner_grouped: {T} terms against a layout of "
+                         f"{int(layout.starts[-1])}")
+    if layout.largest > MAX_GROUP_TERMS:  # the kernel stages one group in shared memory
+        raise ValueError(f"pauli_inner_grouped: a group of {layout.largest} terms, "
+                         f"the kernel takes {MAX_GROUP_TERMS}")
+    out = torch.empty(T, dtype=torch.complex64, device=psi.device)
+    if T == 0:
+        return out
+    lib = _load()
+    width = lib.qsfh_group_blocks(n)
+    chunks = layout.chunks(max(1, PARTIALS_CAP // width))
+    gx, starts, gzs, order = layout.tensors(psi.device)
+    rows = max(int(layout.starts[g1] - layout.starts[g0]) for g0, g1 in chunks)
+    partials = torch.empty((rows, width), dtype=torch.complex64, device=psi.device)
+    for g0, g1 in chunks:
+        t0 = int(layout.starts[g0])
+        rc = lib.qsfh_pauli_inner_grouped(
+            a.data_ptr(), psi.data_ptr(), n, gx.data_ptr(), starts.data_ptr(),
+            gzs.data_ptr(), order.data_ptr(), g0, g1 - g0, t0,
+            int(layout.starts[g1]) - t0, partials.data_ptr(), out.data_ptr(), _stream())
+        _check(lib, rc, "pauli_inner_grouped")
+        pauli_inner_grouped.launches += 1
+    return out
+
+
+def pauli_inner_grouped_plain(a, psi, xs, zs, layout):
+    """Plain version of :func:`pauli_inner_grouped`: :func:`pauli_inner_plain`
+    in input order (any device)."""
+    return pauli_inner_plain(a, psi, xs, zs)
+
+
 # -- dispatch -------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
 class Impl:
-    """The four statevector primitives the engine calls."""
+    """The statevector primitives the engine calls: the per-term ones, and
+    the local-run and grouped ones it takes past the caps of
+    ``streaming``."""
 
     rotation: Callable
     apply: Callable
     inner: Callable
     adjoint: Callable
+    rotation_runs: Callable
+    adjoint_runs: Callable
+    inner_grouped: Callable
 
 
 # the wrappers: CUDA kernels for CUDA tensors, plain versions for CPU tensors
-KERNELS = Impl(pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation)
+KERNELS = Impl(pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
+               rotation_local_runs, adjoint_local_runs, pauli_inner_grouped)
 # the plain versions on any device (a reference path on the card)
-PLAIN = Impl(pauli_rotation_plain, pauli_apply_plain, pauli_inner_plain, adjoint_rotation_plain)
+PLAIN = Impl(pauli_rotation_plain, pauli_apply_plain, pauli_inner_plain, adjoint_rotation_plain,
+             rotation_local_runs_plain, adjoint_local_runs_plain, pauli_inner_grouped_plain)
 
-WRAPPERS = (pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation)
+WRAPPERS = (pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
+            rotation_local_runs, adjoint_local_runs, pauli_inner_grouped)
 
 
 def launch_counts() -> dict:

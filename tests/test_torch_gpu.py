@@ -126,3 +126,66 @@ def test_launch_counts_and_dtype_guard(dev):
     assert K.launch_counts()["pauli_inner"] == 1
     with pytest.raises(TypeError):
         K.pauli_rotation(psi.to(torch.complex128), *args)
+
+
+def _local_terms(rng, n, T, bits):
+    """Random terms whose flip masks stay below bit ``bits`` (z masks reach
+    every bit, x = 0 terms included)."""
+    xs, zs, ph = _terms(rng, n, T)
+    return xs & ((1 << bits) - 1), zs, ph
+
+
+@pytest.mark.parametrize("n,bits", [(10, 6), (20, 14)])
+def test_rotation_local_runs(dev, n, bits):
+    rng = np.random.default_rng(n + 4)
+    xs, zs, ph = _local_terms(rng, n, 48, bits)
+    ang = rng.uniform(-1, 1, size=48)
+    psi = _t(_state(rng, n), dev, torch.complex64)
+    args = (_t(xs, dev, torch.int64), _t(zs, dev, torch.int64), _t(ang, dev, torch.float32),
+            _t(ph.real, dev, torch.float32), _t(ph.imag, dev, torch.float32))
+    got = K.rotation_local_runs(psi.clone(), *args, bits)
+    ref = K.rotation_local_runs_plain(psi.clone(), *args, bits)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= RTOL
+
+
+@pytest.mark.parametrize("n,bits", [(10, 6), (20, 13)])
+def test_adjoint_local_runs(dev, n, bits):
+    rng = np.random.default_rng(n + 5)
+    xs, zs, ph = _local_terms(rng, n, 48, bits)
+    ang = rng.uniform(-1, 1, size=48)
+    psi = _t(_state(rng, n), dev, torch.complex64)
+    lam = _t(_state(rng, n), dev, torch.complex64)
+    args = (_t(xs, dev, torch.int64), _t(zs, dev, torch.int64), _t(ang, dev, torch.float32),
+            _t(ph.real, dev, torch.float32), _t(ph.imag, dev, torch.float32))
+    p1, l1, p2, l2 = psi.clone(), lam.clone(), psi.clone(), lam.clone()
+    got = K.adjoint_local_runs(p1, l1, *args, bits)
+    ref = K.adjoint_local_runs_plain(p2, l2, *args, bits)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= RTOL
+    assert _rel(p1, p2) <= RTOL
+    assert _rel(l1, l2) <= RTOL
+
+
+@pytest.mark.parametrize("n", [10, 20])
+def test_pauli_inner_grouped(dev, n, monkeypatch):
+    from qsfh_torch.engine.streaming import GroupLayout
+
+    rng = np.random.default_rng(n + 6)
+    # a few flip masks, one of them with more terms than one group pass takes
+    xs = rng.choice(rng.integers(0, 1 << n, size=12), size=700)
+    xs[:300] = xs[0]
+    zs = rng.integers(0, 1 << n, size=700)
+    layout = GroupLayout(xs, zs)
+    psi = _t(_state(rng, n), dev, torch.complex64)
+    w = _t(_state(rng, n), dev, torch.complex64)
+    args = (_t(xs, dev, torch.int64), _t(zs, dev, torch.int64))
+    # small partials scratch: the groups go in several launches
+    monkeypatch.setattr(K, "PARTIALS_CAP", 64 * K._load().qsfh_group_blocks(n))
+    K.reset_launch_counts()
+    for a in (psi, w):
+        got = K.pauli_inner_grouped(a, psi, *args, layout)
+        ref = K.pauli_inner_plain(a, psi, *args)
+        torch.cuda.synchronize()
+        assert _rel(got, ref) <= RTOL
+    assert K.launch_counts()["pauli_inner_grouped"] > 2

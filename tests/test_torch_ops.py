@@ -5,7 +5,10 @@ lattice, Fourier, Givens, pool) rather than importing them; these tests
 hold the copies to IDENTICAL arrays: the PauliSum x/z/c of H, Sz and S^2,
 the flat per-term arrays the kernels consume, the pool, the occupied
 momentum modes and the static Givens network.  No statevector is involved,
-so the 3x3 lattice is cheap here.
+so the 3x3 lattice and the 20- and 24-qubit lattices of the stream route
+(2x5, 2x6) are cheap here; at 2x5 and 2x6 the rot segment of the first 6
+pool operators and the network is identical too, with the term counts
+the stream layouts are sized for.
 """
 
 import jax  # noqa: F401  (the conftest pins JAX to the CPU with x64)
@@ -13,12 +16,13 @@ import numpy as np
 import pytest
 
 from qsfh_tpu.algos.base import HubbardProblem as JaxProblem
+from qsfh_tpu.engine.compiled import CompiledCircuit as JaxCircuit
 from qsfh_tpu.engine.compiled import givens_network_static_ops as jax_network
 from qsfh_tpu.engine.expectation import PackedPool as JaxPool
 from qsfh_tpu.ops.jw import jordan_wigner as jax_jw
 from qsfh_tpu.ops.pool import hubbard_interaction_pool_simplified as jax_pool_ops
 from qsfh_torch.algos.base import HubbardProblem
-from qsfh_torch.engine.compiled import givens_network_static_ops
+from qsfh_torch.engine.compiled import CompiledCircuit, givens_network_static_ops
 from qsfh_torch.engine.expectation import PackedPool
 from qsfh_torch.ops.jw import jordan_wigner
 from qsfh_torch.ops.pool import hubbard_interaction_pool_simplified
@@ -28,7 +32,11 @@ CONFIGS = {
     "2x2": (2, 2, 1, 4, 4, 2, 2),
     "2x3": (2, 3, 1, 4, 6, 3, 3),
     "3x3": (3, 3, 1, 6, 9, 5, 4),
+    "2x5": (2, 5, 1, 6, 10, 5, 5),
+    "2x6": (2, 6, 1, 6, 12, 6, 6),
 }
+# 2x6: rot segment (6 pool operators + network), pool terms, H / Sz / S^2 terms
+COUNTS_2X6 = (718, 6336, 109, 24, 805)
 
 _cache = {}
 
@@ -114,3 +122,26 @@ def test_config_tags_identical(tmp_path_factory):
     jp, tp = _problems("3x3", tmp_path_factory)
     assert jp.tag("ADAPT") == tp.tag("ADAPT")
     assert jp.ground_state_path() == tp.ground_state_path()
+
+
+@pytest.mark.parametrize("name", ["2x5", "2x6"])
+def test_rot_segment_arrays_identical(name, tmp_path_factory):
+    """The rot segment of the 24q bench ansatz (first 6 pool operators, then
+    the Givens network), as the JAX package lowers it."""
+    jp, tp = _problems(name, tmp_path_factory)
+    jops, tops = _pools(name)[:2]
+    n = tp.n_qubits
+    net_j = jax_network(n, jp.diagonal, jp.decomposition)[0]
+    net_t = givens_network_static_ops(n, tp.diagonal, tp.decomposition)[0]
+    ans_j = [("rot", tuple(jax_jw(jops[i]).rotation_terms()), i) for i in range(6)]
+    ans_t = [("rot", tuple(jordan_wigner(tops[i]).rotation_terms()), i) for i in range(6)]
+    jseg = JaxCircuit(ans_j + net_j, n).segments[0]
+    tseg = CompiledCircuit(ans_t + net_t, n).segments[0]
+    assert jseg.kind == tseg.kind == "rot"
+    for key in ("xb", "zb", "scale", "pidx", "phre", "phim"):
+        _same(jseg.data[key], tseg.data[key])
+    if name == "2x6":
+        _, _, _, tpacked = _pools(name)
+        counts = (len(tseg), len(tpacked.scan_arrays()[0]),
+                  *(len(tp.observables[k]._scan_terms()[0]) for k in ("H", "Sz", "S^2")))
+        assert counts == COUNTS_2X6
