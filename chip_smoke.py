@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper card:
 
-    python3 chip_smoke.py [--out results.json] [--profile] [--routes]
+    python3 chip_smoke.py [--out results.json] [--profile] [--routes] [--tiles]
 
 Phases (any failed check raises and the script exits nonzero):
 
@@ -25,26 +25,33 @@ Phases (any failed check raises and the script exits nonzero):
    at every step (``STEP_TOLERANCES``) and the selected operators match as
    a set.
 4. Kernels at n = 24 on the real 2x6 term arrays (the first 6 pool
-   operators and the Givens network): the stream route (local runs,
-   crossing terms, flip-mask groups) against the plain versions on the
-   same inputs (1e-5 relative), timed beside its bound, the plain
-   versions and the old per-term route on the same inputs, with the
-   launches and state passes of each call.  H, S^2 and the pool run on the
-   main path's state; Sz and S^2 also on a tilted state whose <Z_q> do not
-   cancel.
+   operators and the Givens network): the stream route (tile runs,
+   flip-mask groups) against the plain versions on the same inputs (1e-5
+   relative), timed beside its bound, the plain versions and the old
+   per-term route on the same inputs, with the launches and state passes
+   of each call.  H, S^2 and the pool run on the main path's state; Sz
+   and S^2 also on a tilted state whose <Z_q> do not cancel.
 5. 24-qubit main path: ``ADAPT`` on 2x6 (t=1, U=6, 6 up / 6 down,
    ``ground_truth=False``): one selection from the empty ansatz and 5
    train steps of the first 6 pool operators, with every launch counter
    set to 0 just before and read just after and held to the counts the
-   run layouts predict; then one selection and 2 steps through the plain
-   versions: gradients within 1e-4 of max |grad|, the same selected set
-   unless a tie sits within that tolerance, energy, gnorm and S^2 within
-   1e-4 relative, Sz within 1e-4 of 0.
-6. A ``kernels`` JSON line, then the device JSON line, last.
+   tile and group layouts predict (no per-term rotation: every term fits
+   a tile); then one selection and 2 steps through the plain versions:
+   gradients within 1e-4 of max |grad|, the same selected set unless a tie
+   sits within that tolerance, energy, gnorm and S^2 within 1e-4
+   relative, Sz within 1e-4 of 0.
+6. ``xor_gather`` and the one-term rotation ``pauli_rotation_one`` (TPU
+   kernels off every path) at 18 and 24 qubits against their plain
+   versions (exact for the gather, 1e-5 for the rotation), timed beside
+   their bound and, for the gather, ``torch.index_select`` with a prebuilt
+   index.
+7. A ``kernels`` JSON line, then the device JSON line, last.
 
 ``--routes`` also times the per-term route against the stream route at
 18 (3x3), 20 (2x5) and 24 qubits (2x6), call by call and end to end;
-``--profile`` breaks a train step and a selection down by device kernel.
+``--profile`` breaks a train step and a selection down by device kernel;
+``--tiles`` times the 24-qubit tile-run kernels over other tile sizes
+(k, c) on the same segment.
 
 It imports nothing of JAX or of the JAX package ``qsfh_tpu``.
 """
@@ -85,15 +92,19 @@ STEP_TOLERANCES = (
 
 TPU_KERNELS = "qsfh_tpu/engine/pallas_kernels.py"
 REPLACES = {
-    "pauli_rotation": f"{TPU_KERNELS}:482",
+    "pauli_rotation": f"{TPU_KERNELS}:482,571",
     "pauli_apply": f"{TPU_KERNELS}:715",
     "pauli_inner": f"{TPU_KERNELS}:645,927",
     "adjoint_rotation": f"{TPU_KERNELS}:826",
-    "rotation_local_runs": f"{TPU_KERNELS}:2268",
-    "adjoint_local_runs": f"{TPU_KERNELS}:2142",
+    "rotation_tile_runs": f"{TPU_KERNELS}:2268",
+    "adjoint_tile_runs": f"{TPU_KERNELS}:2142",
     "pauli_inner_grouped": f"{TPU_KERNELS}:1581,1804,1474",
+    "xor_gather": f"{TPU_KERNELS}:378",
 }
-NEW_KERNELS = ("rotation_local_runs", "adjoint_local_runs", "pauli_inner_grouped")
+# the stream kernels, which run past the caps only (not at 18 qubits)
+NEW_KERNELS = ("rotation_tile_runs", "adjoint_tile_runs", "pauli_inner_grouped")
+# kernels that no path of the package calls (their TPU kernels had none)
+OFF_PATH = ("xor_gather",)
 # The least float32 arithmetic of each function, per amplitude.  Rule: a
 # complex multiply is 6 flops and a complex add 2; a factor of +-1 or +-i
 # (the parity sign, the phase (-i)^k) is a sign or a swap and costs
@@ -105,8 +116,8 @@ NEW_KERNELS = ("rotation_local_runs", "adjoint_local_runs", "pauli_inner_grouped
 FLOPS_PER_TERM_AMP = {
     "pauli_rotation": 6,
     "adjoint_rotation": 20,
-    "rotation_local_runs": 6,
-    "adjoint_local_runs": 20,
+    "rotation_tile_runs": 6,
+    "adjoint_tile_runs": 20,
 }
 
 
@@ -401,6 +412,63 @@ def library_sparse_apply(psi, xs, zs, c, ref):
     return time_cuda(lambda: torch.mv(csr, psi), reps=20)
 
 
+def phase_single(dev, n):
+    """xor_gather and the one-term rotation at n qubits against their plain
+    versions; the gather also against ``torch.index_select`` with a
+    prebuilt index (a yardstick only; the port never calls it)."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine.state import index_bits
+
+    dim = 1 << n
+    gen = torch.Generator(device=dev).manual_seed(n)
+    psi = torch.randn(dim, dtype=torch.complex64, device=dev, generator=gen)
+    psi /= torch.linalg.vector_norm(psi)
+    # a double-excitation-like flip mask (bits at both ends and inside) and a JW string
+    x = (1 << (n - 1)) | (1 << (n // 2)) | (1 << (n // 2 - 1)) | 1
+    z = ((1 << (n - 1)) - 1) & ~((1 << (n // 2 - 1)) - 1) | 0b110
+    ph = (-1j) ** (bin(x & z).count("1") % 4)
+    results = {}
+    state_bytes = 2 * 8 * dim  # one read, one write
+
+    xdev = torch.tensor([x], dtype=torch.int64, device=dev)
+    got = K.xor_gather(psi, xdev)
+    ref = K.xor_gather_plain(psi, x)
+    perm = index_bits(n, dev) ^ x
+    torch.cuda.synchronize()
+    err = max_abs(got, ref)
+    if err != 0.0 or not torch.equal(K.xor_gather(psi, x), ref):
+        raise AssertionError(f"xor_gather (n={n}) disagrees with its plain version")
+    b_ms, b_by = bound(state_bytes, 0)
+    results["xor_gather"] = dict(
+        call=f"psi[b ^ x], n={n}", n=n, terms=1, rel_err=0.0, max_abs_err=err,
+        ms=time_cuda(lambda: K.xor_gather(psi, xdev), reps=20),
+        plain_ms=time_cuda(lambda: K.xor_gather_plain(psi, xdev), reps=5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_cuda(lambda: torch.index_select(psi, 0, perm), reps=20))
+
+    args = (x, z, 0.37, ph.real, ph.imag)
+    got = K.pauli_rotation_one(psi, *args)
+    ref = K.pauli_rotation_one_plain(psi, *args)
+    torch.cuda.synchronize()
+    b_ms, b_by = bound(state_bytes + 20, 6 * dim)
+    results["pauli_rotation_one"] = dict(
+        call=f"exp(-i theta P) psi, one term, n={n}", n=n, terms=1, rel_err=rel_err(got, ref),
+        max_abs_err=max_abs(got, ref),
+        ms=time_cuda(lambda: K.pauli_rotation_one(psi, *args), reps=20),
+        plain_ms=time_cuda(lambda: K.pauli_rotation_one_plain(psi, *args), reps=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    for name, e in results.items():
+        log(f"  {name:18s} n={n} rel_err={e['rel_err']:.2e} max_abs={e['max_abs_err']:.2e} "
+            f"ms={e['ms']:.4f} plain_ms={e['plain_ms']:.4f} bound_ms={e['bound_ms']:.5f} "
+            f"({e['bound_by']})" + ("" if e["library_ms"] is None
+                                   else f" library_ms={e['library_ms']:.4f} (index_select)"))
+        if e["rel_err"] > STATE_RTOL:
+            raise AssertionError(f"{name} (n={n}) disagrees with its plain version")
+    return results
+
+
 # -- phase 3 ------------------------------------------------------------------------
 
 
@@ -523,7 +591,7 @@ def phase_main_path(adapt, dev, tmp):
         f"{results['run_s']:.2f} s")
     log(f"  launches on the main path: {counts}")
     for name, c in counts.items():
-        if (c > 0) == (name in NEW_KERNELS):
+        if (c > 0) == (name in NEW_KERNELS + OFF_PATH):
             raise AssertionError(f"{name}: {c} launches on the 18-qubit main path")
 
     # the same selection and steps through the plain versions on the card
@@ -595,7 +663,7 @@ def launches_of(fn):
     return out, {k: v for k, v in K.launch_counts().items() if v}
 
 
-def phase_kernels_24(adapt, dev):
+def phase_kernels_24(adapt, dev, sweep_tiles=False):
     """The stream route at n = 24 on the real 2x6 term arrays: against the
     plain versions, the old per-term route and the bound."""
     import torch
@@ -614,8 +682,9 @@ def phase_kernels_24(adapt, dev):
     angles = torch.cat([thetas, thetas.new_ones(1)])[d["pidx"]] * d["scale"]
     rot = (d["xb"], d["zb"], angles, d["phre"], d["phim"])
     rev = tuple(a.flip(0) for a in rot)
-    fwd_runs = seg.runs(1, streaming.ROT_LOCAL_BITS)
-    adj_runs = seg.runs(-1, streaming.ADJ_LOCAL_BITS)
+    k, c = streaming.TILE_BITS, streaming.TILE_LOW_BITS
+    layouts = {1: seg.tiles(1, n, k, c), -1: seg.tiles(-1, n, k, c)}
+    adj_layout = layouts[-1]
 
     gen = torch.Generator(device=dev).manual_seed(24)
 
@@ -626,11 +695,14 @@ def phase_kernels_24(adapt, dev):
     psi = random_state()
     h = p.observables["H"]
     lam = 2.0 * h.apply_scan(psi)
-    log(f"24-qubit shapes: rot segment {T} terms; forward/inverse at "
-        f"{fwd_runs.local_bits} local bits: {fwd_runs.n_local_runs} local runs + "
-        f"{fwd_runs.n_crossing} crossing terms = {fwd_runs.passes} state passes; adjoint at "
-        f"{adj_runs.local_bits} bits: {adj_runs.n_local_runs} runs + {adj_runs.n_crossing} "
-        f"crossing = {adj_runs.passes}")
+
+    def describe(layout):
+        return (f"tiles of {layout.k} bits (low {layout.c}): {layout.n_runs} runs, "
+                f"{layout.n_groups} register groups, {layout.n_single} terms that fit no tile "
+                f"= {layout.passes} state passes")
+
+    log(f"24-qubit shapes: rot segment {T} terms; forward {describe(layouts[1])}; inverse "
+        f"{describe(layouts[-1])}; adjoint {describe(adj_layout)}")
 
     results = {}
 
@@ -656,42 +728,41 @@ def phase_kernels_24(adapt, dev):
 
     term_bytes = T * 20
 
-    # the forward segment and its inverse: local runs + crossing terms
+    # the forward segment and its inverse: tile runs (and any term that fits no tile)
+    refs = {}
     for call, direction in (("forward segment (stream route)", 1),
                             ("inverse segment (stream route)", -1)):
         route = lambda impl: run_segments([seg], psi, thetas, n, direction=direction, impl=impl)
         got, launches = launches_of(lambda: route(K.KERNELS))
-        plain_ms, ref = timed_once(lambda: route(K.PLAIN))
+        plain_ms, refs[direction] = timed_once(lambda: route(K.PLAIN))
         with per_term_route():
             old = route(K.KERNELS)
             old_ms = time_cuda(lambda: route(K.KERNELS), reps=2, warmup=0)
-        errs = errs_of([(got, ref), (old, ref)])
+        errs = errs_of([(got, refs[direction]), (old, refs[direction])])
         ms = time_cuda(lambda: route(K.KERNELS), reps=5, warmup=1)
-        record("rotation_local_runs", call, T, 2 * 8 * dim + term_bytes, errs, ms, plain_ms,
-               old_ms, launches, fwd_runs.passes)
+        record("rotation_tile_runs", call, T, 2 * 8 * dim + term_bytes, errs, ms, plain_ms,
+               old_ms, launches, layouts[direction].passes)
     back = run_segments([seg], run_segments([seg], psi, thetas, n), thetas, n, direction=-1)
     drift = rel_err(back, psi)
     log(f"  forward then inverse: ||back - psi|| / ||psi|| = {drift:.2e} (tol 1e-4)")
     if drift > 1e-4:
         raise AssertionError("the inverse segment does not undo the forward one")
 
-    # the local-run launches alone (the kernel's own time on the forward segment)
-    local = [(t0, t1) for is_local, t0, t1 in fwd_runs.spans if is_local]
-    T_local = sum(t1 - t0 for t0, t1 in local)
+    def tile_spans(layout, arrs):
+        return [(tiles, tuple(a[t0:t1] for a in arrs))
+                for tiles, t0, t1 in layout.spans if tiles is not None]
+
+    # the tile-run launches alone (the kernel's own time on the forward segment)
+    fwd_spans = tile_spans(layouts[1], rot)
+    T_tiles = sum(tiles.n_terms for tiles, _ in fwd_spans)
     buf = psi.clone()
-
-    def local_runs_only():
-        for t0, t1 in local:
-            K.rotation_local_runs(buf, *(a[t0:t1] for a in rot), fwd_runs.local_bits)
-
-    def local_runs_plain():
-        for t0, t1 in local:
-            K.rotation_local_runs_plain(buf, *(a[t0:t1] for a in rot), fwd_runs.local_bits)
-
-    kernel_only = dict(rotation_local_runs=dict(
-        call=f"{len(local)} local runs of the forward segment", terms=T_local,
-        ms=time_cuda(local_runs_only, reps=5, warmup=1), plain_ms=timed_once(local_runs_plain)[0],
-        bound=bound(2 * 8 * dim + T_local * 20, 6 * T_local * dim)))
+    kernel_only = dict(rotation_tile_runs=dict(
+        call=f"{layouts[1].n_runs} tile runs of the forward segment", terms=T_tiles,
+        ms=time_cuda(lambda: [K.rotation_tile_runs(buf, *arrs, tiles)
+                              for tiles, arrs in fwd_spans], reps=5, warmup=1),
+        plain_ms=timed_once(lambda: [K.rotation_tile_runs_plain(buf, *arrs, tiles)
+                                     for tiles, arrs in fwd_spans])[0],
+        bound=bound(2 * 8 * dim + T_tiles * 20, 6 * T_tiles * dim)))
 
     # the adjoint sweep: per-term <lam|P psi>, psi0 and lambda0
     def sweep(impl):
@@ -705,26 +776,21 @@ def phase_kernels_24(adapt, dev):
         old_ms = time_cuda(lambda: sweep(K.KERNELS), reps=2, warmup=0)
     errs = errs_of([(v, v_ref), (p1, p_ref), (l1, l_ref), (v_old, v_ref), (p_old, p_ref)])
     ms = time_cuda(lambda: sweep(K.KERNELS), reps=5, warmup=1)
-    record("adjoint_local_runs", "adjoint sweep (stream route)", T,
+    record("adjoint_tile_runs", "adjoint sweep (stream route)", T,
            4 * 8 * dim + term_bytes + 8 * T, errs, ms, plain_ms, old_ms, launches,
-           adj_runs.passes)
-    adj_local = [(t0, t1) for is_local, t0, t1 in adj_runs.spans if is_local]
-    T_adj_local = sum(t1 - t0 for t0, t1 in adj_local)
+           adj_layout.passes)
+    adj_spans = tile_spans(adj_layout, rev)
+    T_adj_tiles = sum(tiles.n_terms for tiles, _ in adj_spans)
     pb, lb = psi.clone(), lam.clone()
-
-    def adjoint_local_only():
-        for t0, t1 in adj_local:
-            K.adjoint_local_runs(pb, lb, *(a[t0:t1] for a in rev), adj_runs.local_bits)
-
-    def adjoint_local_plain():
-        for t0, t1 in adj_local:
-            K.adjoint_local_runs_plain(pb, lb, *(a[t0:t1] for a in rev), adj_runs.local_bits)
-
-    kernel_only["adjoint_local_runs"] = dict(
-        call=f"{len(adj_local)} local runs of the adjoint sweep", terms=T_adj_local,
-        ms=time_cuda(adjoint_local_only, reps=5, warmup=1),
-        plain_ms=timed_once(adjoint_local_plain)[0],
-        bound=bound(4 * 8 * dim + T_adj_local * 28, 20 * T_adj_local * dim))
+    kernel_only["adjoint_tile_runs"] = dict(
+        call=f"{adj_layout.n_runs} tile runs of the adjoint sweep", terms=T_adj_tiles,
+        ms=time_cuda(lambda: [K.adjoint_tile_runs(pb, lb, *arrs, tiles)
+                              for tiles, arrs in adj_spans], reps=5, warmup=1),
+        plain_ms=timed_once(lambda: [K.adjoint_tile_runs_plain(pb, lb, *arrs, tiles)
+                                     for tiles, arrs in adj_spans])[0],
+        bound=bound(4 * 8 * dim + T_adj_tiles * 28, 20 * T_adj_tiles * dim))
+    if sweep_tiles:
+        results["tile_sweep"] = sweep_tile_sizes(seg, n, rot, rev, psi, lam, refs[1], v_ref)
 
     # inner products grouped by flip mask: H, S^2 (a = psi) and the pool
     # (a = w) on the main path's state psi = U(theta) psi_0 and w = H psi.
@@ -771,6 +837,49 @@ def phase_kernels_24(adapt, dev):
         log(f"  {name} alone: {k['call']}, {k['terms']} terms: {k['ms']:.4f} ms, "
             f"plain {k['plain_ms']:.1f} ms, bound {b_ms:.5f} ms ({b_by})")
     return results, kernel_only
+
+
+def sweep_tile_sizes(seg, n, rot, rev, psi, lam, ref, v_ref):
+    """The tile-run kernels on the 2x6 segment over other tile sizes (k
+    bits, the low c): ms per forward segment and adjoint sweep (CUDA
+    events), state passes and register groups, each held to the plain
+    results of the shipped layout."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine.streaming import TileLayout
+
+    rows = []
+    xs, zs = seg.data["xb"], seg.data["zb"]
+    for what in ("forward", "adjoint"):
+        for k in (12, 13):
+            for c in (4, 5):
+                if what == "forward":
+                    layout = TileLayout(xs, zs, n, k, c)
+                    spans = [(t, tuple(a[t0:t1] for a in rot)) for t, t0, t1 in layout.spans]
+
+                    def call():
+                        out = psi.clone()
+                        for tiles, arrs in spans:
+                            K.rotation_tile_runs(out, *arrs, tiles)
+                        return out
+                    err = rel_err(call(), ref)
+                else:
+                    layout = TileLayout(xs[::-1], zs[::-1], n, k, c)
+                    spans = [(t, tuple(a[t0:t1] for a in rev)) for t, t0, t1 in layout.spans]
+
+                    def call():
+                        p1, l1 = psi.clone(), lam.clone()
+                        return [K.adjoint_tile_runs(p1, l1, *arrs, tiles) for tiles, arrs in spans]
+                    err = rel_err(torch.cat(call()), v_ref)
+                if layout.n_single or err > STATE_RTOL:
+                    raise AssertionError(f"tile sweep {what} k={k} c={c}: error {err:.2e}")
+                ms = time_cuda(call, reps=5, warmup=1)
+                rows.append(dict(call=what, k=k, c=c, ms=ms, passes=layout.passes,
+                                 groups=layout.n_groups, rel_err=err))
+                log(f"  tiles {what:8s} k={k} c={c}: {ms:.4f} ms, {layout.passes} passes, "
+                    f"{layout.n_groups} register groups, rel_err {err:.2e}")
+    return rows
 
 
 def empty_ansatz_gradients(adapt):
@@ -828,25 +937,32 @@ def phase_main_path_24(adapt, dev, tmp):
     n = adapt.n_qubits
     net = CompiledCircuit(adapt._net_ops, n).segments[0]
     seg = CompiledCircuit(adapt._ansatz_ops(range(N_ANSATZ_24)) + adapt._net_ops, n).segments[0]
-    rb, ab = streaming.ROT_LOCAL_BITS, streaming.ADJ_LOCAL_BITS
+    k, c = streaming.TILE_BITS, streaming.TILE_LOW_BITS
     per_chunk = K.PARTIALS_CAP // K._load().qsfh_group_blocks(n)
     obs = adapt.problem.observables
-    sel = [net.runs(1, rb), net.runs(-1, rb)]
+    sel = [net.tiles(1, n, k, c), net.tiles(-1, n, k, c)]
+    fwd, adj = seg.tiles(1, n, k, c), seg.tiles(-1, n, k, c)
     expected = dict(
-        pauli_rotation=2 * sum(r.n_crossing for r in sel) + N_STEPS * seg.runs(1, rb).n_crossing,
-        adjoint_rotation=N_STEPS * seg.runs(-1, ab).n_crossing,
-        rotation_local_runs=2 * sum(r.n_local_runs for r in sel)
-        + N_STEPS * seg.runs(1, rb).n_local_runs,
-        adjoint_local_runs=N_STEPS * seg.runs(-1, ab).n_local_runs,
+        pauli_rotation=2 * sum(t.n_single for t in sel) + N_STEPS * fwd.n_single,
+        adjoint_rotation=N_STEPS * adj.n_single,
+        rotation_tile_runs=2 * sum(t.n_runs for t in sel) + N_STEPS * fwd.n_runs,
+        adjoint_tile_runs=N_STEPS * adj.n_runs,
         pauli_inner_grouped=2 * len(adapt.packed_pool.groups().chunks(per_chunk))
         + N_STEPS * sum(len(obs[k].groups().chunks(per_chunk)) for k in ("H", "Sz", "S^2")),
         pauli_apply=2 + N_STEPS,
         pauli_inner=0,
+        xor_gather=0,
     )
     if counts != expected:
         raise AssertionError(f"24-qubit launches {counts}, the layouts predict {expected}")
-    log(f"  launches match the layouts: forward crossing terms {seg.runs(1, rb).n_crossing} "
-        f"per step, adjoint crossing terms {seg.runs(-1, ab).n_crossing} per step")
+    if counts["pauli_rotation"] or counts["adjoint_rotation"]:
+        raise AssertionError("a 2x6 term fits no tile: the per-term kernels ran")
+    # one partial-sum pass per adjoint sweep: the whole sweep's partials fit one chunk
+    if len(seg) << (n - k) > K.SWEEP_PARTIALS_CAP:
+        raise AssertionError("the adjoint sweep's partials take more than one chunk")
+    log(f"  launches match the layouts: {fwd.n_runs} forward and {adj.n_runs} adjoint tile "
+        f"runs per step, {sum(t.n_runs for t in sel)} network runs per selection, no "
+        f"per-term rotation; one partial-sum pass per adjoint sweep")
 
     plain = build_adapt(dev, tmp, "plain24", CONFIG_24)
     plain.impl = K.PLAIN
@@ -984,6 +1100,8 @@ def main():
                         help="profile 2 train steps and 1 selection at each size")
     parser.add_argument("--routes", action="store_true",
                         help="time the per-term and the stream route at 18, 20 and 24 qubits")
+    parser.add_argument("--tiles", action="store_true",
+                        help="time the 24-qubit tile-run kernels over other tile sizes")
     args = parser.parse_args()
 
     if not os.path.isdir(os.path.join(HERE, "qsfh_torch")):
@@ -1017,7 +1135,7 @@ def main():
 
     adapt24 = build_adapt(dev, tmp, "kernels24", CONFIG_24)
     log("kernels at 24 qubits, 2x6 term arrays (CUDA events, ms per call):")
-    kern24, alone24 = phase_kernels_24(adapt24, dev)
+    kern24, alone24 = phase_kernels_24(adapt24, dev, args.tiles)
     log("24-qubit main path:")
     main24 = phase_main_path_24(adapt24, dev, tmp)
     out.update(kernels_24=kern24, kernels_24_alone=alone24, main_path_24=main24)
@@ -1026,6 +1144,9 @@ def main():
     log(f"24-qubit train step: {out['step_ms_median_24']:.2f} ms (median of steps 2-{N_STEPS}), "
         f"plain versions {out['plain_step_ms_median_24']:.2f} ms (step 2); selection "
         f"{main24['select_ms']:.1f} ms (second call) vs plain {main24['plain_select_ms']:.1f} ms")
+    log("kernels off every path: xor_gather and the one-term rotation (CUDA events):")
+    single = {n: phase_single(dev, n) for n in (18, 24)}
+    out["single"] = single
     if args.routes:
         log("routes, host clock, median (least) of 15 interleaved rounds:")
         adapt20 = build_adapt(dev, tmp, "routes20", CONFIG_20)
@@ -1055,6 +1176,9 @@ def main():
             library_ms=head["library_ms"], call=head["call"],
             launches_24q=main24["launches"][name],
         ))
+        if name == "pauli_rotation":  # with pauli_rotation_one, TPU kernel 12 (:571)
+            one = single[24]["pauli_rotation_one"]
+            line[-1]["one_term_24q"] = {k: one[k] for k in ("ms", "plain_ms", "bound_ms")}
     for name in NEW_KERNELS:
         entries = kern24[name]
         if name in alone24:  # the run kernels' own launches over one segment
@@ -1070,6 +1194,14 @@ def main():
             plain_ms=head["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
             call=f"{call} (24 qubits)",
         ))
+    head = single[24]["xor_gather"]
+    line.append(dict(
+        name="xor_gather", route="cuda", source=source, replaces=REPLACES["xor_gather"],
+        launches=main24["launches"]["xor_gather"], max_abs_err=head["max_abs_err"],
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        call=f"{head['call']} (on no path: 0 launches on both main paths)",
+    ))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

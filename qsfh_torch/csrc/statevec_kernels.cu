@@ -15,9 +15,10 @@
 // across launches, so the simple one-launch-per-term designs of the first
 // four kernels are bound by launch latency and L2 bandwidth, not by HBM.
 // From 19 qubits on (a 24-qubit state is 128 MiB) every launch streams the
-// state from HBM, and the last three kernels organise the work against it:
-// runs of tile-local rotations chained in shared memory, one state pass
-// per run, and inner products grouped by flip mask, one pass per group.
+// state from HBM, and the tile-run and grouped kernels organise the work
+// against it: runs of rotations chained in shared memory and registers over
+// tiles of chosen bits, one state pass per run, and inner products grouped
+// by flip mask, one pass per group.
 //
 // Plain C interface (loaded with ctypes by qsfh_torch/engine/kernels.py):
 // every entry point enqueues on the given stream, allocates nothing, and
@@ -32,7 +33,6 @@ constexpr int kThreads = 256;        // threads per block, every kernel
 constexpr int kInnerPerThread = 8;   // amplitudes per thread in pauli_inner
 constexpr int kApplyTile = 256;      // terms staged per shared-memory tile
 constexpr int kMaxGridY = 65535;
-constexpr int kRunThreads = 1024;     // threads per block, the local-run kernels
 constexpr int kGroupThreads = 256;    // threads per block, pauli_inner_grouped
 constexpr int kGroupAmps = 16;        // amplitudes per thread per batch (flat bits 8-11)
 constexpr int kGroupSpanBits = 14;    // amplitudes per pauli_inner_grouped block: 2^14
@@ -288,144 +288,431 @@ __global__ void pauli_apply_kernel(const float2* __restrict__ psi,
 }
 
 // ---------------------------------------------------------------------------
-// rotation_local_runs: one run of consecutive TILE-LOCAL rotations, in place.
+// Tile runs: the 24-qubit rotation segment and adjoint sweep.
 //
-// Replaces rotation_stream_pallas / rotation_stream_planes and their local
-// kernel _rot_stream_local_kernel (qsfh_tpu/engine/pallas_kernels.py:2214,
-// :2268, :2289).  Every flip mask of the run lies below bit L, so the pair
-// (b, b ^ x) of every term lies inside one tile of 2^L amplitudes.  Each
-// block loads its tile into shared memory once (2^14 complex64 = 128 KiB),
-// applies the whole run there term after term (pairs owned as in
-// pauli_rotation, then __syncthreads()), and writes the tile back once.
-// The z mask may reach above L: the parity takes the global index, which
-// is what _block_parity_flip (:356) emulates on the TPU.  Block-crossing
-// terms between runs go to pauli_rotation (the function of
-// _rot_stream_cross_kernel, :2246).  Bound: one HBM read and one write of
-// the state per run instead of per term; inside the run, shared-memory
-// bandwidth and the popcount parity.
+// The host (qsfh_torch/engine/streaming.py, TileRuns) cuts a term sequence
+// into order-preserving runs.  A run's tile is a flat bit set of k bits:
+// the low c bits (rows of 2^c contiguous amplitudes) and k - c higher bits
+// chosen so that every flip mask of the run lies inside the set.  Block o
+// of a launch owns the 2^k amplitudes whose other bits spell o; tile slot
+// i (tile coordinates: bit j of i is the j-th bit of the set) lives at
+// flat index outer | deposit(i, tile mask).  So the partner of a slot is
+// i ^ x_tile, and the parity sign of term t is
+//     parity(i & z_tile) ^ parity(outer & z_out),
+// the second one sign per block and term.
+//
+// Inside the tile the run is cut again, into register groups: consecutive
+// terms whose flip masks together lie in REG_BITS = 4 tile bits R.  For a
+// group, thread tid holds in registers the 16 slots base | off(j), where
+// base is tid with zeros inserted at R and off(j) places the 4 bits of j
+// at R; a term's partner j ^ x_reg (x_reg = its flip mask compressed to R)
+// is then another register of the same thread, so the group's terms run
+// with no shared-memory traffic and no barrier.  Shared memory is read and
+// written once per group, with a barrier between groups, and the slot
+// index is XOR-swizzled (swz) so that a warp's 32 slots spread over the
+// banks whichever tile bits R takes.  The sign of slot j is
+// parity(j & z_reg) ^ parity(base & z_tile) ^ the block's sign: the first
+// from the kParity4 table, the rest one bit per thread and term.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kRunThreads)
-rotation_local_run_kernel(float2* __restrict__ psi, int local_bits,
-                          const int32_t* __restrict__ xs,
-                          const int32_t* __restrict__ zs,
-                          const float* __restrict__ angles,
-                          const float* __restrict__ phre,
-                          const float* __restrict__ phim, int n_terms) {
-  extern __shared__ float2 tile[];
-  const uint32_t size = 1u << local_bits, half = size >> 1;
-  const uint32_t base = static_cast<uint32_t>(blockIdx.x) << local_bits;
-  float2* g = psi + base;
-  for (uint32_t i = threadIdx.x; i < size; i += blockDim.x) tile[i] = g[i];
-  __syncthreads();
-  for (int t = 0; t < n_terms; ++t) {
-    const uint32_t x = static_cast<uint32_t>(xs[t]);
-    const uint32_t z = static_cast<uint32_t>(zs[t]);
-    float sn, c;
-    sincosf(angles[t], &sn, &c);
-    // -i * sin * ph
-    const float2 m = make_float2(sn * phim[t], -sn * phre[t]);
-    if (x == 0u) {
-      for (uint32_t i = threadIdx.x; i < size; i += blockDim.x) {
-        const float2 u = tile[i], mu = cmul(m, u);
-        const float sg = parity_sign(base | i, z);
-        tile[i] = make_float2(c * u.x + sg * mu.x, c * u.y + sg * mu.y);
-      }
-    } else {
-      const int pivot = 31 - __clz(x);
-      for (uint32_t i = threadIdx.x; i < half; i += blockDim.x) {
-        const uint32_t b = insert_zero_bit(i, pivot), bx = b ^ x;
-        const float2 u = tile[b], v = tile[bx];
-        const float2 mv = cmul(m, v), mu = cmul(m, u);
-        const float sb = parity_sign(base | b, z), sbx = parity_sign(base | bx, z);
-        tile[b] = make_float2(c * u.x + sb * mv.x, c * u.y + sb * mv.y);
-        tile[bx] = make_float2(c * v.x + sbx * mu.x, c * v.y + sbx * mu.y);
+
+constexpr int kRegSlots = 16;         // 2^streaming.REG_BITS
+constexpr int kMaxRunTerms = 256;     // streaming.MAX_RUN_TERMS
+constexpr int kTileMinBits = 9;       // 2^(k - 4) threads: at least one warp
+constexpr int kTileMaxBits = 13;      // 512 threads
+
+// A bijection of tile slots that keeps bit 0 (16-byte pairs stay whole for
+// the copies) and XORs bits 1-3 with a fold of the bits above 4.
+__device__ __forceinline__ uint32_t swz(uint32_t i) {
+  const uint32_t v = i >> 4;
+  return i ^ ((v ^ (v >> 4) ^ (v >> 8) ^ (v >> 12)) & 14u);
+}
+
+// The low bits of v placed at the set bits of mask, lowest first.
+__device__ __forceinline__ uint32_t deposit(uint32_t v, uint32_t mask) {
+  uint32_t out = 0u;
+  while (mask != 0u && v != 0u) {
+    const uint32_t low = mask & (0u - mask);
+    if (v & 1u) out |= low;
+    v >>= 1;
+    mask ^= low;
+  }
+  return out;
+}
+
+__device__ __forceinline__ float flip_sign(float v, uint32_t sbit) {
+  return __uint_as_float(__float_as_uint(v) ^ sbit);
+}
+
+// bit j of flips in the float sign position
+__device__ __forceinline__ uint32_t sign_bit(uint32_t flips, int j) {
+  return (flips << (31 - j)) & 0x80000000u;
+}
+
+// c a + s m b for one amplitude, s = +-1 from sbit.  The rotations of the
+// engine have string phases (-i)^k, so m is real (KIND 0) or imaginary
+// (KIND 1) and the product takes one scalar: 4 float ops, not 8.  KIND 2 is
+// the general complex m.
+template <int KIND>
+__device__ __forceinline__ float2 rot_amp(float c, float2 a, float2 b, float2 m, uint32_t sbit) {
+  if (KIND == 0) {
+    const float mu = flip_sign(m.x, sbit);
+    return make_float2(fmaf(mu, b.x, c * a.x), fmaf(mu, b.y, c * a.y));
+  }
+  if (KIND == 1) {
+    const float mu = flip_sign(m.y, sbit);
+    return make_float2(fmaf(-mu, b.y, c * a.x), fmaf(mu, b.x, c * a.y));
+  }
+  const float2 mb = cmul(m, b);
+  return make_float2(c * a.x + flip_sign(mb.x, sbit), c * a.y + flip_sign(mb.y, sbit));
+}
+
+// v[j] <- c v[j] + s_j m v[j ^ X] on the 16 register slots: exp(-i angle P)
+// with m = -i sin ph (forward), or exp(+i angle P) with m = +i sin ph.
+template <int X, int KIND>
+__device__ __forceinline__ void rotate_slots(float2 (&v)[kRegSlots], uint32_t flips, float c,
+                                             float2 m) {
+  constexpr int kPivot = X & 8 ? 8 : X & 4 ? 4 : X & 2 ? 2 : 1;
+#pragma unroll
+  for (int j = 0; j < kRegSlots; ++j) {
+    if (X == 0 || (j & kPivot) == 0) {
+      const int k = j ^ X;
+      const float2 a = v[j], b = v[k];
+      v[j] = rot_amp<KIND>(c, a, b, m, sign_bit(flips, j));
+      if (X != 0) v[k] = rot_amp<KIND>(c, b, a, m, sign_bit(flips, k));
+    }
+  }
+}
+
+// One reversed adjoint term on the register slots of psi (p) and lam (l):
+// adds sum_j s_j conj(l[j]) p[j ^ X] (this thread's share of <lam | P psi>
+// at the post-gate state, before the string phase, which the block
+// applies once per term) to acc, then rotates both by exp(+i angle P),
+// m = +i sin ph.
+template <int X, int KIND>
+__device__ __forceinline__ void adjoint_slots(float2 (&p)[kRegSlots], float2 (&l)[kRegSlots],
+                                              uint32_t flips, float c, float2 m, float2& acc) {
+  constexpr int kPivot = X & 8 ? 8 : X & 4 ? 4 : X & 2 ? 2 : 1;
+#pragma unroll
+  for (int j = 0; j < kRegSlots; ++j) {
+    if (X == 0 || (j & kPivot) == 0) {
+      const int k = j ^ X;
+      const uint32_t sj = sign_bit(flips, j), sk = sign_bit(flips, k);
+      const float2 pj = p[j], pk = p[k], lj = l[j], lk = l[k];
+      const float fj = __uint_as_float(0x3f800000u | sj);  // s_j as +-1.0f
+      const float2 dj = cdot(lj, pk);
+      acc = make_float2(fmaf(fj, dj.x, acc.x), fmaf(fj, dj.y, acc.y));
+      p[j] = rot_amp<KIND>(c, pj, pk, m, sj);
+      l[j] = rot_amp<KIND>(c, lj, lk, m, sj);
+      if (X != 0) {
+        const float fk = __uint_as_float(0x3f800000u | sk);
+        const float2 dk = cdot(lk, pj);
+        acc = make_float2(fmaf(fk, dk.x, acc.x), fmaf(fk, dk.y, acc.y));
+        p[k] = rot_amp<KIND>(c, pk, pj, m, sk);
+        l[k] = rot_amp<KIND>(c, lk, lj, m, sk);
       }
     }
-    __syncthreads();
   }
-  for (uint32_t i = threadIdx.x; i < size; i += blockDim.x) g[i] = tile[i];
+}
+
+// the 48 (flip mask, KIND) cases of the term loop's switch: key X | KIND << 4
+#define QSFH_X_CASES(F, K) \
+  F(0, K) F(1, K) F(2, K) F(3, K) F(4, K) F(5, K) F(6, K) F(7, K) \
+  F(8, K) F(9, K) F(10, K) F(11, K) F(12, K) F(13, K) F(14, K) F(15, K)
+#define QSFH_CASES(F) QSFH_X_CASES(F, 0) QSFH_X_CASES(F, 1) QSFH_X_CASES(F, 2)
+
+// What a tile-run block stages in shared memory while its tile arrives: per term
+// cos and m = dir * (-i sin ph) (dir = 1 forward, -1 adjoint), a code word
+// (x_reg in bits 0-3, z_reg 4-7, the current tile's outer sign 8, KIND
+// 9-10), z_tile and z_out.  `extra` bytes per term (8-byte aligned) follow
+// coef for the caller.
+struct RunStage {
+  float4* coef;
+  unsigned char* extra;
+  uint32_t* code;
+  uint32_t* zt;
+  uint32_t* zo;
+};
+
+__device__ __forceinline__ RunStage stage_run(unsigned char* smem, int n_terms, size_t extra,
+                                              float dir, const int32_t* __restrict__ code,
+                                              const int32_t* __restrict__ z_tile,
+                                              const int32_t* __restrict__ z_out,
+                                              const float* __restrict__ angles,
+                                              const float* __restrict__ phre,
+                                              const float* __restrict__ phim) {
+  RunStage st;
+  st.coef = reinterpret_cast<float4*>(smem);
+  st.extra = reinterpret_cast<unsigned char*>(st.coef + n_terms);
+  st.code = reinterpret_cast<uint32_t*>(st.extra + extra * n_terms);
+  st.zt = st.code + n_terms;
+  st.zo = st.zt + n_terms;
+  for (int t = threadIdx.x; t < n_terms; t += blockDim.x) {
+    float sn, c;
+    sincosf(angles[t], &sn, &c);
+    const float pr = phre[t], pi = phim[t];
+    st.coef[t] = make_float4(c, dir * sn * pi, -dir * sn * pr, 0.0f);
+    const uint32_t kind = pr == 0.0f ? 0u : pi == 0.0f ? 1u : 2u;
+    st.code[t] = static_cast<uint32_t>(code[t]) | (kind << 9);
+    st.zt[t] = static_cast<uint32_t>(z_tile[t]);
+    st.zo[t] = static_cast<uint32_t>(z_out[t]);
+  }
+  return st;
+}
+
+// The outer sign of every term for the block's tile, into code bit 8 (each
+// thread rewrites the entries it staged).
+__device__ __forceinline__ void set_outer_signs(const RunStage& st, int n_terms, uint32_t outer) {
+  for (int t = threadIdx.x; t < n_terms; t += blockDim.x)
+    st.code[t] = (st.code[t] & ~0x100u) | ((__popc(outer & st.zo[t]) & 1u) << 8);
+}
+
+__device__ __forceinline__ uint32_t case_key(uint32_t code) {
+  return (code & 15u) | ((code >> 5) & 0x30u);
+}
+
+// Where this thread's 8 16-byte pieces of a tile live: piece m holds tile
+// slots i = 2 (tid + m 2^(k-4)) and i + 1, at flat index
+//   outer | deposit(i >> c, hi_mask) | (i & (2^c - 1))
+// and at swizzled slot swz(i).  deposit and swz are linear over disjoint
+// bits, so the thread's part and the three bits of m are computed once
+// (this needs c <= k - 3: the bits of m lie above the row's column bits).
+struct TileMap {
+  uint32_t g0, gm[3], s0, sm[3];
+  __device__ __forceinline__ TileMap(int k, int c, uint32_t outer, uint32_t hi_mask) {
+    const uint32_t i0 = threadIdx.x << 1;
+    g0 = outer | deposit(i0 >> c, hi_mask) | (i0 & ((1u << c) - 1u));
+    s0 = swz(i0);
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      gm[b] = deposit(1u << (k - 3 - c + b), hi_mask);
+      sm[b] = swz(1u << (k - 3 + b));
+    }
+  }
+  __device__ __forceinline__ uint32_t global(int m) const {
+    return g0 | (m & 1 ? gm[0] : 0u) | (m & 2 ? gm[1] : 0u) | (m & 4 ? gm[2] : 0u);
+  }
+  __device__ __forceinline__ uint32_t slot(int m) const {
+    return s0 ^ (m & 1 ? sm[0] : 0u) ^ (m & 2 ? sm[1] : 0u) ^ (m & 4 ? sm[2] : 0u);
+  }
+};
+
+// 16-byte async copies of a tile from the flat state
+__device__ __forceinline__ void load_tile(float2* tile, const float2* __restrict__ g,
+                                          const TileMap& map) {
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(tile + map.slot(m)));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(g + map.global(m)));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
+__device__ __forceinline__ void store_tile(const float2* tile, float2* __restrict__ g,
+                                           const TileMap& map) {
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+    *reinterpret_cast<float4*>(g + map.global(m)) =
+        *reinterpret_cast<const float4*>(tile + map.slot(m));
+}
+
+// The slots of this thread in a register group: base (zeros at the four
+// register bits), for the parity, and the swizzled slots, from the
+// linearity of swz over disjoint bits.
+struct GroupSlots {
+  uint32_t base, sbase, sr[4];
+  __device__ __forceinline__ explicit GroupSlots(uint32_t regs) {
+    base = threadIdx.x;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {  // ascending positions
+      const int p = (regs >> (4 * b)) & 15;
+      sr[b] = swz(1u << p);
+      base = insert_zero_bit(base, p);
+    }
+    sbase = swz(base);
+  }
+  __device__ __forceinline__ uint32_t at(int j) const {
+    return sbase ^ (j & 1 ? sr[0] : 0u) ^ (j & 2 ? sr[1] : 0u) ^ (j & 4 ? sr[2] : 0u) ^
+           (j & 8 ? sr[3] : 0u);
+  }
+};
+
+__device__ __forceinline__ uint32_t term_flips(uint32_t code, uint32_t zt, uint32_t base) {
+  const uint32_t odd = (__popc(base & zt) ^ (code >> 8)) & 1u;
+  return kParity4[(code >> 4) & 15u] ^ (odd ? 0xffffu : 0u);
 }
 
 // ---------------------------------------------------------------------------
-// adjoint_local_runs: one run of the reverse adjoint sweep over TILE-LOCAL
-// terms (given in reversed order), in place on psi and lam.
+// rotation_tile_runs: one tile run of a rotation segment, in place.
 //
-// Replaces adjoint_stream_pallas and its local kernel
-// _adjoint_stream_local_kernel (qsfh_tpu/engine/pallas_kernels.py:2032,
-// :2142).  The tiles of psi and lam share shared memory (two tiles of 2^13
-// complex64 = 128 KiB).  For each term the block reads its share of
-// <lam | P psi> at the post-gate state into partials[t, block], then
-// rotates both tiles by exp(+i angle P) (pairs owned as in
-// adjoint_rotation).  reduce_partials_kernel sums the shares per term in a
-// fixed order: no float atomics.  Crossing terms go to adjoint_rotation
-// (the function of _adjoint_stream_cross_kernel, :2095).  Bound: one HBM
-// read and one write of psi and lam per run instead of per term.
+// Replaces rotation_stream_pallas / rotation_stream_planes, local and
+// crossing kernels (qsfh_tpu/engine/pallas_kernels.py:2214, :2246, :2268,
+// :2289): with tiles over chosen bit sets no term crosses a tile at 24
+// qubits.  One block of 2^(k-4) threads per tile: cp.async copies the rows
+// in while the run's per-term scalars are staged, the register groups run
+// as above, the tile goes back.  The copies overlap the work of the other
+// blocks on the SM (two or more fit); a persistent block with two tile
+// buffers, measured on the H100, was slower, since it halves the blocks
+// per SM and the work inside the tile needs the warps more than the
+// overlap.  Bound: one HBM read and write of the state per run (2 x 128 MiB
+// at n = 24); inside the run, shared memory once per register group and
+// the float32 pipes per term.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kRunThreads)
-adjoint_local_run_kernel(float2* __restrict__ psi, float2* __restrict__ lam,
-                         int local_bits, const int32_t* __restrict__ xs,
-                         const int32_t* __restrict__ zs,
-                         const float* __restrict__ angles,
-                         const float* __restrict__ phre,
-                         const float* __restrict__ phim, int n_terms,
-                         float2* __restrict__ partials) {
-  extern __shared__ float2 tiles[];
-  const uint32_t size = 1u << local_bits, half = size >> 1;
-  float2* pt = tiles;
-  float2* lt = tiles + size;
-  const uint32_t base = static_cast<uint32_t>(blockIdx.x) << local_bits;
-  float2* gp = psi + base;
-  float2* gl = lam + base;
-  for (uint32_t i = threadIdx.x; i < size; i += blockDim.x) {
-    pt[i] = gp[i];
-    lt[i] = gl[i];
-  }
+__global__ void __launch_bounds__(1 << (kTileMaxBits - 4), 2)
+rotation_tile_run_kernel(float2* __restrict__ psi, int n, int k, int c, uint32_t tile_mask,
+                         int n_terms, const int32_t* __restrict__ code,
+                         const int32_t* __restrict__ z_tile, const int32_t* __restrict__ z_out,
+                         const int32_t* __restrict__ gstart, const int32_t* __restrict__ gregs,
+                         int n_groups, int t_base, const float* __restrict__ angles,
+                         const float* __restrict__ phre, const float* __restrict__ phim) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* tile = reinterpret_cast<float2*>(smem);
+  const uint32_t outer = deposit(blockIdx.x, ((1u << n) - 1u) & ~tile_mask);
+  const uint32_t hi_mask = tile_mask & ~((1u << c) - 1u);
+  load_tile(tile, psi, TileMap(k, c, outer, hi_mask));
+  cp_async_commit();
+  const RunStage st = stage_run(smem + (sizeof(float2) << k), n_terms, 0, 1.0f, code, z_tile,
+                                z_out, angles, phre, phim);
+  set_outer_signs(st, n_terms, outer);
+  cp_async_wait_all();
   __syncthreads();
-  for (int t = 0; t < n_terms; ++t) {
-    const uint32_t x = static_cast<uint32_t>(xs[t]);
-    const uint32_t z = static_cast<uint32_t>(zs[t]);
-    float sn, c;
-    sincosf(angles[t], &sn, &c);
-    const float2 ph = make_float2(phre[t], phim[t]);
-    float2 share = make_float2(0.0f, 0.0f);
-    if (x == 0u) {
-      for (uint32_t b = threadIdx.x; b < size; b += blockDim.x) {
-        const float sg = parity_sign(base | b, z);
-        const float2 p = pt[b], l = lt[b];
-        const float2 pp = cmul(ph, p), pl = cmul(ph, l);
-        const float2 Pp = make_float2(sg * pp.x, sg * pp.y);
-        const float2 Pl = make_float2(sg * pl.x, sg * pl.y);
-        share = cadd(share, cdot(l, Pp));
-        pt[b] = make_float2(c * p.x - sn * Pp.y, c * p.y + sn * Pp.x);
-        lt[b] = make_float2(c * l.x - sn * Pl.y, c * l.y + sn * Pl.x);
-      }
-    } else {
-      const int pivot = 31 - __clz(x);
-      for (uint32_t i = threadIdx.x; i < half; i += blockDim.x) {
-        const uint32_t b0 = insert_zero_bit(i, pivot), b1 = b0 ^ x;
-        const float s0 = parity_sign(base | b0, z), s1 = parity_sign(base | b1, z);
-        const float2 p0 = pt[b0], p1 = pt[b1], l0 = lt[b0], l1 = lt[b1];
-        const float2 pp0 = cmul(ph, p1), pp1 = cmul(ph, p0);
-        const float2 pl0 = cmul(ph, l1), pl1 = cmul(ph, l0);
-        const float2 Pp0 = make_float2(s0 * pp0.x, s0 * pp0.y);
-        const float2 Pp1 = make_float2(s1 * pp1.x, s1 * pp1.y);
-        const float2 Pl0 = make_float2(s0 * pl0.x, s0 * pl0.y);
-        const float2 Pl1 = make_float2(s1 * pl1.x, s1 * pl1.y);
-        share = cadd(share, cadd(cdot(l0, Pp0), cdot(l1, Pp1)));
-        // exp(+i angle P) v = cos * v + i sin * P v
-        pt[b0] = make_float2(c * p0.x - sn * Pp0.y, c * p0.y + sn * Pp0.x);
-        pt[b1] = make_float2(c * p1.x - sn * Pp1.y, c * p1.y + sn * Pp1.x);
-        lt[b0] = make_float2(c * l0.x - sn * Pl0.y, c * l0.y + sn * Pl0.x);
-        lt[b1] = make_float2(c * l1.x - sn * Pl1.y, c * l1.y + sn * Pl1.x);
+  for (int g = 0; g < n_groups; ++g) {
+    const GroupSlots s(static_cast<uint32_t>(gregs[g]));
+    float2 v[kRegSlots];
+#pragma unroll
+    for (int j = 0; j < kRegSlots; ++j) v[j] = tile[s.at(j)];
+    const int t1 = gstart[g + 1] - t_base;
+    for (int t = gstart[g] - t_base; t < t1; ++t) {
+      const float4 cf = st.coef[t];
+      const float2 m = make_float2(cf.y, cf.z);
+      const uint32_t code_t = st.code[t];
+      const uint32_t flips = term_flips(code_t, st.zt[t], s.base);
+      switch (case_key(code_t)) {
+#define QSFH_ROT_CASE(X, K)                  \
+  case X | (K << 4):                         \
+    rotate_slots<X, K>(v, flips, cf.x, m);   \
+    break;
+        QSFH_CASES(QSFH_ROT_CASE)
+#undef QSFH_ROT_CASE
       }
     }
-    share = block_sum(share);
-    if (threadIdx.x == 0) partials[static_cast<size_t>(t) * gridDim.x + blockIdx.x] = share;
+#pragma unroll
+    for (int j = 0; j < kRegSlots; ++j) tile[s.at(j)] = v[j];
     __syncthreads();
   }
-  for (uint32_t i = threadIdx.x; i < size; i += blockDim.x) {
-    gp[i] = pt[i];
-    gl[i] = lt[i];
+  store_tile(tile, psi, TileMap(k, c, outer, hi_mask));
+}
+
+// ---------------------------------------------------------------------------
+// adjoint_tile_runs: one tile run of the reverse adjoint sweep (terms in
+// reversed order), in place on psi and lam.
+//
+// Replaces adjoint_stream_pallas, local and crossing kernels
+// (qsfh_tpu/engine/pallas_kernels.py:2032, :2095, :2142).  The tiles of psi
+// and lam (2 x 2^k complex64) share shared memory; one block per tile and
+// register groups as in rotation_tile_runs, with 16 slots of each state
+// per thread.  A thread's share of <lam | P_t psi> (post-gate, before the
+// inverse rotation, without the string phase) is summed over its warp and
+// written to wsum[warp][t] (each warp owns its row: no atomics); after the
+// run the block adds the rows in warp order, applies the phase, and writes
+// partials[t, block]; one reduce_partials_kernel per sweep sums over
+// blocks in a fixed order.  Bound: one HBM read and write of psi and lam
+// per run; inside, shared memory per group and the float32 pipes.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(1 << (kTileMaxBits - 4))
+adjoint_tile_run_kernel(float2* __restrict__ psi, float2* __restrict__ lam, int n, int k, int c,
+                        uint32_t tile_mask, int n_terms, const int32_t* __restrict__ code,
+                        const int32_t* __restrict__ z_tile, const int32_t* __restrict__ z_out,
+                        const int32_t* __restrict__ gstart, const int32_t* __restrict__ gregs,
+                        int n_groups, int t_base, const float* __restrict__ angles,
+                        const float* __restrict__ phre, const float* __restrict__ phim,
+                        float2* __restrict__ partials) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* pt = reinterpret_cast<float2*>(smem);
+  float2* lt = pt + (1u << k);
+  const uint32_t outer = deposit(blockIdx.x, ((1u << n) - 1u) & ~tile_mask);
+  const uint32_t hi_mask = tile_mask & ~((1u << c) - 1u);
+  {
+    const TileMap map(k, c, outer, hi_mask);
+    load_tile(pt, psi, map);
+    load_tile(lt, lam, map);
+    cp_async_commit();
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  const RunStage st = stage_run(smem + 2 * (sizeof(float2) << k), n_terms,
+                                n_warps * sizeof(float2), -1.0f, code, z_tile, z_out, angles,
+                                phre, phim);
+  set_outer_signs(st, n_terms, outer);
+  float2* wsum = reinterpret_cast<float2*>(st.extra);  // [warp][t]
+  cp_async_wait_all();
+  __syncthreads();
+  for (int g = 0; g < n_groups; ++g) {
+    const GroupSlots s(static_cast<uint32_t>(gregs[g]));
+    float2 p[kRegSlots], l[kRegSlots];
+#pragma unroll
+    for (int j = 0; j < kRegSlots; ++j) {
+      p[j] = pt[s.at(j)];
+      l[j] = lt[s.at(j)];
+    }
+    const int t1 = gstart[g + 1] - t_base;
+    for (int t = gstart[g] - t_base; t < t1; ++t) {
+      const float4 cf = st.coef[t];
+      const float2 m = make_float2(cf.y, cf.z);
+      const uint32_t code_t = st.code[t];
+      const uint32_t flips = term_flips(code_t, st.zt[t], s.base);
+      float2 share = make_float2(0.0f, 0.0f);
+      switch (case_key(code_t)) {
+#define QSFH_ADJ_CASE(X, K)                               \
+  case X | (K << 4):                                      \
+    adjoint_slots<X, K>(p, l, flips, cf.x, m, share);     \
+    break;
+        QSFH_CASES(QSFH_ADJ_CASE)
+#undef QSFH_ADJ_CASE
+      }
+      share = warp_sum(share);
+      if (lane == 0) wsum[warp * n_terms + t] = share;
+    }
+#pragma unroll
+    for (int j = 0; j < kRegSlots; ++j) {
+      pt[s.at(j)] = p[j];
+      lt[s.at(j)] = l[j];
+    }
+    __syncthreads();
+  }
+  for (int t = threadIdx.x; t < n_terms; t += blockDim.x) {
+    float2 acc = make_float2(0.0f, 0.0f);
+    for (int w = 0; w < n_warps; ++w) acc = cadd(acc, wsum[w * n_terms + t]);
+    partials[static_cast<size_t>(t) * gridDim.x + blockIdx.x] =
+        cmul(make_float2(phre[t], phim[t]), acc);
+  }
+  const TileMap map(k, c, outer, hi_mask);
+  store_tile(pt, psi, map);
+  store_tile(lt, lam, map);
+}
+
+// ---------------------------------------------------------------------------
+// xor_gather: out[b] = psi[b ^ x], out of place.
+//
+// Replaces xor_gather_pallas / _xor_gather_kernel
+// (qsfh_tpu/engine/pallas_kernels.py:369-418), whose XOR permutation was a
+// matmul because Mosaic has no gather.  One 16-byte load and store per
+// thread (two amplitudes): the pair (2q, 2q + 1) of out is the pair at
+// 2q ^ (x & ~1) of psi, swapped when bit 0 of x is set.  The mask is a
+// device scalar (the JAX mask is traced) or, without one, an argument.
+// Bound: one read and one write of the state, 2 x 8 B x 2^n.
+// ---------------------------------------------------------------------------
+__global__ void xor_gather_kernel(const float4* __restrict__ psi, float4* __restrict__ out,
+                                  uint32_t pairs, const int64_t* __restrict__ mask_dev,
+                                  uint32_t mask_arg) {
+  const uint32_t x = mask_dev ? static_cast<uint32_t>(*mask_dev) : mask_arg;
+  const uint32_t xp = x >> 1;
+  for (uint32_t q = blockIdx.x * blockDim.x + threadIdx.x; q < pairs;
+       q += gridDim.x * blockDim.x) {
+    const float4 v = psi[q ^ xp];
+    out[q] = (x & 1u) ? make_float4(v.z, v.w, v.x, v.y) : v;
   }
 }
 
@@ -538,6 +825,10 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+inline bool tile_shape_ok(int n, int k, int c) {
+  return k >= kTileMinBits && k <= kTileMaxBits && k <= n && c >= 1 && c <= k - 3;
+}
+
 }  // namespace
 
 extern "C" {
@@ -639,46 +930,92 @@ int qsfh_pauli_apply(const void* psi, void* out, int n, const void* xs,
 // Blocks per group of pauli_inner_grouped (the width of its partials).
 int qsfh_group_blocks(int n) { return static_cast<int>(group_blocks(n)); }
 
-// One local run: psi <- exp(-i angles[T-1] P_{T-1}) ... exp(-i angles[0] P_0)
-// psi in place, every flip mask below bit local_bits; one launch.
-int qsfh_rotation_local_run(void* psi, int n, int local_bits, const void* xs,
-                            const void* zs, const void* angles, const void* phre,
-                            const void* phim, int n_terms, void* stream) {
-  if (local_bits < 1 || local_bits > n) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float2) << local_bits;
-  cudaError_t err = allow_smem(rotation_local_run_kernel, smem);
+// The tile runs [0, n_runs) of a streaming.TileRuns table, in place: one
+// launch per run, one block per tile.  run_start (n_runs + 1), run_mask
+// (n_runs) and run_group (n_runs + 1) are HOST arrays; code, z_tile, z_out,
+// angles, phre and phim are device arrays indexed by the table's term
+// index (run_start values), gstart and gregs by its group index (run_group
+// values).
+int qsfh_rotation_tile_runs(void* psi, int n, int k, int c, int n_runs,
+                            const int32_t* run_start, const int32_t* run_mask,
+                            const int32_t* run_group, const void* code, const void* z_tile,
+                            const void* z_out, const void* gstart, const void* gregs,
+                            const void* angles, const void* phre, const void* phim,
+                            void* stream) {
+  if (!tile_shape_ok(n, k, c)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t per_term = sizeof(float4) + 12, tile = sizeof(float2) << k;
+  int most = 0;
+  for (int r = 0; r < n_runs; ++r) most = max(most, run_start[r + 1] - run_start[r]);
+  if (most > kMaxRunTerms) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(rotation_tile_run_kernel, tile + most * per_term);
   if (err != cudaSuccess) return static_cast<int>(err);
-  rotation_local_run_kernel<<<1u << (n - local_bits), kRunThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float2*>(psi), local_bits, static_cast<const int32_t*>(xs),
-      static_cast<const int32_t*>(zs), static_cast<const float*>(angles),
-      static_cast<const float*>(phre), static_cast<const float*>(phim), n_terms);
-  return static_cast<int>(cudaGetLastError());
+  for (int r = 0; r < n_runs; ++r) {
+    const int t0 = run_start[r], T = run_start[r + 1] - t0, g0 = run_group[r];
+    rotation_tile_run_kernel<<<1u << (n - k), 1u << (k - 4), tile + T * per_term, s>>>(
+        static_cast<float2*>(psi), n, k, c, static_cast<uint32_t>(run_mask[r]), T,
+        static_cast<const int32_t*>(code) + t0, static_cast<const int32_t*>(z_tile) + t0,
+        static_cast<const int32_t*>(z_out) + t0, static_cast<const int32_t*>(gstart) + g0,
+        static_cast<const int32_t*>(gregs) + g0, run_group[r + 1] - g0, t0,
+        static_cast<const float*>(angles) + t0, static_cast<const float*>(phre) + t0,
+        static_cast<const float*>(phim) + t0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
-// One local run of the reverse adjoint sweep (terms in REVERSED order), in
-// place on psi and lam; out[t] = <lam | P_t psi> at the post-gate state.
-// partials: n_terms x 2^(n - local_bits) float2 scratch.
-int qsfh_adjoint_local_run(void* psi, void* lam, int n, int local_bits,
-                           const void* xs, const void* zs, const void* angles,
-                           const void* phre, const void* phim, int n_terms,
+// The adjoint sweep over the tile runs [0, n_runs) of a streaming.TileRuns
+// table (terms in REVERSED order), in place on psi and lam; arrays as in
+// qsfh_rotation_tile_runs.  out[t - run_start[0]] = <lam | P_t psi> at the
+// post-gate state of term t, summed over blocks by ONE reduce_partials
+// launch.  partials: (run_start[n_runs] - run_start[0]) x 2^(n - k) float2.
+int qsfh_adjoint_tile_runs(void* psi, void* lam, int n, int k, int c, int n_runs,
+                           const int32_t* run_start, const int32_t* run_mask,
+                           const int32_t* run_group, const void* code, const void* z_tile,
+                           const void* z_out, const void* gstart, const void* gregs,
+                           const void* angles, const void* phre, const void* phim,
                            void* partials, void* out, void* stream) {
-  if (local_bits < 1 || local_bits > n) return static_cast<int>(cudaErrorInvalidValue);
+  if (!tile_shape_ok(n, k, c)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = 2 * (sizeof(float2) << local_bits);
-  cudaError_t err = allow_smem(adjoint_local_run_kernel, smem);
+  const unsigned threads = 1u << (k - 4), grid = 1u << (n - k);
+  const size_t per_term = sizeof(float4) + 12 + (threads / 32) * sizeof(float2);
+  const size_t tiles = 2 * (sizeof(float2) << k);
+  int most = 0;
+  for (int r = 0; r < n_runs; ++r) most = max(most, run_start[r + 1] - run_start[r]);
+  if (most > kMaxRunTerms) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(adjoint_tile_run_kernel, tiles + most * per_term);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid = 1u << (n - local_bits);
   float2* part = static_cast<float2*>(partials);
-  adjoint_local_run_kernel<<<grid, kRunThreads, smem, s>>>(
-      static_cast<float2*>(psi), static_cast<float2*>(lam), local_bits,
-      static_cast<const int32_t*>(xs), static_cast<const int32_t*>(zs),
-      static_cast<const float*>(angles), static_cast<const float*>(phre),
-      static_cast<const float*>(phim), n_terms, part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      reduce_partials(part, static_cast<int>(grid), n_terms, static_cast<float2*>(out), s));
+  for (int r = 0; r < n_runs; ++r) {
+    const int t0 = run_start[r], T = run_start[r + 1] - t0, g0 = run_group[r];
+    adjoint_tile_run_kernel<<<grid, threads, tiles + T * per_term, s>>>(
+        static_cast<float2*>(psi), static_cast<float2*>(lam), n, k, c,
+        static_cast<uint32_t>(run_mask[r]), T, static_cast<const int32_t*>(code) + t0,
+        static_cast<const int32_t*>(z_tile) + t0, static_cast<const int32_t*>(z_out) + t0,
+        static_cast<const int32_t*>(gstart) + g0, static_cast<const int32_t*>(gregs) + g0,
+        run_group[r + 1] - g0, t0, static_cast<const float*>(angles) + t0,
+        static_cast<const float*>(phre) + t0, static_cast<const float*>(phim) + t0,
+        part + static_cast<size_t>(t0 - run_start[0]) * grid);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(reduce_partials(part, static_cast<int>(grid),
+                                          run_start[n_runs] - run_start[0],
+                                          static_cast<float2*>(out), s));
+}
+
+// out[b] = psi[b ^ x] with x = *mask_dev (an int64 on the device), or mask
+// when mask_dev is null.
+int qsfh_xor_gather(const void* psi, void* out, int n, const void* mask_dev, int mask,
+                    void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const uint32_t pairs = 1u << (n - 1);
+  const unsigned grid = min(blocks_for(pairs, kThreads), 132u * 16u);
+  xor_gather_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(psi), static_cast<float4*>(out), pairs,
+      static_cast<const int64_t*>(mask_dev), static_cast<uint32_t>(mask));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Groups [g0, g0 + n_groups) of a flip-mask grouping: out[order[t]] =

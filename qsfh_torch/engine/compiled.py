@@ -8,12 +8,13 @@ phase), run by the ``pauli_rotation`` kernel forward and backward and by
 index -1, which selects an appended constant 1.0.
 
 Past ``streaming.CHAIN_MAX_QUBITS`` a segment is walked as the
-order-preserving runs of ``streaming.RunLayout``: each run of tile-local
-terms is one
-``rotation_local_runs`` / ``adjoint_local_runs`` launch, and the
-block-crossing terms between runs go to the per-term kernels, as the JAX
-package's ``rotation_stream_pallas`` / ``adjoint_stream_pallas`` route
-(``qsfh_tpu/engine/compiled.py:514-534, 645-667``).
+order-preserving tile runs of ``streaming.TileLayout``: each run is one
+``rotation_tile_runs`` / ``adjoint_tile_runs`` launch over a tile of
+chosen bits that holds every flip mask of the run, and a term that fits
+no tile goes to the per-term kernels.  This is the JAX package's
+``rotation_stream_pallas`` / ``adjoint_stream_pallas`` route
+(``qsfh_tpu/engine/compiled.py:514-534, 645-667``) without its
+block-crossing terms.
 
 The TPU workarounds of the JAX module are not carried over: per-term
 angles are the plain gather ``thetas_ext[pidx]`` (no one-hot matmul),
@@ -83,7 +84,7 @@ class Segment:
 
     ``data`` holds the host arrays in the JAX package's layout (uint32
     masks, float64 scalars, int32 parameter indices); ``tensors`` caches
-    them per (device, real dtype) with int64 masks, and ``runs`` the run
+    them per (device, real dtype) with int64 masks, and ``tiles`` the tile
     layout of each direction.
     """
 
@@ -112,13 +113,13 @@ class Segment:
             }
         return self._cache[key]
 
-    def runs(self, direction: int, local_bits: int) -> streaming.RunLayout:
-        """The run layout of the terms in application order (reversed for
+    def tiles(self, direction: int, n: int, k: int, c: int) -> streaming.TileLayout:
+        """The tile layout of the terms in application order (reversed for
         direction -1, the inverse and the adjoint sweep)."""
-        key = ("runs", direction, local_bits)
+        key = ("tiles", direction, n, k, c)
         if key not in self._cache:
-            xs = self.data["xb"] if direction == 1 else self.data["xb"][::-1]
-            self._cache[key] = streaming.RunLayout(xs, local_bits)
+            self._cache[key] = streaming.TileLayout(
+                self.data["xb"][::direction], self.data["zb"][::direction], n, k, c)
         return self._cache[key]
 
 
@@ -168,16 +169,16 @@ def rotate_segment(seg: Segment, out, arrs, n, direction: int = 1, impl=None):
     """Apply one segment's terms ``arrs = (xs, zs, angles, phre, phim)``,
     given in application order (reversed for direction -1), to ``out`` IN
     PLACE: one ``impl.rotation`` call up to the chain cap, else the spans
-    of the segment's run layout."""
+    of the segment's tile layout."""
     impl = impl or KERNELS
     if n <= streaming.CHAIN_MAX_QUBITS:
         impl.rotation(out, *arrs)
         return out
-    bits = min(streaming.ROT_LOCAL_BITS, n)
-    for local, t0, t1 in seg.runs(direction, bits).spans:
+    layout = seg.tiles(direction, n, streaming.TILE_BITS, streaming.TILE_LOW_BITS)
+    for tiles, t0, t1 in layout.spans:
         part = tuple(a[t0:t1] for a in arrs)
-        if local:
-            impl.rotation_runs(out, *part, bits)
+        if tiles is not None:
+            impl.rotation_runs(out, *part, tiles)
         else:
             impl.rotation(out, *part)
     return out
@@ -188,16 +189,16 @@ def adjoint_sweep(seg: Segment, psi, lam, arrs, n, impl=None):
     in REVERSED order, IN PLACE on psi and lam; returns v (T,) with
     v_t = <lam | P_t psi> at the post-gate state, in reversed-term order:
     one ``impl.adjoint`` call up to the chain cap, else the spans
-    of the reversed run layout."""
+    of the reversed tile layout."""
     impl = impl or KERNELS
     if n <= streaming.CHAIN_MAX_QUBITS:
         return impl.adjoint(psi, lam, *arrs)
-    bits = min(streaming.ADJ_LOCAL_BITS, n)
+    layout = seg.tiles(-1, n, streaming.TILE_BITS, streaming.TILE_LOW_BITS)
     parts = []
-    for local, t0, t1 in seg.runs(-1, bits).spans:
+    for tiles, t0, t1 in layout.spans:
         part = tuple(a[t0:t1] for a in arrs)
-        if local:
-            parts.append(impl.adjoint_runs(psi, lam, *part, bits))
+        if tiles is not None:
+            parts.append(impl.adjoint_runs(psi, lam, *part, tiles))
         else:
             parts.append(impl.adjoint(psi, lam, *part))
     return torch.cat(parts)

@@ -7,18 +7,22 @@ stream kernels of the ADAPT main path:
 =======================  ==================================================
 wrapper                  replaces (``qsfh_tpu/engine/pallas_kernels.py``)
 =======================  ==================================================
-``pauli_rotation``       ``pauli_chain_pallas`` (:482); the crossing terms
-                         of ``rotation_stream_pallas`` (:2246)
+``pauli_rotation``       ``pauli_chain_pallas`` (:482); with
+                         ``pauli_rotation_one``, ``pauli_rotation_pallas``
+                         (:571); terms that fit no tile past the caps
 ``pauli_apply``          ``apply_chain_pallas`` (:715), and
                          ``apply_stream_pallas`` (:1870) past 18 qubits
 ``pauli_inner``          ``expectation_chain_pallas`` (:645) and
                          ``screen_chain_pallas`` (:927)
-``adjoint_rotation``     ``adjoint_chain_pallas`` (:826); the crossing terms
-                         of ``adjoint_stream_pallas`` (:2095)
-``rotation_local_runs``  ``rotation_stream_pallas`` (:2268, local :2214)
-``adjoint_local_runs``   ``adjoint_stream_pallas`` (:2142, local :2032)
+``adjoint_rotation``     ``adjoint_chain_pallas`` (:826); terms that fit no
+                         tile past the caps
+``rotation_tile_runs``   ``rotation_stream_pallas`` (:2268, local :2214,
+                         crossing :2246)
+``adjoint_tile_runs``    ``adjoint_stream_pallas`` (:2142, local :2032,
+                         crossing :2095)
 ``pauli_inner_grouped``  ``expectation_stream_*`` (:1581, :1714, :1804)
                          and ``screen_stream_pallas`` (:1474)
+``xor_gather``           ``xor_gather_pallas`` (:378)
 =======================  ==================================================
 
 The CUDA source is ``qsfh_torch/csrc/statevec_kernels.cu``.  It is built
@@ -31,7 +35,7 @@ Every wrapper takes the plain version for a tensor on the CPU and launches
 its kernel for a tensor on a CUDA device, or raises: there is no fallback.
 Each wrapper keeps a plain-integer ``launches`` count of its kernel's
 launches: one per term for the two per-term rotations, one per run for the
-two local-run kernels, one per call (or per scratch-sized chunk) for
+two tile-run kernels, one per call for ``xor_gather``, one per call (or per scratch-sized chunk) for
 ``pauli_apply``, ``pauli_inner`` and ``pauli_inner_grouped`` (a second,
 partial-sum pass is not counted).  The ``*_plain`` functions compute the
 same thing from an index gather ``psi[idx ^ x]`` and an XOR-folded
@@ -69,6 +73,12 @@ MAX_QUBITS = 30
 # float2 entries of block-partial scratch per launch (16 MiB): longer term
 # lists are cut into chunks, so the scratch never grows with T x 2^n
 PARTIALS_CAP = 1 << 21
+# the same for one adjoint tile sweep (64 MiB), summed by one partial-sum
+# pass per chunk of runs: at 24 qubits the whole sweep is one chunk
+SWEEP_PARTIALS_CAP = 1 << 23
+# tiles the tile-run kernels take: 2^(k - 4) threads, one warp to 512
+TILE_MIN_BITS = 9
+TILE_MAX_BITS = 13
 
 _lock = threading.Lock()
 _lib = None
@@ -135,10 +145,12 @@ def _load():
         lib.qsfh_pauli_apply.argtypes = [p, p, i, p, p, p, p, i, p]
         lib.qsfh_group_blocks.restype = i
         lib.qsfh_group_blocks.argtypes = [i]
-        lib.qsfh_rotation_local_run.restype = i
-        lib.qsfh_rotation_local_run.argtypes = [p, i, i, p, p, p, p, p, i, p]
-        lib.qsfh_adjoint_local_run.restype = i
-        lib.qsfh_adjoint_local_run.argtypes = [p, p, i, i, p, p, p, p, p, i, p, p, p]
+        lib.qsfh_rotation_tile_runs.restype = i
+        lib.qsfh_rotation_tile_runs.argtypes = [p, i, i, i, i] + [p] * 12
+        lib.qsfh_adjoint_tile_runs.restype = i
+        lib.qsfh_adjoint_tile_runs.argtypes = [p, p, i, i, i, i] + [p] * 14
+        lib.qsfh_xor_gather.restype = i
+        lib.qsfh_xor_gather.argtypes = [p, p, i, p, i, p]
         lib.qsfh_pauli_inner_grouped.restype = i
         lib.qsfh_pauli_inner_grouped.argtypes = [p, p, i, p, p, p, p, i, i, i, i, p, p, p]
         _lib = lib
@@ -392,86 +404,169 @@ def adjoint_rotation_plain(psi, lam, xs, zs, angles, phre, phim):
     return v
 
 
-# -- rotation_local_runs ------------------------------------------------------------
+# -- tile runs ------------------------------------------------------------------------
+
+
+def _tile_check(psi, xs, tiles, name: str) -> int:
+    """Validate a CUDA call of a tile-run kernel; returns the qubit count."""
+    n = _n_qubits(psi, name)
+    if xs.shape[0] != tiles.n_terms:
+        raise ValueError(f"{name}: {xs.shape[0]} terms against a layout of {tiles.n_terms}")
+    if not TILE_MIN_BITS <= tiles.k <= min(n, TILE_MAX_BITS) or not 1 <= tiles.c <= tiles.k - 3:
+        raise ValueError(f"{name}: tiles of {tiles.k} bits, {tiles.c} low; the kernel takes "
+                         f"{TILE_MIN_BITS} <= k <= min(n, {TILE_MAX_BITS}) and 1 <= c <= k - 3")
+    if psi.data_ptr() % 16:
+        raise ValueError(f"{name}: the state must be 16-byte aligned")
+    return n
+
+
+def _tile_tables(tiles, r0: int, r1: int):
+    """Host pointers of the run tables of runs [r0, r1)."""
+    i32 = ctypes.sizeof(ctypes.c_int32)
+    return (r1 - r0, tiles.run_start.ctypes.data + r0 * i32,
+            tiles.run_mask.ctypes.data + r0 * i32, tiles.run_group.ctypes.data + r0 * i32)
+
+
+def _check_tiles(xs, tiles, name: str):
+    """Raise unless every flip mask lies inside its run's tile."""
+    if xs.shape[0] != tiles.n_terms:
+        raise ValueError(f"{name}: {xs.shape[0]} terms against a layout of {tiles.n_terms}")
+    mask = torch.as_tensor(tiles.term_mask.astype("int64"), device=xs.device)
+    if bool((xs & ~mask).any()):
+        raise ValueError(f"{name}: a flip mask leaves its run's tile")
 
 
 @_counted
-def rotation_local_runs(psi, xs, zs, angles, phre, phim, local_bits):
-    """One local run: psi <- exp(-i angles[T-1] P_{T-1}) ... exp(-i angles[0]
-    P_0) psi, IN PLACE, where every flip mask lies below bit ``local_bits``
-    (terms as in :func:`pauli_rotation`).  One launch: each tile of
-    2^local_bits amplitudes takes one pass through shared memory.  The
-    caller cuts the runs (``streaming.RunLayout``); a crossing mask is not
-    detected on the card.  Returns psi.
+def rotation_tile_runs(psi, xs, zs, angles, phre, phim, tiles):
+    """psi <- exp(-i angles[T-1] P_{T-1}) ... exp(-i angles[0] P_0) psi, IN
+    PLACE, over the consecutive tile runs ``tiles`` (a
+    ``streaming.TileRuns`` built from these xs and zs; terms as in
+    :func:`pauli_rotation`).  One launch per run: each run is one pass of
+    the state through shared memory and registers.  The kernel reads the
+    masks from the layout's tables; xs and zs serve the plain version.
+    Returns psi.
     """
     if psi.device.type == "cpu":
-        return rotation_local_runs_plain(psi, xs, zs, angles, phre, phim, local_bits)
-    n = _n_qubits(psi, "rotation_local_runs")
+        return rotation_tile_runs_plain(psi, xs, zs, angles, phre, phim, tiles)
+    n = _tile_check(psi, xs, tiles, "rotation_tile_runs")
     T = xs.shape[0]
-    if T == 0:
-        return psi
-    args = _terms(psi, T, "rotation_local_runs", (xs, _MASK), (zs, _MASK),
-                  (angles, _SCALAR), (phre, _SCALAR), (phim, _SCALAR))
+    args = _terms(psi, T, "rotation_tile_runs", (angles, _SCALAR), (phre, _SCALAR), (phim, _SCALAR))
     lib = _load()
-    rc = lib.qsfh_rotation_local_run(psi.data_ptr(), n, min(local_bits, n),
-                                     *(a.data_ptr() for a in args), T, _stream())
-    _check(lib, rc, "rotation_local_runs")
-    rotation_local_runs.launches += 1
+    rc = lib.qsfh_rotation_tile_runs(
+        psi.data_ptr(), n, tiles.k, tiles.c, *_tile_tables(tiles, 0, len(tiles)),
+        *(t.data_ptr() for t in tiles.tensors(psi.device)), *(a.data_ptr() for a in args),
+        _stream())
+    _check(lib, rc, "rotation_tile_runs")
+    rotation_tile_runs.launches += len(tiles)
     return psi
 
 
-def _check_local(xs, local_bits: int, name: str):
-    if bool((xs >> local_bits).any()):
-        raise ValueError(f"{name}: a flip mask crosses the 2^{local_bits}-amplitude tile")
-
-
-def rotation_local_runs_plain(psi, xs, zs, angles, phre, phim, local_bits):
-    """Plain version of :func:`rotation_local_runs`: the plain rotation over
-    the run (in place, any device)."""
-    _check_local(xs, local_bits, "rotation_local_runs")
+def rotation_tile_runs_plain(psi, xs, zs, angles, phre, phim, tiles):
+    """Plain version of :func:`rotation_tile_runs`: the plain rotation over
+    the terms, one by one (in place, any device)."""
+    _check_tiles(xs, tiles, "rotation_tile_runs")
     return pauli_rotation_plain(psi, xs, zs, angles, phre, phim)
 
 
-# -- adjoint_local_runs -------------------------------------------------------------
-
-
 @_counted
-def adjoint_local_runs(psi, lam, xs, zs, angles, phre, phim, local_bits):
-    """One local run of the reverse adjoint sweep (terms in REVERSED order,
-    every flip mask below bit ``local_bits``): the contract of
-    :func:`adjoint_rotation`, in one launch per run.  psi and lam are
-    updated IN PLACE; returns v (complex, (T,)).
+def adjoint_tile_runs(psi, lam, xs, zs, angles, phre, phim, tiles):
+    """The reverse adjoint sweep (terms in REVERSED order) over the
+    consecutive tile runs ``tiles``: the contract of
+    :func:`adjoint_rotation`, in one launch per run and one partial-sum
+    pass per chunk of runs whose partials fit ``SWEEP_PARTIALS_CAP``.  psi
+    and lam are updated IN PLACE; returns v (complex, (T,)).
     """
     if psi.device.type == "cpu" and lam.device.type == "cpu":
-        return adjoint_local_runs_plain(psi, lam, xs, zs, angles, phre, phim, local_bits)
-    n = _n_qubits(psi, "adjoint_local_runs")
-    if _n_qubits(lam, "adjoint_local_runs") != n:
-        raise ValueError("adjoint_local_runs: states of different sizes")
+        return adjoint_tile_runs_plain(psi, lam, xs, zs, angles, phre, phim, tiles)
+    n = _tile_check(psi, xs, tiles, "adjoint_tile_runs")
+    if _n_qubits(lam, "adjoint_tile_runs") != n or lam.data_ptr() % 16:
+        raise ValueError("adjoint_tile_runs: lam must be a 16-byte aligned state of psi's size")
     T = xs.shape[0]
     out = torch.empty(T, dtype=torch.complex64, device=psi.device)
-    if T == 0:
-        return out
-    bits = min(local_bits, n)
-    args = _terms(psi, T, "adjoint_local_runs", (xs, _MASK), (zs, _MASK),
-                  (angles, _SCALAR), (phre, _SCALAR), (phim, _SCALAR))
+    args = _terms(psi, T, "adjoint_tile_runs", (angles, _SCALAR), (phre, _SCALAR), (phim, _SCALAR))
     lib = _load()
-    width = 1 << (n - bits)
-    chunks = _chunks(T, width)
-    partials = torch.empty((chunks[0][1], width), dtype=torch.complex64, device=psi.device)
-    for t0, t1 in chunks:
-        rc = lib.qsfh_adjoint_local_run(psi.data_ptr(), lam.data_ptr(), n, bits,
-                                        *(a[t0:].data_ptr() for a in args), t1 - t0,
-                                        partials.data_ptr(), out[t0:].data_ptr(), _stream())
-        _check(lib, rc, "adjoint_local_runs")
-        adjoint_local_runs.launches += 1
+    width = 1 << (n - tiles.k)
+    starts = tiles.run_start
+    chunks, r0 = [], 0
+    for r in range(1, len(tiles) + 1):
+        if r == len(tiles) or (starts[r + 1] - starts[r0]) * width > SWEEP_PARTIALS_CAP:
+            chunks.append((r0, r))
+            r0 = r
+    rows = max(int(starts[r1] - starts[r0]) for r0, r1 in chunks)
+    partials = torch.empty((rows, width), dtype=torch.complex64, device=psi.device)
+    tables = [t.data_ptr() for t in tiles.tensors(psi.device)]
+    for r0, r1 in chunks:
+        rc = lib.qsfh_adjoint_tile_runs(
+            psi.data_ptr(), lam.data_ptr(), n, tiles.k, tiles.c, *_tile_tables(tiles, r0, r1),
+            *tables, *(a.data_ptr() for a in args), partials.data_ptr(),
+            out[int(starts[r0]):].data_ptr(), _stream())
+        _check(lib, rc, "adjoint_tile_runs")
+    adjoint_tile_runs.launches += len(tiles)
     return out
 
 
-def adjoint_local_runs_plain(psi, lam, xs, zs, angles, phre, phim, local_bits):
-    """Plain version of :func:`adjoint_local_runs`: the plain adjoint sweep
-    over the run (in place, any device)."""
-    _check_local(xs, local_bits, "adjoint_local_runs")
+def adjoint_tile_runs_plain(psi, lam, xs, zs, angles, phre, phim, tiles):
+    """Plain version of :func:`adjoint_tile_runs`: the plain adjoint sweep
+    over the terms, one by one (in place, any device)."""
+    _check_tiles(xs, tiles, "adjoint_tile_runs")
     return adjoint_rotation_plain(psi, lam, xs, zs, angles, phre, phim)
+
+
+# -- xor_gather and the one-term rotation ------------------------------------------------
+
+
+@_counted
+def xor_gather(psi, x):
+    """out[b] = psi[b ^ x] (a new tensor); ``x`` is a flat mask, an int or
+    a one-element integer tensor on psi's device (read on the device, so
+    a traced mask needs no host sync)."""
+    if psi.device.type == "cpu":
+        return xor_gather_plain(psi, x)
+    n = _n_qubits(psi, "xor_gather")
+    out = torch.empty_like(psi)
+    mask_dev, mask = 0, 0
+    if isinstance(x, torch.Tensor):
+        if x.device != psi.device or x.numel() != 1:
+            raise ValueError(f"xor_gather: expected a one-element mask on {psi.device}")
+        x = x.reshape(1).to(torch.int64)  # no copy for an int64 mask
+        mask_dev = x.data_ptr()
+    else:
+        mask = int(x)
+    if psi.data_ptr() % 16:
+        raise ValueError("xor_gather: the state must be 16-byte aligned")
+    lib = _load()
+    rc = lib.qsfh_xor_gather(psi.data_ptr(), out.data_ptr(), n, mask_dev, mask, _stream())
+    _check(lib, rc, "xor_gather")
+    xor_gather.launches += 1
+    return out
+
+
+def xor_gather_plain(psi, x):
+    """Plain version of :func:`xor_gather` (any device)."""
+    n = psi.shape[0].bit_length() - 1
+    if isinstance(x, torch.Tensor):
+        x = x.reshape(()).to(torch.int64)
+    return psi[index_bits(n, psi.device) ^ x]
+
+
+def _one_term(psi, x, z, theta, phre, phim):
+    """One-term arrays on psi's device (masks int64, scalars real)."""
+    rdt = real_dtype(psi.dtype)
+    dtypes = (torch.int64, torch.int64, rdt, rdt, rdt)
+    return tuple(torch.as_tensor(v, device=psi.device).reshape(1).to(d)
+                 for v, d in zip((x, z, theta, phre, phim), dtypes))
+
+
+def pauli_rotation_one(psi, x, z, theta, phre, phim):
+    """exp(-i theta P) psi for ONE term, out of place (psi is untouched):
+    :func:`pauli_rotation` on a copy, one launch.  Scalars are numbers or
+    one-element tensors on psi's device."""
+    return pauli_rotation(psi.clone(), *_one_term(psi, x, z, theta, phre, phim))
+
+
+def pauli_rotation_one_plain(psi, x, z, theta, phre, phim):
+    """Plain version of :func:`pauli_rotation_one` (any device)."""
+    return pauli_rotation_plain(psi.clone(), *_one_term(psi, x, z, theta, phre, phim))
 
 
 # -- pauli_inner_grouped -------------------------------------------------------------
@@ -528,7 +623,7 @@ def pauli_inner_grouped_plain(a, psi, xs, zs, layout):
 @dataclass(frozen=True)
 class Impl:
     """The statevector primitives the engine calls: the per-term ones, and
-    the local-run and grouped ones it takes past the caps of
+    the tile-run and grouped ones it takes past the caps of
     ``streaming``."""
 
     rotation: Callable
@@ -542,13 +637,13 @@ class Impl:
 
 # the wrappers: CUDA kernels for CUDA tensors, plain versions for CPU tensors
 KERNELS = Impl(pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
-               rotation_local_runs, adjoint_local_runs, pauli_inner_grouped)
+               rotation_tile_runs, adjoint_tile_runs, pauli_inner_grouped)
 # the plain versions on any device (a reference path on the card)
 PLAIN = Impl(pauli_rotation_plain, pauli_apply_plain, pauli_inner_plain, adjoint_rotation_plain,
-             rotation_local_runs_plain, adjoint_local_runs_plain, pauli_inner_grouped_plain)
+             rotation_tile_runs_plain, adjoint_tile_runs_plain, pauli_inner_grouped_plain)
 
 WRAPPERS = (pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
-            rotation_local_runs, adjoint_local_runs, pauli_inner_grouped)
+            rotation_tile_runs, adjoint_tile_runs, pauli_inner_grouped, xor_gather)
 
 
 def launch_counts() -> dict:

@@ -128,43 +128,100 @@ def test_launch_counts_and_dtype_guard(dev):
         K.pauli_rotation(psi.to(torch.complex128), *args)
 
 
-def _local_terms(rng, n, T, bits):
-    """Random terms whose flip masks stay below bit ``bits`` (z masks reach
-    every bit, x = 0 terms included)."""
-    xs, zs, ph = _terms(rng, n, T)
-    return xs & ((1 << bits) - 1), zs, ph
+def _tile_program(rng, n, T):
+    """Random terms with 0-4 flip bits anywhere (the Hubbard shapes), z
+    masks on every bit, unit string phases."""
+    xs = np.zeros(T, np.int64)
+    for t in range(T):
+        bits = rng.choice(n, size=rng.choice([0, 1, 2, 2, 4]), replace=False)
+        xs[t] = sum(1 << int(b) for b in bits)
+    zs = rng.integers(0, 1 << n, size=T)
+    ph = (-1j) ** rng.integers(0, 4, size=T)
+    return xs, zs, ph
 
 
-@pytest.mark.parametrize("n,bits", [(10, 6), (20, 14)])
-def test_rotation_local_runs(dev, n, bits):
+def _walk(layout, tile_fn, term_fn, args):
+    """Apply the spans of a tile layout: tile runs to tile_fn, the terms
+    that fit no tile to term_fn; returns the per-span results."""
+    return [tile_fn(*(a[t0:t1] for a in args), tiles) if tiles is not None
+            else term_fn(*(a[t0:t1] for a in args)) for tiles, t0, t1 in layout.spans]
+
+
+@pytest.mark.parametrize("n,k,c", [(12, 9, 2), (20, 13, 5), (20, 12, 4)])
+def test_rotation_local_runs(dev, n, k, c):
+    """rotation_tile_runs against its plain version (and the per-term
+    kernel where a term fits no tile), one launch per run."""
+    from qsfh_torch.engine.streaming import TileLayout
+
     rng = np.random.default_rng(n + 4)
-    xs, zs, ph = _local_terms(rng, n, 48, bits)
-    ang = rng.uniform(-1, 1, size=48)
+    xs, zs, ph = _tile_program(rng, n, 96)
+    layout = TileLayout(xs, zs, n, k, c)
+    ang = rng.uniform(-1, 1, size=96)
     psi = _t(_state(rng, n), dev, torch.complex64)
     args = (_t(xs, dev, torch.int64), _t(zs, dev, torch.int64), _t(ang, dev, torch.float32),
             _t(ph.real, dev, torch.float32), _t(ph.imag, dev, torch.float32))
-    got = K.rotation_local_runs(psi.clone(), *args, bits)
-    ref = K.rotation_local_runs_plain(psi.clone(), *args, bits)
+    got, ref = psi.clone(), psi.clone()
+    K.reset_launch_counts()
+    _walk(layout, lambda *a: K.rotation_tile_runs(got, *a),
+          lambda *a: K.pauli_rotation(got, *a), args)
+    _walk(layout, lambda *a: K.rotation_tile_runs_plain(ref, *a),
+          lambda *a: K.pauli_rotation_plain(ref, *a), args)
     torch.cuda.synchronize()
+    assert layout.n_runs > 1
+    assert K.launch_counts()["rotation_tile_runs"] == layout.n_runs
     assert _rel(got, ref) <= RTOL
 
 
-@pytest.mark.parametrize("n,bits", [(10, 6), (20, 13)])
-def test_adjoint_local_runs(dev, n, bits):
+@pytest.mark.parametrize("n,k,c", [(12, 9, 2), (20, 12, 5), (20, 13, 4)])
+def test_adjoint_local_runs(dev, n, k, c, monkeypatch):
+    """adjoint_tile_runs against its plain version: the per-term vector,
+    psi and lambda; a small sweep-partials cap at n = 12 splits the sweep
+    into several partial-sum passes."""
+    from qsfh_torch.engine.streaming import TileLayout
+
     rng = np.random.default_rng(n + 5)
-    xs, zs, ph = _local_terms(rng, n, 48, bits)
-    ang = rng.uniform(-1, 1, size=48)
+    xs, zs, ph = _tile_program(rng, n, 96)
+    layout = TileLayout(xs, zs, n, k, c)
+    ang = rng.uniform(-1, 1, size=96)
     psi = _t(_state(rng, n), dev, torch.complex64)
     lam = _t(_state(rng, n), dev, torch.complex64)
     args = (_t(xs, dev, torch.int64), _t(zs, dev, torch.int64), _t(ang, dev, torch.float32),
             _t(ph.real, dev, torch.float32), _t(ph.imag, dev, torch.float32))
+    if n == 12:
+        monkeypatch.setattr(K, "SWEEP_PARTIALS_CAP", 20 << (n - k))
     p1, l1, p2, l2 = psi.clone(), lam.clone(), psi.clone(), lam.clone()
-    got = K.adjoint_local_runs(p1, l1, *args, bits)
-    ref = K.adjoint_local_runs_plain(p2, l2, *args, bits)
+    got = torch.cat(_walk(layout, lambda *a: K.adjoint_tile_runs(p1, l1, *a),
+                          lambda *a: K.adjoint_rotation(p1, l1, *a), args))
+    ref = torch.cat(_walk(layout, lambda *a: K.adjoint_tile_runs_plain(p2, l2, *a),
+                          lambda *a: K.adjoint_rotation_plain(p2, l2, *a), args))
     torch.cuda.synchronize()
     assert _rel(got, ref) <= RTOL
     assert _rel(p1, p2) <= RTOL
     assert _rel(l1, l2) <= RTOL
+
+
+@pytest.mark.parametrize("n", [10, 18])
+def test_xor_gather(dev, n):
+    rng = np.random.default_rng(n + 7)
+    psi = _t(_state(rng, n), dev, torch.complex64)
+    for x in (0, 1, 0b110, 1 << (n - 1), int(rng.integers(0, 1 << n))):
+        ref = K.xor_gather_plain(psi, x)
+        assert torch.equal(K.xor_gather(psi, x), ref)
+        assert torch.equal(K.xor_gather(psi, torch.tensor([x], device=dev)), ref)
+    with pytest.raises(TypeError):
+        K.xor_gather(psi.to(torch.complex128), 3)
+
+
+@pytest.mark.parametrize("n", [10, 18])
+def test_pauli_rotation_one(dev, n):
+    rng = np.random.default_rng(n + 8)
+    psi = _t(_state(rng, n), dev, torch.complex64)
+    for x, z in ((0, 0b1011), (0b11, 0b1), ((1 << (n - 1)) | 1, 1 << (n - 2))):
+        ph = (-1j) ** (bin(x & z).count("1") % 4)
+        got = K.pauli_rotation_one(psi, x, z, 0.37, ph.real, ph.imag)
+        ref = K.pauli_rotation_one_plain(psi, x, z, 0.37, ph.real, ph.imag)
+        torch.cuda.synchronize()
+        assert _rel(got, ref) <= RTOL
 
 
 @pytest.mark.parametrize("n", [10, 20])

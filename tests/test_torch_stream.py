@@ -1,21 +1,22 @@
 """The port's stream route (past the caps of ``streaming``) against the JAX
 package's HBM-streaming kernels, on the CPU at 12 qubits.
 
-The caps and the local bits are monkeypatched down, so local runs and
-block-crossing terms both occur at 12 qubits; on the CPU the wrappers take
-their plain versions through the same route structure.  The JAX side runs
-its stream kernels in interpret mode as ``tests/test_pallas.py:193-391``
-does (``QSFH_PALLAS=1``, ``QSFH_PALLAS_MAX_N=11``, small
-``QSFH_PALLAS_STREAM_ROWS``): 8-row blocks of 128 lanes are the port's 10
-local bits.  Tolerances are those of the JAX tests at complex64 (2e-6 on
+The caps and the tile sizes are monkeypatched down (tiles of k = 6 bits,
+the low c = 2 and four chosen per run), so several tile runs occur at 12
+qubits; on the CPU the wrappers take their plain versions through the same
+route structure.  The JAX side runs its stream kernels in interpret mode
+as ``tests/test_pallas.py:193-391`` does (``QSFH_PALLAS=1``,
+``QSFH_PALLAS_MAX_N=11``, small ``QSFH_PALLAS_STREAM_ROWS``); its
+block-crossing terms fold into the port's tile runs.  Tolerances are those of the JAX tests at complex64 (2e-6 on
 rotated states, 2e-5 on expectations, applications and adjoint
 gradients, 3e-5 on pool screening) and 1e-10 at complex128 against the
 JAX XLA scan.
 
 Host layouts: ``order_runs`` equals JAX ``_order_runs`` on the 2x6 rot
-segment (forward and reversed), the runs and groups cover the input in
-order, and an emulation of the grouped kernel's indexing reproduces
-``pauli_inner_plain``.
+segment (forward and reversed), the tile runs and groups cover the input
+in order, and an emulation of the grouped kernel's indexing reproduces
+``pauli_inner_plain`` (the tile runs' emulation is in
+``tests/test_torch_tiles.py``).
 """
 
 import dataclasses
@@ -45,6 +46,7 @@ from qsfh_torch.ops.pool import hubbard_interaction_pool_simplified
 
 N = 12
 LANE_BITS = 7
+TILE_K, TILE_C = 6, 2
 
 # the JAX stream tests' four-op program (tests/test_pallas.py:356-361)
 OPS = [
@@ -66,15 +68,17 @@ def _rel(a, b):
     return np.linalg.norm(a - b) / np.linalg.norm(b)
 
 
+def _small_tiles(monkeypatch, k=TILE_K, c=TILE_C):
+    monkeypatch.setattr(streaming, "TILE_BITS", k)
+    monkeypatch.setattr(streaming, "TILE_LOW_BITS", c)
+
+
 @pytest.fixture
 def stream_route(monkeypatch):
-    """The port's stream route at 12 qubits: 10 local bits for rotations
-    (the JAX 8-row blocks), 10 for the adjoint (its 16-row setting halves
-    to 8 rows)."""
+    """The port's stream route at 12 qubits, with tiles of TILE_K bits."""
     monkeypatch.setattr(streaming, "CHAIN_MAX_QUBITS", N - 1)
     monkeypatch.setattr(streaming, "INNER_CHAIN_MAX_QUBITS", N - 1)
-    monkeypatch.setattr(streaming, "ROT_LOCAL_BITS", LANE_BITS + 3)
-    monkeypatch.setattr(streaming, "ADJ_LOCAL_BITS", LANE_BITS + 3)
+    _small_tiles(monkeypatch)
 
 
 def _jax_stream_env(monkeypatch, rows):
@@ -105,18 +109,20 @@ def test_order_runs_matches_jax(segment_2x6, bits, direction):
     runs = streaming.order_runs(xs, bits)
     assert runs == jpk._order_runs(xs, bits - LANE_BITS)
     assert [t for _, idx in runs for t in idx] == list(range(len(xs)))
-    layout = seg.runs(direction, bits)
+    layout = seg.tiles(direction, 24, bits, 5)
     assert [t for _, t0, t1 in layout.spans for t in range(t0, t1)] == list(range(len(xs)))
-    assert layout.n_crossing == sum(1 for xh, _ in runs if xh)
-    assert layout.n_local_runs == sum(1 for xh, _ in runs if not xh)
 
 
 def test_run_layout_counts_2x6(segment_2x6):
+    """The shipped tile layouts: every 2x6 term fits a tile, so a call is
+    one pass per run (the JAX package's low-bit runs took 190 forward and
+    222 adjoint passes, 158 and 180 of them one term each)."""
     _, seg = segment_2x6
     assert len(seg) == 718
-    fwd, adj = seg.runs(1, 14), seg.runs(-1, 13)
-    assert (fwd.n_local_runs, fwd.n_crossing, fwd.passes) == (32, 158, 190)
-    assert (adj.n_local_runs, adj.n_crossing, adj.passes) == (42, 180, 222)
+    k, c = streaming.TILE_BITS, streaming.TILE_LOW_BITS
+    fwd, adj = seg.tiles(1, 24, k, c), seg.tiles(-1, 24, k, c)
+    assert (fwd.n_runs, fwd.n_single, fwd.passes) == (46, 0, 46)
+    assert (adj.n_runs, adj.n_single, adj.passes) == (46, 0, 46)
 
 
 @pytest.mark.parametrize("what", ["H", "S^2", "pool"])
@@ -160,11 +166,18 @@ def test_grouped_layout_emulation_matches_plain():
 
 
 def test_local_run_plain_rejects_crossing_masks():
-    psi = torch.as_tensor(_state(np.random.default_rng(2), 6))
-    args = [torch.tensor([1 << 5]), torch.tensor([0]), torch.tensor([0.1]),
-            torch.tensor([1.0]), torch.tensor([0.0])]
-    with pytest.raises(ValueError, match="crosses"):
-        K.rotation_local_runs_plain(psi, *args, 4)
+    """The tile-run plain versions refuse a flip mask outside its run's
+    tile (the layout was built for other terms)."""
+    layout = streaming.TileLayout(np.asarray([0b11, 1 << 7]), np.zeros(2, np.int64), 10, 6, 2)
+    (tiles, _, _), = layout.spans
+    assert int(tiles.run_mask[0]) == 0b1001_1111  # the low 2 bits, bit 7, padding 2-4
+    psi = torch.as_tensor(_state(np.random.default_rng(2), 10))
+    args = [torch.tensor([0b11, 1 << 9]), torch.tensor([0, 0]), torch.tensor([0.1, 0.2]),
+            torch.tensor([1.0, 1.0]), torch.tensor([0.0, 0.0])]
+    with pytest.raises(ValueError, match="leaves"):
+        K.rotation_tile_runs_plain(psi, *args, tiles)
+    with pytest.raises(ValueError, match="leaves"):
+        K.adjoint_tile_runs_plain(psi, psi.clone(), *args, tiles)
 
 
 # -- rotations ------------------------------------------------------------------------
@@ -178,7 +191,8 @@ def test_rotation_stream_matches_jax_complex64(stream_route, monkeypatch):
     ref = np.asarray(jax.jit(lambda p, t: jcc.apply(p, t))(jnp.asarray(psi), jnp.asarray(th)))
     ref_inv = np.asarray(jcc.apply_inverse(jnp.asarray(psi), jnp.asarray(th)))
     cc = CompiledCircuit(OPS, N)
-    assert cc.segments[0].runs(1, 10).n_crossing == 2  # both kinds of run occur
+    layout = cc.segments[0].tiles(1, N, TILE_K, TILE_C)
+    assert (layout.n_runs, layout.n_single) == (2, 0)  # JAX's crossing terms fold into runs
     got = cc.apply(torch.as_tensor(psi), torch.as_tensor(th))
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-6)
     got_inv = cc.apply_inverse(torch.as_tensor(psi), torch.as_tensor(th))
@@ -231,8 +245,9 @@ def test_each_family_follows_its_own_cap(h_2x3, monkeypatch, chain_cap, inner_ca
     expectation values at INNER_CHAIN_MAX_QUBITS, each on its own."""
     monkeypatch.setattr(streaming, "CHAIN_MAX_QUBITS", chain_cap)
     monkeypatch.setattr(streaming, "INNER_CHAIN_MAX_QUBITS", inner_cap)
-    monkeypatch.setattr(streaming, "ROT_LOCAL_BITS", LANE_BITS + 3)
-    monkeypatch.setattr(streaming, "ADJ_LOCAL_BITS", LANE_BITS + 3)
+    # tiles of the low 3 bits and one more: the three terms that flip two
+    # higher bits fit no tile and take the per-term kernels
+    _small_tiles(monkeypatch, k=4, c=3)
     calls = []
 
     def recorded(name):
@@ -250,7 +265,8 @@ def test_each_family_follows_its_own_cap(h_2x3, monkeypatch, chain_cap, inner_ca
     per_term = chain_cap >= N
     assert ("rotation_runs" in calls) != per_term
     assert ("adjoint_runs" in calls) != per_term
-    assert calls.count("rotation") == (1 if per_term else 2)  # else the crossing terms
+    assert calls.count("rotation") == 1  # the segment, or its terms that fit no tile
+    assert calls.count("adjoint") == 1
     assert ("inner_grouped" in calls) == (inner_cap < N)
     assert ("inner" in calls) == (inner_cap >= N)
 
@@ -311,7 +327,8 @@ def test_adjoint_stream_matches_jax(stream_route, monkeypatch):
         jnp.asarray(ph.imag[rev], jnp.float32))
     seg = Segment("rot", dict(xb=xs, zb=zs, scale=np.ones(T), pidx=np.arange(T, dtype=np.int32),
                               phre=ph.real, phim=ph.imag))
-    assert seg.runs(-1, 10).n_crossing == 3 and seg.runs(-1, 10).n_local_runs == 3
+    layout = seg.tiles(-1, N, TILE_K, TILE_C)
+    assert (layout.n_runs, layout.n_single) == (2, 0)  # JAX's 3 crossing terms fold into runs
     gpsi, glam, grads = run_rot_adjoint(seg, torch.as_tensor(psi), torch.as_tensor(lam),
                                         torch.as_tensor(th), N)
     np.testing.assert_allclose(gpsi.numpy(), np.asarray(p0), atol=2e-6)
