@@ -25,18 +25,20 @@ Phases (any failed check raises and the script exits nonzero):
    at every step (``STEP_TOLERANCES``) and the selected operators match as
    a set.
 4. Kernels at n = 24 on the real 2x6 term arrays (the first 6 pool
-   operators and the Givens network): the stream route (tile runs,
-   flip-mask groups) against the plain versions on the same inputs (1e-5
-   relative), timed beside its bound, the plain versions and the old
+   operators and the Givens network): the stream route (tile runs, the
+   inner-product tiles) against the plain versions on the same inputs
+   (1e-5 relative), timed beside its bound, the plain versions and the old
    per-term route on the same inputs, with the launches and state passes
    of each call.  H, S^2 and the pool run on the main path's state; Sz
-   and S^2 also on a tilted state whose <Z_q> do not cancel.
+   and S^2 also on a tilted state whose <Z_q> do not cancel.  H psi is
+   also timed as one ``torch.mv`` with a CSR H (a yardstick).
 5. 24-qubit main path: ``ADAPT`` on 2x6 (t=1, U=6, 6 up / 6 down,
    ``ground_truth=False``): one selection from the empty ansatz and 5
    train steps of the first 6 pool operators, with every launch counter
    set to 0 just before and read just after and held to the counts the
-   tile and group layouts predict (no per-term rotation: every term fits
-   a tile); then one selection and 2 steps through the plain versions:
+   tile and inner-tile layouts predict (no per-term rotation: every term
+   fits a tile; no per-term inner product: every flip mask fits an inner
+   tile); then one selection and 2 steps through the plain versions:
    gradients within 1e-4 of max |grad|, the same selected set unless a tie
    sits within that tolerance, energy, gnorm and S^2 within 1e-4
    relative, Sz within 1e-4 of 0.
@@ -48,10 +50,13 @@ Phases (any failed check raises and the script exits nonzero):
 7. A ``kernels`` JSON line, then the device JSON line, last.
 
 ``--routes`` also times the per-term route against the stream route at
-18 (3x3), 20 (2x5) and 24 qubits (2x6), call by call and end to end;
-``--profile`` breaks a train step and a selection down by device kernel;
-``--tiles`` times the 24-qubit tile-run kernels over other tile sizes
-(k, c) on the same segment.
+18 (3x3), 20 (2x5) and 24 qubits (2x6), call by call and end to end, and
+the two inner-product kernels (per term, per tile) on the pool, H and
+S^2 at each size; ``--profile`` breaks a train step and a
+selection down by device kernel; ``--tiles`` times the 24-qubit tile-run
+kernels over other tile sizes (k, c) on the same segment, and the
+inner-product tile kernel over tile shapes and item caps on the pool, H
+and S^2.
 
 It imports nothing of JAX or of the JAX package ``qsfh_tpu``.
 """
@@ -98,12 +103,12 @@ REPLACES = {
     "adjoint_rotation": f"{TPU_KERNELS}:826",
     "rotation_tile_runs": f"{TPU_KERNELS}:2268",
     "adjoint_tile_runs": f"{TPU_KERNELS}:2142",
-    "pauli_inner_grouped": f"{TPU_KERNELS}:1581,1804,1474",
+    "pauli_inner_grouped": f"{TPU_KERNELS}:1581,1596,1714,1804,1474,1522",
     "xor_gather": f"{TPU_KERNELS}:378",
 }
 # the stream kernels, which run past the caps only (not at 18 qubits)
 NEW_KERNELS = ("rotation_tile_runs", "adjoint_tile_runs", "pauli_inner_grouped")
-# kernels that no path of the package calls (their TPU kernels had none)
+# kernels that no main path launches: xor_gather (its TPU kernel had no caller)
 OFF_PATH = ("xor_gather",)
 # The least float32 arithmetic of each function, per amplitude.  Rule: a
 # complex multiply is 6 flops and a complex add 2; a factor of +-1 or +-i
@@ -383,24 +388,32 @@ def phase_kernels(adapt, dev):
 def library_sparse_apply(psi, xs, zs, c, ref):
     """ms of one ``torch`` CSR sparse matrix-vector product computing H psi
     (a yardstick only; the port never calls it), or None where this
-    torch build cannot multiply a complex CSR matrix on the card."""
+    torch build cannot multiply a complex CSR matrix on the card.  The
+    matrix is built on the card mask by mask: row b holds one entry per
+    distinct flip mask x, at column b ^ x, the sum of c_t s_t(b) over the
+    terms of x (columns sorted within each row; 37 x 2^n entries for the
+    Hubbard H)."""
     import torch
 
     from qsfh_torch.engine.state import index_bits, parity_signs
 
     dim = psi.shape[0]
     idx = index_bits(dim.bit_length() - 1, psi.device)
-    rows, cols, vals = [], [], []
-    for t in range(len(xs)):
-        rows.append(idx)
-        cols.append(idx ^ xs[t])
-        vals.append(c[t] * parity_signs(idx, zs[t], torch.float32))
+    masks = xs.unique()
+    vals = torch.zeros((dim, masks.numel()), dtype=psi.dtype, device=psi.device)
+    for m, x in enumerate(masks):
+        for t in torch.nonzero(xs == x).flatten().tolist():
+            vals[:, m] += c[t] * parity_signs(idx, zs[t], torch.float32)
+    cols = (idx[:, None] ^ masks[None, :]).to(torch.int32)
+    cols, perm = cols.sort(dim=1)
+    vals = vals.gather(1, perm)
+    del perm
+    nnz = vals.numel()
+    crow = torch.arange(0, nnz + 1, masks.numel(), dtype=torch.int32, device=psi.device)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)  # "sparse support is in beta"
-        coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
-                                      torch.cat(vals), (dim, dim)).coalesce()
-        csr = coo.to_sparse_csr()
-    del coo, rows, cols, vals
+        csr = torch.sparse_csr_tensor(crow, cols.flatten(), vals.flatten(), (dim, dim))
+    del cols, vals, idx
     try:
         out = torch.mv(csr, psi)
     except RuntimeError as exc:  # a missing sparse kernel in this torch build
@@ -408,7 +421,7 @@ def library_sparse_apply(psi, xs, zs, c, ref):
         return None
     if rel_err(out, ref) > STATE_RTOL:
         raise AssertionError("the sparse yardstick disagrees with H psi")
-    log(f"  library yardstick: CSR H with {csr.values().numel()} nonzeros")
+    log(f"  library yardstick: CSR H with {nnz} nonzeros")
     return time_cuda(lambda: torch.mv(csr, psi), reps=20)
 
 
@@ -666,6 +679,7 @@ def launches_of(fn):
 def phase_kernels_24(adapt, dev, sweep_tiles=False):
     """The stream route at n = 24 on the real 2x6 term arrays: against the
     plain versions, the old per-term route and the bound."""
+    import numpy as np
     import torch
 
     from qsfh_torch.engine import kernels as K
@@ -707,19 +721,20 @@ def phase_kernels_24(adapt, dev, sweep_tiles=False):
     results = {}
 
     def record(name, call, T_work, bytes_moved, errs, ms, plain_ms, old_ms, launches, passes,
-               flops=None):
+               flops=None, library_ms=None):
         flops = FLOPS_PER_TERM_AMP[name] * T_work * dim if flops is None else flops
         b_ms, b_by = bound(bytes_moved, flops)
         entry = dict(call=call, terms=T_work, n=n, rel_err=max(e[0] for e in errs),
                      max_abs_err=max(e[1] for e in errs), ms=ms, plain_ms=plain_ms,
-                     old_route_ms=old_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     old_route_ms=old_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                      bytes=bytes_moved, flops=flops, launches=launches, passes=passes)
         results.setdefault(name, []).append(entry)
         log(f"  {call:34s} T={T_work:5d} rel_err={entry['rel_err']:.2e} (tol {STATE_RTOL:g}) "
             f"ms={ms:.4f} old_route_ms="
             + ("-" if old_ms is None else f"{old_ms:.3f}")
             + f" plain_ms={plain_ms:.1f} bound_ms={b_ms:.5f} ({b_by}) passes={passes} "
-            f"launches={launches}")
+            f"launches={launches}"
+            + ("" if library_ms is None else f" library_ms={library_ms:.4f}"))
         if entry["rel_err"] > STATE_RTOL:
             raise AssertionError(f"{name} ({call}) disagrees with its plain version")
 
@@ -811,6 +826,7 @@ def phase_kernels_24(adapt, dev, sweep_tiles=False):
     ):
         xs, zs = owner._tensors(b)[:2]
         layout = owner.groups()
+        n_masks = len(np.unique(xs.cpu().numpy()))
         got, launches = launches_of(lambda: K.pauli_inner_grouped(a, b, xs, zs, layout))
         plain_ms, ref = timed_once(lambda: K.pauli_inner_grouped_plain(a, b, xs, zs, layout))
         old = K.pauli_inner(a, b, xs, zs)
@@ -818,9 +834,13 @@ def phase_kernels_24(adapt, dev, sweep_tiles=False):
         ms = time_cuda(lambda: K.pauli_inner_grouped(a, b, xs, zs, layout), reps=5, warmup=1)
         n_inputs = 1 if a is b else 2
         scale = float(torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b))
-        record("pauli_inner_grouped", call, len(xs), n_inputs * 8 * dim + 16 * len(xs),
-               [inner_err(got, ref, scale), inner_err(old, ref, scale)], ms, plain_ms, old_ms,
-               launches, f"{len(layout)} groups", flops=inner_flops(xs, a is b, dim))
+        errs = [inner_err(got, ref, scale), inner_err(old, ref, scale)]
+        passes = f"{len(layout)} ({layout.n_tiles} tiles; {n_masks} flip masks)"
+        record("pauli_inner_grouped", call, len(xs), n_inputs * 8 * dim + 16 * len(xs), errs, ms,
+               plain_ms, old_ms, launches, passes, flops=inner_flops(xs, a is b, dim))
+        if sweep_tiles and a is not tilted:
+            results.setdefault("inner_tile_sweep", {})[call] = sweep_inner_tile_sizes(
+                call, n, a, b, xs, zs, ref, scale)
     del tilted
 
     # H psi: served by pauli_apply at every n
@@ -829,9 +849,10 @@ def phase_kernels_24(adapt, dev, sweep_tiles=False):
     got, launches = launches_of(lambda: K.pauli_apply(psi, *hargs))
     plain_ms, ref = timed_once(lambda: K.pauli_apply_plain(psi, *hargs))
     ms = time_cuda(lambda: K.pauli_apply(psi, *hargs), reps=5, warmup=1)
+    library_ms = library_sparse_apply(psi, hx, hz, hc, ref)
     record("pauli_apply", "lambda = H psi (pauli_apply)", len(hx), 2 * 8 * dim + 16 * len(hx),
            errs_of([(got, ref)]), ms, plain_ms, None, launches, 1,
-           flops=apply_flops(hx, dim))
+           flops=apply_flops(hx, dim), library_ms=library_ms)
     for name, k in kernel_only.items():
         b_ms, b_by = k["bound"]
         log(f"  {name} alone: {k['call']}, {k['terms']} terms: {k['ms']:.4f} ms, "
@@ -879,6 +900,32 @@ def sweep_tile_sizes(seg, n, rot, rev, psi, lam, ref, v_ref):
                                  groups=layout.n_groups, rel_err=err))
                 log(f"  tiles {what:8s} k={k} c={c}: {ms:.4f} ms, {layout.passes} passes, "
                     f"{layout.n_groups} register groups, rel_err {err:.2e}")
+    return rows
+
+
+# (k, c, most items a tile) of the inner-product tiles that --tiles times
+INNER_TILE_SHAPES = ((12, 4, 128), (12, 2, 128), (13, 4, 128), (13, 2, 128), (11, 4, 128),
+                     (12, 4, 16), (12, 2, 16), (12, 4, 32), (12, 2, 32))
+
+
+def sweep_inner_tile_sizes(call, n, a, b, xs, zs, ref, scale):
+    """The inner-product tile kernel on one 2x6 call (the pool screen, H or
+    S^2) over tile shapes (k bits, the low c) and item caps: ms per call
+    (CUDA events), state passes, each held to the plain result."""
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine.streaming import GroupTiles
+
+    rows = []
+    hx, hz = xs.cpu().numpy(), zs.cpu().numpy()
+    for k, c, cap in INNER_TILE_SHAPES:
+        tiles = GroupTiles(hx, hz, n, k, c, cap)
+        err = inner_err(K.pauli_inner_grouped(a, b, xs, zs, tiles), ref, scale)[0]
+        if tiles.spill_index.size or err > STATE_RTOL:
+            raise AssertionError(f"inner tile sweep {call} k={k} c={c} cap={cap}: error {err:.2e}")
+        ms = time_cuda(lambda: K.pauli_inner_grouped(a, b, xs, zs, tiles), reps=3, warmup=1)
+        rows.append(dict(k=k, c=c, max_items=cap, ms=ms, passes=len(tiles), rel_err=err))
+        log(f"  inner tiles, {call}: k={k} c={c} max_items={cap}: {ms:.4f} ms, "
+            f"{len(tiles)} passes, rel_err {err:.2e}")
     return rows
 
 
@@ -938,8 +985,13 @@ def phase_main_path_24(adapt, dev, tmp):
     net = CompiledCircuit(adapt._net_ops, n).segments[0]
     seg = CompiledCircuit(adapt._ansatz_ops(range(N_ANSATZ_24)) + adapt._net_ops, n).segments[0]
     k, c = streaming.TILE_BITS, streaming.TILE_LOW_BITS
-    per_chunk = K.PARTIALS_CAP // K._load().qsfh_group_blocks(n)
     obs = adapt.problem.observables
+
+    def inner_launches(tiles):  # the tile kernel's launches for one call
+        positions = K._load().qsfh_inner_tile_positions(n, tiles.k, tiles.n_tiles)
+        return len(tiles.chunks(-(-(1 << (n - tiles.k)) // positions), K.PARTIALS_CAP))
+
+    inner = [adapt.packed_pool.groups()] + [obs[k].groups() for k in ("H", "Sz", "S^2")]
     sel = [net.tiles(1, n, k, c), net.tiles(-1, n, k, c)]
     fwd, adj = seg.tiles(1, n, k, c), seg.tiles(-1, n, k, c)
     expected = dict(
@@ -947,8 +999,8 @@ def phase_main_path_24(adapt, dev, tmp):
         adjoint_rotation=N_STEPS * adj.n_single,
         rotation_tile_runs=2 * sum(t.n_runs for t in sel) + N_STEPS * fwd.n_runs,
         adjoint_tile_runs=N_STEPS * adj.n_runs,
-        pauli_inner_grouped=2 * len(adapt.packed_pool.groups().chunks(per_chunk))
-        + N_STEPS * sum(len(obs[k].groups().chunks(per_chunk)) for k in ("H", "Sz", "S^2")),
+        pauli_inner_grouped=2 * inner_launches(inner[0])
+        + N_STEPS * sum(inner_launches(t) for t in inner[1:]),
         pauli_apply=2 + N_STEPS,
         pauli_inner=0,
         xor_gather=0,
@@ -957,12 +1009,17 @@ def phase_main_path_24(adapt, dev, tmp):
         raise AssertionError(f"24-qubit launches {counts}, the layouts predict {expected}")
     if counts["pauli_rotation"] or counts["adjoint_rotation"]:
         raise AssertionError("a 2x6 term fits no tile: the per-term kernels ran")
+    if any(t.spill_index.size for t in inner):
+        raise AssertionError("a 2x6 flip mask fits no inner tile: the per-term kernel ran")
     # one partial-sum pass per adjoint sweep: the whole sweep's partials fit one chunk
     if len(seg) << (n - k) > K.SWEEP_PARTIALS_CAP:
         raise AssertionError("the adjoint sweep's partials take more than one chunk")
     log(f"  launches match the layouts: {fwd.n_runs} forward and {adj.n_runs} adjoint tile "
         f"runs per step, {sum(t.n_runs for t in sel)} network runs per selection, no "
-        f"per-term rotation; one partial-sum pass per adjoint sweep")
+        f"per-term rotation; one partial-sum pass per adjoint sweep; inner-product state passes "
+        f"per call: pool {len(inner[0])}, H {len(inner[1])}, Sz {len(inner[2])}, "
+        f"S^2 {len(inner[3])}, no per-term pass")
+    results["inner_passes"] = dict(zip(("pool", "H", "Sz", "S^2"), map(len, inner)))
 
     plain = build_adapt(dev, tmp, "plain24", CONFIG_24)
     plain.impl = K.PLAIN
@@ -1035,6 +1092,49 @@ def phase_routes(cases, dev, out, rounds=15):
                 f"{ms['stream'] / ms['per-term']:.3f}, the engine's caps {ms['caps']:9.3f} ms")
 
 
+def phase_inner_routes(cases, dev, out, rounds=5):
+    """The two inner-product kernels on the same inputs at each size:
+    ``pauli_inner`` (one launch per call, a block row per term) and
+    ``pauli_inner_grouped`` (one pass per tile of masks, the shipped tile
+    shape), for the pool screen (a = w = H psi) and the expectation terms
+    of H and S^2 (a = psi); CUDA events, the two in turns each round,
+    median over ``rounds`` rounds of 3 calls; each held to the per-term
+    result."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    rows = out.setdefault("inner_routes", [])
+    for label, adapt in cases:
+        n = adapt.n_qubits
+        gen = torch.Generator(device=dev).manual_seed(n)
+        psi = torch.randn(1 << n, dtype=torch.complex64, device=dev, generator=gen)
+        psi /= torch.linalg.vector_norm(psi)
+        obs = adapt.problem.observables
+        w = obs["H"].apply_scan(psi)
+        for call, a, owner in (("pool screen", w, adapt.packed_pool), ("H terms", psi, obs["H"]),
+                               ("S^2 terms", psi, obs["S^2"])):
+            xs, zs = owner._tensors(psi)[:2]
+            tiles = owner.groups()
+            routes = (("per-term", lambda: K.pauli_inner(a, psi, xs, zs)),
+                      ("tiles", lambda: K.pauli_inner_grouped(a, psi, xs, zs, tiles)))
+            ref = routes[0][1]()
+            scale = float(torch.linalg.vector_norm(a) * torch.linalg.vector_norm(psi))
+            for route, fn in routes[1:]:
+                err = inner_err(fn(), ref, scale)[0]
+                if err > STATE_RTOL:
+                    raise AssertionError(
+                        f"{label} {call}: {route} disagrees with per-term ({err:.2e})")
+            times = {route: [] for route, _ in routes}
+            for r in range(rounds):
+                for route, fn in routes:
+                    times[route].append(time_cuda(fn, reps=3, warmup=1 if r == 0 else 0))
+            ms = {route: sorted(t)[len(t) // 2] for route, t in times.items()}
+            rows.append(dict(lattice=label, n=n, call=call, ms=ms, tile_passes=len(tiles)))
+            log(f"  {label} (n={n}) {call:12s} per-term {ms['per-term']:8.4f} ms, tiles "
+                f"{ms['tiles']:8.4f} ms ({len(tiles)} passes)")
+
+
 def _device_kernels(prof):
     """(name, count, device us) of every device kernel in a profile."""
     from torch.autograd import DeviceType
@@ -1101,7 +1201,7 @@ def main():
     parser.add_argument("--routes", action="store_true",
                         help="time the per-term and the stream route at 18, 20 and 24 qubits")
     parser.add_argument("--tiles", action="store_true",
-                        help="time the 24-qubit tile-run kernels over other tile sizes")
+                        help="time the 24-qubit tile kernels over other tile shapes")
     args = parser.parse_args()
 
     if not os.path.isdir(os.path.join(HERE, "qsfh_torch")):
@@ -1152,6 +1252,8 @@ def main():
         adapt20 = build_adapt(dev, tmp, "routes20", CONFIG_20)
         phase_routes([("3x3", adapt, N_ANSATZ), ("2x5", adapt20, N_ANSATZ_24),
                       ("2x6", adapt24, N_ANSATZ_24)], dev, out)
+        log("inner-product kernels, CUDA events, median of 5 rounds:")
+        phase_inner_routes([("3x3", adapt), ("2x5", adapt20), ("2x6", adapt24)], dev, out)
         del adapt20
     if args.profile:
         profile_phase(adapt, N_ANSATZ, out["step_ms_median"], main["select_ms"], out, "3x3")
@@ -1176,6 +1278,10 @@ def main():
             library_ms=head["library_ms"], call=head["call"],
             launches_24q=main24["launches"][name],
         ))
+        if name == "pauli_apply":  # TPU kernel 9 at 24 qubits, with its CSR yardstick
+            e24 = kern24["pauli_apply"][0]
+            line[-1].update(ms_24q=e24["ms"], plain_ms_24q=e24["plain_ms"],
+                            bound_ms_24q=e24["bound_ms"], library_ms_24q=e24["library_ms"])
         if name == "pauli_rotation":  # with pauli_rotation_one, TPU kernel 12 (:571)
             one = single[24]["pauli_rotation_one"]
             line[-1]["one_term_24q"] = {k: one[k] for k in ("ms", "plain_ms", "bound_ms")}
@@ -1192,7 +1298,7 @@ def main():
             launches=main24["launches"][name],
             max_abs_err=max(e["max_abs_err"] for e in entries), ms=head["ms"],
             plain_ms=head["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            call=f"{call} (24 qubits)",
+            call=f"{call} (24 qubits)", passes=head.get("passes"),
         ))
     head = single[24]["xor_gather"]
     line.append(dict(

@@ -17,8 +17,8 @@
 // From 19 qubits on (a 24-qubit state is 128 MiB) every launch streams the
 // state from HBM, and the tile-run and grouped kernels organise the work
 // against it: runs of rotations chained in shared memory and registers over
-// tiles of chosen bits, one state pass per run, and inner products grouped
-// by flip mask, one pass per group.
+// tiles of chosen bits, one state pass per run, and inner products over
+// tiles of chosen bits, one pass per tile for every flip mask inside it.
 //
 // Plain C interface (loaded with ctypes by qsfh_torch/engine/kernels.py):
 // every entry point enqueues on the given stream, allocates nothing, and
@@ -33,10 +33,6 @@ constexpr int kThreads = 256;        // threads per block, every kernel
 constexpr int kInnerPerThread = 8;   // amplitudes per thread in pauli_inner
 constexpr int kApplyTile = 256;      // terms staged per shared-memory tile
 constexpr int kMaxGridY = 65535;
-constexpr int kGroupThreads = 256;    // threads per block, pauli_inner_grouped
-constexpr int kGroupAmps = 16;        // amplitudes per thread per batch (flat bits 8-11)
-constexpr int kGroupSpanBits = 14;    // amplitudes per pauli_inner_grouped block: 2^14
-constexpr int kMaxGroupTerms = 256;   // terms of one group per block: streaming.MAX_GROUP_TERMS
 constexpr size_t kMaxDynamicSmem = 232448;  // Hopper's opt-in shared memory per block
 
 // kParity4[m] bit k = popcount(k & m) & 1, for the 4-bit masks m
@@ -717,78 +713,256 @@ __global__ void xor_gather_kernel(const float4* __restrict__ psi, float4* __rest
 }
 
 // ---------------------------------------------------------------------------
-// pauli_inner_grouped: v_t = sum_b conj(a[b]) s_t(b) psi[b ^ x_t], with the
-// terms grouped by flip mask.
+// pauli_inner_grouped (pauli_inner_tiles_kernel): v_t = sum_b conj(a[b])
+// s_t(b) psi[b ^ x_t] for every term, over tiles of chosen bits.
 //
 // Replaces expectation_stream_pallas / _planes, expectation_stream_fused
 // and expectation_stream_fused_static (a = psi), and screen_stream_pallas /
 // screen_stream_planes (a = w) (qsfh_tpu/engine/pallas_kernels.py:1474,
-// :1522, :1581, :1596, :1714, :1804).  The grid is (b-range, group).  A
-// thread loads a[b] and psi[b ^ x] once per group for 16 amplitudes
-// b = base | k << 8 | tid (k = 0..15) and forms conj(a[b]) psi[b ^ x] once;
-// then for every z mask of the group (staged in shared memory) it adds the
-// sign-weighted products.  The sign splits over the disjoint bit fields:
-// parity((base | tid) & z) once per term, and the 16 signs of the k field
-// from the kParity4 table, applied as sign-bit flips.  Each warp sums its
-// lanes per term into shared memory; the block writes partials[t, block]
-// and reduce_partials_kernel writes out[order[t]] in a fixed order, so the
-// result is in input order and deterministic.  Bound: HBM, two state reads
-// per group (the pool's 684 groups instead of 6336 terms).
+// :1522, :1581, :1596, :1714, :1804).  The TPU kernels stream the state
+// once per flip mask: at 24 qubits the 684 masks of the pool are 684
+// passes of 256 MiB, 54.8 ms of HBM.  A mask of more than 4 bits fits no
+// item; the host sends its terms to pauli_inner (none in a Hubbard term
+// list: every term is at most 4 ladder operators).
+//
+// The host (streaming.GroupTiles) cuts the terms into items: terms with
+// one flip mask x and 4 bits J containing x on which alone their phase
+// masks differ (every term of a Hubbard pool generator, and the hopping
+// terms of H and S^2, differ only on x).  It covers the items' bits with
+// tiles: flat bit sets of k bits, the low c (rows of 2^c contiguous
+// amplitudes) and k - c chosen.  b and b ^ x lie in one tile, so one load
+// of the a tile and the psi tile into shared memory serves every item of
+// the tile: one pass of the state per tile (30 for the 2x6 pool).
+//
+// In a tile the slots of an item split by their bits on J into 16
+// buckets, and term t of the item is
+//     v_t = sum_j (-1)^popc(j & d_t) B[j],
+//     B[j] = sum over slots i in bucket j of s(i) conj(a[i]) psi[i ^ x],
+// with d_t the term's phase bits on J and s(i) the sign of the phase bits
+// the item's terms share (one parity per lane, chunk and tile position).
+// So a slot costs one complex product and one signed add, whatever the
+// number of terms, and the terms are formed once per block from the 16
+// sums.  A lane holds the 16 slots of one (lane bits, chunk bits) value,
+// which differ only in J; x's bits come first in J, so psi[i ^ x] is slot
+// j ^ (2^|x| - 1) of the same 16 (a static register permutation, one of 5
+// cases).  Shared memory is XOR-swizzled (streaming.INNER_SWIZZLE, passed
+// in `swizzle`), and the host picks each item's lane bits so that each
+// half-warp's 64-bit loads spread over all 32 banks.
+//
+// Grid (slice, tile): a block walks `positions` consecutive tile positions
+// (outer) of one tile.  At each position its 8 warps take the tile's items
+// in turn; after an item's chunks the warp folds its lanes' 16 sums into 16
+// (a reduce-scatter, 16 shuffles) and adds them to the item's sums in
+// shared memory.  At the end the block writes each term's signed sum of
+// its item's 16 values to partials[t, slice], and one reduce_partials pass
+// writes out[order[t]] in input order: no float atomics, a fixed order.
+// Bound at 24 qubits: shared-memory reads (16 bytes per slot and item when
+// a != psi, 8 when a = psi) and the HBM passes, one per tile.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kGroupThreads)
-pauli_inner_grouped_kernel(const float2* __restrict__ a,
-                           const float2* __restrict__ psi, uint32_t dim,
-                           const int32_t* __restrict__ gx,
-                           const int32_t* __restrict__ gstart,
-                           const int32_t* __restrict__ zs, int g0, int t0,
-                           float2* __restrict__ partials) {
-  __shared__ uint32_t sz[kMaxGroupTerms];
-  __shared__ float2 wacc[kGroupThreads / 32][kMaxGroupTerms];
-  const int g = g0 + static_cast<int>(blockIdx.y);
-  const uint32_t x = static_cast<uint32_t>(gx[g]);
-  const int ts = gstart[g];
-  const int nt = gstart[g + 1] - ts;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j = threadIdx.x; j < nt; j += blockDim.x) {
-    sz[j] = static_cast<uint32_t>(zs[ts + j]);
+
+constexpr int kInnerTileWarps = 8;
+constexpr int kInnerTileThreads = 32 * kInnerTileWarps;
+constexpr int kInnerTileMinBits = 9;       // 5 lane bits and the 4 bucket bits
+constexpr int kInnerTileMaxBits = 13;
+constexpr int kInnerTilePositions = 32;    // most tile positions per block
+constexpr int kItemCols = 16;              // a row of streaming.GroupTiles.item_cols
+
+// The shared-memory slot of tile slot t: t with the swizzle of its bits
+// from 4 up folded into its low 4 bits.
+__device__ __forceinline__ uint32_t inner_slot(uint32_t t, uint64_t swizzle) {
+  uint32_t v = t;
+  for (int b = 4; (t >> b) != 0u; ++b)
+    if ((t >> b) & 1u) v ^= static_cast<uint32_t>(swizzle >> (4 * (b - 4))) & 15u;
+  return v;
+}
+
+// One item at one tile position: this lane's share of the 16 bucket sums,
+// B[j] += s conj(a[i_j]) psi[i_j ^ x] over the item's chunks, where i_j is
+// the slot with this lane's lane bits, chunk bits ch and bucket bits j
+// (shared-memory slot base ^ jo[j]), psi[i_j ^ x] is slot j ^ XJ of the
+// same 16, and s = parity(l9 & zlc) ^ sign0 with l9 = lane | ch << 5.
+template <bool SAME, int XJ>
+__device__ __forceinline__ void inner_item(const float2* at, const float2* pt, uint32_t lane_off,
+                                           const uint32_t (&cc)[4], const uint32_t (&jo)[16],
+                                           int chunks, uint32_t lane, uint32_t zlc,
+                                           uint32_t sign0, float2 (&B)[16]) {
+  for (int ch = 0; ch < chunks; ++ch) {
+    const uint32_t base = lane_off ^ (ch & 1 ? cc[0] : 0u) ^ (ch & 2 ? cc[1] : 0u) ^
+                          (ch & 4 ? cc[2] : 0u) ^ (ch & 8 ? cc[3] : 0u);
+    const uint32_t l9 = lane | (static_cast<uint32_t>(ch) << 5);
+    const float s = __uint_as_float(0x3f800000u | (((__popc(l9 & zlc) ^ sign0) & 1u) << 31));
+    float2 av[16], pv[16];
 #pragma unroll
-    for (int w = 0; w < kGroupThreads / 32; ++w) wacc[w][j] = make_float2(0.0f, 0.0f);
-  }
-  __syncthreads();
-  const uint32_t span = 1u << kGroupSpanBits;
-  const uint32_t block_base = blockIdx.x * span;
-  for (uint32_t batch = 0; batch < span; batch += kGroupThreads * kGroupAmps) {
-    const uint32_t base = block_base + batch;  // flat bits 12 and up
-    if (base >= dim) break;                    // the same for the whole block
-    float2 prod[kGroupAmps];
-#pragma unroll
-    for (int k = 0; k < kGroupAmps; ++k) {
-      const uint32_t b = base | (static_cast<uint32_t>(k) << 8) | threadIdx.x;
-      prod[k] = b < dim ? cdot(a[b], psi[b ^ x]) : make_float2(0.0f, 0.0f);
+    for (int j = 0; j < 16; ++j) {
+      av[j] = at[base ^ jo[j]];
+      if (!SAME) pv[j] = pt[base ^ jo[j]];
     }
-    const uint32_t own = base | threadIdx.x;
-    for (int j = 0; j < nt; ++j) {
-      const uint32_t z = sz[j];
-      // bit k of `flips`: the parity of (own | k << 8) & z
-      const uint32_t odd = __popc(own & z) & 1u;
-      const uint32_t flips = kParity4[(z >> 8) & 15u] ^ (odd ? 0xffffu : 0u);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 u = av[j];
+      const float2 v = SAME ? av[j ^ XJ] : pv[j ^ XJ];
+      if (SAME && XJ == 0) {
+        B[j].x = fmaf(s, fmaf(u.x, u.x, u.y * u.y), B[j].x);
+      } else {
+        B[j].x = fmaf(s, fmaf(u.x, v.x, u.y * v.y), B[j].x);
+        B[j].y = fmaf(s, fmaf(u.x, v.y, -u.y * v.x), B[j].y);
+      }
+    }
+  }
+}
+
+// Halves the warp's bucket sums over one lane bit: a lane keeps the half
+// of B[0, 2H) that its lane bit selects, plus the partner's share of it.
+template <int H>
+__device__ __forceinline__ void fold_buckets(float2 (&B)[16], uint32_t lane) {
+  const bool up = (lane & (2u * H)) != 0u;
+#pragma unroll
+  for (int m = 0; m < H; ++m) {
+    const float2 lo = B[m], hi = B[m + H];
+    const float2 send = up ? lo : hi;
+    const float2 keep = up ? hi : lo;
+    B[m] = make_float2(keep.x + __shfl_xor_sync(0xffffffffu, send.x, 2 * H),
+                       keep.y + __shfl_xor_sync(0xffffffffu, send.y, 2 * H));
+  }
+}
+
+template <bool SAME>
+__global__ void __launch_bounds__(kInnerTileThreads, 2)
+pauli_inner_tiles_kernel(const float2* __restrict__ a, const float2* __restrict__ psi, int n,
+                         int k, int c, uint64_t swizzle, const int32_t* __restrict__ tile_mask,
+                         const int32_t* __restrict__ tile_items,
+                         const int32_t* __restrict__ item_cols,
+                         const int32_t* __restrict__ item_x, const int32_t* __restrict__ item_zlc,
+                         const int32_t* __restrict__ item_zout,
+                         const int32_t* __restrict__ item_start,
+                         const int32_t* __restrict__ term_d, int r0, int positions, int t_base,
+                         float2* __restrict__ partials) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int r = r0 + static_cast<int>(blockIdx.y);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const uint32_t lane = static_cast<uint32_t>(tid & 31);
+  const int i0 = tile_items[r], n_items = tile_items[r + 1] - i0;
+  float2* pt = reinterpret_cast<float2*>(smem);
+  float2* at = SAME ? pt : pt + (1u << k);
+  float2* acc = pt + (SAME ? 1u : 2u) * (1u << k);  // [item][bucket]
+  for (int e = tid; e < 16 * n_items; e += kInnerTileThreads) acc[e] = make_float2(0.0f, 0.0f);
+
+  // this thread copies the tile slots tid | m << 8: flat index
+  // outer | deposit(t >> c, hi) | (t & low) and shared slot inner_slot(t),
+  // both linear in t, so the parts of tid and of each bit of m are formed once
+  const uint32_t mask = static_cast<uint32_t>(tile_mask[r]);
+  const uint32_t low = (1u << c) - 1u;
+  const uint32_t hi = mask & ~low;
+  const uint32_t rest = ((1u << n) - 1u) & ~mask;
+  const uint32_t t0 = static_cast<uint32_t>(tid);
+  const uint32_t g0 = deposit(t0 >> c, hi) | (t0 & low), s0 = inner_slot(t0, swizzle);
+  uint32_t gb[5], sb[5];
+#pragma unroll
+  for (int b = 0; b < 5; ++b) {
+    const uint32_t t = 1u << (8 + b);
+    gb[b] = deposit(t >> c, hi) | (t & low);
+    sb[b] = inner_slot(t, swizzle);
+  }
+  const int copies = 1 << (k - 8);
+  const int chunks = 1 << (k - 9);
+  const uint32_t p0 = blockIdx.x * static_cast<uint32_t>(positions);
+  const uint32_t p1 = min(p0 + static_cast<uint32_t>(positions), 1u << (n - k));
+  for (uint32_t p = p0; p < p1; ++p) {
+    const uint32_t outer = deposit(p, rest);
+#pragma unroll
+    for (int m = 0; m < (1 << (kInnerTileMaxBits - 8)); ++m) {
+      if (m < copies) {
+        uint32_t g = outer | g0, sl = s0;
+#pragma unroll
+        for (int b = 0; b < 5; ++b) {
+          if ((m >> b) & 1) {
+            g ^= gb[b];
+            sl ^= sb[b];
+          }
+        }
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                         static_cast<uint32_t>(__cvta_generic_to_shared(pt + sl))),
+                     "l"(psi + g));
+        if (!SAME)
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                           static_cast<uint32_t>(__cvta_generic_to_shared(at + sl))),
+                       "l"(a + g));
+      }
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    for (int it = warp; it < n_items; it += kInnerTileWarps) {
+      const int item = i0 + it;
+      const int4* row = reinterpret_cast<const int4*>(item_cols + kItemCols * item);
+      const int4 q0 = __ldg(row), q1 = __ldg(row + 1), q2 = __ldg(row + 2), q3 = __ldg(row + 3);
+      // columns: lane bits 0-4, bucket bits 5-8, chunk bits 9-12
+      const uint32_t lc[5] = {static_cast<uint32_t>(q0.x), static_cast<uint32_t>(q0.y),
+                              static_cast<uint32_t>(q0.z), static_cast<uint32_t>(q0.w),
+                              static_cast<uint32_t>(q1.x)};
+      const uint32_t jc[4] = {static_cast<uint32_t>(q1.y), static_cast<uint32_t>(q1.z),
+                              static_cast<uint32_t>(q1.w), static_cast<uint32_t>(q2.x)};
+      const uint32_t cc[4] = {static_cast<uint32_t>(q2.y), static_cast<uint32_t>(q2.z),
+                              static_cast<uint32_t>(q2.w), static_cast<uint32_t>(q3.x)};
+      uint32_t lane_off = 0u;
+#pragma unroll
+      for (int b = 0; b < 5; ++b)
+        if ((lane >> b) & 1u) lane_off ^= lc[b];
+      uint32_t jo[16];
+      jo[0] = 0u;
+#pragma unroll
+      for (int j = 1; j < 16; ++j) jo[j] = jo[j & (j - 1)] ^ jc[j & 1 ? 0 : j & 2 ? 1 : j & 4 ? 2 : 3];
+      const uint32_t zlc = static_cast<uint32_t>(__ldg(item_zlc + item));
+      const uint32_t sign0 = __popc(outer & static_cast<uint32_t>(__ldg(item_zout + item))) & 1u;
+      float2 B[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) B[j] = make_float2(0.0f, 0.0f);
+      switch (__ldg(item_x + item)) {
+        case 0:
+          inner_item<SAME, 0>(at, pt, lane_off, cc, jo, chunks, lane, zlc, sign0, B);
+          break;
+        case 1:
+          inner_item<SAME, 1>(at, pt, lane_off, cc, jo, chunks, lane, zlc, sign0, B);
+          break;
+        case 3:
+          inner_item<SAME, 3>(at, pt, lane_off, cc, jo, chunks, lane, zlc, sign0, B);
+          break;
+        case 7:
+          inner_item<SAME, 7>(at, pt, lane_off, cc, jo, chunks, lane, zlc, sign0, B);
+          break;
+        default:
+          inner_item<SAME, 15>(at, pt, lane_off, cc, jo, chunks, lane, zlc, sign0, B);
+          break;
+      }
+      // lane l ends with the warp's sum of bucket l >> 1
+      fold_buckets<8>(B, lane);
+      fold_buckets<4>(B, lane);
+      fold_buckets<2>(B, lane);
+      fold_buckets<1>(B, lane);
+      const float2 v = make_float2(B[0].x + __shfl_xor_sync(0xffffffffu, B[0].x, 1),
+                                   B[0].y + __shfl_xor_sync(0xffffffffu, B[0].y, 1));
+      if ((lane & 1u) == 0u) {
+        float2& s = acc[16 * it + (lane >> 1)];
+        s = make_float2(s.x + v.x, s.y + v.y);
+      }
+    }
+    __syncthreads();
+  }
+  __syncthreads();  // acc complete (and zeroed, for a block with no position)
+  for (int it = warp; it < n_items; it += kInnerTileWarps) {
+    const float2* sums = acc + 16 * it;
+    for (int t = item_start[i0 + it] + static_cast<int>(lane); t < item_start[i0 + it + 1];
+         t += 32) {
+      const uint32_t d = static_cast<uint32_t>(term_d[t]);
       float2 v = make_float2(0.0f, 0.0f);
 #pragma unroll
-      for (int k = 0; k < kGroupAmps; ++k) {
-        const uint32_t sbit = (flips << (31 - k)) & 0x80000000u;
-        v.x += __uint_as_float(__float_as_uint(prod[k].x) ^ sbit);
-        v.y += __uint_as_float(__float_as_uint(prod[k].y) ^ sbit);
+      for (int j = 0; j < 16; ++j) {
+        const uint32_t sbit = (__popc(static_cast<uint32_t>(j) & d) & 1u) << 31;
+        v.x += flip_sign(sums[j].x, sbit);
+        v.y += flip_sign(sums[j].y, sbit);
       }
-      v = warp_sum(v);
-      if (lane == 0) wacc[warp][j] = cadd(wacc[warp][j], v);
+      partials[static_cast<size_t>(t - t_base) * gridDim.x + blockIdx.x] = v;
     }
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < nt; j += blockDim.x) {
-    float2 s = make_float2(0.0f, 0.0f);
-#pragma unroll
-    for (int w = 0; w < kGroupThreads / 32; ++w) s = cadd(s, wacc[w][j]);
-    partials[static_cast<size_t>(ts - t0 + j) * gridDim.x + blockIdx.x] = s;
   }
 }
 
@@ -811,8 +985,25 @@ inline cudaError_t reduce_partials(const float2* partials, int n_blocks, int n_t
   return cudaGetLastError();
 }
 
-inline unsigned group_blocks(int n) {
-  return blocks_for(1ull << n, 1ull << kGroupSpanBits);
+// Streaming multiprocessors of the current device (132 on an H100 SXM),
+// read once per device.
+inline int sm_count() {
+  static int cached[16] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 16) return 1;
+  if (cached[dev] == 0)
+    cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
+  return max(cached[dev], 1);
+}
+
+// Tile positions per block of pauli_inner_tiles_kernel: kInnerTilePositions,
+// halved while n_tiles tiles would give fewer than 8 blocks per SM.
+inline int inner_tile_positions(int n, int k, int n_tiles) {
+  const int all = 1 << (n - k);
+  const long long want = 8LL * sm_count();
+  int positions = min(kInnerTilePositions, all);
+  while (positions > 1 && static_cast<long long>(all / positions) * n_tiles < want) positions /= 2;
+  return positions;
 }
 
 // Allow `bytes` of dynamic shared memory for `kernel` (above 48 KB Hopper
@@ -927,9 +1118,6 @@ int qsfh_pauli_apply(const void* psi, void* out, int n, const void* xs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks per group of pauli_inner_grouped (the width of its partials).
-int qsfh_group_blocks(int n) { return static_cast<int>(group_blocks(n)); }
-
 // The tile runs [0, n_runs) of a streaming.TileRuns table, in place: one
 // launch per run, one block per tile.  run_start (n_runs + 1), run_mask
 // (n_runs) and run_group (n_runs + 1) are HOST arrays; code, z_tile, z_out,
@@ -1011,33 +1199,55 @@ int qsfh_xor_gather(const void* psi, void* out, int n, const void* mask_dev, int
                     void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   const uint32_t pairs = 1u << (n - 1);
-  const unsigned grid = min(blocks_for(pairs, kThreads), 132u * 16u);
+  const unsigned grid = min(blocks_for(pairs, kThreads), 16u * sm_count());
   xor_gather_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(psi), static_cast<float4*>(out), pairs,
       static_cast<const int64_t*>(mask_dev), static_cast<uint32_t>(mask));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Groups [g0, g0 + n_groups) of a flip-mask grouping: out[order[t]] =
-// sum_b conj(a[b]) s_t(b) psi[b ^ x_t] for the grouped terms
-// t in [t0, t0 + n_terms) = [gstart[g0], gstart[g0 + n_groups]).
-// partials: n_terms x qsfh_group_blocks(n) float2 scratch.
-int qsfh_pauli_inner_grouped(const void* a, const void* psi, int n, const void* gx,
-                             const void* gstart, const void* zs, const void* order,
-                             int g0, int n_groups, int t0, int n_terms,
-                             void* partials, void* out, void* stream) {
-  if (n_groups < 1 || n_groups > kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
+// Tile positions per block of the inner-product tile kernel (its
+// partials are n_terms x ceil(2^(n - k) / positions) float2).
+int qsfh_inner_tile_positions(int n, int k, int n_tiles) {
+  return inner_tile_positions(n, k, n_tiles);
+}
+
+// Tiles [r0, r0 + n_tiles) of a streaming.GroupTiles table (device
+// arrays): out[order[t]] = sum_b conj(a[b]) s_t(b) psi[b ^ x_t] for the
+// tile terms t in [t0, t0 + n_terms), the terms of those tiles;
+// most_items is the most items of one of those tiles, swizzle the packed
+// streaming.INNER_SWIZZLE (4 bits per tile bit from 4 up).  One launch,
+// then one reduce_partials pass.  partials: n_terms x ceil(2^(n - k) /
+// positions) float2 scratch.  a == psi loads one tile per position.
+int qsfh_pauli_inner_grouped(const void* a, const void* psi, int n, int k, int c,
+                             unsigned long long swizzle, const void* tile_mask,
+                             const void* tile_items, const void* item_cols, const void* item_x,
+                             const void* item_zlc, const void* item_zout, const void* item_start,
+                             const void* term_d, const void* order, int r0, int n_tiles, int t0,
+                             int n_terms, int most_items, int positions, void* partials,
+                             void* out, void* stream) {
+  if (k < kInnerTileMinBits || k > kInnerTileMaxBits || k > n || c < 1 || c > k ||
+      n_tiles < 1 || n_tiles > kMaxGridY || positions < 1 || most_items < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned nblk = group_blocks(n);
-  float2* part = static_cast<float2*>(partials);
-  pauli_inner_grouped_kernel<<<dim3(nblk, n_groups), kGroupThreads, 0, s>>>(
-      static_cast<const float2*>(a), static_cast<const float2*>(psi),
-      static_cast<uint32_t>(1u << n), static_cast<const int32_t*>(gx),
-      static_cast<const int32_t*>(gstart), static_cast<const int32_t*>(zs), g0, t0,
-      part);
-  const cudaError_t err = cudaGetLastError();
+  const bool same = a == psi;
+  const size_t smem = (same ? 1 : 2) * (sizeof(float2) << k) +
+                      static_cast<size_t>(most_items) * 16 * sizeof(float2);
+  const auto kernel = same ? pauli_inner_tiles_kernel<true> : pauli_inner_tiles_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(reduce_partials(part, static_cast<int>(nblk), n_terms,
+  const unsigned slices = ((1u << (n - k)) + positions - 1) / positions;
+  kernel<<<dim3(slices, n_tiles), kInnerTileThreads, smem, s>>>(
+      static_cast<const float2*>(a), static_cast<const float2*>(psi), n, k, c,
+      static_cast<uint64_t>(swizzle), static_cast<const int32_t*>(tile_mask),
+      static_cast<const int32_t*>(tile_items), static_cast<const int32_t*>(item_cols),
+      static_cast<const int32_t*>(item_x), static_cast<const int32_t*>(item_zlc),
+      static_cast<const int32_t*>(item_zout), static_cast<const int32_t*>(item_start),
+      static_cast<const int32_t*>(term_d), r0, positions, t0, static_cast<float2*>(partials));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(reduce_partials(static_cast<const float2*>(partials),
+                                          static_cast<int>(slices), n_terms,
                                           static_cast<float2*>(out), s,
                                           static_cast<const int32_t*>(order) + t0));
 }

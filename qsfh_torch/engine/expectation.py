@@ -12,11 +12,12 @@ w = U^dag H U psi, evaluated term by term with the ``pauli_inner`` kernel
 and summed per generator with ``index_add_``.
 
 Past ``streaming.INNER_CHAIN_MAX_QUBITS`` expectation values and
-screening take ``pauli_inner_grouped`` over the flip-mask grouping of the
-terms (built
-once, cached beside the term tensors), as the JAX package's stream route
-does (``qsfh_tpu/engine/expectation.py:240-274, 461-476``); its results
-come back in input term order, so nothing above the wrapper changes.
+screening take ``pauli_inner_grouped`` over the terms in items covered
+by tiles of chosen bits (``streaming.GroupTiles``, built once, cached
+beside the term tensors), where the JAX package's stream route passes the
+state once per flip mask (``qsfh_tpu/engine/expectation.py:240-274,
+461-476``); its results come back in input term order, so nothing above
+the wrapper changes.
 ``apply_scan`` keeps ``pauli_apply`` at every n: it writes each output
 amplitude once and reads psi[b ^ x] per term.
 """
@@ -37,15 +38,17 @@ from .state import qmask_to_bmask, real_dtype
 
 def _inner(impl, owner, a, psi, xs, zs):
     """v_t = <a | P_t psi> over ``owner``'s flat terms: per term up to the
-    inner chain cap, grouped by flip mask past it."""
+    inner chain cap, over tiles of flip masks past it."""
     if owner.n <= streaming.INNER_CHAIN_MAX_QUBITS:
         return impl.inner(a, psi, xs, zs)
     return impl.inner_grouped(a, psi, xs, zs, owner.groups())
 
 
-def _groups(cache: dict, arrays) -> streaming.GroupLayout:
+def _groups(cache: dict, arrays, n: int) -> streaming.GroupTiles:
     if "groups" not in cache:
-        cache["groups"] = streaming.GroupLayout(arrays[0], arrays[1])
+        cache["groups"] = streaming.GroupTiles(
+            arrays[0], arrays[1], n, streaming.INNER_TILE_BITS, streaming.INNER_TILE_LOW_BITS,
+            streaming.MAX_TILE_ITEMS)
     return cache["groups"]
 
 
@@ -98,9 +101,9 @@ class Observable:
     def _tensors(self, psi):
         return _device_terms(self._tensor_cache, self._scan_terms(), psi)
 
-    def groups(self) -> streaming.GroupLayout:
-        """The flip-mask grouping of the scan terms (built once)."""
-        return _groups(self._tensor_cache, self._scan_terms())
+    def groups(self) -> streaming.GroupTiles:
+        """The scan terms in items covered by tiles (built once)."""
+        return _groups(self._tensor_cache, self._scan_terms(), self.n)
 
     def expectation_scan(self, psi: torch.Tensor, impl=None) -> torch.Tensor:
         """Re <psi|op|psi> (a 0-d real tensor on psi's device)."""
@@ -184,9 +187,9 @@ class PackedPool:
             self._tensor_cache[kkey] = torch.as_tensor(arrays[4].astype(np.int64), device=psi.device)
         return xs, zs, c, self._tensor_cache[kkey]
 
-    def groups(self) -> streaming.GroupLayout:
-        """The flip-mask grouping of the scan arrays (built once)."""
-        return _groups(self._tensor_cache, self.scan_arrays())
+    def groups(self) -> streaming.GroupTiles:
+        """The scan arrays' terms in items covered by tiles (built once)."""
+        return _groups(self._tensor_cache, self.scan_arrays(), self.n)
 
     def screen_scan(self, psi: torch.Tensor, w: torch.Tensor, impl=None) -> torch.Tensor:
         """grad_k = 2 Im <w | G_k psi> for every generator ((size,) real)."""

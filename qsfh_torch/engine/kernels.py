@@ -20,8 +20,9 @@ wrapper                  replaces (``qsfh_tpu/engine/pallas_kernels.py``)
                          crossing :2246)
 ``adjoint_tile_runs``    ``adjoint_stream_pallas`` (:2142, local :2032,
                          crossing :2095)
-``pauli_inner_grouped``  ``expectation_stream_*`` (:1581, :1714, :1804)
-                         and ``screen_stream_pallas`` (:1474)
+``pauli_inner_grouped``  ``expectation_stream_*`` (:1581, :1596, :1714,
+                         :1804) and ``screen_stream_*`` (:1474, :1522):
+                         tiles of chosen bits, one pass per tile
 ``xor_gather``           ``xor_gather_pallas`` (:378)
 =======================  ==================================================
 
@@ -35,9 +36,10 @@ Every wrapper takes the plain version for a tensor on the CPU and launches
 its kernel for a tensor on a CUDA device, or raises: there is no fallback.
 Each wrapper keeps a plain-integer ``launches`` count of its kernel's
 launches: one per term for the two per-term rotations, one per run for the
-two tile-run kernels, one per call for ``xor_gather``, one per call (or per scratch-sized chunk) for
-``pauli_apply``, ``pauli_inner`` and ``pauli_inner_grouped`` (a second,
-partial-sum pass is not counted).  The ``*_plain`` functions compute the
+two tile-run kernels, one per call for ``xor_gather``, one per call (or per
+scratch-sized chunk) for ``pauli_apply``, ``pauli_inner``,
+and ``pauli_inner_grouped`` (a second, partial-sum pass is not
+counted).  The ``*_plain`` functions compute the
 same thing from an index gather ``psi[idx ^ x]`` and an XOR-folded
 popcount parity, on any device; the CPU tests hold them against the JAX
 package, and the chip smoke test holds every kernel against them on the
@@ -59,7 +61,7 @@ from typing import Callable
 import torch
 
 from .state import index_bits, parity_signs, real_dtype
-from .streaming import MAX_GROUP_TERMS
+from .streaming import INNER_SWIZZLE
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "statevec_kernels.cu")
@@ -79,6 +81,10 @@ SWEEP_PARTIALS_CAP = 1 << 23
 # tiles the tile-run kernels take: 2^(k - 4) threads, one warp to 512
 TILE_MIN_BITS = 9
 TILE_MAX_BITS = 13
+# tiles the inner-product tile kernel takes: 5 lane bits and 4 bucket bits
+# at least, two 64 KiB tiles at most
+INNER_TILE_MIN_BITS = 9
+INNER_TILE_MAX_BITS = 13
 
 _lock = threading.Lock()
 _lib = None
@@ -143,16 +149,17 @@ def _load():
         lib.qsfh_pauli_inner.argtypes = [p, p, i, p, p, i, p, p, p]
         lib.qsfh_pauli_apply.restype = i
         lib.qsfh_pauli_apply.argtypes = [p, p, i, p, p, p, p, i, p]
-        lib.qsfh_group_blocks.restype = i
-        lib.qsfh_group_blocks.argtypes = [i]
         lib.qsfh_rotation_tile_runs.restype = i
         lib.qsfh_rotation_tile_runs.argtypes = [p, i, i, i, i] + [p] * 12
         lib.qsfh_adjoint_tile_runs.restype = i
         lib.qsfh_adjoint_tile_runs.argtypes = [p, p, i, i, i, i] + [p] * 14
         lib.qsfh_xor_gather.restype = i
         lib.qsfh_xor_gather.argtypes = [p, p, i, p, i, p]
+        lib.qsfh_inner_tile_positions.restype = i
+        lib.qsfh_inner_tile_positions.argtypes = [i, i, i]
         lib.qsfh_pauli_inner_grouped.restype = i
-        lib.qsfh_pauli_inner_grouped.argtypes = [p, p, i, p, p, p, p, i, i, i, i, p, p, p]
+        lib.qsfh_pauli_inner_grouped.argtypes = ([p, p, i, i, i, ctypes.c_ulonglong] + [p] * 9
+                                                 + [i] * 6 + [p, p, p])
         _lib = lib
         return lib
 
@@ -569,51 +576,71 @@ def pauli_rotation_one_plain(psi, x, z, theta, phre, phim):
     return pauli_rotation_plain(psi.clone(), *_one_term(psi, x, z, theta, phre, phim))
 
 
-# -- pauli_inner_grouped -------------------------------------------------------------
+# -- pauli_inner_grouped ------------------------------------------------------------------
+
+
+def _check_group_tiles(xs, tiles, name: str):
+    """Raise unless the layout was built for these xs: every term's flip
+    mask inside its tile."""
+    if xs.shape[0] != tiles.n_terms:
+        raise ValueError(f"{name}: {xs.shape[0]} terms against a layout of {tiles.n_terms}")
+    if tiles.order.size:
+        idx = torch.as_tensor(tiles.order, device=xs.device)
+        mask = torch.as_tensor(tiles.term_mask().astype("int64"), device=xs.device)
+        if bool((xs[idx] & ~mask).any()):
+            raise ValueError(f"{name}: a flip mask leaves its tile")
 
 
 @_counted
-def pauli_inner_grouped(a, psi, xs, zs, layout):
-    """:func:`pauli_inner` with the terms grouped by flip mask: v in input
-    term order.  ``layout`` is the ``streaming.GroupLayout`` of (xs, zs);
-    a[b] and psi[b ^ x] are read once per group.  One launch per chunk of
-    groups whose partials fit ``PARTIALS_CAP``.
+def pauli_inner_grouped(a, psi, xs, zs, tiles):
+    """:func:`pauli_inner` over items of terms covered by tiles of chosen
+    bits: v in input term order.  ``tiles`` is the ``streaming.GroupTiles``
+    of (xs, zs); one state pass per tile serves every item inside it, one
+    launch per chunk of tiles whose partials fit ``PARTIALS_CAP`` (counted
+    here).  The terms of masks that fit no tile (``tiles.spill_index``)
+    take :func:`pauli_inner` (counted there).  The kernel reads the items
+    from the layout's tables; xs and zs serve the plain version.
     """
     if psi.device.type == "cpu" and a.device.type == "cpu":
-        return pauli_inner_grouped_plain(a, psi, xs, zs, layout)
-    n = _n_qubits(psi, "pauli_inner_grouped")
-    if _n_qubits(a, "pauli_inner_grouped") != n:
-        raise ValueError("pauli_inner_grouped: states of different sizes")
+        return pauli_inner_grouped_plain(a, psi, xs, zs, tiles)
+    name = "pauli_inner_grouped"
+    n = _n_qubits(psi, name)
+    if _n_qubits(a, name) != n:
+        raise ValueError(f"{name}: states of different sizes")
     T = xs.shape[0]
-    if T != int(layout.starts[-1]):
-        raise ValueError(f"pauli_inner_grouped: {T} terms against a layout of "
-                         f"{int(layout.starts[-1])}")
-    if layout.largest > MAX_GROUP_TERMS:  # the kernel stages one group in shared memory
-        raise ValueError(f"pauli_inner_grouped: a group of {layout.largest} terms, "
-                         f"the kernel takes {MAX_GROUP_TERMS}")
+    if T != tiles.n_terms:
+        raise ValueError(f"{name}: {T} terms against a layout of {tiles.n_terms}")
     out = torch.empty(T, dtype=torch.complex64, device=psi.device)
-    if T == 0:
-        return out
-    lib = _load()
-    width = lib.qsfh_group_blocks(n)
-    chunks = layout.chunks(max(1, PARTIALS_CAP // width))
-    gx, starts, gzs, order = layout.tensors(psi.device)
-    rows = max(int(layout.starts[g1] - layout.starts[g0]) for g0, g1 in chunks)
-    partials = torch.empty((rows, width), dtype=torch.complex64, device=psi.device)
-    for g0, g1 in chunks:
-        t0 = int(layout.starts[g0])
-        rc = lib.qsfh_pauli_inner_grouped(
-            a.data_ptr(), psi.data_ptr(), n, gx.data_ptr(), starts.data_ptr(),
-            gzs.data_ptr(), order.data_ptr(), g0, g1 - g0, t0,
-            int(layout.starts[g1]) - t0, partials.data_ptr(), out.data_ptr(), _stream())
-        _check(lib, rc, "pauli_inner_grouped")
-        pauli_inner_grouped.launches += 1
+    if tiles.n_tiles:
+        if not INNER_TILE_MIN_BITS <= tiles.k <= min(n, INNER_TILE_MAX_BITS) or not 1 <= tiles.c:
+            raise ValueError(f"{name}: tiles of {tiles.k} bits, {tiles.c} low; the kernel takes "
+                             f"{INNER_TILE_MIN_BITS} <= k <= min(n, {INNER_TILE_MAX_BITS}), c >= 1")
+        lib = _load()
+        positions = lib.qsfh_inner_tile_positions(n, tiles.k, tiles.n_tiles)
+        width = -(-(1 << (n - tiles.k)) // positions)
+        chunks = tiles.chunks(width, PARTIALS_CAP)
+        spans = [(tiles.tile_terms(r0)[0], tiles.tile_terms(r1 - 1)[1]) for r0, r1 in chunks]
+        partials = torch.empty((max(t1 - t0 for t0, t1 in spans), width),
+                               dtype=torch.complex64, device=psi.device)
+        tables = [t.data_ptr() for t in tiles.tensors(psi.device)]
+        swizzle = sum(v << (4 * b) for b, v in enumerate(INNER_SWIZZLE))
+        for (r0, r1), (t0, t1) in zip(chunks, spans):
+            rc = lib.qsfh_pauli_inner_grouped(
+                a.data_ptr(), psi.data_ptr(), n, tiles.k, tiles.c, swizzle, *tables, r0,
+                r1 - r0, t0, t1 - t0, tiles.most_items(r0, r1), positions, partials.data_ptr(),
+                out.data_ptr(), _stream())
+            _check(lib, rc, name)
+            pauli_inner_grouped.launches += 1
+    if tiles.spill_index.size:
+        idx = torch.as_tensor(tiles.spill_index, device=psi.device)
+        out[idx] = pauli_inner(a, psi, xs[idx], zs[idx])
     return out
 
 
-def pauli_inner_grouped_plain(a, psi, xs, zs, layout):
+def pauli_inner_grouped_plain(a, psi, xs, zs, tiles):
     """Plain version of :func:`pauli_inner_grouped`: :func:`pauli_inner_plain`
     in input order (any device)."""
+    _check_group_tiles(xs, tiles, "pauli_inner_grouped")
     return pauli_inner_plain(a, psi, xs, zs)
 
 

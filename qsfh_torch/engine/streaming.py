@@ -1,4 +1,4 @@
-"""Host layouts of the stream kernels: tile runs and flip-mask groups.
+"""Host layouts of the stream kernels: tile runs and inner-product tiles.
 
 Counterpart of the host side of the HBM-streaming kernels in
 ``qsfh_tpu/engine/pallas_kernels.py`` (``_order_runs`` :1030,
@@ -17,9 +17,14 @@ Past a cap on the qubit count the engine stops launching once per term:
   costs a pass of its own there; here only a term that fits no tile does
   (none at 24 qubits), and the per-term pair kernels take it;
 * above ``INNER_CHAIN_MAX_QUBITS``, expectation values and pool screening,
-  sums over terms, group the terms by flip mask (:func:`group_by_x`) and
-  ``pauli_inner_grouped`` reads the partner side once per group; results
-  come back in input term order.
+  sums over terms, cut the terms into items (one flip mask, phase masks
+  equal off ``REG_BITS`` bits) and cover the items with tiles of chosen
+  bits (:class:`GroupTiles`: the low ``INNER_TILE_LOW_BITS`` flat bits
+  plus bits chosen per tile, ``2^INNER_TILE_BITS`` amplitudes); one pass
+  of the state serves every item inside a tile (``pauli_inner_grouped``).
+  A term whose mask has more than ``REG_BITS`` bits takes the per-term
+  ``pauli_inner`` (none in a Hubbard term list).  Results come back in
+  input term order.
 
 Layouts are built once per segment, observable or pool (the engine caches
 them beside its term tensors).
@@ -27,6 +32,7 @@ them beside its term tensors).
 
 from __future__ import annotations
 
+from itertools import combinations
 from typing import List, Tuple
 
 import numpy as np
@@ -54,9 +60,25 @@ TILE_LOW_BITS = 4
 # chosen tile bits, in registers; terms per run, staged in shared memory.
 REG_BITS = 4
 MAX_RUN_TERMS = 256
-# Terms of one flip-mask group per kernel pass (the kernel stages their
-# z masks and per-warp sums in shared memory); larger groups are split.
-MAX_GROUP_TERMS = 256
+# Inner-product tiles: 2^INNER_TILE_BITS amplitudes, the low
+# INNER_TILE_LOW_BITS flat bits and the others chosen per tile so that the
+# bits of every item of the tile lie inside.  The kernel keeps 16 bucket
+# sums per item in shared memory (128 bytes); at most MAX_TILE_ITEMS items
+# per tile, and a mask with more items is cut into pieces.  Timed on the
+# 2x6 pool screen (chip_smoke.py --tiles, two runs, H100): 12 / 2 took
+# 9.70 and 9.74 ms (30 passes), 12 / 4 10.40 and 10.34 (46), 13 / 4 13.28
+# and 13.37 (31); caps of 16 and 32 items moved no shape by more than 0.5 ms.
+INNER_TILE_BITS = 12
+INNER_TILE_LOW_BITS = 2
+MAX_TILE_ITEMS = 128
+# XOR swizzle of an inner-product tile in shared memory: tile bit b >= 4
+# adds INNER_SWIZZLE[b - 4] to the slot's low 4 bits.  With the unit
+# vectors of bits 0-3 the columns are distinct nonzero 4-bit values, and a
+# plane of 4-bit values holds 7, so any 8 of 12 (9 of 13) columns span all
+# 16: whichever 4 bits an item takes for its buckets, 4 lane bits can be
+# found whose columns span them, and each half-warp's 64-bit loads then
+# spread over all 32 banks.
+INNER_SWIZZLE = (3, 5, 6, 9, 10, 12, 7, 11, 13)
 
 
 def order_runs(xs, local_bits: int) -> List[Tuple[int, List[int]]]:
@@ -258,11 +280,11 @@ class TileLayout:
         return self.n_runs + self.n_single
 
 
-def group_by_x(xs, max_terms: int = MAX_GROUP_TERMS):
+def group_by_x(xs, max_terms: int = 0):
     """Stable grouping of a term list by flip mask: ``(order, starts)``.
 
     Groups are ordered by the first appearance of their mask and keep
-    their terms in input order; a group larger than ``max_terms`` is split
+    their terms in input order; with ``max_terms``, a larger group is split
     into consecutive pieces with the same mask.  ``order[j]`` is the input
     index of the j-th grouped term, so grouped results land back in input
     order at ``out[order[j]]``; group g holds grouped terms
@@ -280,43 +302,223 @@ def group_by_x(xs, max_terms: int = MAX_GROUP_TERMS):
     return order, np.asarray(starts, np.int64)
 
 
-class GroupLayout:
-    """The flip-mask grouping of one term list (flip masks ``xs``, phase
-    masks ``zs``), as :func:`group_by_x` gives it."""
+def cover_masks(hi, counts, room: int, most: int):
+    """Greedy cover of mask pieces by tiles: ``[(bits, [piece ids])]``.
 
-    def __init__(self, xs, zs, max_terms: int = MAX_GROUP_TERMS):
-        self.order, self.starts = group_by_x(xs, max_terms)
-        self.gx = np.asarray(xs, np.int64)[self.order][self.starts[:-1]]
-        self.zs = np.asarray(zs, np.int64)[self.order]
-        self.largest = int(np.diff(self.starts).max(initial=0))
+    ``hi`` holds each piece's bits outside the tile's fixed low bits,
+    ``counts`` its weight (items); a tile has ``room`` chosen bits and at
+    most ``most`` weight.  A tile grows by the piece whose bits, joined to
+    the tile's, cover the most open pieces (then the fewest bits, then the
+    first piece), and takes every open piece inside its bits while the
+    weight allows.  Every piece must fit (at most ``room`` bits in ``hi``,
+    ``counts <= most``).
+    """
+    hi = np.asarray(hi, np.int64)
+    counts = np.asarray(counts, np.int64)
+    open_ = np.ones(hi.size, bool)
+    tiles = []
+    while open_.any():
+        bits, weight, members = 0, 0, []
+        while True:
+            cand = np.nonzero(open_ & (weight + counts <= most))[0]
+            joined = bits | hi[cand]
+            ok = np.bitwise_count(joined) <= room
+            cand, joined = cand[ok], joined[ok]
+            if not cand.size:
+                break
+            inside = (hi[open_][None, :] & ~joined[:, None]) == 0
+            best = np.lexsort((cand, np.bitwise_count(joined), -inside.sum(1)))[0]
+            bits = int(joined[best])
+            first = int(cand[best])
+            for p in [first] + [int(p) for p in np.nonzero(open_ & ((hi & ~bits) == 0))[0]]:
+                if open_[p] and weight + counts[p] <= most:
+                    weight += int(counts[p])
+                    open_[p] = False
+                    members.append(p)
+        tiles.append((bits, members))
+    return tiles
+
+
+def inner_column(b: int) -> int:
+    """Where tile bit ``b`` of an inner-product tile lands in shared memory:
+    slot t sits at the XOR of the columns of its set bits (the
+    ``INNER_SWIZZLE`` fold into the low 4 bits)."""
+    return (1 << b) ^ (INNER_SWIZZLE[b - 4] if b >= 4 else 0)
+
+
+def _rank4(values) -> int:
+    """Rank over GF(2) of 4-bit values."""
+    rows, rank = list(values), 0
+    for bit in (8, 4, 2, 1):
+        pivot = next((v for v in rows if v & bit), None)
+        if pivot is None:
+            continue
+        rows = [v ^ pivot if v & bit else v for v in rows if v != pivot]
+        rank += 1
+    return rank
+
+
+def _lanes(free: List[int]) -> Tuple[List[int], List[int]]:
+    """(lane bits, chunk bits) of an item from its free tile bits: lane
+    bits 0-3 with columns that span all 16 low-nibble values when the tile
+    allows (each half-warp's 64-bit loads then hit 16 distinct bank pairs,
+    the least wavefronts), then one more lane bit; the rest chunk bits,
+    ascending."""
+    nib = [inner_column(b) & 15 for b in free]
+    lanes = free[:5]
+    for pick in combinations(range(len(free)), 4):
+        if _rank4([nib[i] for i in pick]) == 4:
+            rest = [i for i in range(len(free)) if i not in pick]
+            lanes = [free[i] for i in pick] + [free[rest[0]]]
+            break
+    return lanes, [b for b in free if b not in lanes]
+
+
+def _item_bits(x: int, zs, n: int) -> int:
+    """The ``REG_BITS`` flat bits J of a flip mask x's items: x's bits, then
+    the bits that, added one by one, leave the fewest classes of phase
+    masks ``z & ~J`` (ties: the lowest bit)."""
+    J = x
+    while bin(J).count("1") < min(REG_BITS, n):
+        classes = [(np.unique(zs & ~(J | 1 << b)).size, b) for b in range(n) if not J >> b & 1]
+        J |= 1 << min(classes)[1]
+    return J
+
+
+class GroupTiles:
+    """The terms of a term list (flip masks ``xs``, phase masks ``zs``) in
+    items covered by tiles of chosen bits, in the tables the inner-product
+    tile kernel reads.
+
+    An item is a set of terms with one flip mask x and ``REG_BITS`` flat
+    bits J containing x (x's bits first, then pads, :func:`_item_bits`)
+    whose phase masks agree outside J.  Then for every slot pair (i, i ^ x)
+    of a tile the item's terms differ only in the sign (-1)^(d . j), j the
+    slot's bits on J and d the term's phase bits there, so the kernel sums
+    conj(a[i]) s(i) psi[i ^ x] into 16 buckets by j, s(i) the sign of the
+    common phase bits, and each term is a signed sum of the 16 buckets.
+
+    Tile ``r`` is the flat bit set ``tile_mask[r]``: the low ``c`` bits
+    and ``k - c`` bits chosen so that the J of each of its items lies
+    inside; tile coordinate bit b is the b-th lowest bit of the set.  Tile
+    r has items ``[tile_items[r], tile_items[r + 1])``; item i has
+    ``item_cols[i]`` (the shared-memory columns, :func:`inner_column`, of
+    its tile bits in kernel order: 5 lane bits, J, ``k - 9`` chunk bits),
+    ``item_x[i] = 2^|x| - 1`` (x in J's bits), ``item_zlc[i]`` (the common
+    phase bits on the lane and chunk bits, in kernel order), ``item_zout[i]
+    = z & ~tile_mask`` (one sign per tile position) and the tile terms
+    ``[item_start[i], item_start[i + 1])``.  Per tile term: ``term_d`` (its
+    phase bits on J) and ``order`` (its input index).  Each term lies in
+    exactly one item.
+
+    A mask with more than ``REG_BITS`` bits, or with J above the low ``c``
+    bits wider than ``k - c``, fits no tile: its terms (input indices
+    ``spill_index``, ascending) take the per-term kernel, one pass each.
+    """
+
+    def __init__(self, xs, zs, n: int, k: int, c: int, max_items: int = MAX_TILE_ITEMS):
+        k = min(k, n)
+        c = min(c, k)
+        self.k, self.c = k, c
+        xs, zs = np.asarray(xs, np.int64), np.asarray(zs, np.int64)
+        low = (1 << c) - 1
+        order, starts = group_by_x(xs)  # one group per flip mask
+        pieces, spill = [], []  # pieces: (x, J, [term index arrays, one per item])
+        for g in range(starts.size - 1):
+            idx = order[starts[g]:starts[g + 1]]
+            x = int(xs[idx[0]])
+            J = _item_bits(x, zs[idx], n) if bin(x).count("1") <= REG_BITS else -1
+            if J < 0 or bin(J & ~low).count("1") > k - c:
+                spill.append(idx)
+                continue
+            _, first, inv = np.unique(zs[idx] & ~J, return_index=True, return_inverse=True)
+            items = [idx[inv.reshape(-1) == u] for u in np.argsort(first)]
+            pieces.extend((x, J, items[i:i + max_items]) for i in range(0, len(items), max_items))
+        self.spill_index = np.sort(np.concatenate(spill + [np.zeros(0, np.int64)]))
+        tiles = cover_masks([J & ~low for _, J, _ in pieces], [len(it) for _, _, it in pieces],
+                            k - c, max_items)
+        tiles.sort(key=lambda t: -sum(len(pieces[p][2]) for p in t[1]))  # the heaviest first
+        tile_mask, tile_items, item_start = [], [0], [0]
+        item_cols, item_x, item_zlc, item_zout, term_d, t_order = [], [], [], [], [], []
+        for bits, members in tiles:
+            mask = _pad(low | bits, k, range(c, n))
+            pos = _positions(mask)
+            tile_mask.append(mask)
+            for x, J, items in (pieces[p] for p in members):
+                jt = sorted(pos.index(b) for b in _positions(x))
+                jt += sorted(pos.index(b) for b in _positions(J & ~x))
+                lanes, chunks = _lanes([b for b in range(k) if b not in jt])
+                l9 = lanes + chunks
+                cols = [inner_column(b) for b in lanes + jt + chunks]
+                for idx in items:
+                    zc = int(zs[idx[0]]) & ~J
+                    item_cols.append(cols + [0] * (16 - k))
+                    item_x.append((1 << bin(x).count("1")) - 1)
+                    item_zlc.append(int(pext([zc], [pos[b] for b in l9])[0]))
+                    item_zout.append(zc & ~mask)
+                    term_d.extend(pext(zs[idx], [pos[b] for b in jt]).tolist())
+                    t_order.extend(idx.tolist())
+                    item_start.append(len(t_order))
+            tile_items.append(len(item_x))
+        i32 = lambda a: np.asarray(a, np.int64).astype(np.int32).reshape(-1)  # noqa: E731
+        self.tile_mask, self.tile_items = i32(tile_mask), i32(tile_items)
+        self.item_start = i32(item_start)
+        self.item_cols = i32(item_cols).reshape(-1, 16)
+        self.item_x, self.item_zlc, self.item_zout = i32(item_x), i32(item_zlc), i32(item_zout)
+        self.term_d, self.order = i32(term_d), np.asarray(t_order, np.int64)
+        self.n_terms = int(xs.size)
         self._cache = {}
 
     def __len__(self):
-        """The number of groups (kernel passes)."""
-        return int(self.gx.size)
+        """State passes of one call: one per tile and per term of a mask
+        that fits no tile."""
+        return self.n_tiles + int(self.spill_index.size)
 
-    def chunks(self, max_terms: int):
-        """Consecutive group ranges ``[(g0, g1)]`` of at most ``max_terms``
-        terms (or one group) and 65535 groups each: one kernel launch each."""
-        key = ("chunks", max_terms)
+    @property
+    def n_tiles(self) -> int:
+        return int(self.tile_mask.size)
+
+    @property
+    def n_items(self) -> int:
+        return int(self.item_x.size)
+
+    def tile_terms(self, r: int) -> Tuple[int, int]:
+        """The tile terms ``[t0, t1)`` of tile ``r``."""
+        return (int(self.item_start[self.tile_items[r]]),
+                int(self.item_start[self.tile_items[r + 1]]))
+
+    def most_items(self, r0: int, r1: int) -> int:
+        """The most items of one tile among tiles ``[r0, r1)``."""
+        return int(np.diff(self.tile_items[r0:r1 + 1]).max(initial=0))
+
+    def chunks(self, width: int, cap: int):
+        """Consecutive tile ranges ``[(r0, r1)]`` whose (terms, width)
+        partials fit ``cap`` (or one tile): one kernel launch each."""
+        key = ("chunks", width, cap)
         if key not in self._cache:
-            out, g0 = [], 0
-            for g in range(1, len(self)):
-                if self.starts[g + 1] - self.starts[g0] > max_terms or g - g0 == 65535:
-                    out.append((g0, g))
-                    g0 = g
-            if len(self):
-                out.append((g0, len(self)))
+            out, r0 = [], 0
+            for r in range(1, self.n_tiles + 1):
+                last = r == self.n_tiles
+                if last or (self.tile_terms(r)[1] - self.tile_terms(r0)[0]) * width > cap:
+                    out.append((r0, r))
+                    r0 = r
             self._cache[key] = out
         return self._cache[key]
 
+    def term_mask(self) -> np.ndarray:
+        """The tile mask of each tile term."""
+        sizes = [t1 - t0 for t0, t1 in map(self.tile_terms, range(self.n_tiles))]
+        return np.repeat(self.tile_mask, sizes)
+
     def tensors(self, device):
-        """(gx, starts, zs in group order, order) as int32 tensors on
-        ``device``, built once per device."""
+        """(tile_mask, tile_items, item_cols, item_x, item_zlc, item_zout,
+        item_start, term_d, order) as int32 tensors on ``device``, built
+        once per device."""
         key = str(device)
         if key not in self._cache:
             self._cache[key] = tuple(
-                torch.as_tensor(a.astype(np.int32), device=device)
-                for a in (self.gx, self.starts, self.zs, self.order)
+                torch.as_tensor(np.ascontiguousarray(a).astype(np.int32), device=device)
+                for a in (self.tile_mask, self.tile_items, self.item_cols, self.item_x,
+                          self.item_zlc, self.item_zout, self.item_start, self.term_d, self.order)
             )
         return self._cache[key]

@@ -148,7 +148,7 @@ def _walk(layout, tile_fn, term_fn, args):
 
 
 @pytest.mark.parametrize("n,k,c", [(12, 9, 2), (20, 13, 5), (20, 12, 4)])
-def test_rotation_local_runs(dev, n, k, c):
+def test_rotation_tile_runs(dev, n, k, c):
     """rotation_tile_runs against its plain version (and the per-term
     kernel where a term fits no tile), one launch per run."""
     from qsfh_torch.engine.streaming import TileLayout
@@ -173,7 +173,7 @@ def test_rotation_local_runs(dev, n, k, c):
 
 
 @pytest.mark.parametrize("n,k,c", [(12, 9, 2), (20, 12, 5), (20, 13, 4)])
-def test_adjoint_local_runs(dev, n, k, c, monkeypatch):
+def test_adjoint_tile_runs(dev, n, k, c, monkeypatch):
     """adjoint_tile_runs against its plain version: the per-term vector,
     psi and lambda; a small sweep-partials cap at n = 12 splits the sweep
     into several partial-sum passes."""
@@ -224,25 +224,41 @@ def test_pauli_rotation_one(dev, n):
         assert _rel(got, ref) <= RTOL
 
 
-@pytest.mark.parametrize("n", [10, 20])
-def test_pauli_inner_grouped(dev, n, monkeypatch):
-    from qsfh_torch.engine.streaming import GroupLayout
+def _inner_terms(rng, n, T, wide):
+    """T terms on about 40 flip masks of 0-4 bits, one mask with 300 terms
+    (more than one tile takes), and ``wide`` terms on a mask of n - 2 bits
+    (it fits no tile)."""
+    masks = _tile_program(rng, n, 40)[0]
+    xs = rng.choice(masks, size=T)
+    xs[:300] = masks[1]
+    xs[rng.choice(np.arange(300, T), size=wide, replace=False)] = ((1 << n) - 1) ^ 0b101
+    return xs, rng.integers(0, 1 << n, size=T)
 
-    rng = np.random.default_rng(n + 6)
-    # a few flip masks, one of them with more terms than one group pass takes
-    xs = rng.choice(rng.integers(0, 1 << n, size=12), size=700)
-    xs[:300] = xs[0]
-    zs = rng.integers(0, 1 << n, size=700)
-    layout = GroupLayout(xs, zs)
+
+@pytest.mark.parametrize("n,k,c", [(12, 9, 2), (20, 12, 4), (20, 12, 2), (20, 13, 4)])
+def test_pauli_inner_grouped(dev, n, k, c, monkeypatch):
+    """The inner-product tile kernel against its plain version: masks that
+    fit a tile and masks that fit none (the per-term kernel), a = psi
+    (one tile load per position) and a != psi, and a small partials cap,
+    so that the tiles go in several launches."""
+    from qsfh_torch.engine.streaming import GroupTiles
+
+    rng = np.random.default_rng(n + k + 6)
+    xs, zs = _inner_terms(rng, n, 700, wide=5)
+    tiles = GroupTiles(xs, zs, n, k, c)
+    assert tiles.n_tiles > 1 and tiles.spill_index.size == 5
     psi = _t(_state(rng, n), dev, torch.complex64)
     w = _t(_state(rng, n), dev, torch.complex64)
     args = (_t(xs, dev, torch.int64), _t(zs, dev, torch.int64))
-    # small partials scratch: the groups go in several launches
-    monkeypatch.setattr(K, "PARTIALS_CAP", 64 * K._load().qsfh_group_blocks(n))
+    positions = K._load().qsfh_inner_tile_positions(n, k, tiles.n_tiles)
+    monkeypatch.setattr(K, "PARTIALS_CAP", 64 * -(-(1 << (n - k)) // positions))
     K.reset_launch_counts()
     for a in (psi, w):
-        got = K.pauli_inner_grouped(a, psi, *args, layout)
+        got = K.pauli_inner_grouped(a, psi, *args, tiles)
         ref = K.pauli_inner_plain(a, psi, *args)
         torch.cuda.synchronize()
         assert _rel(got, ref) <= RTOL
-    assert K.launch_counts()["pauli_inner_grouped"] > 2
+    counts = K.launch_counts()
+    assert counts["pauli_inner_grouped"] == 2 * len(tiles.chunks(
+        -(-(1 << (n - k)) // positions), K.PARTIALS_CAP)) > 2
+    assert counts["pauli_inner"] == 2 * len(K._chunks(5, K._load().qsfh_inner_blocks(n)))

@@ -141,26 +141,24 @@ def test_group_by_x_round_trips(segment_2x6, what):
 
 
 def test_grouped_layout_emulation_matches_plain():
-    """The grouped kernel's indexing, written out in torch at 8 qubits:
-    group g reads a[b] and psi[b ^ gx[g]] once and writes v to
-    out[order[t]] for its terms; chunks cover every group once."""
+    """The flip-mask grouping (``group_by_x``, which the inner-product
+    tiles cut into items), written out in torch at 8 qubits: group g forms
+    conj(a[b]) psi[b ^ x] once and writes a signed sum to out[order[t]]
+    for each of its terms."""
     rng = np.random.default_rng(1)
     n = 8
     xs = rng.choice(rng.integers(0, 1 << n, size=5), size=60)
     zs = rng.integers(0, 1 << n, size=60)
-    layout = streaming.GroupLayout(xs, zs, max_terms=7)
+    order, starts = streaming.group_by_x(xs, max_terms=7)
     a = torch.as_tensor(_state(rng, n))
     psi = torch.as_tensor(_state(rng, n))
     idx = index_bits(n)
     out = torch.zeros(60, dtype=psi.dtype)
-    chunks = layout.chunks(20)
-    assert [g for g0, g1 in chunks for g in range(g0, g1)] == list(range(len(layout)))
-    for g0, g1 in chunks:
-        for g in range(g0, g1):
-            prod = a.conj() * psi[idx ^ int(layout.gx[g])]
-            for t in range(layout.starts[g], layout.starts[g + 1]):
-                s = parity_signs(idx, int(layout.zs[t]), torch.float64)
-                out[layout.order[t]] = (s * prod).sum()
+    for g in range(len(starts) - 1):
+        prod = a.conj() * psi[idx ^ int(xs[order[starts[g]]])]
+        for t in order[starts[g]:starts[g + 1]]:
+            s = parity_signs(idx, int(zs[t]), torch.float64)
+            out[t] = (s * prod).sum()
     ref = K.pauli_inner_plain(a, psi, torch.as_tensor(xs), torch.as_tensor(zs))
     assert _rel(out.numpy(), ref.numpy()) <= 1e-12
 
