@@ -13,17 +13,26 @@ Phases (any failed check raises and the script exits nonzero):
    plain PyTorch version on the same inputs (||kernel - plain|| /
    ||plain|| <= 1e-5, float32 rounding), timed with CUDA events after
    warm-up, with its bound: max(bytes / 3.35 TB/s, float32 flops /
-   67 TFLOP/s), H100 SXM published peaks.
+   67 TFLOP/s), H100 SXM published peaks.  The resident kernels (the main
+   path's rotations and adjoint sweep, one launch per span of tile runs)
+   also on a grid of fewer blocks than a run has tiles, where they must
+   give the same bits, and twice on the same inputs (the adjoint: the same
+   bits), each timed beside the same runs as one launch each (the
+   tile-run kernels); then at n = 20 on the same terms (the chain cap's
+   other candidate).
 3. Main path: ``qsfh_torch.algos.adapt.ADAPT`` on the 3x3 Hubbard lattice
    (t=1, U=6, 5 up / 4 down, complex64 on cuda) with the exact 4-state
    ground manifold read from the committed cache: one operator selection
    from the empty ansatz, 5 train steps of the 12-operator ansatz
    (theta = 0.05, Adam lr 1e-2) and one short ``run()``, with every launch
-   counter set to 0 just before and read just after (no stream kernel runs
-   at 18 qubits).  The same selection and steps then run through the
-   plain versions on the card: energy, gnorm, Sz, S^2 and fidelity agree
-   at every step (``STEP_TOLERANCES``) and the selected operators match as
-   a set.
+   counter set to 0 just before and read just after each, the selection's
+   and the steps' counts held to the resident tile layouts (1 resident
+   rotation and 1 resident adjoint per step, 2 resident rotations per
+   selection, no per-term rotation, no stream kernel).  The same selection
+   and steps then run through the plain versions on the card: energy,
+   gnorm, Sz, S^2 and fidelity agree at every step (``STEP_TOLERANCES``),
+   the pool gradients within 1e-4 of max |grad|, and the selected
+   operators as a set (unless a tie sits within that tolerance).
 4. Kernels at n = 24 on the real 2x6 term arrays (the first 6 pool
    operators and the Givens network): the stream route (tile runs, the
    inner-product tiles) against the plain versions on the same inputs
@@ -49,14 +58,15 @@ Phases (any failed check raises and the script exits nonzero):
    index.
 7. A ``kernels`` JSON line, then the device JSON line, last.
 
-``--routes`` also times the per-term route against the stream route at
-18 (3x3), 20 (2x5) and 24 qubits (2x6), call by call and end to end, and
-the two inner-product kernels (per term, per tile) on the pool, H and
-S^2 at each size; ``--profile`` breaks a train step and a
-selection down by device kernel; ``--tiles`` times the 24-qubit tile-run
-kernels over other tile sizes (k, c) on the same segment, and the
-inner-product tile kernel over tile shapes and item caps on the pool, H
-and S^2.
+``--routes`` also times the per-term route, the resident route (at 18
+and 20 qubits) and the stream route at 18 (3x3), 20 (2x5) and 24 qubits
+(2x6), call by call and end to end, and the two inner-product kernels
+(per term, per tile) on the pool, H and S^2 at each size; ``--profile``
+breaks a train step and a selection down by device kernel; ``--tiles``
+times the resident kernels over other tile shapes on the 3x3 segment,
+the 24-qubit tile-run kernels over other tile sizes (k, c) on the 2x6
+segment, and the inner-product tile kernel over tile shapes and item
+caps on the pool, H and S^2.
 
 It imports nothing of JAX or of the JAX package ``qsfh_tpu``.
 """
@@ -65,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -105,11 +116,13 @@ REPLACES = {
     "adjoint_tile_runs": f"{TPU_KERNELS}:2142",
     "pauli_inner_grouped": f"{TPU_KERNELS}:1581,1596,1714,1804,1474,1522",
     "xor_gather": f"{TPU_KERNELS}:378",
+    "rotation_resident": f"{TPU_KERNELS}:482",
+    "adjoint_resident": f"{TPU_KERNELS}:826",
 }
 # the stream kernels, which run past the caps only (not at 18 qubits)
 NEW_KERNELS = ("rotation_tile_runs", "adjoint_tile_runs", "pauli_inner_grouped")
-# kernels that no main path launches: xor_gather (its TPU kernel had no caller)
-OFF_PATH = ("xor_gather",)
+# the resident kernels, the 18-qubit main path's rotations and adjoint sweep
+RESIDENT_KERNELS = ("rotation_resident", "adjoint_resident")
 # The least float32 arithmetic of each function, per amplitude.  Rule: a
 # complex multiply is 6 flops and a complex add 2; a factor of +-1 or +-i
 # (the parity sign, the phase (-i)^k) is a sign or a swap and costs
@@ -123,6 +136,8 @@ FLOPS_PER_TERM_AMP = {
     "adjoint_rotation": 20,
     "rotation_tile_runs": 6,
     "adjoint_tile_runs": 20,
+    "rotation_resident": 6,
+    "adjoint_resident": 20,
 }
 
 
@@ -173,7 +188,7 @@ STEP_TOLERANCES_24 = (
     ("S2", 1e-4, 1e-4),
     ("Sz", 0.0, 1e-4),
 )
-GRAD_RTOL_24 = 1e-4  # selection gradients, relative to max |grad|
+GRAD_RTOL = 1e-4  # selection gradients, relative to max |grad|, both sizes
 # the 2x5 lattice (20 qubits), for the route comparison of --routes only
 CONFIG_20 = dict(CONFIG_24, y_dimension=5, n_electrons=10, n_spin_up=5, n_spin_down=5)
 
@@ -269,7 +284,170 @@ def phase_card():
 # -- phase 2 ------------------------------------------------------------------------
 
 
-def phase_kernels(adapt, dev):
+def recorder(results, n):
+    """record(name, call, T, bytes, errs, ms, plain_ms, ...): one kernel
+    measurement at n qubits into ``results[name]``, logged, and held to
+    STATE_RTOL."""
+    dim = 1 << n
+
+    def record(name, call, T, bytes_moved, errs, ms, plain_ms, library_ms=None, flops=None):
+        flops = FLOPS_PER_TERM_AMP[name] * T * dim if flops is None else flops
+        b_ms, b_by = bound(bytes_moved, flops)
+        entry = dict(call=call, terms=T, n=n, rel_err=max(e[0] for e in errs),
+                     max_abs_err=max(e[1] for e in errs), ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                     bytes=bytes_moved, flops=flops)
+        results.setdefault(name, []).append(entry)
+        log(f"  {name:16s} {call:28s} T={T:5d} rel_err={entry['rel_err']:.2e} "
+            f"(tol {STATE_RTOL:g}) max_abs={entry['max_abs_err']:.2e} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} ({b_by})"
+            + ("" if library_ms is None else f" library_ms={library_ms:.4f}"))
+        if entry["rel_err"] > STATE_RTOL:
+            raise AssertionError(f"{name} ({call}) disagrees with its plain version")
+
+    return record
+
+
+def resident_span(seg, n, direction, k=None, c=None):
+    """The one span of tile runs of a segment's resident layout at n
+    qubits (the shipped shape unless k, c are given); raises if a term
+    fits no tile."""
+    from qsfh_torch.engine import streaming
+
+    k = streaming.RESIDENT_TILE_BITS if k is None else k
+    c = streaming.RESIDENT_TILE_LOW_BITS if c is None else c
+    layout = seg.tiles(direction, n, k, c)
+    if layout.n_single or len(layout.spans) != 1:
+        raise AssertionError(f"a term of the segment fits no resident tile of {k} bits, low {c}")
+    return layout.spans[0][0]
+
+
+def resident_checks(seg, n, calls, adj, psi, lam, record):
+    """The resident kernels on one segment's terms at n qubits, one launch
+    per call: ``rotation_resident`` over ``calls`` [(call, direction,
+    arrays)] and ``adjoint_resident`` over ``adj`` (the reversed arrays),
+    against the plain versions; again on a grid of a fifth of a run's
+    tiles (a block then takes five tiles a run), which must give the same
+    bits, and the adjoint twice on the same inputs (the same bits).  CUDA
+    events; returns the grids and the per-run launches' times
+    (:func:`per_launch_ms`)."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    dim = 1 << n
+    T = len(seg)
+    term_bytes = T * 20
+    grids, per_launch = {}, []
+    for call, direction, arrs in calls:
+        tiles = resident_span(seg, n, direction)
+        grid = K.resident_grid(psi, tiles, False)
+        few = max(1, (1 << (n - tiles.k)) // 5)
+        got = K.rotation_resident(psi.clone(), *arrs, tiles)
+        small = K.rotation_resident(psi.clone(), *arrs, tiles, blocks=few)
+        ref = K.rotation_resident_plain(psi.clone(), *arrs, tiles)
+        torch.cuda.synchronize()
+        if not torch.equal(small, got):
+            raise AssertionError(f"rotation_resident ({call}): {few} blocks give other bits")
+        buf = psi.clone()
+        ms = time_cuda(lambda: K.rotation_resident(buf, *arrs, tiles), reps=20)
+        plain_ms = time_cuda(lambda: K.rotation_resident_plain(buf, *arrs, tiles), reps=2,
+                             warmup=1)
+        log(f"  rotation_resident n={n} {call}: {len(tiles)} runs, {tiles.n_groups} register "
+            f"groups, tiles of {tiles.k} bits (low {tiles.c}), {grid} blocks; {few} blocks: "
+            f"the same bits; " + per_launch_ms(seg, n, direction, arrs, psi, None, ms, per_launch))
+        record("rotation_resident", call, T, 2 * 8 * dim + term_bytes,
+               [(rel_err(got, ref), max_abs(got, ref))], ms, plain_ms)
+        grids[call] = grid
+
+    tiles = resident_span(seg, n, -1)
+    grid = K.resident_grid(psi, tiles, True)
+    few = max(1, (1 << (n - tiles.k)) // 5)
+
+    def sweep(fn, **blocks):
+        p, l = psi.clone(), lam.clone()
+        return fn(p, l, *adj, tiles, **blocks), p, l
+
+    first, again = sweep(K.adjoint_resident), sweep(K.adjoint_resident)
+    small = sweep(K.adjoint_resident, blocks=few)
+    v_ref, p_ref, l_ref = sweep(K.adjoint_resident_plain)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for other in (again, small) for a, b in zip(first, other)):
+        raise AssertionError("adjoint_resident: two calls, or two grids, give other bits")
+    errs = [(rel_err(a, b), max_abs(a, b)) for a, b in zip(first, (v_ref, p_ref, l_ref))]
+    pb, lb = psi.clone(), lam.clone()
+    ms = time_cuda(lambda: K.adjoint_resident(pb, lb, *adj, tiles), reps=20)
+    plain_ms = time_cuda(lambda: K.adjoint_resident_plain(pb, lb, *adj, tiles), reps=2, warmup=1)
+    log(f"  adjoint_resident n={n}: {len(tiles)} runs, {tiles.n_groups} register groups, "
+        f"{grid} blocks; a second call and {few} blocks: the same bits; "
+        + per_launch_ms(seg, n, -1, adj, psi, lam, ms, per_launch))
+    record("adjoint_resident", "gradient sweep", T, 4 * 8 * dim + term_bytes + 8 * T, errs, ms,
+           plain_ms)
+    grids["gradient sweep"] = grid
+    return grids, per_launch
+
+
+def per_launch_ms(seg, n, direction, arrs, psi, lam, resident_ms, out):
+    """The same terms as one launch per tile run (``rotation_tile_runs``,
+    or ``adjoint_tile_runs`` with ``lam``), at the resident tile shape and
+    at the stream route's (CUDA events, ms per call) into ``out``; returns
+    a log fragment beside ``resident_ms``."""
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import streaming
+
+    parts = []
+    shapes = ((streaming.RESIDENT_TILE_BITS, streaming.RESIDENT_TILE_LOW_BITS),
+              (streaming.TILE_BITS, streaming.TILE_LOW_BITS))
+    for k, c in shapes:
+        tiles = resident_span(seg, n, direction, k, c)
+        p, l = psi.clone(), None if lam is None else lam.clone()
+        if lam is None:
+            ms = time_cuda(lambda: K.rotation_tile_runs(p, *arrs, tiles), reps=20)
+        else:
+            ms = time_cuda(lambda: K.adjoint_tile_runs(p, l, *arrs, tiles), reps=20)
+        what = "adjoint" if lam is not None else ("forward" if direction == 1 else "inverse")
+        out.append(dict(n=n, call=what, k=k, c=c, launches=len(tiles), ms=ms,
+                        resident_ms=resident_ms))
+        parts.append(f"{len(tiles)} launches of {k}/{c} tiles {ms:.4f} ms")
+    return "one launch per run: " + ", ".join(parts) + f" (resident {resident_ms:.4f} ms)"
+
+
+# (k, c) of the resident tiles that --tiles times on the 3x3 segment
+RESIDENT_TILE_SHAPES = ((10, 3), (10, 4), (11, 3), (11, 4), (12, 3), (12, 4), (13, 3), (13, 4))
+
+
+def sweep_resident_shapes(seg, n, psi, lam, rot, adj, ref, v_ref):
+    """The resident kernels on the 3x3 segment over other tile shapes (k
+    bits, the low c): ms per forward segment and adjoint sweep (CUDA
+    events, one launch each), runs, register groups and blocks, each held
+    to the plain results."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    rows = []
+    for k, c in RESIDENT_TILE_SHAPES:
+        fwd, back = resident_span(seg, n, 1, k, c), resident_span(seg, n, -1, k, c)
+        buf = psi.clone()
+        err = rel_err(K.rotation_resident(psi.clone(), *rot, fwd), ref)
+        ms = time_cuda(lambda: K.rotation_resident(buf, *rot, fwd), reps=10)
+        pb, lb = psi.clone(), lam.clone()
+        adj_err = rel_err(K.adjoint_resident(psi.clone(), lam.clone(), *adj, back), v_ref)
+        adj_ms = time_cuda(lambda: K.adjoint_resident(pb, lb, *adj, back), reps=10)
+        torch.cuda.synchronize()
+        if max(err, adj_err) > STATE_RTOL:
+            raise AssertionError(f"resident sweep k={k} c={c}: errors {err:.2e}, {adj_err:.2e}")
+        row = dict(k=k, c=c, ms=ms, adjoint_ms=adj_ms, runs=len(fwd), adjoint_runs=len(back),
+                   groups=fwd.n_groups, blocks=K.resident_grid(psi, fwd, False),
+                   adjoint_blocks=K.resident_grid(psi, back, True), rel_err=max(err, adj_err))
+        rows.append(row)
+        log(f"  resident tiles k={k} c={c}: forward {ms:.4f} ms ({row['runs']} runs, "
+            f"{row['blocks']} blocks), adjoint {adj_ms:.4f} ms ({row['adjoint_runs']} runs, "
+            f"{row['adjoint_blocks']} blocks), rel_err {row['rel_err']:.2e}")
+    return rows
+
+
+def phase_kernels(adapt, dev, sweep_tiles=False):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
 
@@ -304,22 +482,7 @@ def phase_kernels(adapt, dev):
         f"S^2 {len(s2_xs)}, pool {pool.size} generators / {len(pool_xs)} terms")
 
     results = {}
-
-    def record(name, call, T, bytes_moved, errs, ms, plain_ms, library_ms=None, flops=None):
-        flops = FLOPS_PER_TERM_AMP[name] * T * dim if flops is None else flops
-        b_ms, b_by = bound(bytes_moved, flops)
-        entry = dict(call=call, terms=T, n=n, rel_err=max(e[0] for e in errs),
-                     max_abs_err=max(e[1] for e in errs), ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                     bytes=bytes_moved, flops=flops)
-        results.setdefault(name, []).append(entry)
-        log(f"  {name:16s} {call:28s} T={T:5d} rel_err={entry['rel_err']:.2e} "
-            f"(tol {STATE_RTOL:g}) max_abs={entry['max_abs_err']:.2e} ms={ms:.4f} "
-            f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} ({b_by})"
-            + ("" if library_ms is None else f" library_ms={library_ms:.4f}"))
-        if entry["rel_err"] > STATE_RTOL:
-            raise AssertionError(f"{name} ({call}) disagrees with its plain version")
-
+    record = recorder(results, n)
     term_bytes_rot = T_rot * (4 + 4 + 4 + 4 + 4)
 
     # pauli_rotation: the forward segment and its inverse
@@ -382,6 +545,23 @@ def phase_kernels(adapt, dev):
     plain_ms = time_cuda(lambda: K.adjoint_rotation_plain(p2, l2, *adj), reps=2, warmup=1)
     record("adjoint_rotation", "gradient sweep", T_rot,
            4 * 8 * dim + term_bytes_rot + 8 * T_rot, errs, ms, plain_ms)
+
+    # the resident kernels, the main path's route: at 18 qubits, then on the
+    # same terms at 20 (the chain cap's other candidate: psi and lam 16 MiB)
+    calls = (("forward ansatz+network", 1, rot), ("inverse (reversed)", -1, rot_inv))
+    results["resident_grids"], results["per_launch"] = resident_checks(seg, n, calls, adj, psi,
+                                                                       lam, record)
+    psi20, lam20 = (torch.randn(1 << 20, dtype=torch.complex64, device=dev, generator=gen)
+                    for _ in range(2))
+    psi20 /= torch.linalg.vector_norm(psi20)
+    results["n20"] = {}
+    results["n20"]["grids"], results["n20"]["per_launch"] = resident_checks(
+        seg, 20, calls, adj, psi20, lam20, recorder(results["n20"], 20))
+    del psi20, lam20
+    if sweep_tiles:
+        ref = K.pauli_rotation_plain(psi.clone(), *rot)
+        v_ref = K.adjoint_rotation_plain(psi.clone(), lam.clone(), *adj)
+        results["resident_sweep"] = sweep_resident_shapes(seg, n, psi, lam, rot, adj, ref, v_ref)
     return results
 
 
@@ -573,6 +753,39 @@ def timed_select(adapt, label, calls=2):
     return selected, grads, times[-1]
 
 
+def resident_expected(adapt):
+    """Launches per selection from the empty ansatz (the Givens network
+    forward and inverse, H w, the pool screen) and per train step (the
+    bench segment forward and its adjoint sweep, H psi, E, Sz, S^2) at 18
+    qubits, from the resident tile layouts: one resident launch per span
+    of tile runs, one per-term launch per term that fits no tile."""
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import streaming
+    from qsfh_torch.engine.compiled import CompiledCircuit
+
+    n = adapt.n_qubits
+    net = CompiledCircuit(adapt._net_ops, n).segments[0]
+    seg = CompiledCircuit(adapt._ansatz_ops(range(N_ANSATZ)) + adapt._net_ops, n).segments[0]
+
+    def layout(s, direction):
+        return s.tiles(direction, n, streaming.RESIDENT_TILE_BITS,
+                       streaming.RESIDENT_TILE_LOW_BITS)
+
+    def spans(lay):
+        return sum(tiles is not None for tiles, _, _ in lay.spans)
+
+    sel = (layout(net, 1), layout(net, -1))
+    fwd, adj = layout(seg, 1), layout(seg, -1)
+    zero = dict.fromkeys(K.launch_counts(), 0)
+    per_select = dict(zero, rotation_resident=sum(map(spans, sel)),
+                      pauli_rotation=sum(lay.n_single for lay in sel), pauli_apply=1, pauli_inner=1)
+    per_step = dict(zero, rotation_resident=spans(fwd), adjoint_resident=spans(adj),
+                    pauli_rotation=fwd.n_single, adjoint_rotation=adj.n_single, pauli_apply=1,
+                    pauli_inner=3)
+    return per_select, per_step, dict(forward=fwd.n_runs, adjoint=adj.n_runs,
+                                      network=[lay.n_runs for lay in sel])
+
+
 def phase_main_path(adapt, dev, tmp):
     import torch
 
@@ -581,16 +794,36 @@ def phase_main_path(adapt, dev, tmp):
     if adapt.dtype != torch.complex64:
         raise AssertionError(f"expected complex64 on cuda, got {adapt.dtype}")
     results = {}
+    per_select, per_step, runs = resident_expected(adapt)
+    if (per_select["rotation_resident"], per_step["rotation_resident"],
+            per_step["adjoint_resident"]) != (2, 1, 1) or per_select["pauli_rotation"] or \
+            per_step["pauli_rotation"] or per_step["adjoint_rotation"]:
+        raise AssertionError(f"a 3x3 term fits no resident tile: {per_select}, {per_step}")
     K.reset_launch_counts()
     selected, grads, results["select_ms"] = timed_select(adapt, "kernels")
+    select_counts = K.launch_counts()
+    K.reset_launch_counts()
     results["steps"] = bench_steps(adapt, dev)
+    step_counts = K.launch_counts()
     check_steps(results["steps"], CONFIG["n_spin_up"], CONFIG["n_spin_down"], "kernels")
+    log(f"  launches: 2 selections {select_counts}; {N_STEPS} steps {step_counts}")
+    for what, got, per, times in (("selection", select_counts, per_select, 2),
+                                  ("train step", step_counts, per_step, N_STEPS)):
+        want = {name: times * v for name, v in per.items()}
+        if got != want:
+            raise AssertionError(f"{what} launches {got}, the resident layouts predict {want}")
+    log(f"  launches match the resident layouts: per step 1 rotation_resident ({runs['forward']} "
+        f"runs) + 1 adjoint_resident ({runs['adjoint']} runs), per selection 2 "
+        f"rotation_resident ({runs['network']} runs), no per-term rotation")
+    results.update(launches_per_select=per_select, launches_per_step=per_step, runs=runs)
 
     run_adapt = build_adapt(dev, tmp, "run", max_inner_iterations=3)
+    K.reset_launch_counts()
     t0 = time.perf_counter()
     res = run_adapt.run()
     torch.cuda.synchronize()
     results["run_s"] = time.perf_counter() - t0
+    run_counts = K.launch_counts()
     losses = res["iteration loss"]
     if len(losses) != 3 or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"run(): expected 3 finite losses, got {losses}")
@@ -598,14 +831,16 @@ def phase_main_path(adapt, dev, tmp):
         raise AssertionError("run() selected other operators than select_operator()")
     if not os.path.exists(run_adapt.model_filepath):
         raise AssertionError("run() wrote no checkpoint")
-    counts = K.launch_counts()
+    counts = {name: select_counts[name] + step_counts[name] + run_counts[name]
+              for name in run_counts}
     results["launches"] = counts
     log(f"  run(): {len(run_adapt.selected_indices)} operators, losses {losses}, "
-        f"{results['run_s']:.2f} s")
+        f"{results['run_s']:.2f} s, launches {run_counts}")
     log(f"  launches on the main path: {counts}")
-    for name, c in counts.items():
-        if (c > 0) == (name in NEW_KERNELS + OFF_PATH):
-            raise AssertionError(f"{name}: {c} launches on the 18-qubit main path")
+    on_path = RESIDENT_KERNELS + ("pauli_apply", "pauli_inner")
+    for name, c in run_counts.items():
+        if (c > 0) != (name in on_path):
+            raise AssertionError(f"{name}: {c} launches in the 18-qubit run()")
 
     # the same selection and steps through the plain versions on the card
     plain = build_adapt(dev, tmp, "plain")
@@ -616,9 +851,8 @@ def phase_main_path(adapt, dev, tmp):
     check_steps(results["plain_steps"], CONFIG["n_spin_up"], CONFIG["n_spin_down"], "plain")
     if any(K.launch_counts().values()):
         raise AssertionError("the plain path launched a CUDA kernel")
-    if set(plain_selected) != set(selected):
-        raise AssertionError(f"selection differs: {sorted(selected)} vs {sorted(plain_selected)}")
-    log("  plain path: same operators")
+    check_selection(empty_ansatz_gradients(adapt), empty_ansatz_gradients(plain), selected,
+                    plain_selected)
     compare_steps(results["steps"], results["plain_steps"], STEP_TOLERANCES)
     return results
 
@@ -627,24 +861,46 @@ def phase_main_path(adapt, dev, tmp):
 
 
 @contextlib.contextmanager
-def chain_cap(cap):
-    """The engine with its chain caps set to ``cap``: per-term launches up
-    to ``cap`` qubits, the stream route above."""
+def chain_cap(cap, inner_cap):
+    """The engine with its rotation cap set to ``cap`` and its
+    inner-product cap to ``inner_cap`` (None keeps a cap): the resident
+    rotations and per-term inner products up to them, the stream route
+    above."""
     from qsfh_torch.engine import streaming
 
     saved = streaming.CHAIN_MAX_QUBITS, streaming.INNER_CHAIN_MAX_QUBITS
-    streaming.CHAIN_MAX_QUBITS = streaming.INNER_CHAIN_MAX_QUBITS = cap
+    if cap is not None:
+        streaming.CHAIN_MAX_QUBITS = cap
+    if inner_cap is not None:
+        streaming.INNER_CHAIN_MAX_QUBITS = inner_cap
     try:
         yield
     finally:
         streaming.CHAIN_MAX_QUBITS, streaming.INNER_CHAIN_MAX_QUBITS = saved
 
 
-def per_term_route():
-    """The old route of one per-term launch at every n."""
+def per_term_impl():
+    """The engine's kernels with the per-term rotation and adjoint in place
+    of the resident ones: the route of one launch per term (PR 1's) up to
+    the chain cap, on the same spans."""
     from qsfh_torch.engine import kernels as K
 
-    return chain_cap(K.MAX_QUBITS)
+    def rotation(psi, xs, zs, angles, phre, phim, tiles):
+        return K.pauli_rotation(psi, xs, zs, angles, phre, phim)
+
+    def adjoint(psi, lam, xs, zs, angles, phre, phim, tiles):
+        return K.adjoint_rotation(psi, lam, xs, zs, angles, phre, phim)
+
+    return dataclasses.replace(K.KERNELS, rotation_resident=rotation, adjoint_resident=adjoint)
+
+
+@contextlib.contextmanager
+def per_term_route():
+    """The old route of one per-term launch at every n: yields the Impl."""
+    from qsfh_torch.engine import kernels as K
+
+    with chain_cap(K.MAX_QUBITS, K.MAX_QUBITS):
+        yield per_term_impl()
 
 
 def tilted_state(v, n):
@@ -750,9 +1006,9 @@ def phase_kernels_24(adapt, dev, sweep_tiles=False):
         route = lambda impl: run_segments([seg], psi, thetas, n, direction=direction, impl=impl)
         got, launches = launches_of(lambda: route(K.KERNELS))
         plain_ms, refs[direction] = timed_once(lambda: route(K.PLAIN))
-        with per_term_route():
-            old = route(K.KERNELS)
-            old_ms = time_cuda(lambda: route(K.KERNELS), reps=2, warmup=0)
+        with per_term_route() as per_term:
+            old = route(per_term)
+            old_ms = time_cuda(lambda: route(per_term), reps=2, warmup=0)
         errs = errs_of([(got, refs[direction]), (old, refs[direction])])
         ms = time_cuda(lambda: route(K.KERNELS), reps=5, warmup=1)
         record("rotation_tile_runs", call, T, 2 * 8 * dim + term_bytes, errs, ms, plain_ms,
@@ -786,9 +1042,9 @@ def phase_kernels_24(adapt, dev, sweep_tiles=False):
 
     (v, p1, l1), launches = launches_of(lambda: sweep(K.KERNELS))
     plain_ms, (v_ref, p_ref, l_ref) = timed_once(lambda: sweep(K.PLAIN))
-    with per_term_route():
-        v_old, p_old, l_old = sweep(K.KERNELS)
-        old_ms = time_cuda(lambda: sweep(K.KERNELS), reps=2, warmup=0)
+    with per_term_route() as per_term:
+        v_old, p_old, l_old = sweep(per_term)
+        old_ms = time_cuda(lambda: sweep(per_term), reps=2, warmup=0)
     errs = errs_of([(v, v_ref), (p1, p_ref), (l1, l_ref), (v_old, v_ref), (p_old, p_ref)])
     ms = time_cuda(lambda: sweep(K.KERNELS), reps=5, warmup=1)
     record("adjoint_tile_runs", "adjoint sweep (stream route)", T,
@@ -936,11 +1192,11 @@ def empty_ansatz_gradients(adapt):
 
 
 def check_selection(grads, plain_grads, selected, plain_selected):
-    """Gradients within GRAD_RTOL_24 of max |grad|; the same selected set
+    """Gradients within GRAD_RTOL of max |grad|; the same selected set
     unless the gap at the selection boundary is within that tolerance."""
     import numpy as np
 
-    tol = GRAD_RTOL_24 * float(np.abs(plain_grads).max())
+    tol = GRAD_RTOL * float(np.abs(plain_grads).max())
     diff = float(np.abs(grads - plain_grads).max())
     log(f"  selection gradients: max |kernel - plain| = {diff:.3e} (tol {tol:.3e})")
     if diff > tol:
@@ -1004,6 +1260,8 @@ def phase_main_path_24(adapt, dev, tmp):
         pauli_apply=2 + N_STEPS,
         pauli_inner=0,
         xor_gather=0,
+        rotation_resident=0,
+        adjoint_resident=0,
     )
     if counts != expected:
         raise AssertionError(f"24-qubit launches {counts}, the layouts predict {expected}")
@@ -1036,12 +1294,27 @@ def phase_main_path_24(adapt, dev, tmp):
     return results
 
 
+def built_for(adapt, impl, indices):
+    """(train step, selection from the empty ansatz) of ``adapt`` built on
+    ``impl`` (the driver takes its Impl when it builds them)."""
+    saved = adapt.impl, adapt._screen_cache
+    adapt.impl, adapt._screen_cache = impl, {}
+    try:
+        return adapt._build_step(indices), adapt._screen_for(())
+    finally:
+        adapt.impl, adapt._screen_cache = saved
+
+
 def phase_routes(cases, dev, out, rounds=15):
-    """The per-term route against the stream route at each size, in one
-    process: each call family of a train step and a selection, then the
-    whole step and selection.  The two routes and the engine's own caps
-    (``streaming``) take turns, one call each per round, so a slow spell
-    of the shared host falls on all three; host-clock ms per call, each
+    """The routes at each size, in one process: each call family of a
+    train step and a selection, then the whole step and selection.  The
+    per-term route (one launch per rotation term, per-term inner
+    products), the resident route (one launch per span, at 18 and 20
+    qubits; inner products as the engine's cap has them), the stream
+    route (one launch per tile run, inner tiles) and the engine's own caps
+    (``streaming``) take turns, one call each per round and each round
+    starting one route later, so a slow spell of the shared host, or the
+    card's state after a route, falls on all of them; host-clock ms per call, each
     ended by a device sync, median and least over ``rounds`` rounds after
     two warm-up rounds."""
     import torch
@@ -1059,37 +1332,46 @@ def phase_routes(cases, dev, out, rounds=15):
         lam = 2.0 * obs["H"].apply_scan(psi)
         params = thetas.clone()
         optimizer = torch.optim.Adam([params], lr=1e-2)
-        step = adapt._build_step(tuple(range(n_ansatz)))
-        select = adapt._screen_for(())
+        # (route, chain cap, inner-product cap, Impl); a cap of None keeps the engine's
+        routes = [("per-term", K.MAX_QUBITS, K.MAX_QUBITS, per_term_impl()),
+                  ("resident", K.MAX_QUBITS, None, K.KERNELS),
+                  ("stream", n - 1, n - 1, K.KERNELS), ("caps", None, None, K.KERNELS)]
+        if n > 20:
+            routes = [r for r in routes if r[0] != "resident"]
+        built = {route: built_for(adapt, impl, tuple(range(n_ansatz)))
+                 for route, _, _, impl in routes}
+        impls = {route: impl for route, _, _, impl in routes}
         calls = (
-            ("forward segment", lambda: run_segments([seg], psi, thetas, n)),
-            ("adjoint sweep", lambda: run_rot_adjoint(seg, psi, lam, thetas, n)),
-            ("E, Sz, S^2", lambda: [obs[k].expectation_scan(psi) for k in ("H", "Sz", "S^2")]),
-            ("pool screen", lambda: adapt.packed_pool.screen_scan(psi, lam)),
-            ("train step", lambda: step(params, optimizer)),
-            ("selection", lambda: select(params[:0])),
+            ("forward segment", lambda r: run_segments([seg], psi, thetas, n, impl=impls[r])),
+            ("adjoint sweep", lambda r: run_rot_adjoint(seg, psi, lam, thetas, n, impl=impls[r])),
+            ("E, Sz, S^2", lambda r: [obs[k].expectation_scan(psi, impl=impls[r])
+                                      for k in ("H", "Sz", "S^2")]),
+            ("pool screen", lambda r: adapt.packed_pool.screen_scan(psi, lam, impl=impls[r])),
+            ("train step", lambda r: built[r][0](params, optimizer)),
+            ("selection", lambda r: built[r][1](params[:0])),
         )
-        routes = (("per-term", K.MAX_QUBITS), ("stream", n - 1), ("caps", None))
         for call, fn in calls:
-            times = {route: [] for route, _ in routes}
+            times = {route[0]: [] for route in routes}
             for r in range(rounds + 2):
-                for route, cap in routes:
-                    with contextlib.nullcontext() if cap is None else chain_cap(cap):
+                # each round starts one route later: no route always follows the same one
+                for route, cap, inner_cap, _ in routes[r % len(routes):] + routes[:r % len(routes)]:
+                    with chain_cap(cap, inner_cap):
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
-                        fn()
+                        fn(route)
                         torch.cuda.synchronize()
                     if r >= 2:
                         times[route].append(1e3 * (time.perf_counter() - t0))
             ms = {route: sorted(t)[len(t) // 2] for route, t in times.items()}
             least = {route: min(t) for route, t in times.items()}
-            for route, _ in routes:
+            for route in times:
                 rows.append(dict(lattice=label, n=n, call=call, route=route, ms=ms[route],
                                  least_ms=least[route]))
-            log(f"  {label} (n={n}) {call:16s} per-term {ms['per-term']:9.3f} "
-                f"({least['per-term']:9.3f}) ms, stream {ms['stream']:9.3f} "
-                f"({least['stream']:9.3f}) ms, stream / per-term "
-                f"{ms['stream'] / ms['per-term']:.3f}, the engine's caps {ms['caps']:9.3f} ms")
+            log(f"  {label} (n={n}) {call:16s} " + ", ".join(
+                f"{route} {ms[route]:9.3f} ({least[route]:9.3f})" for route in times)
+                + f" ms; stream / per-term {ms['stream'] / ms['per-term']:.3f}"
+                + ("" if "resident" not in ms else
+                   f", resident / per-term {ms['resident'] / ms['per-term']:.3f}"))
 
 
 def phase_inner_routes(cases, dev, out, rounds=5):
@@ -1199,9 +1481,9 @@ def main():
     parser.add_argument("--profile", action="store_true",
                         help="profile 2 train steps and 1 selection at each size")
     parser.add_argument("--routes", action="store_true",
-                        help="time the per-term and the stream route at 18, 20 and 24 qubits")
+                        help="time the per-term, resident and stream routes at 18-24 qubits")
     parser.add_argument("--tiles", action="store_true",
-                        help="time the 24-qubit tile kernels over other tile shapes")
+                        help="time the resident and tile kernels over other tile shapes")
     args = parser.parse_args()
 
     if not os.path.isdir(os.path.join(HERE, "qsfh_torch")):
@@ -1222,7 +1504,7 @@ def main():
     tmp = tempfile.mkdtemp(prefix="qsfh_torch_smoke_")
     adapt = build_adapt(dev, tmp, "kernels")
     log("kernels at the main path's shapes (CUDA events, ms per call):")
-    kern = phase_kernels(adapt, dev)
+    kern = phase_kernels(adapt, dev, args.tiles)
     log("main path:")
     main = phase_main_path(adapt, dev, tmp)
     out = dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi, kernels=kern,
@@ -1285,6 +1567,21 @@ def main():
         if name == "pauli_rotation":  # with pauli_rotation_one, TPU kernel 12 (:571)
             one = single[24]["pauli_rotation_one"]
             line[-1]["one_term_24q"] = {k: one[k] for k in ("ms", "plain_ms", "bound_ms")}
+    for name in RESIDENT_KERNELS:  # the 18-qubit main path's rotations and adjoint sweep
+        entries = kern[name]
+        head = max(entries, key=lambda e: e["terms"])
+        e20 = max(kern["n20"][name], key=lambda e: e["terms"])
+        line.append(dict(
+            name=name, route="cuda", source=source, replaces=REPLACES[name],
+            launches=main["launches"][name],
+            max_abs_err=max(e["max_abs_err"] for e in entries + kern["n20"][name]),
+            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=None, call=head["call"],
+            launches_per_step=main["launches_per_step"][name],
+            launches_per_selection=main["launches_per_select"][name],
+            launches_24q=main24["launches"][name],
+            ms_20q=e20["ms"], plain_ms_20q=e20["plain_ms"], bound_ms_20q=e20["bound_ms"],
+        ))
     for name in NEW_KERNELS:
         entries = kern24[name]
         if name in alone24:  # the run kernels' own launches over one segment

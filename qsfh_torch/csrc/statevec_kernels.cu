@@ -13,7 +13,9 @@
 // because Mosaic has no gather; here psi[b ^ x] is a plain load and the
 // parity is __popc.  An 18-qubit state is 2 MiB and stays in the 50 MB L2
 // across launches, so the simple one-launch-per-term designs of the first
-// four kernels are bound by launch latency and L2 bandwidth, not by HBM.
+// four kernels are bound by launch latency and L2 bandwidth, not by HBM;
+// up to 18 qubits the engine takes the resident kernels instead, which walk
+// a whole rotation segment or adjoint sweep in one cooperative launch.
 // From 19 qubits on (a 24-qubit state is 128 MiB) every launch streams the
 // state from HBM, and the tile-run and grouped kernels organise the work
 // against it: runs of rotations chained in shared memory and registers over
@@ -541,6 +543,100 @@ __device__ __forceinline__ uint32_t term_flips(uint32_t code, uint32_t zt, uint3
   return kParity4[(code >> 4) & 15u] ^ (odd ? 0xffffu : 0u);
 }
 
+// The register groups [g0, g1) of a rotation run on one tile in shared
+// memory; group g covers the staged terms [gstart[g], gstart[g + 1]) -
+// t_base.  Ends with the tile written back and the block synchronised.
+__device__ __forceinline__ void rotation_groups(float2* tile, const RunStage& st,
+                                                const int32_t* __restrict__ gstart,
+                                                const int32_t* __restrict__ gregs, int g0,
+                                                int g1, int t_base) {
+  for (int g = g0; g < g1; ++g) {
+    const GroupSlots s(static_cast<uint32_t>(gregs[g]));
+    float2 v[kRegSlots];
+#pragma unroll
+    for (int j = 0; j < kRegSlots; ++j) v[j] = tile[s.at(j)];
+    const int t1 = gstart[g + 1] - t_base;
+    for (int t = gstart[g] - t_base; t < t1; ++t) {
+      const float4 cf = st.coef[t];
+      const float2 m = make_float2(cf.y, cf.z);
+      const uint32_t code_t = st.code[t];
+      const uint32_t flips = term_flips(code_t, st.zt[t], s.base);
+      switch (case_key(code_t)) {
+#define QSFH_ROT_CASE(X, K)                  \
+  case X | (K << 4):                         \
+    rotate_slots<X, K>(v, flips, cf.x, m);   \
+    break;
+        QSFH_CASES(QSFH_ROT_CASE)
+#undef QSFH_ROT_CASE
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kRegSlots; ++j) tile[s.at(j)] = v[j];
+    __syncthreads();
+  }
+}
+
+// The register groups [g0, g1) of an adjoint run on the tiles of psi (pt)
+// and lam (lt): a thread's share of <lam | P_t psi> is summed over its warp
+// into wsum[warp][t] (each warp owns its row: no atomics), t a staged term
+// of the run's n_terms.  Ends as rotation_groups does.
+__device__ __forceinline__ void adjoint_groups(float2* pt, float2* lt, const RunStage& st,
+                                               float2* wsum, int n_terms,
+                                               const int32_t* __restrict__ gstart,
+                                               const int32_t* __restrict__ gregs, int g0,
+                                               int g1, int t_base) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int g = g0; g < g1; ++g) {
+    const GroupSlots s(static_cast<uint32_t>(gregs[g]));
+    float2 p[kRegSlots], l[kRegSlots];
+#pragma unroll
+    for (int j = 0; j < kRegSlots; ++j) {
+      p[j] = pt[s.at(j)];
+      l[j] = lt[s.at(j)];
+    }
+    const int t1 = gstart[g + 1] - t_base;
+    for (int t = gstart[g] - t_base; t < t1; ++t) {
+      const float4 cf = st.coef[t];
+      const float2 m = make_float2(cf.y, cf.z);
+      const uint32_t code_t = st.code[t];
+      const uint32_t flips = term_flips(code_t, st.zt[t], s.base);
+      float2 share = make_float2(0.0f, 0.0f);
+      switch (case_key(code_t)) {
+#define QSFH_ADJ_CASE(X, K)                               \
+  case X | (K << 4):                                      \
+    adjoint_slots<X, K>(p, l, flips, cf.x, m, share);     \
+    break;
+        QSFH_CASES(QSFH_ADJ_CASE)
+#undef QSFH_ADJ_CASE
+      }
+      share = warp_sum(share);
+      if (lane == 0) wsum[warp * n_terms + t] = share;
+    }
+#pragma unroll
+    for (int j = 0; j < kRegSlots; ++j) {
+      pt[s.at(j)] = p[j];
+      lt[s.at(j)] = l[j];
+    }
+    __syncthreads();
+  }
+}
+
+// A tile's per-term sums of the warp rows, in warp order, times the string
+// phase: partials[(t_base + t) * stride + column] for the run's terms.
+__device__ __forceinline__ void write_term_partials(const float2* wsum, int n_terms,
+                                                    const float* __restrict__ phre,
+                                                    const float* __restrict__ phim,
+                                                    float2* __restrict__ partials, int t_base,
+                                                    size_t stride, size_t column) {
+  const int n_warps = blockDim.x >> 5;
+  for (int t = threadIdx.x; t < n_terms; t += blockDim.x) {
+    float2 acc = make_float2(0.0f, 0.0f);
+    for (int w = 0; w < n_warps; ++w) acc = cadd(acc, wsum[w * n_terms + t]);
+    partials[static_cast<size_t>(t_base + t) * stride + column] =
+        cmul(make_float2(phre[t], phim[t]), acc);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // rotation_tile_runs: one tile run of a rotation segment, in place.
 //
@@ -575,30 +671,7 @@ rotation_tile_run_kernel(float2* __restrict__ psi, int n, int k, int c, uint32_t
   set_outer_signs(st, n_terms, outer);
   cp_async_wait_all();
   __syncthreads();
-  for (int g = 0; g < n_groups; ++g) {
-    const GroupSlots s(static_cast<uint32_t>(gregs[g]));
-    float2 v[kRegSlots];
-#pragma unroll
-    for (int j = 0; j < kRegSlots; ++j) v[j] = tile[s.at(j)];
-    const int t1 = gstart[g + 1] - t_base;
-    for (int t = gstart[g] - t_base; t < t1; ++t) {
-      const float4 cf = st.coef[t];
-      const float2 m = make_float2(cf.y, cf.z);
-      const uint32_t code_t = st.code[t];
-      const uint32_t flips = term_flips(code_t, st.zt[t], s.base);
-      switch (case_key(code_t)) {
-#define QSFH_ROT_CASE(X, K)                  \
-  case X | (K << 4):                         \
-    rotate_slots<X, K>(v, flips, cf.x, m);   \
-    break;
-        QSFH_CASES(QSFH_ROT_CASE)
-#undef QSFH_ROT_CASE
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kRegSlots; ++j) tile[s.at(j)] = v[j];
-    __syncthreads();
-  }
+  rotation_groups(tile, st, gstart, gregs, 0, n_groups, t_base);
   store_tile(tile, psi, TileMap(k, c, outer, hi_mask));
 }
 
@@ -637,7 +710,7 @@ adjoint_tile_run_kernel(float2* __restrict__ psi, float2* __restrict__ lam, int 
     load_tile(lt, lam, map);
     cp_async_commit();
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  const int n_warps = blockDim.x >> 5;
   const RunStage st = stage_run(smem + 2 * (sizeof(float2) << k), n_terms,
                                 n_warps * sizeof(float2), -1.0f, code, z_tile, z_out, angles,
                                 phre, phim);
@@ -645,48 +718,154 @@ adjoint_tile_run_kernel(float2* __restrict__ psi, float2* __restrict__ lam, int 
   float2* wsum = reinterpret_cast<float2*>(st.extra);  // [warp][t]
   cp_async_wait_all();
   __syncthreads();
-  for (int g = 0; g < n_groups; ++g) {
-    const GroupSlots s(static_cast<uint32_t>(gregs[g]));
-    float2 p[kRegSlots], l[kRegSlots];
-#pragma unroll
-    for (int j = 0; j < kRegSlots; ++j) {
-      p[j] = pt[s.at(j)];
-      l[j] = lt[s.at(j)];
-    }
-    const int t1 = gstart[g + 1] - t_base;
-    for (int t = gstart[g] - t_base; t < t1; ++t) {
-      const float4 cf = st.coef[t];
-      const float2 m = make_float2(cf.y, cf.z);
-      const uint32_t code_t = st.code[t];
-      const uint32_t flips = term_flips(code_t, st.zt[t], s.base);
-      float2 share = make_float2(0.0f, 0.0f);
-      switch (case_key(code_t)) {
-#define QSFH_ADJ_CASE(X, K)                               \
-  case X | (K << 4):                                      \
-    adjoint_slots<X, K>(p, l, flips, cf.x, m, share);     \
-    break;
-        QSFH_CASES(QSFH_ADJ_CASE)
-#undef QSFH_ADJ_CASE
-      }
-      share = warp_sum(share);
-      if (lane == 0) wsum[warp * n_terms + t] = share;
-    }
-#pragma unroll
-    for (int j = 0; j < kRegSlots; ++j) {
-      pt[s.at(j)] = p[j];
-      lt[s.at(j)] = l[j];
-    }
-    __syncthreads();
-  }
-  for (int t = threadIdx.x; t < n_terms; t += blockDim.x) {
-    float2 acc = make_float2(0.0f, 0.0f);
-    for (int w = 0; w < n_warps; ++w) acc = cadd(acc, wsum[w * n_terms + t]);
-    partials[static_cast<size_t>(t) * gridDim.x + blockIdx.x] =
-        cmul(make_float2(phre[t], phim[t]), acc);
-  }
+  adjoint_groups(pt, lt, st, wsum, n_terms, gstart, gregs, 0, n_groups, t_base);
+  write_term_partials(wsum, n_terms, phre, phim, partials, 0, gridDim.x, blockIdx.x);
   const TileMap map(k, c, outer, hi_mask);
   store_tile(pt, psi, map);
   store_tile(lt, lam, map);
+}
+
+// ---------------------------------------------------------------------------
+// Resident tile runs: a whole span of tile runs in ONE cooperative launch.
+//
+// rotation_resident replaces pauli_chain_pallas (the forward segment, its
+// inverse and the Givens network both ways) and adjoint_resident replaces
+// adjoint_chain_pallas (the reverse adjoint sweep),
+// qsfh_tpu/engine/pallas_kernels.py:421-538 and :763-893.  The TPU kernels
+// are one pallas_call per chain on a VMEM-resident state.  Here an
+// 18-qubit state is 2 MiB (psi and lam 4 MiB) and stays in the 50 MB L2,
+// so the counterpart is one launch that walks every run of the span: the
+// state stays in L2 between runs, and a grid-wide barrier takes the place
+// of a kernel boundary (the per-term route paid one launch, ~3 us, per
+// term).
+//
+// The grid is persistent: G blocks, all co-resident (a cooperative launch;
+// the host takes G from the occupancy of the kernel at its real dynamic
+// shared memory, capped at the tiles of a run).  In run r, block b takes
+// tiles o = b, b + G, ...: it copies tile o in with cp.async.cg (through
+// L2: after a barrier a tile may hold lines another SM wrote, and L1 is not
+// coherent across SMs), sets the outer signs of the run's staged terms for
+// that tile, runs the register groups with the tile-run device code, and
+// stores the tile back.  The run's per-term scalars are staged in shared
+// memory once per run, while the block's first tile of the run is copied
+// in.  Between runs, grid_sync.  The adjoint writes one
+// partial per (term, tile), partials[t, o], so the order of every sum is
+// fixed by the layout and not by G; after a last barrier the blocks sum
+// each term's row in the order of reduce_partials_kernel.  No float
+// atomics: two calls on the same inputs give the same bits, whatever G.
+//
+// Bound at 18 qubits: the float32 pipes per term (~0.01 / 0.04 ms for the
+// 467-term segment forward / adjoint), not bytes (one L2 pass of the state
+// per run); in practice the in-tile work at ~4 warps per SM (2^n / 16
+// threads in all) and one grid barrier per run.
+// ---------------------------------------------------------------------------
+
+// A barrier across the blocks of a cooperative launch.  Block 0 adds
+// 2^31 - (G - 1) to the counter and every other block 1, so the top bit
+// flips once all G have arrived and the low bits return to 0: one zeroed
+// word serves every barrier of every launch on a stream.
+__device__ __forceinline__ void grid_sync(unsigned int* count) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1u) : 1u;
+    __threadfence();
+    const unsigned int old = atomicAdd(count, add);
+    unsigned int now;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(now) : "l"(count) : "memory");
+    } while (((old ^ now) & 0x80000000u) == 0u);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(1 << (kTileMaxBits - 4))
+rotation_resident_kernel(float2* __restrict__ psi, int n, int k, int c, int n_runs,
+                         const int32_t* __restrict__ run_start,
+                         const int32_t* __restrict__ run_mask,
+                         const int32_t* __restrict__ run_group, const int32_t* __restrict__ code,
+                         const int32_t* __restrict__ z_tile, const int32_t* __restrict__ z_out,
+                         const int32_t* __restrict__ gstart, const int32_t* __restrict__ gregs,
+                         const float* __restrict__ angles, const float* __restrict__ phre,
+                         const float* __restrict__ phim, unsigned int* barrier) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* tile = reinterpret_cast<float2*>(smem);
+  const uint32_t n_tiles = 1u << (n - k), all = (1u << n) - 1u;
+  for (int r = 0; r < n_runs; ++r) {
+    const int t0 = run_start[r], T = run_start[r + 1] - t0;
+    const uint32_t mask = static_cast<uint32_t>(run_mask[r]);
+    const uint32_t hi_mask = mask & ~((1u << c) - 1u);
+    RunStage st{};
+    for (uint32_t o = blockIdx.x; o < n_tiles; o += gridDim.x) {
+      const uint32_t outer = deposit(o, all & ~mask);
+      const TileMap map(k, c, outer, hi_mask);
+      load_tile(tile, psi, map);
+      cp_async_commit();
+      if (o == blockIdx.x)  // the run's scalars, staged while the first tile's copy is in flight
+        st = stage_run(smem + (sizeof(float2) << k), T, 0, 1.0f, code + t0, z_tile + t0,
+                       z_out + t0, angles + t0, phre + t0, phim + t0);
+      set_outer_signs(st, T, outer);
+      cp_async_wait_all();
+      __syncthreads();
+      rotation_groups(tile, st, gstart, gregs, run_group[r], run_group[r + 1], t0);
+      // each thread stores the slots it loads next: no barrier before the next copy
+      store_tile(tile, psi, map);
+    }
+    if (r + 1 < n_runs) grid_sync(barrier);
+  }
+}
+
+__global__ void __launch_bounds__(1 << (kTileMaxBits - 4))
+adjoint_resident_kernel(float2* __restrict__ psi, float2* __restrict__ lam, int n, int k, int c,
+                        int n_runs, const int32_t* __restrict__ run_start,
+                        const int32_t* __restrict__ run_mask,
+                        const int32_t* __restrict__ run_group, const int32_t* __restrict__ code,
+                        const int32_t* __restrict__ z_tile, const int32_t* __restrict__ z_out,
+                        const int32_t* __restrict__ gstart, const int32_t* __restrict__ gregs,
+                        const float* __restrict__ angles, const float* __restrict__ phre,
+                        const float* __restrict__ phim, float2* __restrict__ partials,
+                        float2* __restrict__ out, unsigned int* barrier) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* pt = reinterpret_cast<float2*>(smem);
+  float2* lt = pt + (1u << k);
+  const uint32_t n_tiles = 1u << (n - k), all = (1u << n) - 1u;
+  const int n_warps = blockDim.x >> 5;
+  for (int r = 0; r < n_runs; ++r) {
+    const int t0 = run_start[r], T = run_start[r + 1] - t0;
+    const uint32_t mask = static_cast<uint32_t>(run_mask[r]);
+    const uint32_t hi_mask = mask & ~((1u << c) - 1u);
+    RunStage st{};
+    for (uint32_t o = blockIdx.x; o < n_tiles; o += gridDim.x) {
+      const uint32_t outer = deposit(o, all & ~mask);
+      const TileMap map(k, c, outer, hi_mask);
+      load_tile(pt, psi, map);
+      load_tile(lt, lam, map);
+      cp_async_commit();
+      if (o == blockIdx.x)  // the run's scalars, staged while the first tiles' copies are in flight
+        st = stage_run(smem + 2 * (sizeof(float2) << k), T, n_warps * sizeof(float2), -1.0f,
+                       code + t0, z_tile + t0, z_out + t0, angles + t0, phre + t0, phim + t0);
+      float2* wsum = reinterpret_cast<float2*>(st.extra);  // [warp][t]
+      set_outer_signs(st, T, outer);
+      cp_async_wait_all();
+      __syncthreads();  // also: the previous tile's partials have read wsum
+      adjoint_groups(pt, lt, st, wsum, T, gstart, gregs, run_group[r], run_group[r + 1], t0);
+      write_term_partials(wsum, T, phre + t0, phim + t0, partials, t0, n_tiles, o);
+      store_tile(pt, psi, map);
+      store_tile(lt, lam, map);
+    }
+    grid_sync(barrier);
+  }
+  // out[t] = sum_o partials[t, o]: a warp per term, in reduce_partials_kernel's
+  // order; the rows were written by other SMs, so they are read through L2
+  const int lane = threadIdx.x & 31;
+  const int T_all = run_start[n_runs];
+  for (int t = blockIdx.x * n_warps + (threadIdx.x >> 5); t < T_all; t += gridDim.x * n_warps) {
+    const float2* row = partials + static_cast<size_t>(t) * n_tiles;
+    float2 acc = make_float2(0.0f, 0.0f);
+    for (uint32_t j = lane; j < n_tiles; j += 32) acc = cadd(acc, __ldcg(row + j));
+    acc = warp_sum(acc);
+    if (lane == 0) out[t] = acc;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1020,6 +1199,55 @@ inline bool tile_shape_ok(int n, int k, int c) {
   return k >= kTileMinBits && k <= kTileMaxBits && k <= n && c >= 1 && c <= k - 3;
 }
 
+// Dynamic shared memory of a resident launch: the tile(s), then the staged
+// scalars of the longest run (cos and m, code, z_tile, z_out; the adjoint
+// adds a float2 per warp for the warp rows).
+inline size_t resident_smem(bool adjoint, int k, int most_terms) {
+  const size_t tiles = (adjoint ? 2 : 1) * (sizeof(float2) << k);
+  const size_t warp_rows = adjoint ? ((1u << (k - 4)) / 32) * sizeof(float2) : 0;
+  return tiles + static_cast<size_t>(most_terms) * (sizeof(float4) + 12 + warp_rows);
+}
+
+inline const void* resident_kernel(bool adjoint) {
+  return adjoint ? reinterpret_cast<const void*>(adjoint_resident_kernel)
+                 : reinterpret_cast<const void*>(rotation_resident_kernel);
+}
+
+// Blocks of a resident kernel that the device holds at once (the largest
+// cooperative grid), or a negative CUDA error code.
+inline int resident_capacity(bool adjoint, int k, int most_terms) {
+  if (k < kTileMinBits || k > kTileMaxBits || most_terms < 1 || most_terms > kMaxRunTerms)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  const size_t smem = resident_smem(adjoint, k, most_terms);
+  if (err == cudaSuccess)
+    err = adjoint ? allow_smem(adjoint_resident_kernel, smem)
+                  : allow_smem(rotation_resident_kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, resident_kernel(adjoint),
+                                                        1 << (k - 4), smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (per_sm < 1) return -static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  return per_sm * sm_count();
+}
+
+// Checks and shared memory of a resident launch of `grid` blocks; run_start
+// is the HOST copy of the span's run table.
+inline cudaError_t resident_setup(bool adjoint, int n, int k, int c, int n_runs,
+                                  const int32_t* run_start, int grid, size_t* smem) {
+  if (!tile_shape_ok(n, k, c) || n_runs < 1 || grid < 1 || grid > (1 << (n - k)))
+    return cudaErrorInvalidValue;
+  int most = 0;
+  for (int r = 0; r < n_runs; ++r) most = max(most, run_start[r + 1] - run_start[r]);
+  if (most < 1 || most > kMaxRunTerms) return cudaErrorInvalidValue;
+  *smem = resident_smem(adjoint, k, most);
+  return adjoint ? allow_smem(adjoint_resident_kernel, *smem)
+                 : allow_smem(rotation_resident_kernel, *smem);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1191,6 +1419,86 @@ int qsfh_adjoint_tile_runs(void* psi, void* lam, int n, int k, int c, int n_runs
   return static_cast<int>(reduce_partials(part, static_cast<int>(grid),
                                           run_start[n_runs] - run_start[0],
                                           static_cast<float2*>(out), s));
+}
+
+// The largest cooperative grid of the resident rotation (adjoint = 0) or
+// adjoint (adjoint = 1) kernel at tiles of k bits whose longest run has
+// most_terms terms, or a negative CUDA error code.
+int qsfh_resident_capacity(int adjoint, int k, int most_terms) {
+  return resident_capacity(adjoint != 0, k, most_terms);
+}
+
+// The tile runs [0, n_runs) of a streaming.TileRuns table, in place, in ONE
+// cooperative launch of `grid` blocks (at most the tiles of a run and the
+// capacity above).  run_start_host is the host copy of run_start; every
+// other array is on the device: run_start (n_runs + 1), run_mask (n_runs)
+// and run_group (n_runs + 1), then the arrays of qsfh_rotation_tile_runs.
+// barrier: one unsigned word, zero before the first launch on the stream
+// and left zero by every launch.
+int qsfh_rotation_resident(void* psi, int n, int k, int c, int n_runs, int grid,
+                           const int32_t* run_start_host, const void* run_start,
+                           const void* run_mask, const void* run_group, const void* code,
+                           const void* z_tile, const void* z_out, const void* gstart,
+                           const void* gregs, const void* angles, const void* phre,
+                           const void* phim, void* barrier, void* stream) {
+  size_t smem = 0;
+  cudaError_t err = resident_setup(false, n, k, c, n_runs, run_start_host, grid, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float2* a_psi = static_cast<float2*>(psi);
+  const int32_t *a_start = static_cast<const int32_t*>(run_start),
+                *a_mask = static_cast<const int32_t*>(run_mask),
+                *a_group = static_cast<const int32_t*>(run_group),
+                *a_code = static_cast<const int32_t*>(code),
+                *a_zt = static_cast<const int32_t*>(z_tile),
+                *a_zo = static_cast<const int32_t*>(z_out),
+                *a_gs = static_cast<const int32_t*>(gstart),
+                *a_gr = static_cast<const int32_t*>(gregs);
+  const float *a_ang = static_cast<const float*>(angles), *a_re = static_cast<const float*>(phre),
+              *a_im = static_cast<const float*>(phim);
+  unsigned int* a_bar = static_cast<unsigned int*>(barrier);
+  void* args[] = {&a_psi, &n,     &k,     &c,     &n_runs, &a_start, &a_mask, &a_group, &a_code,
+                  &a_zt,  &a_zo,  &a_gs,  &a_gr,  &a_ang,  &a_re,    &a_im,   &a_bar};
+  err = cudaLaunchCooperativeKernel(resident_kernel(false), dim3(grid), dim3(1u << (k - 4)), args,
+                                    smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The adjoint sweep over the tile runs [0, n_runs) of a streaming.TileRuns
+// table (terms in REVERSED order), in place on psi and lam, in ONE
+// cooperative launch; arrays as in qsfh_rotation_resident.  out[t] =
+// <lam | P_t psi> at the post-gate state of term t, summed in the launch.
+// partials: run_start[n_runs] x 2^(n - k) float2 scratch.
+int qsfh_adjoint_resident(void* psi, void* lam, int n, int k, int c, int n_runs, int grid,
+                          const int32_t* run_start_host, const void* run_start,
+                          const void* run_mask, const void* run_group, const void* code,
+                          const void* z_tile, const void* z_out, const void* gstart,
+                          const void* gregs, const void* angles, const void* phre,
+                          const void* phim, void* partials, void* out, void* barrier,
+                          void* stream) {
+  size_t smem = 0;
+  cudaError_t err = resident_setup(true, n, k, c, n_runs, run_start_host, grid, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float2 *a_psi = static_cast<float2*>(psi), *a_lam = static_cast<float2*>(lam);
+  const int32_t *a_start = static_cast<const int32_t*>(run_start),
+                *a_mask = static_cast<const int32_t*>(run_mask),
+                *a_group = static_cast<const int32_t*>(run_group),
+                *a_code = static_cast<const int32_t*>(code),
+                *a_zt = static_cast<const int32_t*>(z_tile),
+                *a_zo = static_cast<const int32_t*>(z_out),
+                *a_gs = static_cast<const int32_t*>(gstart),
+                *a_gr = static_cast<const int32_t*>(gregs);
+  const float *a_ang = static_cast<const float*>(angles), *a_re = static_cast<const float*>(phre),
+              *a_im = static_cast<const float*>(phim);
+  float2 *a_part = static_cast<float2*>(partials), *a_out = static_cast<float2*>(out);
+  unsigned int* a_bar = static_cast<unsigned int*>(barrier);
+  void* args[] = {&a_psi, &a_lam, &n,    &k,    &c,     &n_runs, &a_start, &a_mask,
+                  &a_group, &a_code, &a_zt, &a_zo, &a_gs, &a_gr,  &a_ang,   &a_re,
+                  &a_im,  &a_part, &a_out, &a_bar};
+  err = cudaLaunchCooperativeKernel(resident_kernel(true), dim3(grid), dim3(1u << (k - 4)), args,
+                                    smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out[b] = psi[b ^ x] with x = *mask_dev (an int64 on the device), or mask

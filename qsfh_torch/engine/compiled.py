@@ -3,18 +3,22 @@
 Counterpart of ``qsfh_tpu/engine/compiled.py`` for ``rot`` segments: a
 gate program of ("rot", rot_terms, param_idx) ops becomes one segment of
 per-term arrays (flip mask, phase mask, scale, parameter index, string
-phase), run by the ``pauli_rotation`` kernel forward and backward and by
-``adjoint_rotation`` for gradients.  Static-angle terms carry parameter
-index -1, which selects an appended constant 1.0.
+phase), rotated forward and backward, and swept in reverse by the adjoint
+for gradients.  Static-angle terms carry parameter index -1, which selects
+an appended constant 1.0.
 
-Past ``streaming.CHAIN_MAX_QUBITS`` a segment is walked as the
-order-preserving tile runs of ``streaming.TileLayout``: each run is one
-``rotation_tile_runs`` / ``adjoint_tile_runs`` launch over a tile of
-chosen bits that holds every flip mask of the run, and a term that fits
-no tile goes to the per-term kernels.  This is the JAX package's
-``rotation_stream_pallas`` / ``adjoint_stream_pallas`` route
-(``qsfh_tpu/engine/compiled.py:514-534, 645-667``) without its
-block-crossing terms.
+A segment is walked as the order-preserving tile runs of
+``streaming.TileLayout``: runs of terms whose flip masks all lie in one
+tile of chosen bits; a term that fits no tile goes to the per-term
+kernels (``pauli_rotation`` / ``adjoint_rotation``).  Up to
+``streaming.CHAIN_MAX_QUBITS`` the state sits in L2 and a span of runs is
+one ``rotation_resident`` / ``adjoint_resident`` launch, where the JAX
+package runs ``pauli_chain_pallas`` / ``adjoint_chain_pallas`` on a
+VMEM-resident state; past it each run is one ``rotation_tile_runs`` /
+``adjoint_tile_runs`` launch, the JAX package's ``rotation_stream_pallas``
+/ ``adjoint_stream_pallas`` route (``qsfh_tpu/engine/compiled.py:505-534,
+645-667``) without its block-crossing terms.  A state smaller than the
+smallest tile (``kernels.TILE_MIN_BITS``) takes the per-term kernels.
 
 The TPU workarounds of the JAX module are not carried over: per-term
 angles are the plain gather ``thetas_ext[pidx]`` (no one-hot matmul),
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 
 from . import streaming
-from .kernels import KERNELS
+from .kernels import KERNELS, TILE_MIN_BITS
 from .state import qmask_to_bmask, real_dtype
 
 
@@ -165,20 +169,33 @@ def _extended(thetas: torch.Tensor) -> torch.Tensor:
     return torch.cat([thetas, torch.ones(1, dtype=thetas.dtype, device=thetas.device)])
 
 
+def _tile_route(seg: Segment, direction: int, n: int):
+    """(layout, resident) of a segment at n qubits: the resident tile
+    shape up to the chain cap, where the state sits in L2 and a span of
+    tile runs is one launch, else the tile-run shape, one launch per run."""
+    if n <= streaming.CHAIN_MAX_QUBITS:
+        k, c = streaming.RESIDENT_TILE_BITS, streaming.RESIDENT_TILE_LOW_BITS
+        return seg.tiles(direction, n, k, c), True
+    return seg.tiles(direction, n, streaming.TILE_BITS, streaming.TILE_LOW_BITS), False
+
+
 def rotate_segment(seg: Segment, out, arrs, n, direction: int = 1, impl=None):
     """Apply one segment's terms ``arrs = (xs, zs, angles, phre, phim)``,
     given in application order (reversed for direction -1), to ``out`` IN
-    PLACE: one ``impl.rotation`` call up to the chain cap, else the spans
-    of the segment's tile layout."""
+    PLACE, over the spans of the segment's tile layout: a span of tile
+    runs to ``impl.rotation_resident`` (up to the chain cap) or
+    ``impl.rotation_runs``, terms that fit no tile to ``impl.rotation``.
+    A state smaller than the smallest tile takes ``impl.rotation``."""
     impl = impl or KERNELS
-    if n <= streaming.CHAIN_MAX_QUBITS:
+    if n < TILE_MIN_BITS:
         impl.rotation(out, *arrs)
         return out
-    layout = seg.tiles(direction, n, streaming.TILE_BITS, streaming.TILE_LOW_BITS)
+    layout, resident = _tile_route(seg, direction, n)
+    tiled = impl.rotation_resident if resident else impl.rotation_runs
     for tiles, t0, t1 in layout.spans:
         part = tuple(a[t0:t1] for a in arrs)
         if tiles is not None:
-            impl.rotation_runs(out, *part, tiles)
+            tiled(out, *part, tiles)
         else:
             impl.rotation(out, *part)
     return out
@@ -188,20 +205,21 @@ def adjoint_sweep(seg: Segment, psi, lam, arrs, n, impl=None):
     """The reverse adjoint sweep over one segment's terms ``arrs``, given
     in REVERSED order, IN PLACE on psi and lam; returns v (T,) with
     v_t = <lam | P_t psi> at the post-gate state, in reversed-term order:
-    one ``impl.adjoint`` call up to the chain cap, else the spans
-    of the reversed tile layout."""
+    the spans of the reversed tile layout, as in :func:`rotate_segment`
+    (``impl.adjoint_resident``, ``impl.adjoint_runs``, ``impl.adjoint``)."""
     impl = impl or KERNELS
-    if n <= streaming.CHAIN_MAX_QUBITS:
+    if n < TILE_MIN_BITS:
         return impl.adjoint(psi, lam, *arrs)
-    layout = seg.tiles(-1, n, streaming.TILE_BITS, streaming.TILE_LOW_BITS)
+    layout, resident = _tile_route(seg, -1, n)
+    tiled = impl.adjoint_resident if resident else impl.adjoint_runs
     parts = []
     for tiles, t0, t1 in layout.spans:
         part = tuple(a[t0:t1] for a in arrs)
         if tiles is not None:
-            parts.append(impl.adjoint_runs(psi, lam, *part, tiles))
+            parts.append(tiled(psi, lam, *part, tiles))
         else:
             parts.append(impl.adjoint(psi, lam, *part))
-    return torch.cat(parts)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def run_segments(segments, psi, thetas, n, direction: int = 1, impl=None):

@@ -7,15 +7,19 @@ stream kernels of the ADAPT main path:
 =======================  ==================================================
 wrapper                  replaces (``qsfh_tpu/engine/pallas_kernels.py``)
 =======================  ==================================================
-``pauli_rotation``       ``pauli_chain_pallas`` (:482); with
-                         ``pauli_rotation_one``, ``pauli_rotation_pallas``
-                         (:571); terms that fit no tile past the caps
+``rotation_resident``    ``pauli_chain_pallas`` (:482): a span of tile runs
+                         in one cooperative launch, up to the chain cap
+``adjoint_resident``     ``adjoint_chain_pallas`` (:826), the same way
+``pauli_rotation``       with ``pauli_rotation_one``,
+                         ``pauli_rotation_pallas`` (:571); terms that fit
+                         no tile, and states of fewer than
+                         ``TILE_MIN_BITS`` qubits
 ``pauli_apply``          ``apply_chain_pallas`` (:715), and
                          ``apply_stream_pallas`` (:1870) past 18 qubits
 ``pauli_inner``          ``expectation_chain_pallas`` (:645) and
                          ``screen_chain_pallas`` (:927)
-``adjoint_rotation``     ``adjoint_chain_pallas`` (:826); terms that fit no
-                         tile past the caps
+``adjoint_rotation``     terms that fit no tile, and states of fewer than
+                         ``TILE_MIN_BITS`` qubits
 ``rotation_tile_runs``   ``rotation_stream_pallas`` (:2268, local :2214,
                          crossing :2246)
 ``adjoint_tile_runs``    ``adjoint_stream_pallas`` (:2142, local :2032,
@@ -35,8 +39,10 @@ become int32 at the kernel boundary; per-term scalars become float32.
 Every wrapper takes the plain version for a tensor on the CPU and launches
 its kernel for a tensor on a CUDA device, or raises: there is no fallback.
 Each wrapper keeps a plain-integer ``launches`` count of its kernel's
-launches: one per term for the two per-term rotations, one per run for the
-two tile-run kernels, one per call for ``xor_gather``, one per call (or per
+launches: one per span for the two resident kernels (the 18-qubit
+rotations and adjoint sweep: one per call where every term fits a tile),
+one per term for the two per-term rotations, one per run for the two
+tile-run kernels, one per call for ``xor_gather``, one per call (or per
 scratch-sized chunk) for ``pauli_apply``, ``pauli_inner``,
 and ``pauli_inner_grouped`` (a second, partial-sum pass is not
 counted).  The ``*_plain`` functions compute the
@@ -153,6 +159,12 @@ def _load():
         lib.qsfh_rotation_tile_runs.argtypes = [p, i, i, i, i] + [p] * 12
         lib.qsfh_adjoint_tile_runs.restype = i
         lib.qsfh_adjoint_tile_runs.argtypes = [p, p, i, i, i, i] + [p] * 14
+        lib.qsfh_resident_capacity.restype = i
+        lib.qsfh_resident_capacity.argtypes = [i, i, i]
+        lib.qsfh_rotation_resident.restype = i
+        lib.qsfh_rotation_resident.argtypes = [p, i, i, i, i, i] + [p] * 14
+        lib.qsfh_adjoint_resident.restype = i
+        lib.qsfh_adjoint_resident.argtypes = [p, p, i, i, i, i, i] + [p] * 16
         lib.qsfh_xor_gather.restype = i
         lib.qsfh_xor_gather.argtypes = [p, p, i, p, i, p]
         lib.qsfh_inner_tile_positions.restype = i
@@ -519,6 +531,115 @@ def adjoint_tile_runs_plain(psi, lam, xs, zs, angles, phre, phim, tiles):
     return adjoint_rotation_plain(psi, lam, xs, zs, angles, phre, phim)
 
 
+# -- resident tile runs -----------------------------------------------------------------
+
+_capacity: dict = {}
+_barriers: dict = {}
+
+
+def resident_grid(psi, tiles, adjoint: bool, blocks=None) -> int:
+    """Blocks G of a resident launch on psi's card: the kernel's co-resident
+    capacity (its occupancy at its real dynamic shared memory, for the
+    layout's tile shape and longest run, times the SMs; cached per device
+    and shape), capped at the tiles of a run and at ``blocks``.  Raises if
+    the query fails or the card holds no block of the kernel."""
+    n = _n_qubits(psi, "resident_grid")
+    key = (psi.device.index, bool(adjoint), tiles.k, tiles.most_terms)
+    if key not in _capacity:
+        lib = _load()
+        cap = lib.qsfh_resident_capacity(int(adjoint), tiles.k, tiles.most_terms)
+        if cap <= 0:
+            raise RuntimeError(f"resident capacity at k={tiles.k}, {tiles.most_terms} terms: "
+                               f"CUDA error {-cap}: {lib.qsfh_error_string(-cap).decode()}")
+        _capacity[key] = cap
+    grid = min(_capacity[key], 1 << (n - tiles.k))
+    if blocks is not None:
+        if blocks < 1:
+            raise ValueError(f"resident launch of {blocks} blocks")
+        grid = min(grid, int(blocks))
+    return grid
+
+
+def _barrier(psi) -> torch.Tensor:
+    """The grid-barrier word of psi's card and the current stream: zero
+    before the first resident launch and after every launch."""
+    key = (psi.device.index, _stream())
+    if key not in _barriers:
+        _barriers[key] = torch.zeros(1, dtype=torch.int32, device=psi.device)
+    return _barriers[key]
+
+
+@_counted
+def rotation_resident(psi, xs, zs, angles, phre, phim, tiles, blocks=None):
+    """:func:`rotation_tile_runs` over the whole span ``tiles`` in ONE
+    cooperative launch: G persistent blocks walk the runs in order over
+    the L2-resident state, block b taking tiles b, b + G, ... of each run,
+    with a grid barrier between runs (``blocks`` caps G; see
+    :func:`resident_grid`).  In place; returns psi.
+    """
+    if psi.device.type == "cpu":
+        return rotation_resident_plain(psi, xs, zs, angles, phre, phim, tiles)
+    name = "rotation_resident"
+    n = _tile_check(psi, xs, tiles, name)
+    args = _terms(psi, xs.shape[0], name, (angles, _SCALAR), (phre, _SCALAR), (phim, _SCALAR))
+    grid = resident_grid(psi, tiles, False, blocks)
+    lib = _load()
+    rc = lib.qsfh_rotation_resident(
+        psi.data_ptr(), n, tiles.k, tiles.c, len(tiles), grid, tiles.run_start.ctypes.data,
+        *(t.data_ptr() for t in tiles.run_tensors(psi.device)),
+        *(t.data_ptr() for t in tiles.tensors(psi.device)), *(a.data_ptr() for a in args),
+        _barrier(psi).data_ptr(), _stream())
+    _check(lib, rc, name)
+    rotation_resident.launches += 1
+    return psi
+
+
+def rotation_resident_plain(psi, xs, zs, angles, phre, phim, tiles):
+    """Plain version of :func:`rotation_resident`: the layout check, then
+    the plain rotation over the terms, one by one (in place, any device)."""
+    _check_tiles(xs, tiles, "rotation_resident")
+    return pauli_rotation_plain(psi, xs, zs, angles, phre, phim)
+
+
+@_counted
+def adjoint_resident(psi, lam, xs, zs, angles, phre, phim, tiles, blocks=None):
+    """:func:`adjoint_tile_runs` over the whole span ``tiles`` (terms in
+    REVERSED order) in ONE cooperative launch, as
+    :func:`rotation_resident`.  Each tile's share of <lam | P_t psi> is a
+    partial of its own, and the launch sums each term's partials in a
+    fixed order after a last grid barrier: the same bits whatever G.  psi
+    and lam are updated IN PLACE; returns v (complex, (T,)).
+    """
+    if psi.device.type == "cpu" and lam.device.type == "cpu":
+        return adjoint_resident_plain(psi, lam, xs, zs, angles, phre, phim, tiles)
+    name = "adjoint_resident"
+    n = _tile_check(psi, xs, tiles, name)
+    if _n_qubits(lam, name) != n or lam.data_ptr() % 16:
+        raise ValueError(f"{name}: lam must be a 16-byte aligned state of psi's size")
+    T = xs.shape[0]
+    args = _terms(psi, T, name, (angles, _SCALAR), (phre, _SCALAR), (phim, _SCALAR))
+    grid = resident_grid(psi, tiles, True, blocks)
+    out = torch.empty(T, dtype=torch.complex64, device=psi.device)
+    partials = torch.empty((T, 1 << (n - tiles.k)), dtype=torch.complex64, device=psi.device)
+    lib = _load()
+    rc = lib.qsfh_adjoint_resident(
+        psi.data_ptr(), lam.data_ptr(), n, tiles.k, tiles.c, len(tiles), grid,
+        tiles.run_start.ctypes.data, *(t.data_ptr() for t in tiles.run_tensors(psi.device)),
+        *(t.data_ptr() for t in tiles.tensors(psi.device)), *(a.data_ptr() for a in args),
+        partials.data_ptr(), out.data_ptr(), _barrier(psi).data_ptr(), _stream())
+    _check(lib, rc, name)
+    adjoint_resident.launches += 1
+    return out
+
+
+def adjoint_resident_plain(psi, lam, xs, zs, angles, phre, phim, tiles):
+    """Plain version of :func:`adjoint_resident`: the layout check, then
+    the plain adjoint sweep over the terms, one by one (in place, any
+    device)."""
+    _check_tiles(xs, tiles, "adjoint_resident")
+    return adjoint_rotation_plain(psi, lam, xs, zs, angles, phre, phim)
+
+
 # -- xor_gather and the one-term rotation ------------------------------------------------
 
 
@@ -649,9 +770,9 @@ def pauli_inner_grouped_plain(a, psi, xs, zs, tiles):
 
 @dataclass(frozen=True)
 class Impl:
-    """The statevector primitives the engine calls: the per-term ones, and
-    the tile-run and grouped ones it takes past the caps of
-    ``streaming``."""
+    """The statevector primitives the engine calls: the per-term ones, the
+    resident ones it takes up to the chain cap of ``streaming``, and the
+    tile-run and grouped ones it takes past the caps."""
 
     rotation: Callable
     apply: Callable
@@ -660,17 +781,22 @@ class Impl:
     rotation_runs: Callable
     adjoint_runs: Callable
     inner_grouped: Callable
+    rotation_resident: Callable
+    adjoint_resident: Callable
 
 
 # the wrappers: CUDA kernels for CUDA tensors, plain versions for CPU tensors
 KERNELS = Impl(pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
-               rotation_tile_runs, adjoint_tile_runs, pauli_inner_grouped)
+               rotation_tile_runs, adjoint_tile_runs, pauli_inner_grouped,
+               rotation_resident, adjoint_resident)
 # the plain versions on any device (a reference path on the card)
 PLAIN = Impl(pauli_rotation_plain, pauli_apply_plain, pauli_inner_plain, adjoint_rotation_plain,
-             rotation_tile_runs_plain, adjoint_tile_runs_plain, pauli_inner_grouped_plain)
+             rotation_tile_runs_plain, adjoint_tile_runs_plain, pauli_inner_grouped_plain,
+             rotation_resident_plain, adjoint_resident_plain)
 
 WRAPPERS = (pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
-            rotation_tile_runs, adjoint_tile_runs, pauli_inner_grouped, xor_gather)
+            rotation_tile_runs, adjoint_tile_runs, pauli_inner_grouped, xor_gather,
+            rotation_resident, adjoint_resident)
 
 
 def launch_counts() -> dict:

@@ -5,18 +5,21 @@ Counterpart of the host side of the HBM-streaming kernels in
 ``_stream_groups`` :1057), without their TPU workarounds (256-term SMEM
 chunks, (8, 128) row blocks, one-hot slots, group-permuted outputs).
 
-Past a cap on the qubit count the engine stops launching once per term:
-
-* above ``CHAIN_MAX_QUBITS``, rotations and the adjoint sweep are cut by
-  :func:`order_tile_runs` into order-preserving runs of consecutive terms
-  whose flip masks all lie inside one tile: the low ``TILE_LOW_BITS``
-  flat bits plus higher bits chosen per run, ``2^k`` amplitudes in all
-  (:class:`TileLayout`).  A run costs one pass over the state
-  (``rotation_tile_runs`` / ``adjoint_tile_runs``).  The JAX package's
-  tiles are the low bits only, so every term that flips a higher bit
-  costs a pass of its own there; here only a term that fits no tile does
-  (none at 24 qubits), and the per-term pair kernels take it;
-* above ``INNER_CHAIN_MAX_QUBITS``, expectation values and pool screening,
+* Rotations and the adjoint sweep are cut by :func:`order_tile_runs` into
+  order-preserving runs of consecutive terms whose flip masks all lie
+  inside one tile: the low ``c`` flat bits plus higher bits chosen per
+  run, ``2^k`` amplitudes in all (:class:`TileLayout`).  The JAX
+  package's tiles are the low bits only, so every term that flips a
+  higher bit costs a pass of its own there; here only a term that fits no
+  tile does (none on the 3x3 and 2x6 paths), and the per-term pair kernels
+  take it.  Up to ``CHAIN_MAX_QUBITS`` the state sits in the card's L2:
+  tiles of ``RESIDENT_TILE_BITS`` / ``RESIDENT_TILE_LOW_BITS``, and a
+  whole span of runs is ONE launch (``rotation_resident`` /
+  ``adjoint_resident``: persistent blocks, a grid barrier between runs).
+  Above it a run costs one pass over the state in HBM, one launch each
+  (``rotation_tile_runs`` / ``adjoint_tile_runs``, tiles of ``TILE_BITS``
+  / ``TILE_LOW_BITS``).
+* Above ``INNER_CHAIN_MAX_QUBITS``, expectation values and pool screening,
   sums over terms, cut the terms into items (one flip mask, phase masks
   equal off ``REG_BITS`` bits) and cover the items with tiles of chosen
   bits (:class:`GroupTiles`: the low ``INNER_TILE_LOW_BITS`` flat bits
@@ -39,14 +42,12 @@ import numpy as np
 import torch
 
 # The caps, timed with chip_smoke.py --routes on an NVIDIA H100 80GB HBM3
-# at its 700 W power limit, both routes interleaved (numbers in PERF.md).
-# Rotations and the adjoint sweep: the tile runs won the 2x5 (20-qubit)
-# train step in all five runs that timed them, 2.3-3.3 ms against 8.8-9.4
-# ms per term, and the 18-qubit step as well (1.7-2.6 against 4.5-6.0
-# ms); the cap sits at 18 so that the 3x3 main path keeps its per-term
-# kernels.  Inner products: grouping was faster at every size timed (18,
-# 20, 24 qubits); 18 keeps the 18-qubit path on the per-term kernel, as
-# the JAX package's chain cap does.
+# at its 700 W power limit, the routes interleaved (numbers in PERF.md).
+# Rotations and the adjoint sweep: up to the cap the resident route (one
+# launch per span), above it one launch per tile run; the cap is the
+# size whose state sits in L2.  Inner products: grouping was faster at
+# every size timed (18, 20, 24 qubits); 18 keeps the 18-qubit path on the
+# per-term kernel, as the JAX package's chain cap does.
 CHAIN_MAX_QUBITS = 18
 INNER_CHAIN_MAX_QUBITS = 18
 # Tile runs: a tile holds 2^TILE_BITS amplitudes, the low TILE_LOW_BITS
@@ -56,6 +57,13 @@ INNER_CHAIN_MAX_QUBITS = 18
 # rotations and the adjoint both, 46 state passes each way.
 TILE_BITS = 12
 TILE_LOW_BITS = 4
+# Resident tile runs (up to CHAIN_MAX_QUBITS): the same layout, one
+# cooperative launch per span.  An 18-qubit state has 2^14 threads of 16
+# slots whatever the tile, so a larger tile means fewer runs and grid
+# barriers but fewer blocks: at 12 bits 64 blocks would leave half of the
+# H100's 132 SMs idle.
+RESIDENT_TILE_BITS = 11
+RESIDENT_TILE_LOW_BITS = 3
 # A thread holds the 2^REG_BITS slots of a tile that differ in REG_BITS
 # chosen tile bits, in registers; terms per run, staged in shared memory.
 REG_BITS = 4
@@ -223,6 +231,22 @@ class TileRuns:
             )
         return self._cache[key]
 
+    def run_tensors(self, device):
+        """(run_start, run_mask, run_group) as int32 tensors on ``device``
+        (a resident launch reads them there), built once per device."""
+        key = ("runs", str(device))
+        if key not in self._cache:
+            self._cache[key] = tuple(
+                torch.as_tensor(a, device=device)
+                for a in (self.run_start, self.run_mask, self.run_group)
+            )
+        return self._cache[key]
+
+    @property
+    def most_terms(self) -> int:
+        """The terms of the longest run."""
+        return int(np.diff(self.run_start).max())
+
 
 def _register_groups(x_tile):
     """Greedy order-preserving groups of a run's flip masks (tile
@@ -238,11 +262,10 @@ def _register_groups(x_tile):
 
 
 class TileLayout:
-    """The spans an engine call walks for one term sequence past
-    ``CHAIN_MAX_QUBITS``.
+    """The spans an engine call walks for one term sequence.
 
     ``spans`` is a list of ``(tiles, t0, t1)``: consecutive tile runs of
-    terms ``[t0, t1)`` for the tile-run kernels (``tiles`` a
+    terms ``[t0, t1)`` for the resident or the tile-run kernels (``tiles`` a
     :class:`TileRuns`), or, with ``tiles = None``, consecutive terms that
     fit no tile, for the per-term pair kernels.
     """

@@ -200,6 +200,81 @@ def test_adjoint_tile_runs(dev, n, k, c, monkeypatch):
     assert _rel(l1, l2) <= RTOL
 
 
+def _resident_case(dev, n, k, c, seed, T=200):
+    """A random program whose terms all fit tiles of (k, c), in at least 20
+    runs, on the card: (layout, term arrays, psi, lam)."""
+    from qsfh_torch.engine.streaming import TileLayout
+
+    rng = np.random.default_rng(seed)
+    xs, zs, ph = _tile_program(rng, n, T)
+    layout = TileLayout(xs, zs, n, k, c)
+    assert layout.n_single == 0 and len(layout.spans) == 1 and layout.n_runs >= 20
+    ang = rng.uniform(-1, 1, size=T)
+    args = (_t(xs, dev, torch.int64), _t(zs, dev, torch.int64), _t(ang, dev, torch.float32),
+            _t(ph.real, dev, torch.float32), _t(ph.imag, dev, torch.float32))
+    psi = _t(_state(rng, n), dev, torch.complex64)
+    lam = _t(_state(rng, n), dev, torch.complex64)
+    return layout.spans[0][0], args, psi, lam
+
+
+# (n, k, c, blocks): blocks caps the grid below the tiles of a run, so that a
+# block takes several tiles per run (and reads tiles other SMs wrote in the
+# run before)
+RESIDENT_CASES = [(12, 9, 2, None), (18, 11, 3, None), (18, 11, 3, 7), (18, 10, 4, 40),
+                  (18, 12, 4, None), (20, 11, 3, None), (20, 11, 3, 33)]
+
+
+@pytest.mark.parametrize("n,k,c,blocks", RESIDENT_CASES)
+def test_rotation_resident(dev, n, k, c, blocks):
+    """rotation_resident against its plain version: one launch per span."""
+    tiles, args, psi, _ = _resident_case(dev, n, k, c, n + k + 11)
+    got, ref = psi.clone(), psi.clone()
+    K.reset_launch_counts()
+    K.rotation_resident(got, *args, tiles, blocks=blocks)
+    K.rotation_resident_plain(ref, *args, tiles)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["rotation_resident"] == 1
+    assert K.resident_grid(psi, tiles, False, blocks) <= 1 << (n - k)
+    assert _rel(got, ref) <= RTOL
+
+
+@pytest.mark.parametrize("n,k,c,blocks", RESIDENT_CASES)
+def test_adjoint_resident(dev, n, k, c, blocks):
+    """adjoint_resident against its plain version (the per-term vector, psi
+    and lambda), one launch per span; a second call, and a call on another
+    grid, give the same bits."""
+    tiles, args, psi, lam = _resident_case(dev, n, k, c, n + k + 12)
+    p1, l1, p2, l2 = psi.clone(), lam.clone(), psi.clone(), lam.clone()
+    K.reset_launch_counts()
+    got = K.adjoint_resident(p1, l1, *args, tiles, blocks=blocks)
+    ref = K.adjoint_resident_plain(p2, l2, *args, tiles)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["adjoint_resident"] == 1
+    assert _rel(got, ref) <= RTOL
+    assert _rel(p1, p2) <= RTOL
+    assert _rel(l1, l2) <= RTOL
+    for other in (blocks, 3):
+        p3, l3 = psi.clone(), lam.clone()
+        again = K.adjoint_resident(p3, l3, *args, tiles, blocks=other)
+        torch.cuda.synchronize()
+        assert torch.equal(again, got) and torch.equal(p3, p1) and torch.equal(l3, l1)
+
+
+def test_resident_rejects_what_it_cannot_launch(dev):
+    """A resident wrapper raises, and launches nothing, on a layout built
+    for other terms or a tile shape the kernel does not take."""
+    from qsfh_torch.engine.streaming import TileLayout
+
+    tiles, args, psi, lam = _resident_case(dev, 12, 9, 2, 5)
+    K.reset_launch_counts()
+    with pytest.raises(ValueError):
+        K.rotation_resident(psi, *(a[1:] for a in args), tiles)
+    small = TileLayout(np.asarray([0b11]), np.asarray([0]), 12, 6, 2).spans[0][0]
+    with pytest.raises(ValueError):
+        K.adjoint_resident(psi, lam, *(a[:1] for a in args), small)
+    assert K.launch_counts()["rotation_resident"] == K.launch_counts()["adjoint_resident"] == 0
+
+
 @pytest.mark.parametrize("n", [10, 18])
 def test_xor_gather(dev, n):
     rng = np.random.default_rng(n + 7)

@@ -239,13 +239,16 @@ def test_expectation_stream_matches_jax(h_2x3, stream_route, monkeypatch):
 
 @pytest.mark.parametrize("chain_cap, inner_cap", [(N, N - 1), (N - 1, N)])
 def test_each_family_follows_its_own_cap(h_2x3, monkeypatch, chain_cap, inner_cap):
-    """Rotations and the adjoint sweep switch at CHAIN_MAX_QUBITS,
-    expectation values at INNER_CHAIN_MAX_QUBITS, each on its own."""
+    """Rotations and the adjoint sweep switch at CHAIN_MAX_QUBITS (resident
+    launches up to it, tile runs past it), expectation values at
+    INNER_CHAIN_MAX_QUBITS, each on its own."""
     monkeypatch.setattr(streaming, "CHAIN_MAX_QUBITS", chain_cap)
     monkeypatch.setattr(streaming, "INNER_CHAIN_MAX_QUBITS", inner_cap)
-    # tiles of the low 3 bits and one more: the three terms that flip two
-    # higher bits fit no tile and take the per-term kernels
+    # tiles of the low 3 bits and one more, both routes: the three terms
+    # that flip two higher bits fit no tile and take the per-term kernels
     _small_tiles(monkeypatch, k=4, c=3)
+    monkeypatch.setattr(streaming, "RESIDENT_TILE_BITS", 4)
+    monkeypatch.setattr(streaming, "RESIDENT_TILE_LOW_BITS", 3)
     calls = []
 
     def recorded(name):
@@ -260,10 +263,12 @@ def test_each_family_follows_its_own_cap(h_2x3, monkeypatch, chain_cap, inner_ca
     out = cc.apply(psi, th, impl=impl)
     run_rot_adjoint(cc.segments[0], out, psi, th, N, impl=impl)
     tobs.expectation_scan(out, impl=impl)
-    per_term = chain_cap >= N
-    assert ("rotation_runs" in calls) != per_term
-    assert ("adjoint_runs" in calls) != per_term
-    assert calls.count("rotation") == 1  # the segment, or its terms that fit no tile
+    resident = chain_cap >= N
+    assert ("rotation_runs" in calls) != resident
+    assert ("adjoint_runs" in calls) != resident
+    assert ("rotation_resident" in calls) == resident
+    assert ("adjoint_resident" in calls) == resident
+    assert calls.count("rotation") == 1  # the terms that fit no tile
     assert calls.count("adjoint") == 1
     assert ("inner_grouped" in calls) == (inner_cap < N)
     assert ("inner" in calls) == (inner_cap >= N)
