@@ -19,7 +19,9 @@ Phases (any failed check raises and the script exits nonzero):
    give the same bits, and twice on the same inputs (the adjoint: the same
    bits), each timed beside the same runs as one launch each (the
    tile-run kernels); then at n = 20 on the same terms (the chain cap's
-   other candidate).
+   other candidate).  H psi through the application tiles
+   (``pauli_apply_grouped``, the engine's route) twice (the same bits),
+   timed in turns with the per-term ``pauli_apply`` on the same inputs.
 3. Main path: ``qsfh_torch.algos.adapt.ADAPT`` on the 3x3 Hubbard lattice
    (t=1, U=6, 5 up / 4 down, complex64 on cuda) with the exact 4-state
    ground manifold read from the committed cache: one operator selection
@@ -28,7 +30,8 @@ Phases (any failed check raises and the script exits nonzero):
    counter set to 0 just before and read just after each, the selection's
    and the steps' counts held to the resident tile layouts (1 resident
    rotation and 1 resident adjoint per step, 2 resident rotations per
-   selection, no per-term rotation, no stream kernel).  The same selection
+   selection, one ``pauli_apply_grouped`` launch per tile of H for each
+   H psi, no per-term rotation, no stream kernel).  The same selection
    and steps then run through the plain versions on the card: energy,
    gnorm, Sz, S^2 and fidelity agree at every step (``STEP_TOLERANCES``),
    the pool gradients within 1e-4 of max |grad|, and the selected
@@ -39,15 +42,18 @@ Phases (any failed check raises and the script exits nonzero):
    (1e-5 relative), timed beside its bound, the plain versions and the old
    per-term route on the same inputs, with the launches and state passes
    of each call.  H, S^2 and the pool run on the main path's state; Sz
-   and S^2 also on a tilted state whose <Z_q> do not cancel.  H psi is
-   also timed as one ``torch.mv`` with a CSR H (a yardstick).
+   and S^2 also on a tilted state whose <Z_q> do not cancel.  H psi
+   through the application tiles (twice: the same bits), timed in turns
+   with the per-term ``pauli_apply``, and as one ``torch.mv`` with a CSR
+   H (a yardstick).
 5. 24-qubit main path: ``ADAPT`` on 2x6 (t=1, U=6, 6 up / 6 down,
    ``ground_truth=False``): one selection from the empty ansatz and 5
    train steps of the first 6 pool operators, with every launch counter
    set to 0 just before and read just after and held to the counts the
    tile and inner-tile layouts predict (no per-term rotation: every term
-   fits a tile; no per-term inner product: every flip mask fits an inner
-   tile); then one selection and 2 steps through the plain versions:
+   fits a tile; no per-term inner product or application: every flip
+   mask fits an inner tile); then one selection and 2 steps through the
+   plain versions:
    gradients within 1e-4 of max |grad|, the same selected set unless a tie
    sits within that tolerance, energy, gnorm and S^2 within 1e-4
    relative, Sz within 1e-4 of 0.
@@ -55,18 +61,20 @@ Phases (any failed check raises and the script exits nonzero):
    kernels off every path) at 18 and 24 qubits against their plain
    versions (exact for the gather, 1e-5 for the rotation), timed beside
    their bound and, for the gather, ``torch.index_select`` with a prebuilt
-   index.
+   index, both split into host, wall and device ms per call.
 7. A ``kernels`` JSON line, then the device JSON line, last.
 
 ``--routes`` also times the per-term route, the resident route (at 18
 and 20 qubits) and the stream route at 18 (3x3), 20 (2x5) and 24 qubits
 (2x6), call by call and end to end, and the two inner-product kernels
-(per term, per tile) on the pool, H and S^2 at each size; ``--profile``
+(per term, per tile) on the pool, H and S^2 and the two application
+kernels on H psi at each size; ``--profile``
 breaks a train step and a selection down by device kernel; ``--tiles``
 times the resident kernels over other tile shapes on the 3x3 segment,
 the 24-qubit tile-run kernels over other tile sizes (k, c) on the 2x6
 segment, and the inner-product tile kernel over tile shapes and item
-caps on the pool, H and S^2.
+caps on the pool, H and S^2, and the application tile kernel over the
+same shapes on H psi at 18 and 24 qubits.
 
 It imports nothing of JAX or of the JAX package ``qsfh_tpu``.
 """
@@ -110,6 +118,7 @@ TPU_KERNELS = "qsfh_tpu/engine/pallas_kernels.py"
 REPLACES = {
     "pauli_rotation": f"{TPU_KERNELS}:482,571",
     "pauli_apply": f"{TPU_KERNELS}:715",
+    "pauli_apply_grouped": f"{TPU_KERNELS}:715,1870,2002",
     "pauli_inner": f"{TPU_KERNELS}:645,927",
     "adjoint_rotation": f"{TPU_KERNELS}:826",
     "rotation_tile_runs": f"{TPU_KERNELS}:2268",
@@ -290,18 +299,20 @@ def recorder(results, n):
     STATE_RTOL."""
     dim = 1 << n
 
-    def record(name, call, T, bytes_moved, errs, ms, plain_ms, library_ms=None, flops=None):
+    def record(name, call, T, bytes_moved, errs, ms, plain_ms, library_ms=None, flops=None,
+               **extra):
         flops = FLOPS_PER_TERM_AMP[name] * T * dim if flops is None else flops
         b_ms, b_by = bound(bytes_moved, flops)
         entry = dict(call=call, terms=T, n=n, rel_err=max(e[0] for e in errs),
                      max_abs_err=max(e[1] for e in errs), ms=ms, plain_ms=plain_ms,
                      bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                     bytes=bytes_moved, flops=flops)
+                     bytes=bytes_moved, flops=flops, **extra)
         results.setdefault(name, []).append(entry)
         log(f"  {name:16s} {call:28s} T={T:5d} rel_err={entry['rel_err']:.2e} "
             f"(tol {STATE_RTOL:g}) max_abs={entry['max_abs_err']:.2e} ms={ms:.4f} "
             f"plain_ms={plain_ms:.3f} bound_ms={b_ms:.5f} ({b_by})"
-            + ("" if library_ms is None else f" library_ms={library_ms:.4f}"))
+            + ("" if library_ms is None else f" library_ms={library_ms:.4f}")
+            + "".join(f" {k}={v}" for k, v in extra.items()))
         if entry["rel_err"] > STATE_RTOL:
             raise AssertionError(f"{name} ({call}) disagrees with its plain version")
 
@@ -514,6 +525,10 @@ def phase_kernels(adapt, dev, sweep_tiles=False):
     library_ms = library_sparse_apply(psi, h_xs, h_zs, h_c, ref)
     record("pauli_apply", "lambda = H psi", len(h_xs), 2 * 8 * dim + 16 * len(h_xs), errs,
            ms, plain_ms, library_ms, flops=apply_flops(h_xs, dim))
+    apply_tiles_check(p.observables["H"], psi, ref, plain_ms, library_ms, record,
+                      "lambda = H psi (tiles)")
+    if sweep_tiles:
+        results["apply_tile_sweep"] = sweep_apply_tile_sizes(p.observables["H"], psi, ref)
 
     # pauli_inner: expectations (a = psi) and pool screening (a = w)
     for call, a, xs, zs in (
@@ -565,6 +580,79 @@ def phase_kernels(adapt, dev, sweep_tiles=False):
     return results
 
 
+def in_turns(fns, reps, warmup=1):
+    """ms per call of each of two functions on the same inputs, timed in
+    the order a, b, b, a (CUDA events) and averaged: a drift of the card
+    between the two falls on both."""
+    (a, fa), (b, fb) = fns.items()
+    ms = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        ms[name].append(time_cuda(fn, reps=reps, warmup=warmup))
+    return {name: sum(v) / len(v) for name, v in ms.items()}
+
+
+def apply_tiles_check(obs, psi, ref, plain_ms, library_ms, record, call):
+    """``pauli_apply_grouped`` on H psi against its plain result ``ref``,
+    twice (the same bits), timed in turns with the per-term
+    ``pauli_apply`` on the same inputs; recorded with its launches and
+    state passes (one per tile)."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    xs, zs, c = obs._tensors(psi)
+    tiles = obs.groups()
+    args = (psi, xs, zs, c.real, c.imag)
+    got, launches = launches_of(lambda: K.pauli_apply_grouped(*args, tiles))
+    again = K.pauli_apply_grouped(*args, tiles)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"pauli_apply_grouped ({call}): two calls give other bits")
+    ms = in_turns({"tiles": lambda: K.pauli_apply_grouped(*args, tiles),
+                   "per-term": lambda: K.pauli_apply(*args)}, reps=20)
+    dim = psi.shape[0]
+    record("pauli_apply_grouped", call, len(xs), 2 * 8 * dim + 16 * len(xs),
+           [(rel_err(got, ref), max_abs(got, ref))], ms["tiles"], plain_ms, library_ms,
+           flops=apply_flops(xs, dim), per_term_ms=ms["per-term"], launches=launches,
+           passes=len(tiles), items=tiles.n_items, tiles=tiles.n_tiles)
+
+
+def sweep_apply_tile_sizes(obs, psi, ref):
+    """``pauli_apply_grouped`` on H psi over other tile shapes (k bits, the
+    low c, item caps of ``INNER_TILE_SHAPES``), and at the shipped shape
+    with the x = 0 terms as items in place of the diagonal: ms per call
+    (CUDA events), state passes, items and diagonal entries, each held to
+    the plain result."""
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import streaming
+
+    xs, zs, c = obs._tensors(psi)
+    n = psi.shape[0].bit_length() - 1
+    hx, hz = xs.cpu().numpy(), zs.cpu().numpy()
+    shipped = (streaming.INNER_TILE_BITS, streaming.INNER_TILE_LOW_BITS, streaming.MAX_TILE_ITEMS)
+    rows = []
+    for (k, low, cap), diag in [(s, True) for s in INNER_TILE_SHAPES] + [(shipped, False)]:
+        saved = streaming.APPLY_DIAG_ITEMS
+        streaming.APPLY_DIAG_ITEMS = saved if diag else 1 << 30
+        try:
+            tiles = streaming.GroupTiles(hx, hz, n, k, low, cap)
+        finally:
+            streaming.APPLY_DIAG_ITEMS = saved
+        err = rel_err(K.pauli_apply_grouped(psi, xs, zs, c.real, c.imag, tiles), ref)
+        if tiles.spill_index.size or err > STATE_RTOL:
+            raise AssertionError(f"apply tile sweep n={n} k={k} c={low} cap={cap}: {err:.2e}")
+        ms = time_cuda(lambda: K.pauli_apply_grouped(psi, xs, zs, c.real, c.imag, tiles),
+                       reps=10)
+        rows.append(dict(n=n, k=k, c=low, max_items=cap, diagonal=diag, ms=ms,
+                         passes=len(tiles), items=tiles.n_items,
+                         diagonal_entries=int(tiles.diag_zin.size), rel_err=err))
+        log(f"  apply tiles, H psi n={n}: k={k} c={low} max_items={cap}"
+            + ("" if diag else ", x = 0 terms as items") + f": {ms:.4f} ms, {len(tiles)} "
+            f"passes, {tiles.n_items} items, {tiles.diag_zin.size} diagonal entries, "
+            f"rel_err {err:.2e}")
+    return rows
+
+
 def library_sparse_apply(psi, xs, zs, c, ref):
     """ms of one ``torch`` CSR sparse matrix-vector product computing H psi
     (a yardstick only; the port never calls it), or None where this
@@ -605,10 +693,37 @@ def library_sparse_apply(psi, xs, zs, c, ref):
     return time_cuda(lambda: torch.mv(csr, psi), reps=20)
 
 
+def host_device_split(fn, reps=200):
+    """Where one call's time goes, over ``reps`` back-to-back calls: the
+    host's ms per call to enqueue them (host clock, no sync), the wall ms
+    per call (host clock ended by a device sync: the larger of the two
+    sides once the queue is full) and the device ms per call (the kernels'
+    time in ``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device_ms = sum(r[2] for r in _device_kernels(prof)) / 1e3 / reps
+    return dict(host_ms=1e3 * (t1 - t0) / reps, wall_ms=1e3 * (t2 - t0) / reps,
+                device_ms=device_ms)
+
+
 def phase_single(dev, n):
     """xor_gather and the one-term rotation at n qubits against their plain
     versions; the gather also against ``torch.index_select`` with a
-    prebuilt index (a yardstick only; the port never calls it)."""
+    prebuilt index (a yardstick only; the port never calls it), each with
+    its host and device ms per call (:func:`host_device_split`)."""
     import torch
 
     from qsfh_torch.engine import kernels as K
@@ -634,12 +749,19 @@ def phase_single(dev, n):
     if err != 0.0 or not torch.equal(K.xor_gather(psi, x), ref):
         raise AssertionError(f"xor_gather (n={n}) disagrees with its plain version")
     b_ms, b_by = bound(state_bytes, 0)
+    gather = lambda: K.xor_gather(psi, xdev)  # noqa: E731
+    library = lambda: torch.index_select(psi, 0, perm)  # noqa: E731
+    ms = in_turns({"kernel": gather, "library": library}, reps=200, warmup=20)
     results["xor_gather"] = dict(
-        call=f"psi[b ^ x], n={n}", n=n, terms=1, rel_err=0.0, max_abs_err=err,
-        ms=time_cuda(lambda: K.xor_gather(psi, xdev), reps=20),
+        call=f"psi[b ^ x], n={n}", n=n, terms=1, rel_err=0.0, max_abs_err=err, ms=ms["kernel"],
         plain_ms=time_cuda(lambda: K.xor_gather_plain(psi, xdev), reps=5),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_cuda(lambda: torch.index_select(psi, 0, perm), reps=20))
+        bound_ms=b_ms, bound_by=b_by, library_ms=ms["library"],
+        split=host_device_split(gather), library_split=host_device_split(library))
+    for what in ("split", "library_split"):
+        s = results["xor_gather"][what]
+        log(f"  xor_gather n={n} {'index_select' if what[0] == 'l' else 'kernel'}: host "
+            f"{s['host_ms']:.4f} ms, wall {s['wall_ms']:.4f} ms, device {s['device_ms']:.4f} ms "
+            f"per call (200 back-to-back calls)")
 
     args = (x, z, 0.37, ph.real, ph.imag)
     got = K.pauli_rotation_one(psi, *args)
@@ -776,12 +898,15 @@ def resident_expected(adapt):
 
     sel = (layout(net, 1), layout(net, -1))
     fwd, adj = layout(seg, 1), layout(seg, -1)
+    h = adapt.problem.observables["H"].groups()  # H psi: one launch per tile
+    spill = int(bool(h.spill_index.size))  # the per-term kernel for masks that fit no tile
     zero = dict.fromkeys(K.launch_counts(), 0)
     per_select = dict(zero, rotation_resident=sum(map(spans, sel)),
-                      pauli_rotation=sum(lay.n_single for lay in sel), pauli_apply=1, pauli_inner=1)
+                      pauli_rotation=sum(lay.n_single for lay in sel), pauli_apply=spill,
+                      pauli_apply_grouped=h.n_tiles, pauli_inner=1)
     per_step = dict(zero, rotation_resident=spans(fwd), adjoint_resident=spans(adj),
-                    pauli_rotation=fwd.n_single, adjoint_rotation=adj.n_single, pauli_apply=1,
-                    pauli_inner=3)
+                    pauli_rotation=fwd.n_single, adjoint_rotation=adj.n_single, pauli_apply=spill,
+                    pauli_apply_grouped=h.n_tiles, pauli_inner=3)
     return per_select, per_step, dict(forward=fwd.n_runs, adjoint=adj.n_runs,
                                       network=[lay.n_runs for lay in sel])
 
@@ -814,7 +939,9 @@ def phase_main_path(adapt, dev, tmp):
             raise AssertionError(f"{what} launches {got}, the resident layouts predict {want}")
     log(f"  launches match the resident layouts: per step 1 rotation_resident ({runs['forward']} "
         f"runs) + 1 adjoint_resident ({runs['adjoint']} runs), per selection 2 "
-        f"rotation_resident ({runs['network']} runs), no per-term rotation")
+        f"rotation_resident ({runs['network']} runs), no per-term rotation; H psi "
+        f"{per_step['pauli_apply_grouped']} pauli_apply_grouped launches (one per tile) and "
+        f"{per_step['pauli_apply']} pauli_apply")
     results.update(launches_per_select=per_select, launches_per_step=per_step, runs=runs)
 
     run_adapt = build_adapt(dev, tmp, "run", max_inner_iterations=3)
@@ -837,7 +964,7 @@ def phase_main_path(adapt, dev, tmp):
     log(f"  run(): {len(run_adapt.selected_indices)} operators, losses {losses}, "
         f"{results['run_s']:.2f} s, launches {run_counts}")
     log(f"  launches on the main path: {counts}")
-    on_path = RESIDENT_KERNELS + ("pauli_apply", "pauli_inner")
+    on_path = RESIDENT_KERNELS + ("pauli_apply_grouped", "pauli_inner")
     for name, c in run_counts.items():
         if (c > 0) != (name in on_path):
             raise AssertionError(f"{name}: {c} launches in the 18-qubit run()")
@@ -881,8 +1008,9 @@ def chain_cap(cap, inner_cap):
 
 def per_term_impl():
     """The engine's kernels with the per-term rotation and adjoint in place
-    of the resident ones: the route of one launch per term (PR 1's) up to
-    the chain cap, on the same spans."""
+    of the resident ones, and the per-term ``pauli_apply`` in place of the
+    application tiles: the first route of the port, one launch per
+    rotation term up to the chain cap, on the same spans."""
     from qsfh_torch.engine import kernels as K
 
     def rotation(psi, xs, zs, angles, phre, phim, tiles):
@@ -891,7 +1019,11 @@ def per_term_impl():
     def adjoint(psi, lam, xs, zs, angles, phre, phim, tiles):
         return K.adjoint_rotation(psi, lam, xs, zs, angles, phre, phim)
 
-    return dataclasses.replace(K.KERNELS, rotation_resident=rotation, adjoint_resident=adjoint)
+    def apply(psi, xs, zs, cre, cim, tiles):
+        return K.pauli_apply(psi, xs, zs, cre, cim)
+
+    return dataclasses.replace(K.KERNELS, rotation_resident=rotation, adjoint_resident=adjoint,
+                               apply_grouped=apply)
 
 
 @contextlib.contextmanager
@@ -1099,16 +1231,28 @@ def phase_kernels_24(adapt, dev, sweep_tiles=False):
                 call, n, a, b, xs, zs, ref, scale)
     del tilted
 
-    # H psi: served by pauli_apply at every n
+    # H psi: the tile kernel (the engine's route) beside the per-term pauli_apply
     hx, hz, hc = h._tensors(psi)
     hargs = (hx, hz, hc.real, hc.imag)
-    got, launches = launches_of(lambda: K.pauli_apply(psi, *hargs))
+    htiles = h.groups()
+    got, launches = launches_of(lambda: K.pauli_apply_grouped(psi, *hargs, htiles))
+    again = K.pauli_apply_grouped(psi, *hargs, htiles)
+    old, old_launches = launches_of(lambda: K.pauli_apply(psi, *hargs))
     plain_ms, ref = timed_once(lambda: K.pauli_apply_plain(psi, *hargs))
-    ms = time_cuda(lambda: K.pauli_apply(psi, *hargs), reps=5, warmup=1)
+    if not torch.equal(got, again):
+        raise AssertionError("pauli_apply_grouped at 24 qubits: two calls give other bits")
+    ms = in_turns({"tiles": lambda: K.pauli_apply_grouped(psi, *hargs, htiles),
+                   "per-term": lambda: K.pauli_apply(psi, *hargs)}, reps=5)
     library_ms = library_sparse_apply(psi, hx, hz, hc, ref)
-    record("pauli_apply", "lambda = H psi (pauli_apply)", len(hx), 2 * 8 * dim + 16 * len(hx),
-           errs_of([(got, ref)]), ms, plain_ms, None, launches, 1,
+    passes = f"{len(htiles)} ({htiles.n_tiles} tiles, {htiles.n_items} items)"
+    record("pauli_apply_grouped", "lambda = H psi (tiles)", len(hx), 2 * 8 * dim + 16 * len(hx),
+           errs_of([(got, ref)]), ms["tiles"], plain_ms, ms["per-term"], launches, passes,
            flops=apply_flops(hx, dim), library_ms=library_ms)
+    record("pauli_apply", "lambda = H psi (pauli_apply)", len(hx), 2 * 8 * dim + 16 * len(hx),
+           errs_of([(old, ref)]), ms["per-term"], plain_ms, None, old_launches, 1,
+           flops=apply_flops(hx, dim), library_ms=library_ms)
+    if sweep_tiles:
+        results["apply_tile_sweep"] = sweep_apply_tile_sizes(h, psi, ref)
     for name, k in kernel_only.items():
         b_ms, b_by = k["bound"]
         log(f"  {name} alone: {k['call']}, {k['terms']} terms: {k['ms']:.4f} ms, "
@@ -1257,7 +1401,8 @@ def phase_main_path_24(adapt, dev, tmp):
         adjoint_tile_runs=N_STEPS * adj.n_runs,
         pauli_inner_grouped=2 * inner_launches(inner[0])
         + N_STEPS * sum(inner_launches(t) for t in inner[1:]),
-        pauli_apply=2 + N_STEPS,
+        pauli_apply=0,
+        pauli_apply_grouped=(2 + N_STEPS) * obs["H"].groups().n_tiles,
         pauli_inner=0,
         xor_gather=0,
         rotation_resident=0,
@@ -1269,6 +1414,8 @@ def phase_main_path_24(adapt, dev, tmp):
         raise AssertionError("a 2x6 term fits no tile: the per-term kernels ran")
     if any(t.spill_index.size for t in inner):
         raise AssertionError("a 2x6 flip mask fits no inner tile: the per-term kernel ran")
+    if counts["pauli_apply"]:
+        raise AssertionError("H psi took the per-term pauli_apply at 24 qubits")
     # one partial-sum pass per adjoint sweep: the whole sweep's partials fit one chunk
     if len(seg) << (n - k) > K.SWEEP_PARTIALS_CAP:
         raise AssertionError("the adjoint sweep's partials take more than one chunk")
@@ -1276,7 +1423,8 @@ def phase_main_path_24(adapt, dev, tmp):
         f"runs per step, {sum(t.n_runs for t in sel)} network runs per selection, no "
         f"per-term rotation; one partial-sum pass per adjoint sweep; inner-product state passes "
         f"per call: pool {len(inner[0])}, H {len(inner[1])}, Sz {len(inner[2])}, "
-        f"S^2 {len(inner[3])}, no per-term pass")
+        f"S^2 {len(inner[3])}, no per-term pass; H psi {inner[1].n_tiles} pauli_apply_grouped "
+        f"launches, no pauli_apply")
     results["inner_passes"] = dict(zip(("pool", "H", "Sz", "S^2"), map(len, inner)))
 
     plain = build_adapt(dev, tmp, "plain24", CONFIG_24)
@@ -1346,6 +1494,7 @@ def phase_routes(cases, dev, out, rounds=15):
             ("adjoint sweep", lambda r: run_rot_adjoint(seg, psi, lam, thetas, n, impl=impls[r])),
             ("E, Sz, S^2", lambda r: [obs[k].expectation_scan(psi, impl=impls[r])
                                       for k in ("H", "Sz", "S^2")]),
+            ("H psi", lambda r: obs["H"].apply_scan(psi, impl=impls[r])),
             ("pool screen", lambda r: adapt.packed_pool.screen_scan(psi, lam, impl=impls[r])),
             ("train step", lambda r: built[r][0](params, optimizer)),
             ("selection", lambda r: built[r][1](params[:0])),
@@ -1379,9 +1528,10 @@ def phase_inner_routes(cases, dev, out, rounds=5):
     ``pauli_inner`` (one launch per call, a block row per term) and
     ``pauli_inner_grouped`` (one pass per tile of masks, the shipped tile
     shape), for the pool screen (a = w = H psi) and the expectation terms
-    of H and S^2 (a = psi); CUDA events, the two in turns each round,
-    median over ``rounds`` rounds of 3 calls; each held to the per-term
-    result."""
+    of H and S^2 (a = psi), and the two application kernels on H psi
+    (``pauli_apply``, ``pauli_apply_grouped``); CUDA events, the two in
+    turns each round, median over ``rounds`` rounds of 3 calls; each held
+    to the per-term result."""
     import torch
 
     from qsfh_torch.engine import kernels as K
@@ -1415,6 +1565,22 @@ def phase_inner_routes(cases, dev, out, rounds=5):
             rows.append(dict(lattice=label, n=n, call=call, ms=ms, tile_passes=len(tiles)))
             log(f"  {label} (n={n}) {call:12s} per-term {ms['per-term']:8.4f} ms, tiles "
                 f"{ms['tiles']:8.4f} ms ({len(tiles)} passes)")
+        xs, zs, c = obs["H"]._tensors(psi)
+        tiles = obs["H"].groups()
+        args = (psi, xs, zs, c.real, c.imag)
+        routes = (("per-term", lambda: K.pauli_apply(*args)),
+                  ("tiles", lambda: K.pauli_apply_grouped(*args, tiles)))
+        err = rel_err(routes[1][1](), routes[0][1]())
+        if err > STATE_RTOL:
+            raise AssertionError(f"{label} H psi: tiles disagree with per-term ({err:.2e})")
+        times = {route: [] for route, _ in routes}
+        for r in range(rounds):
+            for route, fn in routes:
+                times[route].append(time_cuda(fn, reps=3, warmup=1 if r == 0 else 0))
+        ms = {route: sorted(t)[len(t) // 2] for route, t in times.items()}
+        rows.append(dict(lattice=label, n=n, call="H psi", ms=ms, tile_passes=len(tiles)))
+        log(f"  {label} (n={n}) {'H psi':12s} per-term {ms['per-term']:8.4f} ms, tiles "
+            f"{ms['tiles']:8.4f} ms ({len(tiles)} passes)")
 
 
 def _device_kernels(prof):
@@ -1425,8 +1591,9 @@ def _device_kernels(prof):
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
             continue
-        if getattr(ev, "is_user_annotation", False) or "#" in ev.key:
-            continue  # a range such as "Optimizer.step#Adam.step", not a kernel
+        if getattr(ev, "is_user_annotation", False) or ("#" in ev.key and "(" not in ev.key):
+            continue  # a range such as "Optimizer.step#Adam.step", not a kernel (whose
+            # signature may hold a "{lambda(long)#1}")
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = ev.cuda_time_total
@@ -1567,6 +1734,20 @@ def main():
         if name == "pauli_rotation":  # with pauli_rotation_one, TPU kernel 12 (:571)
             one = single[24]["pauli_rotation_one"]
             line[-1]["one_term_24q"] = {k: one[k] for k in ("ms", "plain_ms", "bound_ms")}
+    name = "pauli_apply_grouped"  # H psi on both main paths (TPU kernels 2 and 9)
+    g18, g24 = kern[name][0], kern24[name][0]
+    line.append(dict(
+        name=name, route="cuda", source=source, replaces=REPLACES[name],
+        launches=main["launches"][name], max_abs_err=max(g18["max_abs_err"], g24["max_abs_err"]),
+        ms=g18["ms"], plain_ms=g18["plain_ms"], bound_ms=g18["bound_ms"],
+        bound_by=g18["bound_by"], library_ms=g18["library_ms"], call=g18["call"],
+        per_term_ms=g18["per_term_ms"],
+        launches_per_step=main["launches_per_step"][name],
+        launches_per_selection=main["launches_per_select"][name],
+        launches_24q=main24["launches"][name], ms_24q=g24["ms"], plain_ms_24q=g24["plain_ms"],
+        bound_ms_24q=g24["bound_ms"], library_ms_24q=g24["library_ms"],
+        per_term_ms_24q=g24["old_route_ms"],
+    ))
     for name in RESIDENT_KERNELS:  # the 18-qubit main path's rotations and adjoint sweep
         entries = kern[name]
         head = max(entries, key=lambda e: e["terms"])
@@ -1604,6 +1785,9 @@ def main():
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
         call=f"{head['call']} (on no path: 0 launches on both main paths)",
+        split_18q=single[18]["xor_gather"]["split"], split_24q=head["split"],
+        index_select_split_18q=single[18]["xor_gather"]["library_split"],
+        index_select_split_24q=head["library_split"],
     ))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -19,8 +19,9 @@
 // From 19 qubits on (a 24-qubit state is 128 MiB) every launch streams the
 // state from HBM, and the tile-run and grouped kernels organise the work
 // against it: runs of rotations chained in shared memory and registers over
-// tiles of chosen bits, one state pass per run, and inner products over
-// tiles of chosen bits, one pass per tile for every flip mask inside it.
+// tiles of chosen bits, one state pass per run, and inner products and
+// sums of terms applied to the state over tiles of chosen bits, one pass
+// per tile for every flip mask inside it.
 //
 // Plain C interface (loaded with ctypes by qsfh_torch/engine/kernels.py):
 // every entry point enqueues on the given stream, allocates nothing, and
@@ -28,6 +29,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -247,11 +250,13 @@ __global__ void reduce_partials_kernel(const float2* __restrict__ partials,
 // ---------------------------------------------------------------------------
 // pauli_apply: out[b] = sum_t c_t s_t(b) psi[b ^ x_t].
 //
-// Replaces apply_chain_pallas (qsfh_tpu/engine/pallas_kernels.py:688-760).
-// One thread per output amplitude loops over the terms, staged through
-// shared memory a tile at a time, and writes out[b] once: no atomics.
-// Bound: ~8 flops and one 8 B load per (term, amplitude); at n = 18 and
-// 100 terms the loads hit L1/L2, so the arithmetic bounds it.
+// The per-term counterpart of apply_chain_pallas (qsfh_tpu/engine/
+// pallas_kernels.py:688-760); the engine applies sums over tiles (pauli_apply_tiles_kernel
+// below) and keeps this kernel for terms whose mask fits no tile and for
+// states of fewer than 9 qubits.  One thread per output amplitude loops over
+// the terms, staged through shared memory a tile at a time, and writes
+// out[b] once: no atomics.  Bound: ~8 flops and one 8 B load per (term,
+// amplitude); every term is a gather through L1/L2.
 // ---------------------------------------------------------------------------
 __global__ void pauli_apply_kernel(const float2* __restrict__ psi,
                                    float2* __restrict__ out, uint32_t dim,
@@ -873,21 +878,32 @@ adjoint_resident_kernel(float2* __restrict__ psi, float2* __restrict__ lam, int 
 //
 // Replaces xor_gather_pallas / _xor_gather_kernel
 // (qsfh_tpu/engine/pallas_kernels.py:369-418), whose XOR permutation was a
-// matmul because Mosaic has no gather.  One 16-byte load and store per
-// thread (two amplitudes): the pair (2q, 2q + 1) of out is the pair at
-// 2q ^ (x & ~1) of psi, swapped when bit 0 of x is set.  The mask is a
-// device scalar (the JAX mask is traced) or, without one, an argument.
+// matmul because Mosaic has no gather.  The pair (2q, 2q + 1) of out is
+// the pair at 2q ^ (x & ~1) of psi, swapped when bit 0 of x is set: 16-byte
+// loads and stores, two pairs a thread with both loads in flight before
+// either store, and a grid sized to the pairs (no grid-stride loop).  The
+// mask is a device scalar (the JAX mask is traced), int32 or int64: its low
+// 32-bit word on this little-endian card, or, without one, an argument.
 // Bound: one read and one write of the state, 2 x 8 B x 2^n.
 // ---------------------------------------------------------------------------
+constexpr int kGatherPairs = 2;  // pairs per thread
+
 __global__ void xor_gather_kernel(const float4* __restrict__ psi, float4* __restrict__ out,
-                                  uint32_t pairs, const int64_t* __restrict__ mask_dev,
+                                  uint32_t pairs, const uint32_t* __restrict__ mask_dev,
                                   uint32_t mask_arg) {
-  const uint32_t x = mask_dev ? static_cast<uint32_t>(*mask_dev) : mask_arg;
+  const uint32_t x = mask_dev ? *mask_dev : mask_arg;
   const uint32_t xp = x >> 1;
-  for (uint32_t q = blockIdx.x * blockDim.x + threadIdx.x; q < pairs;
-       q += gridDim.x * blockDim.x) {
-    const float4 v = psi[q ^ xp];
-    out[q] = (x & 1u) ? make_float4(v.z, v.w, v.x, v.y) : v;
+  const uint32_t q0 = blockIdx.x * (kGatherPairs * blockDim.x) + threadIdx.x;
+  float4 v[kGatherPairs];
+#pragma unroll
+  for (int m = 0; m < kGatherPairs; ++m) {
+    const uint32_t q = q0 + m * blockDim.x;
+    if (q < pairs) v[m] = psi[q ^ xp];
+  }
+#pragma unroll
+  for (int m = 0; m < kGatherPairs; ++m) {
+    const uint32_t q = q0 + m * blockDim.x;
+    if (q < pairs) out[q] = (x & 1u) ? make_float4(v[m].z, v[m].w, v[m].x, v[m].y) : v[m];
   }
 }
 
@@ -1143,6 +1159,354 @@ pauli_inner_tiles_kernel(const float2* __restrict__ a, const float2* __restrict_
       partials[static_cast<size_t>(t - t_base) * gridDim.x + blockIdx.x] = v;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// pauli_apply_grouped (pauli_apply_tiles_kernel): out[b] = sum_t c_t s_t(b)
+// psi[b ^ x_t] over the items and tiles of streaming.GroupTiles, the layout
+// the inner products use.
+//
+// Replaces apply_chain_pallas (qsfh_tpu/engine/pallas_kernels.py:715, body
+// _apply_chain_kernel :688), apply_stream_pallas (:1870, bodies :1106 and
+// the static kernel) and apply_stream_fused (:2002, body :1935).  The
+// per-term pauli_apply gathers psi[b ^ x_t] once per term and output
+// amplitude: at 24 qubits 109 gathers over a 128 MiB state, ~14 GB through
+// L2 for 0.27 GB of compulsory bytes.  Here one launch per tile passes the
+// state once: the block copies the psi tile of its tile position into
+// shared memory in tile order (16-byte cp.async: tile bit 0 is flat bit
+// 0), and every item of the tile reads its partners from there.
+//
+// An item's terms share x and agree off the 4 bits J, so on a tile slot i
+//     sum_{t in item} c_t s_t(i) = s(i) C[j(i)],
+//     C[j] = sum_{t in item} c_t (-1)^popc(j & d_t),
+// a 16-point Walsh transform of the item's coefficients (d_t = term_d),
+// with j(i) the slot's bits on J and s(i) the sign of the phase bits the
+// terms share (item_zt on the tile, item_zout off it).  The block forms
+// each item's table of the 32 values (-1)^s C[j] at j | s << 4 from the
+// coefficients it is given, in shared memory, while its tile copy is in
+// flight; where every coefficient of the tile is real (H, S^2 and Sz of a
+// Hubbard model) it reads a float copy of the tables (one 128-byte row: a
+// warp's loads are one wavefront) and multiplies by real numbers.  Thread
+// tid owns the 16 slots tid | r << (k - 4), r = 0..15, in registers for
+// the whole launch (8 slots a thread, twice the warps, measured slower).
+// (j(i), s(i)) is linear in i, so a thread's 16 table offsets of an item
+// are its base entry XOR the indices of the top 4 tile bits (item_ehi): per item and slot one shared load and one add into
+// coef[r]; the items of one x in a row then share one load of psi[i ^ x]
+// (slot sa[r] ^ item_xa: a warp's 32 slots stay one aligned 256-byte row,
+// no bank conflict) and one multiply-add into acc[r].
+//
+// A tile with many x = 0 items (streaming.APPLY_DIAG_ITEMS: the Coulomb
+// and Z terms of H, most of S^2) takes them as one diagonal instead: the
+// block writes their spectrum (one entry per phase mask on the tile, its
+// terms' coefficients signed by the phase bits off the tile) and
+// transforms it (Walsh-Hadamard: the top 4 tile bits in registers, the
+// lane bits by shuffles, the warp bits through shared memory), ~30
+// instructions a slot for all of them, then d(i) psi[i] into acc[r].
+//
+// The block writes its tile at the end, through shared memory in 16-byte
+// stores: the call's first tile stores out, each later tile adds to it
+// (its out tile comes in by cp.async while the items run; one launch per
+// tile, in a fixed order, no float atomics: two calls give the same bits).
+//
+// Bound on this card: the float32 work (8 flops per mask and amplitude, 2
+// per term) and, at 24 qubits, the HBM passes: per tile one read of psi and
+// one store (first tile) or read-add (later tiles) of out, 1.07 GB for the
+// 2x6 H.  8-byte copies and stores, one amplitude a thread, reached less
+// than half the HBM rate on these tiles; 16-byte ones, and the out tile
+// staged while the items run, are what this layout does about it.
+// ---------------------------------------------------------------------------
+
+constexpr int kApplyTopBits = 4;                 // the tile bits a thread's slots span
+constexpr int kApplySlots = 1 << kApplyTopBits;  // slots a thread owns
+constexpr int kApplyTileMaxThreads = 512;        // 2^(k - 4) threads, k <= 13
+constexpr int kApplyTable = 32;  // entries of an item's table: (-1)^s C[j] at j | s << 4
+
+// The byte offsets in shared memory of this thread's 16 table entries of
+// one item, in a table of entries of `entry` bytes at `table`: entry
+// (jb | s << 4) ^ e(r), jb the thread's bucket bits, s its sign, e(r) the
+// XOR of the 5-bit indices of the top tile bits set in r (item_ehi).
+__device__ __forceinline__ void apply_item_offsets(uint32_t (&E)[kApplySlots], uint32_t table,
+                                                   uint32_t entry, uint32_t tid, uint32_t outer,
+                                                   uint32_t jt, uint32_t zt, uint32_t ehi,
+                                                   uint32_t zo) {
+  uint32_t jb = 0u;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) jb |= ((tid >> ((jt >> (4 * m)) & 15u)) & 1u) << m;
+  const uint32_t s = (__popc(tid & zt) ^ __popc(outer & zo)) & 1u;
+  uint32_t e[kApplyTopBits];
+#pragma unroll
+  for (int b = 0; b < kApplyTopBits; ++b) e[b] = ((ehi >> (5 * b)) & 31u) * entry;
+  E[0] = table + (jb | s << 4) * entry;
+#pragma unroll
+  for (int r = 1; r < kApplySlots; ++r)
+    E[r] = E[r & (r - 1)] ^ e[r & 1 ? 0 : r & 2 ? 1 : r & 4 ? 2 : 3];  // r's lowest bit
+}
+
+// Arithmetic on a coefficient that is a float (real) or a float2 (complex).
+__device__ __forceinline__ float coef_add(float a, float b) { return a + b; }
+__device__ __forceinline__ float2 coef_add(float2 a, float2 b) { return cadd(a, b); }
+__device__ __forceinline__ float coef_sub(float a, float b) { return a - b; }
+__device__ __forceinline__ float2 coef_sub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float coef_shfl(float v, int m) {
+  return __shfl_xor_sync(0xffffffffu, v, m);
+}
+__device__ __forceinline__ float2 coef_shfl(float2 v, int m) {
+  return make_float2(__shfl_xor_sync(0xffffffffu, v.x, m), __shfl_xor_sync(0xffffffffu, v.y, m));
+}
+// acc + c p
+__device__ __forceinline__ float2 coef_fma(float c, float2 p, float2 acc) {
+  return make_float2(fmaf(c, p.x, acc.x), fmaf(c, p.y, acc.y));
+}
+__device__ __forceinline__ float2 coef_fma(float2 c, float2 p, float2 acc) {
+  return make_float2(fmaf(c.x, p.x, fmaf(-c.y, p.y, acc.x)), fmaf(c.x, p.y, fmaf(c.y, p.x, acc.y)));
+}
+// one Walsh-Hadamard butterfly seen from one side: the slot with the bit
+// clear keeps v + p, the one with the bit set p - v
+template <typename T>
+__device__ __forceinline__ T butterfly(T v, T p, bool up) {
+  return up ? coef_sub(p, v) : coef_add(v, p);
+}
+
+__device__ __forceinline__ void load_coef(float& v, const float2& s) { v = s.x; }
+__device__ __forceinline__ void load_coef(float2& v, const float2& s) { v = s; }
+
+// The tile's diagonal (its x = 0 terms) on this thread's 16 slots into
+// acc: d(t) = sum_z spec[z] (-1)^popc(t & z), the Walsh-Hadamard transform
+// of the spectrum the block wrote at `spec` (float2, tile coordinates;
+// with T = float its real parts), over the top 4 tile bits in registers,
+// the 5 lane bits by shuffles and the warp bits through the same shared
+// memory; then acc += d psi.
+template <typename T>
+__device__ __forceinline__ void apply_diagonal(unsigned char* smem, uint32_t spec_off,
+                                               uint32_t tid, int hb,
+                                               const uint32_t (&sa)[kApplySlots],
+                                               float2 (&acc)[kApplySlots]) {
+  const float2* spec2 = reinterpret_cast<const float2*>(smem + spec_off);
+  T* spec = reinterpret_cast<T*>(smem + spec_off);
+  T v[kApplySlots];
+#pragma unroll
+  for (int r = 0; r < kApplySlots; ++r) load_coef(v[r], spec2[tid + (static_cast<uint32_t>(r) << hb)]);
+#pragma unroll
+  for (int b = 0; b < kApplyTopBits; ++b) {
+#pragma unroll
+    for (int r = 0; r < kApplySlots; ++r) {
+      if (!((r >> b) & 1)) {
+        const T a = v[r], c = v[r | (1 << b)];
+        v[r] = coef_add(a, c);
+        v[r | (1 << b)] = coef_sub(a, c);
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < 5; ++b) {
+    const bool up = (tid >> b) & 1u;
+#pragma unroll
+    for (int r = 0; r < kApplySlots; ++r) v[r] = butterfly(v[r], coef_shfl(v[r], 1 << b), up);
+  }
+  for (int b = 5; b < hb; ++b) {
+    __syncthreads();  // every read of the previous stage (or of the spectrum) is done
+#pragma unroll
+    for (int r = 0; r < kApplySlots; ++r) spec[tid + (static_cast<uint32_t>(r) << hb)] = v[r];
+    __syncthreads();
+    const bool up = (tid >> b) & 1u;
+#pragma unroll
+    for (int r = 0; r < kApplySlots; ++r)
+      v[r] = butterfly(v[r], spec[(tid ^ (1u << b)) + (static_cast<uint32_t>(r) << hb)], up);
+  }
+#pragma unroll
+  for (int r = 0; r < kApplySlots; ++r)
+    acc[r] = coef_fma(v[r], *reinterpret_cast<const float2*>(smem + sa[r]), acc[r]);
+}
+
+// The items [i0, i0 + n_items) of one tile on this thread's 16 slots into
+// acc (the x = 0 items skipped where the diagonal took them): per item one
+// table entry per slot (float with REAL, the tile's coefficients all real;
+// float2 otherwise), summed over a run of items of one x, then one partner
+// load psi[slot ^ x] and product per slot.
+template <bool REAL>
+__device__ __forceinline__ void apply_items(const unsigned char* smem, uint32_t table, int i0,
+                                            int n_items, bool skip_diagonal, uint32_t tid,
+                                            uint32_t outer, const uint32_t (&sa)[kApplySlots],
+                                            float2 (&acc)[kApplySlots],
+                                            const int32_t* __restrict__ item_jt,
+                                            const int32_t* __restrict__ item_zt,
+                                            const int32_t* __restrict__ item_xa,
+                                            const int32_t* __restrict__ item_ehi,
+                                            const int32_t* __restrict__ item_zout) {
+  constexpr uint32_t entry = REAL ? sizeof(float) : sizeof(float2);
+  using Coef = typename std::conditional<REAL, float, float2>::type;
+  uint32_t E[kApplySlots];
+  int it = 0;
+  while (it < n_items) {
+    const uint32_t xa = static_cast<uint32_t>(__ldg(item_xa + i0 + it));
+    if (skip_diagonal && xa == 0u) {
+      while (it < n_items && __ldg(item_xa + i0 + it) == 0) ++it;
+      continue;
+    }
+    Coef coef[kApplySlots];
+    bool first = true;
+    do {
+      const int item = i0 + it;
+      apply_item_offsets(E, table + static_cast<uint32_t>(it) * kApplyTable * entry, entry, tid,
+                         outer, static_cast<uint32_t>(__ldg(item_jt + item)),
+                         static_cast<uint32_t>(__ldg(item_zt + item)),
+                         static_cast<uint32_t>(__ldg(item_ehi + item)),
+                         static_cast<uint32_t>(__ldg(item_zout + item)));
+      if (first) {
+#pragma unroll
+        for (int r = 0; r < kApplySlots; ++r) coef[r] = *reinterpret_cast<const Coef*>(smem + E[r]);
+      } else {
+#pragma unroll
+        for (int r = 0; r < kApplySlots; ++r)
+          coef[r] = coef_add(coef[r], *reinterpret_cast<const Coef*>(smem + E[r]));
+      }
+      first = false;
+      ++it;
+    } while (it < n_items && static_cast<uint32_t>(__ldg(item_xa + i0 + it)) == xa);
+    const uint32_t xo = xa * static_cast<uint32_t>(sizeof(float2));
+#pragma unroll
+    for (int r = 0; r < kApplySlots; ++r)
+      acc[r] = coef_fma(coef[r], *reinterpret_cast<const float2*>(smem + (sa[r] ^ xo)), acc[r]);
+  }
+}
+
+// 16-byte copy, global to shared, through L2 only
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+__global__ void __launch_bounds__(kApplyTileMaxThreads)
+pauli_apply_tiles_kernel(const float2* __restrict__ psi, float2* __restrict__ out, int n, int k,
+                         int c, uint32_t mask, int i0, int n_items, int d0, int d1,
+                         const int32_t* __restrict__ item_start,
+                         const int32_t* __restrict__ term_d, const int32_t* __restrict__ order,
+                         const int32_t* __restrict__ item_jt, const int32_t* __restrict__ item_zt,
+                         const int32_t* __restrict__ item_xa, const int32_t* __restrict__ item_ehi,
+                         const int32_t* __restrict__ item_zout,
+                         const int32_t* __restrict__ diag_zin,
+                         const int32_t* __restrict__ diag_start,
+                         const int32_t* __restrict__ diag_term,
+                         const int32_t* __restrict__ diag_zout, const float* __restrict__ cre,
+                         const float* __restrict__ cim, int cstride, int accumulate) {
+  // shared memory, tiles in tile order: the psi tile (2^k float2); the out
+  // tile (2^k float2: first the diagonal's spectrum, then the out tile of
+  // a later tile, then this tile's result); the items' float2 tables
+  // (kApplyTable each) and the same tables' real parts (float)
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* pt = reinterpret_cast<float2*>(smem);
+  const uint32_t otab = static_cast<uint32_t>(sizeof(float2)) << k;
+  float2* ot = reinterpret_cast<float2*>(smem + otab);
+  const uint32_t ctab = 2u * otab;
+  const uint32_t rtab = ctab + static_cast<uint32_t>(n_items) * kApplyTable * sizeof(float2);
+  float2* ctables = reinterpret_cast<float2*>(smem + ctab);
+  float* rtables = reinterpret_cast<float*>(smem + rtab);
+  const uint32_t tid = threadIdx.x;
+  const int hb = k - kApplyTopBits;  // the register slots' tile bits: hb .. k - 1
+  const bool diagonal = d1 > d0;
+
+  // Tile bit 0 is flat bit 0 (c >= 1), so the slots (2q, 2q + 1) are 16
+  // contiguous bytes: thread tid copies and stores the 8 pairs of the tile
+  // runs' TileMap, q = tid + m 2^hb, in tile order here (no swizzle).
+  static_assert(kApplySlots == 16, "TileMap moves 8 pairs a thread");
+  const uint32_t rest = ((1u << n) - 1u) & ~mask;
+  const uint32_t outer = deposit(blockIdx.x, rest);
+  const TileMap map(k, c, outer, mask & ~((1u << c) - 1u));
+  const uint32_t tp = 2u * tid;  // the first slot of this thread's first pair
+#pragma unroll
+  for (int m = 0; m < kApplySlots / 2; ++m)
+    cp_async16(pt + tp + (static_cast<uint32_t>(m) << (hb + 1)), psi + map.global(m));
+  cp_async_commit();
+
+  // this thread's 16 slots tid | r << hb: their byte offsets in a tile
+  uint32_t sa[kApplySlots];
+#pragma unroll
+  for (int r = 0; r < kApplySlots; ++r)
+    sa[r] = (tid | (static_cast<uint32_t>(r) << hb)) * static_cast<uint32_t>(sizeof(float2));
+
+  // while the copy is in flight: the spectrum of the diagonal (zero, then
+  // one entry per z on the tile: the sum of its terms' signed coefficients
+  // in a fixed order), the items' tables (C[j] at j, -C[j] at j | 16), and
+  // whether any coefficient of the tile is complex
+  if (diagonal) {
+#pragma unroll
+    for (int r = 0; r < kApplySlots; ++r)
+      *reinterpret_cast<float2*>(smem + otab + sa[r]) = make_float2(0.0f, 0.0f);
+    __syncthreads();
+  }
+  int complex_coeffs = 0;
+  for (int e = d0 + static_cast<int>(tid); e < d1; e += blockDim.x) {
+    float2 v = make_float2(0.0f, 0.0f);
+    for (int t = diag_start[e]; t < diag_start[e + 1]; ++t) {
+      const int o = diag_term[t] * cstride;
+      const uint32_t sbit =
+          (__popc(outer & static_cast<uint32_t>(diag_zout[t])) & 1u) << 31;
+      v.x += flip_sign(__ldg(cre + o), sbit);
+      v.y += flip_sign(__ldg(cim + o), sbit);
+    }
+    ot[diag_zin[e]] = v;
+    complex_coeffs |= v.y != 0.0f;
+  }
+  for (int e = static_cast<int>(tid); e < 16 * n_items; e += blockDim.x) {
+    const int it = e >> 4, item = i0 + it;
+    if (diagonal && __ldg(item_xa + item) == 0) continue;
+    const uint32_t j = static_cast<uint32_t>(e & 15);
+    float2 v = make_float2(0.0f, 0.0f);
+    for (int t = item_start[item]; t < item_start[item + 1]; ++t) {
+      const int o = order[t] * cstride;
+      const uint32_t sbit = (__popc(j & static_cast<uint32_t>(term_d[t])) & 1u) << 31;
+      v.x += flip_sign(__ldg(cre + o), sbit);
+      v.y += flip_sign(__ldg(cim + o), sbit);
+    }
+    ctables[it * kApplyTable + j] = v;
+    ctables[it * kApplyTable + j + 16] = make_float2(-v.x, -v.y);
+    rtables[it * kApplyTable + j] = v.x;
+    rtables[it * kApplyTable + j + 16] = -v.x;
+    complex_coeffs |= v.y != 0.0f;
+  }
+  cp_async_wait_all();
+  const bool real = !__syncthreads_or(complex_coeffs);
+
+  float2 acc[kApplySlots];
+#pragma unroll
+  for (int r = 0; r < kApplySlots; ++r) acc[r] = make_float2(0.0f, 0.0f);
+  if (diagonal) {
+    if (real)
+      apply_diagonal<float>(smem, otab, tid, hb, sa, acc);
+    else
+      apply_diagonal<float2>(smem, otab, tid, hb, sa, acc);
+    __syncthreads();  // the out tile is free again
+  }
+  // a later tile adds to out: its out tile comes in during the items
+  if (accumulate) {
+#pragma unroll
+    for (int m = 0; m < kApplySlots / 2; ++m)
+      cp_async16(ot + tp + (static_cast<uint32_t>(m) << (hb + 1)), out + map.global(m));
+    cp_async_commit();
+  }
+  if (real)
+    apply_items<true>(smem, rtab, i0, n_items, diagonal, tid, outer, sa, acc, item_jt, item_zt,
+                      item_xa, item_ehi, item_zout);
+  else
+    apply_items<false>(smem, ctab, i0, n_items, diagonal, tid, outer, sa, acc, item_jt, item_zt,
+                       item_xa, item_ehi, item_zout);
+  if (accumulate) {
+    cp_async_wait_all();
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < kApplySlots; ++r) {
+    float2* o = reinterpret_cast<float2*>(smem + otab + sa[r]);
+    *o = accumulate ? cadd(*o, acc[r]) : acc[r];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < kApplySlots / 2; ++m)
+    *reinterpret_cast<float4*>(out + map.global(m)) =
+        *reinterpret_cast<const float4*>(ot + tp + (static_cast<uint32_t>(m) << (hb + 1)));
 }
 
 inline unsigned blocks_for(uint64_t work, uint64_t per_block) {
@@ -1501,16 +1865,16 @@ int qsfh_adjoint_resident(void* psi, void* lam, int n, int k, int c, int n_runs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out[b] = psi[b ^ x] with x = *mask_dev (an int64 on the device), or mask
-// when mask_dev is null.
+// out[b] = psi[b ^ x] with x the low 32-bit word of *mask_dev (an int32 or
+// int64 on the device), or mask when mask_dev is null.
 int qsfh_xor_gather(const void* psi, void* out, int n, const void* mask_dev, int mask,
                     void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   const uint32_t pairs = 1u << (n - 1);
-  const unsigned grid = min(blocks_for(pairs, kThreads), 16u * sm_count());
-  xor_gather_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  xor_gather_kernel<<<blocks_for(pairs, kGatherPairs * kThreads), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(psi), static_cast<float4*>(out), pairs,
-      static_cast<const int64_t*>(mask_dev), static_cast<uint32_t>(mask));
+      static_cast<const uint32_t*>(mask_dev), static_cast<uint32_t>(mask));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1558,6 +1922,57 @@ int qsfh_pauli_inner_grouped(const void* a, const void* psi, int n, int k, int c
                                           static_cast<int>(slices), n_terms,
                                           static_cast<float2*>(out), s,
                                           static_cast<const int32_t*>(order) + t0));
+}
+
+// The top tile bits a thread's slots span in the application tile kernel
+// (its tables, streaming.GroupTiles.item_ehi, are built for this value).
+int qsfh_apply_top_bits() { return kApplyTopBits; }
+
+// out = sum_t c_t P_t psi over the n_tiles tiles of a streaming.GroupTiles
+// table, one launch per tile in table order: the first stores out (adds to
+// it when accumulate is set), each later one adds.  tile_mask (n_tiles),
+// tile_items and tile_diag (n_tiles + 1) are HOST arrays, the item, term
+// and diagonal tables device arrays; cre and cim are float32 with cstride
+// floats between terms (2 for the real and imaginary views of one
+// complex64 tensor), indexed by the input term index (order, diag_term).
+int qsfh_pauli_apply_grouped(const void* psi, void* out, int n, int k, int c, int n_tiles,
+                             const int32_t* tile_mask,
+                             const int32_t* tile_items, const int32_t* tile_diag,
+                             const void* item_start, const void* term_d, const void* order,
+                             const void* item_jt, const void* item_zt, const void* item_xa,
+                             const void* item_ehi, const void* item_zout, const void* diag_zin,
+                             const void* diag_start, const void* diag_term, const void* diag_zout,
+                             const void* cre, const void* cim, int cstride, int accumulate,
+                             void* stream) {
+  if (k < kInnerTileMinBits || k > kInnerTileMaxBits || k > n || c < 1 || c > k - 3 ||
+      n_tiles < 1 || cstride < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t tiles = 2 * (sizeof(float2) << k);
+  const size_t per_item = kApplyTable * (sizeof(float2) + sizeof(float));
+  int most = 0;
+  for (int r = 0; r < n_tiles; ++r) most = max(most, tile_items[r + 1] - tile_items[r]);
+  cudaError_t err = allow_smem(pauli_apply_tiles_kernel, tiles + most * per_item);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int r = 0; r < n_tiles; ++r) {
+    const int i0 = tile_items[r], items = tile_items[r + 1] - i0;
+    const int d0 = tile_diag[r], d1 = tile_diag[r + 1];
+    pauli_apply_tiles_kernel<<<1u << (n - k), 1u << (k - kApplyTopBits),
+                               tiles + items * per_item, s>>>(
+        static_cast<const float2*>(psi), static_cast<float2*>(out), n, k, c,
+        static_cast<uint32_t>(tile_mask[r]), i0, items, d0, d1,
+        static_cast<const int32_t*>(item_start), static_cast<const int32_t*>(term_d),
+        static_cast<const int32_t*>(order), static_cast<const int32_t*>(item_jt),
+        static_cast<const int32_t*>(item_zt), static_cast<const int32_t*>(item_xa),
+        static_cast<const int32_t*>(item_ehi), static_cast<const int32_t*>(item_zout),
+        static_cast<const int32_t*>(diag_zin), static_cast<const int32_t*>(diag_start),
+        static_cast<const int32_t*>(diag_term), static_cast<const int32_t*>(diag_zout),
+        static_cast<const float*>(cre), static_cast<const float*>(cim), cstride,
+        (r > 0 || accumulate) ? 1 : 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 }  // extern "C"

@@ -18,8 +18,11 @@ beside the term tensors), where the JAX package's stream route passes the
 state once per flip mask (``qsfh_tpu/engine/expectation.py:240-274,
 461-476``); its results come back in input term order, so nothing above
 the wrapper changes.
-``apply_scan`` keeps ``pauli_apply`` at every n: it writes each output
-amplitude once and reads psi[b ^ x] per term.
+``apply_scan`` takes ``pauli_apply_grouped`` over the same layout from
+``kernels.INNER_TILE_MIN_BITS`` (9) qubits on, where the JAX package's
+chain and stream kernels (``apply_chain_pallas``, ``apply_stream_*``)
+apply H: one state pass per tile, each item of terms one table entry per
+amplitude; below it the per-term ``pauli_apply``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from ..ops.pauli import PauliSum
 from . import streaming
-from .kernels import KERNELS
+from .kernels import INNER_TILE_MIN_BITS, KERNELS
 from .state import qmask_to_bmask, real_dtype
 
 
@@ -42,6 +45,15 @@ def _inner(impl, owner, a, psi, xs, zs):
     if owner.n <= streaming.INNER_CHAIN_MAX_QUBITS:
         return impl.inner(a, psi, xs, zs)
     return impl.inner_grouped(a, psi, xs, zs, owner.groups())
+
+
+def _apply(impl, owner, psi, xs, zs, c):
+    """sum_t c_t P_t psi over ``owner``'s flat terms: over the tiles of
+    ``owner.groups()`` from the smallest tile the kernel takes, per term
+    below it."""
+    if owner.n < INNER_TILE_MIN_BITS:
+        return impl.apply(psi, xs, zs, c.real, c.imag)
+    return impl.apply_grouped(psi, xs, zs, c.real, c.imag, owner.groups())
 
 
 def _groups(cache: dict, arrays, n: int) -> streaming.GroupTiles:
@@ -115,8 +127,7 @@ class Observable:
     def apply_scan(self, psi: torch.Tensor, impl=None) -> torch.Tensor:
         """op|psi> (a new state)."""
         impl = impl or KERNELS
-        xs, zs, c = self._tensors(psi)
-        return impl.apply(psi, xs, zs, c.real, c.imag)
+        return _apply(impl, self, psi, *self._tensors(psi))
 
     def __len__(self):
         return len(self.op)

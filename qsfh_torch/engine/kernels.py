@@ -14,8 +14,11 @@ wrapper                  replaces (``qsfh_tpu/engine/pallas_kernels.py``)
                          ``pauli_rotation_pallas`` (:571); terms that fit
                          no tile, and states of fewer than
                          ``TILE_MIN_BITS`` qubits
-``pauli_apply``          ``apply_chain_pallas`` (:715), and
-                         ``apply_stream_pallas`` (:1870) past 18 qubits
+``pauli_apply_grouped``  ``apply_chain_pallas`` (:715), ``apply_stream_pallas``
+                         (:1870) and ``apply_stream_fused`` (:2002): the
+                         inner-product tiles, one pass per tile
+``pauli_apply``          terms of masks that fit no tile, and states of
+                         fewer than ``INNER_TILE_MIN_BITS`` qubits
 ``pauli_inner``          ``expectation_chain_pallas`` (:645) and
                          ``screen_chain_pallas`` (:927)
 ``adjoint_rotation``     terms that fit no tile, and states of fewer than
@@ -42,7 +45,8 @@ Each wrapper keeps a plain-integer ``launches`` count of its kernel's
 launches: one per span for the two resident kernels (the 18-qubit
 rotations and adjoint sweep: one per call where every term fits a tile),
 one per term for the two per-term rotations, one per run for the two
-tile-run kernels, one per call for ``xor_gather``, one per call (or per
+tile-run kernels, one per tile for ``pauli_apply_grouped``, one per call
+for ``xor_gather``, one per call (or per
 scratch-sized chunk) for ``pauli_apply``, ``pauli_inner``,
 and ``pauli_inner_grouped`` (a second, partial-sum pass is not
 counted).  The ``*_plain`` functions compute the
@@ -67,7 +71,7 @@ from typing import Callable
 import torch
 
 from .state import index_bits, parity_signs, real_dtype
-from .streaming import INNER_SWIZZLE
+from .streaming import APPLY_TOP_BITS, INNER_SWIZZLE
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "statevec_kernels.cu")
@@ -91,6 +95,8 @@ TILE_MAX_BITS = 13
 # at least, two 64 KiB tiles at most
 INNER_TILE_MIN_BITS = 9
 INNER_TILE_MAX_BITS = 13
+# streaming.INNER_SWIZZLE packed for the tile kernels: 4 bits per tile bit from 4 up
+_SWIZZLE = sum(v << (4 * b) for b, v in enumerate(INNER_SWIZZLE))
 
 _lock = threading.Lock()
 _lib = None
@@ -136,6 +142,8 @@ def build() -> str:
 
 def _load():
     global _lib
+    if _lib is not None:  # every launch passes here: no lock once loaded
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -172,6 +180,13 @@ def _load():
         lib.qsfh_pauli_inner_grouped.restype = i
         lib.qsfh_pauli_inner_grouped.argtypes = ([p, p, i, i, i, ctypes.c_ulonglong] + [p] * 9
                                                  + [i] * 6 + [p, p, p])
+        lib.qsfh_pauli_apply_grouped.restype = i
+        lib.qsfh_pauli_apply_grouped.argtypes = [p, p, i, i, i, i] + [p] * 17 + [i, i, p]
+        lib.qsfh_apply_top_bits.restype = i
+        lib.qsfh_apply_top_bits.argtypes = []
+        if lib.qsfh_apply_top_bits() != APPLY_TOP_BITS:
+            raise RuntimeError(f"the kernel library spans {lib.qsfh_apply_top_bits()} top tile bits "
+                               f"per thread, the layouts {APPLY_TOP_BITS}")
         _lib = lib
         return lib
 
@@ -182,12 +197,15 @@ def _check(lib, rc: int, name: str):
 
 
 def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The raw handle of the current device's current stream (what
+    ``torch.cuda.current_stream().cuda_stream`` gives, without building a
+    Python stream object per launch)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def _n_qubits(psi: torch.Tensor, name: str) -> int:
     """Validate a CUDA state for the kernels; returns its qubit count."""
-    if psi.device.type != "cuda":
+    if not psi.is_cuda:
         raise ValueError(
             f"{name}: the kernels take CUDA tensors (the plain version takes "
             f"all-CPU inputs), got {psi.device}"
@@ -647,21 +665,23 @@ def adjoint_resident_plain(psi, lam, xs, zs, angles, phre, phim, tiles):
 def xor_gather(psi, x):
     """out[b] = psi[b ^ x] (a new tensor); ``x`` is a flat mask, an int or
     a one-element integer tensor on psi's device (read on the device, so
-    a traced mask needs no host sync)."""
+    a traced mask needs no host sync; an int32 or int64 mask is read in
+    place, its low 32-bit word)."""
     if psi.device.type == "cpu":
         return xor_gather_plain(psi, x)
     n = _n_qubits(psi, "xor_gather")
-    out = torch.empty_like(psi)
     mask_dev, mask = 0, 0
     if isinstance(x, torch.Tensor):
-        if x.device != psi.device or x.numel() != 1:
+        if x.get_device() != psi.get_device() or x.numel() != 1:
             raise ValueError(f"xor_gather: expected a one-element mask on {psi.device}")
-        x = x.reshape(1).to(torch.int64)  # no copy for an int64 mask
+        if x.dtype not in (torch.int32, torch.int64):
+            x = x.to(torch.int64)
         mask_dev = x.data_ptr()
     else:
         mask = int(x)
     if psi.data_ptr() % 16:
         raise ValueError("xor_gather: the state must be 16-byte aligned")
+    out = torch.empty_like(psi)
     lib = _load()
     rc = lib.qsfh_xor_gather(psi.data_ptr(), out.data_ptr(), n, mask_dev, mask, _stream())
     _check(lib, rc, "xor_gather")
@@ -744,10 +764,9 @@ def pauli_inner_grouped(a, psi, xs, zs, tiles):
         partials = torch.empty((max(t1 - t0 for t0, t1 in spans), width),
                                dtype=torch.complex64, device=psi.device)
         tables = [t.data_ptr() for t in tiles.tensors(psi.device)]
-        swizzle = sum(v << (4 * b) for b, v in enumerate(INNER_SWIZZLE))
         for (r0, r1), (t0, t1) in zip(chunks, spans):
             rc = lib.qsfh_pauli_inner_grouped(
-                a.data_ptr(), psi.data_ptr(), n, tiles.k, tiles.c, swizzle, *tables, r0,
+                a.data_ptr(), psi.data_ptr(), n, tiles.k, tiles.c, _SWIZZLE, *tables, r0,
                 r1 - r0, t0, t1 - t0, tiles.most_items(r0, r1), positions, partials.data_ptr(),
                 out.data_ptr(), _stream())
             _check(lib, rc, name)
@@ -763,6 +782,80 @@ def pauli_inner_grouped_plain(a, psi, xs, zs, tiles):
     in input order (any device)."""
     _check_group_tiles(xs, tiles, "pauli_inner_grouped")
     return pauli_inner_plain(a, psi, xs, zs)
+
+
+# -- pauli_apply_grouped ------------------------------------------------------------------
+
+
+def _coefficient_planes(psi, cre, cim, n_terms: int, name: str):
+    """(cre, cim, stride): float32 coefficient arrays on psi's device as
+    they are, read with a stride of ``stride`` floats (2 for the real and
+    imaginary views of one complex64 tensor); any other dtype is converted."""
+    for arr in (cre, cim):
+        if arr.device != psi.device:
+            raise ValueError(f"{name}: term arrays must be on {psi.device}, got {arr.device}")
+        if arr.shape != (n_terms,):
+            raise ValueError(f"{name}: expected ({n_terms},) term arrays, got {tuple(arr.shape)}")
+    if (cre.dtype != _SCALAR or cim.dtype != _SCALAR or cre.stride() != cim.stride()
+            or cre.stride(0) < 1):
+        cre, cim = cre.to(_SCALAR).contiguous(), cim.to(_SCALAR).contiguous()
+    return cre, cim, cre.stride(0)
+
+
+@_counted
+def pauli_apply_grouped(psi, xs, zs, cre, cim, tiles):
+    """:func:`pauli_apply` over items of terms covered by tiles of chosen
+    bits (``tiles``: the ``streaming.GroupTiles`` of (xs, zs), the layout
+    the inner products use): one state pass and one launch per tile,
+    counted here; the first tile stores the output, each later one adds to
+    it.  The terms of masks that fit no tile (``tiles.spill_index``) take
+    :func:`pauli_apply` (counted there), added last.  The kernel reads the
+    items from the layout's tables and the coefficients by input term
+    index; xs and zs serve the plain version.  Returns a new tensor.
+    """
+    if psi.device.type == "cpu":
+        return pauli_apply_grouped_plain(psi, xs, zs, cre, cim, tiles)
+    name = "pauli_apply_grouped"
+    n = _n_qubits(psi, name)
+    T = xs.shape[0]
+    if T != tiles.n_terms:
+        raise ValueError(f"{name}: {T} terms against a layout of {tiles.n_terms}")
+    if xs.device != psi.device or zs.device != psi.device:
+        raise ValueError(f"{name}: term arrays must be on {psi.device}")
+    cre, cim, stride = _coefficient_planes(psi, cre, cim, T, name)
+    out = torch.empty_like(psi)
+    if tiles.n_tiles:
+        if (not INNER_TILE_MIN_BITS <= tiles.k <= min(n, INNER_TILE_MAX_BITS)
+                or not 1 <= tiles.c <= tiles.k - 3):
+            raise ValueError(f"{name}: tiles of {tiles.k} bits, {tiles.c} low; the kernel takes "
+                             f"{INNER_TILE_MIN_BITS} <= k <= min(n, {INNER_TILE_MAX_BITS}), "
+                             f"1 <= c <= k - 3")
+        if psi.data_ptr() % 16:
+            raise ValueError(f"{name}: the state must be 16-byte aligned")
+        _, _, _, _, _, zout, start, term_d, order = tiles.tensors(psi.device)
+        jt, zt, xa, ehi, dzin, dstart, dterm, dzout = tiles.apply_tensors(psi.device)
+        lib = _load()
+        rc = lib.qsfh_pauli_apply_grouped(
+            psi.data_ptr(), out.data_ptr(), n, tiles.k, tiles.c, tiles.n_tiles,
+            tiles.tile_mask.ctypes.data, tiles.tile_items.ctypes.data, tiles.tile_diag.ctypes.data,
+            *(t.data_ptr() for t in (start, term_d, order, jt, zt, xa, ehi, zout, dzin, dstart,
+                                     dterm, dzout)),
+            cre.data_ptr(), cim.data_ptr(), stride, 0, _stream())
+        _check(lib, rc, name)
+        pauli_apply_grouped.launches += tiles.n_tiles
+    else:
+        out.zero_()
+    if tiles.spill_index.size:
+        idx = torch.as_tensor(tiles.spill_index, device=psi.device)
+        out += pauli_apply(psi, xs[idx], zs[idx], cre[idx], cim[idx])
+    return out
+
+
+def pauli_apply_grouped_plain(psi, xs, zs, cre, cim, tiles):
+    """Plain version of :func:`pauli_apply_grouped`: the layout check, then
+    :func:`pauli_apply_plain` (any device)."""
+    _check_group_tiles(xs, tiles, "pauli_apply_grouped")
+    return pauli_apply_plain(psi, xs, zs, cre, cim)
 
 
 # -- dispatch -------------------------------------------------------------------------
@@ -783,20 +876,21 @@ class Impl:
     inner_grouped: Callable
     rotation_resident: Callable
     adjoint_resident: Callable
+    apply_grouped: Callable
 
 
 # the wrappers: CUDA kernels for CUDA tensors, plain versions for CPU tensors
 KERNELS = Impl(pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
                rotation_tile_runs, adjoint_tile_runs, pauli_inner_grouped,
-               rotation_resident, adjoint_resident)
+               rotation_resident, adjoint_resident, pauli_apply_grouped)
 # the plain versions on any device (a reference path on the card)
 PLAIN = Impl(pauli_rotation_plain, pauli_apply_plain, pauli_inner_plain, adjoint_rotation_plain,
              rotation_tile_runs_plain, adjoint_tile_runs_plain, pauli_inner_grouped_plain,
-             rotation_resident_plain, adjoint_resident_plain)
+             rotation_resident_plain, adjoint_resident_plain, pauli_apply_grouped_plain)
 
 WRAPPERS = (pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
             rotation_tile_runs, adjoint_tile_runs, pauli_inner_grouped, xor_gather,
-            rotation_resident, adjoint_resident)
+            rotation_resident, adjoint_resident, pauli_apply_grouped)
 
 
 def launch_counts() -> dict:

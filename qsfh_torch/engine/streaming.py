@@ -87,6 +87,14 @@ MAX_TILE_ITEMS = 128
 # found whose columns span them, and each half-warp's 64-bit loads then
 # spread over all 32 banks.
 INNER_SWIZZLE = (3, 5, 6, 9, 10, 12, 7, 11, 13)
+# The application tile kernel: a thread owns the 2^APPLY_TOP_BITS slots of
+# a tile that differ in its top APPLY_TOP_BITS bits (kApplyTopBits in the
+# CUDA source); it takes the x = 0 items of a tile that has at least
+# APPLY_DIAG_ITEMS of them as one diagonal, a Walsh-Hadamard transform of
+# the tile (~30 instructions a slot) in place of ~5 a slot and item.  Timed
+# at 3 and 4 top bits (chip_smoke.py, H100): 4 was faster.
+APPLY_TOP_BITS = 4
+APPLY_DIAG_ITEMS = 5
 
 
 def order_runs(xs, local_bits: int) -> List[Tuple[int, List[int]]]:
@@ -437,6 +445,16 @@ class GroupTiles:
     A mask with more than ``REG_BITS`` bits, or with J above the low ``c``
     bits wider than ``k - c``, fits no tile: its terms (input indices
     ``spill_index``, ascending) take the per-term kernel, one pass each.
+
+    The application tile kernel (``pauli_apply_grouped``) reads the same
+    items in tile coordinates: ``item_jt`` (J's tile bits, x's first, 4
+    bits each: bit m of a bucket j is tile bit ``item_jt >> 4m & 15``),
+    ``item_zt`` (the common phase bits on the tile), ``item_xa`` (x on
+    the tile, tile coordinates; that kernel keeps its tiles unswizzled)
+    and ``item_ehi``: for each of the top ``APPLY_TOP_BITS`` tile bits,
+    which a thread's register slots span, the bucket bits it sets and
+    (bit 4) its phase bit, 5 bits each: the slot's index in the item's
+    table of its 16 bucket coefficients and their negatives.
     """
 
     def __init__(self, xs, zs, n: int, k: int, c: int, max_items: int = MAX_TILE_ITEMS):
@@ -463,6 +481,7 @@ class GroupTiles:
         tiles.sort(key=lambda t: -sum(len(pieces[p][2]) for p in t[1]))  # the heaviest first
         tile_mask, tile_items, item_start = [], [0], [0]
         item_cols, item_x, item_zlc, item_zout, term_d, t_order = [], [], [], [], [], []
+        item_jt, item_zt, item_xa, item_ehi = [], [], [], []
         for bits, members in tiles:
             mask = _pad(low | bits, k, range(c, n))
             pos = _positions(mask)
@@ -473,12 +492,24 @@ class GroupTiles:
                 lanes, chunks = _lanes([b for b in range(k) if b not in jt])
                 l9 = lanes + chunks
                 cols = [inner_column(b) for b in lanes + jt + chunks]
+                xa = 0
+                for b in jt[:bin(x).count("1")]:
+                    xa |= 1 << b
                 for idx in items:
                     zc = int(zs[idx[0]]) & ~J
+                    zt = int(pext([zc], pos)[0])
                     item_cols.append(cols + [0] * (16 - k))
                     item_x.append((1 << bin(x).count("1")) - 1)
                     item_zlc.append(int(pext([zc], [pos[b] for b in l9])[0]))
                     item_zout.append(zc & ~mask)
+                    item_jt.append(sum(b << (4 * m) for m, b in enumerate(jt)))
+                    item_zt.append(zt)
+                    item_xa.append(xa)
+                    ehi = 0
+                    for tb in range(max(k - APPLY_TOP_BITS, 0), k):
+                        e = sum(1 << m for m, b in enumerate(jt) if b == tb)
+                        ehi |= (e | (zt >> tb & 1) << 4) << (5 * (tb - k + APPLY_TOP_BITS))
+                    item_ehi.append(ehi)
                     term_d.extend(pext(zs[idx], [pos[b] for b in jt]).tolist())
                     t_order.extend(idx.tolist())
                     item_start.append(len(t_order))
@@ -489,8 +520,40 @@ class GroupTiles:
         self.item_cols = i32(item_cols).reshape(-1, 16)
         self.item_x, self.item_zlc, self.item_zout = i32(item_x), i32(item_zlc), i32(item_zout)
         self.term_d, self.order = i32(term_d), np.asarray(t_order, np.int64)
+        self.item_jt, self.item_zt = i32(item_jt), i32(item_zt)
+        self.item_xa, self.item_ehi = i32(item_xa), i32(item_ehi)
+        self._diagonals(zs)
         self.n_terms = int(xs.size)
         self._cache = {}
+
+    def _diagonals(self, zs):
+        """The application kernel's diagonals: the terms of the x = 0 items
+        of each tile that has at least ``APPLY_DIAG_ITEMS`` of them, by
+        their phase bits on the tile ``zin`` (tile coordinates; one entry
+        per ``zin``, ascending).  Tile r has entries ``[tile_diag[r],
+        tile_diag[r + 1])``; entry e sits at ``diag_zin[e]`` and sums the
+        terms ``[diag_start[e], diag_start[e + 1])``: input index
+        ``diag_term``, phase bits off the tile ``diag_zout``, in tile
+        order."""
+        tile_diag, zin_all, start, term, zout_all = [0], [], [0], [], []
+        for r in range(self.n_tiles):
+            items = range(self.tile_items[r], self.tile_items[r + 1])
+            diag = [it for it in items if self.item_x[it] == 0]
+            if len(diag) >= APPLY_DIAG_ITEMS:
+                idx = self.order[np.concatenate(
+                    [np.arange(self.item_start[it], self.item_start[it + 1]) for it in diag])]
+                mask = int(self.tile_mask[r])
+                zin = pext(zs[idx], _positions(mask))
+                for v in np.unique(zin):
+                    sel = idx[zin == v]
+                    zin_all.append(int(v))
+                    term.extend(sel.tolist())
+                    zout_all.extend((zs[sel] & ~mask).tolist())
+                    start.append(len(term))
+            tile_diag.append(len(zin_all))
+        i32 = lambda a: np.asarray(a, np.int64).astype(np.int32).reshape(-1)  # noqa: E731
+        self.tile_diag, self.diag_zin, self.diag_start = i32(tile_diag), i32(zin_all), i32(start)
+        self.diag_term, self.diag_zout = i32(term), i32(zout_all)
 
     def __len__(self):
         """State passes of one call: one per tile and per term of a mask
@@ -543,5 +606,20 @@ class GroupTiles:
                 torch.as_tensor(np.ascontiguousarray(a).astype(np.int32), device=device)
                 for a in (self.tile_mask, self.tile_items, self.item_cols, self.item_x,
                           self.item_zlc, self.item_zout, self.item_start, self.term_d, self.order)
+            )
+        return self._cache[key]
+
+    def apply_tensors(self, device):
+        """(item_jt, item_zt, item_xa, item_ehi, diag_zin, diag_start,
+        diag_term, diag_zout), the application kernel's item and diagonal
+        tables, as int32 tensors on ``device``, built once per device (an
+        empty table as one zero, so that every pointer is valid)."""
+        key = ("apply", str(device))
+        if key not in self._cache:
+            self._cache[key] = tuple(
+                torch.as_tensor(np.ascontiguousarray(a if a.size else np.zeros(1, np.int32)),
+                                device=device)
+                for a in (self.item_jt, self.item_zt, self.item_xa, self.item_ehi, self.diag_zin,
+                          self.diag_start, self.diag_term, self.diag_zout)
             )
         return self._cache[key]

@@ -283,6 +283,7 @@ def test_xor_gather(dev, n):
         ref = K.xor_gather_plain(psi, x)
         assert torch.equal(K.xor_gather(psi, x), ref)
         assert torch.equal(K.xor_gather(psi, torch.tensor([x], device=dev)), ref)
+        assert torch.equal(K.xor_gather(psi, torch.tensor(x, dtype=torch.int32, device=dev)), ref)
     with pytest.raises(TypeError):
         K.xor_gather(psi.to(torch.complex128), 3)
 
@@ -337,3 +338,73 @@ def test_pauli_inner_grouped(dev, n, k, c, monkeypatch):
     assert counts["pauli_inner_grouped"] == 2 * len(tiles.chunks(
         -(-(1 << (n - k)) // positions), K.PARTIALS_CAP)) > 2
     assert counts["pauli_inner"] == 2 * len(K._chunks(5, K._load().qsfh_inner_blocks(n)))
+
+
+# (lattice of the observables, qubits): H and S^2 of a Hubbard model at 10,
+# 18 and 24 qubits (1x5, 3x3, 2x6)
+APPLY_LATTICES = {10: (1, 5, 1.0, 6.0, 5, 3, 2), 18: (3, 3, 1.0, 6.0, 9, 5, 4),
+                  24: (2, 6, 1.0, 6.0, 12, 6, 6)}
+
+
+@pytest.mark.parametrize("diagonal", [True, False], ids=["diagonal", "items"])
+@pytest.mark.parametrize("n", sorted(APPLY_LATTICES))
+def test_pauli_apply_grouped(dev, n, diagonal, monkeypatch):
+    """The application tile kernel against its plain version on H, S^2
+    and a random list with masks that fit no tile (the per-term kernel),
+    at the shipped tile shape, with the x = 0 terms as a tile's diagonal
+    or as items; two calls give the same bits."""
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.engine import streaming
+    from qsfh_torch.engine.streaming import GroupTiles
+
+    if not diagonal:
+        monkeypatch.setattr(streaming, "APPLY_DIAG_ITEMS", 1 << 30)
+    rng = np.random.default_rng(n + 9)
+    problem = HubbardProblem(*APPLY_LATTICES[n])
+    psi = _t(_state(rng, n), dev, torch.complex64)
+    xs, zs = _inner_terms(rng, n, 700, wide=5)
+    c = rng.standard_normal(700) + 1j * rng.standard_normal(700)
+    cases = [(problem.observables[k], None) for k in ("H", "S^2")] + [(None, (xs, zs, c))]
+    for obs, terms in cases:
+        if obs is not None:
+            txs, tzs, tc = obs._tensors(psi)
+            tiles = obs.groups()
+        else:
+            txs, tzs = _t(terms[0], dev, torch.int64), _t(terms[1], dev, torch.int64)
+            tc = _t(terms[2], dev, torch.complex64)
+            tiles = GroupTiles(terms[0], terms[1], n, streaming.INNER_TILE_BITS,
+                               streaming.INNER_TILE_LOW_BITS)
+            assert tiles.spill_index.size == 5
+        assert bool(tiles.diag_zin.size) == diagonal or obs is None
+        args = (txs, tzs, tc.real, tc.imag)
+        K.reset_launch_counts()
+        got = K.pauli_apply_grouped(psi, *args, tiles)
+        again = K.pauli_apply_grouped(psi, *args, tiles)
+        ref = K.pauli_apply_plain(psi, *args)
+        torch.cuda.synchronize()
+        assert _rel(got, ref) <= RTOL
+        assert torch.equal(got, again)
+        counts = K.launch_counts()
+        assert counts["pauli_apply_grouped"] == 2 * tiles.n_tiles
+        assert counts["pauli_apply"] == (2 if tiles.spill_index.size else 0)
+
+
+def test_pauli_apply_grouped_rejects_what_it_cannot_launch(dev):
+    from qsfh_torch.engine.streaming import GroupTiles
+
+    rng = np.random.default_rng(5)
+    xs, zs = _inner_terms(rng, 12, 400, wide=0)
+    tiles = GroupTiles(xs, zs, 12, 12, 2)
+    psi = _t(_state(rng, 12), dev, torch.complex64)
+    one = torch.ones(400, device=dev)
+    args = (_t(xs, dev, torch.int64), _t(zs, dev, torch.int64), one, one)
+    K.reset_launch_counts()
+    with pytest.raises(TypeError):
+        K.pauli_apply_grouped(psi.to(torch.complex128), *args, tiles)
+    with pytest.raises(ValueError):
+        K.pauli_apply_grouped(psi, *(a[1:] for a in args), tiles)
+    with pytest.raises(ValueError):
+        K.pauli_apply_grouped(psi, args[0], args[1], one.cpu(), one.cpu(), tiles)
+    with pytest.raises(ValueError):
+        K.pauli_apply_grouped(psi, args[0].cpu(), args[1].cpu(), one, one, tiles)
+    assert K.launch_counts()["pauli_apply_grouped"] == 0

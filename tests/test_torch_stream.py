@@ -241,7 +241,8 @@ def test_expectation_stream_matches_jax(h_2x3, stream_route, monkeypatch):
 def test_each_family_follows_its_own_cap(h_2x3, monkeypatch, chain_cap, inner_cap):
     """Rotations and the adjoint sweep switch at CHAIN_MAX_QUBITS (resident
     launches up to it, tile runs past it), expectation values at
-    INNER_CHAIN_MAX_QUBITS, each on its own."""
+    INNER_CHAIN_MAX_QUBITS, each on its own; applications take the tiles
+    from INNER_TILE_MIN_BITS (9) qubits whatever the two caps."""
     monkeypatch.setattr(streaming, "CHAIN_MAX_QUBITS", chain_cap)
     monkeypatch.setattr(streaming, "INNER_CHAIN_MAX_QUBITS", inner_cap)
     # tiles of the low 3 bits and one more, both routes: the three terms
@@ -263,6 +264,7 @@ def test_each_family_follows_its_own_cap(h_2x3, monkeypatch, chain_cap, inner_ca
     out = cc.apply(psi, th, impl=impl)
     run_rot_adjoint(cc.segments[0], out, psi, th, N, impl=impl)
     tobs.expectation_scan(out, impl=impl)
+    tobs.apply_scan(out, impl=impl)
     resident = chain_cap >= N
     assert ("rotation_runs" in calls) != resident
     assert ("adjoint_runs" in calls) != resident
@@ -272,6 +274,7 @@ def test_each_family_follows_its_own_cap(h_2x3, monkeypatch, chain_cap, inner_ca
     assert calls.count("adjoint") == 1
     assert ("inner_grouped" in calls) == (inner_cap < N)
     assert ("inner" in calls) == (inner_cap >= N)
+    assert calls.count("apply_grouped") == 1 and "apply" not in calls
 
 
 def test_apply_stream_matches_jax(h_2x3, stream_route, monkeypatch):
