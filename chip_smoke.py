@@ -68,7 +68,8 @@ Phases (any failed check raises and the script exits nonzero):
 and 20 qubits) and the stream route at 18 (3x3), 20 (2x5) and 24 qubits
 (2x6), call by call and end to end, and the two inner-product kernels
 (per term, per tile) on the pool, H and S^2 and the two application
-kernels on H psi at each size; ``--profile``
+kernels on H psi at each size (the tile kernel also without its
+diagonal; each with its device ms from ``torch.profiler``); ``--profile``
 breaks a train step and a selection down by device kernel; ``--tiles``
 times the resident kernels over other tile shapes on the 3x3 segment,
 the 24-qubit tile-run kernels over other tile sizes (k, c) on the 2x6
@@ -164,12 +165,18 @@ def inner_flops(xs, a_is_psi, dim):
     return per_amp * dim
 
 
-def apply_flops(xs, dim):
-    """Least float32 flops of sum_t c_t P_t psi over the terms with flip
-    masks ``xs`` (a tensor): the terms of one mask sum their signed
-    coefficients (2 per term and amplitude), multiply psi[b^x] once (6)
-    and accumulate into the output (2) per mask and amplitude."""
-    return (8 * int(xs.unique().numel()) + 2 * len(xs)) * dim
+def apply_flops(xs, c, tiles, dim):
+    """Least float32 flops found for sum_t c_t P_t psi over the terms with
+    flip masks ``xs`` and coefficients ``c`` (tensors), laid out in
+    ``tiles`` (their ``GroupTiles``): the application tile kernel's own
+    work per amplitude, in which an item's terms are one table entry.  Per
+    item one add of its entry (2; 1 where every coefficient is real), per
+    flip mask one multiply of psi[b^x] and its accumulation into the output
+    (8; 4 where real); a term of a mask that fits no tile is an item of its
+    own."""
+    real = not bool(c.imag.any())
+    items = tiles.n_items + int(tiles.spill_index.size)
+    return ((4 if real else 8) * int(xs.unique().numel()) + (1 if real else 2) * items) * dim
 
 
 CONFIG = dict(
@@ -524,7 +531,8 @@ def phase_kernels(adapt, dev, sweep_tiles=False):
     plain_ms = time_cuda(lambda: K.pauli_apply_plain(psi, *hargs), reps=3, warmup=1)
     library_ms = library_sparse_apply(psi, h_xs, h_zs, h_c, ref)
     record("pauli_apply", "lambda = H psi", len(h_xs), 2 * 8 * dim + 16 * len(h_xs), errs,
-           ms, plain_ms, library_ms, flops=apply_flops(h_xs, dim))
+           ms, plain_ms, library_ms,
+           flops=apply_flops(h_xs, h_c, p.observables["H"].groups(), dim))
     apply_tiles_check(p.observables["H"], psi, ref, plain_ms, library_ms, record,
                       "lambda = H psi (tiles)")
     if sweep_tiles:
@@ -613,43 +621,37 @@ def apply_tiles_check(obs, psi, ref, plain_ms, library_ms, record, call):
     dim = psi.shape[0]
     record("pauli_apply_grouped", call, len(xs), 2 * 8 * dim + 16 * len(xs),
            [(rel_err(got, ref), max_abs(got, ref))], ms["tiles"], plain_ms, library_ms,
-           flops=apply_flops(xs, dim), per_term_ms=ms["per-term"], launches=launches,
+           flops=apply_flops(xs, c, tiles, dim), per_term_ms=ms["per-term"], launches=launches,
            passes=len(tiles), items=tiles.n_items, tiles=tiles.n_tiles)
 
 
 def sweep_apply_tile_sizes(obs, psi, ref):
     """``pauli_apply_grouped`` on H psi over other tile shapes (k bits, the
-    low c, item caps of ``INNER_TILE_SHAPES``), and at the shipped shape
-    with the x = 0 terms as items in place of the diagonal: ms per call
-    (CUDA events), state passes, items and diagonal entries, each held to
-    the plain result."""
+    low c, item caps of ``APPLY_TILE_SHAPES``), each with and without its
+    diagonal (the x = 0 terms as items): device and host ms per call
+    (:func:`host_device_split`), state passes, items and diagonal
+    entries, each held to the plain result."""
     from qsfh_torch.engine import kernels as K
     from qsfh_torch.engine import streaming
 
     xs, zs, c = obs._tensors(psi)
     n = psi.shape[0].bit_length() - 1
     hx, hz = xs.cpu().numpy(), zs.cpu().numpy()
-    shipped = (streaming.INNER_TILE_BITS, streaming.INNER_TILE_LOW_BITS, streaming.MAX_TILE_ITEMS)
     rows = []
-    for (k, low, cap), diag in [(s, True) for s in INNER_TILE_SHAPES] + [(shipped, False)]:
-        saved = streaming.APPLY_DIAG_ITEMS
-        streaming.APPLY_DIAG_ITEMS = saved if diag else 1 << 30
-        try:
-            tiles = streaming.GroupTiles(hx, hz, n, k, low, cap)
-        finally:
-            streaming.APPLY_DIAG_ITEMS = saved
+    for (k, low, cap), diag in [(s, d) for s in APPLY_TILE_SHAPES for d in (True, False)]:
+        tiles = streaming.GroupTiles(hx, hz, n, k, low, cap, diagonal=diag)
         err = rel_err(K.pauli_apply_grouped(psi, xs, zs, c.real, c.imag, tiles), ref)
         if tiles.spill_index.size or err > STATE_RTOL:
             raise AssertionError(f"apply tile sweep n={n} k={k} c={low} cap={cap}: {err:.2e}")
-        ms = time_cuda(lambda: K.pauli_apply_grouped(psi, xs, zs, c.real, c.imag, tiles),
-                       reps=10)
-        rows.append(dict(n=n, k=k, c=low, max_items=cap, diagonal=diag, ms=ms,
+        split = host_device_split(
+            lambda: K.pauli_apply_grouped(psi, xs, zs, c.real, c.imag, tiles), reps=20)
+        rows.append(dict(n=n, k=k, c=low, max_items=cap, diagonal=diag, **split,
                          passes=len(tiles), items=tiles.n_items,
                          diagonal_entries=int(tiles.diag_zin.size), rel_err=err))
         log(f"  apply tiles, H psi n={n}: k={k} c={low} max_items={cap}"
-            + ("" if diag else ", x = 0 terms as items") + f": {ms:.4f} ms, {len(tiles)} "
-            f"passes, {tiles.n_items} items, {tiles.diag_zin.size} diagonal entries, "
-            f"rel_err {err:.2e}")
+            + ("" if diag else ", x = 0 terms as items") + f": device {ms_text(split['device_ms'])}"
+            f", host {split['host_ms']:.4f} ms, {len(tiles)} passes, {tiles.n_items} items, "
+            f"{tiles.diag_zin.size} diagonal entries, rel_err {err:.2e}")
     return rows
 
 
@@ -698,7 +700,8 @@ def host_device_split(fn, reps=200):
     host's ms per call to enqueue them (host clock, no sync), the wall ms
     per call (host clock ended by a device sync: the larger of the two
     sides once the queue is full) and the device ms per call (the kernels'
-    time in ``torch.profiler``)."""
+    time in ``torch.profiler``; None where the profile caught no kernel,
+    which happens now and then)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -714,9 +717,14 @@ def host_device_split(fn, reps=200):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    device_ms = sum(r[2] for r in _device_kernels(prof)) / 1e3 / reps
+    device_us = sum(r[2] for r in _device_kernels(prof))
     return dict(host_ms=1e3 * (t1 - t0) / reps, wall_ms=1e3 * (t2 - t0) / reps,
-                device_ms=device_ms)
+                device_ms=device_us / 1e3 / reps if device_us else None)
+
+
+def ms_text(ms):
+    """A device time for the log: ms, or "not measured" (None)."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def phase_single(dev, n):
@@ -760,7 +768,7 @@ def phase_single(dev, n):
     for what in ("split", "library_split"):
         s = results["xor_gather"][what]
         log(f"  xor_gather n={n} {'index_select' if what[0] == 'l' else 'kernel'}: host "
-            f"{s['host_ms']:.4f} ms, wall {s['wall_ms']:.4f} ms, device {s['device_ms']:.4f} ms "
+            f"{s['host_ms']:.4f} ms, wall {s['wall_ms']:.4f} ms, device {ms_text(s['device_ms'])} "
             f"per call (200 back-to-back calls)")
 
     args = (x, z, 0.37, ph.real, ph.imag)
@@ -1247,10 +1255,10 @@ def phase_kernels_24(adapt, dev, sweep_tiles=False):
     passes = f"{len(htiles)} ({htiles.n_tiles} tiles, {htiles.n_items} items)"
     record("pauli_apply_grouped", "lambda = H psi (tiles)", len(hx), 2 * 8 * dim + 16 * len(hx),
            errs_of([(got, ref)]), ms["tiles"], plain_ms, ms["per-term"], launches, passes,
-           flops=apply_flops(hx, dim), library_ms=library_ms)
+           flops=apply_flops(hx, hc, htiles, dim), library_ms=library_ms)
     record("pauli_apply", "lambda = H psi (pauli_apply)", len(hx), 2 * 8 * dim + 16 * len(hx),
            errs_of([(old, ref)]), ms["per-term"], plain_ms, None, old_launches, 1,
-           flops=apply_flops(hx, dim), library_ms=library_ms)
+           flops=apply_flops(hx, hc, htiles, dim), library_ms=library_ms)
     if sweep_tiles:
         results["apply_tile_sweep"] = sweep_apply_tile_sizes(h, psi, ref)
     for name, k in kernel_only.items():
@@ -1306,6 +1314,10 @@ def sweep_tile_sizes(seg, n, rot, rev, psi, lam, ref, v_ref):
 # (k, c, most items a tile) of the inner-product tiles that --tiles times
 INNER_TILE_SHAPES = ((12, 4, 128), (12, 2, 128), (13, 4, 128), (13, 2, 128), (11, 4, 128),
                      (12, 4, 16), (12, 2, 16), (12, 4, 32), (12, 2, 32))
+# (k, c, most items a tile) of the application tiles that --tiles times:
+# the inner-product shapes and smaller tiles (more blocks a launch where
+# the state is small)
+APPLY_TILE_SHAPES = INNER_TILE_SHAPES[:5] + ((11, 2, 128), (10, 2, 128), (12, 2, 32))
 
 
 def sweep_inner_tile_sizes(call, n, a, b, xs, zs, ref, scale):
@@ -1529,12 +1541,15 @@ def phase_inner_routes(cases, dev, out, rounds=5):
     ``pauli_inner_grouped`` (one pass per tile of masks, the shipped tile
     shape), for the pool screen (a = w = H psi) and the expectation terms
     of H and S^2 (a = psi), and the two application kernels on H psi
-    (``pauli_apply``, ``pauli_apply_grouped``); CUDA events, the two in
-    turns each round, median over ``rounds`` rounds of 3 calls; each held
-    to the per-term result."""
+    (``pauli_apply``, ``pauli_apply_grouped``, the latter also on the same
+    layout without its diagonal); CUDA events, the kernels in turns each
+    round, median over ``rounds`` rounds of 3 calls, and for H psi each
+    one's device and host ms per call (:func:`host_device_split`); each
+    held to the per-term result."""
     import torch
 
     from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine.streaming import GroupTiles
 
     rows = out.setdefault("inner_routes", [])
     for label, adapt in cases:
@@ -1567,20 +1582,27 @@ def phase_inner_routes(cases, dev, out, rounds=5):
                 f"{ms['tiles']:8.4f} ms ({len(tiles)} passes)")
         xs, zs, c = obs["H"]._tensors(psi)
         tiles = obs["H"].groups()
+        flat = GroupTiles(*obs["H"]._scan_terms()[:2], n, tiles.k, tiles.c, diagonal=False)
         args = (psi, xs, zs, c.real, c.imag)
         routes = (("per-term", lambda: K.pauli_apply(*args)),
-                  ("tiles", lambda: K.pauli_apply_grouped(*args, tiles)))
-        err = rel_err(routes[1][1](), routes[0][1]())
-        if err > STATE_RTOL:
-            raise AssertionError(f"{label} H psi: tiles disagree with per-term ({err:.2e})")
+                  ("tiles", lambda: K.pauli_apply_grouped(*args, tiles)),
+                  ("tiles, no diagonal", lambda: K.pauli_apply_grouped(*args, flat)))
+        ref = routes[0][1]()
+        for route, fn in routes[1:]:
+            err = rel_err(fn(), ref)
+            if err > STATE_RTOL:
+                raise AssertionError(f"{label} H psi: {route} disagrees with per-term ({err:.2e})")
         times = {route: [] for route, _ in routes}
         for r in range(rounds):
             for route, fn in routes:
                 times[route].append(time_cuda(fn, reps=3, warmup=1 if r == 0 else 0))
         ms = {route: sorted(t)[len(t) // 2] for route, t in times.items()}
-        rows.append(dict(lattice=label, n=n, call="H psi", ms=ms, tile_passes=len(tiles)))
-        log(f"  {label} (n={n}) {'H psi':12s} per-term {ms['per-term']:8.4f} ms, tiles "
-            f"{ms['tiles']:8.4f} ms ({len(tiles)} passes)")
+        split = {route: host_device_split(fn) for route, fn in routes}
+        rows.append(dict(lattice=label, n=n, call="H psi", ms=ms, split=split,
+                         tile_passes=len(tiles)))
+        log(f"  {label} (n={n}) {'H psi':12s} " + ", ".join(
+            f"{route} {ms[route]:8.4f} ms (device {ms_text(split[route]['device_ms'])}, host "
+            f"{split[route]['host_ms']:.4f} ms)" for route in ms) + f" ({len(tiles)} passes)")
 
 
 def _device_kernels(prof):

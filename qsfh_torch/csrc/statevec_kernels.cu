@@ -1186,20 +1186,23 @@ pauli_inner_tiles_kernel(const float2* __restrict__ a, const float2* __restrict_
 // coefficients it is given, in shared memory, while its tile copy is in
 // flight; where every coefficient of the tile is real (H, S^2 and Sz of a
 // Hubbard model) it reads a float copy of the tables (one 128-byte row: a
-// warp's loads are one wavefront) and multiplies by real numbers.  Thread
+// warp's loads are one wavefront) and multiplies by real numbers: on an
+// H100, 12% less device time on H psi at 18 and 24 qubits than a build
+// with the complex tables only (chip_smoke.py --profile).  Thread
 // tid owns the 16 slots tid | r << (k - 4), r = 0..15, in registers for
 // the whole launch (8 slots a thread, twice the warps, measured slower).
 // (j(i), s(i)) is linear in i, so a thread's 16 table offsets of an item
-// are its base entry XOR the indices of the top 4 tile bits (item_ehi): per item and slot one shared load and one add into
-// coef[r]; the items of one x in a row then share one load of psi[i ^ x]
-// (slot sa[r] ^ item_xa: a warp's 32 slots stay one aligned 256-byte row,
-// no bank conflict) and one multiply-add into acc[r].
+// are its base entry XOR the indices of the top 4 tile bits (item_ehi):
+// per item and slot one shared load and one add into coef[r]; the items
+// of one x in a row then share one load of psi[i ^ x] (slot sa[r] ^
+// item_xa: a warp's 32 slots stay one aligned 256-byte row, no bank
+// conflict) and one multiply-add into acc[r].
 //
-// A tile with many x = 0 items (streaming.APPLY_DIAG_ITEMS: the Coulomb
-// and Z terms of H, most of S^2) takes them as one diagonal instead: the
-// block writes their spectrum (one entry per phase mask on the tile, its
-// terms' coefficients signed by the phase bits off the tile) and
-// transforms it (Walsh-Hadamard: the top 4 tile bits in registers, the
+// A tile whose x = 0 items the layout took as a diagonal (GroupTiles:
+// tile_diag, diag_*; the Coulomb and Z terms of H) takes them as one
+// instead: the block writes their spectrum (one entry per phase mask on
+// the tile, its terms' coefficients signed by the phase bits off the tile)
+// and transforms it (Walsh-Hadamard: the top 4 tile bits in registers, the
 // lane bits by shuffles, the warp bits through shared memory), ~30
 // instructions a slot for all of them, then d(i) psi[i] into acc[r].
 //
@@ -1208,15 +1211,18 @@ pauli_inner_tiles_kernel(const float2* __restrict__ a, const float2* __restrict_
 // (its out tile comes in by cp.async while the items run; one launch per
 // tile, in a fixed order, no float atomics: two calls give the same bits).
 //
-// Bound on this card: the float32 work (8 flops per mask and amplitude, 2
-// per term) and, at 24 qubits, the HBM passes: per tile one read of psi and
-// one store (first tile) or read-add (later tiles) of out, 1.07 GB for the
-// 2x6 H.  8-byte copies and stores, one amplitude a thread, reached less
-// than half the HBM rate on these tiles; 16-byte ones, and the out tile
-// staged while the items run, are what this layout does about it.
+// Bound on this card: at 24 qubits the HBM bytes, one read of psi and one
+// write of out (0.27 GB); the float32 work per amplitude (4 flops a mask
+// and 1 an item for the real coefficients of H) takes less.  This layout
+// moves 1.07 GB for the 2x6 H (per tile one read of psi and one store or
+// read-add of out).  8-byte copies and stores, one amplitude a thread,
+// reached less than half the HBM rate on these tiles; 16-byte ones, and
+// the out tile staged while the items run, are what it does about it.
 // ---------------------------------------------------------------------------
 
-constexpr int kApplyTopBits = 4;                 // the tile bits a thread's slots span
+// A thread's slots span the top kApplyTopBits tile bits; the layout's
+// item_ehi is built for 4 (streaming.GroupTiles), as is TileMap's 8 pairs.
+constexpr int kApplyTopBits = 4;
 constexpr int kApplySlots = 1 << kApplyTopBits;  // slots a thread owns
 constexpr int kApplyTileMaxThreads = 512;        // 2^(k - 4) threads, k <= 13
 constexpr int kApplyTable = 32;  // entries of an item's table: (-1)^s C[j] at j | s << 4
@@ -1287,7 +1293,8 @@ __device__ __forceinline__ void apply_diagonal(unsigned char* smem, uint32_t spe
   T* spec = reinterpret_cast<T*>(smem + spec_off);
   T v[kApplySlots];
 #pragma unroll
-  for (int r = 0; r < kApplySlots; ++r) load_coef(v[r], spec2[tid + (static_cast<uint32_t>(r) << hb)]);
+  for (int r = 0; r < kApplySlots; ++r)
+    load_coef(v[r], spec2[tid + (static_cast<uint32_t>(r) << hb)]);
 #pragma unroll
   for (int b = 0; b < kApplyTopBits; ++b) {
 #pragma unroll
@@ -1356,7 +1363,8 @@ __device__ __forceinline__ void apply_items(const unsigned char* smem, uint32_t 
                          static_cast<uint32_t>(__ldg(item_zout + item)));
       if (first) {
 #pragma unroll
-        for (int r = 0; r < kApplySlots; ++r) coef[r] = *reinterpret_cast<const Coef*>(smem + E[r]);
+        for (int r = 0; r < kApplySlots; ++r)
+          coef[r] = *reinterpret_cast<const Coef*>(smem + E[r]);
       } else {
 #pragma unroll
         for (int r = 0; r < kApplySlots; ++r)
@@ -1923,10 +1931,6 @@ int qsfh_pauli_inner_grouped(const void* a, const void* psi, int n, int k, int c
                                           static_cast<float2*>(out), s,
                                           static_cast<const int32_t*>(order) + t0));
 }
-
-// The top tile bits a thread's slots span in the application tile kernel
-// (its tables, streaming.GroupTiles.item_ehi, are built for this value).
-int qsfh_apply_top_bits() { return kApplyTopBits; }
 
 // out = sum_t c_t P_t psi over the n_tiles tiles of a streaming.GroupTiles
 // table, one launch per tile in table order: the first stores out (adds to

@@ -71,7 +71,7 @@ from typing import Callable
 import torch
 
 from .state import index_bits, parity_signs, real_dtype
-from .streaming import APPLY_TOP_BITS, INNER_SWIZZLE
+from .streaming import INNER_SWIZZLE
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "statevec_kernels.cu")
@@ -182,11 +182,6 @@ def _load():
                                                  + [i] * 6 + [p, p, p])
         lib.qsfh_pauli_apply_grouped.restype = i
         lib.qsfh_pauli_apply_grouped.argtypes = [p, p, i, i, i, i] + [p] * 17 + [i, i, p]
-        lib.qsfh_apply_top_bits.restype = i
-        lib.qsfh_apply_top_bits.argtypes = []
-        if lib.qsfh_apply_top_bits() != APPLY_TOP_BITS:
-            raise RuntimeError(f"the kernel library spans {lib.qsfh_apply_top_bits()} top tile bits "
-                               f"per thread, the layouts {APPLY_TOP_BITS}")
         _lib = lib
         return lib
 

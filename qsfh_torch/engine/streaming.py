@@ -87,13 +87,19 @@ MAX_TILE_ITEMS = 128
 # found whose columns span them, and each half-warp's 64-bit loads then
 # spread over all 32 banks.
 INNER_SWIZZLE = (3, 5, 6, 9, 10, 12, 7, 11, 13)
-# The application tile kernel: a thread owns the 2^APPLY_TOP_BITS slots of
-# a tile that differ in its top APPLY_TOP_BITS bits (kApplyTopBits in the
-# CUDA source); it takes the x = 0 items of a tile that has at least
-# APPLY_DIAG_ITEMS of them as one diagonal, a Walsh-Hadamard transform of
-# the tile (~30 instructions a slot) in place of ~5 a slot and item.  Timed
-# at 3 and 4 top bits (chip_smoke.py, H100): 4 was faster.
+# The application tile kernel: a thread owns the 16 slots of a tile that
+# differ in its top APPLY_TOP_BITS bits.  Fixed by the kernel (kApplyTopBits
+# in the CUDA source, where a thread copies 8 slot pairs); item_ehi is built
+# for it.
 APPLY_TOP_BITS = 4
+# A layout built with diagonals (the engine's) takes the x = 0 items of a
+# tile that has at least APPLY_DIAG_ITEMS of them as one diagonal: a
+# Walsh-Hadamard transform of the tile, ~30 instructions a slot (~60 for
+# complex coefficients), in place of ~5 (~10) a slot and item.  The
+# Hubbard H has 20-29 such items in its first tile and none in the others
+# at 18, 20 and 24 qubits, so the threshold decides only for other term
+# lists; the diagonal took 8-11% off the application's device time at each
+# of those sizes (chip_smoke.py --routes, H100).
 APPLY_DIAG_ITEMS = 5
 
 
@@ -454,10 +460,13 @@ class GroupTiles:
     and ``item_ehi``: for each of the top ``APPLY_TOP_BITS`` tile bits,
     which a thread's register slots span, the bucket bits it sets and
     (bit 4) its phase bit, 5 bits each: the slot's index in the item's
-    table of its 16 bucket coefficients and their negatives.
+    table of its 16 bucket coefficients and their negatives.  With
+    ``diagonal`` it also gathers the x = 0 items of a tile into one
+    diagonal (:meth:`_diagonals`).
     """
 
-    def __init__(self, xs, zs, n: int, k: int, c: int, max_items: int = MAX_TILE_ITEMS):
+    def __init__(self, xs, zs, n: int, k: int, c: int, max_items: int = MAX_TILE_ITEMS,
+                 diagonal: bool = True):
         k = min(k, n)
         c = min(c, k)
         self.k, self.c = k, c
@@ -522,24 +531,24 @@ class GroupTiles:
         self.term_d, self.order = i32(term_d), np.asarray(t_order, np.int64)
         self.item_jt, self.item_zt = i32(item_jt), i32(item_zt)
         self.item_xa, self.item_ehi = i32(item_xa), i32(item_ehi)
-        self._diagonals(zs)
+        self._diagonals(zs, diagonal)
         self.n_terms = int(xs.size)
         self._cache = {}
 
-    def _diagonals(self, zs):
-        """The application kernel's diagonals: the terms of the x = 0 items
-        of each tile that has at least ``APPLY_DIAG_ITEMS`` of them, by
-        their phase bits on the tile ``zin`` (tile coordinates; one entry
-        per ``zin``, ascending).  Tile r has entries ``[tile_diag[r],
-        tile_diag[r + 1])``; entry e sits at ``diag_zin[e]`` and sums the
-        terms ``[diag_start[e], diag_start[e + 1])``: input index
-        ``diag_term``, phase bits off the tile ``diag_zout``, in tile
-        order."""
+    def _diagonals(self, zs, diagonal: bool):
+        """The application kernel's diagonals (none without ``diagonal``):
+        the terms of the x = 0 items of each tile that has at least
+        ``APPLY_DIAG_ITEMS`` of them, by their phase bits on the tile
+        ``zin`` (tile coordinates; one entry per ``zin``, ascending).  Tile
+        r has entries ``[tile_diag[r], tile_diag[r + 1])``; entry e sits at
+        ``diag_zin[e]`` and sums the terms ``[diag_start[e], diag_start[e +
+        1])``: input index ``diag_term``, phase bits off the tile
+        ``diag_zout``, in tile order."""
         tile_diag, zin_all, start, term, zout_all = [0], [], [0], [], []
         for r in range(self.n_tiles):
             items = range(self.tile_items[r], self.tile_items[r + 1])
             diag = [it for it in items if self.item_x[it] == 0]
-            if len(diag) >= APPLY_DIAG_ITEMS:
+            if diagonal and len(diag) >= APPLY_DIAG_ITEMS:
                 idx = self.order[np.concatenate(
                     [np.arange(self.item_start[it], self.item_start[it + 1]) for it in diag])]
                 mask = int(self.tile_mask[r])

@@ -164,8 +164,8 @@ def _emulate(tiles, n, psi, cre, cim, xs, zs):
     return out
 
 
-def _check_emulation(xs, zs, c, n, k, low, rng, spill=False):
-    tiles = streaming.GroupTiles(xs, zs, n, k, low)
+def _check_emulation(xs, zs, c, n, k, low, rng, spill=False, diagonal=True):
+    tiles = streaming.GroupTiles(xs, zs, n, k, low, diagonal=diagonal)
     assert bool(tiles.spill_index.size) == spill
     assert tiles.n_tiles >= 1
     psi = torch.as_tensor(_state(rng, n))
@@ -180,15 +180,13 @@ def _check_emulation(xs, zs, c, n, k, low, rng, spill=False):
 
 @pytest.mark.parametrize("diagonal", [True, False], ids=["diagonal", "items"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_apply_tiles_emulation_random_terms(seed, diagonal, monkeypatch):
+def test_apply_tiles_emulation_random_terms(seed, diagonal):
     """12 qubits, tiles of 9 bits (the low 2): several tiles with their own
     bit sets; seeds 1 and 2 add masks that fit no tile.  The x = 0 terms
-    as a tile's diagonal, or (no diagonal) as items."""
-    if not diagonal:
-        monkeypatch.setattr(streaming, "APPLY_DIAG_ITEMS", 1 << 30)
+    as a tile's diagonal, or (a layout without diagonals) as items."""
     rng = np.random.default_rng(90 + seed)
     xs, zs, c = _random_terms(rng, 12, 80, wide=3 * seed)
-    tiles = _check_emulation(xs, zs, c, 12, 9, 2, rng, spill=seed > 0)
+    tiles = _check_emulation(xs, zs, c, 12, 9, 2, rng, spill=seed > 0, diagonal=diagonal)
     assert tiles.n_tiles > 1 and len({int(m) for m in tiles.tile_mask}) > 1
     assert (xs[tiles.order] == 0).any()
     assert bool(tiles.diag_zin.size) == diagonal

@@ -348,7 +348,7 @@ APPLY_LATTICES = {10: (1, 5, 1.0, 6.0, 5, 3, 2), 18: (3, 3, 1.0, 6.0, 9, 5, 4),
 
 @pytest.mark.parametrize("diagonal", [True, False], ids=["diagonal", "items"])
 @pytest.mark.parametrize("n", sorted(APPLY_LATTICES))
-def test_pauli_apply_grouped(dev, n, diagonal, monkeypatch):
+def test_pauli_apply_grouped(dev, n, diagonal):
     """The application tile kernel against its plain version on H, S^2
     and a random list with masks that fit no tile (the per-term kernel),
     at the shipped tile shape, with the x = 0 terms as a tile's diagonal
@@ -357,8 +357,7 @@ def test_pauli_apply_grouped(dev, n, diagonal, monkeypatch):
     from qsfh_torch.engine import streaming
     from qsfh_torch.engine.streaming import GroupTiles
 
-    if not diagonal:
-        monkeypatch.setattr(streaming, "APPLY_DIAG_ITEMS", 1 << 30)
+    shape = (streaming.INNER_TILE_BITS, streaming.INNER_TILE_LOW_BITS)
     rng = np.random.default_rng(n + 9)
     problem = HubbardProblem(*APPLY_LATTICES[n])
     psi = _t(_state(rng, n), dev, torch.complex64)
@@ -368,13 +367,12 @@ def test_pauli_apply_grouped(dev, n, diagonal, monkeypatch):
     for obs, terms in cases:
         if obs is not None:
             txs, tzs, tc = obs._tensors(psi)
-            tiles = obs.groups()
+            terms = obs._scan_terms()[:2]
         else:
             txs, tzs = _t(terms[0], dev, torch.int64), _t(terms[1], dev, torch.int64)
             tc = _t(terms[2], dev, torch.complex64)
-            tiles = GroupTiles(terms[0], terms[1], n, streaming.INNER_TILE_BITS,
-                               streaming.INNER_TILE_LOW_BITS)
-            assert tiles.spill_index.size == 5
+        tiles = GroupTiles(terms[0], terms[1], n, *shape, diagonal=diagonal)
+        assert tiles.spill_index.size == (0 if obs is not None else 5)
         assert bool(tiles.diag_zin.size) == diagonal or obs is None
         args = (txs, tzs, tc.real, tc.imag)
         K.reset_launch_counts()
