@@ -776,12 +776,16 @@ def phase_single(dev, n):
     ref = K.pauli_rotation_one_plain(psi, *args)
     torch.cuda.synchronize()
     b_ms, b_by = bound(state_bytes + 20, 6 * dim)
+    rotate = lambda: K.pauli_rotation_one(psi, *args)  # noqa: E731
     results["pauli_rotation_one"] = dict(
         call=f"exp(-i theta P) psi, one term, n={n}", n=n, terms=1, rel_err=rel_err(got, ref),
         max_abs_err=max_abs(got, ref),
-        ms=time_cuda(lambda: K.pauli_rotation_one(psi, *args), reps=20),
+        ms=in_turns({"kernel": rotate, "gather": gather}, reps=200, warmup=20)["kernel"],
         plain_ms=time_cuda(lambda: K.pauli_rotation_one_plain(psi, *args), reps=5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, split=host_device_split(rotate))
+    s = results["pauli_rotation_one"]["split"]
+    log(f"  pauli_rotation_one n={n}: host {s['host_ms']:.4f} ms, wall {s['wall_ms']:.4f} ms, "
+        f"device {ms_text(s['device_ms'])} per call (200 back-to-back calls)")
     for name, e in results.items():
         log(f"  {name:18s} n={n} rel_err={e['rel_err']:.2e} max_abs={e['max_abs_err']:.2e} "
             f"ms={e['ms']:.4f} plain_ms={e['plain_ms']:.4f} bound_ms={e['bound_ms']:.5f} "
@@ -1535,17 +1539,38 @@ def phase_routes(cases, dev, out, rounds=15):
                    f", resident / per-term {ms['resident'] / ms['per-term']:.3f}"))
 
 
+def fold_err(got, ref, scale):
+    """|got - ref| / max(|ref|, scale) of a folded result (a 0-d
+    expectation or a vector of screening gradients), with ``scale`` the
+    largest value the terms could sum to (sum_t |c_t| ||a|| ||psi||):
+    float32 sums over 2^n products carry an absolute error of that order
+    times the rounding, whatever the value (Sz cancels to ~1e-7 on a
+    spin-symmetric state)."""
+    import torch
+
+    den = max(float(torch.linalg.vector_norm(ref)), scale)
+    return float(torch.linalg.vector_norm(got - ref)) / den
+
+
+def split_reps(ms):
+    """Back-to-back calls for :func:`host_device_split`: about 100 ms of
+    work, 5 to 200 calls."""
+    return int(min(200, max(5, 100.0 / max(ms, 1e-3))))
+
+
 def phase_inner_routes(cases, dev, out, rounds=5):
-    """The two inner-product kernels on the same inputs at each size:
-    ``pauli_inner`` (one launch per call, a block row per term) and
-    ``pauli_inner_grouped`` (one pass per tile of masks, the shipped tile
-    shape), for the pool screen (a = w = H psi) and the expectation terms
-    of H and S^2 (a = psi), and the two application kernels on H psi
+    """The inner-product routes on the same inputs at each size, as the
+    engine calls them: the pool screen (``PackedPool.screen_scan``, a = w
+    = H psi) and the expectation values of H and S^2 (a = psi) and of Sz
+    on a tilted state (``Observable.expectation_scan``); "per-term" is the
+    per-term ``pauli_inner`` and its coefficients folded in torch,
+    "tiles" ``pauli_inner_grouped`` (the shipped tile shape) folded the
+    same way.  CUDA events, the routes in turns each round, median over
+    ``rounds`` rounds of 3 calls, then each one's device and host ms per
+    call (:func:`host_device_split`); each held to the per-term result
+    (:func:`fold_err`).  Then the two application kernels on H psi
     (``pauli_apply``, ``pauli_apply_grouped``, the latter also on the same
-    layout without its diagonal); CUDA events, the kernels in turns each
-    round, median over ``rounds`` rounds of 3 calls, and for H psi each
-    one's device and host ms per call (:func:`host_device_split`); each
-    held to the per-term result."""
+    layout without its diagonal), the same way."""
     import torch
 
     from qsfh_torch.engine import kernels as K
@@ -1559,27 +1584,42 @@ def phase_inner_routes(cases, dev, out, rounds=5):
         psi /= torch.linalg.vector_norm(psi)
         obs = adapt.problem.observables
         w = obs["H"].apply_scan(psi)
-        for call, a, owner in (("pool screen", w, adapt.packed_pool), ("H terms", psi, obs["H"]),
-                               ("S^2 terms", psi, obs["S^2"])):
-            xs, zs = owner._tensors(psi)[:2]
+        tilted = tilted_state(psi, n)
+        pool = adapt.packed_pool
+        for call, owner, a, b, fn in (
+                ("pool screen", pool, w, psi, lambda: pool.screen_scan(psi, w)),
+                ("H terms", obs["H"], psi, psi, lambda: obs["H"].expectation_scan(psi)),
+                ("Sz terms, tilted state", obs["Sz"], tilted, tilted,
+                 lambda: obs["Sz"].expectation_scan(tilted)),
+                ("S^2 terms", obs["S^2"], psi, psi, lambda: obs["S^2"].expectation_scan(psi))):
+            c = owner._tensors(b)[2]
             tiles = owner.groups()
-            routes = (("per-term", lambda: K.pauli_inner(a, psi, xs, zs)),
-                      ("tiles", lambda: K.pauli_inner_grouped(a, psi, xs, zs, tiles)))
+            scale = float(c.abs().sum() * torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b))
+
+            def routed(cap, fn=fn):
+                def call():
+                    with chain_cap(None, cap):
+                        return fn()
+                return call
+
+            routes = (("per-term", routed(K.MAX_QUBITS)), ("tiles", routed(n - 1)))
             ref = routes[0][1]()
-            scale = float(torch.linalg.vector_norm(a) * torch.linalg.vector_norm(psi))
-            for route, fn in routes[1:]:
-                err = inner_err(fn(), ref, scale)[0]
+            for route, f in routes[1:]:
+                err = fold_err(f(), ref, scale)
                 if err > STATE_RTOL:
                     raise AssertionError(
                         f"{label} {call}: {route} disagrees with per-term ({err:.2e})")
             times = {route: [] for route, _ in routes}
             for r in range(rounds):
-                for route, fn in routes:
-                    times[route].append(time_cuda(fn, reps=3, warmup=1 if r == 0 else 0))
+                for route, f in routes:
+                    times[route].append(time_cuda(f, reps=3, warmup=1 if r == 0 else 0))
             ms = {route: sorted(t)[len(t) // 2] for route, t in times.items()}
-            rows.append(dict(lattice=label, n=n, call=call, ms=ms, tile_passes=len(tiles)))
-            log(f"  {label} (n={n}) {call:12s} per-term {ms['per-term']:8.4f} ms, tiles "
-                f"{ms['tiles']:8.4f} ms ({len(tiles)} passes)")
+            split = {route: host_device_split(f, reps=split_reps(ms[route])) for route, f in routes}
+            rows.append(dict(lattice=label, n=n, call=call, ms=ms, split=split,
+                             tile_passes=len(tiles)))
+            log(f"  {label} (n={n}) {call:22s} " + ", ".join(
+                f"{route} {ms[route]:8.4f} ms (device {ms_text(split[route]['device_ms'])}, host "
+                f"{split[route]['host_ms']:.4f} ms)" for route in ms) + f" ({len(tiles)} passes)")
         xs, zs, c = obs["H"]._tensors(psi)
         tiles = obs["H"].groups()
         flat = GroupTiles(*obs["H"]._scan_terms()[:2], n, tiles.k, tiles.c, diagonal=False)
