@@ -22,27 +22,35 @@ Phases (any failed check raises and the script exits nonzero):
    other candidate).  H psi through the application tiles
    (``pauli_apply_grouped``, the engine's route) twice (the same bits),
    timed in turns with the per-term ``pauli_apply`` on the same inputs.
+   The engine's inner products through the folded inner-product tiles
+   (``expectation_grouped`` on H, Sz on a tilted state and S^2,
+   ``screen_grouped`` on the pool) twice (the same bits), within 1e-5 of
+   the plain result or of sum_t |c_t| ||a|| ||psi||, timed in turns with
+   the per-term ``pauli_inner`` folded in torch, each with its device and
+   host ms per call.
 3. Main path: ``qsfh_torch.algos.adapt.ADAPT`` on the 3x3 Hubbard lattice
    (t=1, U=6, 5 up / 4 down, complex64 on cuda) with the exact 4-state
    ground manifold read from the committed cache: one operator selection
    from the empty ansatz, 5 train steps of the 12-operator ansatz
    (theta = 0.05, Adam lr 1e-2) and one short ``run()``, with every launch
    counter set to 0 just before and read just after each, the selection's
-   and the steps' counts held to the resident tile layouts (1 resident
-   rotation and 1 resident adjoint per step, 2 resident rotations per
-   selection, one ``pauli_apply_grouped`` launch per tile of H for each
-   H psi, no per-term rotation, no stream kernel).  The same selection
+   and the steps' counts held to the resident and inner tile layouts (1
+   resident rotation and 1 resident adjoint per step, 2 resident rotations
+   per selection, one ``pauli_apply_grouped`` launch per tile of H for
+   each H psi, one ``expectation_grouped`` launch for each of E, Sz and
+   S^2, one ``screen_grouped`` launch per selection, no per-term rotation
+   or inner product, no stream kernel).  The same selection
    and steps then run through the plain versions on the card: energy,
    gnorm, Sz, S^2 and fidelity agree at every step (``STEP_TOLERANCES``),
    the pool gradients within 1e-4 of max |grad|, and the selected
    operators as a set (unless a tie sits within that tolerance).
 4. Kernels at n = 24 on the real 2x6 term arrays (the first 6 pool
    operators and the Givens network): the stream route (tile runs, the
-   inner-product tiles) against the plain versions on the same inputs
-   (1e-5 relative), timed beside its bound, the plain versions and the old
-   per-term route on the same inputs, with the launches and state passes
-   of each call.  H, S^2 and the pool run on the main path's state; Sz
-   and S^2 also on a tilted state whose <Z_q> do not cancel.  H psi
+   folded inner-product tiles) against the plain versions on the same
+   inputs (1e-5 relative), timed beside its bound, the plain versions and
+   the old per-term route on the same inputs, with the launches and state
+   passes of each call.  H, S^2 and the pool run on the main path's state;
+   Sz and S^2 also on a tilted state whose <Z_q> do not cancel.  H psi
    through the application tiles (twice: the same bits), timed in turns
    with the per-term ``pauli_apply``, and as one ``torch.mv`` with a CSR
    H (a yardstick).
@@ -57,25 +65,33 @@ Phases (any failed check raises and the script exits nonzero):
    gradients within 1e-4 of max |grad|, the same selected set unless a tie
    sits within that tolerance, energy, gnorm and S^2 within 1e-4
    relative, Sz within 1e-4 of 0.
-6. ``xor_gather`` and the one-term rotation ``pauli_rotation_one`` (TPU
-   kernels off every path) at 18 and 24 qubits against their plain
-   versions (exact for the gather, 1e-5 for the rotation), timed beside
-   their bound and, for the gather, ``torch.index_select`` with a prebuilt
-   index, both split into host, wall and device ms per call.
+6. ``xor_gather`` and the one-term rotation ``pauli_rotation_one``
+   (``pauli_rotation_out``; TPU kernels off every path) at 18 and 24
+   qubits against their plain versions (exact for the gather, 1e-5 for
+   the rotation), timed beside their bound, the rotation in turns with the
+   gather (the same bytes), the gather in turns with
+   ``torch.index_select`` with a prebuilt index, each split into host,
+   wall and device ms per call.
 7. A ``kernels`` JSON line, then the device JSON line, last.
+
+``--compare PARENT`` runs both main paths (3x3 and 2x6 selection and
+train step, host clock and profile) of the port in the checkout PARENT
+(loaded under another name) and of this one in one process, in rounds
+of parent, change, change, parent.
 
 ``--routes`` also times the per-term route, the resident route (at 18
 and 20 qubits) and the stream route at 18 (3x3), 20 (2x5) and 24 qubits
-(2x6), call by call and end to end, and the two inner-product kernels
-(per term, per tile) on the pool, H and S^2 and the two application
-kernels on H psi at each size (the tile kernel also without its
-diagonal; each with its device ms from ``torch.profiler``); ``--profile``
-breaks a train step and a selection down by device kernel; ``--tiles``
-times the resident kernels over other tile shapes on the 3x3 segment,
-the 24-qubit tile-run kernels over other tile sizes (k, c) on the 2x6
-segment, and the inner-product tile kernel over tile shapes and item
-caps on the pool, H and S^2, and the application tile kernel over the
-same shapes on H psi at 18 and 24 qubits.
+(2x6), call by call and end to end, and the inner-product routes (per
+term, the tiles folded in torch, the folded tiles) on the pool, H, Sz
+(tilted) and S^2 and the two application kernels on H psi at each size
+(the tile kernel also without its diagonal), each with its device and
+host ms per call; ``--profile`` breaks a train step and a selection down
+by device kernel; ``--tiles`` times the resident kernels over other tile
+shapes on the 3x3 segment, the 24-qubit tile-run kernels over other tile
+sizes (k, c) on the 2x6 segment, the folded inner-product tiles over tile
+shapes and item caps on the pool, H, Sz and S^2 at 18 qubits and on the
+pool, H and S^2 at 24, and the application tile kernel over the same
+shapes on H psi at 18 and 24 qubits.
 
 It imports nothing of JAX or of the JAX package ``qsfh_tpu``.
 """
@@ -121,6 +137,9 @@ REPLACES = {
     "pauli_apply": f"{TPU_KERNELS}:715",
     "pauli_apply_grouped": f"{TPU_KERNELS}:715,1870,2002",
     "pauli_inner": f"{TPU_KERNELS}:645,927",
+    "expectation_grouped": f"{TPU_KERNELS}:645,1581,1596,1714,1804",
+    "screen_grouped": f"{TPU_KERNELS}:927,1474,1522",
+    "pauli_rotation_out": f"{TPU_KERNELS}:571",
     "adjoint_rotation": f"{TPU_KERNELS}:826",
     "rotation_tile_runs": f"{TPU_KERNELS}:2268",
     "adjoint_tile_runs": f"{TPU_KERNELS}:2142",
@@ -129,8 +148,9 @@ REPLACES = {
     "rotation_resident": f"{TPU_KERNELS}:482",
     "adjoint_resident": f"{TPU_KERNELS}:826",
 }
-# the stream kernels, which run past the caps only (not at 18 qubits)
-NEW_KERNELS = ("rotation_tile_runs", "adjoint_tile_runs", "pauli_inner_grouped")
+# the kernels timed at 24 qubits only: the tile runs (past the chain cap)
+# and the inner-product tiles returning v_t (the folded wrappers' kernel)
+STREAM_KERNELS = ("rotation_tile_runs", "adjoint_tile_runs", "pauli_inner_grouped")
 # the resident kernels, the 18-qubit main path's rotations and adjoint sweep
 RESIDENT_KERNELS = ("rotation_resident", "adjoint_resident")
 # The least float32 arithmetic of each function, per amplitude.  Rule: a
@@ -163,6 +183,17 @@ def inner_flops(xs, a_is_psi, dim):
     if n_diag:
         per_amp -= 3 + n_diag  # 6 -> 3 for the product, 2 -> 1 per term
     return per_amp * dim
+
+
+def inner_bound_flops(xs, a_is_psi, tiles, dim):
+    """The operations bound's flops of an inner-product tile call: the
+    larger of :func:`inner_flops` and the Walsh-Hadamard diagonal's own
+    work where the layout has one (the product, 3 flops a slot for a = psi
+    and 6 otherwise, and k adds a slot, 2k for complex values)."""
+    flops = inner_flops(xs, a_is_psi, dim)
+    if tiles.n_diag:
+        flops = max(flops, ((3 + tiles.k) if a_is_psi else (6 + 2 * tiles.k)) * dim)
+    return flops
 
 
 def apply_flops(xs, c, tiles, dim):
@@ -555,6 +586,14 @@ def phase_kernels(adapt, dev, sweep_tiles=False):
         record("pauli_inner", call, T, n_inputs * 8 * dim + T * (8 + 8), errs, ms, plain_ms,
                flops=inner_flops(xs, a is psi, dim))
 
+    # the engine's inner products: the folded tile wrappers, Sz on a tilted state
+    calls = inner_calls(adapt, psi, w, tilted_state(psi, n))
+    inner_fold_checks(calls, record)
+    if sweep_tiles:
+        results["inner_tile_sweep"] = {
+            call: sweep_inner_tile_sizes(call, n, owner, a, b, fold_fns(owner, a, b)[1]["plain"]())
+            for call, owner, a, b in calls}
+
     # adjoint_rotation over the reversed segment, from psi and lambda = 2 H psi
     lam = 2.0 * K.pauli_apply(psi, *hargs)
     adj = tuple(a.flip(0) for a in (d["xb"], d["zb"], angles, d["phre"], d["phim"]))
@@ -650,7 +689,8 @@ def sweep_apply_tile_sizes(obs, psi, ref):
                          diagonal_entries=int(tiles.diag_zin.size), rel_err=err))
         log(f"  apply tiles, H psi n={n}: k={k} c={low} max_items={cap}"
             + ("" if diag else ", x = 0 terms as items") + f": device {ms_text(split['device_ms'])}"
-            f", host {split['host_ms']:.4f} ms, {len(tiles)} passes, {tiles.n_items} items, "
+            f", graph {split['graph_ms']:.4f} ms, host {split['host_ms']:.4f} ms, {len(tiles)} "
+            f"passes, {tiles.n_items} items, "
             f"{tiles.diag_zin.size} diagonal entries, rel_err {err:.2e}")
     return rows
 
@@ -699,9 +739,10 @@ def host_device_split(fn, reps=200):
     """Where one call's time goes, over ``reps`` back-to-back calls: the
     host's ms per call to enqueue them (host clock, no sync), the wall ms
     per call (host clock ended by a device sync: the larger of the two
-    sides once the queue is full) and the device ms per call (the kernels'
+    sides once the queue is full), the device ms per call (the kernels'
     time in ``torch.profiler``; None where the profile caught no kernel,
-    which happens now and then)."""
+    which happens now and then) and the graph ms per call (:func:`graph_ms`:
+    the device's time with no host in the way)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -719,12 +760,128 @@ def host_device_split(fn, reps=200):
         torch.cuda.synchronize()
     device_us = sum(r[2] for r in _device_kernels(prof))
     return dict(host_ms=1e3 * (t1 - t0) / reps, wall_ms=1e3 * (t2 - t0) / reps,
-                device_ms=device_us / 1e3 / reps if device_us else None)
+                device_ms=device_us / 1e3 / reps if device_us else None,
+                graph_ms=graph_ms(fn, min(reps, 50)))
+
+
+def graph_ms(fn, reps, replays=5):
+    """ms per call of ``reps`` calls of ``fn`` captured in one CUDA graph
+    and replayed ``replays`` times between CUDA events: every launch of
+    the calls, back to back, with no host time between them (the gaps
+    between kernels stay).  The calls run once on the capture stream
+    first, so that per-stream words and cached layouts exist before the
+    capture."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (replays * reps)
+    del graph
+    return ms
 
 
 def ms_text(ms):
     """A device time for the log: ms, or "not measured" (None)."""
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def inner_calls(adapt, psi, w, tilted):
+    """The engine's four inner-product calls on these states: (call, owner,
+    a, b) for <a|P_t|b>: the pool screen (a = w), H and S^2 (a = b = psi)
+    and Sz on a tilted state, whose <Z_q> do not cancel."""
+    obs = adapt.problem.observables
+    return (("pool screen <w|P|psi>", adapt.packed_pool, w, psi),
+            ("<psi|H|psi>", obs["H"], psi, psi),
+            ("<t|Sz|t>, tilted state", obs["Sz"], tilted, tilted),
+            ("<psi|S^2|psi>", obs["S^2"], psi, psi))
+
+
+def fold_fns(owner, a, b, tiles=None):
+    """The folded call of an expectation value (a = b) or a pool screen's
+    per-term contributions on ``tiles`` (the engine's ``inner_groups()``
+    unless given), as callables: "tiles" the folded wrapper, "plain" its
+    plain version, "per-term" the per-term ``pauli_inner`` folded in torch
+    (the parent's 18-qubit route); and the name of the wrapper."""
+    from qsfh_torch.engine import kernels as K
+
+    xs, zs, c = owner._tensors(b)[:3]
+    tiles = owner.inner_groups() if tiles is None else tiles
+    args = (xs, zs, c.real, c.imag, tiles)
+    if a is b:
+        return "expectation_grouped", {
+            "tiles": lambda: K.expectation_grouped(b, *args),
+            "plain": lambda: K.expectation_grouped_plain(b, *args),
+            "per-term": lambda: (c * K.pauli_inner(b, b, xs, zs)).real.sum()}
+    return "screen_grouped", {
+        "tiles": lambda: K.screen_grouped(a, b, *args),
+        "plain": lambda: K.screen_grouped_plain(a, b, *args),
+        "per-term": lambda: 2.0 * (c * K.pauli_inner(a, b, xs, zs)).imag}
+
+
+def fold_scale(owner, a, b):
+    """The largest norm the folded result could have: sum_t |c_t| ||a||
+    ||b|| for an expectation, 2 ||c|| ||a|| ||b|| for the screen's vector."""
+    import torch
+
+    c = owner._tensors(b)[2]
+    ab = float(torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b))
+    return ab * (float(c.abs().sum()) if a is b else 2.0 * float(torch.linalg.vector_norm(c)))
+
+
+def inner_fold_checks(calls, record):
+    """The folded wrappers on the engine's calls against their plain
+    versions (:func:`fold_err`) and twice (the same bits), timed in turns
+    with the per-term route (CUDA events), each with its device and host
+    ms per call (:func:`host_device_split`), launches, units, items and
+    diagonal terms."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    for call, owner, a, b in calls:
+        name, fns = fold_fns(owner, a, b)
+        tiles = owner.inner_groups()
+        n = b.shape[0].bit_length() - 1
+        got, launches = launches_of(fns["tiles"])
+        again = fns["tiles"]()
+        ref = fns["plain"]()
+        old = fns["per-term"]()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} ({call}): two calls give other bits")
+        scale = fold_scale(owner, a, b)
+        errs = [(fold_err(got, ref, scale), max_abs(got, ref)),
+                (fold_err(old, ref, scale), max_abs(old, ref))]
+        ms = in_turns({"tiles": fns["tiles"], "per-term": fns["per-term"]}, reps=10)
+        plain_ms = time_cuda(fns["plain"], reps=2, warmup=1)
+        split = {route: host_device_split(fns[route], reps=split_reps(ms[route]))
+                 for route in ("tiles", "per-term")}
+        xs = owner._tensors(b)[0]
+        positions, units = tiles.schedule(n, K.sm_count(b.device))
+        record(name, call, len(xs), (1 if a is b else 2) * 8 * b.shape[0] + 16 * len(xs), errs,
+               ms["tiles"], plain_ms, flops=inner_bound_flops(xs, a is b, tiles, b.shape[0]),
+               per_term_ms=ms["per-term"], launches=launches, device_ms=split["tiles"]["device_ms"],
+               graph_ms=split["tiles"]["graph_ms"], host_ms=split["tiles"]["host_ms"],
+               per_term_device_ms=split["per-term"]["device_ms"],
+               per_term_graph_ms=split["per-term"]["graph_ms"],
+               per_term_host_ms=split["per-term"]["host_ms"], tiles=tiles.n_tiles,
+               items=tiles.n_items, diagonal=tiles.n_diag, units=len(units),
+               positions=positions)
 
 
 def phase_single(dev, n):
@@ -768,8 +925,8 @@ def phase_single(dev, n):
     for what in ("split", "library_split"):
         s = results["xor_gather"][what]
         log(f"  xor_gather n={n} {'index_select' if what[0] == 'l' else 'kernel'}: host "
-            f"{s['host_ms']:.4f} ms, wall {s['wall_ms']:.4f} ms, device {ms_text(s['device_ms'])} "
-            f"per call (200 back-to-back calls)")
+            f"{s['host_ms']:.4f} ms, wall {s['wall_ms']:.4f} ms, device {ms_text(s['device_ms'])}, "
+            f"graph {s['graph_ms']:.4f} ms per call (200 back-to-back calls)")
 
     args = (x, z, 0.37, ph.real, ph.imag)
     got = K.pauli_rotation_one(psi, *args)
@@ -780,12 +937,14 @@ def phase_single(dev, n):
     results["pauli_rotation_one"] = dict(
         call=f"exp(-i theta P) psi, one term, n={n}", n=n, terms=1, rel_err=rel_err(got, ref),
         max_abs_err=max_abs(got, ref),
-        ms=in_turns({"kernel": rotate, "gather": gather}, reps=200, warmup=20)["kernel"],
         plain_ms=time_cuda(lambda: K.pauli_rotation_one_plain(psi, *args), reps=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, split=host_device_split(rotate))
+    ms = in_turns({"kernel": rotate, "gather": gather}, reps=200, warmup=20)
+    results["pauli_rotation_one"].update(ms=ms["kernel"], gather_ms=ms["gather"])
     s = results["pauli_rotation_one"]["split"]
     log(f"  pauli_rotation_one n={n}: host {s['host_ms']:.4f} ms, wall {s['wall_ms']:.4f} ms, "
-        f"device {ms_text(s['device_ms'])} per call (200 back-to-back calls)")
+        f"device {ms_text(s['device_ms'])}, graph {s['graph_ms']:.4f} ms per call (200 "
+        f"back-to-back calls)")
     for name, e in results.items():
         log(f"  {name:18s} n={n} rel_err={e['rel_err']:.2e} max_abs={e['max_abs_err']:.2e} "
             f"ms={e['ms']:.4f} plain_ms={e['plain_ms']:.4f} bound_ms={e['bound_ms']:.5f} "
@@ -887,6 +1046,18 @@ def timed_select(adapt, label, calls=2):
     return selected, grads, times[-1]
 
 
+def inner_launches(tiles, n):
+    """Launches of the inner-product tile kernel for one call over
+    ``tiles`` at n qubits on this card: one per chunk of tiles whose
+    partials fit ``PARTIALS_CAP``."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    positions = tiles.schedule(n, K.sm_count(torch.device("cuda")))[0]
+    return len(tiles.chunks(-(-(1 << (n - tiles.k)) // positions), K.PARTIALS_CAP))
+
+
 def resident_expected(adapt):
     """Launches per selection from the empty ansatz (the Givens network
     forward and inverse, H w, the pool screen) and per train step (the
@@ -910,15 +1081,21 @@ def resident_expected(adapt):
 
     sel = (layout(net, 1), layout(net, -1))
     fwd, adj = layout(seg, 1), layout(seg, -1)
-    h = adapt.problem.observables["H"].groups()  # H psi: one launch per tile
+    obs = adapt.problem.observables
+    h = obs["H"].groups()  # H psi: one launch per tile
     spill = int(bool(h.spill_index.size))  # the per-term kernel for masks that fit no tile
+    pool = adapt.packed_pool.inner_groups()
+    expect = [obs[k].inner_groups() for k in ("H", "Sz", "S^2")]
     zero = dict.fromkeys(K.launch_counts(), 0)
     per_select = dict(zero, rotation_resident=sum(map(spans, sel)),
                       pauli_rotation=sum(lay.n_single for lay in sel), pauli_apply=spill,
-                      pauli_apply_grouped=h.n_tiles, pauli_inner=1)
+                      pauli_apply_grouped=h.n_tiles, screen_grouped=inner_launches(pool, n),
+                      pauli_inner=int(bool(pool.spill_index.size)))
     per_step = dict(zero, rotation_resident=spans(fwd), adjoint_resident=spans(adj),
                     pauli_rotation=fwd.n_single, adjoint_rotation=adj.n_single, pauli_apply=spill,
-                    pauli_apply_grouped=h.n_tiles, pauli_inner=3)
+                    pauli_apply_grouped=h.n_tiles,
+                    expectation_grouped=sum(inner_launches(t, n) for t in expect),
+                    pauli_inner=sum(bool(t.spill_index.size) for t in expect))
     return per_select, per_step, dict(forward=fwd.n_runs, adjoint=adj.n_runs,
                                       network=[lay.n_runs for lay in sel])
 
@@ -953,7 +1130,10 @@ def phase_main_path(adapt, dev, tmp):
         f"runs) + 1 adjoint_resident ({runs['adjoint']} runs), per selection 2 "
         f"rotation_resident ({runs['network']} runs), no per-term rotation; H psi "
         f"{per_step['pauli_apply_grouped']} pauli_apply_grouped launches (one per tile) and "
-        f"{per_step['pauli_apply']} pauli_apply")
+        f"{per_step['pauli_apply']} pauli_apply; E, Sz, S^2 {per_step['expectation_grouped']} "
+        f"expectation_grouped launches, the pool {per_select['screen_grouped']} screen_grouped, "
+        f"{per_step['pauli_inner']} / {per_select['pauli_inner']} pauli_inner per step / "
+        f"selection")
     results.update(launches_per_select=per_select, launches_per_step=per_step, runs=runs)
 
     run_adapt = build_adapt(dev, tmp, "run", max_inner_iterations=3)
@@ -976,7 +1156,7 @@ def phase_main_path(adapt, dev, tmp):
     log(f"  run(): {len(run_adapt.selected_indices)} operators, losses {losses}, "
         f"{results['run_s']:.2f} s, launches {run_counts}")
     log(f"  launches on the main path: {counts}")
-    on_path = RESIDENT_KERNELS + ("pauli_apply_grouped", "pauli_inner")
+    on_path = RESIDENT_KERNELS + ("pauli_apply_grouped", "expectation_grouped", "screen_grouped")
     for name, c in run_counts.items():
         if (c > 0) != (name in on_path):
             raise AssertionError(f"{name}: {c} launches in the 18-qubit run()")
@@ -1000,29 +1180,28 @@ def phase_main_path(adapt, dev, tmp):
 
 
 @contextlib.contextmanager
-def chain_cap(cap, inner_cap):
-    """The engine with its rotation cap set to ``cap`` and its
-    inner-product cap to ``inner_cap`` (None keeps a cap): the resident
-    rotations and per-term inner products up to them, the stream route
-    above."""
+def chain_cap(cap):
+    """The engine with its rotation cap set to ``cap`` (None keeps it): the
+    resident rotations up to it, the tile runs above."""
     from qsfh_torch.engine import streaming
 
-    saved = streaming.CHAIN_MAX_QUBITS, streaming.INNER_CHAIN_MAX_QUBITS
+    saved = streaming.CHAIN_MAX_QUBITS
     if cap is not None:
         streaming.CHAIN_MAX_QUBITS = cap
-    if inner_cap is not None:
-        streaming.INNER_CHAIN_MAX_QUBITS = inner_cap
     try:
         yield
     finally:
-        streaming.CHAIN_MAX_QUBITS, streaming.INNER_CHAIN_MAX_QUBITS = saved
+        streaming.CHAIN_MAX_QUBITS = saved
 
 
 def per_term_impl():
     """The engine's kernels with the per-term rotation and adjoint in place
-    of the resident ones, and the per-term ``pauli_apply`` in place of the
-    application tiles: the first route of the port, one launch per
-    rotation term up to the chain cap, on the same spans."""
+    of the resident ones, the per-term ``pauli_apply`` in place of the
+    application tiles and the per-term ``pauli_inner``, folded in torch, in
+    place of the folded inner-product tiles: the first route of the port,
+    one launch per rotation term up to the chain cap, on the same spans."""
+    import torch
+
     from qsfh_torch.engine import kernels as K
 
     def rotation(psi, xs, zs, angles, phre, phim, tiles):
@@ -1034,8 +1213,15 @@ def per_term_impl():
     def apply(psi, xs, zs, cre, cim, tiles):
         return K.pauli_apply(psi, xs, zs, cre, cim)
 
+    def expectation(psi, xs, zs, cre, cim, tiles):
+        return (K.pauli_inner(psi, psi, xs, zs) * torch.complex(cre, cim)).real.sum()
+
+    def screen(w, psi, xs, zs, cre, cim, tiles):
+        return 2.0 * (K.pauli_inner(w, psi, xs, zs) * torch.complex(cre, cim)).imag
+
     return dataclasses.replace(K.KERNELS, rotation_resident=rotation, adjoint_resident=adjoint,
-                               apply_grouped=apply)
+                               apply_grouped=apply, expectation_grouped=expectation,
+                               screen_grouped=screen)
 
 
 @contextlib.contextmanager
@@ -1043,7 +1229,7 @@ def per_term_route():
     """The old route of one per-term launch at every n: yields the Impl."""
     from qsfh_torch.engine import kernels as K
 
-    with chain_cap(K.MAX_QUBITS, K.MAX_QUBITS):
+    with chain_cap(K.MAX_QUBITS):
         yield per_term_impl()
 
 
@@ -1121,20 +1307,21 @@ def phase_kernels_24(adapt, dev, sweep_tiles=False):
     results = {}
 
     def record(name, call, T_work, bytes_moved, errs, ms, plain_ms, old_ms, launches, passes,
-               flops=None, library_ms=None):
+               flops=None, library_ms=None, **extra):
         flops = FLOPS_PER_TERM_AMP[name] * T_work * dim if flops is None else flops
         b_ms, b_by = bound(bytes_moved, flops)
         entry = dict(call=call, terms=T_work, n=n, rel_err=max(e[0] for e in errs),
                      max_abs_err=max(e[1] for e in errs), ms=ms, plain_ms=plain_ms,
                      old_route_ms=old_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                     bytes=bytes_moved, flops=flops, launches=launches, passes=passes)
+                     bytes=bytes_moved, flops=flops, launches=launches, passes=passes, **extra)
         results.setdefault(name, []).append(entry)
         log(f"  {call:34s} T={T_work:5d} rel_err={entry['rel_err']:.2e} (tol {STATE_RTOL:g}) "
             f"ms={ms:.4f} old_route_ms="
             + ("-" if old_ms is None else f"{old_ms:.3f}")
             + f" plain_ms={plain_ms:.1f} bound_ms={b_ms:.5f} ({b_by}) passes={passes} "
             f"launches={launches}"
-            + ("" if library_ms is None else f" library_ms={library_ms:.4f}"))
+            + ("" if library_ms is None else f" library_ms={library_ms:.4f}")
+            + "".join(f" {k}={v}" for k, v in extra.items()))
         if entry["rel_err"] > STATE_RTOL:
             raise AssertionError(f"{name} ({call}) disagrees with its plain version")
 
@@ -1207,40 +1394,59 @@ def phase_kernels_24(adapt, dev, sweep_tiles=False):
     if sweep_tiles:
         results["tile_sweep"] = sweep_tile_sizes(seg, n, rot, rev, psi, lam, refs[1], v_ref)
 
-    # inner products grouped by flip mask: H, S^2 (a = psi) and the pool
-    # (a = w) on the main path's state psi = U(theta) psi_0 and w = H psi.
-    # There every <Z_q> cancels to ~1e-7 (half filling, uniform density),
-    # far below the ||a|| ||psi|| floor of inner_err, so Sz and S^2 are
-    # also held on a state tilted toward empty modes, where <Z_q> ~ 0.8
-    # and a wrong Sz or diagonal S^2 term cannot hide under the floor.
+    # the engine's inner products (the folded tile wrappers on its layouts):
+    # H, S^2 (a = psi) and the pool (a = w) on the main path's state psi =
+    # U(theta) psi_0 and w = H psi.  There every <Z_q> cancels to ~1e-7
+    # (half filling, uniform density), far below the floor of fold_err,
+    # so Sz and S^2 are also held on a state tilted toward empty modes,
+    # where <Z_q> ~ 0.8 and a wrong Sz or diagonal S^2 term cannot hide
+    # under the floor.  Each also as v_t in input order
+    # (pauli_inner_grouped on the same layout).
     psi = run_segments([seg], adapt._initial_state(), thetas, n)
     w = h.apply_scan(psi)
     tilted = tilted_state(random_state(), n)
     pool = adapt.packed_pool
     for call, a, b, owner in (
-        ("<psi|H|psi> terms", psi, psi, h),
-        ("<psi|S^2|psi> terms", psi, psi, p.observables["S^2"]),
-        ("<t|Sz|t> terms, tilted state", tilted, tilted, p.observables["Sz"]),
-        ("<t|S^2|t> terms, tilted state", tilted, tilted, p.observables["S^2"]),
-        ("pool screening <w|P|psi>", w, psi, pool),
+        ("<psi|H|psi>", psi, psi, h),
+        ("<psi|S^2|psi>", psi, psi, p.observables["S^2"]),
+        ("<t|Sz|t>, tilted state", tilted, tilted, p.observables["Sz"]),
+        ("<t|S^2|t>, tilted state", tilted, tilted, p.observables["S^2"]),
+        ("pool screen <w|P|psi>", w, psi, pool),
     ):
-        xs, zs = owner._tensors(b)[:2]
-        layout = owner.groups()
+        xs, zs, c = owner._tensors(b)[:3]
+        layout = owner.inner_groups()
+        name, fns = fold_fns(owner, a, b)
         n_masks = len(np.unique(xs.cpu().numpy()))
-        got, launches = launches_of(lambda: K.pauli_inner_grouped(a, b, xs, zs, layout))
-        plain_ms, ref = timed_once(lambda: K.pauli_inner_grouped_plain(a, b, xs, zs, layout))
-        old = K.pauli_inner(a, b, xs, zs)
-        old_ms = time_cuda(lambda: K.pauli_inner(a, b, xs, zs), reps=2, warmup=0)
-        ms = time_cuda(lambda: K.pauli_inner_grouped(a, b, xs, zs, layout), reps=5, warmup=1)
+        plain_ms, v_ref = timed_once(lambda: K.pauli_inner_grouped_plain(a, b, xs, zs, layout))
+        ref = (c * v_ref).real.sum() if a is b else 2.0 * (c * v_ref).imag
+        got, launches = launches_of(fns["tiles"])
+        again = fns["tiles"]()
+        inner = lambda: K.pauli_inner_grouped(a, b, xs, zs, layout)  # noqa: E731
+        v, v_launches = launches_of(inner)
+        old = fns["per-term"]()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} ({call}) at 24 qubits: two calls give other bits")
+        old_ms = time_cuda(fns["per-term"], reps=2, warmup=0)
+        ms = time_cuda(fns["tiles"], reps=5, warmup=1)
+        v_ms = time_cuda(inner, reps=5, warmup=1)
+        split = host_device_split(fns["tiles"], reps=split_reps(ms))
+        scale = fold_scale(owner, a, b)
+        ab = float(torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b))
         n_inputs = 1 if a is b else 2
-        scale = float(torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b))
-        errs = [inner_err(got, ref, scale), inner_err(old, ref, scale)]
-        passes = f"{len(layout)} ({layout.n_tiles} tiles; {n_masks} flip masks)"
-        record("pauli_inner_grouped", call, len(xs), n_inputs * 8 * dim + 16 * len(xs), errs, ms,
-               plain_ms, old_ms, launches, passes, flops=inner_flops(xs, a is b, dim))
+        positions, units = layout.schedule(n, K.sm_count(b.device))
+        passes = (f"{len(layout)} ({layout.n_tiles} tiles, {layout.n_items} items, "
+                  f"{layout.n_diag} diagonal terms, {len(units)} units; {n_masks} flip masks)")
+        flops = inner_bound_flops(xs, a is b, layout, dim)
+        record(name, call, len(xs), n_inputs * 8 * dim + 16 * len(xs),
+               [(fold_err(got, ref, scale), max_abs(got, ref)),
+                (fold_err(old, ref, scale), max_abs(old, ref))], ms, plain_ms, old_ms, launches,
+               passes, flops=flops, device_ms=split["device_ms"], host_ms=split["host_ms"])
+        record("pauli_inner_grouped", call + " (v_t)", len(xs), n_inputs * 8 * dim + 16 * len(xs),
+               [inner_err(v, v_ref, ab)], v_ms, plain_ms, None, v_launches, passes, flops=flops)
         if sweep_tiles and a is not tilted:
             results.setdefault("inner_tile_sweep", {})[call] = sweep_inner_tile_sizes(
-                call, n, a, b, xs, zs, ref, scale)
+                call, n, owner, a, b, ref)
     del tilted
 
     # H psi: the tile kernel (the engine's route) beside the per-term pauli_apply
@@ -1317,31 +1523,40 @@ def sweep_tile_sizes(seg, n, rot, rev, psi, lam, ref, v_ref):
 
 # (k, c, most items a tile) of the inner-product tiles that --tiles times
 INNER_TILE_SHAPES = ((12, 4, 128), (12, 2, 128), (13, 4, 128), (13, 2, 128), (11, 4, 128),
-                     (12, 4, 16), (12, 2, 16), (12, 4, 32), (12, 2, 32))
+                     (11, 2, 128), (10, 2, 128), (12, 2, 32))
 # (k, c, most items a tile) of the application tiles that --tiles times:
 # the inner-product shapes and smaller tiles (more blocks a launch where
 # the state is small)
 APPLY_TILE_SHAPES = INNER_TILE_SHAPES[:5] + ((11, 2, 128), (10, 2, 128), (12, 2, 32))
 
 
-def sweep_inner_tile_sizes(call, n, a, b, xs, zs, ref, scale):
-    """The inner-product tile kernel on one 2x6 call (the pool screen, H or
-    S^2) over tile shapes (k bits, the low c) and item caps: ms per call
-    (CUDA events), state passes, each held to the plain result."""
+def sweep_inner_tile_sizes(call, n, owner, a, b, ref):
+    """The folded inner-product call on ``owner`` (the pool screen, H, Sz
+    or S^2) over tile shapes (k bits, the low c) and item caps, each
+    layout the engine's kind (the x = 0 terms as one diagonal): device and
+    host ms per call (:func:`host_device_split`), state passes, units and
+    blocks, each held to the plain result ``ref``."""
     from qsfh_torch.engine import kernels as K
     from qsfh_torch.engine.streaming import GroupTiles
 
     rows = []
-    hx, hz = xs.cpu().numpy(), zs.cpu().numpy()
+    hx, hz = (v.cpu().numpy() for v in owner._tensors(b)[:2])
+    scale = fold_scale(owner, a, b)
     for k, c, cap in INNER_TILE_SHAPES:
-        tiles = GroupTiles(hx, hz, n, k, c, cap)
-        err = inner_err(K.pauli_inner_grouped(a, b, xs, zs, tiles), ref, scale)[0]
+        tiles = GroupTiles(hx, hz, n, k, c, cap, diagonal=False, inner_diagonal=True)
+        _, fns = fold_fns(owner, a, b, tiles)
+        err = fold_err(fns["tiles"](), ref, scale)
         if tiles.spill_index.size or err > STATE_RTOL:
             raise AssertionError(f"inner tile sweep {call} k={k} c={c} cap={cap}: error {err:.2e}")
-        ms = time_cuda(lambda: K.pauli_inner_grouped(a, b, xs, zs, tiles), reps=3, warmup=1)
-        rows.append(dict(k=k, c=c, max_items=cap, ms=ms, passes=len(tiles), rel_err=err))
-        log(f"  inner tiles, {call}: k={k} c={c} max_items={cap}: {ms:.4f} ms, "
-            f"{len(tiles)} passes, rel_err {err:.2e}")
+        split = host_device_split(fns["tiles"], reps=50)
+        positions, units = tiles.schedule(n, K.sm_count(b.device))
+        blocks = len(units) * -(-(1 << (n - k)) // positions)
+        rows.append(dict(k=k, c=c, max_items=cap, **split, passes=len(tiles), units=len(units),
+                         blocks=blocks, rel_err=err))
+        log(f"  inner tiles, {call} n={n}: k={k} c={c} max_items={cap}: device "
+            f"{ms_text(split['device_ms'])}, graph {split['graph_ms']:.4f} ms, host "
+            f"{split['host_ms']:.4f} ms, {len(tiles)} passes, {len(units)} units, {blocks} blocks, "
+            f"rel_err {err:.2e}")
     return rows
 
 
@@ -1403,11 +1618,8 @@ def phase_main_path_24(adapt, dev, tmp):
     k, c = streaming.TILE_BITS, streaming.TILE_LOW_BITS
     obs = adapt.problem.observables
 
-    def inner_launches(tiles):  # the tile kernel's launches for one call
-        positions = K._load().qsfh_inner_tile_positions(n, tiles.k, tiles.n_tiles)
-        return len(tiles.chunks(-(-(1 << (n - tiles.k)) // positions), K.PARTIALS_CAP))
-
-    inner = [adapt.packed_pool.groups()] + [obs[k].groups() for k in ("H", "Sz", "S^2")]
+    inner = [adapt.packed_pool.inner_groups()] + [obs[k].inner_groups()
+                                                  for k in ("H", "Sz", "S^2")]
     sel = [net.tiles(1, n, k, c), net.tiles(-1, n, k, c)]
     fwd, adj = seg.tiles(1, n, k, c), seg.tiles(-1, n, k, c)
     expected = dict(
@@ -1415,14 +1627,16 @@ def phase_main_path_24(adapt, dev, tmp):
         adjoint_rotation=N_STEPS * adj.n_single,
         rotation_tile_runs=2 * sum(t.n_runs for t in sel) + N_STEPS * fwd.n_runs,
         adjoint_tile_runs=N_STEPS * adj.n_runs,
-        pauli_inner_grouped=2 * inner_launches(inner[0])
-        + N_STEPS * sum(inner_launches(t) for t in inner[1:]),
+        pauli_inner_grouped=0,
+        screen_grouped=2 * inner_launches(inner[0], n),
+        expectation_grouped=N_STEPS * sum(inner_launches(t, n) for t in inner[1:]),
         pauli_apply=0,
         pauli_apply_grouped=(2 + N_STEPS) * obs["H"].groups().n_tiles,
         pauli_inner=0,
         xor_gather=0,
         rotation_resident=0,
         adjoint_resident=0,
+        pauli_rotation_out=0,
     )
     if counts != expected:
         raise AssertionError(f"24-qubit launches {counts}, the layouts predict {expected}")
@@ -1439,8 +1653,8 @@ def phase_main_path_24(adapt, dev, tmp):
         f"runs per step, {sum(t.n_runs for t in sel)} network runs per selection, no "
         f"per-term rotation; one partial-sum pass per adjoint sweep; inner-product state passes "
         f"per call: pool {len(inner[0])}, H {len(inner[1])}, Sz {len(inner[2])}, "
-        f"S^2 {len(inner[3])}, no per-term pass; H psi {inner[1].n_tiles} pauli_apply_grouped "
-        f"launches, no pauli_apply")
+        f"S^2 {len(inner[3])}, no per-term pass; H psi {obs['H'].groups().n_tiles} "
+        f"pauli_apply_grouped launches, no pauli_apply")
     results["inner_passes"] = dict(zip(("pool", "H", "Sz", "S^2"), map(len, inner)))
 
     plain = build_adapt(dev, tmp, "plain24", CONFIG_24)
@@ -1473,10 +1687,10 @@ def phase_routes(cases, dev, out, rounds=15):
     """The routes at each size, in one process: each call family of a
     train step and a selection, then the whole step and selection.  The
     per-term route (one launch per rotation term, per-term inner
-    products), the resident route (one launch per span, at 18 and 20
-    qubits; inner products as the engine's cap has them), the stream
-    route (one launch per tile run, inner tiles) and the engine's own caps
-    (``streaming``) take turns, one call each per round and each round
+    products and applications), the resident route (one launch per span,
+    at 18 and 20 qubits), the stream route (one launch per tile run) and
+    the engine's own cap (``streaming``), the last three with the inner
+    and application tiles, take turns, one call each per round and each round
     starting one route later, so a slow spell of the shared host, or the
     card's state after a route, falls on all of them; host-clock ms per call, each
     ended by a device sync, median and least over ``rounds`` rounds after
@@ -1496,15 +1710,14 @@ def phase_routes(cases, dev, out, rounds=15):
         lam = 2.0 * obs["H"].apply_scan(psi)
         params = thetas.clone()
         optimizer = torch.optim.Adam([params], lr=1e-2)
-        # (route, chain cap, inner-product cap, Impl); a cap of None keeps the engine's
-        routes = [("per-term", K.MAX_QUBITS, K.MAX_QUBITS, per_term_impl()),
-                  ("resident", K.MAX_QUBITS, None, K.KERNELS),
-                  ("stream", n - 1, n - 1, K.KERNELS), ("caps", None, None, K.KERNELS)]
+        # (route, chain cap, Impl); a cap of None keeps the engine's
+        routes = [("per-term", K.MAX_QUBITS, per_term_impl()),
+                  ("resident", K.MAX_QUBITS, K.KERNELS),
+                  ("stream", n - 1, K.KERNELS), ("caps", None, K.KERNELS)]
         if n > 20:
             routes = [r for r in routes if r[0] != "resident"]
-        built = {route: built_for(adapt, impl, tuple(range(n_ansatz)))
-                 for route, _, _, impl in routes}
-        impls = {route: impl for route, _, _, impl in routes}
+        built = {route: built_for(adapt, impl, tuple(range(n_ansatz))) for route, _, impl in routes}
+        impls = {route: impl for route, _, impl in routes}
         calls = (
             ("forward segment", lambda r: run_segments([seg], psi, thetas, n, impl=impls[r])),
             ("adjoint sweep", lambda r: run_rot_adjoint(seg, psi, lam, thetas, n, impl=impls[r])),
@@ -1519,8 +1732,8 @@ def phase_routes(cases, dev, out, rounds=15):
             times = {route[0]: [] for route in routes}
             for r in range(rounds + 2):
                 # each round starts one route later: no route always follows the same one
-                for route, cap, inner_cap, _ in routes[r % len(routes):] + routes[:r % len(routes)]:
-                    with chain_cap(cap, inner_cap):
+                for route, cap, _ in routes[r % len(routes):] + routes[:r % len(routes)]:
+                    with chain_cap(cap):
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
                         fn(route)
@@ -1558,16 +1771,34 @@ def split_reps(ms):
     return int(min(200, max(5, 100.0 / max(ms, 1e-3))))
 
 
+def unfolded_impl():
+    """The engine's kernels with the inner-product tiles returning v_t
+    (``pauli_inner_grouped``) and the coefficients folded in torch, as the
+    parent of the folded wrappers ran them past 18 qubits."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    def expectation(psi, xs, zs, cre, cim, tiles):
+        return (K.pauli_inner_grouped(psi, psi, xs, zs, tiles) * torch.complex(cre, cim)).real.sum()
+
+    def screen(w, psi, xs, zs, cre, cim, tiles):
+        return 2.0 * (K.pauli_inner_grouped(w, psi, xs, zs, tiles) * torch.complex(cre, cim)).imag
+
+    return dataclasses.replace(K.KERNELS, expectation_grouped=expectation, screen_grouped=screen)
+
+
 def phase_inner_routes(cases, dev, out, rounds=5):
     """The inner-product routes on the same inputs at each size, as the
     engine calls them: the pool screen (``PackedPool.screen_scan``, a = w
     = H psi) and the expectation values of H and S^2 (a = psi) and of Sz
     on a tilted state (``Observable.expectation_scan``); "per-term" is the
-    per-term ``pauli_inner`` and its coefficients folded in torch,
-    "tiles" ``pauli_inner_grouped`` (the shipped tile shape) folded the
-    same way.  CUDA events, the routes in turns each round, median over
-    ``rounds`` rounds of 3 calls, then each one's device and host ms per
-    call (:func:`host_device_split`); each held to the per-term result
+    per-term ``pauli_inner`` folded in torch (the parent's 18-qubit
+    route), "unfolded" ``pauli_inner_grouped`` on the engine's layout
+    folded in torch, "tiles" the engine's folded wrappers.  CUDA events,
+    the routes in turns each round, median over ``rounds`` rounds of 3
+    calls, then each one's device and host ms per call
+    (:func:`host_device_split`); each held to the per-term result
     (:func:`fold_err`).  Then the two application kernels on H psi
     (``pauli_apply``, ``pauli_apply_grouped``, the latter also on the same
     layout without its diagonal), the same way."""
@@ -1577,6 +1808,7 @@ def phase_inner_routes(cases, dev, out, rounds=5):
     from qsfh_torch.engine.streaming import GroupTiles
 
     rows = out.setdefault("inner_routes", [])
+    impls = (("per-term", per_term_impl()), ("unfolded", unfolded_impl()), ("tiles", K.KERNELS))
     for label, adapt in cases:
         n = adapt.n_qubits
         gen = torch.Generator(device=dev).manual_seed(n)
@@ -1586,23 +1818,18 @@ def phase_inner_routes(cases, dev, out, rounds=5):
         w = obs["H"].apply_scan(psi)
         tilted = tilted_state(psi, n)
         pool = adapt.packed_pool
-        for call, owner, a, b, fn in (
-                ("pool screen", pool, w, psi, lambda: pool.screen_scan(psi, w)),
-                ("H terms", obs["H"], psi, psi, lambda: obs["H"].expectation_scan(psi)),
-                ("Sz terms, tilted state", obs["Sz"], tilted, tilted,
-                 lambda: obs["Sz"].expectation_scan(tilted)),
-                ("S^2 terms", obs["S^2"], psi, psi, lambda: obs["S^2"].expectation_scan(psi))):
-            c = owner._tensors(b)[2]
-            tiles = owner.groups()
-            scale = float(c.abs().sum() * torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b))
+        for call, owner, a, b in (("pool screen", pool, w, psi), ("H terms", obs["H"], psi, psi),
+                                  ("Sz terms, tilted state", obs["Sz"], tilted, tilted),
+                                  ("S^2 terms", obs["S^2"], psi, psi)):
+            tiles = owner.inner_groups()
+            scale = fold_scale(owner, a, b)
 
-            def routed(cap, fn=fn):
-                def call():
-                    with chain_cap(None, cap):
-                        return fn()
-                return call
+            def engine(impl, owner=owner, a=a, b=b):
+                if owner is pool:
+                    return lambda: pool.screen_scan(b, a, impl=impl)
+                return lambda: owner.expectation_scan(b, impl=impl)
 
-            routes = (("per-term", routed(K.MAX_QUBITS)), ("tiles", routed(n - 1)))
+            routes = tuple((route, engine(impl)) for route, impl in impls)
             ref = routes[0][1]()
             for route, f in routes[1:]:
                 err = fold_err(f(), ref, scale)
@@ -1616,10 +1843,11 @@ def phase_inner_routes(cases, dev, out, rounds=5):
             ms = {route: sorted(t)[len(t) // 2] for route, t in times.items()}
             split = {route: host_device_split(f, reps=split_reps(ms[route])) for route, f in routes}
             rows.append(dict(lattice=label, n=n, call=call, ms=ms, split=split,
-                             tile_passes=len(tiles)))
+                             tile_passes=len(tiles), units=len(tiles.schedule(n, K.sm_count(dev))[1])))
             log(f"  {label} (n={n}) {call:22s} " + ", ".join(
-                f"{route} {ms[route]:8.4f} ms (device {ms_text(split[route]['device_ms'])}, host "
-                f"{split[route]['host_ms']:.4f} ms)" for route in ms) + f" ({len(tiles)} passes)")
+                f"{route} {ms[route]:8.4f} ms (device {ms_text(split[route]['device_ms'])}, graph "
+                f"{split[route]['graph_ms']:.4f} ms, host {split[route]['host_ms']:.4f} ms)"
+                for route in ms) + f" ({len(tiles)} passes)")
         xs, zs, c = obs["H"]._tensors(psi)
         tiles = obs["H"].groups()
         flat = GroupTiles(*obs["H"]._scan_terms()[:2], n, tiles.k, tiles.c, diagonal=False)
@@ -1637,12 +1865,13 @@ def phase_inner_routes(cases, dev, out, rounds=5):
             for route, fn in routes:
                 times[route].append(time_cuda(fn, reps=3, warmup=1 if r == 0 else 0))
         ms = {route: sorted(t)[len(t) // 2] for route, t in times.items()}
-        split = {route: host_device_split(fn) for route, fn in routes}
+        split = {route: host_device_split(fn, reps=split_reps(ms[route])) for route, fn in routes}
         rows.append(dict(lattice=label, n=n, call="H psi", ms=ms, split=split,
                          tile_passes=len(tiles)))
         log(f"  {label} (n={n}) {'H psi':12s} " + ", ".join(
-            f"{route} {ms[route]:8.4f} ms (device {ms_text(split[route]['device_ms'])}, host "
-            f"{split[route]['host_ms']:.4f} ms)" for route in ms) + f" ({len(tiles)} passes)")
+            f"{route} {ms[route]:8.4f} ms (device {ms_text(split[route]['device_ms'])}, graph "
+            f"{split[route]['graph_ms']:.4f} ms, host {split[route]['host_ms']:.4f} ms)"
+            for route in ms) + f" ({len(tiles)} passes)")
 
 
 def _device_kernels(prof):
@@ -1701,6 +1930,84 @@ def median_ms(rows):
     return ms[len(ms) // 2]
 
 
+# -- --compare: the parent's port against this one -----------------------------------------
+
+
+def load_port(root, alias):
+    """The package ``qsfh_torch`` of the checkout ``root`` imported under the
+    name ``alias`` (its imports of itself are relative), beside this
+    checkout's: two ports in one process, each with its own kernel build."""
+    import importlib
+    import importlib.util
+
+    init = os.path.join(os.path.abspath(root), "qsfh_torch", "__init__.py")
+    spec = importlib.util.spec_from_file_location(
+        alias, init, submodule_search_locations=[os.path.dirname(init)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module(f"{alias}.algos.adapt").ADAPT
+
+
+def phase_compare(parent, dev, tmp, out):
+    """The parent's port (the checkout ``parent``, e.g. ``git archive`` of the
+    parent commit unpacked into a directory .gitignore lists, loaded under
+    another name) against this one in one process: on each lattice (3x3,
+    2x6) an ADAPT of each, then rounds of parent, change, change, parent,
+    each one selection from the empty ansatz and one train step of the
+    main path's ansatz (host clock ended by a device sync, the step's
+    metrics read as numbers, as :func:`bench_steps` does); medians of each
+    side, and each side's device time from a profile of 2 steps and a
+    selection (:func:`profile_phase`)."""
+    import torch
+
+    from qsfh_torch.algos.adapt import ADAPT
+
+    ports = {"parent": load_port(parent, "qsfh_torch_parent"), "change": ADAPT}
+    rows = out.setdefault("compare", {})
+    for lattice, config, n_ansatz, rounds in (("3x3", CONFIG, N_ANSATZ, 12),
+                                              ("2x6", CONFIG_24, N_ANSATZ_24, 3)):
+        runs = {}
+        for side, cls in ports.items():
+            adapt = cls(n_epoch=1, results_root=os.path.join(tmp, f"compare_{side}_{lattice}"),
+                        device=dev, **config)
+            indices = tuple(range(n_ansatz))
+            adapt.selected_indices = list(indices)
+            adapt.params_t = torch.full((n_ansatz,), 0.05, dtype=adapt._rdt, device=dev)
+            optimizer = torch.optim.Adam([adapt.params_t], lr=1e-2)
+            step = adapt._build_step(indices)
+            select = adapt._screen_for(())
+            calls = {"selection": lambda s=select, a=adapt: s(a.params_t[:0]).cpu(),
+                     "step": lambda s=step, a=adapt, o=optimizer: [float(v) for v in
+                                                                   s(a.params_t, o)[2:]]}
+            for fn in calls.values():  # set-up: layouts, term tensors, lazy module loads
+                fn()
+                fn()
+            runs[side] = (adapt, calls)
+        times = {side: {call: [] for call in ("selection", "step")} for side in ports}
+        for _ in range(rounds):
+            for side in ("parent", "change", "change", "parent"):
+                for call, fn in runs[side][1].items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times[side][call].append(1e3 * (time.perf_counter() - t0))
+        for side, (adapt, _) in runs.items():
+            med = {call: sorted(v)[len(v) // 2] for call, v in times[side].items()}
+            prof = {}
+            profile_phase(adapt, n_ansatz, med["step"], med["selection"], prof, f"{side} {lattice}")
+            rows[f"{side} {lattice}"] = dict(
+                selection_ms=med["selection"], step_ms=med["step"], times=times[side],
+                **{f"{what}_device_ms": prof["profile"][f"{side} {lattice} {what}"]["kernel_ms"]
+                   for what in ("train step", "selection")})
+        log(f"  {lattice}: " + "; ".join(
+            f"{side} selection {rows[f'{side} {lattice}']['selection_ms']:.3f} ms, step "
+            f"{rows[f'{side} {lattice}']['step_ms']:.3f} ms (host clock, median of "
+            f"{2 * rounds}), device {rows[f'{side} {lattice}']['selection_device_ms']:.3f} / "
+            f"{rows[f'{side} {lattice}']['train step_device_ms']:.3f} ms" for side in ports))
+
+
 # -- main ---------------------------------------------------------------------------------
 
 
@@ -1713,6 +2020,9 @@ def main():
                         help="time the per-term, resident and stream routes at 18-24 qubits")
     parser.add_argument("--tiles", action="store_true",
                         help="time the resident and tile kernels over other tile shapes")
+    parser.add_argument("--compare", metavar="PARENT",
+                        help="time both main paths of the port in the checkout PARENT against "
+                             "this one, in turns")
     args = parser.parse_args()
 
     if not os.path.isdir(os.path.join(HERE, "qsfh_torch")):
@@ -1770,6 +2080,9 @@ def main():
         profile_phase(adapt, N_ANSATZ, out["step_ms_median"], main["select_ms"], out, "3x3")
         profile_phase(adapt24, N_ANSATZ_24, out["step_ms_median_24"], main24["select_ms"], out,
                       "2x6")
+    if args.compare:
+        log(f"the parent's port ({args.compare}) against this one, in turns:")
+        phase_compare(args.compare, dev, tmp, out)
     log(f"smoke test took {time.time() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -1793,9 +2106,6 @@ def main():
             e24 = kern24["pauli_apply"][0]
             line[-1].update(ms_24q=e24["ms"], plain_ms_24q=e24["plain_ms"],
                             bound_ms_24q=e24["bound_ms"], library_ms_24q=e24["library_ms"])
-        if name == "pauli_rotation":  # with pauli_rotation_one, TPU kernel 12 (:571)
-            one = single[24]["pauli_rotation_one"]
-            line[-1]["one_term_24q"] = {k: one[k] for k in ("ms", "plain_ms", "bound_ms")}
     name = "pauli_apply_grouped"  # H psi on both main paths (TPU kernels 2 and 9)
     g18, g24 = kern[name][0], kern24[name][0]
     line.append(dict(
@@ -1809,6 +2119,39 @@ def main():
         launches_24q=main24["launches"][name], ms_24q=g24["ms"], plain_ms_24q=g24["plain_ms"],
         bound_ms_24q=g24["bound_ms"], library_ms_24q=g24["library_ms"],
         per_term_ms_24q=g24["old_route_ms"],
+    ))
+    for name in ("expectation_grouped", "screen_grouped"):  # TPU kernels 3, 5, 8 and 10
+        entries, entries24 = kern[name], kern24[name]
+        head = max(entries, key=lambda e: e["terms"])  # S^2 or the pool, 18 qubits
+        head24 = max(entries24, key=lambda e: e["terms"])
+        line.append(dict(
+            name=name, route="cuda", source=source, replaces=REPLACES[name],
+            launches=main["launches"][name],
+            max_abs_err=max(e["max_abs_err"] for e in entries + entries24), ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=None, call=head["call"], per_term_ms=head["per_term_ms"],
+            launches_per_step=main["launches_per_step"][name],
+            launches_per_selection=main["launches_per_select"][name],
+            launches_24q=main24["launches"][name],
+            calls={e["call"]: {k: e[k] for k in ("ms", "device_ms", "host_ms", "per_term_ms",
+                                                 "per_term_device_ms", "per_term_host_ms",
+                                                 "bound_ms")} for e in entries},
+            ms_24q=head24["ms"], plain_ms_24q=head24["plain_ms"], bound_ms_24q=head24["bound_ms"],
+            calls_24q={e["call"]: {k: e[k] for k in ("ms", "device_ms", "host_ms", "bound_ms")}
+                       for e in entries24},
+        ))
+    one = single[24]["pauli_rotation_one"]  # TPU kernel 12 (:571), on no path
+    line.append(dict(
+        name="pauli_rotation_out", route="cuda", source=source,
+        replaces=REPLACES["pauli_rotation_out"], launches=main["launches"]["pauli_rotation_out"],
+        max_abs_err=max(single[n]["pauli_rotation_one"]["max_abs_err"] for n in single),
+        ms=one["ms"], plain_ms=one["plain_ms"], bound_ms=one["bound_ms"],
+        bound_by=one["bound_by"], library_ms=None,
+        call=f"{one['call']} (on no path: 0 launches on both main paths)",
+        xor_gather_ms=one["gather_ms"], split_24q=one["split"],
+        ms_18q=single[18]["pauli_rotation_one"]["ms"],
+        xor_gather_ms_18q=single[18]["pauli_rotation_one"]["gather_ms"],
+        split_18q=single[18]["pauli_rotation_one"]["split"],
     ))
     for name in RESIDENT_KERNELS:  # the 18-qubit main path's rotations and adjoint sweep
         entries = kern[name]
@@ -1825,7 +2168,7 @@ def main():
             launches_24q=main24["launches"][name],
             ms_20q=e20["ms"], plain_ms_20q=e20["plain_ms"], bound_ms_20q=e20["bound_ms"],
         ))
-    for name in NEW_KERNELS:
+    for name in STREAM_KERNELS:
         entries = kern24[name]
         if name in alone24:  # the run kernels' own launches over one segment
             head = alone24[name]

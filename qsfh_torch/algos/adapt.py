@@ -6,8 +6,8 @@ result histories.  The ansatz acts in momentum space before the Givens
 network Fourier-transforms to real space.
 
 * Selection: dE/de_k = 2 Im <w | G_k psi_k> with w = U_net^dag H U_net
-  psi_k, for every pool generator in one ``pauli_inner`` pass, grouped by
-  flip mask past 18 qubits (:meth:`PackedPool.screen_scan`).
+  psi_k, for every pool generator in one launch of the inner-product tile
+  kernel, the coefficients folded in (:meth:`PackedPool.screen_scan`).
 * Train step: forward (one rot segment: ansatz + network) -> energy ->
   cotangent lambda = 2 H psi -> adjoint gradients -> Sz, S^2, fidelity ->
   Adam update.  Gradients come from the reverse adjoint sweep, two live

@@ -908,17 +908,89 @@ __global__ void xor_gather_kernel(const float4* __restrict__ psi, float4* __rest
 }
 
 // ---------------------------------------------------------------------------
-// pauli_inner_grouped (pauli_inner_tiles_kernel): v_t = sum_b conj(a[b])
-// s_t(b) psi[b ^ x_t] for every term, over tiles of chosen bits.
+// pauli_rotation_out: out = exp(-i theta P) psi for ONE term, out of place.
 //
-// Replaces expectation_stream_pallas / _planes, expectation_stream_fused
-// and expectation_stream_fused_static (a = psi), and screen_stream_pallas /
-// screen_stream_planes (a = w) (qsfh_tpu/engine/pallas_kernels.py:1474,
-// :1522, :1581, :1596, :1714, :1804).  The TPU kernels stream the state
-// once per flip mask: at 24 qubits the 684 masks of the pool are 684
-// passes of 256 MiB, 54.8 ms of HBM.  A mask of more than 4 bits fits no
-// item; the host sends its terms to pauli_inner (none in a Hubbard term
-// list: every term is at most 4 ladder operators).
+// Replaces pauli_rotation_pallas (qsfh_tpu/engine/pallas_kernels.py:571,
+// body _pauli_rot_kernel :541), which computes cos(theta) psi - i
+// sin(theta) P psi from a permutation matmul.  Here, as in xor_gather, the
+// state moves in 16-byte pairs of amplitudes (2q, 2q + 1): the partner of
+// pair q is pair q ^ (x >> 1), its two amplitudes swapped when bit 0 of x
+// is set.  A thread owns two pairs, q and q ^ (x >> 1) (q with the highest
+// bit of x >> 1 clear), so each pair of psi is read once and each pair of
+// out written once, both loads in flight before either store; for x >> 1
+// = 0 (x = 0, the diagonal Z strings, or x = 1) a pair is its own partner,
+// and a thread takes q and q + 2^(n - 2).  The scalars are arguments or
+// one-element device tensors read in place (a traced angle needs no host
+// sync).  Bound: one read and one write of the state, 2 x 8 B x 2^n (0.08
+// ms at 24 qubits on an H100, where the per-term rotation on a copy moved
+// twice that).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float4 rotate_pair(float4 u, float4 v, uint32_t b, uint32_t z, float c,
+                                              float2 m, bool swap) {
+  // out[b + e] = c u[e] + s(b + e) m v[e ^ swap], e = 0, 1
+  const float2 v0 = swap ? make_float2(v.z, v.w) : make_float2(v.x, v.y);
+  const float2 v1 = swap ? make_float2(v.x, v.y) : make_float2(v.z, v.w);
+  const float2 m0 = cmul(m, v0), m1 = cmul(m, v1);
+  const uint32_t s0 = (__popc(b & z) & 1u) << 31, s1 = (__popc((b | 1u) & z) & 1u) << 31;
+  return make_float4(fmaf(c, u.x, flip_sign(m0.x, s0)), fmaf(c, u.y, flip_sign(m0.y, s0)),
+                     fmaf(c, u.z, flip_sign(m1.x, s1)), fmaf(c, u.w, flip_sign(m1.y, s1)));
+}
+
+__global__ void rotation_out_kernel(const float4* __restrict__ psi, float4* __restrict__ out, int n,
+                                    const uint32_t* __restrict__ x_dev, uint32_t x_arg,
+                                    const uint32_t* __restrict__ z_dev, uint32_t z_arg,
+                                    const float* __restrict__ theta_dev, float theta_arg,
+                                    const float* __restrict__ phre_dev, float phre_arg,
+                                    const float* __restrict__ phim_dev, float phim_arg) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (1u << (n - 2))) return;
+  const uint32_t x = x_dev ? *x_dev : x_arg;
+  const uint32_t z = z_dev ? *z_dev : z_arg;
+  const float theta = theta_dev ? *theta_dev : theta_arg;
+  const float phre = phre_dev ? *phre_dev : phre_arg;
+  const float phim = phim_dev ? *phim_dev : phim_arg;
+  float sn, c;
+  sincosf(theta, &sn, &c);
+  const float2 m = make_float2(sn * phim, -sn * phre);  // -i sin(theta) ph
+  const uint32_t xp = (x >> 1) & ((1u << (n - 1)) - 1u);
+  const bool swap = x & 1u;
+  uint32_t q0, q1;
+  if (xp == 0u) {
+    q0 = i;
+    q1 = i + (1u << (n - 2));
+  } else {
+    q0 = insert_zero_bit(i, 31 - __clz(xp));
+    q1 = q0 ^ xp;
+  }
+  const float4 u0 = psi[q0], u1 = psi[q1];
+  if (xp == 0u) {
+    out[q0] = rotate_pair(u0, u0, 2u * q0, z, c, m, swap);
+    out[q1] = rotate_pair(u1, u1, 2u * q1, z, c, m, swap);
+  } else {
+    out[q0] = rotate_pair(u0, u1, 2u * q0, z, c, m, swap);
+    out[q1] = rotate_pair(u1, u0, 2u * q1, z, c, m, swap);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The inner-product tile kernel (pauli_inner_tiles_kernel) and its fold
+// (fold_partials_kernel): v_t = sum_b conj(a[b]) s_t(b) psi[b ^ x_t] for
+// every term, over tiles of chosen bits, and in the pass that sums the
+// blocks' partials the coefficients folded in: E = sum_t Re(c_t v_t)
+// (expectation_grouped), 2 Im(c_t v_t) per term (screen_grouped), or v_t
+// itself (pauli_inner_grouped).
+//
+// Replaces expectation_chain_pallas (qsfh_tpu/engine/pallas_kernels.py:645,
+// body _expectation_chain_kernel :615) and screen_chain_pallas (:927, body
+// :896), the 18-qubit kernels, which pass the state once per term, and
+// expectation_stream_pallas / _planes, expectation_stream_fused and
+// expectation_stream_fused_static (a = psi), and screen_stream_pallas /
+// screen_stream_planes (a = w) (:1474, :1522, :1581, :1596, :1714, :1804),
+// which stream it once per flip mask: at 24 qubits the 684 masks of the
+// pool are 684 passes of 256 MiB, 54.8 ms of HBM.  Like the TPU kernels,
+// these return the folded quantities themselves.  A mask of more than 4
+// bits fits no item; the host sends its terms to pauli_inner (none in a
+// Hubbard term list: every term is at most 4 ladder operators).
 //
 // The host (streaming.GroupTiles) cuts the terms into items: terms with
 // one flip mask x and 4 bits J containing x on which alone their phase
@@ -944,22 +1016,76 @@ __global__ void xor_gather_kernel(const float4* __restrict__ psi, float4* __rest
 // in `swizzle`), and the host picks each item's lane bits so that each
 // half-warp's 64-bit loads spread over all 32 banks.
 //
-// Grid (slice, tile): a block walks `positions` consecutive tile positions
-// (outer) of one tile.  At each position its 8 warps take the tile's items
+// The x = 0 terms (Sz, the Z and ZZ terms of H and S^2) form no items in
+// the engine's layout (GroupTiles inner_diagonal): with u_p the values
+// conj(a) psi on tile position p (|psi|^2, real, for a = psi) and U_p their
+// Walsh-Hadamard transform over the tile's bits,
+//     v_t = sum_p (-1)^popc(outer_p & z_out) U_p[z_in],
+// so one transform per position (k 2^k adds) serves every x = 0 term of
+// the list, each of which then reads one entry, where an item took a pass
+// over the tile per 16 buckets (inner_diagonal: the tile bits above 8 in
+// registers, the 5 lane bits by shuffles, the 3 warp bits through shared
+// memory).
+//
+// Grid (unit, position slice): unit u of the schedule
+// (GroupTiles.schedule) is a slice of one tile's items, or the diagonal on
+// the last tile; a block walks `positions` consecutive tile positions
+// (outer) of its unit.  At each position its 8 warps take the unit's items
 // in turn; after an item's chunks the warp folds its lanes' 16 sums into 16
 // (a reduce-scatter, 16 shuffles) and adds them to the item's sums in
 // shared memory.  At the end the block writes each term's signed sum of
-// its item's 16 values to partials[t, slice], and one reduce_partials pass
-// writes out[order[t]] in input order: no float atomics, a fixed order.
-// Bound at 24 qubits: shared-memory reads (16 bytes per slot and item when
-// a != psi, 8 when a = psi) and the HBM passes, one per tile.
+// its item's 16 values to partials[t, slice] (each row written by one
+// block), and the fold pass sums each row in a fixed order, multiplies by
+// the term's coefficient read by input index and writes the result: per
+// term at out[order[t]], or for E one value per block of the fold, summed
+// in a fixed order by the block that arrives last (an arrival count on
+// the device, left at 0).  No float atomics: two calls give the same bits.
+//
+// Bound on this card.  At 2-8 MiB (18-20 qubits) the state sits in the
+// 50 MB L2, and a call of 10-100 us is bound by the blocks in flight and
+// the launch latency: a 12-bit tile has 64 positions at 18 qubits, so the
+// tiles alone launched 64 (Sz) to 768 (pool) blocks of 8 warps, and x = 0
+// items took a tile pass each.  The schedule cuts a tile's items into
+// slices until the launch has 8 blocks per SM (copying a 32-64 KiB tile
+// from L2 again costs less than an idle SM), the diagonal takes the x = 0
+// terms, and the fold leaves no torch operation after the launch.  At 128
+// MiB (24 qubits): the HBM passes, one per tile (a tile's slices and the
+// diagonal read it once: the units of one position slice launch together
+// and meet in L2), and the shared-memory reads (16 bytes per slot and item
+// when a != psi, 8 when a = psi).
 // ---------------------------------------------------------------------------
+
+// Arithmetic on a coefficient that is a float (real) or a float2 (complex).
+__device__ __forceinline__ float coef_add(float a, float b) { return a + b; }
+__device__ __forceinline__ float2 coef_add(float2 a, float2 b) { return cadd(a, b); }
+__device__ __forceinline__ float coef_sub(float a, float b) { return a - b; }
+__device__ __forceinline__ float2 coef_sub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float coef_shfl(float v, int m) {
+  return __shfl_xor_sync(0xffffffffu, v, m);
+}
+__device__ __forceinline__ float2 coef_shfl(float2 v, int m) {
+  return make_float2(__shfl_xor_sync(0xffffffffu, v.x, m), __shfl_xor_sync(0xffffffffu, v.y, m));
+}
+// acc + c p
+__device__ __forceinline__ float2 coef_fma(float c, float2 p, float2 acc) {
+  return make_float2(fmaf(c, p.x, acc.x), fmaf(c, p.y, acc.y));
+}
+__device__ __forceinline__ float2 coef_fma(float2 c, float2 p, float2 acc) {
+  return make_float2(fmaf(c.x, p.x, fmaf(-c.y, p.y, acc.x)), fmaf(c.x, p.y, fmaf(c.y, p.x, acc.y)));
+}
+// one Walsh-Hadamard butterfly seen from one side: the slot with the bit
+// clear keeps v + p, the one with the bit set p - v
+template <typename T>
+__device__ __forceinline__ T butterfly(T v, T p, bool up) {
+  return up ? coef_sub(p, v) : coef_add(v, p);
+}
 
 constexpr int kInnerTileWarps = 8;
 constexpr int kInnerTileThreads = 32 * kInnerTileWarps;
 constexpr int kInnerTileMinBits = 9;       // 5 lane bits and the 4 bucket bits
 constexpr int kInnerTileMaxBits = 13;
-constexpr int kInnerTilePositions = 32;    // most tile positions per block
 constexpr int kItemCols = 16;              // a row of streaming.GroupTiles.item_cols
 
 // The shared-memory slot of tile slot t: t with the swizzle of its bits
@@ -1021,22 +1147,152 @@ __device__ __forceinline__ void fold_buckets(float2 (&B)[16], uint32_t lane) {
   }
 }
 
+// The list's diagonal (its x = 0 terms) over the tile positions [p0, p1)
+// of the tile `mask`: per position this thread's R = 2^(k - 8) slots t =
+// tid | r << 8 of conj(a) psi (|psi|^2 with T = float, a = psi), their
+// Walsh-Hadamard transform over the tile, U[m] = sum_t (-1)^popc(t & m)
+// u[t] (the r bits in registers, the 5 lane bits by shuffles, the 3 warp
+// bits through shared memory), then term e adds (-1)^popc(outer & zout[e])
+// U[zin[e]] to its sum (thread e mod 256 owns term e).  Ends with the sums
+// in partials[(row0 + e) * gridDim.y + blockIdx.y].
+template <typename T, int R>
+__device__ __forceinline__ void inner_diagonal(unsigned char* smem, const float2* __restrict__ a,
+                                               const float2* __restrict__ psi, int n, int c,
+                                               uint32_t mask, uint32_t p0, uint32_t p1,
+                                               const int32_t* __restrict__ zin,
+                                               const int32_t* __restrict__ zout, int n_diag,
+                                               int row0, float2* __restrict__ partials) {
+  constexpr bool kSame = std::is_same<T, float>::value;
+  constexpr int kLogR = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : R == 16 ? 4 : 5;
+  T* U = reinterpret_cast<T*>(smem);
+  float2* dsum = reinterpret_cast<float2*>(smem + sizeof(T) * (R << 8));
+  const uint32_t tid = threadIdx.x;
+  for (int e = static_cast<int>(tid); e < n_diag; e += kInnerTileThreads)
+    dsum[e] = make_float2(0.0f, 0.0f);
+  // slot t at flat index outer | deposit(t >> c, hi) | (t & low), linear in t
+  const uint32_t low = (1u << c) - 1u, hi = mask & ~low;
+  const uint32_t rest = ((1u << n) - 1u) & ~mask;
+  const uint32_t gt = deposit(tid >> c, hi) | (tid & low);
+  uint32_t gb[kLogR];
+#pragma unroll
+  for (int b = 0; b < kLogR; ++b) {
+    const uint32_t t = 1u << (8 + b);
+    gb[b] = deposit(t >> c, hi) | (t & low);
+  }
+  for (uint32_t p = p0; p < p1; ++p) {
+    const uint32_t outer = deposit(p, rest);
+    T v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      uint32_t g = outer | gt;
+#pragma unroll
+      for (int b = 0; b < kLogR; ++b)
+        if ((r >> b) & 1) g |= gb[b];
+      const float2 pv = psi[g];
+      if constexpr (kSame)
+        v[r] = fmaf(pv.x, pv.x, pv.y * pv.y);
+      else
+        v[r] = cdot(a[g], pv);
+    }
+#pragma unroll
+    for (int b = 0; b < kLogR; ++b) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!((r >> b) & 1)) {
+          const T lo = v[r], up = v[r | (1 << b)];
+          v[r] = coef_add(lo, up);
+          v[r | (1 << b)] = coef_sub(lo, up);
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < 5; ++b) {
+      const bool up = (tid >> b) & 1u;
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[r] = butterfly(v[r], coef_shfl(v[r], 1 << b), up);
+    }
+#pragma unroll
+    for (int b = 5; b < 8; ++b) {
+      __syncthreads();  // every read of U (the last stage, position or terms) is done
+#pragma unroll
+      for (int r = 0; r < R; ++r) U[tid | (r << 8)] = v[r];
+      __syncthreads();
+      const bool up = (tid >> b) & 1u;
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[r] = butterfly(v[r], U[(tid ^ (1u << b)) | (r << 8)], up);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < R; ++r) U[tid | (r << 8)] = v[r];
+    __syncthreads();
+    for (int e = static_cast<int>(tid); e < n_diag; e += kInnerTileThreads) {
+      const T u = U[__ldg(zin + e)];
+      const uint32_t sbit = (__popc(outer & static_cast<uint32_t>(__ldg(zout + e))) & 1u) << 31;
+      if constexpr (kSame) {
+        dsum[e].x += flip_sign(u, sbit);
+      } else {
+        dsum[e].x += flip_sign(u.x, sbit);
+        dsum[e].y += flip_sign(u.y, sbit);
+      }
+    }
+  }
+  for (int e = static_cast<int>(tid); e < n_diag; e += kInnerTileThreads)
+    partials[static_cast<size_t>(row0 + e) * gridDim.y + blockIdx.y] = dsum[e];
+}
+
+// inner_diagonal at a tile of k bits (9 <= k <= 13: 2 to 32 slots a thread)
+template <typename T>
+__device__ __forceinline__ void inner_diagonal_k(int k, unsigned char* smem,
+                                                 const float2* __restrict__ a,
+                                                 const float2* __restrict__ psi, int n, int c,
+                                                 uint32_t mask, uint32_t p0, uint32_t p1,
+                                                 const int32_t* __restrict__ zin,
+                                                 const int32_t* __restrict__ zout, int n_diag,
+                                                 int row0, float2* __restrict__ partials) {
+  switch (k) {
+    case 9:
+      inner_diagonal<T, 2>(smem, a, psi, n, c, mask, p0, p1, zin, zout, n_diag, row0, partials);
+      break;
+    case 10:
+      inner_diagonal<T, 4>(smem, a, psi, n, c, mask, p0, p1, zin, zout, n_diag, row0, partials);
+      break;
+    case 11:
+      inner_diagonal<T, 8>(smem, a, psi, n, c, mask, p0, p1, zin, zout, n_diag, row0, partials);
+      break;
+    case 12:
+      inner_diagonal<T, 16>(smem, a, psi, n, c, mask, p0, p1, zin, zout, n_diag, row0, partials);
+      break;
+    default:
+      inner_diagonal<T, 32>(smem, a, psi, n, c, mask, p0, p1, zin, zout, n_diag, row0, partials);
+      break;
+  }
+}
+
 template <bool SAME>
 __global__ void __launch_bounds__(kInnerTileThreads, 2)
 pauli_inner_tiles_kernel(const float2* __restrict__ a, const float2* __restrict__ psi, int n,
                          int k, int c, uint64_t swizzle, const int32_t* __restrict__ tile_mask,
-                         const int32_t* __restrict__ tile_items,
-                         const int32_t* __restrict__ item_cols,
+                         const int4* __restrict__ units, const int32_t* __restrict__ item_cols,
                          const int32_t* __restrict__ item_x, const int32_t* __restrict__ item_zlc,
                          const int32_t* __restrict__ item_zout,
                          const int32_t* __restrict__ item_start,
-                         const int32_t* __restrict__ term_d, int r0, int positions, int t_base,
-                         float2* __restrict__ partials) {
+                         const int32_t* __restrict__ term_d, const int32_t* __restrict__ diag_zin,
+                         const int32_t* __restrict__ diag_zout, int n_diag, int diag_row,
+                         int positions, int t_base, float2* __restrict__ partials) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int r = r0 + static_cast<int>(blockIdx.y);
+  const int4 unit = units[blockIdx.x];  // (tile, first item, items, diagonal)
+  const uint32_t mask = static_cast<uint32_t>(tile_mask[unit.x]);
+  const uint32_t p0 = blockIdx.y * static_cast<uint32_t>(positions);
+  const uint32_t p1 = min(p0 + static_cast<uint32_t>(positions), 1u << (n - k));
+  if (unit.w) {
+    using T = typename std::conditional<SAME, float, float2>::type;
+    inner_diagonal_k<T>(k, smem, a, psi, n, c, mask, p0, p1, diag_zin, diag_zout, n_diag,
+                        diag_row - t_base, partials);
+    return;
+  }
   const int tid = threadIdx.x, warp = tid >> 5;
   const uint32_t lane = static_cast<uint32_t>(tid & 31);
-  const int i0 = tile_items[r], n_items = tile_items[r + 1] - i0;
+  const int i0 = unit.y, n_items = unit.z;
   float2* pt = reinterpret_cast<float2*>(smem);
   float2* at = SAME ? pt : pt + (1u << k);
   float2* acc = pt + (SAME ? 1u : 2u) * (1u << k);  // [item][bucket]
@@ -1045,7 +1301,6 @@ pauli_inner_tiles_kernel(const float2* __restrict__ a, const float2* __restrict_
   // this thread copies the tile slots tid | m << 8: flat index
   // outer | deposit(t >> c, hi) | (t & low) and shared slot inner_slot(t),
   // both linear in t, so the parts of tid and of each bit of m are formed once
-  const uint32_t mask = static_cast<uint32_t>(tile_mask[r]);
   const uint32_t low = (1u << c) - 1u;
   const uint32_t hi = mask & ~low;
   const uint32_t rest = ((1u << n) - 1u) & ~mask;
@@ -1060,8 +1315,6 @@ pauli_inner_tiles_kernel(const float2* __restrict__ a, const float2* __restrict_
   }
   const int copies = 1 << (k - 8);
   const int chunks = 1 << (k - 9);
-  const uint32_t p0 = blockIdx.x * static_cast<uint32_t>(positions);
-  const uint32_t p1 = min(p0 + static_cast<uint32_t>(positions), 1u << (n - k));
   for (uint32_t p = p0; p < p1; ++p) {
     const uint32_t outer = deposit(p, rest);
 #pragma unroll
@@ -1156,7 +1409,65 @@ pauli_inner_tiles_kernel(const float2* __restrict__ a, const float2* __restrict_
         v.x += flip_sign(sums[j].x, sbit);
         v.y += flip_sign(sums[j].y, sbit);
       }
-      partials[static_cast<size_t>(t - t_base) * gridDim.x + blockIdx.x] = v;
+      partials[static_cast<size_t>(t - t_base) * gridDim.y + blockIdx.y] = v;
+    }
+  }
+}
+
+// The fold of the inner-product tile kernel's partials, one warp per row t
+// of `order` (dest = order + the chunk's first row): v = sum_j
+// partials[t, j] in a fixed order, then by `mode`
+//   0: out (float2) [dest[t]] = v;
+//   1: out (float) [dest[t]] = 2 Im(c v), c = (cre, cim)[dest[t] * cstride];
+//   2: out (float) [0] = sum_t Re(c v) (+ out[0] with accumulate): each
+//      block sums its warps' values in warp order into bsum[block], and
+//      the block whose arrival on `count` is the last sums bsum in a fixed
+//      order and sets count back to 0.
+__global__ void fold_partials_kernel(const float2* __restrict__ partials, int n_blocks,
+                                     int n_terms, const int32_t* __restrict__ dest, int mode,
+                                     const float* __restrict__ cre, const float* __restrict__ cim,
+                                     int cstride, void* __restrict__ out, float* __restrict__ bsum,
+                                     unsigned int* __restrict__ count, int accumulate) {
+  __shared__ float wsum[kThreads / 32];
+  __shared__ bool last;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * (blockDim.x >> 5) + warp;
+  float val = 0.0f;
+  if (t < n_terms) {
+    const float2* row = partials + static_cast<size_t>(t) * n_blocks;
+    float2 acc = make_float2(0.0f, 0.0f);
+    for (int j = lane; j < n_blocks; j += 32) acc = cadd(acc, row[j]);
+    acc = warp_sum(acc);
+    const int d = dest[t];
+    if (mode == 0) {
+      if (lane == 0) static_cast<float2*>(out)[d] = acc;
+    } else {
+      const float cr = __ldg(cre + static_cast<size_t>(d) * cstride);
+      const float ci = __ldg(cim + static_cast<size_t>(d) * cstride);
+      if (mode == 1 && lane == 0) static_cast<float*>(out)[d] = 2.0f * (cr * acc.y + ci * acc.x);
+      val = cr * acc.x - ci * acc.y;
+    }
+  }
+  if (mode != 2) return;  // the whole block leaves together
+  if (lane == 0) wsum[warp] = val;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.0f;
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) s += wsum[w];
+    bsum[blockIdx.x] = s;
+    __threadfence();
+    last = atomicAdd(count, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last && warp == 0) {
+    float s = 0.0f;
+    for (int j = lane; j < static_cast<int>(gridDim.x); j += 32) s += __ldcg(bsum + j);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) {
+      float* e = static_cast<float*>(out);
+      *e = accumulate ? *e + s : s;
+      *count = 0u;
     }
   }
 }
@@ -1246,33 +1557,6 @@ __device__ __forceinline__ void apply_item_offsets(uint32_t (&E)[kApplySlots], u
 #pragma unroll
   for (int r = 1; r < kApplySlots; ++r)
     E[r] = E[r & (r - 1)] ^ e[r & 1 ? 0 : r & 2 ? 1 : r & 4 ? 2 : 3];  // r's lowest bit
-}
-
-// Arithmetic on a coefficient that is a float (real) or a float2 (complex).
-__device__ __forceinline__ float coef_add(float a, float b) { return a + b; }
-__device__ __forceinline__ float2 coef_add(float2 a, float2 b) { return cadd(a, b); }
-__device__ __forceinline__ float coef_sub(float a, float b) { return a - b; }
-__device__ __forceinline__ float2 coef_sub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-__device__ __forceinline__ float coef_shfl(float v, int m) {
-  return __shfl_xor_sync(0xffffffffu, v, m);
-}
-__device__ __forceinline__ float2 coef_shfl(float2 v, int m) {
-  return make_float2(__shfl_xor_sync(0xffffffffu, v.x, m), __shfl_xor_sync(0xffffffffu, v.y, m));
-}
-// acc + c p
-__device__ __forceinline__ float2 coef_fma(float c, float2 p, float2 acc) {
-  return make_float2(fmaf(c, p.x, acc.x), fmaf(c, p.y, acc.y));
-}
-__device__ __forceinline__ float2 coef_fma(float2 c, float2 p, float2 acc) {
-  return make_float2(fmaf(c.x, p.x, fmaf(-c.y, p.y, acc.x)), fmaf(c.x, p.y, fmaf(c.y, p.x, acc.y)));
-}
-// one Walsh-Hadamard butterfly seen from one side: the slot with the bit
-// clear keeps v + p, the one with the bit set p - v
-template <typename T>
-__device__ __forceinline__ T butterfly(T v, T p, bool up) {
-  return up ? coef_sub(p, v) : coef_add(v, p);
 }
 
 __device__ __forceinline__ void load_coef(float& v, const float2& s) { v = s.x; }
@@ -1545,16 +1829,6 @@ inline int sm_count() {
   if (cached[dev] == 0)
     cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
   return max(cached[dev], 1);
-}
-
-// Tile positions per block of pauli_inner_tiles_kernel: kInnerTilePositions,
-// halved while n_tiles tiles would give fewer than 8 blocks per SM.
-inline int inner_tile_positions(int n, int k, int n_tiles) {
-  const int all = 1 << (n - k);
-  const long long want = 8LL * sm_count();
-  int positions = min(kInnerTilePositions, all);
-  while (positions > 1 && static_cast<long long>(all / positions) * n_tiles < want) positions /= 2;
-  return positions;
 }
 
 // Allow `bytes` of dynamic shared memory for `kernel` (above 48 KB Hopper
@@ -1886,50 +2160,95 @@ int qsfh_xor_gather(const void* psi, void* out, int n, const void* mask_dev, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// Tile positions per block of the inner-product tile kernel (its
-// partials are n_terms x ceil(2^(n - k) / positions) float2).
-int qsfh_inner_tile_positions(int n, int k, int n_tiles) {
-  return inner_tile_positions(n, k, n_tiles);
-}
-
-// Tiles [r0, r0 + n_tiles) of a streaming.GroupTiles table (device
-// arrays): out[order[t]] = sum_b conj(a[b]) s_t(b) psi[b ^ x_t] for the
-// tile terms t in [t0, t0 + n_terms), the terms of those tiles;
-// most_items is the most items of one of those tiles, swizzle the packed
-// streaming.INNER_SWIZZLE (4 bits per tile bit from 4 up).  One launch,
-// then one reduce_partials pass.  partials: n_terms x ceil(2^(n - k) /
-// positions) float2 scratch.  a == psi loads one tile per position.
-int qsfh_pauli_inner_grouped(const void* a, const void* psi, int n, int k, int c,
-                             unsigned long long swizzle, const void* tile_mask,
-                             const void* tile_items, const void* item_cols, const void* item_x,
-                             const void* item_zlc, const void* item_zout, const void* item_start,
-                             const void* term_d, const void* order, int r0, int n_tiles, int t0,
-                             int n_terms, int most_items, int positions, void* partials,
-                             void* out, void* stream) {
+// The units [0, n_units) (int32 rows of 4 on the device: tile, first
+// item, items, diagonal) of a streaming.GroupTiles schedule, whose tiles'
+// rows of `order` are [t0, t0 + n_rows): one launch of n_units x
+// ceil(2^(n - k) / positions) blocks, `positions` tile positions a block,
+// then one fold pass (fold_partials_kernel, `mode` 0, 1 or 2) into out.
+// The item, term and diagonal tables are the layout's (device arrays);
+// diag_row is the row of the first diagonal term, most_items the most
+// items of one unit, swizzle the packed streaming.INNER_SWIZZLE (4 bits per
+// tile bit from 4 up); cre and cim are float32 with cstride floats between
+// terms, read by input index (modes 1 and 2).  partials: n_rows x the
+// position slices float2 scratch; bsum: a float per fold block (mode 2);
+// count: one word, 0 before and after (mode 2).  a == psi loads one tile
+// per position.
+int qsfh_pauli_inner_tiles(const void* a, const void* psi, int n, int k, int c,
+                           unsigned long long swizzle, const void* tile_mask, const void* units,
+                           int n_units, const void* item_cols, const void* item_x,
+                           const void* item_zlc, const void* item_zout, const void* item_start,
+                           const void* term_d, const void* order, const void* diag_zin,
+                           const void* diag_zout, int n_diag, int diag_row, int t0, int n_rows,
+                           int most_items, int positions, void* partials, int mode,
+                           const void* cre, const void* cim, int cstride, void* out, void* bsum,
+                           void* count, int accumulate, void* stream) {
   if (k < kInnerTileMinBits || k > kInnerTileMaxBits || k > n || c < 1 || c > k ||
-      n_tiles < 1 || n_tiles > kMaxGridY || positions < 1 || most_items < 0)
+      n_units < 1 || n_rows < 1 || positions < 1 || most_items < 0 || n_diag < 0 ||
+      mode < 0 || mode > 2 || cstride < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned slices = ((1u << (n - k)) + positions - 1) / positions;
+  if (slices > static_cast<unsigned>(kMaxGridY)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool same = a == psi;
-  const size_t smem = (same ? 1 : 2) * (sizeof(float2) << k) +
-                      static_cast<size_t>(most_items) * 16 * sizeof(float2);
+  const size_t items_smem = (same ? 1 : 2) * (sizeof(float2) << k) +
+                            static_cast<size_t>(most_items) * 16 * sizeof(float2);
+  const size_t diag_smem = n_diag ? (same ? sizeof(float) : sizeof(float2)) << k : 0;
+  const size_t diag_all = diag_smem + static_cast<size_t>(n_diag) * sizeof(float2);
+  const size_t smem = items_smem > diag_all ? items_smem : diag_all;
   const auto kernel = same ? pauli_inner_tiles_kernel<true> : pauli_inner_tiles_kernel<false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned slices = ((1u << (n - k)) + positions - 1) / positions;
-  kernel<<<dim3(slices, n_tiles), kInnerTileThreads, smem, s>>>(
+  kernel<<<dim3(n_units, slices), kInnerTileThreads, smem, s>>>(
       static_cast<const float2*>(a), static_cast<const float2*>(psi), n, k, c,
       static_cast<uint64_t>(swizzle), static_cast<const int32_t*>(tile_mask),
-      static_cast<const int32_t*>(tile_items), static_cast<const int32_t*>(item_cols),
+      static_cast<const int4*>(units), static_cast<const int32_t*>(item_cols),
       static_cast<const int32_t*>(item_x), static_cast<const int32_t*>(item_zlc),
       static_cast<const int32_t*>(item_zout), static_cast<const int32_t*>(item_start),
-      static_cast<const int32_t*>(term_d), r0, positions, t0, static_cast<float2*>(partials));
+      static_cast<const int32_t*>(term_d), static_cast<const int32_t*>(diag_zin),
+      static_cast<const int32_t*>(diag_zout), n_diag, diag_row, positions, t0,
+      static_cast<float2*>(partials));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(reduce_partials(static_cast<const float2*>(partials),
-                                          static_cast<int>(slices), n_terms,
-                                          static_cast<float2*>(out), s,
-                                          static_cast<const int32_t*>(order) + t0));
+  const int warps = kThreads / 32;
+  fold_partials_kernel<<<blocks_for(n_rows, warps), kThreads, 0, s>>>(
+      static_cast<const float2*>(partials), static_cast<int>(slices), n_rows,
+      static_cast<const int32_t*>(order) + t0, mode, static_cast<const float*>(cre),
+      static_cast<const float*>(cim), cstride, out, static_cast<float*>(bsum),
+      static_cast<unsigned int*>(count), accumulate);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// qsfh_pauli_rotation_out with every scalar an argument (the common
+// case: fewer arguments through ctypes).
+int qsfh_pauli_rotation_out_values(const void* psi, void* out, int n, int x, int z, float theta,
+                                   float phre, float phim, void* stream) {
+  if (n < 2) return static_cast<int>(cudaErrorInvalidValue);
+  rotation_out_kernel<<<blocks_for(1u << (n - 2), kThreads), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(psi), static_cast<float4*>(out), n, nullptr,
+      static_cast<uint32_t>(x), nullptr, static_cast<uint32_t>(z), nullptr, theta, nullptr, phre,
+      nullptr, phim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out = exp(-i theta P) psi for one term P psi[b] = (phre + i phim)
+// (-1)^popc(b & z) psi[b ^ x], out of place: x, z (int32 or int64: the
+// low word) and theta, phre, phim (float32) are read from the device where
+// their pointer is given, else taken from the arguments.
+int qsfh_pauli_rotation_out(const void* psi, void* out, int n, const void* x_dev, int x,
+                            const void* z_dev, int z, const void* theta_dev, float theta,
+                            const void* phre_dev, float phre, const void* phim_dev, float phim,
+                            void* stream) {
+  if (n < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const uint32_t quads = 1u << (n - 2);  // thread-owned pairs of 16-byte pairs
+  rotation_out_kernel<<<blocks_for(quads, kThreads), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(psi), static_cast<float4*>(out), n,
+      static_cast<const uint32_t*>(x_dev), static_cast<uint32_t>(x),
+      static_cast<const uint32_t*>(z_dev), static_cast<uint32_t>(z),
+      static_cast<const float*>(theta_dev), theta, static_cast<const float*>(phre_dev), phre,
+      static_cast<const float*>(phim_dev), phim);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out = sum_t c_t P_t psi over the n_tiles tiles of a streaming.GroupTiles

@@ -8,21 +8,25 @@ so every term acts as X^x Z^z applied left to right:
 (c X^x Z^z psi)[b] = c (-1)^popcount(z & x) (-1)^popcount(b & z) psi[b ^ x].
 
 ADAPT pool screening uses dE/de_k = 2 Im <w | G_k psi> with
-w = U^dag H U psi, evaluated term by term with the ``pauli_inner`` kernel
-and summed per generator with ``index_add_``.
+w = U^dag H U psi, evaluated term by term and summed per generator with
+``index_add_``.
 
-Past ``streaming.INNER_CHAIN_MAX_QUBITS`` expectation values and
-screening take ``pauli_inner_grouped`` over the terms in items covered
-by tiles of chosen bits (``streaming.GroupTiles``, built once, cached
-beside the term tensors), where the JAX package's stream route passes the
-state once per flip mask (``qsfh_tpu/engine/expectation.py:240-274,
-461-476``); its results come back in input term order, so nothing above
-the wrapper changes.
-``apply_scan`` takes ``pauli_apply_grouped`` over the same layout from
-``kernels.INNER_TILE_MIN_BITS`` (9) qubits on, where the JAX package's
-chain and stream kernels (``apply_chain_pallas``, ``apply_stream_*``)
-apply H: one state pass per tile, each item of terms one table entry per
-amplitude; below it the per-term ``pauli_apply``.
+From ``kernels.INNER_TILE_MIN_BITS`` (9) qubits on, at every size,
+expectation values take ``expectation_grouped`` and screening
+``screen_grouped`` over ``inner_groups()``: the terms in items covered by
+tiles of chosen bits (``streaming.GroupTiles``, built once, cached beside
+the term tensors), the x = 0 terms as one Walsh-Hadamard diagonal, the
+coefficients folded into the kernel's partial-sum pass, where the JAX
+package's chain kernels pass the state once per term and its stream
+kernels once per flip mask (``qsfh_tpu/engine/expectation.py:233-274,
+450-476``); they return E and the per-term contributions themselves, as
+``expectation_chain_pallas`` and ``screen_chain_pallas`` do.  Below 9
+qubits the per-term ``pauli_inner``, folded in torch.
+``apply_scan`` takes ``pauli_apply_grouped`` over ``groups()``, the same
+tiles with the x = 0 items of a tile as its diagonal, from 9 qubits on,
+where the JAX package's chain and stream kernels (``apply_chain_pallas``,
+``apply_stream_*``) apply H: one state pass per tile, each item of terms
+one table entry per amplitude; below it the per-term ``pauli_apply``.
 """
 
 from __future__ import annotations
@@ -39,14 +43,6 @@ from .kernels import INNER_TILE_MIN_BITS, KERNELS
 from .state import qmask_to_bmask, real_dtype
 
 
-def _inner(impl, owner, a, psi, xs, zs):
-    """v_t = <a | P_t psi> over ``owner``'s flat terms: per term up to the
-    inner chain cap, over tiles of flip masks past it."""
-    if owner.n <= streaming.INNER_CHAIN_MAX_QUBITS:
-        return impl.inner(a, psi, xs, zs)
-    return impl.inner_grouped(a, psi, xs, zs, owner.groups())
-
-
 def _apply(impl, owner, psi, xs, zs, c):
     """sum_t c_t P_t psi over ``owner``'s flat terms: over the tiles of
     ``owner.groups()`` from the smallest tile the kernel takes, per term
@@ -56,12 +52,16 @@ def _apply(impl, owner, psi, xs, zs, c):
     return impl.apply_grouped(psi, xs, zs, c.real, c.imag, owner.groups())
 
 
-def _groups(cache: dict, arrays, n: int) -> streaming.GroupTiles:
-    if "groups" not in cache:
-        cache["groups"] = streaming.GroupTiles(
+def _groups(cache: dict, arrays, n: int, inner: bool = False) -> streaming.GroupTiles:
+    """The layout of the application (with its per-tile diagonals) or, with
+    ``inner``, of the inner products (the x = 0 terms as one diagonal),
+    built once into ``cache``."""
+    key = "inner_groups" if inner else "groups"
+    if key not in cache:
+        cache[key] = streaming.GroupTiles(
             arrays[0], arrays[1], n, streaming.INNER_TILE_BITS, streaming.INNER_TILE_LOW_BITS,
-            streaming.MAX_TILE_ITEMS)
-    return cache["groups"]
+            streaming.MAX_TILE_ITEMS, diagonal=not inner, inner_diagonal=inner)
+    return cache[key]
 
 
 def _device_terms(cache: dict, arrays, psi: torch.Tensor):
@@ -114,15 +114,21 @@ class Observable:
         return _device_terms(self._tensor_cache, self._scan_terms(), psi)
 
     def groups(self) -> streaming.GroupTiles:
-        """The scan terms in items covered by tiles (built once)."""
+        """The scan terms in items covered by tiles, as the application
+        takes them (built once)."""
         return _groups(self._tensor_cache, self._scan_terms(), self.n)
+
+    def inner_groups(self) -> streaming.GroupTiles:
+        """The scan terms as the inner products take them (built once)."""
+        return _groups(self._tensor_cache, self._scan_terms(), self.n, inner=True)
 
     def expectation_scan(self, psi: torch.Tensor, impl=None) -> torch.Tensor:
         """Re <psi|op|psi> (a 0-d real tensor on psi's device)."""
         impl = impl or KERNELS
         xs, zs, c = self._tensors(psi)
-        v = _inner(impl, self, psi, psi, xs, zs).to(psi.dtype)
-        return (c * v).real.sum()
+        if self.n < INNER_TILE_MIN_BITS:
+            return (c * impl.inner(psi, psi, xs, zs).to(psi.dtype)).real.sum()
+        return impl.expectation_grouped(psi, xs, zs, c.real, c.imag, self.inner_groups())
 
     def apply_scan(self, psi: torch.Tensor, impl=None) -> torch.Tensor:
         """op|psi> (a new state)."""
@@ -198,15 +204,18 @@ class PackedPool:
             self._tensor_cache[kkey] = torch.as_tensor(arrays[4].astype(np.int64), device=psi.device)
         return xs, zs, c, self._tensor_cache[kkey]
 
-    def groups(self) -> streaming.GroupTiles:
-        """The scan arrays' terms in items covered by tiles (built once)."""
-        return _groups(self._tensor_cache, self.scan_arrays(), self.n)
+    def inner_groups(self) -> streaming.GroupTiles:
+        """The scan arrays' terms as the inner products take them (built
+        once)."""
+        return _groups(self._tensor_cache, self.scan_arrays(), self.n, inner=True)
 
     def screen_scan(self, psi: torch.Tensor, w: torch.Tensor, impl=None) -> torch.Tensor:
         """grad_k = 2 Im <w | G_k psi> for every generator ((size,) real)."""
         impl = impl or KERNELS
         xs, zs, c, ks = self._tensors(psi)
-        v = _inner(impl, self, w, psi, xs, zs).to(psi.dtype)
-        contribs = 2.0 * (c * v).imag
+        if self.n < INNER_TILE_MIN_BITS:
+            contribs = 2.0 * (c * impl.inner(w, psi, xs, zs).to(psi.dtype)).imag
+        else:
+            contribs = impl.screen_grouped(w, psi, xs, zs, c.real, c.imag, self.inner_groups())
         grads = torch.zeros(self.size, dtype=real_dtype(psi.dtype), device=psi.device)
         return grads.index_add_(0, ks, contribs)

@@ -10,26 +10,34 @@ wrapper                  replaces (``qsfh_tpu/engine/pallas_kernels.py``)
 ``rotation_resident``    ``pauli_chain_pallas`` (:482): a span of tile runs
                          in one cooperative launch, up to the chain cap
 ``adjoint_resident``     ``adjoint_chain_pallas`` (:826), the same way
-``pauli_rotation``       with ``pauli_rotation_one``,
-                         ``pauli_rotation_pallas`` (:571); terms that fit
-                         no tile, and states of fewer than
+``pauli_rotation``       terms that fit no tile, and states of fewer than
                          ``TILE_MIN_BITS`` qubits
+``pauli_rotation_out``   ``pauli_rotation_pallas`` (:571), through
+                         ``pauli_rotation_one``: one term, out of place
 ``pauli_apply_grouped``  ``apply_chain_pallas`` (:715), ``apply_stream_pallas``
                          (:1870) and ``apply_stream_fused`` (:2002): the
                          inner-product tiles, one pass per tile
 ``pauli_apply``          terms of masks that fit no tile, and states of
                          fewer than ``INNER_TILE_MIN_BITS`` qubits
-``pauli_inner``          ``expectation_chain_pallas`` (:645) and
-                         ``screen_chain_pallas`` (:927)
+``expectation_grouped``  ``expectation_chain_pallas`` (:645) and
+                         ``expectation_stream_*`` (:1581, :1596, :1714,
+                         :1804): E = sum_t Re(c_t <psi|P_t|psi>) over
+                         the inner-product tiles, the x = 0 terms as one
+                         Walsh-Hadamard diagonal, the coefficients folded
+                         into the partial-sum pass
+``screen_grouped``       ``screen_chain_pallas`` (:927) and
+                         ``screen_stream_*`` (:1474, :1522): 2 Im(c_t
+                         <w|P_t|psi>) per term, the same way
+``pauli_inner_grouped``  the same kernel, v_t in input order (the tests and
+                         the route timings)
+``pauli_inner``          terms of masks that fit no tile, and states of
+                         fewer than ``INNER_TILE_MIN_BITS`` qubits
 ``adjoint_rotation``     terms that fit no tile, and states of fewer than
                          ``TILE_MIN_BITS`` qubits
 ``rotation_tile_runs``   ``rotation_stream_pallas`` (:2268, local :2214,
                          crossing :2246)
 ``adjoint_tile_runs``    ``adjoint_stream_pallas`` (:2142, local :2032,
                          crossing :2095)
-``pauli_inner_grouped``  ``expectation_stream_*`` (:1581, :1596, :1714,
-                         :1804) and ``screen_stream_*`` (:1474, :1522):
-                         tiles of chosen bits, one pass per tile
 ``xor_gather``           ``xor_gather_pallas`` (:378)
 =======================  ==================================================
 
@@ -46,14 +54,13 @@ launches: one per span for the two resident kernels (the 18-qubit
 rotations and adjoint sweep: one per call where every term fits a tile),
 one per term for the two per-term rotations, one per run for the two
 tile-run kernels, one per tile for ``pauli_apply_grouped``, one per call
-for ``xor_gather``, one per call (or per
-scratch-sized chunk) for ``pauli_apply``, ``pauli_inner``,
-and ``pauli_inner_grouped`` (a second, partial-sum pass is not
-counted).  The ``*_plain`` functions compute the
-same thing from an index gather ``psi[idx ^ x]`` and an XOR-folded
-popcount parity, on any device; the CPU tests hold them against the JAX
-package, and the chip smoke test holds every kernel against them on the
-card.
+for ``xor_gather`` and ``pauli_rotation_out``, one per call (or per
+scratch-sized chunk) for ``pauli_apply``, ``pauli_inner`` and the three
+inner-product tile wrappers (the partial-sum pass is not counted).  The
+``*_plain`` functions compute the same thing from an index gather
+``psi[idx ^ x]`` and an XOR-folded popcount parity, on any device; the CPU
+tests hold them against the JAX package, and the chip smoke test holds
+every kernel against them on the card.
 """
 
 from __future__ import annotations
@@ -175,11 +182,14 @@ def _load():
         lib.qsfh_adjoint_resident.argtypes = [p, p, i, i, i, i, i] + [p] * 16
         lib.qsfh_xor_gather.restype = i
         lib.qsfh_xor_gather.argtypes = [p, p, i, p, i, p]
-        lib.qsfh_inner_tile_positions.restype = i
-        lib.qsfh_inner_tile_positions.argtypes = [i, i, i]
-        lib.qsfh_pauli_inner_grouped.restype = i
-        lib.qsfh_pauli_inner_grouped.argtypes = ([p, p, i, i, i, ctypes.c_ulonglong] + [p] * 9
-                                                 + [i] * 6 + [p, p, p])
+        lib.qsfh_pauli_inner_tiles.restype = i
+        lib.qsfh_pauli_inner_tiles.argtypes = ([p, p, i, i, i, ctypes.c_ulonglong, p, p, i]
+                                               + [p] * 9 + [i] * 6 + [p, i, p, p, i, p, p, p, i, p])
+        f = ctypes.c_float
+        lib.qsfh_pauli_rotation_out.restype = i
+        lib.qsfh_pauli_rotation_out.argtypes = [p, p, i, p, i, p, i, p, f, p, f, p, f, p]
+        lib.qsfh_pauli_rotation_out_values.restype = i
+        lib.qsfh_pauli_rotation_out_values.argtypes = [p, p, i, i, i, f, f, f, p]
         lib.qsfh_pauli_apply_grouped.restype = i
         lib.qsfh_pauli_apply_grouped.argtypes = [p, p, i, i, i, i] + [p] * 17 + [i, i, p]
         _lib = lib
@@ -575,11 +585,26 @@ def resident_grid(psi, tiles, adjoint: bool, blocks=None) -> int:
 
 def _barrier(psi) -> torch.Tensor:
     """The grid-barrier word of psi's card and the current stream: zero
-    before the first resident launch and after every launch."""
+    before the first resident launch; a launch leaves its low 31 bits at 0
+    (the top bit flips at every barrier)."""
     key = (psi.device.index, _stream())
     if key not in _barriers:
         _barriers[key] = torch.zeros(1, dtype=torch.int32, device=psi.device)
     return _barriers[key]
+
+
+_fold_counts: dict = {}
+
+
+def _fold_count(psi) -> torch.Tensor:
+    """The arrival count of a folded expectation's partial-sum pass on
+    psi's card and the current stream (the block that arrives last sums
+    the blocks' values): zero before and after every launch.  A word of
+    its own: the resident kernels' barrier word flips its top bit."""
+    key = (psi.device.index, _stream())
+    if key not in _fold_counts:
+        _fold_counts[key] = torch.zeros(1, dtype=torch.int32, device=psi.device)
+    return _fold_counts[key]
 
 
 @_counted
@@ -700,11 +725,71 @@ def _one_term(psi, x, z, theta, phre, phim):
                  for v, d in zip((x, z, theta, phre, phim), dtypes))
 
 
+_MASK_DTYPES = (torch.int64, torch.int32)
+_SCALAR_DTYPES = (torch.float32,)
+
+
+def _scalar_args(psi, name, x, z, theta, phre, phim):
+    """(pointer, value) pairs of the one-term rotation's scalars, and the
+    tensors converted for them (to keep alive until the launch)."""
+    args, keep = [], []
+    for v, dtypes in ((x, _MASK_DTYPES), (z, _MASK_DTYPES), (theta, _SCALAR_DTYPES),
+                      (phre, _SCALAR_DTYPES), (phim, _SCALAR_DTYPES)):
+        if isinstance(v, torch.Tensor):
+            if v.get_device() != psi.get_device() or v.numel() != 1:
+                raise ValueError(f"{name}: expected one-element tensors on {psi.device}")
+            if v.dtype not in dtypes:
+                v = v.to(dtypes[0])
+                keep.append(v)
+            args += [v.data_ptr(), 0]
+        else:
+            args += [0, int(v) if dtypes is _MASK_DTYPES else float(v)]
+    return args, keep
+
+
+def _rotation_out(psi, out, x, z, theta, phre, phim):
+    """Launch of :func:`pauli_rotation_out` once out is known to be a
+    state like psi (counted here)."""
+    name = "pauli_rotation_out"
+    n = _n_qubits(psi, name)
+    if n < 2 or psi.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError(f"{name}: states of at least 2 qubits, 16-byte aligned")
+    lib = _load()
+    if (type(x) is int and type(z) is int and type(theta) is float and type(phre) is float
+            and type(phim) is float):  # plain numbers: the short entry
+        rc = lib.qsfh_pauli_rotation_out_values(psi.data_ptr(), out.data_ptr(), n, x, z, theta,
+                                                phre, phim, _stream())
+    else:
+        args, keep = _scalar_args(psi, name, x, z, theta, phre, phim)
+        rc = lib.qsfh_pauli_rotation_out(psi.data_ptr(), out.data_ptr(), n, *args, _stream())
+    _check(lib, rc, name)
+    pauli_rotation_out.launches += 1
+    return out
+
+
+@_counted
+def pauli_rotation_out(psi, out, x, z, theta, phre, phim):
+    """out <- exp(-i theta P) psi for ONE term, P psi[b] = (phre + i phim)
+    (-1)^popc(b & z) psi[b ^ x]; psi is untouched.  One launch that reads
+    psi once and writes out once.  Each of x, z, theta, phre and phim is a
+    number (passed by value) or a one-element tensor on psi's device, read
+    there in place (an int32 or int64 mask, its low 32-bit word; a float32
+    scalar; another dtype is converted first).  Returns out."""
+    if psi.device.type == "cpu":
+        return out.copy_(pauli_rotation_one_plain(psi, x, z, theta, phre, phim))
+    if (out.shape != psi.shape or out.dtype != psi.dtype or out.device != psi.device
+            or not out.is_contiguous()):
+        raise ValueError("pauli_rotation_out: out must be a contiguous state like psi")
+    return _rotation_out(psi, out, x, z, theta, phre, phim)
+
+
 def pauli_rotation_one(psi, x, z, theta, phre, phim):
     """exp(-i theta P) psi for ONE term, out of place (psi is untouched):
-    :func:`pauli_rotation` on a copy, one launch.  Scalars are numbers or
+    :func:`pauli_rotation_out` into a new tensor.  Scalars are numbers or
     one-element tensors on psi's device."""
-    return pauli_rotation(psi.clone(), *_one_term(psi, x, z, theta, phre, phim))
+    if psi.device.type == "cpu":
+        return pauli_rotation_one_plain(psi, x, z, theta, phre, phim)
+    return _rotation_out(psi, torch.empty_like(psi), x, z, theta, phre, phim)
 
 
 def pauli_rotation_one_plain(psi, x, z, theta, phre, phim):
@@ -712,7 +797,7 @@ def pauli_rotation_one_plain(psi, x, z, theta, phre, phim):
     return pauli_rotation_plain(psi.clone(), *_one_term(psi, x, z, theta, phre, phim))
 
 
-# -- pauli_inner_grouped ------------------------------------------------------------------
+# -- the inner-product tiles ------------------------------------------------------------
 
 
 def _check_group_tiles(xs, tiles, name: str):
@@ -727,48 +812,101 @@ def _check_group_tiles(xs, tiles, name: str):
             raise ValueError(f"{name}: a flip mask leaves its tile")
 
 
-@_counted
-def pauli_inner_grouped(a, psi, xs, zs, tiles):
-    """:func:`pauli_inner` over items of terms covered by tiles of chosen
-    bits: v in input term order.  ``tiles`` is the ``streaming.GroupTiles``
-    of (xs, zs); one state pass per tile serves every item inside it, one
-    launch per chunk of tiles whose partials fit ``PARTIALS_CAP`` (counted
-    here).  The terms of masks that fit no tile (``tiles.spill_index``)
-    take :func:`pauli_inner` (counted there).  The kernel reads the items
-    from the layout's tables; xs and zs serve the plain version.
-    """
-    if psi.device.type == "cpu" and a.device.type == "cpu":
-        return pauli_inner_grouped_plain(a, psi, xs, zs, tiles)
-    name = "pauli_inner_grouped"
+_sms: dict = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
+
+
+# what the fold pass writes: v per term, 2 Im(c v) per term, or sum_t Re(c v)
+_FOLD_V, _FOLD_SCREEN, _FOLD_EXPECTATION = 0, 1, 2
+
+
+def _inner_tiles(name, a, psi, xs, zs, tiles, mode, cre=None, cim=None):
+    """The inner-product tile kernel over ``tiles`` (a ``streaming.GroupTiles``
+    of xs, zs) and its fold ``mode``: one launch per chunk of tiles whose
+    partials fit ``PARTIALS_CAP`` (counted by the caller's wrapper: returns
+    (result, launches)); the terms of masks that fit no tile
+    (``tiles.spill_index``) take :func:`pauli_inner` (counted there) and
+    are folded here in torch."""
     n = _n_qubits(psi, name)
     if _n_qubits(a, name) != n:
         raise ValueError(f"{name}: states of different sizes")
     T = xs.shape[0]
     if T != tiles.n_terms:
         raise ValueError(f"{name}: {T} terms against a layout of {tiles.n_terms}")
-    out = torch.empty(T, dtype=torch.complex64, device=psi.device)
+    if xs.device != psi.device or zs.device != psi.device:
+        raise ValueError(f"{name}: term arrays must be on {psi.device}")
+    if mode == _FOLD_V:
+        out = torch.empty(T, dtype=torch.complex64, device=psi.device)
+        fre = fim = out.view(torch.float32)
+        stride = 1
+    else:
+        fre, fim, stride = _coefficient_planes(psi, cre, cim, T, name)
+        shape = (T,) if mode == _FOLD_SCREEN else ()
+        out = torch.empty(shape, dtype=torch.float32, device=psi.device)
+    launches = 0
     if tiles.n_tiles:
         if not INNER_TILE_MIN_BITS <= tiles.k <= min(n, INNER_TILE_MAX_BITS) or not 1 <= tiles.c:
             raise ValueError(f"{name}: tiles of {tiles.k} bits, {tiles.c} low; the kernel takes "
                              f"{INNER_TILE_MIN_BITS} <= k <= min(n, {INNER_TILE_MAX_BITS}), c >= 1")
+        sms = sm_count(psi.device)
+        positions, width, rows, plan = tiles.plan(n, sms, PARTIALS_CAP)
+        folds = -(-rows // 8)  # blocks of the fold pass: a float each for E
+        scratch = torch.empty(rows * width + folds, dtype=torch.complex64, device=psi.device)
+        bsum = scratch[rows * width:].data_ptr()
+        (tmask, _, cols, ix, zlc, zout, start, term_d, order, dzin, dzout) = (
+            t.data_ptr() for t in tiles.tensors(psi.device))
+        unit_rows = tiles.unit_tensor(n, sms, psi.device)
+        count = _fold_count(psi).data_ptr() if mode == _FOLD_EXPECTATION else 0
         lib = _load()
-        positions = lib.qsfh_inner_tile_positions(n, tiles.k, tiles.n_tiles)
-        width = -(-(1 << (n - tiles.k)) // positions)
-        chunks = tiles.chunks(width, PARTIALS_CAP)
-        spans = [(tiles.tile_terms(r0)[0], tiles.tile_terms(r1 - 1)[1]) for r0, r1 in chunks]
-        partials = torch.empty((max(t1 - t0 for t0, t1 in spans), width),
-                               dtype=torch.complex64, device=psi.device)
-        tables = [t.data_ptr() for t in tiles.tensors(psi.device)]
-        for (r0, r1), (t0, t1) in zip(chunks, spans):
-            rc = lib.qsfh_pauli_inner_grouped(
-                a.data_ptr(), psi.data_ptr(), n, tiles.k, tiles.c, _SWIZZLE, *tables, r0,
-                r1 - r0, t0, t1 - t0, tiles.most_items(r0, r1), positions, partials.data_ptr(),
-                out.data_ptr(), _stream())
+        for j, (u0, n_units, t0, n_rows, most) in enumerate(plan):
+            rc = lib.qsfh_pauli_inner_tiles(
+                a.data_ptr(), psi.data_ptr(), n, tiles.k, tiles.c, _SWIZZLE, tmask,
+                unit_rows.data_ptr() + 16 * u0, n_units, cols, ix, zlc, zout, start, term_d, order,
+                dzin, dzout, tiles.n_diag, int(tiles.item_start[-1]), t0, n_rows, most, positions,
+                scratch.data_ptr(), mode, fre.data_ptr(), fim.data_ptr(), stride, out.data_ptr(),
+                bsum, count, int(j > 0), _stream())
             _check(lib, rc, name)
-            pauli_inner_grouped.launches += 1
+            launches += 1
+    elif mode == _FOLD_EXPECTATION:
+        out.zero_()
     if tiles.spill_index.size:
         idx = torch.as_tensor(tiles.spill_index, device=psi.device)
-        out[idx] = pauli_inner(a, psi, xs[idx], zs[idx])
+        v = pauli_inner(a, psi, xs[idx], zs[idx])
+        if mode == _FOLD_V:
+            out[idx] = v
+        else:
+            cv = torch.complex(cre[idx].float(), cim[idx].float()) * v
+            if mode == _FOLD_SCREEN:
+                out[idx] = 2.0 * cv.imag
+            else:
+                out += cv.real.sum()
+    return out, launches
+
+
+@_counted
+def pauli_inner_grouped(a, psi, xs, zs, tiles):
+    """:func:`pauli_inner` over items of terms covered by tiles of chosen
+    bits: v in input term order.  ``tiles`` is a ``streaming.GroupTiles``
+    of (xs, zs) (with ``inner_diagonal``, its x = 0 terms through one
+    Walsh-Hadamard diagonal); one state pass per tile serves every item
+    inside it, one launch per chunk of tiles whose partials fit
+    ``PARTIALS_CAP`` (counted here).  The terms of masks that fit no tile
+    (``tiles.spill_index``) take :func:`pauli_inner` (counted there).  The
+    kernel reads the items from the layout's tables; xs and zs serve the
+    plain version.  The engine calls the folded :func:`expectation_grouped`
+    and :func:`screen_grouped`.
+    """
+    if psi.device.type == "cpu" and a.device.type == "cpu":
+        return pauli_inner_grouped_plain(a, psi, xs, zs, tiles)
+    out, launches = _inner_tiles("pauli_inner_grouped", a, psi, xs, zs, tiles, _FOLD_V)
+    pauli_inner_grouped.launches += launches
     return out
 
 
@@ -777,6 +915,51 @@ def pauli_inner_grouped_plain(a, psi, xs, zs, tiles):
     in input order (any device)."""
     _check_group_tiles(xs, tiles, "pauli_inner_grouped")
     return pauli_inner_plain(a, psi, xs, zs)
+
+
+@_counted
+def expectation_grouped(psi, xs, zs, cre, cim, tiles):
+    """E = sum_t Re(c_t <psi|P_t|psi>), c_t = cre_t + i cim_t, a 0-d real
+    tensor: :func:`pauli_inner_grouped` with a = psi and the coefficients
+    folded into its partial-sum pass (read on the device by input term
+    index, a stride of 2 for the views of one complex64 tensor), summed
+    in a fixed order.  Launches counted as there.
+    """
+    if psi.device.type == "cpu":
+        return expectation_grouped_plain(psi, xs, zs, cre, cim, tiles)
+    out, launches = _inner_tiles("expectation_grouped", psi, psi, xs, zs, tiles,
+                                 _FOLD_EXPECTATION, cre, cim)
+    expectation_grouped.launches += launches
+    return out
+
+
+def expectation_grouped_plain(psi, xs, zs, cre, cim, tiles):
+    """Plain version of :func:`expectation_grouped`: the layout check, then
+    :func:`pauli_inner_plain` and the fold in torch (any device)."""
+    _check_group_tiles(xs, tiles, "expectation_grouped")
+    v = pauli_inner_plain(psi, psi, xs, zs)
+    return (torch.complex(cre, cim).to(v.dtype) * v).real.sum()
+
+
+@_counted
+def screen_grouped(w, psi, xs, zs, cre, cim, tiles):
+    """2 Im(c_t <w|P_t|psi>) for every term, in input order (a real (T,)
+    tensor): :func:`pauli_inner_grouped` with a = w and the coefficients
+    folded into its partial-sum pass, as :func:`expectation_grouped`.
+    """
+    if psi.device.type == "cpu" and w.device.type == "cpu":
+        return screen_grouped_plain(w, psi, xs, zs, cre, cim, tiles)
+    out, launches = _inner_tiles("screen_grouped", w, psi, xs, zs, tiles, _FOLD_SCREEN, cre, cim)
+    screen_grouped.launches += launches
+    return out
+
+
+def screen_grouped_plain(w, psi, xs, zs, cre, cim, tiles):
+    """Plain version of :func:`screen_grouped`: the layout check, then
+    :func:`pauli_inner_plain` and the fold in torch (any device)."""
+    _check_group_tiles(xs, tiles, "screen_grouped")
+    v = pauli_inner_plain(w, psi, xs, zs)
+    return 2.0 * (torch.complex(cre, cim).to(v.dtype) * v).imag
 
 
 # -- pauli_apply_grouped ------------------------------------------------------------------
@@ -827,7 +1010,7 @@ def pauli_apply_grouped(psi, xs, zs, cre, cim, tiles):
                              f"1 <= c <= k - 3")
         if psi.data_ptr() % 16:
             raise ValueError(f"{name}: the state must be 16-byte aligned")
-        _, _, _, _, _, zout, start, term_d, order = tiles.tensors(psi.device)
+        _, _, _, _, _, zout, start, term_d, order = tiles.tensors(psi.device)[:9]
         jt, zt, xa, ehi, dzin, dstart, dterm, dzout = tiles.apply_tensors(psi.device)
         lib = _load()
         rc = lib.qsfh_pauli_apply_grouped(
@@ -859,8 +1042,9 @@ def pauli_apply_grouped_plain(psi, xs, zs, cre, cim, tiles):
 @dataclass(frozen=True)
 class Impl:
     """The statevector primitives the engine calls: the per-term ones, the
-    resident ones it takes up to the chain cap of ``streaming``, and the
-    tile-run and grouped ones it takes past the caps."""
+    resident ones it takes up to the chain cap of ``streaming``, the
+    tile-run ones past it, and the tile ones of inner products and
+    applications."""
 
     rotation: Callable
     apply: Callable
@@ -868,24 +1052,27 @@ class Impl:
     adjoint: Callable
     rotation_runs: Callable
     adjoint_runs: Callable
-    inner_grouped: Callable
     rotation_resident: Callable
     adjoint_resident: Callable
     apply_grouped: Callable
+    expectation_grouped: Callable
+    screen_grouped: Callable
 
 
 # the wrappers: CUDA kernels for CUDA tensors, plain versions for CPU tensors
 KERNELS = Impl(pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
-               rotation_tile_runs, adjoint_tile_runs, pauli_inner_grouped,
-               rotation_resident, adjoint_resident, pauli_apply_grouped)
+               rotation_tile_runs, adjoint_tile_runs, rotation_resident, adjoint_resident,
+               pauli_apply_grouped, expectation_grouped, screen_grouped)
 # the plain versions on any device (a reference path on the card)
 PLAIN = Impl(pauli_rotation_plain, pauli_apply_plain, pauli_inner_plain, adjoint_rotation_plain,
-             rotation_tile_runs_plain, adjoint_tile_runs_plain, pauli_inner_grouped_plain,
-             rotation_resident_plain, adjoint_resident_plain, pauli_apply_grouped_plain)
+             rotation_tile_runs_plain, adjoint_tile_runs_plain, rotation_resident_plain,
+             adjoint_resident_plain, pauli_apply_grouped_plain, expectation_grouped_plain,
+             screen_grouped_plain)
 
 WRAPPERS = (pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
             rotation_tile_runs, adjoint_tile_runs, pauli_inner_grouped, xor_gather,
-            rotation_resident, adjoint_resident, pauli_apply_grouped)
+            rotation_resident, adjoint_resident, pauli_apply_grouped, expectation_grouped,
+            screen_grouped, pauli_rotation_out)
 
 
 def launch_counts() -> dict:

@@ -19,15 +19,18 @@ chunks, (8, 128) row blocks, one-hot slots, group-permuted outputs).
   Above it a run costs one pass over the state in HBM, one launch each
   (``rotation_tile_runs`` / ``adjoint_tile_runs``, tiles of ``TILE_BITS``
   / ``TILE_LOW_BITS``).
-* Above ``INNER_CHAIN_MAX_QUBITS``, expectation values and pool screening,
-  sums over terms, cut the terms into items (one flip mask, phase masks
-  equal off ``REG_BITS`` bits) and cover the items with tiles of chosen
-  bits (:class:`GroupTiles`: the low ``INNER_TILE_LOW_BITS`` flat bits
-  plus bits chosen per tile, ``2^INNER_TILE_BITS`` amplitudes); one pass
-  of the state serves every item inside a tile (``pauli_inner_grouped``).
-  A term whose mask has more than ``REG_BITS`` bits takes the per-term
-  ``pauli_inner`` (none in a Hubbard term list).  Results come back in
-  input term order.
+* Expectation values and pool screening, sums over terms, cut the terms
+  into items (one flip mask, phase masks equal off ``REG_BITS`` bits) and
+  cover the items with tiles of chosen bits (:class:`GroupTiles`: the low
+  ``INNER_TILE_LOW_BITS`` flat bits plus bits chosen per tile,
+  ``2^INNER_TILE_BITS`` amplitudes); one pass of the state serves every
+  item inside a tile (the inner-product tile kernel).  The engine's
+  layout takes the x = 0 terms out of the items as one diagonal: a
+  Walsh-Hadamard transform of conj(a) psi over a tile serves all of them.
+  Blocks take slices of a tile's items where the tiles alone would leave
+  the card half empty (:meth:`GroupTiles.schedule`).  A term whose mask
+  has more than ``REG_BITS`` bits takes the per-term ``pauli_inner``
+  (none in a Hubbard term list).
 
 Layouts are built once per segment, observable or pool (the engine caches
 them beside its term tensors).
@@ -41,15 +44,13 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-# The caps, timed with chip_smoke.py --routes on an NVIDIA H100 80GB HBM3
+# The cap, timed with chip_smoke.py --routes on an NVIDIA H100 80GB HBM3
 # at its 700 W power limit, the routes interleaved (numbers in PERF.md).
 # Rotations and the adjoint sweep: up to the cap the resident route (one
 # launch per span), above it one launch per tile run; the cap is the
-# size whose state sits in L2.  Inner products: grouping was faster at
-# every size timed (18, 20, 24 qubits); 18 keeps the 18-qubit path on the
-# per-term kernel, as the JAX package's chain cap does.
+# size whose state sits in L2.  Inner products take the tiles at every
+# size from kernels.INNER_TILE_MIN_BITS (9) qubits on.
 CHAIN_MAX_QUBITS = 18
-INNER_CHAIN_MAX_QUBITS = 18
 # Tile runs: a tile holds 2^TILE_BITS amplitudes, the low TILE_LOW_BITS
 # flat bits (rows of 2^c contiguous amplitudes, 128 bytes) and the others
 # chosen per run.  Timed on the 2x6 segment over k = 12, 13 and c = 4, 5
@@ -101,7 +102,16 @@ APPLY_TOP_BITS = 4
 # lists; the diagonal took 8-11% off the application's device time at each
 # of those sizes (chip_smoke.py --routes, H100).
 APPLY_DIAG_ITEMS = 5
-
+# The inner-product kernel's schedule (GroupTiles.schedule): a block takes
+# up to INNER_TILE_POSITIONS tile positions of one unit, a unit being a
+# slice of a tile's items (at least INNER_SLICE_ITEMS, one per warp) or
+# the list's diagonal; positions per block are halved, then the items of
+# a slice, while the launch has fewer than INNER_BLOCKS_PER_SM blocks per
+# SM.  INNER_MAX_SLICES caps the grid's position slices (its y dimension).
+INNER_TILE_POSITIONS = 32
+INNER_SLICE_ITEMS = 8
+INNER_BLOCKS_PER_SM = 8
+INNER_MAX_SLICES = 65535
 
 def order_runs(xs, local_bits: int) -> List[Tuple[int, List[int]]]:
     """Order-preserving run partition of a rotation-like term sequence.
@@ -463,10 +473,20 @@ class GroupTiles:
     table of its 16 bucket coefficients and their negatives.  With
     ``diagonal`` it also gathers the x = 0 items of a tile into one
     diagonal (:meth:`_diagonals`).
+
+    With ``inner_diagonal`` (the inner products' layout) the x = 0 terms
+    form no items: they are the list's diagonal, served by the last tile
+    (a tile of the low bits, with no items, where the list has no other
+    terms).  Diagonal term e has input index ``order[item_start[-1] +
+    e]``, its phase bits on that tile ``idiag_zin[e]`` (tile coordinates)
+    and off it ``idiag_zout[e]``: v = sum over tile positions p of
+    (-1)^popc(outer_p & zout) U_p[zin], U_p the Walsh-Hadamard transform
+    over the tile of conj(a) psi at position p.  Its rows follow the last
+    tile's terms.
     """
 
     def __init__(self, xs, zs, n: int, k: int, c: int, max_items: int = MAX_TILE_ITEMS,
-                 diagonal: bool = True):
+                 diagonal: bool = True, inner_diagonal: bool = False):
         k = min(k, n)
         c = min(c, k)
         self.k, self.c = k, c
@@ -474,9 +494,12 @@ class GroupTiles:
         low = (1 << c) - 1
         order, starts = group_by_x(xs)  # one group per flip mask
         pieces, spill = [], []  # pieces: (x, J, [term index arrays, one per item])
+        idiag = np.zeros(0, np.int64)
         for g in range(starts.size - 1):
             idx = order[starts[g]:starts[g + 1]]
             x = int(xs[idx[0]])
+            if inner_diagonal and x == 0:
+                idiag = idx
             J = _item_bits(x, zs[idx], n) if bin(x).count("1") <= REG_BITS else -1
             if J < 0 or bin(J & ~low).count("1") > k - c:
                 spill.append(idx)
@@ -485,9 +508,25 @@ class GroupTiles:
             items = [idx[inv.reshape(-1) == u] for u in np.argsort(first)]
             pieces.extend((x, J, items[i:i + max_items]) for i in range(0, len(items), max_items))
         self.spill_index = np.sort(np.concatenate(spill + [np.zeros(0, np.int64)]))
-        tiles = cover_masks([J & ~low for _, J, _ in pieces], [len(it) for _, _, it in pieces],
-                            k - c, max_items)
+        def cover(ids):
+            found = cover_masks([pieces[p][1] & ~low for p in ids],
+                                [len(pieces[p][2]) for p in ids], k - c, max_items)
+            return [(bits, [ids[m] for m in members]) for bits, members in found]
+
+        if idiag.size:
+            # the diagonal's x = 0 pieces take no tile: the cover of the others,
+            # or the cover of all without them, whichever has fewer tiles
+            diag = {p for p, (x, _, _) in enumerate(pieces) if x == 0}
+            alone = cover([p for p in range(len(pieces)) if p not in diag])
+            within = [(bits, [p for p in members if p not in diag])
+                      for bits, members in cover(list(range(len(pieces))))]
+            within = [t for t in within if t[1]]
+            tiles = within if len(within) < len(alone) else alone
+        else:
+            tiles = cover(list(range(len(pieces))))
         tiles.sort(key=lambda t: -sum(len(pieces[p][2]) for p in t[1]))  # the heaviest first
+        if idiag.size and not tiles:
+            tiles = [(0, [])]  # the diagonal's tile: the low bits
         tile_mask, tile_items, item_start = [], [0], [0]
         item_cols, item_x, item_zlc, item_zout, term_d, t_order = [], [], [], [], [], []
         item_jt, item_zt, item_xa, item_ehi = [], [], [], []
@@ -532,6 +571,10 @@ class GroupTiles:
         self.item_jt, self.item_zt = i32(item_jt), i32(item_zt)
         self.item_xa, self.item_ehi = i32(item_xa), i32(item_ehi)
         self._diagonals(zs, diagonal)
+        last = int(tile_mask[-1]) if tile_mask else 0
+        self.order = np.concatenate([self.order, idiag])
+        self.idiag_zin = i32(pext(zs[idiag], _positions(last)))
+        self.idiag_zout = i32(zs[idiag] & ~last)
         self.n_terms = int(xs.size)
         self._cache = {}
 
@@ -577,14 +620,81 @@ class GroupTiles:
     def n_items(self) -> int:
         return int(self.item_x.size)
 
+    @property
+    def n_diag(self) -> int:
+        """The terms of the inner products' diagonal."""
+        return int(self.idiag_zin.size)
+
     def tile_terms(self, r: int) -> Tuple[int, int]:
-        """The tile terms ``[t0, t1)`` of tile ``r``."""
+        """The tile terms ``[t0, t1)`` of tile ``r`` (rows of ``order``;
+        the last tile's include the diagonal's)."""
+        extra = self.n_diag if r == self.n_tiles - 1 else 0
         return (int(self.item_start[self.tile_items[r]]),
-                int(self.item_start[self.tile_items[r + 1]]))
+                int(self.item_start[self.tile_items[r + 1]]) + extra)
 
     def most_items(self, r0: int, r1: int) -> int:
         """The most items of one tile among tiles ``[r0, r1)``."""
         return int(np.diff(self.tile_items[r0:r1 + 1]).max(initial=0))
+
+    def schedule(self, n: int, sms: int):
+        """``(positions, units)`` of the inner-product tile kernel at n
+        qubits on a card of ``sms`` SMs: a block takes ``positions``
+        consecutive tile positions (2^(n - k) in all) of one unit; unit u
+        is the row ``units[u] = (tile, first item, items, diagonal)``: a
+        slice of a tile's items, or (diagonal 1, no items) the diagonal on
+        the last tile.  Units go tile by tile, a tile's slices in item
+        order, the diagonal last.  Positions per block start at
+        ``INNER_TILE_POSITIONS`` and items per slice at ``MAX_TILE_ITEMS``
+        (a slice per tile); while the launch has fewer than
+        ``INNER_BLOCKS_PER_SM`` blocks per SM, positions are halved down
+        to one, then the slices down to ``INNER_SLICE_ITEMS`` items.
+        Built once per (n, sms)."""
+        key = ("schedule", n, sms)
+        if key not in self._cache:
+            every = 1 << (n - self.k)
+            least = max(1, -(-every // INNER_MAX_SLICES))
+            positions, per = max(least, min(INNER_TILE_POSITIONS, every)), MAX_TILE_ITEMS
+
+            def units(per):
+                out = []
+                for r in range(self.n_tiles):
+                    i0, i1 = int(self.tile_items[r]), int(self.tile_items[r + 1])
+                    out += [(r, i, min(per, i1 - i), 0) for i in range(i0, i1, per)]
+                if self.n_diag:
+                    out.append((self.n_tiles - 1, 0, 0, 1))
+                return out
+
+            while -(-every // positions) * len(units(per)) < INNER_BLOCKS_PER_SM * sms:
+                if positions > least:
+                    positions //= 2
+                elif per > INNER_SLICE_ITEMS:
+                    per = max(INNER_SLICE_ITEMS, per // 2)
+                else:
+                    break
+            self._cache[key] = (positions, np.asarray(units(per), np.int32).reshape(-1, 4))
+        return self._cache[key]
+
+    def plan(self, n: int, sms: int, cap: int):
+        """``(positions, width, rows, launches)`` of one inner-product call at
+        n qubits on a card of ``sms`` SMs with partials of at most ``cap``
+        entries: the :meth:`schedule`'s positions a block, position slices
+        ``width`` (the partials' row length), the most partial ``rows`` of
+        a launch, and per launch (a chunk of :meth:`chunks`) ``(u0, units,
+        t0, rows, most items of a unit)``.  Built once per (n, sms, cap)."""
+        key = ("plan", n, sms, cap)
+        if key not in self._cache:
+            positions, units = self.schedule(n, sms)
+            width = -(-(1 << (n - self.k)) // positions)
+            chunks = self.chunks(width, cap)
+            first = np.searchsorted(units[:, 0], [r0 for r0, _ in chunks] + [self.n_tiles])
+            launches = []
+            for j, (r0, r1) in enumerate(chunks):
+                u0, u1 = int(first[j]), int(first[j + 1])
+                t0, t1 = self.tile_terms(r0)[0], self.tile_terms(r1 - 1)[1]
+                launches.append((u0, u1 - u0, t0, t1 - t0, int(units[u0:u1, 2].max())))
+            rows = max(nr for _, _, _, nr, _ in launches)
+            self._cache[key] = (positions, width, rows, launches)
+        return self._cache[key]
 
     def chunks(self, width: int, cap: int):
         """Consecutive tile ranges ``[(r0, r1)]`` whose (terms, width)
@@ -601,21 +711,32 @@ class GroupTiles:
         return self._cache[key]
 
     def term_mask(self) -> np.ndarray:
-        """The tile mask of each tile term."""
+        """The tile mask of each row of ``order`` (the diagonal's: the last
+        tile's)."""
         sizes = [t1 - t0 for t0, t1 in map(self.tile_terms, range(self.n_tiles))]
         return np.repeat(self.tile_mask, sizes)
 
     def tensors(self, device):
         """(tile_mask, tile_items, item_cols, item_x, item_zlc, item_zout,
-        item_start, term_d, order) as int32 tensors on ``device``, built
-        once per device."""
+        item_start, term_d, order, idiag_zin, idiag_zout) as int32 tensors
+        on ``device``, built once per device (an empty table as one zero,
+        so that every pointer is valid)."""
         key = str(device)
         if key not in self._cache:
             self._cache[key] = tuple(
-                torch.as_tensor(np.ascontiguousarray(a).astype(np.int32), device=device)
+                torch.as_tensor(np.ascontiguousarray(a if a.size else np.zeros(1)).astype(np.int32),
+                                device=device)
                 for a in (self.tile_mask, self.tile_items, self.item_cols, self.item_x,
-                          self.item_zlc, self.item_zout, self.item_start, self.term_d, self.order)
+                          self.item_zlc, self.item_zout, self.item_start, self.term_d, self.order,
+                          self.idiag_zin, self.idiag_zout)
             )
+        return self._cache[key]
+
+    def unit_tensor(self, n: int, sms: int, device) -> torch.Tensor:
+        """The units of :meth:`schedule` as an int32 tensor on ``device``."""
+        key = ("units", n, sms, str(device))
+        if key not in self._cache:
+            self._cache[key] = torch.as_tensor(self.schedule(n, sms)[1], device=device)
         return self._cache[key]
 
     def apply_tensors(self, device):

@@ -290,14 +290,35 @@ def test_xor_gather(dev, n):
 
 @pytest.mark.parametrize("n", [10, 18])
 def test_pauli_rotation_one(dev, n):
+    """The out-of-place rotation (``pauli_rotation_out`` through
+    ``pauli_rotation_one``) against its plain version: x = 0, x = 1, masks
+    with bit 0 clear and set; scalars as numbers and as one-element device
+    tensors (int32 and int64 masks, a float32 and a float64 angle); two
+    calls give the same bits, psi is untouched, one launch a call."""
     rng = np.random.default_rng(n + 8)
     psi = _t(_state(rng, n), dev, torch.complex64)
-    for x, z in ((0, 0b1011), (0b11, 0b1), ((1 << (n - 1)) | 1, 1 << (n - 2))):
+    saved = psi.clone()
+    for x, z in ((0, 0b1011), (1, 0b110), (0b11, 0b1), (0b1100, 0b101),
+                 ((1 << (n - 1)) | 1, 1 << (n - 2)), ((1 << (n - 1)) | 0b110, (1 << n) - 1)):
         ph = (-1j) ** (bin(x & z).count("1") % 4)
-        got = K.pauli_rotation_one(psi, x, z, 0.37, ph.real, ph.imag)
         ref = K.pauli_rotation_one_plain(psi, x, z, 0.37, ph.real, ph.imag)
+        K.reset_launch_counts()
+        got = K.pauli_rotation_one(psi, x, z, 0.37, ph.real, ph.imag)
+        again = K.pauli_rotation_one(psi, torch.tensor([x], dtype=torch.int32, device=dev),
+                                     torch.tensor(z, device=dev),
+                                     torch.tensor([0.37], dtype=torch.float64, device=dev),
+                                     torch.tensor(ph.real, dtype=torch.float32, device=dev),
+                                     ph.imag)
         torch.cuda.synchronize()
         assert _rel(got, ref) <= RTOL
+        assert torch.equal(got, again)
+        assert K.launch_counts()["pauli_rotation_out"] == 2
+    assert torch.equal(psi, saved)
+    with pytest.raises(TypeError):
+        K.pauli_rotation_one(psi.to(torch.complex128), 3, 1, 0.1, 1.0, 0.0)
+    with pytest.raises(ValueError):
+        K.pauli_rotation_out(psi, torch.empty(1 << (n - 1), dtype=psi.dtype, device=dev), 3, 1,
+                             0.1, 1.0, 0.0)
 
 
 def _inner_terms(rng, n, T, wide):
@@ -326,7 +347,7 @@ def test_pauli_inner_grouped(dev, n, k, c, monkeypatch):
     psi = _t(_state(rng, n), dev, torch.complex64)
     w = _t(_state(rng, n), dev, torch.complex64)
     args = (_t(xs, dev, torch.int64), _t(zs, dev, torch.int64))
-    positions = K._load().qsfh_inner_tile_positions(n, k, tiles.n_tiles)
+    positions = tiles.schedule(n, K.sm_count(dev))[0]
     monkeypatch.setattr(K, "PARTIALS_CAP", 64 * -(-(1 << (n - k)) // positions))
     K.reset_launch_counts()
     for a in (psi, w):
@@ -406,3 +427,137 @@ def test_pauli_apply_grouped_rejects_what_it_cannot_launch(dev):
     with pytest.raises(ValueError):
         K.pauli_apply_grouped(psi, args[0].cpu(), args[1].cpu(), one, one, tiles)
     assert K.launch_counts()["pauli_apply_grouped"] == 0
+
+
+# (lattice, qubits) of the folded inner products: 1x5, 3x3 and 2x6
+FOLD_LATTICES = {10: (1, 5, 1.0, 6.0, 5, 3, 2), 18: (3, 3, 1.0, 6.0, 9, 5, 4),
+                 24: (2, 6, 1.0, 6.0, 12, 6, 6)}
+
+
+def _tilted(rng, n, dev):
+    """A random state scaled by 1.5 per clear bit and 0.5 per set bit: its
+    <Z_q> do not cancel, so Sz and the diagonal S^2 terms are far from 0."""
+    from qsfh_torch.engine.state import index_bits
+
+    v = _t(_state(rng, n), dev, torch.complex64)
+    idx = index_bits(n, dev)
+    for q in range(n):
+        v = v * (1.5 - ((idx >> q) & 1).to(torch.float32))
+    return v / torch.linalg.vector_norm(v)
+
+
+@pytest.mark.parametrize("n", sorted(FOLD_LATTICES))
+def test_folded_inner_products(dev, n):
+    """``expectation_grouped`` on H, Sz and S^2 (a tilted state: Sz does not
+    cancel) and ``screen_grouped`` on the pool (at 10 and 18 qubits; the
+    plain pool takes seconds at 24) against their plain versions, on the
+    engine's layouts (the x = 0 terms as one diagonal), within 1e-5 of the
+    larger of the result and sum_t |c_t| ||a|| ||psi||; two calls give the
+    same bits; one launch a call."""
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.engine.expectation import PackedPool
+    from qsfh_torch.ops.jw import jordan_wigner
+    from qsfh_torch.ops.pool import hubbard_interaction_pool_simplified
+
+    rng = np.random.default_rng(n + 30)
+    problem = HubbardProblem(*FOLD_LATTICES[n])
+    psi = _tilted(rng, n, dev)
+    for name in ("H", "Sz", "S^2"):
+        obs = problem.observables[name]
+        xs, zs, c = obs._tensors(psi)
+        tiles = obs.inner_groups()
+        assert tiles.n_diag and not tiles.spill_index.size
+        K.reset_launch_counts()
+        got = K.expectation_grouped(psi, xs, zs, c.real, c.imag, tiles)
+        again = K.expectation_grouped(psi, xs, zs, c.real, c.imag, tiles)
+        ref = K.expectation_grouped_plain(psi, xs, zs, c.real, c.imag, tiles)
+        torch.cuda.synchronize()
+        scale = max(abs(float(ref)), float(c.abs().sum()))
+        assert abs(float(got) - float(ref)) <= RTOL * scale, name
+        assert torch.equal(got, again)
+        assert K.launch_counts()["expectation_grouped"] == 2
+        assert K.launch_counts()["pauli_inner"] == 0
+    if n == 24:
+        return
+    x, y = FOLD_LATTICES[n][:2]
+    pool = PackedPool([jordan_wigner(g) for g in hubbard_interaction_pool_simplified(x, y)], n)
+    w = problem.observables["H"].apply_scan(psi)
+    xs, zs, c, _ = pool._tensors(psi)
+    tiles = pool.inner_groups()
+    K.reset_launch_counts()
+    got = K.screen_grouped(w, psi, xs, zs, c.real, c.imag, tiles)
+    again = K.screen_grouped(w, psi, xs, zs, c.real, c.imag, tiles)
+    ref = K.screen_grouped_plain(w, psi, xs, zs, c.real, c.imag, tiles)
+    torch.cuda.synchronize()
+    scale = float(c.abs().max() * torch.linalg.vector_norm(w) * torch.linalg.vector_norm(psi))
+    den = max(float(torch.linalg.vector_norm(ref)), scale)
+    assert float(torch.linalg.vector_norm(got - ref)) <= RTOL * den
+    assert torch.equal(got, again)
+    assert K.launch_counts()["screen_grouped"] == 2
+
+
+def test_folded_inner_products_random_lists(dev, monkeypatch):
+    """The folded wrappers on random lists at 12 qubits with x = 0 terms
+    whose phase masks leave every tile, masks that fit no tile (the
+    per-term kernel, folded in torch), tiles of 9 bits, complex
+    coefficients, a != psi, and a small partials cap (several launches,
+    the expectation summed across them)."""
+    from qsfh_torch.engine.streaming import GroupTiles
+
+    rng = np.random.default_rng(44)
+    n = 12
+    xs, zs = _inner_terms(rng, n, 700, wide=5)
+    xs[1:300:7] = 0
+    c = rng.standard_normal(700) + 1j * rng.standard_normal(700)
+    tiles = GroupTiles(xs, zs, n, 9, 2, diagonal=False, inner_diagonal=True)
+    assert tiles.n_diag and tiles.spill_index.size == 5 and tiles.n_tiles > 1
+    psi = _t(_state(rng, n), dev, torch.complex64)
+    w = _t(_state(rng, n), dev, torch.complex64)
+    txs, tzs, tc = _t(xs, dev, torch.int64), _t(zs, dev, torch.int64), _t(c, dev, torch.complex64)
+    positions = tiles.schedule(n, K.sm_count(dev))[0]
+    monkeypatch.setattr(K, "PARTIALS_CAP", 64 * -(-(1 << (n - 9)) // positions))
+    K.reset_launch_counts()
+    e = K.expectation_grouped(psi, txs, tzs, tc.real, tc.imag, tiles)
+    e_ref = K.expectation_grouped_plain(psi, txs, tzs, tc.real, tc.imag, tiles)
+    s = K.screen_grouped(w, psi, txs, tzs, tc.real, tc.imag, tiles)
+    s_ref = K.screen_grouped_plain(w, psi, txs, tzs, tc.real, tc.imag, tiles)
+    v = K.pauli_inner_grouped(w, psi, txs, tzs, tiles)
+    v_ref = K.pauli_inner_plain(w, psi, txs, tzs)
+    torch.cuda.synchronize()
+    assert abs(float(e) - float(e_ref)) <= RTOL * float(tc.abs().sum())
+    assert _rel(s, s_ref) <= RTOL
+    assert _rel(v, v_ref) <= RTOL
+    launches = len(tiles.chunks(-(-(1 << (n - 9)) // positions), K.PARTIALS_CAP))
+    assert launches > 1
+    counts = K.launch_counts()
+    assert (counts["expectation_grouped"], counts["screen_grouped"]) == (launches, launches)
+    assert counts["pauli_inner_grouped"] == launches and counts["pauli_inner"] == 3
+    with pytest.raises(TypeError):
+        K.expectation_grouped(psi.to(torch.complex128), txs, tzs, tc.real, tc.imag, tiles)
+    with pytest.raises(ValueError):
+        K.screen_grouped(w, psi, txs, tzs, tc.real.cpu(), tc.imag.cpu(), tiles)
+
+
+def test_folded_expectation_between_resident_launches(dev):
+    """The folded expectation's arrival count is a word of its own: an
+    adjoint sweep (one grid barrier per run, so the barrier word's top bit
+    may be left set) then E, a resident rotation, E again, each against
+    its plain version; both words end with their low bits at 0."""
+    from qsfh_torch.algos.base import HubbardProblem
+
+    tiles, args, psi, lam = _resident_case(dev, 18, 11, 3, 91)
+    obs = HubbardProblem(*FOLD_LATTICES[18]).observables["H"]
+    xs, zs, c = obs._tensors(psi)
+    layout = obs.inner_groups()
+    for _ in range(2):
+        K.adjoint_resident(psi.clone(), lam.clone(), *args, tiles)
+        e = K.expectation_grouped(psi, xs, zs, c.real, c.imag, layout)
+        got, ref = psi.clone(), psi.clone()
+        K.rotation_resident(got, *args, tiles)
+        K.rotation_resident_plain(ref, *args, tiles)
+        e_ref = K.expectation_grouped_plain(psi, xs, zs, c.real, c.imag, layout)
+        torch.cuda.synchronize()
+        assert abs(float(e) - float(e_ref)) <= RTOL * float(c.abs().sum())
+        assert _rel(got, ref) <= RTOL
+    assert int(K._fold_count(psi).item()) == 0
+    assert int(K._barrier(psi).item()) & 0x7FFFFFFF == 0

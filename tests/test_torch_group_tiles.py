@@ -314,9 +314,9 @@ def test_shipped_shape_is_the_observables_layout(lists_2x6):
 
 @pytest.fixture
 def small_inner_tiles(monkeypatch):
-    """The grouped route at 12 qubits, tiles of 9 bits (the low 2), at most
-    4 items a tile, so several tiles and pieces of masks occur."""
-    monkeypatch.setattr(streaming, "INNER_CHAIN_MAX_QUBITS", N - 1)
+    """The grouped route (the engine's at every size from 9 qubits) at 12
+    qubits, tiles of 9 bits (the low 2), at most 4 items a tile, so several
+    tiles and pieces of masks occur."""
     monkeypatch.setattr(streaming, "INNER_TILE_BITS", 9)
     monkeypatch.setattr(streaming, "INNER_TILE_LOW_BITS", 2)
     monkeypatch.setattr(streaming, "MAX_TILE_ITEMS", 4)
@@ -331,7 +331,7 @@ def test_grouped_expectation_matches_jax_xla_complex128(small_inner_tiles, what)
     tobs = Observable(tp.observables[what].op, N)
     got = float(tobs.expectation_scan(torch.as_tensor(psi)))
     assert abs(got - ref) <= TOL64 * max(1.0, abs(ref))
-    tiles = tobs.groups()
+    tiles = tobs.inner_groups()
     assert tiles.k == 9 and len(tiles) >= 1 and not tiles.spill_index.size
 
 
@@ -343,4 +343,4 @@ def test_grouped_screening_matches_jax_xla_complex128(small_inner_tiles):
     ref = np.asarray(jpool.screen_scan(jnp.asarray(psi), jnp.asarray(w)))
     got = tpool.screen_scan(torch.as_tensor(psi), torch.as_tensor(w)).numpy()
     assert _rel(got, ref) <= TOL64
-    assert tpool.groups().n_tiles > 1
+    assert tpool.inner_groups().n_tiles > 1

@@ -77,7 +77,6 @@ def _small_tiles(monkeypatch, k=TILE_K, c=TILE_C):
 def stream_route(monkeypatch):
     """The port's stream route at 12 qubits, with tiles of TILE_K bits."""
     monkeypatch.setattr(streaming, "CHAIN_MAX_QUBITS", N - 1)
-    monkeypatch.setattr(streaming, "INNER_CHAIN_MAX_QUBITS", N - 1)
     _small_tiles(monkeypatch)
 
 
@@ -234,17 +233,18 @@ def test_expectation_stream_matches_jax(h_2x3, stream_route, monkeypatch):
         jnp.asarray(psi), N, xs, zs, cre.astype(np.float32), cim.astype(np.float32)))
     got = float(tobs.expectation_scan(torch.as_tensor(psi)))
     np.testing.assert_allclose(got, ref, atol=2e-5)
-    assert len(tobs.groups()) < len(tobs)  # the grouped route ran
+    assert len(tobs.inner_groups()) < len(tobs)  # the grouped route ran
 
 
-@pytest.mark.parametrize("chain_cap, inner_cap", [(N, N - 1), (N - 1, N)])
-def test_each_family_follows_its_own_cap(h_2x3, monkeypatch, chain_cap, inner_cap):
+@pytest.mark.parametrize("chain_cap, inner_bits", [(N, 12), (N - 1, 9)])
+def test_each_family_follows_its_own_cap(h_2x3, monkeypatch, chain_cap, inner_bits):
     """Rotations and the adjoint sweep switch at CHAIN_MAX_QUBITS (resident
-    launches up to it, tile runs past it), expectation values at
-    INNER_CHAIN_MAX_QUBITS, each on its own; applications take the tiles
-    from INNER_TILE_MIN_BITS (9) qubits whatever the two caps."""
+    launches up to it, tile runs past it); expectation values take the
+    folded inner-product tiles and applications the application tiles from
+    INNER_TILE_MIN_BITS (9) qubits whatever the cap, at the inner tile
+    size ``inner_bits``."""
     monkeypatch.setattr(streaming, "CHAIN_MAX_QUBITS", chain_cap)
-    monkeypatch.setattr(streaming, "INNER_CHAIN_MAX_QUBITS", inner_cap)
+    monkeypatch.setattr(streaming, "INNER_TILE_BITS", inner_bits)
     # tiles of the low 3 bits and one more, both routes: the three terms
     # that flip two higher bits fit no tile and take the per-term kernels
     _small_tiles(monkeypatch, k=4, c=3)
@@ -257,7 +257,7 @@ def test_each_family_follows_its_own_cap(h_2x3, monkeypatch, chain_cap, inner_ca
         return lambda *args: calls.append(name) or fn(*args)
 
     impl = K.Impl(*(recorded(f.name) for f in dataclasses.fields(K.Impl)))
-    _, tobs = h_2x3
+    tobs = Observable(h_2x3[1].op, N)  # a fresh layout cache at this tile size
     psi = torch.as_tensor(_state(np.random.default_rng(10)).astype(np.complex64))
     th = torch.as_tensor(np.asarray(THETAS, np.float32))
     cc = CompiledCircuit(OPS, N)
@@ -272,8 +272,8 @@ def test_each_family_follows_its_own_cap(h_2x3, monkeypatch, chain_cap, inner_ca
     assert ("adjoint_resident" in calls) == resident
     assert calls.count("rotation") == 1  # the terms that fit no tile
     assert calls.count("adjoint") == 1
-    assert ("inner_grouped" in calls) == (inner_cap < N)
-    assert ("inner" in calls) == (inner_cap >= N)
+    assert calls.count("expectation_grouped") == 1 and "inner" not in calls
+    assert tobs.inner_groups().k == inner_bits
     assert calls.count("apply_grouped") == 1 and "apply" not in calls
 
 
@@ -376,4 +376,5 @@ def test_adapt_step_and_selection_on_the_stream_route(cdtype, stream_route, monk
     assert np.linalg.norm(tscreen - jscreen) <= rtol * np.linalg.norm(jscreen)
     # the step and the selection went through the grouped route
     assert t.problem.observables["H"]._tensor_cache.get("groups") is not None
-    assert t.packed_pool._tensor_cache.get("groups") is not None
+    assert t.problem.observables["H"]._tensor_cache.get("inner_groups") is not None
+    assert t.packed_pool._tensor_cache.get("inner_groups") is not None
