@@ -72,7 +72,32 @@ Phases (any failed check raises and the script exits nonzero):
    gather (the same bytes), the gather in turns with
    ``torch.index_select`` with a prebuilt index, each split into host,
    wall and device ms per call.
-7. A ``kernels`` JSON line, then the device JSON line, last.
+7. The float64 Rayleigh readout ``expectation_norm_f64`` on the 3x3 and
+   2x6 main paths' states against its plain version (the state upcast to
+   complex128; the Rayleigh quotient within 1e-12 relative, the same bits
+   on two calls), its gap to the float32 ``expectation_grouped`` energy,
+   timed beside its bound (bytes at 3.35 TB/s, float64 operations at 34
+   TFLOP/s).
+8. The fused runner (``qsfh_torch.algos.adapt_fused.FusedAdaptRunner``) at
+   3x3 on the 12-operator ansatz, on the CUDA graph path: captures of K =
+   1, 10 and 100 train steps (capture ms, graph-pool memory, whether the
+   cooperative launches captured, launches counted per capture and its
+   warm-up step: graph nodes per step); two replays of K = 10 against 20
+   eager ``ADAPT`` steps (``STEP_TOLERANCES``: energy, gnorm), no wrapper
+   launch during a replay; the chunk's float64 energy within 1e-10 of the
+   plain complex128 Rayleigh quotient of the graph's final state; ms per
+   step at K = 1, 10, 100 in turns with the eager step (host clock), with
+   the idle share of a replay (``torch.profiler``); a one-epoch ``run()``
+   stopped after its first chunk and resumed from the in-flight file: the
+   same selection, the resumed chunk within tolerance of the run's.  At
+   2x6: captures of K = 1, 2 and 8, one replay of K = 2 against 2 eager
+   steps (``STEP_TOLERANCES_24``), ms per step at K = 2 and 8.
+9. The port's exact diagonalization of the 3x3 4-state ground manifold on
+   the CPU: energy within 1e-9 of the committed cache's, subspace
+   fidelity at least 1 - 1e-9, and its seconds.
+10. A ``kernels`` JSON line (``expectation_norm_f64``'s launches counted
+   per capture, its replays beside them; every kernel's graph nodes per
+   fused step), then the device JSON line, last.
 
 ``--compare PARENT`` runs both main paths (3x3 and 2x6 selection and
 train step, host clock and profile) of the port in the checkout PARENT
@@ -120,6 +145,7 @@ E_EXACT = -5.562308836311793  # the cached 4-state manifold's energy
 # H100 SXM published peaks (NVIDIA data sheet), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+F64_FLOPS_PER_S = 34e12  # float64 outside the tensor cores
 STATE_RTOL = 1e-5
 # kernel path vs plain path, per train step: (metric, rtol, atol); float32
 # over 934 rotations a step, at least 10x the differences an H100 shows
@@ -147,6 +173,9 @@ REPLACES = {
     "xor_gather": f"{TPU_KERNELS}:378",
     "rotation_resident": f"{TPU_KERNELS}:482",
     "adjoint_resident": f"{TPU_KERNELS}:826",
+    # no Pallas kernel: the JAX package's double-float readout in plain jnp
+    "expectation_norm_f64": "qsfh_tpu/engine/dfloat.py:229 (expectation_norm_df, plain jnp; "
+                            "no TPU Pallas counterpart)",
 }
 # the kernels timed at 24 qubits only: the tile runs (past the chain cap)
 # and the inner-product tiles returning v_t (the folded wrappers' kernel)
@@ -1637,6 +1666,7 @@ def phase_main_path_24(adapt, dev, tmp):
         rotation_resident=0,
         adjoint_resident=0,
         pauli_rotation_out=0,
+        expectation_norm_f64=0,
     )
     if counts != expected:
         raise AssertionError(f"24-qubit launches {counts}, the layouts predict {expected}")
@@ -2008,6 +2038,375 @@ def phase_compare(parent, dev, tmp, out):
             f"{rows[f'{side} {lattice}']['train step_device_ms']:.3f} ms" for side in ports))
 
 
+# -- the float64 readout, the fused runner and exact diagonalization --------------------
+
+
+def f64_bound(terms, dim):
+    """(bound ms, by) of the float64 Rayleigh readout over ``terms`` (the
+    f64 layout: masks, coefficients, group offsets) on a state of ``dim``
+    amplitudes: one read of the state and of the terms, 32 bytes out,
+    against the least float64 arithmetic per amplitude: |psi[b]|^2 and its
+    sum (4); per flip mask the product conj(psi[b]) psi[b^x] (6; 3 for
+    x = 0, |psi[b]|^2 again) and its real part against the weight and the
+    sum (2 for real weights, 4 for complex); per term its signed
+    coefficient added to the weight (1 real, 2 complex)."""
+    xs, zs, cre, cim, starts = terms
+    real = not bool(cim.any())
+    masks = xs[starts[:-1].long()]
+    per_amp = 4 + sum((3 if int(x) == 0 else 6) + (2 if real else 4) for x in masks)
+    per_amp += (1 if real else 2) * xs.shape[0]
+    bytes_moved = 8 * dim + 24 * xs.shape[0] + 4 * starts.shape[0] + 32
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, per_amp * dim / F64_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ansatz_state(adapt, n_ansatz, dev):
+    """The main path's state: the first ``n_ansatz`` pool operators at
+    theta = 0.05 and the Givens network, on the kernels."""
+    import torch
+
+    adapt.selected_indices = list(range(n_ansatz))
+    return adapt.state(torch.full((n_ansatz,), 0.05, dtype=adapt._rdt, device=dev))
+
+
+def phase_f64(cases, dev):
+    """``expectation_norm_f64`` on the main paths' states (3x3 and 2x6, H)
+    against its plain version (the state upcast to complex128): the Rayleigh
+    quotient within 1e-12 relative, the same bits on two calls; its gap to
+    the float32 ``expectation_grouped`` energy; timed beside its bound and
+    the plain version."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine.dfloat import combine_rayleigh, f64_terms
+
+    rows = []
+    for label, adapt, n_ansatz in cases:
+        n = adapt.n_qubits
+        psi = ansatz_state(adapt, n_ansatz, dev)
+        obs = adapt.problem.observables["H"]
+        terms = f64_terms(obs, dev)
+        got, again = K.expectation_norm_f64(psi, *terms), K.expectation_norm_f64(psi, *terms)
+        ref = K.expectation_norm_f64_plain(psi, *terms)
+        e32 = float(obs.expectation_scan(psi))
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"expectation_norm_f64 ({label}): two calls differ")
+        e, e_ref = combine_rayleigh(got.cpu().numpy()), combine_rayleigh(ref.cpu().numpy())
+        rel = abs(e - e_ref) / abs(e_ref)
+        b_ms, b_by = f64_bound(terms, 1 << n)
+        row = dict(call=f"H of {label}, {len(obs)} terms, {terms[4].shape[0] - 1} flip masks",
+                   n=n, terms=len(obs), rel_err=rel, max_abs_err=max_abs(got, ref),
+                   rayleigh=e, rayleigh_plain=e_ref, norm=float(got[2]),
+                   f32_energy=e32, f32_gap=abs(e32 - float(got[0])),
+                   ms=time_cuda(lambda: K.expectation_norm_f64(psi, *terms), reps=50),
+                   plain_ms=time_cuda(lambda: K.expectation_norm_f64_plain(psi, *terms), reps=3),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        rows.append(row)
+        log(f"  expectation_norm_f64 {label} (n={n}): Rayleigh {e:.15f} vs plain {e_ref:.15f} "
+            f"(rel {rel:.2e}, tol 1e-12), norm {row['norm']:.12f}; float32 "
+            f"expectation_grouped {e32:.10f}, |E_f32 - E_f64| = {row['f32_gap']:.3e}; "
+            f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} bound_ms={b_ms:.5f} ({b_by})")
+        if rel > 1e-12:
+            raise AssertionError(f"expectation_norm_f64 ({label}) disagrees with its plain version")
+    return rows
+
+
+def eager_rows(adapt, indices, dev, n_steps):
+    """``n_steps`` eager train steps from theta = 0.05 (Adam lr 1e-2), the
+    reference of a replayed chunk: per-step energy and gnorm."""
+    import torch
+
+    th = torch.full((len(indices),), 0.05, dtype=adapt._rdt, device=dev)
+    opt = torch.optim.Adam([th], lr=1e-2)
+    step = adapt._build_step(indices)
+    rows = []
+    for i in range(n_steps):
+        out = step(th, opt)
+        rows.append(dict(step=i + 1, energy=float(out[2]), gnorm=float(out[6])))
+    return rows
+
+
+def fused_chunk(runner, adapt, k, dev):
+    """(chunk callable, capture record) of a ``k``-step CUDA graph of
+    ``adapt``'s ansatz from theta = 0.05 (capturable Adam, lr 1e-2), with
+    the peak device memory over the capture."""
+    import torch
+
+    th = torch.full((len(adapt.selected_indices),), 0.05, dtype=adapt._rdt, device=dev)
+    opt = torch.optim.Adam([th], lr=1e-2, capturable=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    chunk = runner.build_chunk(th, opt, k)
+    return chunk, dict(runner.capture_stats[-1],
+                       peak_bytes=torch.cuda.max_memory_allocated() - base)
+
+
+def capture_chunks(runner, adapt, ks, dev, out):
+    """Capture a chunk at each K of ``ks``: the chunks by K; the capture
+    records and the launches each capture counted (with its warm-up step)
+    into ``out``."""
+    from qsfh_torch.engine import kernels as K
+
+    chunks = {}
+    out.update(captures={}, launches={})
+    K.reset_launch_counts()
+    for k in ks:
+        before = K.launch_counts()
+        chunks[k], out["captures"][k] = fused_chunk(runner, adapt, k, dev)
+        after = K.launch_counts()
+        out["launches"][k] = {name: after[name] - before[name] for name in after}
+        rec = out["captures"][k]
+        log(f"  capture K={k}: {rec['ms']:.1f} ms, graph pool {rec['pool_bytes'] / 2**20:.1f} MiB "
+            f"(peak over the capture {rec['peak_bytes'] / 2**20:.1f} MiB); launches recorded (one "
+            f"warm-up step + the capture): "
+            f"{{{', '.join(f'{a}: {b}' for a, b in out['launches'][k].items() if b)}}}")
+    return chunks
+
+
+def check_replays(runner, adapt, chunk, n_replays, k, dev, tolerances, label):
+    """``n_replays`` replays of ``chunk`` (no wrapper launch among them)
+    against as many eager steps (``tolerances`` on energy and gnorm), and
+    the chunk's float64 energy against the plain complex128 Rayleigh
+    quotient of the graph's final state (1e-10 relative)."""
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine.dfloat import combine_rayleigh
+
+    K.reset_launch_counts()
+    res = [chunk() for _ in range(n_replays)]
+    if any(K.launch_counts().values()):
+        raise AssertionError(f"{label}: a replay launched through a wrapper: {K.launch_counts()}")
+    eager = eager_rows(adapt, tuple(adapt.selected_indices), dev, n_replays * k)
+    replay = [dict(step=i + 1, energy=e, gnorm=g) for i, (e, g) in
+              enumerate((e, g) for r in res for e, g in zip(r["energy"], r["gnorm"]))]
+    for a, b in zip(replay, eager):
+        for key, rtol, atol in tolerances[:2]:  # energy, gnorm
+            if abs(a[key] - b[key]) > rtol * abs(b[key]) + atol:
+                raise AssertionError(f"{label} step {b['step']}: {key} {a[key]} vs eager {b[key]}")
+    e_df = combine_rayleigh(res[-1]["df"])
+    e_ref = rayleigh_plain_c128(adapt, runner.final_state)
+    rel = abs(e_df - e_ref) / abs(e_ref)
+    log(f"  {n_replays} replays of K={k} against {n_replays * k} eager steps: energy and gnorm "
+        f"within {tolerances[0][1]:g} relative; E_df {e_df:.15f} against the plain complex128 "
+        f"Rayleigh quotient {e_ref:.15f} of the graph's final state (rel {rel:.2e}, tol 1e-10); "
+        f"float32 E of the last step {res[-1]['energy'][-1]:.10f}")
+    if rel > 1e-10:
+        raise AssertionError(f"{label}: E_df disagrees with the plain Rayleigh quotient")
+    return dict(e_df=e_df, e_df_plain=e_ref, e_df_rel=rel,
+                replay_vs_eager=dict(replay=replay, eager=eager))
+
+
+def steps_in_turns(adapt, chunk, k, rounds, dev):
+    """Median host-clock ms per step of the eager step and of the chunk
+    (over K), in ``rounds`` rounds of eager, fused, fused, eager."""
+    import numpy as np
+    import torch
+
+    n = len(adapt.selected_indices)
+    step = adapt._build_step(tuple(adapt.selected_indices))
+    th = torch.full((n,), 0.05, dtype=adapt._rdt, device=dev)
+    opt = torch.optim.Adam([th], lr=1e-2)
+    calls = {"eager": lambda: [float(v) for v in step(th, opt)[2:]], "fused": chunk}
+    for fn in calls.values():
+        fn()
+    times = {side: [] for side in calls}
+    for _ in range(rounds):
+        for side in ("eager", "fused", "fused", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[side]()
+            torch.cuda.synchronize()
+            times[side].append(1e3 * (time.perf_counter() - t0) / (k if side == "fused" else 1))
+    return {side: float(np.median(v)) for side, v in times.items()}, times
+
+
+def profile_chunk(chunk):
+    """(device kernel ms, kernel launches, rows) of one replay of a chunk
+    (torch.profiler; the graph's kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chunk()
+        torch.cuda.synchronize()
+    rows = _device_kernels(prof)
+    return sum(r[2] for r in rows) / 1e3, sum(r[1] for r in rows), rows
+
+
+def rayleigh_plain_c128(adapt, psi):
+    """<psi|H|psi> / <psi|psi> of a state upcast to complex128, through the
+    plain H application on the card."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    p = psi.to(torch.complex128)
+    hp = adapt.problem.observables["H"].apply_scan(p, impl=K.PLAIN)
+    return float(torch.vdot(p, hp).real / torch.vdot(p, p).real)
+
+
+FUSED_KS = (1, 10, 100)
+FUSED_ROUNDS = (8, 4, 2)  # rounds of eager, fused, fused, eager at each K
+
+
+def phase_fused(dev, tmp):
+    """``FusedAdaptRunner`` on the 3x3 main path's 12-operator ansatz, on the
+    CUDA graph path: captures at K = 1, 10 and 100 (capture ms, graph-pool
+    memory, launches counted per capture: none at replay); two replays of
+    K = 10 against 20 eager steps (STEP_TOLERANCES); the float64 energy
+    against the plain complex128 Rayleigh quotient of the graph's final
+    state (1e-10 relative); ms per step in turns with the eager step, with
+    the idle share of a replay; then a short ``run()`` stopped after its
+    first chunk and resumed from the in-flight file."""
+    from qsfh_torch.algos.adapt_fused import FusedAdaptRunner
+
+    adapt = build_adapt(dev, tmp, "fused")
+    adapt.selected_indices = list(range(N_ANSATZ))
+    runner = FusedAdaptRunner(adapt, verbose=False)
+    out = dict(timing={})
+    chunks = capture_chunks(runner, adapt, FUSED_KS, dev, out)
+    launches = out["launches"]
+    per_step = {name: (launches[10][name] - launches[1][name]) // 9 for name in launches[1]}
+    for name, v in per_step.items():
+        if launches[100][name] - launches[10][name] != 90 * v:
+            raise AssertionError(f"{name}: graph nodes per step differ between K=10 and K=100")
+    if per_step["rotation_resident"] != 1 or per_step["adjoint_resident"] != 1:
+        raise AssertionError(f"a captured step holds {per_step} resident launches")
+    out["nodes_per_step"] = per_step
+    log(f"  cooperative launches captured: yes ({launches[1]['rotation_resident']} "
+        f"rotation_resident + {launches[1]['adjoint_resident']} adjoint_resident in the "
+        f"K=1 capture and its warm-up step); counted graph nodes per step: "
+        f"{{{', '.join(f'{a}: {b}' for a, b in per_step.items() if b)}}}")
+    out.update(check_replays(runner, adapt, chunks[10], 2, 10, dev, STEP_TOLERANCES, "fused 3x3"))
+
+    for k, rounds in zip(FUSED_KS, FUSED_ROUNDS):
+        med, times = steps_in_turns(adapt, chunks[k], k, rounds, dev)
+        busy, n_kernels, rows = profile_chunk(chunks[k])
+        idle = 1 - busy / (med["fused"] * k)
+        out["timing"][k] = dict(fused_ms_per_step=med["fused"], eager_ms_per_step=med["eager"],
+                                replay_device_ms=busy, kernel_launches=n_kernels, idle_share=idle,
+                                times=times, top=[dict(name=a, launches=b, device_ms=c / 1e3)
+                                                  for a, b, c in rows[:8]])
+        log(f"  K={k:3d}: fused {med['fused']:.4f} ms/step, eager {med['eager']:.4f} ms/step "
+            f"(host clock, median of {2 * rounds}, in turns); replay device kernel time "
+            f"{busy / k:.4f} ms/step, {n_kernels} kernels a replay, idle share {idle:.3f}")
+    t = out["timing"]
+    out["kernels_per_step"] = (t[100]["kernel_launches"] - t[10]["kernel_launches"]) / 90
+    log(f"  graph kernel nodes per step (all kernels, torch's included): "
+        f"{out['kernels_per_step']:.1f}")
+    out["replays"] = runner.replays
+    del chunks
+    out["resume"] = fused_resume(dev, tmp)
+    return out
+
+
+def fused_resume(dev, tmp):
+    """A 3x3 ``run()`` of one epoch (a selection from the empty ansatz, 2
+    chunks of K = 10) against the same run stopped after its first chunk
+    and resumed from the in-flight file in a fresh ADAPT: the same
+    selection, the resumed chunk within STEP_TOLERANCES of the run's."""
+    from qsfh_torch.algos.adapt_fused import FusedAdaptRunner
+
+    class Stop(Exception):
+        pass
+
+    class StopAfterFirst(FusedAdaptRunner):
+        def _save_inflight(self, *args, **kw):
+            super()._save_inflight(*args, **kw)
+            raise Stop
+
+    whole = build_adapt(dev, tmp, "fused_whole", max_inner_iterations=20)
+    FusedAdaptRunner(whole, chunk_iters=10, verbose=False).run()
+    cut = build_adapt(dev, tmp, "fused_cut", max_inner_iterations=20)
+    try:
+        StopAfterFirst(cut, chunk_iters=10, verbose=False).run()
+        raise AssertionError("the run did not stop after its first chunk")
+    except Stop:
+        pass
+    again = build_adapt(dev, tmp, "fused_cut", max_inner_iterations=20)
+    runner = FusedAdaptRunner(again, chunk_iters=10, verbose=False)
+    if runner.load_inflight() is None:
+        raise AssertionError("no in-flight file after the first chunk")
+    runner.run()
+    if again.selected_indices != whole.selected_indices:
+        raise AssertionError("the resumed run selected other operators")
+    ref = whole.results["iteration loss"][10:]
+    got = again.results["iteration loss"]
+    if len(got) != len(ref) or len(got) != 10:
+        raise AssertionError(f"resumed {len(got)} iterations, the run {len(ref)} after its "
+                             f"first chunk")
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if abs(a - b) > STEP_TOLERANCES[0][1] * abs(b):
+            raise AssertionError(f"resumed step {i + 11}: energy {a} vs {b}")
+    df, df_ref = again.results["epoch loss df"][-1], whole.results["epoch loss df"][-1]
+    log(f"  resume: {len(whole.selected_indices)} operators selected in both; the resumed "
+        f"chunk's energies within {STEP_TOLERANCES[0][1]:g} of the run's (last {got[-1]:.10f} "
+        f"vs {ref[-1]:.10f}); epoch E_df {df:.12f} vs {df_ref:.12f}")
+    return dict(selected=whole.selected_indices, losses=got, losses_ref=ref, e_df=df,
+                e_df_ref=df_ref)
+
+
+def phase_fused_24(adapt24, dev):
+    """``FusedAdaptRunner`` on the 2x6 main path's ansatz (first 6 pool
+    operators): captures of K = 1, 2 and 8 (graph nodes per step, pool
+    memory), one replay of K = 2 against 2 eager steps
+    (STEP_TOLERANCES_24), and ms per step at K = 2 and 8 in turns with the
+    eager step (a chunk adds one forward pass for the float64 energy and
+    Sz, S^2 once: K = 8 is the runner's default)."""
+    from qsfh_torch.algos.adapt_fused import FusedAdaptRunner
+
+    adapt24.selected_indices = list(range(N_ANSATZ_24))
+    runner = FusedAdaptRunner(adapt24, verbose=False)
+    out = dict(timing={})
+    chunks = capture_chunks(runner, adapt24, (1, 2, 8), dev, out)
+    out["nodes_per_step"] = {name: out["launches"][2][name] - out["launches"][1][name]
+                             for name in out["launches"][2]}
+    log(f"  counted graph nodes per step: "
+        f"{{{', '.join(f'{a}: {b}' for a, b in out['nodes_per_step'].items() if b)}}}")
+    del chunks[1]
+    out.update(check_replays(runner, adapt24, chunks[2], 1, 2, dev, STEP_TOLERANCES_24,
+                             "fused 2x6"))
+    for k in (2, 8):
+        med, times = steps_in_turns(adapt24, chunks[k], k, 2, dev)
+        out["timing"][k] = dict(fused_ms_per_step=med["fused"], eager_ms_per_step=med["eager"],
+                                times=times)
+        log(f"  K={k}: fused {med['fused']:.3f} ms/step, eager {med['eager']:.3f} ms/step (host "
+            f"clock, median of 4, in turns)")
+    return out
+
+
+def phase_ed():
+    """The port's exact diagonalization of the 3x3 4-state ground manifold on
+    the CPU (complex128): the energy within 1e-9 of the committed cache's,
+    the subspace fidelity tr(P_port P_cache) / 4 at least 1 - 1e-9."""
+    import numpy as np
+
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.io.checkpoint import load_ground_state
+    from qsfh_torch.linalg.lanczos import degenerate_ground_space
+
+    c = CONFIG
+    p = HubbardProblem(c["x_dimension"], c["y_dimension"], c["tunneling"], c["coulomb"],
+                       c["n_electrons"], c["n_spin_up"], c["n_spin_down"],
+                       results_root=tempfile.mkdtemp(prefix="qsfh_torch_ed_"))
+    t0 = time.perf_counter()
+    energy, states = degenerate_ground_space(p.qubit_hamiltonian, p.n_qubits, c["n_electrons"],
+                                             c["n_spin_up"], c["n_spin_down"], n_states=4)
+    seconds = time.perf_counter() - t0
+    e_cache, cached = load_ground_state(GROUND_STATE)
+    mine = np.stack([s.numpy() for s in states])
+    ref = np.stack(cached)
+    overlap = mine.conj() @ ref.T
+    fidelity = float(np.sum(np.abs(overlap) ** 2)) / len(cached)
+    log(f"  3x3 ED (CPU, complex128): {len(states)} states, E0 {energy:.15f} (cache "
+        f"{e_cache:.15f}, |diff| {abs(energy - E_EXACT):.2e}, tol 1e-9), subspace fidelity "
+        f"{fidelity:.15f} (tol 1 - 1e-9), {seconds:.2f} s")
+    if len(states) != 4 or abs(energy - E_EXACT) > 1e-9 or fidelity < 1 - 1e-9:
+        raise AssertionError("the port's 3x3 exact diagonalization disagrees with the cache")
+    return dict(energy=energy, fidelity=fidelity, seconds=seconds, n_states=len(states))
+
+
 # -- main ---------------------------------------------------------------------------------
 
 
@@ -2068,6 +2467,15 @@ def main():
     log("kernels off every path: xor_gather and the one-term rotation (CUDA events):")
     single = {n: phase_single(dev, n) for n in (18, 24)}
     out["single"] = single
+    log("the float64 Rayleigh readout on the main paths' states:")
+    f64 = phase_f64([("3x3", adapt, N_ANSATZ), ("2x6", adapt24, N_ANSATZ_24)], dev)
+    log("the fused runner at 3x3 (CUDA graphs of K train steps):")
+    fused = phase_fused(dev, tmp)
+    log("the fused runner at 2x6:")
+    fused24 = phase_fused_24(adapt24, dev)
+    log("exact diagonalization at 3x3 (the port's Lanczos, CPU):")
+    ed = phase_ed()
+    out.update(f64=f64, fused=fused, fused_24=fused24, ed=ed)
     if args.routes:
         log("routes, host clock, median (least) of 15 interleaved rounds:")
         adapt20 = build_adapt(dev, tmp, "routes20", CONFIG_20)
@@ -2194,6 +2602,25 @@ def main():
         index_select_split_18q=single[18]["xor_gather"]["library_split"],
         index_select_split_24q=head["library_split"],
     ))
+    f18, f24 = f64
+    captured = fused["launches"]
+    line.append(dict(
+        name="expectation_norm_f64", route="cuda", source=source,
+        replaces=REPLACES["expectation_norm_f64"],
+        launches=sum(captured[k]["expectation_norm_f64"] for k in captured),
+        replays=fused["replays"],
+        max_abs_err=max(f18["max_abs_err"], f24["max_abs_err"]), ms=f18["ms"],
+        plain_ms=f18["plain_ms"], bound_ms=f18["bound_ms"], bound_by=f18["bound_by"],
+        library_ms=None, call=f18["call"] + " (the fused 3x3 path: launches counted per capture "
+                                            "and warm-up step)",
+        rel_err=max(f18["rel_err"], f24["rel_err"]), ms_24q=f24["ms"], plain_ms_24q=f24["plain_ms"],
+        bound_ms_24q=f24["bound_ms"], bound_by_24q=f24["bound_by"],
+        launches_24q=sum(fused24["launches"][k]["expectation_norm_f64"]
+                         for k in fused24["launches"]),
+    ))
+    for entry in line:  # the kernels each captured train step holds, as graph nodes
+        entry["graph_nodes_per_fused_step"] = fused["nodes_per_step"][entry["name"]]
+        entry["graph_nodes_per_fused_step_24q"] = fused24["nodes_per_step"][entry["name"]]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,10 @@ network Fourier-transforms to real space.
 * Train step: forward (one rot segment: ansatz + network) -> energy ->
   cotangent lambda = 2 H psi -> adjoint gradients -> Sz, S^2, fidelity ->
   Adam update.  Gradients come from the reverse adjoint sweep, two live
-  statevectors.
+  statevectors.  The step is composed from :meth:`ADAPT._build_stages`,
+  the JAX ADAPT's ``raw_stages``, which the chunked runner
+  (:mod:`qsfh_torch.algos.adapt_fused`) composes K times into one CUDA
+  graph.
 
 The JAX driver's TPU-only options (``circuit_mode``, ``program_salt``,
 ``adjoint_threshold``) are gone; ``mesh_devices`` waits for the multi-GPU
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from ..engine.compiled import CompiledCircuit, givens_network_static_ops, run_rot_adjoint
+from ..engine.dfloat import expectation_norm_df
 from ..engine.expectation import PackedPool
 from ..engine.kernels import KERNELS
 from ..engine.state import basis_state, fidelity as state_fidelity, real_dtype, subspace_fidelity
@@ -213,12 +217,17 @@ class ADAPT:
 
     # -- training ------------------------------------------------------------------
 
-    def _build_step(self, indices):
-        """step(thetas, optimizer) -> (thetas, optimizer, E, Sz, S^2, fid, gnorm).
-
-        Updates ``thetas`` in place through ``optimizer`` (a
-        ``torch.optim.Adam`` over ``[thetas]``); the metrics are 0-d
-        tensors on the device.
+    def _build_stages(self, indices):
+        """The train step's stages for one ansatz shape, as functions on
+        device tensors (the JAX ADAPT's ``raw_stages``): ``fwd_from``
+        (psi0, thetas) -> psi; ``energy`` psi -> E; ``cotangent`` psi ->
+        lambda = 2 H psi; ``adjoint`` (psi, lambda, thetas) -> gradients;
+        ``metrics`` psi -> (Sz, S^2, fidelity); ``update`` (thetas, grads,
+        optimizer) -> (thetas, optimizer, gnorm), an Adam step in place;
+        the merged ``cot_e`` psi -> (lambda, E = 1/2 Re <psi|lambda>, no
+        separate H pass) and ``adj_upd`` (psi, lambda, thetas, optimizer)
+        -> ``update`` of the ``adjoint`` gradients; and ``energy_df`` psi
+        -> the float64 Rayleigh readout of H (:mod:`qsfh_torch.engine.dfloat`).
         """
         obs = self.problem.observables
         impl = self.impl
@@ -228,14 +237,21 @@ class ADAPT:
         )
         assert len(cc.segments) == 1 and cc.segments[0].kind == "rot"
         seg = cc.segments[0]
-        psi0 = self._initial_state()
         gs = self._gs
 
-        def step(thetas, optimizer):
-            psi = cc.apply(psi0, thetas, impl=impl)
-            energy = obs["H"].expectation_scan(psi, impl=impl)
-            lam = 2.0 * obs["H"].apply_scan(psi, impl=impl)
-            grads = run_rot_adjoint(seg, psi, lam, thetas, n, impl=impl)[2]
+        def fwd_from(psi0, thetas):
+            return cc.apply(psi0, thetas, impl=impl)
+
+        def energy(psi):
+            return obs["H"].expectation_scan(psi, impl=impl)
+
+        def cotangent(psi):
+            return 2.0 * obs["H"].apply_scan(psi, impl=impl)
+
+        def adjoint(psi, lam, thetas):
+            return run_rot_adjoint(seg, psi, lam, thetas, n, impl=impl)[2]
+
+        def metrics(psi):
             sz = obs["Sz"].expectation_scan(psi, impl=impl)
             s2 = obs["S^2"].expectation_scan(psi, impl=impl)
             if len(gs) > 1:
@@ -244,11 +260,49 @@ class ADAPT:
                 fid = state_fidelity(psi, gs[0])
             else:
                 fid = torch.zeros((), dtype=self._rdt, device=psi.device)
+            return sz, s2, fid
+
+        def update(thetas, grads, optimizer):
             gnorm = torch.linalg.vector_norm(grads)
             thetas.grad = grads
             optimizer.step()
+            return thetas, optimizer, gnorm
+
+        def cot_e(psi):
+            lam = cotangent(psi)
+            return lam, 0.5 * torch.vdot(psi, lam).real
+
+        def adj_upd(psi, lam, thetas, optimizer):
+            return update(thetas, adjoint(psi, lam, thetas), optimizer)
+
+        def energy_df(psi):
+            return expectation_norm_df(psi, n, obs["H"], impl=impl)
+
+        return dict(fwd_from=fwd_from, energy=energy, cotangent=cotangent, adjoint=adjoint,
+                    metrics=metrics, update=update, cot_e=cot_e, adj_upd=adj_upd,
+                    energy_df=energy_df)
+
+    def _build_step(self, indices):
+        """step(thetas, optimizer) -> (thetas, optimizer, E, Sz, S^2, fid, gnorm),
+        composed from :meth:`_build_stages` (``step.raw_stages``).
+
+        Updates ``thetas`` in place through ``optimizer`` (a
+        ``torch.optim.Adam`` over ``[thetas]``); the metrics are 0-d
+        tensors on the device.
+        """
+        raw = self._build_stages(indices)
+        psi0 = self._initial_state()
+
+        def step(thetas, optimizer):
+            psi = raw["fwd_from"](psi0, thetas)
+            energy = raw["energy"](psi)
+            lam = raw["cotangent"](psi)
+            grads = raw["adjoint"](psi, lam, thetas)
+            sz, s2, fid = raw["metrics"](psi)
+            thetas, optimizer, gnorm = raw["update"](thetas, grads, optimizer)
             return thetas, optimizer, energy, sz, s2, fid, gnorm
 
+        step.raw_stages = raw
         return step
 
     def run(self):

@@ -1,8 +1,9 @@
 """Shared driver infrastructure: problem setup, ground truth, device policy.
 
-Counterpart of ``qsfh_tpu/algos/base.py``.  Exact diagonalization is not
-ported yet: ``HubbardProblem.ground_state`` reads the npz cache that the
-JAX package writes (same path schema), or an explicit cache file.
+Counterpart of ``qsfh_tpu/algos/base.py``.  ``HubbardProblem.ground_state``
+reads the npz ground-state cache (the JAX package's path schema and file
+format, so either package reads what the other wrote) or computes it with
+the sector Lanczos solver on the CPU in complex128 and writes it.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from ..engine.circuits import get_non_interacting_ground_state_indices
 from ..engine.expectation import Observable
 from ..io import checkpoint as ckpt
+from ..linalg.lanczos import degenerate_ground_space, ground_state as lanczos_ground_state
 from ..ops.fourier import fourier_transform, fourier_transform_matrix
 from ..ops.givens import givens_decomposition_square
 from ..ops.jw import jordan_wigner
@@ -140,27 +142,47 @@ class HubbardProblem:
 
     # -- exact ground truth ----------------------------------------------------
 
-    def ground_state(self, degenerate: bool = False, n_states: int = 4, path: str = None):
+    def ground_state(self, degenerate: bool = False, n_states: int = 4, force: bool = False,
+                     path: str = None):
         """Cached exact ground state (energy, wavefunction or list of them).
 
         Reads ``path`` when given, else the cache under ``results_root``
-        (the JAX package's schema, ``deg{n}`` suffix for a degenerate
-        manifold).  Exact diagonalization itself is not ported yet, so a
-        missing cache raises.
+        (``deg{n}`` suffix for a degenerate manifold), else the same file
+        name in the shared directory ``QSFH_ED_CACHE_DIR`` (copied to the
+        per-root path); otherwise, or with ``force``, solves with the
+        sector Lanczos solver (:mod:`qsfh_torch.linalg.lanczos`, CPU,
+        complex128) and writes the per-root file and the shared one.
         """
         if path is None:
             path = self.ground_state_path()
             if degenerate:
                 path = path.replace(".npz", f" deg{n_states}.npz")
+
+        def done(energy, wfs):
+            return (energy, wfs) if degenerate else (energy, wfs[0])
+
         resolved = ckpt.resolve(path)
-        if not os.path.exists(resolved):
-            raise FileNotFoundError(
-                f"no cached ground state at {path!r}: exact diagonalization is "
-                "not ported to qsfh_torch yet; write the cache with the JAX "
-                "package (qsfh_tpu HubbardProblem.ground_state) or pass "
-                "ground_truth=False"
-            )
-        energy, wfs = ckpt.load_ground_state(resolved)
-        if degenerate and len(wfs) != n_states:
-            raise ValueError(f"{path!r} holds {len(wfs)} states, expected {n_states}")
-        return (energy, wfs) if degenerate else (energy, wfs[0])
+        if os.path.exists(resolved) and not force:
+            return done(*ckpt.load_ground_state(resolved))
+        # read-through shared cache: the config tag is the cache identity, so
+        # independent results_roots share one solve; the per-root copy is
+        # still written
+        shared_dir = os.environ.get("QSFH_ED_CACHE_DIR")
+        shared = os.path.join(shared_dir, os.path.basename(path)) if shared_dir else None
+        if shared and os.path.exists(shared) and not force:
+            energy, wfs = ckpt.load_ground_state(shared)
+            ckpt.save_ground_state(path, energy, wfs)
+            return done(energy, wfs)
+
+        args = (self.qubit_hamiltonian, self.n_qubits, self.n_electrons, self.n_spin_up,
+                self.n_spin_down)
+        if degenerate:
+            energy, states = degenerate_ground_space(*args, n_states=n_states)
+        else:
+            energy, wf = lanczos_ground_state(*args)
+            states = [wf]
+        wfs = [s.numpy() for s in states]
+        ckpt.save_ground_state(path, energy, wfs)
+        if shared:
+            ckpt.save_ground_state(shared, energy, wfs)
+        return done(energy, wfs)

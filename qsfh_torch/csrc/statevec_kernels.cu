@@ -1894,6 +1894,104 @@ inline cudaError_t resident_setup(bool adjoint, int n, int k, int c, int n_runs,
                  : allow_smem(rotation_resident_kernel, *smem);
 }
 
+// ---------------------------------------------------------------------------
+// expectation_norm_f64: E = sum_b sum_t c_t s_t(b) conj(psi[b]) psi[b ^ x_t]
+// (real part) and N = sum_b |psi[b]|^2 of a complex64 state, in float64.
+//
+// No TPU Pallas counterpart: the JAX package reads this energy with plain
+// jnp in double-float arithmetic (qsfh_tpu/engine/dfloat.py:173-243,
+// expectation_norm_df), pairs of float32 carried through error-free
+// transforms, because the TPU has no float64.  Hopper has native float64:
+// a product of two float32 values is exact in float64, so each
+// conj(psi[b]) psi[b ^ x] is formed exactly and the sums carry float64
+// rounding.  Terms come sorted by flip mask, one group per mask
+// (starts[g] .. starts[g + 1], mask xs[starts[g]]); each group's weight
+// w(b) = sum_t c_t s_t(b) is summed from float64 coefficients.  A simple
+// grid-stride loop, a thread per amplitude at a time; each block writes
+// its (E, N) partial, and one block sums the partials in a fixed order:
+// no float atomics, so two calls give the same bits.  Bound: one read of
+// the state (8 B an amplitude) against ~10 float64 flops per flip mask and
+// amplitude; at 18 qubits the state sits in L2 and the float64 rate binds.
+// ---------------------------------------------------------------------------
+constexpr int kF64Threads = 256;
+constexpr int kF64BlocksPerSm = 8;
+
+__device__ double2 warp_sum_f64(double2 v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, off);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, off);
+  }
+  return v;
+}
+
+// Sum over the block in a fixed order; the result is valid in thread 0.
+__device__ double2 block_sum_f64(double2 v) {
+  __shared__ double2 warp_part[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  v = warp_sum_f64(v);
+  if (lane == 0) warp_part[warp] = v;
+  __syncthreads();
+  const int n_warps = blockDim.x >> 5;
+  v = (threadIdx.x < n_warps) ? warp_part[lane] : make_double2(0.0, 0.0);
+  if (warp == 0) v = warp_sum_f64(v);
+  return v;
+}
+
+__global__ void __launch_bounds__(kF64Threads)
+expectation_norm_f64_kernel(const float2* __restrict__ psi, uint32_t dim, int n_groups,
+                            const int32_t* __restrict__ starts, const int32_t* __restrict__ xs,
+                            const int32_t* __restrict__ zs, const double* __restrict__ cre,
+                            const double* __restrict__ cim, double2* __restrict__ partials) {
+  double e = 0.0, norm = 0.0;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t b = blockIdx.x * blockDim.x + threadIdx.x; b < dim; b += stride) {
+    const float2 a = psi[b];
+    const double ar = a.x, ai = a.y;
+    norm += ar * ar + ai * ai;
+    for (int g = 0; g < n_groups; ++g) {
+      const int t0 = starts[g], t1 = starts[g + 1];
+      const float2 p = psi[b ^ static_cast<uint32_t>(xs[t0])];
+      const double pr = ar * p.x + ai * p.y;  // conj(a) * p
+      const double pi = ar * p.y - ai * p.x;
+      double wr = 0.0, wi = 0.0;
+      for (int t = t0; t < t1; ++t) {
+        const bool neg = __popc(b & static_cast<uint32_t>(zs[t])) & 1;
+        wr += neg ? -cre[t] : cre[t];
+        wi += neg ? -cim[t] : cim[t];
+      }
+      e += wr * pr - wi * pi;
+    }
+  }
+  const double2 sum = block_sum_f64(make_double2(e, norm));
+  if (threadIdx.x == 0) partials[blockIdx.x] = sum;
+}
+
+// out = [E, 0, N, 0] from the blocks' partials, summed in a fixed order.
+__global__ void __launch_bounds__(kF64Threads)
+sum_f64_partials_kernel(const double2* __restrict__ partials, int n_blocks,
+                        double* __restrict__ out) {
+  double2 acc = make_double2(0.0, 0.0);
+  for (int j = threadIdx.x; j < n_blocks; j += blockDim.x) {
+    acc.x += partials[j].x;
+    acc.y += partials[j].y;
+  }
+  acc = block_sum_f64(acc);
+  if (threadIdx.x == 0) {
+    out[0] = acc.x;
+    out[1] = 0.0;
+    out[2] = acc.y;
+    out[3] = 0.0;
+  }
+}
+
+inline int f64_blocks(int n) {
+  const unsigned blocks = blocks_for(1ull << n, kF64Threads);
+  const unsigned cap = static_cast<unsigned>(sm_count()) * kF64BlocksPerSm;
+  return static_cast<int>(blocks < cap ? blocks : cap);
+}
+
 }  // namespace
 
 extern "C" {
@@ -2296,6 +2394,35 @@ int qsfh_pauli_apply_grouped(const void* psi, void* out, int n, int k, int c, in
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);
+}
+
+// Blocks of an expectation_norm_f64 launch at n qubits (the length of its
+// double2 partials).
+int qsfh_f64_blocks(int n) {
+  if (n < 1 || n > 30) return 0;
+  return f64_blocks(n);
+}
+
+// out[4] = [E, 0, N, 0] in float64 (see expectation_norm_f64_kernel): the
+// terms sorted by flip mask, n_groups groups at offsets starts[0..n_groups]
+// (device int32), masks xs / zs (int32) and coefficients cre / cim
+// (float64) on the device; partials: qsfh_f64_blocks(n) double2 scratch.
+int qsfh_expectation_norm_f64(const void* psi, int n, int n_groups, const void* starts,
+                              const void* xs, const void* zs, const void* cre, const void* cim,
+                              void* partials, void* out, void* stream) {
+  if (n < 1 || n > 30 || n_groups < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = f64_blocks(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  expectation_norm_f64_kernel<<<grid, kF64Threads, 0, s>>>(
+      static_cast<const float2*>(psi), static_cast<uint32_t>(1ull << n), n_groups,
+      static_cast<const int32_t*>(starts), static_cast<const int32_t*>(xs),
+      static_cast<const int32_t*>(zs), static_cast<const double*>(cre),
+      static_cast<const double*>(cim), static_cast<double2*>(partials));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_f64_partials_kernel<<<1, kF64Threads, 0, s>>>(static_cast<const double2*>(partials), grid,
+                                                   static_cast<double*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -39,6 +39,9 @@ wrapper                  replaces (``qsfh_tpu/engine/pallas_kernels.py``)
 ``adjoint_tile_runs``    ``adjoint_stream_pallas`` (:2142, local :2032,
                          crossing :2095)
 ``xor_gather``           ``xor_gather_pallas`` (:378)
+``expectation_norm_f64`` no Pallas kernel: the float64 Rayleigh readout
+                         that ``qsfh_tpu/engine/dfloat.py`` computes in
+                         double-float jnp (``expectation_norm_df``)
 =======================  ==================================================
 
 The CUDA source is ``qsfh_torch/csrc/statevec_kernels.cu``.  It is built
@@ -54,7 +57,8 @@ launches: one per span for the two resident kernels (the 18-qubit
 rotations and adjoint sweep: one per call where every term fits a tile),
 one per term for the two per-term rotations, one per run for the two
 tile-run kernels, one per tile for ``pauli_apply_grouped``, one per call
-for ``xor_gather`` and ``pauli_rotation_out``, one per call (or per
+for ``xor_gather``, ``pauli_rotation_out`` and ``expectation_norm_f64``,
+one per call (or per
 scratch-sized chunk) for ``pauli_apply``, ``pauli_inner`` and the three
 inner-product tile wrappers (the partial-sum pass is not counted).  The
 ``*_plain`` functions compute the same thing from an index gather
@@ -190,6 +194,10 @@ def _load():
         lib.qsfh_pauli_rotation_out.argtypes = [p, p, i, p, i, p, i, p, f, p, f, p, f, p]
         lib.qsfh_pauli_rotation_out_values.restype = i
         lib.qsfh_pauli_rotation_out_values.argtypes = [p, p, i, i, i, f, f, f, p]
+        lib.qsfh_f64_blocks.restype = i
+        lib.qsfh_f64_blocks.argtypes = [i]
+        lib.qsfh_expectation_norm_f64.restype = i
+        lib.qsfh_expectation_norm_f64.argtypes = [p, i, i] + [p] * 8
         lib.qsfh_pauli_apply_grouped.restype = i
         lib.qsfh_pauli_apply_grouped.argtypes = [p, p, i, i, i, i] + [p] * 17 + [i, i, p]
         _lib = lib
@@ -812,6 +820,16 @@ def _check_group_tiles(xs, tiles, name: str):
             raise ValueError(f"{name}: a flip mask leaves its tile")
 
 
+def _spill_tensor(tiles, device) -> torch.Tensor:
+    """``tiles.spill_index`` on ``device``, built once beside the layout's
+    other tables (no host-to-device copy per call: a CUDA graph captures
+    the calls)."""
+    key = ("spill", str(device))
+    if key not in tiles._cache:
+        tiles._cache[key] = torch.as_tensor(tiles.spill_index, device=device)
+    return tiles._cache[key]
+
+
 _sms: dict = {}
 
 
@@ -877,7 +895,7 @@ def _inner_tiles(name, a, psi, xs, zs, tiles, mode, cre=None, cim=None):
     elif mode == _FOLD_EXPECTATION:
         out.zero_()
     if tiles.spill_index.size:
-        idx = torch.as_tensor(tiles.spill_index, device=psi.device)
+        idx = _spill_tensor(tiles, psi.device)
         v = pauli_inner(a, psi, xs[idx], zs[idx])
         if mode == _FOLD_V:
             out[idx] = v
@@ -1024,7 +1042,7 @@ def pauli_apply_grouped(psi, xs, zs, cre, cim, tiles):
     else:
         out.zero_()
     if tiles.spill_index.size:
-        idx = torch.as_tensor(tiles.spill_index, device=psi.device)
+        idx = _spill_tensor(tiles, psi.device)
         out += pauli_apply(psi, xs[idx], zs[idx], cre[idx], cim[idx])
     return out
 
@@ -1036,6 +1054,54 @@ def pauli_apply_grouped_plain(psi, xs, zs, cre, cim, tiles):
     return pauli_apply_plain(psi, xs, zs, cre, cim)
 
 
+# -- the float64 Rayleigh readout ---------------------------------------------------------
+
+
+@_counted
+def expectation_norm_f64(psi, xs, zs, cre, cim, starts):
+    """[E, 0, N, 0], a float64 (4,) tensor: E = sum_t Re(c_t <psi|P_t|psi>),
+    c_t = cre_t + i cim_t (float64), and N = <psi|psi>, of a complex64
+    state, every product formed exactly and every sum taken in float64.
+    The terms come sorted by flip mask: group g is terms starts[g] ..
+    starts[g + 1] - 1 (``starts``, int32 on psi's device), all of mask
+    xs[starts[g]].  One launch (and a fixed-order partial-sum pass, not
+    counted): two calls give the same bits.
+    """
+    if psi.device.type == "cpu":
+        return expectation_norm_f64_plain(psi, xs, zs, cre, cim, starts)
+    name = "expectation_norm_f64"
+    n = _n_qubits(psi, name)
+    T = xs.shape[0]
+    if starts.device != psi.device or starts.dim() != 1 or starts.shape[0] < 1:
+        raise ValueError(f"{name}: expected (groups + 1,) group offsets on {psi.device}")
+    args = _terms(psi, T, name, (xs, _MASK), (zs, _MASK), (cre, torch.float64),
+                  (cim, torch.float64))
+    starts = starts.to(torch.int32).contiguous()
+    lib = _load()
+    partials = torch.empty(2 * lib.qsfh_f64_blocks(n), dtype=torch.float64, device=psi.device)
+    out = torch.empty(4, dtype=torch.float64, device=psi.device)
+    rc = lib.qsfh_expectation_norm_f64(psi.data_ptr(), n, starts.shape[0] - 1, starts.data_ptr(),
+                                       *(a.data_ptr() for a in args), partials.data_ptr(),
+                                       out.data_ptr(), _stream())
+    _check(lib, rc, name)
+    expectation_norm_f64.launches += 1
+    return out
+
+
+def expectation_norm_f64_plain(psi, xs, zs, cre, cim, starts):
+    """Plain version of :func:`expectation_norm_f64` (any device): the
+    state's complex64 rounding (what the kernel reads; a complex128 state
+    is rounded first, as the JAX package's double-float readout rounds it
+    to float32 planes) upcast to complex128, then :func:`pauli_inner_plain`."""
+    if starts.shape[0] < 1 or starts.shape[0] - 1 > xs.shape[0]:
+        raise ValueError("expectation_norm_f64: bad group offsets")
+    p = psi.to(torch.complex64).to(torch.complex128)
+    v = pauli_inner_plain(p, p, xs.to(torch.int64), zs.to(torch.int64))
+    e = (torch.complex(cre.to(torch.float64), cim.to(torch.float64)) * v).real.sum()
+    zero = torch.zeros((), dtype=torch.float64, device=psi.device)
+    return torch.stack([e, zero, torch.vdot(p, p).real, zero])
+
+
 # -- dispatch -------------------------------------------------------------------------
 
 
@@ -1043,8 +1109,8 @@ def pauli_apply_grouped_plain(psi, xs, zs, cre, cim, tiles):
 class Impl:
     """The statevector primitives the engine calls: the per-term ones, the
     resident ones it takes up to the chain cap of ``streaming``, the
-    tile-run ones past it, and the tile ones of inner products and
-    applications."""
+    tile-run ones past it, the tile ones of inner products and
+    applications, and the float64 Rayleigh readout."""
 
     rotation: Callable
     apply: Callable
@@ -1057,22 +1123,23 @@ class Impl:
     apply_grouped: Callable
     expectation_grouped: Callable
     screen_grouped: Callable
+    expectation_norm_f64: Callable
 
 
 # the wrappers: CUDA kernels for CUDA tensors, plain versions for CPU tensors
 KERNELS = Impl(pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
                rotation_tile_runs, adjoint_tile_runs, rotation_resident, adjoint_resident,
-               pauli_apply_grouped, expectation_grouped, screen_grouped)
+               pauli_apply_grouped, expectation_grouped, screen_grouped, expectation_norm_f64)
 # the plain versions on any device (a reference path on the card)
 PLAIN = Impl(pauli_rotation_plain, pauli_apply_plain, pauli_inner_plain, adjoint_rotation_plain,
              rotation_tile_runs_plain, adjoint_tile_runs_plain, rotation_resident_plain,
              adjoint_resident_plain, pauli_apply_grouped_plain, expectation_grouped_plain,
-             screen_grouped_plain)
+             screen_grouped_plain, expectation_norm_f64_plain)
 
 WRAPPERS = (pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
             rotation_tile_runs, adjoint_tile_runs, pauli_inner_grouped, xor_gather,
             rotation_resident, adjoint_resident, pauli_apply_grouped, expectation_grouped,
-            screen_grouped, pauli_rotation_out)
+            screen_grouped, pauli_rotation_out, expectation_norm_f64)
 
 
 def launch_counts() -> dict:

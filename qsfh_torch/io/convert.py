@@ -6,7 +6,8 @@ when an optimizer state was saved, the leaves of an ``optax.adam`` state in
 ``jax.tree_util`` order: ``[count, mu, nu]``.  ``torch.optim.Adam`` keeps
 the same three quantities as ``step``, ``exp_avg`` and ``exp_avg_sq`` and
 applies the same update (b1=0.9, b2=0.999, eps=1e-8 outside the square
-root, bias-corrected), so the conversion is a relabelling.
+root, bias-corrected), so the conversion is a relabelling;
+:func:`to_jax_leaves` relabels back.
 """
 
 from __future__ import annotations
@@ -48,9 +49,30 @@ def from_jax(
 
 
 def load_adam_state(optimizer: torch.optim.Adam, param: torch.Tensor, state: dict) -> None:
-    """Install a converted Adam state for ``param`` in ``optimizer``."""
+    """Install a converted Adam state for ``param`` in ``optimizer``.  A
+    capturable optimizer (CUDA graphs) keeps ``step`` on the parameter's
+    device, as ``torch.optim.Adam`` does itself; otherwise it stays on the
+    CPU."""
+    capturable = any(g.get("capturable", False) for g in optimizer.param_groups)
+    step = state["step"].clone()
     optimizer.state[param] = {
-        "step": state["step"].clone(),
+        "step": step.to(param.device) if capturable else step,
         "exp_avg": state["exp_avg"].to(param).clone(),
         "exp_avg_sq": state["exp_avg_sq"].to(param).clone(),
     }
+
+
+def to_jax_leaves(optimizer: torch.optim.Adam, param: torch.Tensor) -> List[np.ndarray]:
+    """The inverse of the Adam part of :func:`from_jax`: ``param``'s state in
+    ``optimizer`` as the leaves of an ``optax.adam`` state, ``[count
+    (int32), mu, nu]`` (a fresh optimizer gives count 0 and zero moments,
+    as ``optax.adam(lr).init`` does)."""
+    state = optimizer.state.get(param)
+    if not state:
+        zeros = torch.zeros(param.shape, dtype=param.dtype).numpy()
+        return [np.asarray(0, dtype=np.int32), zeros, zeros.copy()]
+    return [
+        np.asarray(int(state["step"]), dtype=np.int32),
+        state["exp_avg"].detach().cpu().numpy().copy(),
+        state["exp_avg_sq"].detach().cpu().numpy().copy(),
+    ]

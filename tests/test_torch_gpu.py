@@ -10,6 +10,8 @@ Tolerance: ||kernel - plain|| / ||plain|| <= 1e-5 on states and on the
 per-term vectors, which is float32 rounding over differently ordered sums.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -561,3 +563,110 @@ def test_folded_expectation_between_resident_launches(dev):
         assert _rel(got, ref) <= RTOL
     assert int(K._fold_count(psi).item()) == 0
     assert int(K._barrier(psi).item()) & 0x7FFFFFFF == 0
+
+
+@pytest.mark.parametrize("n", [12, 18])
+def test_expectation_norm_f64(dev, n):
+    """The float64 Rayleigh readout against its plain version (the state
+    upcast to complex128) within 1e-12 relative; two calls, the same bits."""
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.engine.dfloat import combine_rayleigh, f64_terms
+
+    lattice = {12: (2, 3, 1, 4, 6, 3, 3), 18: (3, 3, 1, 6, 9, 5, 4)}[n]
+    obs = HubbardProblem(*lattice).observables["H"]
+    psi = _t(_state(np.random.default_rng(n), n), dev, torch.complex64)
+    terms = f64_terms(obs, dev)
+    K.reset_launch_counts()
+    got = K.expectation_norm_f64(psi, *terms)
+    again = K.expectation_norm_f64(psi, *terms)
+    ref = K.expectation_norm_f64_plain(psi, *terms)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["expectation_norm_f64"] == 2
+    assert torch.equal(got, again)
+    e, e_ref = combine_rayleigh(got.cpu().numpy()), combine_rayleigh(ref.cpu().numpy())
+    assert abs(e - e_ref) <= 1e-12 * abs(e_ref)
+    assert abs(float(got[2]) - float(ref[2])) <= 1e-12 * float(ref[2])
+    with pytest.raises(TypeError):
+        K.expectation_norm_f64(psi.to(torch.complex128), *terms)
+
+
+def _fused_adapt(dev, tmp_path):
+    from qsfh_torch.algos.adapt import ADAPT
+
+    a = ADAPT(n_epoch=1, threshold1=1e-3, threshold2=1e-6, x_dimension=2, y_dimension=3,
+              n_electrons=6, n_spin_up=3, n_spin_down=3, tunneling=1, coulomb=4, plot=False,
+              log_metrics=False, device=dev, results_root=str(tmp_path))
+    a.selected_indices = list(range(12))
+    return a
+
+
+def test_fused_chunk_replays_eager_steps(dev, tmp_path):
+    """Two replays of a captured 4-step chunk (2x3, complex64, the resident
+    kernels' cooperative launches inside the graph) against 8 eager steps:
+    energy and gnorm within 1e-4 relative, with no reference to theta, the
+    optimizer or the stages left outside the chunk and the free memory
+    released to the device; the float64 readout of the graph's final
+    state within 1e-10 of its plain complex128 Rayleigh quotient."""
+    from qsfh_torch.algos.adapt_fused import FusedAdaptRunner
+    from qsfh_torch.engine.dfloat import combine_rayleigh
+
+    a = _fused_adapt(dev, tmp_path)
+    th = torch.full((12,), 0.05, dtype=torch.float32, device=dev)
+    opt = torch.optim.Adam([th], lr=1e-2)
+    step = a._build_step(tuple(range(12)))
+    eager = [step(th, opt) for _ in range(8)]
+    eager = [(float(r[2]), float(r[6])) for r in eager]
+
+    runner = FusedAdaptRunner(a, chunk_iters=4, verbose=False)
+
+    def capture():  # theta, Adam and the stages live on only through the chunk
+        th2 = torch.full((12,), 0.05, dtype=torch.float32, device=dev)
+        return runner.build_chunk(th2, torch.optim.Adam([th2], lr=1e-2, capturable=True), 4)
+
+    chunk = capture()
+    gc.collect()
+    torch.cuda.empty_cache()  # memory nothing holds is released
+    # new tensors take any free block: a graph writing through a stale
+    # pointer would leave NaNs here or read them
+    fill = [torch.full((128,), float("nan"), device=dev) for _ in range(4096)]
+    K.reset_launch_counts()
+    res = [chunk(), chunk()]
+    assert sum(K.launch_counts().values()) == 0  # replays launch through the graph only
+    assert (runner.captures, runner.replays) == (1, 2)
+    fused = [(e, g) for r in res for e, g in zip(r["energy"], r["gnorm"])]
+    for (e, g), (e_ref, g_ref) in zip(fused, eager):
+        assert abs(e - e_ref) <= 1e-4 * abs(e_ref)
+        assert abs(g - g_ref) <= 1e-4 * abs(g_ref)
+    assert all(bool(t.isnan().all()) for t in fill)
+    ref = K.expectation_norm_f64_plain(runner.final_state, *_f64_terms(a, dev))
+    e_df = combine_rayleigh(res[-1]["df"])
+    assert abs(e_df - combine_rayleigh(ref.cpu().numpy())) <= 1e-10 * abs(e_df)
+
+
+def _f64_terms(a, dev):
+    from qsfh_torch.engine.dfloat import f64_terms
+
+    return f64_terms(a.problem.observables["H"], dev)
+
+
+def test_failed_capture_raises(dev, tmp_path, monkeypatch):
+    """A chunk that cannot be captured (a host read inside it) raises: no
+    eager fallback, no replay."""
+    from qsfh_torch.algos.adapt_fused import FusedAdaptRunner
+
+    a = _fused_adapt(dev, tmp_path)
+    build = a._build_stages
+
+    def stages_with_a_host_read(indices):
+        raw = build(indices)
+        energy = raw["energy"]
+        raw["energy"] = lambda psi: torch.tensor(float(energy(psi)), device=psi.device)
+        return raw
+
+    monkeypatch.setattr(a, "_build_stages", stages_with_a_host_read)
+    runner = FusedAdaptRunner(a, chunk_iters=2, verbose=False)
+    th = torch.zeros(12, dtype=torch.float32, device=dev)
+    with pytest.raises(RuntimeError):
+        runner.build_chunk(th, torch.optim.Adam([th], lr=1e-2, capturable=True), 2)
+    assert runner.replays == 0 and runner.captures == 0
+    torch.cuda.synchronize()

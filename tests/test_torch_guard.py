@@ -1,7 +1,8 @@
 """Guards of the port: no JAX, no ``qsfh_tpu``, the card by default.
 
-* ``import qsfh_torch.algos.adapt`` succeeds with ``jax`` blocked and loads
-  no ``qsfh_tpu`` module;
+* ``import qsfh_torch.algos.adapt`` (and ``adapt_fused``,
+  ``linalg.lanczos``) succeeds with ``jax`` blocked and loads no
+  ``qsfh_tpu`` module;
 * no module of ``qsfh_torch`` (nor ``chip_smoke.py``) imports jax, optax
   or qsfh_tpu;
 * ``ADAPT(...)`` with no device raises where CUDA is unavailable.
@@ -47,6 +48,7 @@ def test_port_imports_with_jax_blocked():
         "for m in ('jax', 'jaxlib', 'optax'):\n"
         "    sys.modules[m] = None\n"
         "import qsfh_torch.algos.adapt, qsfh_torch.io.convert, qsfh_torch.engine.kernels\n"
+        "import qsfh_torch.algos.adapt_fused, qsfh_torch.linalg.lanczos\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'qsfh_tpu')\n"
         "assert not bad, bad\n"
         "print('ok')\n"
