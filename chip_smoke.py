@@ -95,9 +95,28 @@ Phases (any failed check raises and the script exits nonzero):
 9. The port's exact diagonalization of the 3x3 4-state ground manifold on
    the CPU: energy within 1e-9 of the committed cache's, subspace
    fidelity at least 1 - 1e-9, and its seconds.
-10. A ``kernels`` JSON line (``expectation_norm_f64``'s launches counted
+10. The HVA driver (``qsfh_torch.algos.hva.HVA``), the reference's
+   ``hva_for_3x3.py`` experiment: 3x3, reps = 10 (1017 rotation terms, 71
+   parameters; 297 of the terms the trainable x = 0 Z/ZZ strings of the
+   Coulomb layers), complex64, the 4-state manifold from the committed
+   cache, theta ~ normal(0, 0.05) from ``default_rng(11)``: 5 train steps
+   with every launch counter set to 0 just before and read just after
+   each, held to the layouts (1 ``rotation_resident`` and 1
+   ``adjoint_resident``, one ``pauli_apply_grouped`` per tile of H, the
+   ``expectation_grouped`` launches of E, Sz and S^2, no per-term
+   kernel); the same steps on the plain versions (``STEP_TOLERANCES``)
+   and one step's gradients within 1e-4 of max |g|; a ``run()`` of 2
+   epochs resumed from its checkpoint to 3 against the same driver
+   carried on in process; the unrolled lowering (autograd through the
+   gates) against the split one at reps = 2 (energy 1e-5 relative,
+   gradients 1e-4 of max |g|); 2x6, reps = 2 (252 terms, 9 parameters,
+   ``ground_truth=False``): 2 steps on the tile runs, launches held to the
+   layouts, the first against one plain step, its gradients within 1e-4
+   of max |g|.
+11. A ``kernels`` JSON line (``expectation_norm_f64``'s launches counted
    per capture, its replays beside them; every kernel's graph nodes per
-   fused step), then the device JSON line, last.
+   fused step; its launches on the HVA path), then the device JSON line,
+   last.
 
 ``--compare PARENT`` runs both main paths (3x3 and 2x6 selection and
 train step, host clock and profile) of the port in the checkout PARENT
@@ -111,9 +130,10 @@ term, the tiles folded in torch, the folded tiles) on the pool, H, Sz
 (tilted) and S^2 and the two application kernels on H psi at each size
 (the tile kernel also without its diagonal), each with its device and
 host ms per call; ``--profile`` breaks a train step and a selection down
-by device kernel; ``--tiles`` times the resident kernels over other tile
-shapes on the 3x3 segment, the 24-qubit tile-run kernels over other tile
-sizes (k, c) on the 2x6 segment, the folded inner-product tiles over tile
+by device kernel (and the HVA train step at 3x3 and 2x6); ``--tiles``
+times the resident kernels over other tile shapes on the 3x3 segment,
+the 24-qubit tile-run kernels over other tile sizes (k, c) on the 2x6
+segment, the folded inner-product tiles over tile
 shapes and item caps on the pool, H, Sz and S^2 at 18 qubits and on the
 pool, H and S^2 at 24, and the application tile kernel over the same
 shapes on H psi at 18 and 24 qubits.
@@ -1927,17 +1947,36 @@ def profile_phase(adapt, n_ansatz, step_ms, select_ms, out, label):
     (torch.profiler); the idle share compares the device kernel time with
     the unprofiled host-clock time of the same work."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     step = adapt._build_step(tuple(range(n_ansatz)))
     optimizer = torch.optim.Adam([adapt.params_t], lr=1e-2)
     step(adapt.params_t, optimizer)
     torch.cuda.synchronize()
-    prof_out = out.setdefault("profile", {})
-    for what, reps, fn, ref_ms in (
+    profile_calls((
         ("train step", 2, lambda: step(adapt.params_t, optimizer), step_ms),
         ("selection", 1, lambda: adapt._screen_for(())(adapt.params_t[:0]), select_ms),
-    ):
+    ), out, label)
+
+
+def profile_hva(hva, step_ms, out, label):
+    """Device kernel time by name over 2 HVA train steps (as profile_phase)."""
+    import torch
+
+    th = hva_thetas(hva)
+    optimizer = torch.optim.Adam([th], lr=hva.lr)
+    hva._step(th, optimizer)
+    torch.cuda.synchronize()
+    profile_calls((("train step", 2, lambda: hva._step(th, optimizer), step_ms),), out, label)
+
+
+def profile_calls(calls, out, label):
+    """Profile each (what, reps, fn, unprofiled ms per call) of ``calls``:
+    device kernel time by name per call and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prof_out = out.setdefault("profile", {})
+    for what, reps, fn, ref_ms in calls:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -2407,6 +2446,338 @@ def phase_ed():
     return dict(energy=energy, fidelity=fidelity, seconds=seconds, n_states=len(states))
 
 
+# -- HVA: the second driver on the kernels --------------------------------------------------
+
+# the reference's hva_for_3x3.py experiment (benchmarks/demo_hva_3x3/run_3x3_hva.py): 1017
+# rotation terms, 71 parameters
+CONFIG_HVA = dict(
+    reps=10, lr=1e-2, x_dimension=3, y_dimension=3, n_electrons=9, n_spin_up=5, n_spin_down=4,
+    tunneling=1, coulomb=6, degenerate_subspace=4, ground_state_path=GROUND_STATE, plot=False,
+    log_metrics=False,
+)
+# 24 qubits: depth cut to 2 reps (252 terms, 9 parameters) and 2 steps for the time limit
+CONFIG_HVA_24 = dict(
+    reps=2, lr=1e-2, x_dimension=2, y_dimension=6, n_electrons=12, n_spin_up=6, n_spin_down=6,
+    tunneling=1, coulomb=6, ground_truth=False, plot=False, log_metrics=False,
+)
+HVA_SHAPES = {(3, 3, 10): (1017, 71), (3, 3, 2): (225, 15), (2, 6, 2): (252, 9)}
+HVA_STEPS_24 = 2
+# split vs unrolled energy at reps = 2, complex64 over two lowerings
+HVA_ENERGY_RTOL = 1e-5
+
+
+def build_hva(dev, tmp, name, config=CONFIG_HVA, **extra):
+    from qsfh_torch.algos.hva import HVA
+
+    config = dict(config, **extra)
+    t0 = time.time()
+    hva = HVA(n_epoch=1, results_root=os.path.join(tmp, name), device=dev, **config)
+    key = (config["x_dimension"], config["y_dimension"], config["reps"])
+    terms = sum(len(r) for r in hva._v_rot + hva._h_rot) * hva.reps + len(hva._u_rot) * (
+        hva.reps + 1)
+    log(f"HVA {key[0]}x{key[1]} reps={key[2]} ({name}, {hva.circuit_mode}) built in "
+        f"{time.time() - t0:.2f} s: {hva.n_qubits} qubits, {terms} rotation terms, "
+        f"{sum(hva.sizes)} parameters {hva.sizes}")
+    if (terms, sum(hva.sizes)) != HVA_SHAPES[key]:
+        raise AssertionError(f"HVA {key}: expected (terms, parameters) {HVA_SHAPES[key]}")
+    return hva
+
+
+def hva_thetas(hva):
+    """theta ~ normal(0, 0.05) from default_rng(11), flat [U | v | h], as
+    benchmarks/tpu_step_hva.py draws them: zero angles sit on symmetry
+    saddles."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(11)
+    return torch.tensor(rng.normal(0, 0.05, size=sum(hva.sizes)), dtype=hva._rdt,
+                        device=hva.device)
+
+
+def hva_expected(hva):
+    """(segment, launches per train step, runs) from the HVA segment's tile
+    layouts: the resident kernels up to the chain cap (one launch per span
+    of tile runs), the tile runs past it (one launch per run); H psi one
+    pauli_apply_grouped launch per tile; E, Sz, S^2 on the inner tiles."""
+    from qsfh_torch.algos.hva import hva_program_rot
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import streaming
+    from qsfh_torch.engine.compiled import CompiledCircuit
+
+    n = hva.n_qubits
+    seg = CompiledCircuit(hva_program_rot(hva.reps, hva._v_rot, hva._h_rot, hva._u_rot),
+                          n).segments[0]
+    resident = n <= streaming.CHAIN_MAX_QUBITS
+    if resident:
+        k, c = streaming.RESIDENT_TILE_BITS, streaming.RESIDENT_TILE_LOW_BITS
+    else:
+        k, c = streaming.TILE_BITS, streaming.TILE_LOW_BITS
+    fwd, adj = seg.tiles(1, n, k, c), seg.tiles(-1, n, k, c)
+    obs = hva.problem.observables
+    h = obs["H"].groups()
+    expect = [obs[key].inner_groups() for key in ("H", "Sz", "S^2")]
+    per_step = dict.fromkeys(K.launch_counts(), 0)
+    if resident:
+        per_step.update(rotation_resident=sum(t is not None for t, _, _ in fwd.spans),
+                        adjoint_resident=sum(t is not None for t, _, _ in adj.spans))
+    else:
+        per_step.update(rotation_tile_runs=fwd.n_runs, adjoint_tile_runs=adj.n_runs)
+    per_step.update(pauli_rotation=fwd.n_single, adjoint_rotation=adj.n_single,
+                    pauli_apply=int(bool(h.spill_index.size)), pauli_apply_grouped=h.n_tiles,
+                    expectation_grouped=sum(inner_launches(t, n) for t in expect),
+                    pauli_inner=sum(bool(t.spill_index.size) for t in expect))
+    runs = dict(forward=fwd.n_runs, adjoint=adj.n_runs, terms=len(seg),
+                x0_terms=int((seg.data["xb"] == 0).sum()))
+    return seg, per_step, runs
+
+
+def hva_steps(hva, n_steps, label, per_step=None):
+    """``n_steps`` train steps from hva_thetas(), every launch counter set to
+    0 just before and read just after each, held to ``per_step`` where
+    given; per-step metrics and the summed counts."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    th = hva_thetas(hva)
+    optimizer = torch.optim.Adam([th], lr=hva.lr)
+    rows, total = [], dict.fromkeys(K.launch_counts(), 0)
+    for i in range(n_steps):
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, e, sz, s2, fid, gnorm = hva._step(th, optimizer)
+        e, sz, s2, fid, gnorm = map(float, (e, sz, s2, fid, gnorm))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = K.launch_counts()
+        if per_step is not None and counts != per_step:
+            raise AssertionError(f"{label} step {i + 1}: launches {counts}, the layouts "
+                                 f"predict {per_step}")
+        total = {k: total[k] + v for k, v in counts.items()}
+        rows.append(dict(step=i + 1, energy=e, Sz=sz, S2=s2, fidelity=fid, gnorm=gnorm, ms=ms))
+    return rows, total
+
+
+def hva_grads(hva, impl):
+    """(E, gradients) of the split stages built on ``impl`` at hva_thetas()."""
+    saved = hva.impl
+    hva.impl = impl
+    try:
+        raw = hva._build_stages()
+    finally:
+        hva.impl = saved
+    th = hva_thetas(hva)
+    psi = raw["fwd"](th)
+    return float(raw["energy"](psi)), raw["adjoint"](psi, raw["cotangent"](psi), th)
+
+
+def check_grads(g, g_ref, n_u, label):
+    """Gradients within GRAD_RTOL of max |g|; logs the Coulomb angles' (the
+    trainable x = 0 terms')."""
+    tol = GRAD_RTOL * float(g_ref.abs().max())
+    diff = float((g - g_ref).abs().max())
+    diff_u = float((g[:n_u] - g_ref[:n_u]).abs().max())
+    log(f"  [{label}] gradients: max |kernel - plain| = {diff:.3e} (tol {tol:.3e}); the "
+        f"{n_u} Coulomb angles (x = 0 terms): max |diff| {diff_u:.3e}, |g_U| "
+        f"{float(g_ref[:n_u].abs().min()):.3e}..{float(g_ref[:n_u].abs().max()):.3e}")
+    if diff > tol:
+        raise AssertionError(f"{label}: the kernels' HVA gradients disagree with the plain "
+                             "path's")
+    return diff
+
+
+def hva_kernel_times(hva):
+    """The rotation and adjoint kernels of the HVA path on its own segment,
+    state (psi at hva_thetas()) and lambda = 2 H psi: the resident kernels
+    at 18 qubits (:func:`resident_checks`: against the plain versions, on
+    fewer blocks, twice), the tile runs past the chain cap (the engine's
+    walk of the layout, one launch per run), each against its plain
+    version, timed with CUDA events beside its bound."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import streaming
+    from qsfh_torch.engine.compiled import adjoint_sweep, rotate_segment
+
+    n, dim = hva.n_qubits, 1 << hva.n_qubits
+    seg = hva_expected(hva)[0]
+    th = hva_thetas(hva)
+    d = seg.tensors(hva.device, hva._rdt, th.shape[0])
+    angles = torch.cat([th, th.new_ones(1)])[d["pidx"]] * d["scale"]
+    rot = (d["xb"], d["zb"], angles, d["phre"], d["phim"])
+    adj = tuple(a.flip(0) for a in rot)
+    raw = hva._step.raw_stages
+    psi = raw["fwd"](th)
+    lam = raw["cotangent"](psi)
+    results = {}
+    record = recorder(results, n)
+    if n <= streaming.CHAIN_MAX_QUBITS:
+        resident_checks(seg, n, [("HVA forward", 1, rot)], adj, psi, lam, record)
+        return results
+    T, term_bytes = len(seg), 20 * len(seg)
+    got = rotate_segment(seg, psi.clone(), rot, n, 1, K.KERNELS)
+    ref = rotate_segment(seg, psi.clone(), rot, n, 1, K.PLAIN)
+    buf = psi.clone()
+    ms = time_cuda(lambda: rotate_segment(seg, buf, rot, n, 1, K.KERNELS), reps=10)
+    plain_ms = timed_once(lambda: rotate_segment(seg, buf, rot, n, 1, K.PLAIN))[0]
+    record("rotation_tile_runs", "HVA forward (24 qubits)", T, 2 * 8 * dim + term_bytes,
+           [(rel_err(got, ref), max_abs(got, ref))], ms, plain_ms)
+
+    def sweep(impl):
+        p, l = psi.clone(), lam.clone()
+        return adjoint_sweep(seg, p, l, adj, n, impl), p, l
+
+    got, ref = sweep(K.KERNELS), sweep(K.PLAIN)
+    ms = time_cuda(lambda: sweep(K.KERNELS), reps=5)
+    plain_ms = timed_once(lambda: sweep(K.PLAIN))[0]
+    record("adjoint_tile_runs", "HVA gradient sweep (24 qubits)", T,
+           4 * 8 * dim + term_bytes + 8 * T,
+           [(rel_err(a, b), max_abs(a, b)) for a, b in zip(got, ref)], ms, plain_ms)
+    return results
+
+
+def plain_hva_steps(hva, n_steps, label):
+    """The same steps on the plain versions (no kernel may launch)."""
+    from qsfh_torch.engine import kernels as K
+
+    hva.impl = K.PLAIN
+    hva._step = hva._build_step()
+    try:
+        rows, counts = hva_steps(hva, n_steps, label)
+    finally:
+        hva.impl = K.KERNELS
+        hva._step = hva._build_step()
+    if any(counts.values()):
+        raise AssertionError(f"{label}: the plain path launched a CUDA kernel: {counts}")
+    return rows
+
+
+def phase_hva(dev, tmp):
+    """The HVA driver on the card: 3x3 reps = 10 (resident kernels, 5 steps
+    against the plain path, gradients, launches, a run() stopped and
+    resumed), the reps = 2 unrolled cross-check, and 2x6 reps = 2 (tile
+    runs, one step against the plain path)."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    res = {}
+    hva = build_hva(dev, tmp, "hva")
+    if hva.dtype != torch.complex64:
+        raise AssertionError(f"expected complex64 on cuda, got {hva.dtype}")
+    _, per_step, runs = hva_expected(hva)
+    if (per_step["rotation_resident"], per_step["adjoint_resident"]) != (1, 1) or \
+            per_step["pauli_rotation"] or per_step["adjoint_rotation"]:
+        raise AssertionError(f"a 3x3 HVA term fits no resident tile: {per_step}")
+    n_u = hva.sizes[0]
+    res["steps"], steps_counts = hva_steps(hva, N_STEPS, "hva kernels", per_step)
+    check_steps(res["steps"], CONFIG_HVA["n_spin_up"], CONFIG_HVA["n_spin_down"], "hva kernels")
+    log(f"  launches per step match the layouts: 1 rotation_resident ({runs['forward']} runs) + "
+        f"1 adjoint_resident ({runs['adjoint']} runs) over {runs['terms']} terms "
+        f"({runs['x0_terms']} of them x = 0, trainable), {per_step['pauli_apply_grouped']} "
+        f"pauli_apply_grouped (one per tile of H), {per_step['expectation_grouped']} "
+        f"expectation_grouped (E, Sz, S^2), {per_step['pauli_apply']} pauli_apply, "
+        f"{per_step['pauli_inner']} pauli_inner, no per-term rotation")
+    e_k, g = hva_grads(hva, K.KERNELS)
+    res["plain_steps"] = plain_hva_steps(hva, N_STEPS, "hva plain")
+    check_steps(res["plain_steps"], CONFIG_HVA["n_spin_up"], CONFIG_HVA["n_spin_down"],
+                "hva plain")
+    compare_steps(res["steps"], res["plain_steps"], STEP_TOLERANCES)
+    e_p, g_ref = hva_grads(hva, K.PLAIN)
+    res["grad_max_abs_diff"] = check_grads(g, g_ref, n_u, "3x3 reps=10")
+    res.update(launches_per_step=per_step, runs=runs, step_ms=median_ms(res["steps"]),
+               plain_step_ms=median_ms(res["plain_steps"]))
+    log("  the resident kernels on the HVA segment (CUDA events, ms per call):")
+    res["kernels"] = hva_kernel_times(hva)
+    log(f"  3x3 HVA step {res['step_ms']:.3f} ms host clock (median of steps 2-{N_STEPS}), "
+        f"plain versions {res['plain_step_ms']:.1f} ms")
+
+    # a short run(): 2 epochs and a checkpoint, resumed from it to 3, against
+    # the same driver carried on in process (its live Adam)
+    run_a = build_hva(dev, tmp, "hva_run")
+    run_a.n_epoch = 2
+    run_a.params_t = hva_thetas(run_a)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_a.run()
+    torch.cuda.synchronize()
+    res["run_s"] = time.perf_counter() - t0
+    run_counts = K.launch_counts()
+    if not os.path.exists(run_a.model_filepath):
+        raise AssertionError("HVA run() wrote no checkpoint")
+    run_b = build_hva(dev, tmp, "hva_run", load_model=True)
+    run_b.n_epoch = 3
+    run_a.n_epoch = 3
+    K.reset_launch_counts()
+    resumed = run_b.run()["loss"]
+    straight = run_a.run()["loss"]
+    run_counts = {k: v + K.launch_counts()[k] for k, v in run_counts.items()}
+    want = {k: 4 * v for k, v in per_step.items()}  # 2 + 1 + 1 steps
+    if run_counts != want:
+        raise AssertionError(f"HVA run(): launches {run_counts}, 4 steps predict {want}")
+    diff = max(abs(a - b) for a, b in zip(resumed, straight))
+    log(f"  run(): losses {straight} in process, {resumed} resumed from the checkpoint "
+        f"(max |diff| {diff:.3e}); {res['run_s']:.2f} s for 2 epochs")
+    if len(straight) != 3 or len(resumed) != 3 or not all(map(math.isfinite, straight)) or \
+            diff > 1e-6 * max(abs(v) for v in straight):
+        raise AssertionError("the resumed HVA run() disagrees with the run carried on")
+    res["launches"] = {k: steps_counts[k] + run_counts[k] for k in steps_counts}
+    res["run_losses"] = straight
+    del run_a, run_b
+
+    # the unrolled cross-check at reps = 2 (autograd keeps every gate's state)
+    split2 = build_hva(dev, tmp, "hva_r2", reps=2)
+    unrolled2 = build_hva(dev, tmp, "hva_r2u", reps=2, circuit_mode="unrolled")
+    e_s, g_s = hva_grads(split2, K.KERNELS)
+    th = hva_thetas(unrolled2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms_first, out = timed_once(lambda: unrolled2._step(th, torch.optim.Adam([th], lr=1e-2)))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    e_u = float(out[2])
+    again = hva_thetas(unrolled2)  # a second call: the first pays one-time set-up
+    ms, _ = timed_once(lambda: unrolled2._step(again, torch.optim.Adam([again], lr=1e-2)))
+    diff_e = abs(e_u - e_s) / abs(e_s)
+    g_diff = float((th.grad - g_s).abs().max())
+    log(f"  unrolled cross-check (3x3 reps=2): E split {e_s:.7f} unrolled {e_u:.7f} (rel "
+        f"{diff_e:.2e}, tol {HVA_ENERGY_RTOL:g}); gradients max |diff| {g_diff:.3e} (tol "
+        f"{GRAD_RTOL * float(g_s.abs().max()):.3e}); unrolled step {ms:.1f} ms (first call "
+        f"{ms_first:.1f}), {peak:.0f} MiB of autograd memory")
+    if diff_e > HVA_ENERGY_RTOL or g_diff > GRAD_RTOL * float(g_s.abs().max()):
+        raise AssertionError("the unrolled HVA lowering disagrees with the split lowering")
+    res["unrolled"] = dict(energy_rel_err=diff_e, grad_max_abs_diff=g_diff, ms=ms,
+                           first_ms=ms_first, autograd_mib=peak)
+    del split2, unrolled2, out
+
+    # 24 qubits: the tile runs on the same driver
+    hva24 = build_hva(dev, tmp, "hva24", CONFIG_HVA_24)
+    _, per_step24, runs24 = hva_expected(hva24)
+    if per_step24["pauli_rotation"] or per_step24["adjoint_rotation"] or \
+            per_step24["rotation_resident"]:
+        raise AssertionError(f"a 2x6 HVA term fits no tile: {per_step24}")
+    rows24, counts24 = hva_steps(hva24, HVA_STEPS_24, "hva 24q kernels", per_step24)
+    check_steps(rows24, 6, 6, "hva 24q kernels", e_floor=None)
+    _, g24 = hva_grads(hva24, K.KERNELS)
+    plain24 = plain_hva_steps(hva24, 1, "hva 24q plain")
+    check_steps(plain24, 6, 6, "hva 24q plain", e_floor=None)
+    compare_steps(rows24[:1], plain24, STEP_TOLERANCES_24)
+    _, g24_ref = hva_grads(hva24, K.PLAIN)
+    check_grads(g24, g24_ref, hva24.sizes[0], "2x6 reps=2")
+    log(f"  2x6 HVA: {runs24['forward']} forward and {runs24['adjoint']} adjoint tile runs per "
+        f"step ({runs24['x0_terms']} x = 0 terms), {per_step24['pauli_apply_grouped']} "
+        f"pauli_apply_grouped, {per_step24['expectation_grouped']} expectation_grouped; step "
+        f"{rows24[-1]['ms']:.2f} ms host clock (step {HVA_STEPS_24}), plain "
+        f"{plain24[0]['ms']:.0f} ms")
+    log("  the tile-run kernels on the 2x6 HVA segment (CUDA events, ms per call):")
+    res["hva_24"] = dict(steps=rows24, plain_steps=plain24, launches=counts24,
+                         launches_per_step=per_step24, runs=runs24, step_ms=rows24[-1]["ms"],
+                         kernels=hva_kernel_times(hva24))
+    return res, hva, hva24
+
+
 # -- main ---------------------------------------------------------------------------------
 
 
@@ -2473,6 +2844,9 @@ def main():
     fused = phase_fused(dev, tmp)
     log("the fused runner at 2x6:")
     fused24 = phase_fused_24(adapt24, dev)
+    log("the HVA driver (3x3 reps=10, the reps=2 unrolled cross-check, 2x6 reps=2):")
+    hva_res, hva, hva24 = phase_hva(dev, tmp)
+    out["hva"] = hva_res
     log("exact diagonalization at 3x3 (the port's Lanczos, CPU):")
     ed = phase_ed()
     out.update(f64=f64, fused=fused, fused_24=fused24, ed=ed)
@@ -2488,6 +2862,8 @@ def main():
         profile_phase(adapt, N_ANSATZ, out["step_ms_median"], main["select_ms"], out, "3x3")
         profile_phase(adapt24, N_ANSATZ_24, out["step_ms_median_24"], main24["select_ms"], out,
                       "2x6")
+        profile_hva(hva, hva_res["step_ms"], out, "3x3 HVA")
+        profile_hva(hva24, hva_res["hva_24"]["step_ms"], out, "2x6 HVA")
     if args.compare:
         log(f"the parent's port ({args.compare}) against this one, in turns:")
         phase_compare(args.compare, dev, tmp, out)
@@ -2621,6 +2997,16 @@ def main():
     for entry in line:  # the kernels each captured train step holds, as graph nodes
         entry["graph_nodes_per_fused_step"] = fused["nodes_per_step"][entry["name"]]
         entry["graph_nodes_per_fused_step_24q"] = fused24["nodes_per_step"][entry["name"]]
+        # the HVA path: 3x3 reps = 10 (5 steps and a run() of 4), 2x6 reps = 2 (2 steps)
+        entry["launches_hva"] = hva_res["launches"][entry["name"]]
+        entry["launches_per_hva_step"] = hva_res["launches_per_step"][entry["name"]]
+        entry["launches_hva_24q"] = hva_res["hva_24"]["launches"][entry["name"]]
+        for suffix, kern_hva in (("hva", hva_res["kernels"]),
+                                 ("hva_24q", hva_res["hva_24"]["kernels"])):
+            head = kern_hva.get(entry["name"], [None])[0]  # the HVA segment's call
+            if head is not None:
+                entry.update({f"{key}_{suffix}": head[key] for key in
+                              ("ms", "plain_ms", "bound_ms", "max_abs_err")})
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,16 @@ network Fourier-transforms to real space.
   (:mod:`qsfh_torch.algos.adapt_fused`) composes K times into one CUDA
   graph.
 
-The JAX driver's TPU-only options (``circuit_mode``, ``program_salt``,
-``adjoint_threshold``) are gone; ``mesh_devices`` waits for the multi-GPU
-port.  Entry points run on ``cuda`` unless ``device`` says otherwise.
+``circuit_mode="unrolled"`` is the cross-check lowering of the JAX driver
+(``qsfh_tpu/algos/adapt.py:537-556``): the same step on the gates of
+:mod:`qsfh_torch.engine.gates`, its gradients from the gate-level adjoint
+(:func:`qsfh_torch.grad.adjoint.adjoint_apply`) at or above
+``adjoint_threshold`` qubits and from autograd below it; it checks that
+the kernels' adjoint sweep equals autodiff.  The default ("auto" picks
+"split") is the kernel route above.  The JAX driver's ``program_salt`` (a
+TPU compile-cache workaround) is gone; ``mesh_devices`` waits for the
+multi-GPU port.  Entry points run on ``cuda`` unless ``device`` says
+otherwise.
 """
 
 from __future__ import annotations
@@ -29,17 +36,20 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..engine.circuits import apply_givens_network
 from ..engine.compiled import CompiledCircuit, givens_network_static_ops, run_rot_adjoint
 from ..engine.dfloat import expectation_norm_df
-from ..engine.expectation import PackedPool
+from ..engine.expectation import PackedPool, expectation_value
+from ..engine.gates import generator_rotation
 from ..engine.kernels import KERNELS
-from ..engine.state import basis_state, fidelity as state_fidelity, real_dtype, subspace_fidelity
+from ..engine.state import basis_state, ground_fidelity, real_dtype
+from ..grad.adjoint import adjoint_apply, givens_network_ops
 from ..io import checkpoint as ckpt
 from ..io.metrics import MetricsLogger, plot_energy_iterations
 from ..ops.jw import jordan_wigner
 from ..ops.pool import hubbard_interaction_pool_simplified
 from ..utils.profiling import PhaseTimer
-from .base import HubbardProblem, default_dtype, resolve_device
+from .base import HubbardProblem, adam_step, default_dtype, resolve_device
 
 
 class ADAPT:
@@ -71,10 +81,17 @@ class ADAPT:
         ground_truth: bool = True,
         device=None,
         ground_state_path: Optional[str] = None,
+        adjoint_threshold: Optional[int] = None,
+        circuit_mode: str = "auto",
     ):
         """``device``: ``cuda`` by default (raises where none exists).
         ``ground_state_path``: an explicit ground-state cache file instead
-        of the one under ``results_root``."""
+        of the one under ``results_root``.  ``circuit_mode``: "split" (the
+        default; "auto" picks it) or "unrolled", the cross-check lowering,
+        which takes its gradients from the gate-level adjoint from
+        ``adjoint_threshold`` qubits on (default 0 on the CPU, where the
+        adjoint is faster at every size, else 20, the reference's
+        crossover) and from autograd below."""
         self.n_epoch = n_epoch
         self.threshold1 = threshold1
         self.threshold2 = threshold2
@@ -84,6 +101,17 @@ class ADAPT:
         self.plot = plot
         self.device = resolve_device(device)
         self.dtype = dtype or default_dtype(self.device)
+        if circuit_mode == "auto":
+            circuit_mode = "split"
+        if circuit_mode not in ("split", "unrolled"):
+            raise ValueError(
+                f"circuit_mode={circuit_mode!r}: use 'split' (default) or "
+                "'unrolled' (cross-check lowering)"
+            )
+        self.circuit_mode = circuit_mode
+        if adjoint_threshold is None:
+            adjoint_threshold = 0 if self.device.type == "cpu" else 20
+        self.adjoint_threshold = adjoint_threshold
         # the kernel wrappers; a reference run on the card may set
         # engine.kernels.PLAIN before the first selection or step
         self.impl = KERNELS
@@ -165,6 +193,19 @@ class ADAPT:
 
     def _ansatz_ops(self, indices):
         return [("rot", tuple(self.pool_rot[i]), slot) for slot, i in enumerate(indices)]
+
+    def _ansatz_k(self, thetas, indices) -> torch.Tensor:
+        """k-space ansatz on the gates: exp(-i theta_i G_i) over the
+        selected pool operators."""
+        psi = self._initial_state()
+        for slot, idx in enumerate(indices):
+            psi = generator_rotation(psi, self.n_qubits, self.pool_rot[idx], thetas[slot])
+        return psi
+
+    def _to_real(self, psi_k) -> torch.Tensor:
+        """The Givens network on the gates (no global phase: the JAX form)."""
+        return apply_givens_network(psi_k, self.n_qubits, self.problem.diagonal,
+                                    self.problem.decomposition)
 
     def state(self, thetas=None) -> torch.Tensor:
         """Real-space ansatz state."""
@@ -254,19 +295,9 @@ class ADAPT:
         def metrics(psi):
             sz = obs["Sz"].expectation_scan(psi, impl=impl)
             s2 = obs["S^2"].expectation_scan(psi, impl=impl)
-            if len(gs) > 1:
-                fid = subspace_fidelity(psi, gs)
-            elif len(gs) == 1:
-                fid = state_fidelity(psi, gs[0])
-            else:
-                fid = torch.zeros((), dtype=self._rdt, device=psi.device)
-            return sz, s2, fid
+            return sz, s2, ground_fidelity(psi, gs)
 
-        def update(thetas, grads, optimizer):
-            gnorm = torch.linalg.vector_norm(grads)
-            thetas.grad = grads
-            optimizer.step()
-            return thetas, optimizer, gnorm
+        update = adam_step
 
         def cot_e(psi):
             lam = cotangent(psi)
@@ -284,12 +315,15 @@ class ADAPT:
 
     def _build_step(self, indices):
         """step(thetas, optimizer) -> (thetas, optimizer, E, Sz, S^2, fid, gnorm),
-        composed from :meth:`_build_stages` (``step.raw_stages``).
+        composed from :meth:`_build_stages` (``step.raw_stages``), or the
+        unrolled cross-check step (:meth:`_build_step_unrolled`).
 
         Updates ``thetas`` in place through ``optimizer`` (a
         ``torch.optim.Adam`` over ``[thetas]``); the metrics are 0-d
         tensors on the device.
         """
+        if self.circuit_mode == "unrolled":
+            return self._build_step_unrolled(indices)
         raw = self._build_stages(indices)
         psi0 = self._initial_state()
 
@@ -303,6 +337,39 @@ class ADAPT:
             return thetas, optimizer, energy, sz, s2, fid, gnorm
 
         step.raw_stages = raw
+        return step
+
+    def _build_step_unrolled(self, indices):
+        """The cross-check step on the gates: from ``adjoint_threshold``
+        qubits on, the ansatz and the Givens network as one program under
+        :func:`adjoint_apply` and the energy with its analytic cotangent;
+        below it, autograd through :meth:`_ansatz_k` and :meth:`_to_real`.
+        Sz, S^2 in the plain unrolled forms."""
+        obs = self.problem.observables
+        n = self.n_qubits
+        if n >= self.adjoint_threshold:
+            ops = tuple(self._ansatz_ops(indices)
+                        + givens_network_ops(n, self.problem.diagonal, self.problem.decomposition))
+
+            def loss_fn(thetas):
+                psi = adjoint_apply(n, ops, self._initial_state(), thetas)
+                return expectation_value(obs["H"], psi), psi
+        else:
+
+            def loss_fn(thetas):
+                psi = self._to_real(self._ansatz_k(thetas, indices))
+                return obs["H"].expectation(psi), psi
+
+        def step(thetas, optimizer):
+            th = thetas.detach().requires_grad_(True)
+            energy, psi = loss_fn(th)
+            (grads,) = torch.autograd.grad(energy, th)
+            psi = psi.detach()
+            sz, s2 = obs["Sz"].expectation(psi), obs["S^2"].expectation(psi)
+            fid = ground_fidelity(psi, self._gs)
+            thetas, optimizer, gnorm = adam_step(thetas, grads, optimizer)
+            return thetas, optimizer, energy.detach(), sz, s2, fid, gnorm
+
         return step
 
     def run(self):

@@ -13,11 +13,12 @@ import os
 import torch
 
 from ..engine.circuits import get_non_interacting_ground_state_indices
-from ..engine.expectation import Observable
+from ..engine.expectation import Observable, diagonal_weight_vector
 from ..io import checkpoint as ckpt
 from ..linalg.lanczos import degenerate_ground_space, ground_state as lanczos_ground_state
 from ..ops.fourier import fourier_transform, fourier_transform_matrix
 from ..ops.givens import givens_decomposition_square
+from ..ops.hva import get_hva_commuting_hopping_terms
 from ..ops.jw import jordan_wigner
 from ..ops.lattice import (
     fermi_hubbard,
@@ -38,6 +39,15 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def adam_step(thetas, grads, optimizer):
+    """One step of ``optimizer`` (a ``torch.optim.Adam`` over ``[thetas]``)
+    on ``grads``, ``thetas`` updated in place: (thetas, optimizer, gnorm)."""
+    gnorm = torch.linalg.vector_norm(grads)
+    thetas.grad = grads
+    optimizer.step()
+    return thetas, optimizer, gnorm
 
 
 def default_dtype(device) -> torch.dtype:
@@ -186,3 +196,22 @@ class HubbardProblem:
         if shared:
             ckpt.save_ground_state(shared, energy, wfs)
         return done(energy, wfs)
+
+    # -- HVA structure ------------------------------------------------------------
+
+    def hva_generators(self):
+        """(horizontal, vertical) JW generators of the HVA's hopping classes."""
+        h, v = get_hva_commuting_hopping_terms(self.x_dimension, self.y_dimension, self.periodic)
+        return [jordan_wigner(g) for g in h], [jordan_wigner(g) for g in v]
+
+    def coulomb_diagonal(self, dtype=torch.float64, device="cpu") -> torch.Tensor:
+        """The diagonal of JW(U term) on ``device``: the whole Coulomb
+        Trotter layer is one elementwise pass.  The identity component is
+        subtracted, as ``rotation_terms()`` drops it (the reference's
+        Trotterize skips identity terms, ``hva.py:90-91``), so the diagonal
+        and the rotation forms of the layer agree exactly, global phase
+        included."""
+        ujw = jordan_wigner(self.interacting_term)
+        shift = ujw.constant().real
+        D = diagonal_weight_vector(ujw, self.n_qubits, dtype=torch.float64, device=device)
+        return (D - shift).to(dtype)

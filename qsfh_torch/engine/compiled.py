@@ -1,11 +1,16 @@
-"""Circuits lowered to homogeneous Pauli-rotation segments.
+"""Circuits lowered to homogeneous segments.
 
-Counterpart of ``qsfh_tpu/engine/compiled.py`` for ``rot`` segments: a
-gate program of ("rot", rot_terms, param_idx) ops becomes one segment of
-per-term arrays (flip mask, phase mask, scale, parameter index, string
-phase), rotated forward and backward, and swept in reverse by the adjoint
-for gradients.  Static-angle terms carry parameter index -1, which selects
-an appended constant 1.0.
+Counterpart of ``qsfh_tpu/engine/compiled.py`` for ``rot``, ``diag`` and
+``rzlayer`` segments.  Consecutive ("rot", rot_terms, param_idx) ops
+become one segment of per-term arrays (flip mask, phase mask, scale,
+parameter index, string phase), rotated forward and backward, and swept in
+reverse by the adjoint for gradients.  Static-angle terms carry parameter
+index -1, which selects an appended constant 1.0.  A ("diag", weights, k)
+op (exp(-i theta_k D), D a real 2^n vector: the HVA Coulomb layer) and a
+("fixed", "rzlayer" | "rz", angles) op (a layer of static RZ gates) are
+one elementwise phase pass each, as ``qsfh_tpu/engine/compiled.py:
+232-248, 580-588`` computes them outside Pallas; the inverse negates the
+angle.  The ``u4`` and ``x`` fixed ops (the HEA circuits) are not ported.
 
 A segment is walked as the order-preserving tile runs of
 ``streaming.TileLayout``: runs of terms whose flip masks all lie in one
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from . import streaming
+from .gates import static_rz_layer_phases
 from .kernels import KERNELS, TILE_MIN_BITS
 from .state import qmask_to_bmask, real_dtype
 
@@ -127,38 +133,67 @@ class Segment:
         return self._cache[key]
 
 
-def lower_program(ops: Sequence[tuple], n: int) -> List[Segment]:
-    """Group a gate program into homogeneous segments (``rot`` ops only)."""
+def _rot_segment(buf, n: int) -> Segment:
     xs, zs, scales, pidx, phre, phim = [], [], [], [], [], []
+    for (x, z, scale, k) in buf:
+        xs.append(qmask_to_bmask(x, n))
+        zs.append(qmask_to_bmask(z, n))
+        scales.append(scale)
+        pidx.append(k)
+        ph = (-1j) ** (bin(x & z).count("1") % 4)
+        phre.append(ph.real)
+        phim.append(ph.imag)
+    return Segment(
+        "rot",
+        dict(
+            xb=np.asarray(xs, np.uint32),
+            zb=np.asarray(zs, np.uint32),
+            scale=np.asarray(scales, np.float64),
+            pidx=np.asarray(pidx, np.int32),
+            phre=np.asarray(phre, np.float64),
+            phim=np.asarray(phim, np.float64),
+        ),
+    )
+
+
+def lower_program(ops: Sequence[tuple], n: int) -> List[Segment]:
+    """Group a gate program into homogeneous segments: runs of ``rot`` ops
+    into one ``rot`` segment each, every ``diag`` op and every ``rzlayer``
+    or ``rz`` fixed op into a phase segment of its own."""
+    segments: List[Segment] = []
+    rot_buf: List[tuple] = []
+
+    def flush_rot():
+        if rot_buf:
+            segments.append(_rot_segment(rot_buf, n))
+            rot_buf.clear()
+
     for op in ops:
-        if op[0] != "rot":
+        if op[0] == "rot":
+            _, rot_terms, k = op
+            rot_buf.extend((x, z, scale, k) for (x, z, scale) in rot_terms)
+        elif op[0] == "diag":
+            flush_rot()
+            _, weights, k = op
+            segments.append(Segment("diag", (weights, int(k))))
+        elif op[0] == "fixed" and op[1] in ("rzlayer", "rz"):
+            flush_rot()
+            if op[1] == "rz":
+                phi, q = op[2]
+                angles = [0.0] * n
+                angles[q] = float(phi)
+            else:
+                angles = [float(a) for a in op[2]]
+            segments.append(Segment("rzlayer", tuple(angles)))
+        elif op[0] == "fixed":
             raise NotImplementedError(
-                f"op kind {op[0]!r} is not ported yet (only 'rot' segments are)"
+                f"fixed op {op[1]!r} is not ported yet: the u4 segment comes with HEA "
+                "(ROADMAP.md, module item 6)"
             )
-        _, rot_terms, k = op
-        for (x, z, scale) in rot_terms:
-            xs.append(qmask_to_bmask(x, n))
-            zs.append(qmask_to_bmask(z, n))
-            scales.append(scale)
-            pidx.append(k)
-            ph = (-1j) ** (bin(x & z).count("1") % 4)
-            phre.append(ph.real)
-            phim.append(ph.imag)
-    if not xs:
-        return []
-    return [
-        Segment(
-            "rot",
-            dict(
-                xb=np.asarray(xs, np.uint32),
-                zb=np.asarray(zs, np.uint32),
-                scale=np.asarray(scales, np.float64),
-                pidx=np.asarray(pidx, np.int32),
-                phre=np.asarray(phre, np.float64),
-                phim=np.asarray(phim, np.float64),
-            ),
-        )
-    ]
+        else:
+            raise ValueError(f"unknown op {op[0]!r}")
+    flush_rot()
+    return segments
 
 
 # -- execution -------------------------------------------------------------------------
@@ -222,6 +257,25 @@ def adjoint_sweep(seg: Segment, psi, lam, arrs, n, impl=None):
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
+def _phase_pass(seg: Segment, out, thetas, n, direction: int):
+    """A ``diag`` or ``rzlayer`` segment on ``out``, IN PLACE: exp(-i
+    theta_k D) or the static RZ layer's phases, each angle times
+    ``direction``."""
+    rdt = real_dtype(out.dtype)
+    if seg.kind == "diag":
+        weights, k = seg.data
+        key = (str(out.device), rdt)
+        if key not in seg._cache:
+            seg._cache[key] = torch.as_tensor(weights).to(device=out.device, dtype=rdt)
+        theta_d = (thetas[k].to(rdt) * direction) * seg._cache[key]
+        return out.mul_(torch.complex(torch.cos(theta_d), -torch.sin(theta_d)))
+    key = (str(out.device), out.dtype, direction)
+    if key not in seg._cache:
+        phases = static_rz_layer_phases([direction * a for a in seg.data], n)
+        seg._cache[key] = torch.as_tensor(phases).to(device=out.device, dtype=out.dtype)
+    return out.mul_(seg._cache[key])
+
+
 def run_segments(segments, psi, thetas, n, direction: int = 1, impl=None):
     """Execute the program (direction=-1: exact inverse, reversed order).
 
@@ -232,6 +286,9 @@ def run_segments(segments, psi, thetas, n, direction: int = 1, impl=None):
     out = psi.clone()
     seq = segments if direction == 1 else list(reversed(segments))
     for seg in seq:
+        if seg.kind != "rot":
+            _phase_pass(seg, out, thetas, n, direction)
+            continue
         d = seg.tensors(psi.device, rdt, thetas.shape[0])
         angles = thetas_ext[d["pidx"]] * d["scale"] * direction
         arrs = (d["xb"], d["zb"], angles, d["phre"], d["phim"])
@@ -262,7 +319,7 @@ def run_rot_adjoint(segment: Segment, psi_final, lam, thetas, n, impl=None):
 
 
 class CompiledCircuit:
-    """ops -> rot segments, applied forward or inverted."""
+    """ops -> segments, applied forward or inverted."""
 
     def __init__(self, ops: Sequence[tuple], n_qubits: int, global_phase: complex = 1.0):
         self.n = n_qubits

@@ -40,7 +40,7 @@ import torch
 from ..ops.pauli import PauliSum
 from . import streaming
 from .kernels import INNER_TILE_MIN_BITS, KERNELS
-from .state import qmask_to_bmask, real_dtype
+from .state import index_bits, parity_signs, qmask_to_bmask, real_dtype
 
 
 def _apply(impl, owner, psi, xs, zs, c):
@@ -82,6 +82,90 @@ def _device_terms(cache: dict, arrays, psi: torch.Tensor):
     return cache[key]
 
 
+def group_by_x(op: PauliSum) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+    """x mask -> (z masks, packed coefficients), qubit-indexed, in order
+    of first appearance."""
+    groups: Dict[int, Tuple[list, list]] = defaultdict(lambda: ([], []))
+    for x, z, c in zip(op.x, op.z, op.c):
+        g = groups[int(x)]
+        g[0].append(int(z))
+        g[1].append(complex(c))
+    return {x: (np.array(zs, dtype=np.uint64), np.array(cs, dtype=np.complex128))
+            for x, (zs, cs) in groups.items()}
+
+
+def _group_weight(n: int, zs, cs, dtype, device) -> torch.Tensor:
+    """w[b] = sum_j cs[j] (-1)^popcount(b & zb_j), zs qubit-indexed."""
+    idx = index_bits(n, device)
+    w = torch.zeros(1 << n, dtype=dtype, device=device)
+    for z, c in zip(zs, cs):
+        zb = qmask_to_bmask(int(z), n)
+        if zb:
+            w = w + complex(c) * parity_signs(idx, zb, real_dtype(dtype)).to(dtype)
+        else:
+            w = w + complex(c)
+    return w
+
+
+def _reordered(x: int, zs, cs) -> np.ndarray:
+    """cs with the (-1)^popcount(z & x) sign of moving Z^z past X^x."""
+    return cs * np.array([(-1.0) ** bin(int(z) & x).count("1") for z in zs])
+
+
+def diagonal_weight_vector(op: PauliSum, n: int, dtype=torch.float64,
+                           device="cpu") -> torch.Tensor:
+    """D[b] with (op_diag psi)[b] = D[b] psi[b] for the x = 0 part of a
+    Hermitian op (real), accumulated in complex128."""
+    groups = group_by_x(op)
+    if 0 not in groups:
+        return torch.zeros(1 << n, dtype=dtype, device=device)
+    w = _group_weight(n, *groups[0], torch.complex128, device)
+    return w.real.to(dtype)
+
+
+def apply_paulisum(psi: torch.Tensor, n: int, op: PauliSum, groups=None) -> torch.Tensor:
+    """op|psi>, one flip per distinct x mask."""
+    groups = group_by_x(op) if groups is None else groups
+    out = torch.zeros_like(psi)
+    for x, (zs, cs) in groups.items():
+        # (c X^x Z^z psi)[b] = c (-1)^{|z&x|} (-1)^{z.b} psi[b^x]
+        w = _group_weight(n, zs, _reordered(x, zs, cs), psi.dtype, psi.device)
+        out = out + w * (psi if x == 0 else psi[index_bits(n, psi.device) ^ qmask_to_bmask(x, n)])
+    return out
+
+
+def expectation(psi: torch.Tensor, n: int, op: PauliSum, groups=None) -> torch.Tensor:
+    """Re <psi|op|psi> (op Hermitian)."""
+    groups = group_by_x(op) if groups is None else groups
+    total = torch.zeros((), dtype=real_dtype(psi.dtype), device=psi.device)
+    conj = psi.conj()
+    for x, (zs, cs) in groups.items():
+        w = _group_weight(n, zs, _reordered(x, zs, cs), psi.dtype, psi.device)
+        flipped = psi if x == 0 else psi[index_bits(n, psi.device) ^ qmask_to_bmask(x, n)]
+        total = total + (w * conj * flipped).sum().real
+    return total
+
+
+class _ExpectationValue(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, psi, obs):
+        ctx.obs = obs
+        ctx.save_for_backward(psi)
+        return obs.expectation(psi)
+
+    @staticmethod
+    def backward(ctx, cbar):
+        (psi,) = ctx.saved_tensors
+        # torch's gradient of a real loss by a complex state is 2 dL/dpsi*
+        return 2.0 * cbar * ctx.obs.apply(psi), None
+
+
+def expectation_value(obs: "Observable", psi: torch.Tensor) -> torch.Tensor:
+    """Re <psi|H|psi> whose backward is the analytic cotangent 2 c_bar H psi:
+    autograd keeps psi alone, not one intermediate per flip mask."""
+    return _ExpectationValue.apply(psi, obs)
+
+
 class Observable:
     """A Pauli sum prepared for repeated evaluation on statevectors."""
 
@@ -89,6 +173,21 @@ class Observable:
         self.op = op
         self.n = n_qubits
         self._tensor_cache = {}
+
+    @property
+    def x_groups(self):
+        """The op's terms by flip mask (:func:`group_by_x`), built once."""
+        if "x_groups" not in self._tensor_cache:
+            self._tensor_cache["x_groups"] = group_by_x(self.op)
+        return self._tensor_cache["x_groups"]
+
+    def expectation(self, psi: torch.Tensor) -> torch.Tensor:
+        """Re <psi|op|psi>, the plain unrolled form (differentiable)."""
+        return expectation(psi, self.n, self.op, self.x_groups)
+
+    def apply(self, psi: torch.Tensor) -> torch.Tensor:
+        """op|psi>, the plain unrolled form (differentiable)."""
+        return apply_paulisum(psi, self.n, self.op, self.x_groups)
 
     def _scan_terms(self):
         """Flat per-term arrays (xb, zb, c_re, c_im) with the reorder sign."""

@@ -74,6 +74,17 @@ def fidelity(psi: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
     return torch.abs(torch.vdot(psi, phi)) ** 2
 
 
+def ground_fidelity(psi: torch.Tensor, states) -> torch.Tensor:
+    """Fidelity to the exact ground truth ``states`` (a list): the projection
+    onto the span of a degenerate manifold, |<phi|psi>|^2 for one state, 0
+    (a 0-d tensor) for none."""
+    if len(states) > 1:
+        return subspace_fidelity(psi, states)
+    if states:
+        return fidelity(psi, states[0])
+    return torch.zeros((), dtype=real_dtype(psi.dtype), device=psi.device)
+
+
 def subspace_fidelity(psi: torch.Tensor, basis_states) -> torch.Tensor:
     """Projection fidelity onto the span of orthonormal states
     (the degenerate 3x3 ground manifold)."""

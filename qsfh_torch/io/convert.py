@@ -1,4 +1,4 @@
-"""Carry ADAPT weights and Adam state from the JAX package to the port.
+"""Carry ADAPT and HVA weights and Adam state between the JAX package and the port.
 
 A JAX ADAPT checkpoint (``qsfh_tpu.io.checkpoint.save_model``) holds
 ``param__t`` (angles), ``param__selected_indices`` (pool positions) and,
@@ -8,6 +8,15 @@ the same three quantities as ``step``, ``exp_avg`` and ``exp_avg_sq`` and
 applies the same update (b1=0.9, b2=0.999, eps=1e-8 outside the square
 root, bias-corrected), so the conversion is a relabelling;
 :func:`to_jax_leaves` relabels back.
+
+A JAX HVA checkpoint holds ``param__theta_U``, ``param__theta_v`` and
+``param__theta_h``; the port keeps one flat tensor [theta_U | theta_v |
+theta_h] (:data:`HVA_KEYS`) under one ``torch.optim.Adam``, which is
+elementwise and so equals ``optax.adam`` over the dict.  The optax leaves
+of the dict come in ``jax.tree_util`` order: ``count``, then ``mu`` and
+``nu`` each over the keys SORTED (``theta_U``, ``theta_h``, ``theta_v``:
+upper case sorts first), not in the flat order; :func:`hva_from_jax` and
+:func:`hva_to_jax_leaves` reorder.
 """
 
 from __future__ import annotations
@@ -76,3 +85,59 @@ def to_jax_leaves(optimizer: torch.optim.Adam, param: torch.Tensor) -> List[np.n
         state["exp_avg"].detach().cpu().numpy().copy(),
         state["exp_avg_sq"].detach().cpu().numpy().copy(),
     ]
+
+
+# the flat order of the port's HVA parameters, and the optax leaf order
+HVA_KEYS = ("theta_U", "theta_v", "theta_h")
+_HVA_TREE_ORDER = tuple(sorted(HVA_KEYS))
+
+
+def hva_from_jax(
+    params: Dict[str, np.ndarray],
+    opt_leaves: Optional[List[np.ndarray]] = None,
+    device="cpu",
+    dtype=torch.float64,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """(flat thetas, adam_state) from the arrays of a JAX HVA checkpoint;
+    ``adam_state`` as in :func:`from_jax` (None without leaves)."""
+    parts = {k: np.asarray(params[k]).ravel() for k in HVA_KEYS}
+    flat = torch.tensor(np.concatenate([parts[k] for k in HVA_KEYS]), device=device,
+                        dtype=dtype)
+    if opt_leaves is None:
+        return flat, None
+    if len(opt_leaves) != 1 + 2 * len(HVA_KEYS):
+        raise ValueError(f"expected optax.adam leaves [count, mu x 3, nu x 3] of an HVA "
+                         f"dict, got {len(opt_leaves)}")
+    count = opt_leaves[0]
+    mu = dict(zip(_HVA_TREE_ORDER, opt_leaves[1:4]))
+    nu = dict(zip(_HVA_TREE_ORDER, opt_leaves[4:7]))
+    for k in HVA_KEYS:
+        if np.shape(mu[k]) != parts[k].shape or np.shape(nu[k]) != parts[k].shape:
+            raise ValueError(f"Adam moments of {k} do not match its parameter shape")
+
+    def flat_of(moments):
+        return torch.tensor(np.concatenate([np.asarray(moments[k]) for k in HVA_KEYS]),
+                            device=device, dtype=dtype)
+
+    state = {"step": torch.tensor(float(np.asarray(count))), "exp_avg": flat_of(mu),
+             "exp_avg_sq": flat_of(nu)}
+    return flat, state
+
+
+def hva_split(flat, sizes) -> Dict[str, np.ndarray]:
+    """A flat [theta_U | theta_v | theta_h] tensor or array as the JAX dict,
+    ``sizes`` the three lengths."""
+    flat = flat.detach().cpu().numpy() if torch.is_tensor(flat) else np.asarray(flat)
+    bounds = np.cumsum((0,) + tuple(sizes))
+    if bounds[-1] != flat.shape[0]:
+        raise ValueError(f"{flat.shape[0]} parameters, expected {bounds[-1]}")
+    return {k: flat[bounds[i]:bounds[i + 1]].copy() for i, k in enumerate(HVA_KEYS)}
+
+
+def hva_to_jax_leaves(optimizer: torch.optim.Adam, param: torch.Tensor,
+                      sizes) -> List[np.ndarray]:
+    """The inverse of the Adam part of :func:`hva_from_jax`: the optax leaves
+    ``[count, mu_U, mu_h, mu_v, nu_U, nu_h, nu_v]`` of ``param``'s state."""
+    count, mu, nu = to_jax_leaves(optimizer, param)
+    mu, nu = hva_split(mu, sizes), hva_split(nu, sizes)
+    return [count] + [mu[k] for k in _HVA_TREE_ORDER] + [nu[k] for k in _HVA_TREE_ORDER]

@@ -63,6 +63,36 @@ def _tofloat(v):
     return v
 
 
+def plot_energy_fidelity(
+    img_path: str,
+    losses,
+    fidelities,
+    ground_energy: float,
+    label: str = "VQE",
+    xlabel: str = "epochs",
+):
+    """Dual-pane energy-vs-ED / fidelity figure (reference hva.py:338-352)."""
+    if not HAVE_MPL:
+        return
+    os.makedirs(os.path.dirname(img_path) or ".", exist_ok=True)
+    fig = plt.figure(figsize=(12, 6))
+    ax1 = fig.add_subplot(1, 2, 1)
+    ax2 = fig.add_subplot(1, 2, 2)
+    xs = np.arange(len(losses)) + 1
+    ax1.plot(xs, losses, marker="X", color="r", label=label)
+    ax1.plot(xs, np.full(len(losses), ground_energy), ls="-", color="g", label="ED")
+    ax1.set_xlabel(xlabel)
+    ax1.set_ylabel("energy")
+    ax1.legend()
+    ax1.grid()
+    ax2.plot(np.arange(len(fidelities)) + 1, fidelities, marker="X", ls=":", color="coral")
+    ax2.set_xlabel(xlabel)
+    ax2.set_ylabel("fidelity")
+    ax2.grid()
+    fig.savefig(img_path)
+    plt.close(fig)
+
+
 def plot_energy_iterations(
     img_path: str,
     iteration_losses,

@@ -78,8 +78,10 @@ def test_rot_adjoint_matches(n):
 
 
 def test_lower_program_rejects_unported_kinds():
-    with pytest.raises(NotImplementedError):
-        tc.lower_program([("fixed", "rz", (0.1, 0))], 4)
+    # rz / rzlayer and diag are ported; the HEA fixed ops are not yet
+    for op in (("fixed", "u4", (tuple([1.0] * 16), 0, 1)), ("fixed", "x", (0,))):
+        with pytest.raises(NotImplementedError):
+            tc.lower_program([op], 4)
 
 
 @pytest.fixture(scope="module")

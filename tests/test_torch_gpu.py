@@ -670,3 +670,52 @@ def test_failed_capture_raises(dev, tmp_path, monkeypatch):
         runner.build_chunk(th, torch.optim.Adam([th], lr=1e-2, capturable=True), 2)
     assert runner.replays == 0 and runner.captures == 0
     torch.cuda.synchronize()
+
+
+# (lattice, (Lx, Ly, electrons, up, down)): the 3x3 HVA at 18 qubits (the
+# resident kernels) and the 2x6 HVA at 24 (the tile runs)
+HVA_LATTICES = {"3x3": (3, 3, 9, 5, 4), "2x6": (2, 6, 12, 6, 6)}
+
+
+@pytest.mark.parametrize("lattice", sorted(HVA_LATTICES))
+def test_hva_adjoint_with_trainable_diagonal_terms(dev, lattice):
+    """The HVA segment (reps = 2: Coulomb layers of x = 0 Z/ZZ terms sharing
+    one trainable angle each) through the kernels' adjoint sweep against
+    the plain sweep: gradients within 1e-4 of max |g|, the Coulomb angles'
+    gradients nonzero, psi and lambda within 1e-5, and the launches one
+    resident adjoint (18 qubits) or one tile-run adjoint per run (24)."""
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.algos.hva import hva_program_rot
+    from qsfh_torch.engine import streaming
+    from qsfh_torch.engine.compiled import CompiledCircuit, run_rot_adjoint
+    from qsfh_torch.ops.jw import jordan_wigner
+
+    x, y, ne, up, down = HVA_LATTICES[lattice]
+    p = HubbardProblem(x, y, 1, 6, ne, up, down)
+    n, reps = p.n_qubits, 2
+    h_gen, v_gen = p.hva_generators()
+    u_rot = jordan_wigner(p.interacting_term).rotation_terms()
+    seg = CompiledCircuit(hva_program_rot(reps, [g.rotation_terms() for g in v_gen],
+                                          [g.rotation_terms() for g in h_gen], u_rot),
+                          n).segments[0]
+    n_params = reps + 1 + reps * (len(v_gen) + len(h_gen))
+    rng = np.random.default_rng(n)
+    th = _t(rng.normal(0, 0.05, size=n_params), dev, torch.float32)
+    psi = _t(_state(rng, n), dev, torch.complex64)
+    lam = _t(_state(rng, n), dev, torch.complex64)
+    K.reset_launch_counts()
+    p1, l1, g = run_rot_adjoint(seg, psi, lam, th, n, impl=K.KERNELS)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    p2, l2, g_ref = run_rot_adjoint(seg, psi, lam, th, n, impl=K.PLAIN)
+    torch.cuda.synchronize()
+    assert int((seg.data["xb"] == 0).sum()) == (reps + 1) * len(u_rot)
+    assert float(g_ref[: reps + 1].abs().min()) > 0
+    assert float((g - g_ref).abs().max()) <= 1e-4 * float(g_ref.abs().max())
+    assert _rel(p1, p2) <= RTOL and _rel(l1, l2) <= RTOL
+    if n <= streaming.CHAIN_MAX_QUBITS:
+        assert counts["adjoint_resident"] == 1 and counts["adjoint_tile_runs"] == 0
+    else:
+        layout = seg.tiles(-1, n, streaming.TILE_BITS, streaming.TILE_LOW_BITS)
+        assert counts["adjoint_tile_runs"] == layout.n_runs and counts["adjoint_resident"] == 0
+    assert counts["adjoint_rotation"] == 0

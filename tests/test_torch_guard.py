@@ -1,11 +1,12 @@
 """Guards of the port: no JAX, no ``qsfh_tpu``, the card by default.
 
-* ``import qsfh_torch.algos.adapt`` (and ``adapt_fused``,
-  ``linalg.lanczos``) succeeds with ``jax`` blocked and loads no
-  ``qsfh_tpu`` module;
+* ``import qsfh_torch.algos.adapt`` (and ``adapt_fused``, ``hva``,
+  ``grad.adjoint``, ``engine.gates``, ``linalg.lanczos``) succeeds with
+  ``jax`` blocked and loads no ``qsfh_tpu`` module;
 * no module of ``qsfh_torch`` (nor ``chip_smoke.py``) imports jax, optax
   or qsfh_tpu;
-* ``ADAPT(...)`` with no device raises where CUDA is unavailable.
+* ``ADAPT(...)`` and ``HVA(...)`` with no device raise where CUDA is
+  unavailable.
 """
 
 import ast
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from qsfh_torch.algos import adapt as port_adapt
+from qsfh_torch.algos import hva as port_hva
 from qsfh_torch.algos.base import default_dtype, resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -49,6 +51,7 @@ def test_port_imports_with_jax_blocked():
         "    sys.modules[m] = None\n"
         "import qsfh_torch.algos.adapt, qsfh_torch.io.convert, qsfh_torch.engine.kernels\n"
         "import qsfh_torch.algos.adapt_fused, qsfh_torch.linalg.lanczos\n"
+        "import qsfh_torch.algos.hva, qsfh_torch.grad.adjoint, qsfh_torch.engine.gates\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'qsfh_tpu')\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -73,6 +76,16 @@ def test_adapt_without_device_raises_without_cuda(monkeypatch):
             n_epoch=1, threshold1=1e-2, threshold2=1e-2, x_dimension=2, y_dimension=2,
             n_electrons=4, n_spin_up=2, n_spin_down=2, tunneling=1, coulomb=4,
             ground_truth=False, plot=False, log_metrics=False,
+        )
+
+
+def test_hva_without_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_hva.HVA(
+            n_epoch=1, reps=1, lr=1e-2, x_dimension=2, y_dimension=2, n_electrons=4,
+            n_spin_up=2, n_spin_down=2, tunneling=1, coulomb=4, ground_truth=False,
+            plot=False, log_metrics=False,
         )
 
 
