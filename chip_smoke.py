@@ -113,10 +113,32 @@ Phases (any failed check raises and the script exits nonzero):
    ``ground_truth=False``): 2 steps on the tile runs, launches held to the
    layouts, the first against one plain step, its gradients within 1e-4
    of max |g|.
-11. A ``kernels`` JSON line (``expectation_norm_f64``'s launches counted
+11. The iQCC driver (``qsfh_torch.algos.iqcc.IQCC``), complex64 states
+   and float32 parameters, every launch counter set to 0 just before and
+   read just after each run: (a) the 2x3 dense-exact iQCC-ILC campaign
+   (``benchmarks/demo_iqcc_2x3_r4/run_ilc.py``'s arguments: U = 4,
+   L-BFGS, ``ilc_cap=48``, ``ilc_rounds=3``) from scratch, cut to 3
+   epochs of at most 150 inner iterations: per epoch the selection, DIS
+   size, nnz, energy and its error to the exact -6.332962199384616, ms
+   per inner step, of the DIS, the U passes, the ZGEMM pair and each ILC
+   fold; every dressed matrix (after each dressing and fold) keeps the
+   lowest eigenvalue within 1e-9 and the Frobenius norm within 1e-10
+   relative, each fold's predicted energy is <psi|H_folded|psi> within
+   1e-10; (b) LiH r = 0.8 (the reference's ``iqcc.py:207-213``: Adam,
+   threshold 1e-2, symbolic dressing, FCI from the port's Lanczos), cut
+   to 2 epochs of at most 150: H terms, layout build, dressing and step
+   ms; (c) 2x2 (``iqcc_hubbard.py:215-231``), 3 epochs, the per-term
+   kernels, its epoch energies within 1e-4 relative of the same run on
+   the plain versions.  At 12 qubits each holds one loss and gradient
+   evaluation on the epoch-2 segment (the trained parameters with tau
+   moved off the minimum) against the plain path (E 1e-4 relative, tau,
+   theta and phi gradients within 1e-4 of the largest |g|), and times
+   the segment's rotation kernels and, on LiH's dressed H, E, the DIS
+   screen and H psi against their plain versions.
+12. A ``kernels`` JSON line (``expectation_norm_f64``'s launches counted
    per capture, its replays beside them; every kernel's graph nodes per
-   fused step; its launches on the HVA path), then the device JSON line,
-   last.
+   fused step; its launches on the HVA and iQCC paths), then the device
+   JSON line, last.
 
 ``--compare PARENT`` runs both main paths (3x3 and 2x6 selection and
 train step, host clock and profile) of the port in the checkout PARENT
@@ -2778,6 +2800,365 @@ def phase_hva(dev, tmp):
     return res, hva, hva24
 
 
+# -- iQCC: the third driver family on the kernels -------------------------------------------
+
+# benchmarks/demo_iqcc_2x3_r4/run_ilc.py's arguments, from scratch, cut to 3 epochs of at most
+# 150 inner iterations (epochs 1-3 select 10, 61 and 258 generators in run_dense.log)
+CONFIG_IQCC_2X3 = dict(
+    n_epoch=3, lr=1e-2, threshold=5e-3, max_inner_iterations=150, inner_optimizer="lbfgs",
+    dense_dressing=True, ilc=True, ilc_cap=48, ilc_rounds=3, plot=False, log_metrics=False,
+)
+IQCC_2X3_EXACT = -6.332962199384616  # full-space lowest eigenvalue of the 2x3 U = 4 H
+# the reference's molecular configuration (iqcc.py:207-213), cut to 2 epochs of at most 150
+CONFIG_IQCC_LIH = dict(n_epoch=2, lr=1e-2, threshold=1e-2, max_inner_iterations=150, plot=False,
+                       log_metrics=False)
+# the reference iqcc_hubbard.py:215-231 config, cut to 3 epochs
+CONFIG_IQCC_2X2 = dict(n_epoch=3, lr=1e-2, threshold=5e-3, plot=False, log_metrics=False)
+IQCC_ENERGY_RTOL = 1e-4
+# the dressed matrix after each dressing and ILC fold: lowest eigenvalue (absolute) and
+# Frobenius norm (relative) against the undressed one's; the fold's predicted energy
+IQCC_SPECTRUM_TOL, IQCC_NORM_RTOL, IQCC_FOLD_TOL = 1e-9, 1e-10, 1e-10
+IQCC_12Q_KERNELS = ("rotation_resident", "adjoint_resident", "screen_grouped")
+IQCC_SYMBOLIC_KERNELS = IQCC_12Q_KERNELS + ("expectation_grouped", "pauli_apply_grouped")
+IQCC_PER_TERM_KERNELS = ("pauli_rotation", "adjoint_rotation", "pauli_inner", "pauli_apply")
+
+
+def build_iqcc(dev, tmp, name, hamiltonian, config, **extra):
+    """An IQCC driver on ``dev`` whose per-iteration lines are not echoed."""
+    from qsfh_torch.algos.iqcc import IQCC
+
+    driver = IQCC(hamiltonian, results_root=os.path.join(tmp, name), tag=name, device=dev,
+                  **dict(config, **extra))
+    driver.metrics.echo = False
+    return driver
+
+
+def iqcc_run(driver, label, tmp, plain=False):
+    """``driver.run()`` with every launch counter set to 0 just before and
+    read just after (its printed lines to a file under ``tmp``), the epoch's
+    observable, segment and trained parameters kept from each epoch; with
+    ``plain`` on the plain versions, where no kernel may launch.  Returns
+    (launches, captures by epoch, seconds)."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    captured = {}
+    drive = driver._drive
+
+    def capture(observable, seg, *args, **kwargs):
+        inner = drive(observable, seg, *args, **kwargs)
+        captured[len(driver.loss_history["epoch"]) + 1] = (
+            observable, seg, {k: v.detach().clone() for k, v in driver.params.items()})
+        return inner
+
+    driver._drive = capture
+    driver.impl = K.PLAIN if plain else K.KERNELS
+    try:
+        with open(os.path.join(tmp, f"{label}.log"), "a") as fh, contextlib.redirect_stdout(fh):
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            driver.run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = K.launch_counts()
+    finally:
+        driver._drive = drive
+        driver.impl = K.KERNELS
+    if plain and any(counts.values()):
+        raise AssertionError(f"{label}: the plain path launched a CUDA kernel: {counts}")
+    return counts, captured, seconds
+
+
+def iqcc_epochs(driver, exact, label):
+    """Per-epoch records from ``driver.epoch_stats``: selected, DIS size, H
+    terms, energy, error to ``exact``, ms per inner step (median) and the
+    phases' ms; logged; raises on a non-finite or sub-exact energy."""
+    rows = []
+    for st in driver.epoch_stats:
+        steps = sorted(st.get("step_ms", []))
+        row = dict(epoch=st["epoch"], selected=st["selected"], dis_size=st["dis_size"],
+                   h_terms=st["h_terms"], energy=st["energy"], error=st["energy"] - exact,
+                   steps=len(steps), step_ms_median=steps[len(steps) // 2] if steps else None,
+                   **{k: st[k] for k in ("dis_ms", "screen_ms", "layout_ms", "dress_ms",
+                                         "dress_u_ms", "dress_zgemm_ms", "ilc_ms", "ilc")
+                      if k in st})
+        rows.append(row)
+        extra = " ".join(f"{k}={row[k]:.1f}" for k in ("dis_ms", "layout_ms", "screen_ms",
+                                                         "dress_ms", "dress_u_ms",
+                                                         "dress_zgemm_ms") if k in row)
+        folds = ", ".join(f"{ms:.1f}" for ms in row.get("ilc_ms", []))
+        log(f"  [{label}] epoch {row['epoch']}: {row['selected']} selected of {row['dis_size']} "
+            f"DIS generators, H terms {row['h_terms']}, E {row['energy']:.9f} (error "
+            f"{row['error']:.6f}), {row['steps']} inner steps, median "
+            f"{row['step_ms_median']:.2f} ms; {extra}" + (f"; ILC folds ms [{folds}]"
+                                                          if folds else ""))
+        if not math.isfinite(row["energy"]) or row["energy"] < exact - 1e-4:
+            raise AssertionError(f"{label}: epoch energy {row['energy']} against exact {exact}")
+    return rows
+
+
+def iqcc_off_minimum(params):
+    """The trained parameters with tau moved off the epoch's minimum by
+    normal(0, 0.1) from default_rng(11): at the minimum every gradient is
+    below the threshold, where only float32 rounding is left to compare."""
+    import numpy as np
+    import torch
+
+    tau = params["tau"]
+    noise = np.random.default_rng(11).normal(0, 0.1, size=tau.shape[0])
+    return dict(params, tau=tau + torch.as_tensor(noise, dtype=tau.dtype, device=tau.device))
+
+
+def iqcc_grads(driver, captured, impl):
+    """(E, {tau, theta, phi} gradients, launches) of one loss and gradient
+    evaluation on an epoch's observable and segment, at its trained
+    parameters moved off the minimum (:func:`iqcc_off_minimum`), through
+    ``impl``."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    obs, seg, params = captured
+    p = {k: v.clone().requires_grad_(True) for k, v in iqcc_off_minimum(params).items()}
+    K.reset_launch_counts()
+    e = obs.expectation_auto(driver._state(p, seg, impl), impl=impl)
+    e.backward()
+    torch.cuda.synchronize()
+    return float(e.detach()), {k: v.grad for k, v in p.items()}, K.launch_counts()
+
+
+def iqcc_hold(driver, captured, label):
+    """The kernel path against the plain path on an epoch's segment and
+    state (:func:`iqcc_grads`): E within 1e-4 relative, the tau, theta and
+    phi gradients within GRAD_RTOL of the largest |g|; returns (errors, the
+    kernel evaluation's launches)."""
+    from qsfh_torch.engine import kernels as K
+
+    e_k, g_k, launches = iqcc_grads(driver, captured, K.KERNELS)
+    e_p, g_p, plain_launches = iqcc_grads(driver, captured, K.PLAIN)
+    if any(plain_launches.values()):
+        raise AssertionError(f"{label}: the plain evaluation launched {plain_launches}")
+    # one scale, the largest |g| of the three: phi's gradient vanishes where
+    # theta sits at 0 or pi (a basis state's phases are global)
+    scale = max(float(g.abs().max()) for g in g_p.values())
+    errs = dict(energy_rel=abs(e_k - e_p) / abs(e_p), grad_scale=scale)
+    for k in ("tau", "theta", "phi"):
+        errs[k] = float((g_k[k] - g_p[k]).abs().max()) / scale
+    log(f"  [{label}] kernel vs plain on the epoch's segment ({len(captured[1])} terms): E "
+        f"{e_k:.7f} vs {e_p:.7f} (rel {errs['energy_rel']:.2e}, tol {IQCC_ENERGY_RTOL:g}); "
+        f"gradients, max |diff| / max |g| ({scale:.3e}): " + ", ".join(
+            f"{k} {errs[k]:.2e}" for k in ("tau", "theta", "phi")) + f" (tol {GRAD_RTOL:g})")
+    if errs["energy_rel"] > IQCC_ENERGY_RTOL or \
+            max(errs[k] for k in ("tau", "theta", "phi")) > GRAD_RTOL:
+        raise AssertionError(f"{label}: the kernels' iQCC energy or gradients disagree with the "
+                             "plain path's")
+    return errs, {k: v for k, v in launches.items() if v}
+
+
+def iqcc_kernel_times(driver, captured, label):
+    """The rotation kernels of an epoch's segment at its final state and
+    lambda = 2 H psi (the trained parameters moved off the minimum,
+    :func:`iqcc_off_minimum`), against their plain versions and timed: the resident
+    kernels (:func:`resident_checks`) where every term fits one span of
+    resident tiles, else the engine's walk of the layout; for a symbolic
+    H also the inner-product tiles (E and the DIS screen) and H psi on the
+    application tiles (:func:`inner_fold_checks`, :func:`apply_tiles_check`)."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import streaming
+    from qsfh_torch.engine.compiled import adjoint_sweep, rotate_segment
+    from qsfh_torch.engine.expectation import Observable, PackedPool
+    from qsfh_torch.ops.dressing import dis_generators
+
+    obs, seg, params = captured
+    params = iqcc_off_minimum(params)
+    n, dim = driver.n_qubits, 1 << driver.n_qubits
+    results = {}
+    record = recorder(results, n)
+    with torch.no_grad():
+        psi = driver._state(params, seg)
+        lam = 2.0 * obs.apply_auto(psi)
+    d = seg.tensors(psi.device, driver._rdt, params["tau"].shape[0])
+    angles = torch.cat([params["tau"], params["tau"].new_ones(1)])[d["pidx"]] * d["scale"]
+    rot = (d["xb"], d["zb"], angles, d["phre"], d["phim"])
+    adj = tuple(a.flip(0) for a in rot)
+    shape = (streaming.RESIDENT_TILE_BITS, streaming.RESIDENT_TILE_LOW_BITS)
+    layouts = [seg.tiles(direction, n, *shape) for direction in (1, -1)]
+    if all(len(lay.spans) == 1 and not lay.n_single for lay in layouts):
+        resident_checks(seg, n, [(f"{label} forward", 1, rot)], adj, psi, lam, record)
+    else:
+        T = len(seg)
+        got = rotate_segment(seg, psi.clone(), rot, n, 1, K.KERNELS)
+        ref = rotate_segment(seg, psi.clone(), rot, n, 1, K.PLAIN)
+        buf = psi.clone()
+        ms = time_cuda(lambda: rotate_segment(seg, buf, rot, n, 1, K.KERNELS), reps=20)
+        plain_ms = timed_once(lambda: rotate_segment(seg, buf, rot, n, 1, K.PLAIN))[0]
+        log(f"  [{label}] the segment spans {len(layouts[0].spans)} resident launches and "
+            "per-term terms: timed as the engine walks it")
+        record("rotation_resident", f"{label} forward (engine walk)", T, 2 * 8 * dim + 20 * T,
+               [(rel_err(got, ref), max_abs(got, ref))], ms, plain_ms)
+
+        def sweep(impl):
+            p, l = psi.clone(), lam.clone()
+            return adjoint_sweep(seg, p, l, adj, n, impl), p, l
+
+        got, ref = sweep(K.KERNELS), sweep(K.PLAIN)
+        ms = time_cuda(lambda: sweep(K.KERNELS), reps=20)
+        plain_ms = timed_once(lambda: sweep(K.PLAIN))[0]
+        record("adjoint_resident", f"{label} gradient sweep (engine walk)", T,
+               4 * 8 * dim + 20 * T + 8 * T,
+               [(rel_err(a, b), max_abs(a, b)) for a, b in zip(got, ref)], ms, plain_ms)
+    if isinstance(obs, Observable):
+        pool = PackedPool([0.5 * P for _, P in dis_generators(obs.op)], n)
+        w = obs.apply_scan(psi)
+        inner_fold_checks([(f"{label} <psi|H|psi>", obs, psi, psi),
+                           (f"{label} DIS screen <w|P|psi>", pool, w, psi)], record)
+        xs, zs, c = obs._tensors(psi)
+        ref = K.pauli_apply_grouped_plain(psi, xs, zs, c.real, c.imag, obs.groups())
+        plain_ms = time_cuda(lambda: K.pauli_apply_grouped_plain(psi, xs, zs, c.real, c.imag,
+                                                                 obs.groups()), reps=2, warmup=1)
+        library_ms = library_sparse_apply(psi, xs, zs, c, ref)
+        apply_tiles_check(obs, psi, ref, plain_ms, library_ms, record, f"{label} H psi (tiles)")
+    return results
+
+
+def check_iqcc_launches(counts, names, label, absent=()):
+    """Every kernel of ``names`` launched in the run, none of ``absent``."""
+    missing = [k for k in names if not counts[k]]
+    stray = [k for k in absent if counts[k]]
+    if missing or stray:
+        raise AssertionError(f"{label}: no launch of {missing}, or launches of {stray}: {counts}")
+    log(f"  [{label}] launches: " + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+
+
+def iqcc_dense_checks(recorded, h0_norm, exact):
+    """Each dressed matrix the run made (after each dress_dense and each ILC
+    fold): its lowest eigenvalue within IQCC_SPECTRUM_TOL of ``exact``,
+    its Frobenius norm within IQCC_NORM_RTOL of the undressed one's; each
+    fold's predicted energy within IQCC_FOLD_TOL of <psi|H_folded|psi>."""
+    import torch
+
+    rows = []
+    for kind, H, psi, e_pred in recorded:
+        t0 = time.perf_counter()
+        e0 = float(torch.linalg.eigvalsh(H)[0])
+        eig_s = time.perf_counter() - t0
+        norm_rel = abs(float(torch.linalg.matrix_norm(H)) - h0_norm) / h0_norm
+        row = dict(kind=kind, lowest=e0, spectrum_err=abs(e0 - exact), norm_rel=norm_rel,
+                   eigvalsh_s=eig_s)
+        if kind == "ilc":
+            row["fold_err"] = abs(float(torch.real(torch.vdot(psi, H @ psi))) - e_pred)
+        rows.append(row)
+        if row["spectrum_err"] > IQCC_SPECTRUM_TOL or norm_rel > IQCC_NORM_RTOL or \
+                row.get("fold_err", 0.0) > IQCC_FOLD_TOL:
+            raise AssertionError(f"the dense dressing on the card is not exact: {row}")
+    log(f"  {len(rows)} dressed matrices ({sum(r['kind'] == 'ilc' for r in rows)} ILC folds): "
+        f"lowest eigenvalue within {max(r['spectrum_err'] for r in rows):.2e} of {exact} (tol "
+        f"{IQCC_SPECTRUM_TOL:g}), Frobenius norm within "
+        f"{max(r['norm_rel'] for r in rows):.2e} relative (tol {IQCC_NORM_RTOL:g}), folds' "
+        f"predicted energy within {max(r.get('fold_err', 0.0) for r in rows):.2e} (tol "
+        f"{IQCC_FOLD_TOL:g}); eigvalsh {sum(r['eigvalsh_s'] for r in rows):.1f} s in all")
+    return rows
+
+
+def phase_iqcc(dev, tmp):
+    """The iQCC driver on the card: the 2x3 dense-exact iQCC-ILC campaign and
+    LiH (symbolic) at 12 qubits, the 2x2 reference config at 8 qubits."""
+    import torch
+
+    import qsfh_torch.algos.iqcc as iqcc_mod
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.molecules import LiH
+    from qsfh_torch.ops.lattice import fermi_hubbard
+
+    res, launches = {}, dict.fromkeys(K.launch_counts(), 0)
+
+    # 1. 2x3 dense-exact iQCC-ILC, each dressed matrix kept for the checks
+    t0 = time.perf_counter()
+    d23 = build_iqcc(dev, tmp, "iqcc_2x3_dense", fermi_hubbard(2, 3, 1.0, 4.0, periodic=True),
+                     CONFIG_IQCC_2X3)
+    build_s = time.perf_counter() - t0
+    if abs(d23.ground_state_energy - IQCC_2X3_EXACT) > IQCC_SPECTRUM_TOL:
+        raise AssertionError(f"2x3 ground truth {d23.ground_state_energy} on the card")
+    recorded = []
+    similarity, ilc_step = iqcc_mod.similarity, iqcc_mod.ilc_step_dense
+
+    def dressed(U, H):
+        out = similarity(U, H)
+        recorded.append(("dress", out, None, None))
+        return out
+
+    def folded(H, psi, gens, n, cap=32):
+        Hd, e, info = ilc_step(H, psi, gens, n, cap=cap)
+        recorded.append(("ilc", Hd, psi, e))
+        return Hd, e, info
+
+    h0 = iqcc_mod.paulisum_to_dense_fast(d23.current_hamiltonian, d23.n_qubits, dev)
+    iqcc_mod.similarity, iqcc_mod.ilc_step_dense = dressed, folded
+    try:
+        counts, captured, seconds = iqcc_run(d23, "iqcc_2x3_dense", tmp)
+    finally:
+        iqcc_mod.similarity, iqcc_mod.ilc_step_dense = similarity, ilc_step
+    log(f"  2x3 dense iQCC-ILC (12 qubits, L-BFGS): {seconds:.1f} s for 3 epochs (driver and "
+        f"ground truth built in {build_s:.1f} s)")
+    rows = iqcc_epochs(d23, IQCC_2X3_EXACT, "2x3 dense")
+    check_iqcc_launches(counts, IQCC_12Q_KERNELS, "2x3 dense",
+                        absent=("expectation_grouped", "pauli_apply_grouped"))
+    launches = {k: launches[k] + v for k, v in counts.items()}
+    errs, per_step = iqcc_hold(d23, captured[2], "2x3 dense epoch 2")
+    checks = iqcc_dense_checks(recorded, float(torch.linalg.matrix_norm(h0)), IQCC_2X3_EXACT)
+    del recorded, h0
+    kern = iqcc_kernel_times(d23, captured[2], "2x3 epoch 2")
+    res["2x3_dense"] = dict(epochs=rows, launches=counts, seconds=seconds, hold=errs,
+                            launches_per_step=per_step, dense_checks=checks, kernels=kern,
+                            selected_ops=len(d23.selected_ops))
+    del d23, captured
+
+    # 2. LiH, r = 0.8, symbolic dressing, Adam
+    t0 = time.perf_counter()
+    mol = LiH(0.8)
+    lih = build_iqcc(dev, tmp, "iqcc_lih", mol, CONFIG_IQCC_LIH)
+    build_s = time.perf_counter() - t0
+    counts, captured, seconds = iqcc_run(lih, "iqcc_lih", tmp)
+    log(f"  LiH r=0.8 (12 qubits, symbolic, Adam): {seconds:.1f} s for 2 epochs; molecule, "
+        f"FCI {mol.fci_energy:.9f} and driver in {build_s:.1f} s")
+    rows = iqcc_epochs(lih, mol.fci_energy, "LiH")
+    check_iqcc_launches(counts, IQCC_SYMBOLIC_KERNELS, "LiH")
+    launches = {k: launches[k] + v for k, v in counts.items()}
+    errs, per_step = iqcc_hold(lih, captured[2], "LiH epoch 2")
+    kern = iqcc_kernel_times(lih, captured[2], "LiH epoch 2")
+    res["lih"] = dict(epochs=rows, launches=counts, seconds=seconds, hold=errs,
+                      launches_per_step=per_step, kernels=kern, fci=mol.fci_energy,
+                      hf=mol.hf_energy)
+    del lih, captured
+
+    # 3. 2x2, the reference config: per-term kernels, against the plain path
+    h22 = fermi_hubbard(2, 2, 1.0, 4.0, periodic=True)
+    k22 = build_iqcc(dev, tmp, "iqcc_2x2", h22, CONFIG_IQCC_2X2)
+    counts, captured, seconds = iqcc_run(k22, "iqcc_2x2", tmp)
+    log(f"  2x2 (8 qubits, symbolic, Adam): {seconds:.1f} s for 3 epochs")
+    rows = iqcc_epochs(k22, k22.ground_state_energy, "2x2")
+    check_iqcc_launches(counts, IQCC_PER_TERM_KERNELS, "2x2",
+                        absent=IQCC_SYMBOLIC_KERNELS)
+    launches = {k: launches[k] + v for k, v in counts.items()}
+    _, per_step = iqcc_hold(k22, captured[2], "2x2 epoch 2")
+    p22 = build_iqcc(dev, tmp, "iqcc_2x2_plain", h22, CONFIG_IQCC_2X2)
+    _, _, plain_s = iqcc_run(p22, "iqcc_2x2_plain", tmp, plain=True)
+    plain_rows = iqcc_epochs(p22, p22.ground_state_energy, "2x2 plain")
+    diffs = [abs(a["energy"] - b["energy"]) / abs(b["energy"]) for a, b in zip(rows, plain_rows)]
+    log(f"  2x2 epoch energies against the plain path's ({plain_s:.1f} s): rel "
+        + ", ".join(f"{d:.2e}" for d in diffs) + f" (tol {IQCC_ENERGY_RTOL:g})")
+    if len(rows) != len(plain_rows) or max(diffs) > IQCC_ENERGY_RTOL:
+        raise AssertionError("2x2: the kernels' epoch energies disagree with the plain path's")
+    res["2x2"] = dict(epochs=rows, plain_epochs=plain_rows, launches=counts, seconds=seconds,
+                      plain_seconds=plain_s, energy_rel=diffs, launches_per_step=per_step)
+    res["launches"] = launches
+    return res
+
+
 # -- main ---------------------------------------------------------------------------------
 
 
@@ -2847,6 +3228,12 @@ def main():
     log("the HVA driver (3x3 reps=10, the reps=2 unrolled cross-check, 2x6 reps=2):")
     hva_res, hva, hva24 = phase_hva(dev, tmp)
     out["hva"] = hva_res
+    log("the iQCC driver (2x3 dense-exact ILC and LiH at 12 qubits, 2x2 at 8):")
+    t_iqcc = time.perf_counter()
+    iqcc = phase_iqcc(dev, tmp)
+    iqcc["seconds"] = time.perf_counter() - t_iqcc
+    out["iqcc"] = iqcc
+    log(f"  iQCC phase: {iqcc['seconds']:.1f} s")
     log("exact diagonalization at 3x3 (the port's Lanczos, CPU):")
     ed = phase_ed()
     out.update(f64=f64, fused=fused, fused_24=fused24, ed=ed)
@@ -3006,6 +3393,16 @@ def main():
             head = kern_hva.get(entry["name"], [None])[0]  # the HVA segment's call
             if head is not None:
                 entry.update({f"{key}_{suffix}": head[key] for key in
+                              ("ms", "plain_ms", "bound_ms", "max_abs_err")})
+    for entry in line:  # the iQCC path: 2x3 dense and LiH at 12 qubits, 2x2 at 8
+        entry["launches_iqcc"] = iqcc["launches"][entry["name"]]
+        entry["launches_per_iqcc_step"] = {
+            cell: iqcc[cell]["launches_per_step"].get(entry["name"], 0)
+            for cell in ("2x3_dense", "lih", "2x2")}
+        for cell in ("2x3_dense", "lih"):
+            head = iqcc[cell]["kernels"].get(entry["name"], [None])[0]
+            if head is not None:
+                entry.update({f"{key}_iqcc_{cell}": head[key] for key in
                               ("ms", "plain_ms", "bound_ms", "max_abs_err")})
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -318,6 +318,35 @@ def run_rot_adjoint(segment: Segment, psi_final, lam, thetas, n, impl=None):
     return psi, lam, grads[:n_params]
 
 
+class _RotSegment(torch.autograd.Function):
+    """psi = U(thetas) psi0 over one rot segment: forward on the resident or
+    tile-run kernels (:func:`run_segments`), backward the adjoint sweep from
+    the saved final state (:func:`run_rot_adjoint`, two live states).  For a
+    real loss torch hands the backward w = 2 dL/dpsi*; it returns U^dag w
+    for psi0 and scale_t Im <w_t|P_t psi_t> summed per parameter."""
+
+    @staticmethod
+    def forward(ctx, psi0, thetas, seg, n, impl):
+        out = run_segments([seg], psi0, thetas, n, impl=impl)
+        ctx.seg, ctx.n, ctx.impl = seg, n, impl
+        ctx.save_for_backward(out, thetas)
+        return out
+
+    @staticmethod
+    def backward(ctx, w):
+        psi, thetas = ctx.saved_tensors
+        _, lam0, grads = run_rot_adjoint(ctx.seg, psi, w.contiguous(), thetas, ctx.n, ctx.impl)
+        return lam0, grads.to(thetas.dtype), None, None, None
+
+
+def rot_segment(seg: Segment, psi0, thetas, n, impl=None):
+    """U(thetas) psi0 for one rot segment, differentiable in psi0 and
+    thetas (:class:`_RotSegment`); ``psi0`` is left untouched."""
+    if seg.kind != "rot":
+        raise ValueError(f"expected a rot segment, got {seg.kind!r}")
+    return _RotSegment.apply(psi0, thetas, seg, n, impl or KERNELS)
+
+
 class CompiledCircuit:
     """ops -> segments, applied forward or inverted."""
 

@@ -166,6 +166,22 @@ def expectation_value(obs: "Observable", psi: torch.Tensor) -> torch.Tensor:
     return _ExpectationValue.apply(psi, obs)
 
 
+class _KernelExpectation(torch.autograd.Function):
+    """E = Re <psi|H|psi> on the kernel route: forward ``expectation_scan``,
+    backward the cotangent 2 c_bar H psi from ``apply_scan``."""
+
+    @staticmethod
+    def forward(ctx, psi, obs, impl):
+        ctx.obs, ctx.impl = obs, impl
+        ctx.save_for_backward(psi)
+        return obs.expectation_scan(psi, impl=impl)
+
+    @staticmethod
+    def backward(ctx, cbar):
+        (psi,) = ctx.saved_tensors
+        return 2.0 * cbar * ctx.obs.apply_scan(psi, impl=ctx.impl), None, None
+
+
 class Observable:
     """A Pauli sum prepared for repeated evaluation on statevectors."""
 
@@ -233,6 +249,17 @@ class Observable:
         """op|psi> (a new state)."""
         impl = impl or KERNELS
         return _apply(impl, self, psi, *self._tensors(psi))
+
+    def expectation_auto(self, psi: torch.Tensor, impl=None) -> torch.Tensor:
+        """Re <psi|op|psi>, differentiable, on the kernel route at every
+        size (the JAX package's choice between its unrolled and scan forms
+        by group count is an XLA compile-time one): :meth:`expectation_scan`
+        forward, 2 c_bar :meth:`apply_scan` backward."""
+        return _KernelExpectation.apply(psi, self, impl or KERNELS)
+
+    def apply_auto(self, psi: torch.Tensor, impl=None) -> torch.Tensor:
+        """op|psi> on the kernel route (:meth:`apply_scan`)."""
+        return self.apply_scan(psi, impl)
 
     def __len__(self):
         return len(self.op)

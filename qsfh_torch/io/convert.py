@@ -17,6 +17,13 @@ of the dict come in ``jax.tree_util`` order: ``count``, then ``mu`` and
 ``nu`` each over the keys SORTED (``theta_U``, ``theta_h``, ``theta_v``:
 upper case sorts first), not in the flat order; :func:`hva_from_jax` and
 :func:`hva_to_jax_leaves` reorder.
+
+A JAX iQCC driver holds ``params`` (``theta``, ``phi``, ``tau``) and its
+current Hamiltonian, as the packed ``(H_x, H_z, H_c)`` arrays of a
+``PauliSum`` or, with dense dressing, as the complex128 matrix (its
+``.dense.npy`` sidecar); :func:`iqcc_from_jax` makes what the port's
+``IQCC`` holds of them.  iQCC checkpoints carry no optimizer state (each
+epoch starts a fresh optimizer).
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..ops.pauli import PauliSum
 
 
 def from_jax(
@@ -141,3 +150,31 @@ def hva_to_jax_leaves(optimizer: torch.optim.Adam, param: torch.Tensor,
     count, mu, nu = to_jax_leaves(optimizer, param)
     mu, nu = hva_split(mu, sizes), hva_split(nu, sizes)
     return [count] + [mu[k] for k in _HVA_TREE_ORDER] + [nu[k] for k in _HVA_TREE_ORDER]
+
+
+IQCC_KEYS = ("theta", "phi", "tau")
+
+
+def iqcc_from_jax(
+    params: Dict[str, np.ndarray],
+    hamiltonian=None,
+    dense=None,
+    device="cpu",
+    dtype=torch.float64,
+) -> dict:
+    """What the port's ``IQCC`` holds, from a JAX iQCC driver's state:
+    ``params`` (theta, phi, tau arrays) as trainable leaf tensors of
+    ``dtype`` on ``device``, ``hamiltonian`` (a ``(H_x, H_z, H_c)`` triple
+    or an object with ``x``, ``z``, ``c`` arrays) as a port ``PauliSum``,
+    and ``dense`` (the dressed matrix) as a complex128 tensor on
+    ``device``.  Returns ``{"params", "hamiltonian", "dense"}``, None where
+    not given."""
+    out = {k: torch.tensor(np.asarray(params[k], dtype=np.float64), dtype=dtype,
+                           device=device).requires_grad_(True) for k in IQCC_KEYS}
+    if hamiltonian is not None:
+        x, z, c = hamiltonian if isinstance(hamiltonian, (tuple, list)) else \
+            (hamiltonian.x, hamiltonian.z, hamiltonian.c)
+        hamiltonian = PauliSum(np.asarray(x), np.asarray(z), np.asarray(c))
+    if dense is not None:
+        dense = torch.as_tensor(np.asarray(dense, dtype=np.complex128)).to(device)
+    return {"params": out, "hamiltonian": hamiltonian, "dense": dense}

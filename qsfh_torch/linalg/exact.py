@@ -14,32 +14,11 @@ import numpy as np
 import scipy.sparse
 import scipy.sparse.linalg
 
-from ..engine.state import qmask_to_bmask
 from ..ops.fermion import FermionOperator
 from ..ops.jw import jordan_wigner
 from ..ops.pauli import PauliSum
+from ..utils.dense import paulisum_to_sparse
 from .sectors import jw_number_spin_indices
-
-
-def _paulisum_to_sparse(op: PauliSum, n_qubits: int) -> scipy.sparse.csr_matrix:
-    """2^n x 2^n matrix of a Pauli sum (qubit 0 = most significant bit):
-    c X^x Z^z |b> = c (-1)^popcount(b & z) |b ^ x>."""
-    dim = 1 << n_qubits
-    idx = np.arange(dim, dtype=np.int64)
-    rows, cols, data = [], [], []
-    for x, z, c in zip(op.x, op.z, op.c):
-        xb = qmask_to_bmask(int(x), n_qubits)
-        zb = qmask_to_bmask(int(z), n_qubits)
-        signs = 1.0 - 2.0 * (np.bitwise_count(idx & zb) % 2).astype(np.float64)
-        rows.append(idx ^ xb)
-        cols.append(idx)
-        data.append(complex(c) * signs)
-    if not rows:
-        return scipy.sparse.csr_matrix((dim, dim), dtype=np.complex128)
-    return scipy.sparse.coo_matrix(
-        (np.concatenate(data), (np.concatenate(rows), np.concatenate(cols))),
-        shape=(dim, dim),
-    ).tocsr()
 
 
 def get_sparse_operator(op, n_qubits: int = None) -> scipy.sparse.csr_matrix:
@@ -52,7 +31,7 @@ def get_sparse_operator(op, n_qubits: int = None) -> scipy.sparse.csr_matrix:
         raise TypeError(type(op))
     if n_qubits is None:
         n_qubits = op.n_qubits()
-    return _paulisum_to_sparse(op, n_qubits)
+    return paulisum_to_sparse(op, n_qubits)
 
 
 def jw_number_spin_restrict_operator(

@@ -719,3 +719,71 @@ def test_hva_adjoint_with_trainable_diagonal_terms(dev, lattice):
         layout = seg.tiles(-1, n, streaming.TILE_BITS, streaming.TILE_LOW_BITS)
         assert counts["adjoint_tile_runs"] == layout.n_runs and counts["adjoint_resident"] == 0
     assert counts["adjoint_rotation"] == 0
+
+
+def _iqcc_case(n, dev, seed=5):
+    """(driver, H observable, params, segment) for 30 seeded selections on
+    n qubits: the 2x3 Hubbard H at 12 qubits, a 1x5 chain at 10."""
+    from qsfh_torch.algos.iqcc import IQCC
+    from qsfh_torch.engine.expectation import Observable
+    from qsfh_torch.ops.jw import jordan_wigner
+    from qsfh_torch.ops.lattice import fermi_hubbard
+
+    H = jordan_wigner(fermi_hubbard(2, 3, 1.0, 4.0) if n == 12 else
+                      fermi_hubbard(1, 5, 1.0, 4.0, periodic=False))
+    driver = IQCC(H, n_epoch=1, lr=1e-2, threshold=1e-3, n_qubits=n, ground_truth=False,
+                  plot=False, log_metrics=False, results_root="unused", device=dev)
+    rng = np.random.default_rng(seed)
+    masks = [(int(rng.integers(1, 1 << n)), int(rng.integers(0, 1 << n))) for _ in range(30)]
+    params = {k: torch.tensor(v, dtype=torch.float32, device=dev, requires_grad=True)
+              for k, v in (("theta", rng.uniform(0, np.pi, n)),
+                           ("phi", rng.uniform(-np.pi, np.pi, n)),
+                           ("tau", rng.normal(0, 0.7, 30)))}
+    return driver, Observable(H, n), params, driver.segment(masks)
+
+
+@pytest.mark.parametrize("n", [10, 12])
+def test_iqcc_differentiable_segment(dev, n):
+    """The iQCC loss on the kernels (resident rotation forward, adjoint
+    backward, inner-product and application tiles) against the plain
+    versions: energy within 1e-5 relative, tau, theta and phi gradients
+    within 1e-4 of max |g|."""
+    driver, obs, params, seg = _iqcc_case(n, dev)
+    out = {}
+    for name, impl in (("kernel", K.KERNELS), ("plain", K.PLAIN)):
+        for p in params.values():
+            p.grad = None
+        e = obs.expectation_auto(driver._state(params, seg, impl), impl=impl)
+        e.backward()
+        out[name] = (float(e.detach()), {k: p.grad.clone() for k, p in params.items()})
+    (e_k, g_k), (e_p, g_p) = out["kernel"], out["plain"]
+    assert abs(e_k - e_p) <= RTOL * abs(e_p)
+    for k in params:
+        assert float((g_k[k] - g_p[k]).abs().max()) <= 1e-4 * float(g_p[k].abs().max())
+
+
+def test_dense_dressing_and_ilc_fold_on_card(dev):
+    """dress_dense and fold_ilc_dense at 10 qubits on the card against the
+    same functions on the CPU (float64): relative Frobenius error <= 1e-10."""
+    from qsfh_torch.ops.dense_dressing import dense_dis_generators, dress_dense, \
+        paulisum_to_dense_fast
+    from qsfh_torch.ops.ilc import candidate_anticommuting_sets, fold_ilc_dense
+    from qsfh_torch.ops.jw import jordan_wigner
+    from qsfh_torch.ops.lattice import fermi_hubbard
+
+    n = 10
+    H = paulisum_to_dense_fast(jordan_wigner(fermi_hubbard(1, 5, 1.0, 4.0, periodic=False)), n)
+    gens = [P for _, P in dense_dis_generators(H, n)[0]]
+    rng = np.random.default_rng(2)
+    taus = rng.normal(0, 0.5, len(gens))
+    D_cpu = dress_dense(H, gens, taus, n)
+    D_gpu = dress_dense(H.to(dev), gens, taus, n)
+    assert _rel(D_gpu.cpu(), D_cpu) <= 1e-10
+    dressed = [P for _, P in dense_dis_generators(D_cpu, n)[0]]
+    sets = candidate_anticommuting_sets(dressed, rng.uniform(size=len(dressed)), 12)
+    sub = [dressed[i] for i in max(sets, key=len)]
+    a = rng.normal(size=len(sub) + 1)
+    a /= np.linalg.norm(a)
+    F_cpu = fold_ilc_dense(D_cpu, sub, a, n)
+    F_gpu = fold_ilc_dense(D_gpu, sub, a, n)
+    assert len(sub) > 2 and _rel(F_gpu.cpu(), F_cpu) <= 1e-10

@@ -1,12 +1,14 @@
 """Guards of the port: no JAX, no ``qsfh_tpu``, the card by default.
 
 * ``import qsfh_torch.algos.adapt`` (and ``adapt_fused``, ``hva``,
-  ``grad.adjoint``, ``engine.gates``, ``linalg.lanczos``) succeeds with
-  ``jax`` blocked and loads no ``qsfh_tpu`` module;
+  ``iqcc``, ``grad.adjoint``, ``engine.gates``, ``linalg.lanczos``,
+  ``ops.dressing``, ``ops.dense_dressing``, ``ops.ilc``, ``molecules``)
+  succeeds with ``jax`` blocked and loads no ``qsfh_tpu`` module, and a
+  molecule builds there (its FCI on the port's Lanczos);
 * no module of ``qsfh_torch`` (nor ``chip_smoke.py``) imports jax, optax
   or qsfh_tpu;
-* ``ADAPT(...)`` and ``HVA(...)`` with no device raise where CUDA is
-  unavailable.
+* ``ADAPT(...)``, ``HVA(...)`` and ``IQCC(...)`` with no device raise
+  where CUDA is unavailable.
 """
 
 import ast
@@ -20,6 +22,7 @@ import torch
 
 from qsfh_torch.algos import adapt as port_adapt
 from qsfh_torch.algos import hva as port_hva
+from qsfh_torch.algos import iqcc as port_iqcc
 from qsfh_torch.algos.base import default_dtype, resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,6 +55,9 @@ def test_port_imports_with_jax_blocked():
         "import qsfh_torch.algos.adapt, qsfh_torch.io.convert, qsfh_torch.engine.kernels\n"
         "import qsfh_torch.algos.adapt_fused, qsfh_torch.linalg.lanczos\n"
         "import qsfh_torch.algos.hva, qsfh_torch.grad.adjoint, qsfh_torch.engine.gates\n"
+        "import qsfh_torch.algos.iqcc, qsfh_torch.ops.dressing, qsfh_torch.ops.dense_dressing\n"
+        "import qsfh_torch.ops.ilc, qsfh_torch.molecules, qsfh_torch.utils.dense\n"
+        "assert qsfh_torch.molecules.H2(0.74).fci_energy < -1.13\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'qsfh_tpu')\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -96,3 +102,12 @@ def test_device_and_dtype_policy(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+
+
+def test_iqcc_without_device_raises_without_cuda(monkeypatch):
+    from qsfh_torch.ops.lattice import fermi_hubbard
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_iqcc.IQCC(fermi_hubbard(2, 2, 1.0, 4.0), n_epoch=1, lr=1e-2, threshold=5e-3,
+                       ground_truth=False, plot=False, log_metrics=False)
