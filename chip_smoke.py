@@ -135,9 +135,51 @@ Phases (any failed check raises and the script exits nonzero):
    theta and phi gradients within 1e-4 of the largest |g|), and times
    the segment's rotation kernels and, on LiH's dressed H, E, the DIS
    screen and H psi against their plain versions.
-12. A ``kernels`` JSON line (``expectation_norm_f64``'s launches counted
+12. Product states at 26, 28 and 30 qubits (the 1x13, 2x7 and 3x5
+   lattices of ``benchmarks/tpu_stream_big.py``, t=1, U=6; angles from
+   ``default_rng(n)``): the state built on the card
+   (``engine.product_state``), then against float64 closed forms on the
+   host: E of H (``expectation_grouped``) and |psi|^2 within 1e-4
+   relative; 8 seeded hopping-like rotations on ``rotation_tile_runs``,
+   the rotated E against the dressed closed form; their gradients from
+   ``adjoint_tile_runs`` with lambda = 2 H psi (``pauli_apply_grouped``)
+   within 1e-3 of max |g| of central differences; the ADAPT pool's screen
+   (``screen_grouped``) between psi and a product state w that differs
+   from it on 3 qubits (so the values are O(|c|)) within 1e-4 of the
+   largest, and <phi|H psi> (``pauli_apply_grouped``) within 1e-4
+   relative.  Launch counters set to 0 just before and read just after
+   each size; ms per call beside the bound, the peak memory; then planted
+   faults (a screen of zeros, psi with its upper half dropped) that the
+   screen and <phi|H psi> checks must fail.
+13. The HEA driver (``qsfh_torch.algos.hea.VQE``, one rot segment): H2 r =
+   0.8, reps = 5, lr 0.1 (the reference configuration; the per-term
+   kernels) and LiH (12 qubits; the resident kernels), 20 steps each with
+   the launches of every step, energy and gnorm within 1e-4 relative of
+   the unrolled plain path (autograd through the gates); H2's ``run()``
+   to its threshold, the distance to FCI printed; a profile of the LiH
+   step (device kernel time, idle share).
+14. VQD (``qsfh_torch.algos.vqd.VQD``): H2 3 levels (reps 3, beta 5, 500
+   epochs, ``benchmarks/demo_vqd_h2/run.py``) within 1e-3 Ha of the dense
+   spectrum; LiH 2 levels of 20 steps, the kernels against the plain
+   versions (histories within 1e-4 relative).
+15. Trotter dynamics (``qsfh_torch.algos.dynamics.TrotterEvolution``): the
+   3x3 Neel quench of ``benchmarks/tpu_dynamics.py`` (U = 4, dt = 0.05,
+   Strang, 15 steps, one ``rotation_resident`` launch a step): double
+   occupancy within 1e-3 relative of ``benchmarks/dynamics_expected.json``,
+   <H> drift as its sanity check, the final state within 1e-4 of the plain
+   path; ms per step (CUDA events around host-launched steps), a profile
+   of 20 steps (device kernel time, idle share) and 20 steps in a CUDA
+   graph (the device's time with no host between launches).
+16. Imaginary-time evolution (``qsfh_torch.algos.ite``): 3x3, dbeta =
+   0.01, order 2, from the seed-19 state of ``benchmarks/tpu_ite.py``: the
+   first 4 energies and variances within 1e-3 of
+   ``benchmarks/ite_expected.json``, then 300 steps in blocks of 50 (ms per
+   step; 2 H psi a step, one ``pauli_apply_grouped`` launch per tile), a
+   profile of 50 steps and 50 steps in a CUDA graph.
+17. A ``kernels`` JSON line (``expectation_norm_f64``'s launches counted
    per capture, its replays beside them; every kernel's graph nodes per
-   fused step; its launches on the HVA and iQCC paths), then the device
+   fused step; its launches on the HVA, iQCC, product-state, HEA, VQD,
+   Trotter and ITE paths; ms and bound at 26-30 qubits), then the device
    JSON line, last.
 
 ``--compare PARENT`` runs both main paths (3x3 and 2x6 selection and
@@ -168,6 +210,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -2008,10 +2051,10 @@ def profile_calls(calls, out, label):
         log(f"profile, {label} {what}: device kernel time {busy_ms:.3f} ms per call against "
             f"{ref_ms:.3f} ms unprofiled: idle share {1 - busy_ms / ref_ms:.3f}")
         for key, count, us in rows[:8]:
-            log(f"  {us / 1e3 / reps:9.4f} ms  {count // reps:6d}x  {key[:80]}")
+            log(f"  {us / 1e3 / reps:9.4f} ms  {count / reps:6.2f}x  {key[:80]}")
         prof_out[f"{label} {what}"] = dict(
             kernel_ms=busy_ms, unprofiled_ms=ref_ms, idle_share=1 - busy_ms / ref_ms,
-            rows=[dict(name=k, launches=c // reps, device_ms=u / 1e3 / reps) for k, c, u in rows],
+            rows=[dict(name=k, launches=c / reps, device_ms=u / 1e3 / reps) for k, c, u in rows],
         )
 
 
@@ -3159,6 +3202,541 @@ def phase_iqcc(dev, tmp):
     return res
 
 
+# -- product states at 26-30 qubits, HEA, VQD, dynamics, ITE ----------------------------
+
+# the 26-30 qubit lattices of benchmarks/tpu_stream_big.py:35-36: t=1, U=6,
+# periodic, the state a phased product state (closed-form expectations)
+BIG_LATTICES = {26: (1, 13), 28: (2, 7), 30: (3, 5)}
+BIG_RTOL = 1e-4  # E, |psi|^2, screen and <phi|H psi> against the float64 closed form
+BIG_GRAD_RTOL = 1e-3  # adjoint gradients against central differences, of max |g|
+BIG_ROTATIONS = 8
+# w and phi are psi with this many qubits' angles drawn anew: every other
+# per-qubit overlap is 1, so the screen and <phi|H psi> are O(|c|) where two
+# unrelated product states would give ~2^(-n/2) |c|
+BIG_CHANGED = 3
+# the kernels of the product-state path, by the check that drives each
+BIG_KERNELS = ("expectation_grouped", "screen_grouped", "pauli_apply_grouped",
+               "rotation_tile_runs", "adjoint_tile_runs")
+
+
+def big_rotations(n, rng):
+    """Hopping-like rotations: flips on two qubits i < j at most 3 apart,
+    the Jordan-Wigner Z string between them, every second term a YY (both
+    ends in z too); angles in [0.2, 1.0), every third negative."""
+    rots = []
+    for k in range(BIG_ROTATIONS):
+        i = int(rng.integers(0, n - 1))
+        j = min(n - 1, i + int(rng.integers(1, 4)))
+        x = (1 << i) | (1 << j)
+        z = sum(1 << q for q in range(i + 1, j)) | (x if k % 2 else 0)
+        rots.append((x, z, float(rng.uniform(0.2, 1.0)) * (-1.0 if k % 3 == 0 else 1.0)))
+    return rots
+
+
+def big_closed_grads(H, n, rots, th, al, h=1e-5):
+    """dE/dtheta_t of the rotated product state by central differences of the
+    dressed closed form (float64)."""
+    import numpy as np
+
+    from qsfh_torch.engine import product_state as ps
+
+    out = []
+    for t in range(len(rots)):
+        e = [ps.product_expectation(ps.rotated_hamiltonian(
+            H, [(x, z, a + (d if k == t else 0.0)) for k, (x, z, a) in enumerate(rots)]),
+            n, th, al) for d in (h, -h)]
+        out.append((e[0] - e[1]) / (2 * h))
+    return np.asarray(out)
+
+
+def big_size(n, lattice, dev):
+    """One lattice of phase_product_state: the checks against the closed
+    forms (every launch counter set to 0 just before, read just after),
+    then the kernels' times beside their bounds."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import product_state as ps
+    from qsfh_torch.engine import streaming
+    from qsfh_torch.engine.compiled import (
+        CompiledCircuit, adjoint_sweep, rotate_segment, run_rot_adjoint)
+    from qsfh_torch.engine.expectation import Observable, PackedPool
+    from qsfh_torch.ops.jw import jordan_wigner
+    from qsfh_torch.ops.lattice import fermi_hubbard
+    from qsfh_torch.ops.pauli import PauliSum
+    from qsfh_torch.ops.pool import hubbard_interaction_pool_simplified
+
+    x, y = lattice
+    dim, t_host = 1 << n, time.perf_counter()
+    H = jordan_wigner(fermi_hubbard(x, y, 1.0, 6.0, periodic=True))
+    obs = Observable(H, n)
+    pool = PackedPool([jordan_wigner(g) for g in hubbard_interaction_pool_simplified(x, y)], n)
+    rng = np.random.default_rng(n)
+    th, al = rng.uniform(0.4, 2.7, n), rng.uniform(-np.pi, np.pi, n)
+    changed = rng.choice(n, BIG_CHANGED, replace=False)
+    thw, alw = th.copy(), al.copy()
+    thw[changed] = rng.uniform(0.4, 2.7, BIG_CHANGED)
+    alw[changed] = rng.uniform(-np.pi, np.pi, BIG_CHANGED)
+    rots = big_rotations(n, rng)
+    ops, thetas = ps.rotation_ops(n, rots)
+    (seg,) = CompiledCircuit(ops, n).segments
+    fwd = seg.tiles(1, n, streaming.TILE_BITS, streaming.TILE_LOW_BITS)
+    adj = seg.tiles(-1, n, streaming.TILE_BITS, streaming.TILE_LOW_BITS)
+    if fwd.n_single or adj.n_single:
+        raise AssertionError(f"{n} qubits: a rotation fits no tile")
+    # the closed forms (host, float64)
+    e_closed = ps.product_expectation(H, n, th, al)
+    dressed = ps.rotated_hamiltonian(H, rots)
+    e_rot_closed = ps.product_expectation(dressed, n, th, al)
+    g_closed = big_closed_grads(H, n, rots, th, al)
+    gens = pool.generators
+    ks = np.repeat(np.arange(len(gens)), [len(g) for g in gens])
+    flat = PauliSum(np.concatenate([g.x for g in gens]), np.concatenate([g.z for g in gens]),
+                    np.concatenate([g.c for g in gens]))
+    v_pool = ps.product_pair_term_values(flat, n, (thw, alw), (th, al))
+    screen_closed = np.bincount(ks, 2.0 * v_pool.imag, len(gens))
+    screen_scale = float(np.abs(screen_closed).max())
+    h_phi_psi = ps.product_pair_term_values(H, n, (thw, alw), (th, al)).sum()
+    obs.groups(), obs.inner_groups(), pool.inner_groups()  # host layouts, built once
+    host_s = time.perf_counter() - t_host
+    th_t = torch.tensor(thetas, dtype=torch.float32, device=dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_dev = time.perf_counter()
+    K.reset_launch_counts()
+    build_ms, psi = timed_once(lambda: ps.product_state(n, th, al, dev))
+    e = float(obs.expectation_scan(psi))
+    norm = float(torch.vdot(psi, psi).real)
+    phi = ps.product_state(n, thw, alw, dev)
+    screen = pool.screen_scan(psi, phi).double().cpu().numpy()
+    h_psi = obs.apply_scan(psi)
+    phi_h_psi = complex(torch.vdot(phi, h_psi))
+    del phi, h_psi  # at 30 qubits each state is 8 GiB
+    rotated = CompiledCircuit(ops, n).apply(psi, th_t)
+    e_rot = float(obs.expectation_scan(rotated))
+    lam = obs.apply_scan(rotated).mul_(2.0)
+    p_buf, l_buf, grads = run_rot_adjoint(seg, rotated, lam, th_t, n)
+    grads = grads.double().cpu().numpy()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    device_s = time.perf_counter() - t_dev
+
+    def screen_err(got):
+        return float(np.abs(got - screen_closed).max() / screen_scale)
+
+    def h_psi_err(got):
+        return abs(got - h_phi_psi) / abs(h_phi_psi)
+
+    errs = dict(
+        energy=abs(e - e_closed) / abs(e_closed), norm=abs(norm - 1.0),
+        rotated_energy=abs(e_rot - e_rot_closed) / abs(e_rot_closed),
+        gradient=float(np.abs(grads - g_closed).max() / np.abs(g_closed).max()),
+        screen=screen_err(screen), h_psi=h_psi_err(phi_h_psi))
+    log(f"  {n} qubits ({x}x{y}, {len(H)} H terms, {pool.size} pool generators / "
+        f"{pool.scan_arrays()[0].size} terms, {len(seg)} rotations in {fwd.n_runs} / "
+        f"{adj.n_runs} tile runs, dressed H {len(dressed)} terms): E {e:.7f} (closed "
+        f"{e_closed:.7f}, rel {errs['energy']:.2e}), |psi|^2 - 1 {norm - 1.0:.2e}, rotated E "
+        f"rel {errs['rotated_energy']:.2e}, gradients {errs['gradient']:.2e} of max |g| "
+        f"{np.abs(g_closed).max():.4f}, screen {errs['screen']:.2e} of max |screen| "
+        f"{screen_scale:.4f}, <phi|H psi> {h_phi_psi:.4f} rel {errs['h_psi']:.2e} (tol "
+        f"{BIG_RTOL:g}; gradients {BIG_GRAD_RTOL:g})")
+    if max(errs["energy"], errs["norm"], errs["rotated_energy"], errs["screen"],
+           errs["h_psi"]) > BIG_RTOL or errs["gradient"] > BIG_GRAD_RTOL:
+        raise AssertionError(f"{n} qubits: the kernels disagree with the closed forms: {errs}")
+    for name in BIG_KERNELS:
+        if not counts[name]:
+            raise AssertionError(f"{n} qubits: {name} did not launch on the product-state path")
+    runs = {"rotation_tile_runs": fwd.n_runs, "adjoint_tile_runs": adj.n_runs}
+    for name, expected in runs.items():
+        if counts[name] != expected:
+            raise AssertionError(f"{n} qubits: {counts[name]} {name} launches, the layout "
+                                 f"has {expected} runs")
+
+    # times, after the counted path, on buffers reused in place; each state
+    # freed once its timings are taken
+    d = seg.tensors(dev, torch.float32, len(rots))
+    angles = th_t[d["pidx"]] * d["scale"]
+    arrs = (d["xb"], d["zb"], angles, d["phre"], d["phim"])
+    rev = tuple(a.flip(0) for a in arrs)
+    xs, zs, c = obs._tensors(psi)
+    pxs = pool._tensors(psi)[0]
+    times = {"adjoint_tile_runs": (
+        time_cuda(lambda: adjoint_sweep(seg, p_buf, l_buf, rev, n), 3, 1), 32 * dim,
+        20 * len(seg) * dim)}
+    del p_buf, l_buf, lam
+    times["rotation_tile_runs"] = (time_cuda(lambda: rotate_segment(seg, rotated, arrs, n), 3, 1),
+                                   16 * dim, 6 * len(seg) * dim)
+    del rotated
+    times["expectation_grouped"] = (time_cuda(lambda: obs.expectation_scan(psi), 3, 1), 8 * dim,
+                                    inner_bound_flops(xs, True, obs.inner_groups(), dim))
+    times["pauli_apply_grouped"] = (time_cuda(lambda: obs.apply_scan(psi), 3, 1), 16 * dim,
+                                    apply_flops(xs, c, obs.groups(), dim))
+    phi = ps.product_state(n, thw, alw, dev)
+    times["screen_grouped"] = (time_cuda(lambda: pool.screen_scan(psi, phi), 3, 1), 16 * dim,
+                               inner_bound_flops(pxs, False, pool.inner_groups(), dim))
+    kern = {}
+    for name, (ms, bytes_moved, flops) in times.items():
+        b_ms, b_by = bound(bytes_moved, flops)
+        kern[name] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, launches=counts[name])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"    ms per call: " + ", ".join(f"{k} {v['ms']:.3f} (bound {v['bound_ms']:.3f}, "
+                                         f"{v['bound_by']})" for k, v in kern.items())
+        + f"; product state built in {build_ms:.1f} ms; peak {peak:.1f} GiB; host {host_s:.1f} s,"
+          f" checks on the card {device_s:.1f} s")
+
+    # planted faults, which the checks above must see: a screen of zeros, and
+    # the screen and <phi|H psi> of psi with its upper half dropped
+    psi[dim // 2:] = 0
+    planted = dict(zero_screen=screen_err(np.zeros_like(screen_closed)),
+                   half_screen=screen_err(pool.screen_scan(psi, phi).double().cpu().numpy()),
+                   half_h_psi=h_psi_err(complex(torch.vdot(phi, obs.apply_scan(psi)))))
+    log("    planted faults: " + ", ".join(f"{k} {v:.2e}" for k, v in planted.items()))
+    if min(planted.values()) <= BIG_RTOL:
+        raise AssertionError(f"{n} qubits: a planted fault passes the checks: {planted}")
+    del psi, phi
+    torch.cuda.empty_cache()
+    return dict(lattice=f"{x}x{y}", h_terms=len(H), pool_terms=int(pool.scan_arrays()[0].size),
+                rotations=len(seg), runs=runs, dressed_terms=len(dressed), errors=errs,
+                planted=planted, screen_scale=screen_scale, h_phi_psi=abs(h_phi_psi),
+                energy=e, energy_closed=e_closed, launches=counts, kernels=kern,
+                build_ms=build_ms, peak_gib=peak, host_s=host_s, device_s=device_s)
+
+
+def phase_product_state(dev):
+    """The kernels at 26, 28 and 30 qubits against float64 closed forms."""
+    t0 = time.perf_counter()
+    res = {n: big_size(n, lattice, dev) for n, lattice in BIG_LATTICES.items()}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  product-state phase: {res['seconds']:.1f} s")
+    return res
+
+
+HEA_REPS = 5
+HEA_STEPS = 20  # kernel against plain, both molecules
+HEA_RTOL = 1e-4  # energy and gnorm per step, relative
+
+
+@functools.lru_cache(maxsize=None)
+def lih_molecule():
+    """LiH r = 0.8, STO-3G, with its FCI energy (the port's Lanczos)."""
+    from qsfh_torch.molecules import LiH
+
+    return LiH(0.8)
+
+
+def hea_steps(vqe, n_steps, label):
+    """``n_steps`` train steps of ``vqe`` from its initial angles, every
+    launch counter set to 0 just before and read just after each."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    th = vqe.params.clone()
+    optimizer = torch.optim.Adam([th], lr=vqe.lr)
+    rows, total = [], dict.fromkeys(K.launch_counts(), 0)
+    for i in range(n_steps):
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        th, optimizer, e, g = vqe._step(th, optimizer)
+        e, g = float(e), float(g)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = K.launch_counts()
+        total = {k: total[k] + v for k, v in counts.items()}
+        rows.append(dict(step=i + 1, energy=e, gnorm=g, ms=ms))
+    return rows, total, counts
+
+
+def hea_case(mol, label, dev, tmp, n_epoch):
+    """HEA_STEPS steps on the kernels against the unrolled plain path, and
+    for H2 the reference run() to its threshold."""
+    from qsfh_torch.algos.hea import VQE
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import streaming
+
+    kw = dict(n_epoch=n_epoch, reps=HEA_REPS, lr=1e-1, threshold=0.002, plot=False,
+              log_metrics=False, device=dev)
+    vqe = VQE(mol, results_root=os.path.join(tmp, f"hea_{label}"), **kw)
+    n = vqe.n_qubits
+    seg = vqe._segment.segment
+    rows, total, per_step = hea_steps(vqe, HEA_STEPS, label)
+    plain = VQE(mol, results_root=os.path.join(tmp, f"hea_{label}_plain"), circuit_mode="unrolled",
+                **kw)
+    plain_rows, plain_counts, _ = hea_steps(plain, HEA_STEPS, label + " plain")
+    if any(plain_counts.values()):
+        raise AssertionError(f"HEA {label}: the unrolled path launched a kernel: {plain_counts}")
+    diffs = [max(abs(a[k] - b[k]) / abs(b[k]) for k in ("energy", "gnorm"))
+             for a, b in zip(rows, plain_rows)]
+    resident = n >= K.TILE_MIN_BITS
+    expected = ("rotation_resident", "adjoint_resident") if resident else \
+        ("pauli_rotation", "adjoint_rotation")
+    for name in expected + (("expectation_grouped", "pauli_apply_grouped") if resident else
+                            ("pauli_inner", "pauli_apply")):
+        if not per_step[name]:
+            raise AssertionError(f"HEA {label}: {name} did not launch in a step")
+    if resident and (per_step["rotation_resident"], per_step["adjoint_resident"],
+                     per_step["pauli_rotation"], per_step["adjoint_rotation"]) != (1, 1, 0, 0):
+        raise AssertionError(f"HEA {label}: a step is not one resident launch each way: "
+                             f"{per_step}")
+    layout = seg.tiles(1, n, streaming.RESIDENT_TILE_BITS, streaming.RESIDENT_TILE_LOW_BITS)
+    ms = median_ms(rows)
+    log(f"  HEA {label} ({n} qubits, reps {HEA_REPS}: {len(seg)} rotation terms"
+        + (f", {layout.n_runs} resident runs" if resident else ", the per-term kernels")
+        + f"): {HEA_STEPS} steps, {ms:.2f} ms a step (unrolled plain "
+        f"{median_ms(plain_rows):.2f}), E {rows[-1]['energy']:.6f}, energy and gnorm within "
+        f"{max(diffs):.2e} of the plain path (tol {HEA_RTOL:g}); launches a step "
+        + ", ".join(f"{k} {v}" for k, v in per_step.items() if v))
+    if max(diffs) > HEA_RTOL:
+        raise AssertionError(f"HEA {label}: the kernels disagree with the unrolled path")
+    res = dict(n=n, terms=len(seg), runs=layout.n_runs if resident else None, steps=rows,
+               plain_steps=plain_rows, rel=diffs, launches=total, launches_per_step=per_step,
+               step_ms=ms, plain_step_ms=median_ms(plain_rows))
+    if mol.fci_energy is not None:
+        res["fci"] = mol.fci_energy
+        res["fci_gap"] = rows[-1]["energy"] - mol.fci_energy
+    return res, vqe
+
+
+def phase_hea(dev, tmp):
+    """The HEA driver: H2 (4 qubits, per-term kernels; the reference
+    configuration's run() to its threshold) and LiH (12 qubits, resident
+    kernels), each held to the unrolled plain path for HEA_STEPS steps;
+    a profile of the LiH step."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.molecules import H2
+
+    t0 = time.perf_counter()
+    res = {}
+    res["h2"], vqe = hea_case(H2(r=0.8), "H2", dev, tmp, n_epoch=100)
+    K.reset_launch_counts()
+    t_run = time.perf_counter()
+    losses = vqe.run()
+    res["h2"]["run"] = dict(epochs=len(losses), seconds=time.perf_counter() - t_run,
+                            energy=losses[-1], fci_gap=losses[-1] - vqe.molecule.fci_energy,
+                            launches=K.launch_counts())
+    log(f"  H2 reference run(): {len(losses)} epochs in {res['h2']['run']['seconds']:.2f} s, "
+        f"E {losses[-1]:.6f}, {res['h2']['run']['fci_gap']:.2e} above FCI (not gated)")
+    res["lih"], lih = hea_case(lih_molecule(), "LiH", dev, tmp, n_epoch=HEA_STEPS)
+    th = lih.params.clone()
+    optimizer = torch.optim.Adam([th], lr=lih.lr)
+    lih._step(th, optimizer)
+    torch.cuda.synchronize()
+    profile_calls((("train step", 2, lambda: lih._step(th, optimizer), res["lih"]["step_ms"]),),
+                  res["lih"], "HEA LiH")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  HEA phase: {res['seconds']:.1f} s")
+    return res
+
+
+VQD_LEVEL_TOL = 1e-3  # Ha, each level against the dense spectrum
+VQD_STEPS_LIH = 20
+
+
+def phase_vqd(dev, tmp):
+    """VQD: H2 3 levels (benchmarks/demo_vqd_h2/run.py) against the dense
+    spectrum; LiH 2 levels of VQD_STEPS_LIH steps, kernels against plain."""
+    import numpy as np
+
+    from qsfh_torch.algos.vqd import VQD
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.molecules import H2
+    from qsfh_torch.ops.jw import jordan_wigner
+    from qsfh_torch.utils.dense import paulisum_to_dense
+
+    t0 = time.perf_counter()
+    res = {}
+    m = H2(r=0.8)
+    evals = np.linalg.eigvalsh(paulisum_to_dense(jordan_wigner(m.get_molecular_hamiltonian()), 4))
+    K.reset_launch_counts()
+    t_run = time.perf_counter()
+    v = VQD(m, n_levels=3, n_epoch=500, reps=3, lr=1e-1, beta=5.0, seed=1, log_metrics=False,
+            results_root=os.path.join(tmp, "vqd_h2"), device=dev)
+    energies = v.run()
+    seconds = time.perf_counter() - t_run
+    counts = K.launch_counts()
+    errs = [e - x for e, x in zip(energies, evals[:3])]
+    steps = sum(len(h) for h in v.histories)
+    log(f"  VQD H2 (4 qubits, 3 levels): E {', '.join(f'{e:.6f}' for e in energies)}, error to "
+        f"the dense spectrum {', '.join(f'{e:.2e}' for e in errs)} Ha (tol {VQD_LEVEL_TOL:g}); "
+        f"{steps} steps in {seconds:.2f} s ({1e3 * seconds / steps:.2f} ms a step)")
+    if max(abs(e) for e in errs) > VQD_LEVEL_TOL:
+        raise AssertionError("VQD H2: a level misses the dense spectrum")
+    for name in ("pauli_rotation", "adjoint_rotation", "pauli_inner", "pauli_apply"):
+        if not counts[name]:
+            raise AssertionError(f"VQD H2: {name} did not launch")
+    res["h2"] = dict(energies=energies, dense=evals[:3].tolist(), errors=errs,
+                     epochs=[len(h) for h in v.histories], seconds=seconds, launches=counts,
+                     ms_per_step=1e3 * seconds / steps)
+
+    runs = {}
+    for name, impl in (("kernels", K.KERNELS), ("plain", K.PLAIN)):
+        lih = VQD(lih_molecule(), n_levels=2, n_epoch=VQD_STEPS_LIH, reps=3, lr=1e-1, beta=5.0,
+                  threshold=0.0, log_metrics=False, results_root=os.path.join(tmp, "vqd_" + name),
+                  device=dev)
+        lih.impl = impl
+        K.reset_launch_counts()
+        t_run = time.perf_counter()
+        lih.run()
+        runs[name] = (lih, time.perf_counter() - t_run, K.launch_counts())
+    (k, k_s, k_counts), (p, p_s, p_counts) = runs["kernels"], runs["plain"]
+    if any(p_counts.values()):
+        raise AssertionError(f"VQD LiH: the plain path launched a kernel: {p_counts}")
+    for name in ("rotation_resident", "adjoint_resident", "expectation_grouped",
+                 "pauli_apply_grouped"):
+        if not k_counts[name]:
+            raise AssertionError(f"VQD LiH: {name} did not launch")
+    rel = max(abs(a - b) / abs(b) for hk, hp in zip(k.histories, p.histories)
+              for a, b in zip(hk, hp))
+    rel = max([rel] + [abs(a - b) / abs(b) for a, b in zip(k.energies, p.energies)])
+    log(f"  VQD LiH (12 qubits, 2 levels of {VQD_STEPS_LIH} steps): E {k.energies[0]:.6f}, "
+        f"{k.energies[1]:.6f}; histories and final energies within {rel:.2e} of the plain "
+        f"path (tol {HEA_RTOL:g}); {1e3 * k_s / (2 * VQD_STEPS_LIH):.2f} ms a step (plain "
+        f"{1e3 * p_s / (2 * VQD_STEPS_LIH):.2f})")
+    if rel > HEA_RTOL:
+        raise AssertionError("VQD LiH: the kernels disagree with the plain path")
+    launches = {name: res["h2"]["launches"][name] + k_counts[name] for name in k_counts}
+    res["lih"] = dict(energies=k.energies, plain_energies=p.energies, rel=rel, launches=k_counts,
+                      ms_per_step=1e3 * k_s / (2 * VQD_STEPS_LIH),
+                      plain_ms_per_step=1e3 * p_s / (2 * VQD_STEPS_LIH))
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  VQD phase: {res['seconds']:.1f} s")
+    return res
+
+
+DYN_STEPS = 15
+DYN_TRACE = os.path.join(HERE, "benchmarks", "dynamics_expected.json")
+ITE_TRACE = os.path.join(HERE, "benchmarks", "ite_expected.json")
+TRACE_RTOL = 1e-3  # the JAX harnesses' gate on their committed float traces
+
+
+def phase_dynamics(dev):
+    """The 3x3 Neel quench of benchmarks/tpu_dynamics.py (U = 4, dt = 0.05,
+    Strang, 15 steps): double occupancy per step against the committed
+    trace, <H> drift as a sanity check, the final state against the plain
+    path on the card; ms per Trotter step and its profile."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.algos.dynamics import TrotterEvolution, neel_occupied
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import streaming
+    from qsfh_torch.engine.expectation import Observable
+    from qsfh_torch.engine.state import basis_state
+    from qsfh_torch.ops.jw import jordan_wigner
+
+    t0 = time.perf_counter()
+    with open(DYN_TRACE) as fh:
+        trace = json.load(fh)
+    p = HubbardProblem(3, 3, 1.0, 4.0, 9, 5, 4)
+    ev = TrotterEvolution(p, dt=0.05, order=2, device=dev)
+    obs = {"UD": Observable(jordan_wigner(p.interacting_term), 18), "H": p.observables["H"]}
+    psi0 = basis_state(18, neel_occupied(3, 3), dtype=torch.complex64, device=dev)
+    ev.evolve(psi0, 1, observables=obs)  # first use: layouts and tables
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    psi, rec = ev.evolve(psi0, DYN_STEPS, observables=obs)
+    run_ms = 1e3 * (time.perf_counter() - t_run) / DYN_STEPS
+    counts = K.launch_counts()
+    ud_err = float(np.max(np.abs(rec["UD"] - trace["energies"]) / np.abs(trace["energies"])))
+    h_err = float(np.max(np.abs(rec["H"] - trace["gnorms"]) / np.abs(trace["gnorms"])))
+    ev.impl = K.PLAIN
+    psi_plain, _ = ev.evolve(psi0, DYN_STEPS)
+    ev.impl = K.KERNELS
+    state_err = rel_err(psi, psi_plain)
+    layout = ev.segment.tiles(1, 18, streaming.RESIDENT_TILE_BITS,
+                              streaming.RESIDENT_TILE_LOW_BITS)
+    per_step = {k: v / DYN_STEPS for k, v in counts.items() if v}
+    step_ms = time_cuda(lambda: ev.step(psi), 50)
+    log(f"  Trotter 3x3 Neel quench (18 qubits, {len(ev.segment)} rotation terms a Strang step, "
+        f"{layout.n_runs} resident runs): double occupancy within {ud_err:.2e} of the committed "
+        f"trace (tol {TRACE_RTOL:g}), <H> drift {h_err:.2e} (sanity, tol 1), final state within "
+        f"{state_err:.2e} of the plain path (tol {STATE_RTOL * 10:g}); {step_ms:.4f} ms a step "
+        f"(CUDA events), {run_ms:.3f} ms a recorded step (host clock, E and UD each step); "
+        f"launches a step " + ", ".join(f"{k} {v:g}" for k, v in per_step.items()))
+    if ud_err > TRACE_RTOL or h_err > 1.0 or state_err > 10 * STATE_RTOL:
+        raise AssertionError("Trotter: the kernels disagree with the trace or the plain path")
+    if counts["rotation_resident"] != DYN_STEPS or counts["pauli_rotation"]:
+        raise AssertionError(f"Trotter: a step is not one resident launch: {counts}")
+    res = dict(ud_rel=ud_err, h_drift_rel=h_err, state_rel=state_err, terms=len(ev.segment),
+               runs=layout.n_runs, launches=counts, launches_per_step=per_step,
+               step_ms=step_ms, recorded_step_ms=run_ms, ud=rec["UD"].tolist())
+    profile_calls((("step", 20, lambda: ev.step(psi), step_ms),), res, "Trotter 3x3")
+    res["graph_ms"] = graph_ms(lambda: ev.step(psi), 20)
+    log(f"  Trotter step in a CUDA graph: {res['graph_ms']:.4f} ms (no host between launches; "
+        f"idle share of the host-launched step {1 - res['graph_ms'] / step_ms:.3f})")
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+ITE_STEPS = 300
+ITE_BLOCK = 50
+
+
+def phase_ite(dev):
+    """3x3 ITE (t=1, U=6, 5 up / 4 down, dbeta = 0.01, order 2) from the
+    seed-19 state of benchmarks/tpu_ite.py: the first 4 energies and
+    variances against the committed trace, then a timed run and a profile
+    of one block's steps."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.algos.ite import ImaginaryTimeEvolution
+    from qsfh_torch.engine import kernels as K
+
+    t0 = time.perf_counter()
+    with open(ITE_TRACE) as fh:
+        trace = json.load(fh)
+    p = HubbardProblem(3, 3, 1.0, 6.0, 9, 5, 4)
+    ite = ImaginaryTimeEvolution(p, dbeta=0.01, order=2, device=dev)
+    rng = np.random.default_rng(19)
+    v = rng.standard_normal(1 << 18) + 1j * rng.standard_normal(1 << 18)
+    v /= np.linalg.norm(v)
+    K.reset_launch_counts()
+    _, rec = ite.run(v, n_steps=4, block=4)
+    counts = K.launch_counts()
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - np.asarray(b))) / np.max(np.abs(b)))
+
+    e_err, v_err = rel(rec["energies"], trace["energies"]), rel(rec["variances"],
+                                                                trace["variances"])
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    psi, long = ite.run(v, n_steps=ITE_STEPS, block=ITE_BLOCK)
+    step_ms = 1e3 * (time.perf_counter() - t_run) / ITE_STEPS
+    per_step = {k: c / 4 for k, c in counts.items() if c}
+    tiles = ite.observable.groups().n_tiles
+    log(f"  ITE 3x3 (18 qubits, order 2): energies within {e_err:.2e} and variances within "
+        f"{v_err:.2e} of the committed trace (tol {TRACE_RTOL:g}); {ITE_STEPS} steps in blocks "
+        f"of {ITE_BLOCK}: {step_ms:.3f} ms a step (host clock), E {long['energies'][-1]:.6f}, "
+        f"variance {long['variances'][-1]:.4f}; launches a step "
+        + ", ".join(f"{k} {v:g}" for k, v in per_step.items()))
+    if max(e_err, v_err) > TRACE_RTOL:
+        raise AssertionError("ITE: the kernels disagree with the committed trace")
+    if counts["pauli_apply_grouped"] != 4 * ite.order * tiles:
+        raise AssertionError(f"ITE: {counts['pauli_apply_grouped']} pauli_apply_grouped "
+                             f"launches in 4 steps, the layout predicts {4 * ite.order * tiles}")
+    res = dict(energy_rel=e_err, variance_rel=v_err, launches=counts, launches_per_step=per_step,
+               step_ms=step_ms, steps=ITE_STEPS, final_energy=float(long["energies"][-1]),
+               final_variance=float(long["variances"][-1]))
+    profile_calls((("step", ITE_BLOCK, lambda: ite._step(psi), step_ms),), res, "ITE 3x3")
+    res["graph_ms"] = graph_ms(lambda: ite._step(psi), ITE_BLOCK)
+    log(f"  ITE step in a CUDA graph: {res['graph_ms']:.4f} ms (no host between launches; "
+        f"idle share of the host-clock step {1 - res['graph_ms'] / step_ms:.3f})")
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 # -- main ---------------------------------------------------------------------------------
 
 
@@ -3237,6 +3815,17 @@ def main():
     log("exact diagonalization at 3x3 (the port's Lanczos, CPU):")
     ed = phase_ed()
     out.update(f64=f64, fused=fused, fused_24=fused24, ed=ed)
+    log("product states at 26, 28 and 30 qubits against float64 closed forms:")
+    big = phase_product_state(dev)
+    log("the HEA driver (H2 at 4 qubits, LiH at 12):")
+    hea_res = phase_hea(dev, tmp)
+    log("VQD (H2, 3 levels; LiH, 2 levels):")
+    vqd = phase_vqd(dev, tmp)
+    log("real-time Trotter dynamics (the 3x3 Neel quench):")
+    dyn = phase_dynamics(dev)
+    log("imaginary-time evolution (3x3):")
+    ite = phase_ite(dev)
+    out.update(product_state=big, hea=hea_res, vqd=vqd, dynamics=dyn, ite=ite)
     if args.routes:
         log("routes, host clock, median (least) of 15 interleaved rounds:")
         adapt20 = build_adapt(dev, tmp, "routes20", CONFIG_20)
@@ -3404,6 +3993,18 @@ def main():
             if head is not None:
                 entry.update({f"{key}_iqcc_{cell}": head[key] for key in
                               ("ms", "plain_ms", "bound_ms", "max_abs_err")})
+    for entry in line:  # this slice's paths: product states, HEA, VQD, Trotter, ITE
+        name = entry["name"]
+        entry["launches_product_state"] = sum(big[n]["launches"][name] for n in BIG_LATTICES)
+        entry["launches_per_hea_step"] = {cell: hea_res[cell]["launches_per_step"][name]
+                                          for cell in ("h2", "lih")}
+        entry["launches_vqd"] = vqd["launches"][name]
+        entry["launches_per_trotter_step"] = dyn["launches_per_step"].get(name, 0)
+        entry["launches_per_ite_step"] = ite["launches_per_step"].get(name, 0)
+        for n in BIG_LATTICES:
+            head = big[n]["kernels"].get(name)
+            if head is not None:
+                entry.update({f"{key}_{n}q": head[key] for key in ("ms", "bound_ms", "bound_by")})
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,7 @@ from typing import Optional
 import torch
 
 from ..engine.circuits import slater_prep_state
-from ..engine.compiled import CompiledCircuit, run_rot_adjoint
+from ..engine.compiled import CompiledCircuit, rot_segment, run_rot_adjoint
 from ..engine.gates import diagonal_rotation, generator_rotation
 from ..engine.kernels import KERNELS
 from ..engine.state import ground_fidelity, real_dtype
@@ -171,6 +171,10 @@ class HVA:
         self._v_rot = [g.rotation_terms() for g in self.v_generators]
         self._u_rot = jordan_wigner(p.interacting_term).rotation_terms()
         self._coulomb_diag = p.coulomb_diagonal(dtype=self._rdt, device=self.device)
+        # the whole circuit as one rot segment: circuit() and the split step
+        self._rot_circuit = CompiledCircuit(
+            hva_program_rot(reps, self._v_rot, self._h_rot, self._u_rot), self.n_qubits)
+        (self._rot_segment,) = self._rot_circuit.segments
         self.sizes = (reps + 1, reps * self.Nv, reps * self.Nh)
 
         # the Slater determinant of the occupied k-modes, built once
@@ -219,6 +223,17 @@ class HVA:
         """The parameters as the JAX driver's dict of numpy arrays."""
         return hva_split(self.params_t, self.sizes)
 
+    def circuit(self, params) -> torch.Tensor:
+        """The ansatz state at ``params``, the JAX dict {theta_U, theta_v,
+        theta_h} or the flat tensor, differentiable in them: the whole
+        circuit as ONE rot segment (:func:`hva_program_rot`) through
+        ``engine.compiled.rot_segment`` (the kernels forward, the adjoint
+        sweep backward), where the JAX ``HVA.circuit`` runs the gates."""
+        thetas = flatten_hva_params(params) if isinstance(params, dict) else params
+        return rot_segment(self._rot_segment, self._psi0,
+                           thetas.to(device=self.device, dtype=self._rdt), self.n_qubits,
+                           impl=self.impl)
+
     def state(self, thetas=None) -> torch.Tensor:
         """The ansatz state (the Coulomb layers as diagonal passes, the
         hopping classes on the kernels)."""
@@ -245,9 +260,7 @@ class HVA:
         obs = self.problem.observables
         impl = self.impl
         n = self.n_qubits
-        cc = CompiledCircuit(hva_program_rot(self.reps, self._v_rot, self._h_rot, self._u_rot), n)
-        assert len(cc.segments) == 1 and cc.segments[0].kind == "rot"
-        seg = cc.segments[0]
+        cc, seg = self._rot_circuit, self._rot_segment
 
         def fwd_from(psi0, thetas):
             return cc.apply(psi0, thetas, impl=impl)

@@ -10,7 +10,11 @@ op (exp(-i theta_k D), D a real 2^n vector: the HVA Coulomb layer) and a
 ("fixed", "rzlayer" | "rz", angles) op (a layer of static RZ gates) are
 one elementwise phase pass each, as ``qsfh_tpu/engine/compiled.py:
 232-248, 580-588`` computes them outside Pallas; the inverse negates the
-angle.  The ``u4`` and ``x`` fixed ops (the HEA circuits) are not ported.
+angle.  The ``u4``, ``se`` and ``x`` fixed ops are not ported yet: they
+come from programs over ``grad.adjoint.givens_network_ops`` (the Givens
+network as 4x4 gates) and ``qsfh_tpu/parallel/sharded_compiled.py``
+(ROADMAP.md, module item 8); the HEA lowers to a rot segment
+(``algos/hea.py``).
 
 A segment is walked as the order-preserving tile runs of
 ``streaming.TileLayout``: runs of terms whose flip masks all lie in one
@@ -187,8 +191,8 @@ def lower_program(ops: Sequence[tuple], n: int) -> List[Segment]:
             segments.append(Segment("rzlayer", tuple(angles)))
         elif op[0] == "fixed":
             raise NotImplementedError(
-                f"fixed op {op[1]!r} is not ported yet: the u4 segment comes with HEA "
-                "(ROADMAP.md, module item 6)"
+                f"fixed op {op[1]!r} is not ported yet: the u4 segment of Givens-network "
+                "programs comes with ROADMAP.md, module item 8"
             )
         else:
             raise ValueError(f"unknown op {op[0]!r}")

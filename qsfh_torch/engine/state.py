@@ -11,6 +11,7 @@ tensors here are plain complex torch tensors on one device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -39,6 +40,13 @@ def real_dtype(cdtype: torch.dtype) -> torch.dtype:
         raise ValueError(f"expected a complex dtype, got {cdtype}") from None
 
 
+def zero_state(n_qubits: int, dtype=torch.complex128, device="cpu"):
+    """|00...0> as a flat statevector."""
+    psi = torch.zeros(1 << n_qubits, dtype=dtype, device=device)
+    psi[0] = 1.0
+    return psi
+
+
 def basis_state(n_qubits: int, occupied_qubits, dtype=torch.complex128, device="cpu"):
     """Computational basis state with the given qubits set to |1>."""
     index = 0
@@ -47,6 +55,15 @@ def basis_state(n_qubits: int, occupied_qubits, dtype=torch.complex128, device="
     psi = torch.zeros(1 << n_qubits, dtype=dtype, device=device)
     psi[index] = 1.0
     return psi
+
+
+def as_state(vec, device, dtype) -> torch.Tensor:
+    """A statevector given as a tensor or an array as a tensor of ``dtype``
+    on ``device`` (a tensor already there is returned as it is; an array is
+    copied, as it may be read-only)."""
+    if not torch.is_tensor(vec):
+        vec = torch.from_numpy(np.array(vec))
+    return vec.to(device=device, dtype=dtype)
 
 
 def index_bits(n_qubits: int, device="cpu") -> torch.Tensor:

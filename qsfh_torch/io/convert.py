@@ -18,6 +18,9 @@ of the dict come in ``jax.tree_util`` order: ``count``, then ``mu`` and
 upper case sorts first), not in the flat order; :func:`hva_from_jax` and
 :func:`hva_to_jax_leaves` reorder.
 
+A JAX HEA driver holds its (reps + 1, n, 3) angles as one array under one
+``optax.adam`` (:func:`hea_from_jax`).
+
 A JAX iQCC driver holds ``params`` (``theta``, ``phi``, ``tau``) and its
 current Hamiltonian, as the packed ``(H_x, H_z, H_c)`` arrays of a
 ``PauliSum`` or, with dense dressing, as the complex128 matrix (its
@@ -51,19 +54,24 @@ def from_jax(
     # copies: an optimizer step must not write into the caller's arrays
     thetas = torch.tensor(np.asarray(params["t"]), device=device, dtype=dtype)
     selected = [int(i) for i in np.asarray(params["selected_indices"])]
+    return thetas, selected, _adam_state(opt_leaves, thetas)
+
+
+def _adam_state(opt_leaves: Optional[List[np.ndarray]], param: torch.Tensor) -> Optional[dict]:
+    """The ``torch.optim.Adam`` state of ``param`` from the leaves ``[count,
+    mu, nu]`` of an ``optax.adam`` state over one array (None for None)."""
     if opt_leaves is None:
-        return thetas, selected, None
+        return None
     if len(opt_leaves) != 3:
         raise ValueError(f"expected optax.adam leaves [count, mu, nu], got {len(opt_leaves)}")
     count, mu, nu = opt_leaves
-    if np.shape(mu) != tuple(thetas.shape) or np.shape(nu) != tuple(thetas.shape):
+    if np.shape(mu) != tuple(param.shape) or np.shape(nu) != tuple(param.shape):
         raise ValueError("Adam moments do not match the parameter shape")
-    state = {
+    return {
         "step": torch.tensor(float(np.asarray(count))),
-        "exp_avg": torch.tensor(np.asarray(mu), device=device, dtype=dtype),
-        "exp_avg_sq": torch.tensor(np.asarray(nu), device=device, dtype=dtype),
+        "exp_avg": torch.tensor(np.asarray(mu), device=param.device, dtype=param.dtype),
+        "exp_avg_sq": torch.tensor(np.asarray(nu), device=param.device, dtype=param.dtype),
     }
-    return thetas, selected, state
 
 
 def load_adam_state(optimizer: torch.optim.Adam, param: torch.Tensor, state: dict) -> None:
@@ -94,6 +102,23 @@ def to_jax_leaves(optimizer: torch.optim.Adam, param: torch.Tensor) -> List[np.n
         state["exp_avg"].detach().cpu().numpy().copy(),
         state["exp_avg_sq"].detach().cpu().numpy().copy(),
     ]
+
+
+def hea_from_jax(
+    params: np.ndarray,
+    opt_leaves: Optional[List[np.ndarray]] = None,
+    device="cpu",
+    dtype=torch.float64,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """(params, adam_state) for the port's HEA ``VQE`` (or a VQD level) from
+    the JAX driver's (reps + 1, n, 3) angles and the leaves ``[count, mu,
+    nu]`` of its ``optax.adam`` state (``jax.tree_util.tree_leaves``);
+    ``adam_state`` as in :func:`from_jax`, installed with
+    :func:`load_adam_state`."""
+    angles = torch.tensor(np.asarray(params), device=device, dtype=dtype)
+    if angles.dim() != 3 or angles.shape[2] != 3:
+        raise ValueError(f"expected (reps + 1, n, 3) HEA angles, got {tuple(angles.shape)}")
+    return angles, _adam_state(opt_leaves, angles)
 
 
 # the flat order of the port's HVA parameters, and the optax leaf order

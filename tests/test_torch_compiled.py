@@ -78,9 +78,10 @@ def test_rot_adjoint_matches(n):
 
 
 def test_lower_program_rejects_unported_kinds():
-    # rz / rzlayer and diag are ported; the HEA fixed ops are not yet
+    # rz / rzlayer and diag are ported; the Givens-network fixed ops (u4, x)
+    # are not yet, and the error points at the roadmap item that ports them
     for op in (("fixed", "u4", (tuple([1.0] * 16), 0, 1)), ("fixed", "x", (0,))):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="module item 8"):
             tc.lower_program([op], 4)
 
 

@@ -787,3 +787,122 @@ def test_dense_dressing_and_ilc_fold_on_card(dev):
     F_cpu = fold_ilc_dense(D_cpu, sub, a, n)
     F_gpu = fold_ilc_dense(D_gpu, sub, a, n)
     assert len(sub) > 2 and _rel(F_gpu.cpu(), F_cpu) <= 1e-10
+
+
+def test_product_state_and_closed_forms_on_card(dev):
+    """A 20-qubit product state (the 2x5 lattice's H) built on the card
+    against the host build (1e-6 absolute), E through the inner tiles
+    against the float64 closed form (1e-5 relative), a rotated segment on
+    the tile runs against the dressed closed form, its adjoint gradient
+    with lambda = 2 H psi against central differences (1e-3 of max |g|)."""
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.engine import product_state as ps
+    from qsfh_torch.engine.compiled import CompiledCircuit, run_rot_adjoint
+
+    p = HubbardProblem(2, 5, 1.0, 6.0, 10, 5, 5)
+    n, H = p.n_qubits, p.qubit_hamiltonian
+    rng = np.random.default_rng(7)
+    th, al = rng.uniform(0.4, 2.7, n), rng.uniform(-np.pi, np.pi, n)
+    psi = ps.product_state(n, th, al, dev)
+    host = torch.as_tensor(ps.product_state_host(n, th, al))
+    assert float((psi.cpu().to(torch.complex128) - host).abs().max()) <= 1e-6
+    obs = p.observables["H"]
+    e_closed = ps.product_expectation(H, n, th, al)
+    assert abs(float(obs.expectation_scan(psi)) - e_closed) <= 1e-5 * abs(e_closed)
+    rots = [((1 << 0) | (1 << 2), (1 << 0), 0.4), ((1 << 5) | (1 << 7), 0, -0.3),
+            ((1 << 10) | (1 << 12), (1 << 10) | (1 << 12), 0.5), (0, 0b11, 0.2)]
+    ops, thetas = ps.rotation_ops(n, rots)
+    cc = CompiledCircuit(ops, n)
+    th_t = torch.tensor(thetas, dtype=torch.float32, device=dev)
+    K.reset_launch_counts()
+    out = cc.apply(psi, th_t)
+    assert K.launch_counts()["rotation_tile_runs"] >= 1
+    e_rot = ps.product_expectation(ps.rotated_hamiltonian(H, rots), n, th, al)
+    assert abs(float(obs.expectation_scan(out)) - e_rot) <= 1e-5 * abs(e_rot)
+    g = run_rot_adjoint(cc.segments[0], out, 2.0 * obs.apply_scan(out), th_t, n)[2].cpu()
+    fd = []
+    for t in range(len(rots)):
+        e = [ps.product_expectation(ps.rotated_hamiltonian(
+            H, [(x, z, a + (d if k == t else 0.0)) for k, (x, z, a) in enumerate(rots)]),
+            n, th, al) for d in (1e-5, -1e-5)]
+        fd.append((e[0] - e[1]) / 2e-5)
+    fd = torch.tensor(fd)
+    assert float((g.double() - fd).abs().max()) <= 1e-3 * float(fd.abs().max())
+
+
+@pytest.mark.parametrize("mode", ["hea", "vqd"])
+def test_hea_segment_and_vqd_loss_on_card(dev, mode):
+    """The HEA circuit as one rot segment on the kernels (resident at 12
+    qubits: the 2x3 lattice's H) against the plain versions: the energy
+    (or the VQD loss with an overlap penalty) within 1e-5 relative, the
+    angle gradients within 1e-4 of max |g|."""
+    from qsfh_torch.algos.hea import HEASegment
+    from qsfh_torch.engine.expectation import Observable
+    from qsfh_torch.engine.state import fidelity, zero_state
+    from qsfh_torch.ops.jw import jordan_wigner
+    from qsfh_torch.ops.lattice import fermi_hubbard
+
+    n, reps = 12, 2
+    obs = Observable(jordan_wigner(fermi_hubbard(2, 3, 1.0, 4.0)), n)
+    rng = np.random.default_rng(3)
+    a = rng.uniform(-np.pi, np.pi, (reps + 1, n, 3))
+    prior = _t(_state(rng, n), dev, torch.complex64)
+    psi0 = zero_state(n, torch.complex64, dev)
+    out = {}
+    for name, impl in (("kernel", K.KERNELS), ("plain", K.PLAIN)):
+        th = _t(a, dev, torch.float32).requires_grad_(True)
+        psi = HEASegment(n, reps, impl)(th, psi0)
+        loss = obs.expectation_auto(psi, impl=impl)
+        if mode == "vqd":
+            loss = loss + 5.0 * fidelity(psi, prior)
+        loss.backward()
+        out[name] = (float(loss.detach()), th.grad.clone())
+    (l_k, g_k), (l_p, g_p) = out["kernel"], out["plain"]
+    assert abs(l_k - l_p) <= RTOL * abs(l_p)
+    assert float((g_k - g_p).abs().max()) <= 1e-4 * float(g_p.abs().max())
+
+
+def test_trotter_and_ite_steps_on_card(dev):
+    """A 3x3 Strang step (one rotation_resident launch) and an order-2 ITE
+    step (pauli_apply_grouped, one launch per tile of H) on the kernels
+    against the plain versions: states within 1e-5, E and variance within
+    1e-5 relative."""
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.algos.dynamics import TrotterEvolution
+    from qsfh_torch.algos.ite import ImaginaryTimeEvolution
+
+    p = HubbardProblem(3, 3, 1.0, 4.0, 9, 5, 4)
+    rng = np.random.default_rng(4)
+    psi = _t(_state(rng, 18), dev, torch.complex64)
+    ev = TrotterEvolution(p, dt=0.05, order=2, device=dev)
+    ite = ImaginaryTimeEvolution(p, dbeta=0.01, order=2, device=dev)
+    K.reset_launch_counts()
+    got = ev.step(psi)
+    got_ite = ite._step(psi)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["rotation_resident"] == 1 and counts["pauli_rotation"] == 0
+    assert counts["pauli_apply_grouped"] == 2 * p.observables["H"].groups().n_tiles
+    ev.impl = ite.impl = K.PLAIN
+    ref, ref_ite = ev.step(psi), ite._step(psi)
+    assert _rel(got, ref) <= RTOL and _rel(got_ite[0], ref_ite[0]) <= RTOL
+    for a, b in zip(got_ite[1:3], ref_ite[1:3]):
+        assert abs(float(a) - float(b)) <= RTOL * abs(float(b))
+
+
+def test_greens_function_on_card(dev):
+    """The 2x3 Green's function on the card (the excitation through
+    ``apply_auto``, the steps on rotation_resident, complex64) against the
+    complex128 CPU version: within 1e-5 of |G(0)| = 1 scale."""
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.algos.dynamics import greens_function
+
+    p = HubbardProblem(2, 3, 1.0, 4.0, 6, 3, 3)
+    gs = _state(np.random.default_rng(9), 12)
+    K.reset_launch_counts()
+    _, got = greens_function(p, gs, -5.2, 4, dt=0.05, n_steps=6, device=dev)
+    counts = K.launch_counts()
+    assert counts["rotation_resident"] == 6
+    assert counts["pauli_apply_grouped"] + counts["pauli_apply"] >= 1
+    _, ref = greens_function(p, gs, -5.2, 4, dt=0.05, n_steps=6, device="cpu")
+    assert np.abs(got - ref).max() <= RTOL * np.abs(ref).max()

@@ -1,14 +1,16 @@
 """Guards of the port: no JAX, no ``qsfh_tpu``, the card by default.
 
 * ``import qsfh_torch.algos.adapt`` (and ``adapt_fused``, ``hva``,
-  ``iqcc``, ``grad.adjoint``, ``engine.gates``, ``linalg.lanczos``,
+  ``iqcc``, ``hea``, ``vqd``, ``dynamics``, ``ite``, ``grad.adjoint``,
+  ``engine.gates``, ``engine.product_state``, ``linalg.lanczos``,
   ``ops.dressing``, ``ops.dense_dressing``, ``ops.ilc``, ``molecules``)
   succeeds with ``jax`` blocked and loads no ``qsfh_tpu`` module, and a
   molecule builds there (its FCI on the port's Lanczos);
 * no module of ``qsfh_torch`` (nor ``chip_smoke.py``) imports jax, optax
   or qsfh_tpu;
-* ``ADAPT(...)``, ``HVA(...)`` and ``IQCC(...)`` with no device raise
-  where CUDA is unavailable.
+* ``ADAPT(...)``, ``HVA(...)``, ``IQCC(...)``, ``VQE(...)`` (HEA),
+  ``VQD(...)``, ``TrotterEvolution(...)`` and ``ImaginaryTimeEvolution(...)``
+  with no device raise where CUDA is unavailable.
 """
 
 import ast
@@ -57,6 +59,8 @@ def test_port_imports_with_jax_blocked():
         "import qsfh_torch.algos.hva, qsfh_torch.grad.adjoint, qsfh_torch.engine.gates\n"
         "import qsfh_torch.algos.iqcc, qsfh_torch.ops.dressing, qsfh_torch.ops.dense_dressing\n"
         "import qsfh_torch.ops.ilc, qsfh_torch.molecules, qsfh_torch.utils.dense\n"
+        "import qsfh_torch.engine.product_state, qsfh_torch.algos.hea, qsfh_torch.algos.vqd\n"
+        "import qsfh_torch.algos.dynamics, qsfh_torch.algos.ite\n"
         "assert qsfh_torch.molecules.H2(0.74).fci_energy < -1.13\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'qsfh_tpu')\n"
         "assert not bad, bad\n"
@@ -111,3 +115,26 @@ def test_iqcc_without_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_iqcc.IQCC(fermi_hubbard(2, 2, 1.0, 4.0), n_epoch=1, lr=1e-2, threshold=5e-3,
                        ground_truth=False, plot=False, log_metrics=False)
+
+
+def test_new_entry_points_without_device_raise_without_cuda(monkeypatch):
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.algos.dynamics import TrotterEvolution
+    from qsfh_torch.algos.hea import VQE
+    from qsfh_torch.algos.ite import ImaginaryTimeEvolution
+    from qsfh_torch.algos.vqd import VQD
+    from qsfh_torch.molecules import H2
+
+    h2 = H2(0.8)
+    p = HubbardProblem(2, 2, 1.0, 4.0, 4, 2, 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: VQE(h2, n_epoch=1, reps=1, lr=0.1, threshold=0.0, plot=False,
+                              log_metrics=False),
+                  lambda: VQD(h2, n_levels=1, log_metrics=False),
+                  lambda: TrotterEvolution(p, dt=0.1),
+                  lambda: ImaginaryTimeEvolution(p, dbeta=0.01)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    # the CPU on request
+    assert VQD(h2, n_levels=1, log_metrics=False, device="cpu").dtype == torch.complex128
+    assert TrotterEvolution(p, dt=0.1, device="cpu").device == torch.device("cpu")
