@@ -176,10 +176,48 @@ Phases (any failed check raises and the script exits nonzero):
    ``benchmarks/ite_expected.json``, then 300 steps in blocks of 50 (ms per
    step; 2 H psi a step, one ``pauli_apply_grouped`` launch per tile), a
    profile of 50 steps and 50 steps in a CUDA graph.
-17. A ``kernels`` JSON line (``expectation_norm_f64``'s launches counted
+17. The 3x3 analysis scripts' paths (``benchmarks/correlations_3x3.py``,
+   ``observables_3x3.py``, ``irrep_analysis_3x3.py``) on the committed
+   checkpoints, loaded with the port's ``load_model`` (ADAPT: 1719
+   operators of the extended pool; HVA reps = 10), the states normalised:
+   the spin correlation matrix, rho per spin and the pair matrix on the
+   kernel route (each matrix one ``pauli_inner_grouped`` layout: the
+   launches held to it) within 1e-5 of the largest entry of the complex128
+   per-entry plain loop on the same state, trace rho_up = 5 and rho_dn = 4
+   within 1e-5, the entropies within 1e-5; the irrep seed norms and the
+   HVA irrep weights against the committed JSON (the ADAPT JSONs came
+   from an older checkpoint: printed, not gated); ms and launches per
+   matrix beside the per-entry loops; a planted fault (the entry index
+   shifted by one) that must fail.
+18. ``benchmarks/spectral_3x3.py`` (9 k-points x 2 branches, m = 80) and
+   ``sqw_3x3.py`` (spin, 9 q-points) from the ED cache's manifold[0]
+   through ``linalg.spectral`` (H psi on ``pauli_apply_grouped``): the sum
+   rules against the kernel-route n_k and static correlator (1e-5), the
+   band edges against ``spectral.json`` (2e-3), the S^zz weights against
+   ``sqw.json`` (1e-5), A(omega) of the first 10 Lanczos levels against
+   the complex128 plain Lanczos (2e-2 of the largest value; all 80
+   levels logged); ms per Lanczos step and H psi's share; a zeroed H psi
+   that must fail.
+19. ``benchmarks/demo_multistart/run.py`` in full (2x2, B = 16, 400
+   epochs on the per-term kernels): the best start one of the JSON's
+   starts that end within 1e-6 of its best (3, 7 and 15, 7.3e-9 apart in
+   float64: float32 cannot order them) and its energy within 1e-5 of the
+   ED energy; a 3x3 reps = 10 ``MultistartHVA`` and a LiH
+   ``MultistartHEA`` at B = 4, each start's trajectory within 1e-4
+   relative of a single-start ``HVA`` / ``VQE`` from its angles; ms and
+   launches per epoch; planted faults (the saddle's zero-init start as
+   the best, the starts' rows rotated by one) that must fail.
+20. ``benchmarks/tpu_sampling.py``'s configuration (3x3 H, 32 QWC groups,
+   2048 shots, a default_rng(13) state): the analytic E
+   (``expectation_grouped``) against ``sampling_expected.json`` (1e-5),
+   the estimate within 5 sigma, the determinism probe, ms per grouped
+   estimate; on the ED ground state the estimate within 5 sigma and a
+   planted fault (the basis change skipped) that must fail.
+21. A ``kernels`` JSON line (``expectation_norm_f64``'s launches counted
    per capture, its replays beside them; every kernel's graph nodes per
    fused step; its launches on the HVA, iQCC, product-state, HEA, VQD,
-   Trotter and ITE paths; ms and bound at 26-30 qubits), then the device
+   Trotter, ITE, analysis, Lanczos, multistart and sampling paths; ms and
+   bound at 26-30 qubits and per correlation matrix), then the device
    JSON line, last.
 
 ``--compare PARENT`` runs both main paths (3x3 and 2x6 selection and
@@ -3737,6 +3775,799 @@ def phase_ite(dev):
     return res
 
 
+# -- this slice: the 3x3 analysis, Lanczos spectroscopy, multistart, sampling ------------
+
+DEMO_ADAPT = os.path.join(HERE, "benchmarks", "demo_3x3")
+DEMO_HVA = os.path.join(HERE, "benchmarks", "demo_hva_3x3")
+DEMO_MULTISTART = os.path.join(HERE, "benchmarks", "demo_multistart")
+# the analysis scripts' driver arguments (benchmarks/correlations_3x3.py,
+# observables_3x3.py, irrep_analysis_3x3.py)
+ANALYSIS_3X3 = dict(x_dimension=3, y_dimension=3, n_electrons=9, n_spin_up=5, n_spin_down=4,
+                    tunneling=1, coulomb=6, degenerate_subspace=4, load_model=True, plot=False,
+                    log_metrics=False)
+ANALYSIS_RTOL = 1e-5  # kernel route against the complex128 plain path, of the largest entry
+TRACE_ATOL = 1e-5  # trace rho_up = 5, trace rho_dn = 4
+SEED_NORM_ATOL = 1e-6  # the irrep seed norms (complex128 on the ED cache) against the JSON
+IRREP_ATOL = 1e-5  # the HVA irrep weights against the JSON the JAX script reproduces
+
+
+def _json(*parts):
+    with open(os.path.join(*parts)) as fh:
+        return json.load(fh)
+
+
+def labeled_manifold(manifold, nx, ny, dev, seed=0):
+    """``labeled_manifold`` of benchmarks/irrep_analysis_3x3.py on the card:
+    the cached manifold resolved into s/px/py/d members, seeded with its
+    first state, then with unit combinations drawn from default_rng(seed)."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.linalg.symmetry import symmetry_adapted_states
+
+    rng = np.random.default_rng(seed)
+    seeds = [np.asarray(manifold[0])]
+    for _ in range(4):
+        c = rng.normal(size=len(manifold)) + 1j * rng.normal(size=len(manifold))
+        c /= np.linalg.norm(c)
+        seeds.append(sum(ci * np.asarray(v) for ci, v in zip(c, manifold)))
+    for psi0 in seeds:
+        states, norms = symmetry_adapted_states(torch.from_numpy(psi0).to(dev), nx, ny)
+        if len(states) == 4:
+            return states, norms
+    raise AssertionError(f"could not resolve all four irreps; norms={norms}")
+
+
+def analysis_matrices(psi, route="auto"):
+    """correlations_3x3.py's spin matrix and observables_3x3.py's rho per spin
+    and pair matrix of psi (host numpy)."""
+    from qsfh_torch.ops import correlations as C
+
+    return {"spin": C.correlation_matrix(psi, 9, "spin", route=route),
+            "rho_up": C.one_body_density_matrix(psi, 9, "up", route=route),
+            "rho_down": C.one_body_density_matrix(psi, 9, "down", route=route),
+            "pair": C.pair_correlation_matrix(psi, 9, route=route)}
+
+
+def analysis_entries():
+    """The one-layout term list of each matrix."""
+    from qsfh_torch.ops import correlations as C
+
+    return {"spin": C.spin_entries(9), "rho_up": C.one_body_entries(9, "up"),
+            "rho_down": C.one_body_entries(9, "down"), "pair": C.pair_entries(9)}
+
+
+def analysis_summary(mats, psi):
+    """The quantities the three scripts write, from the matrices."""
+    import numpy as np
+
+    from qsfh_torch.ops import correlations as C
+    from qsfh_torch.ops.entanglement import entanglement_entropy, site_qubits
+
+    s_q = C.structure_factor(mats["spin"], 3, 3)
+    pair = mats["pair"]
+    out = {"S_q": {f"({kx},{ky})": v for (kx, ky), v in sorted(s_q.items())},
+           "nn_correlator": float(mats["spin"][0, 1]),
+           "onsite": float(np.mean(np.diag(mats["spin"])))}
+    for spin in ("up", "down"):
+        rho = mats[f"rho_{spin}"]
+        nk = C.momentum_distribution(rho, 3, 3)
+        out[f"n_k_{spin}"] = {f"({kx},{ky})": v for (kx, ky), v in sorted(nk.items())}
+        out[f"trace_rho_{spin}"] = float(np.trace(rho).real)
+    out["double_occupancy"] = float(np.mean(np.diag(pair).real))
+    out["pair_nn"] = float(abs(pair[0, 1]))
+    out["pair_max_offsite"] = float(np.abs(pair - np.diag(np.diag(pair))).max())
+    out["entropy_row0"] = entanglement_entropy(psi, 18, site_qubits((0, 1, 2)))
+    out["entropy_site0"] = entanglement_entropy(psi, 18, site_qubits((0,)))
+    return out
+
+
+def _flat_numbers(d, prefix=""):
+    """{dotted key: number} of a nested dict of numbers."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(_flat_numbers(v, f"{prefix}{k}."))
+        elif isinstance(v, (int, float)):
+            out[prefix + k] = float(v)
+    return out
+
+
+def analysis_state(name, psi, committed):
+    """The kernel route's matrices of a complex64 state against the
+    complex128 per-entry plain loop on the same state, the traces, the
+    entropies; the committed JSON values printed beside (not gated)."""
+    import numpy as np
+    import torch
+
+    got = analysis_matrices(psi)
+    wide = psi.to(torch.complex128)
+    ref = analysis_matrices(wide, route="loop")
+    errs = {k: float(np.abs(got[k] - ref[k]).max() / np.abs(ref[k]).max()) for k in got}
+    summary = analysis_summary(got, psi)
+    ref_summary = analysis_summary(ref, wide)
+    ent_err = max(abs(summary[k] - ref_summary[k]) / abs(ref_summary[k])
+                  for k in ("entropy_row0", "entropy_site0"))
+    trace_err = max(abs(summary["trace_rho_up"] - 5.0), abs(summary["trace_rho_down"] - 4.0))
+    mine, theirs = _flat_numbers(summary), _flat_numbers(committed)
+    shared = sorted(set(mine) & set(theirs))
+    diff = max(abs(mine[k] - theirs[k]) for k in shared) if shared else float("nan")
+    log(f"  {name}: kernel route vs complex128 plain loop, of the largest entry: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tol {ANALYSIS_RTOL:g}); entropies {ent_err:.2e}; trace rho_up - 5, rho_dn - 4 "
+        f"within {trace_err:.2e} (tol {TRACE_ATOL:g})")
+    log(f"    S(pi-ish) (1,1) {summary['S_q']['(1,1)']:.6f}, nn {summary['nn_correlator']:.6f}, "
+        f"double occupancy {summary['double_occupancy']:.6f}, S_row0 "
+        f"{summary['entropy_row0']:.6f}; the committed JSON (an older checkpoint: not gated) "
+        f"differs by up to {diff:.2e} over {len(shared)} numbers")
+    if max(errs.values()) > ANALYSIS_RTOL or ent_err > ANALYSIS_RTOL or trace_err > TRACE_ATOL:
+        raise AssertionError(f"analysis {name}: the kernel route disagrees with the plain path")
+    return dict(rel_err=errs, entropy_rel_err=ent_err, trace_err=trace_err, summary=summary,
+                committed_max_diff=diff, committed_numbers=len(shared))
+
+
+def matrix_timings(psi, res):
+    """Per matrix on the trained state: launches of one call, kernel ms and
+    bound, ms per matrix end to end, the host layout build, and the same
+    matrix through the per-entry loops (plain; kernels with one layout per
+    entry)."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine.expectation import Observable
+    from qsfh_torch.ops import correlations as C
+
+    dim = 1 << 18
+    entries = analysis_entries()
+    routes = {"spin": lambda p, r: C.correlation_matrix(p, 9, "spin", route=r),
+              "rho_up": lambda p, r: C.one_body_density_matrix(p, 9, "up", route=r),
+              "rho_down": lambda p, r: C.one_body_density_matrix(p, 9, "down", route=r),
+              "pair": lambda p, r: C.pair_correlation_matrix(p, 9, route=r)}
+    out, launches = {}, dict.fromkeys(K.launch_counts(), 0)
+    for name in ("spin", "rho_up", "pair"):
+        ent = entries[name]
+        tiles = ent.inner_groups()
+        _, counts = launches_of(lambda: routes[name](psi, "auto"))
+        for k, v in counts.items():
+            launches[k] += v
+        if counts.get("pauli_inner_grouped", 0) != inner_launches(tiles, 18) or \
+                set(counts) - {"pauli_inner_grouped", "pauli_inner"}:
+            raise AssertionError(f"{name}: not one pauli_inner_grouped layout: {counts}")
+        fresh = C.EntryTerms(ent.ops, 18)
+        build_ms, _ = timed_once(fresh.inner_groups)
+        xs = torch.as_tensor(ent.arrays[0].astype("int64"), device=psi.device)
+        kernel_ms = time_cuda(lambda: ent.term_values(psi), reps=20)
+        b_ms, b_by = bound(8 * dim + 8 * len(ent), inner_bound_flops(xs, True, tiles, dim))
+        matrix_ms = time_cuda(lambda: routes[name](psi, "auto"), reps=10)
+        plain_loop_ms, _ = timed_once(lambda: routes[name](psi, "loop"))
+
+        def kernel_loop():  # one Observable, so one layout, per entry
+            return [float(Observable(op, 18).expectation_scan(psi)) for op in ent.ops]
+
+        kernel_loop_ms, _ = timed_once(kernel_loop)
+        out[name] = dict(entries=ent.n_entries, terms=len(ent), tiles=tiles.n_tiles,
+                         spill=int(tiles.spill_index.size), launches=counts, kernel_ms=kernel_ms,
+                         bound_ms=b_ms, bound_by=b_by, matrix_ms=matrix_ms,
+                         layout_build_ms=build_ms, plain_loop_ms=plain_loop_ms,
+                         kernel_loop_ms=kernel_loop_ms)
+        log(f"  {name}: {ent.n_entries} entries, {len(ent)} terms, {tiles.n_tiles} tiles "
+            f"({int(tiles.spill_index.size)} terms spill); launches "
+            + ", ".join(f"{k} {v}" for k, v in counts.items())
+            + f"; pauli_inner_grouped {kernel_ms:.4f} ms (bound {b_ms:.5f}, {b_by}), "
+            f"{matrix_ms:.3f} ms per matrix end to end, layout build {build_ms:.1f} ms once; "
+            f"per-entry loops: plain {plain_loop_ms:.1f} ms, kernels with a layout per entry "
+            f"{kernel_loop_ms:.1f} ms")
+    res["matrices"] = out
+    res["launches"] = launches
+
+
+def planted_entry_shift(psi):
+    """The planted fault: the spin matrix's entry index shifted by one must
+    fail the kernel-against-plain gate."""
+    import torch
+
+    from qsfh_torch.engine.expectation import Observable
+
+    ent = analysis_entries()["spin"]
+    idx = torch.roll(torch.as_tensor(ent.entry, device=psi.device), 1)
+    bad = ent.values(psi, entry=idx).double().cpu()
+    wide = psi.to(torch.complex128)
+    ref = torch.stack([Observable(op, 18).expectation(wide) for op in ent.ops]).cpu()
+    err = float((bad - ref).abs().max() / ref.abs().max())
+    log(f"  planted fault (the spin matrix's entry index shifted by one): {err:.2e} of the "
+        f"largest entry (must exceed {ANALYSIS_RTOL:g})")
+    if err <= ANALYSIS_RTOL:
+        raise AssertionError("the shifted entry index passed the analysis gate")
+    return err
+
+
+def phase_analysis(dev):
+    """The 3x3 analysis scripts' paths on the committed checkpoints: the
+    ADAPT (1719 operators of the extended pool) and HVA (reps = 10) states
+    loaded with the port's ``load_model``, their correlation matrices, n_k,
+    pair correlator and entropies on the kernel route against the
+    complex128 plain path, the irrep weights; ms and launches per matrix."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.algos.adapt import ADAPT
+    from qsfh_torch.algos.hva import HVA
+    from qsfh_torch.linalg.symmetry import irrep_weights
+    from qsfh_torch.ops.pool import hubbard_interaction_pool_extended
+
+    t0 = time.perf_counter()
+    res = {}
+    adapt = ADAPT(n_epoch=0, threshold1=1e-3, threshold2=1e-3, results_root=DEMO_ADAPT,
+                  pool=hubbard_interaction_pool_extended(3, 3), device=dev, **ANALYSIS_3X3)
+    load_s = time.perf_counter() - t0
+    state_ms, psi_a = timed_once(adapt.state)
+    hva = HVA(n_epoch=0, reps=10, lr=1e-2, results_root=DEMO_HVA, device=dev, **ANALYSIS_3X3)
+    psi_h = hva.state()
+    # ~2e4 float32 rotations move |psi|^2 off 1 by ~1e-5: the analysis
+    # reads the normalised states, as the scripts' complex128 states are
+    norm_err = {k: abs(float(torch.linalg.vector_norm(v.to(torch.complex128))) ** 2 - 1.0)
+                for k, v in (("adapt", psi_a), ("hva", psi_h))}
+    psi_a = psi_a / torch.linalg.vector_norm(psi_a)
+    psi_h = psi_h / torch.linalg.vector_norm(psi_h)
+    res["norm_err"] = norm_err
+    energy, manifold = adapt.problem.ground_state(degenerate=True, n_states=4)
+    frame = [torch.from_numpy(np.asarray(m)).to(dev) for m in manifold]
+
+    def projection(psi):
+        wide = psi.to(torch.complex128)
+        t = sum(torch.vdot(m, wide) * m for m in frame)
+        return (t / torch.linalg.vector_norm(t)).to(torch.complex64)
+
+    log(f"  ADAPT checkpoint: {len(adapt.selected_indices)} operators of the extended pool "
+        f"({len(adapt.fermion_pool)}), loaded in {load_s:.1f} s, state {state_ms:.1f} ms; "
+        f"HVA reps = 10: {hva.params_t.numel()} parameters; |psi|^2 - 1 before normalising: "
+        f"ADAPT {norm_err['adapt']:.2e}, HVA {norm_err['hva']:.2e}")
+    sf = _json(DEMO_ADAPT, "structure_factor.json")
+    obs = _json(DEMO_ADAPT, "observables.json")
+    res["states"] = {}
+    for name, psi in (("adapt_trained", psi_a), ("exact_manifold_projection", projection(psi_a))):
+        committed = dict(sf[name], **obs[name])
+        res["states"][name] = analysis_state(name, psi, committed)
+    matrix_timings(psi_a, res)
+    res["planted_entry_shift"] = planted_entry_shift(psi_a)
+
+    states, norms = labeled_manifold(manifold, 3, 3, dev)
+    irr_a, irr_h = _json(DEMO_ADAPT, "irrep_weights.json"), _json(DEMO_HVA, "irrep_weights.json")
+    norm_err = max(abs(norms[k] - irr_h["irrep_seed_norms"][k]) for k in norms)
+    weights = {name: irrep_weights(psi, states) for name, psi in (
+        ("adapt_trained", psi_a), ("adapt_projection", projection(psi_a)),
+        ("hva_trained", psi_h), ("hva_projection", projection(psi_h)))}
+    hva_err = max(abs(weights["hva_trained"][k] - irr_h["irrep_weights"][k]) for k in states)
+    fid_err = abs(sum(weights["hva_trained"].values()) - irr_h["manifold_fidelity"])
+    adapt_diff = max(abs(weights["adapt_trained"][k] - irr_a["irrep_weights"][k]) for k in states)
+    log("  irrep weights: " + "; ".join(
+        f"{n} " + " ".join(f"{k} {v:.6f}" for k, v in w.items()) for n, w in weights.items()))
+    log(f"  irrep seed norms within {norm_err:.2e} of the JSON (tol {SEED_NORM_ATOL:g}); HVA "
+        f"weights within {hva_err:.2e}, manifold fidelity within {fid_err:.2e} of "
+        f"demo_hva_3x3/irrep_weights.json (tol {IRREP_ATOL:g}; the JAX script reproduces it on "
+        f"this checkpoint); ADAPT weights differ from demo_3x3/irrep_weights.json by "
+        f"{adapt_diff:.2e} (an older checkpoint: not gated)")
+    if norm_err > SEED_NORM_ATOL or hva_err > IRREP_ATOL or fid_err > IRREP_ATOL:
+        raise AssertionError("irrep analysis disagrees with the committed HVA weights")
+    res["irrep"] = dict(weights=weights, seed_norms=norms, seed_norm_err=norm_err,
+                        hva_err=hva_err, hva_fidelity_err=fid_err, adapt_diff=adapt_diff)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  analysis phase: {res['seconds']:.1f} s")
+    return res
+
+
+SPECTRAL_M = 80
+SPECTRAL_POLE_ATOL = 2e-3  # the band edges against spectral.json
+# A(omega) against the complex128 plain Lanczos, of the largest value, from
+# the first SPECTRAL_A_LEVELS levels: a complex64 H psi (kernel or plain)
+# follows the complex128 recursion for about 10 levels (alpha within
+# 1e-4-7e-3 at level 10, O(1) apart by level 20-40 on an H100), past
+# which the two runs are different, equally valid finite-precision
+# Lanczos processes; the full-depth differences are logged
+SPECTRAL_A_RTOL = 2e-2
+SPECTRAL_A_LEVELS = 10
+SUM_RULE_ATOL = 1e-5
+SPECTRAL_OMEGAS = (-4.0, 12.0, 321)
+SQW_OMEGAS = (0.0, 10.0, 201)
+SPECTRAL_PRECISION_KS = ((0, 0), (1, 1), (2, 2))  # also on the plain complex64 version
+
+
+def k_ladder(kx, ky, dagger):
+    """benchmarks/spectral_3x3.py's momentum ladder c^(dag)_k on the up modes."""
+    import numpy as np
+
+    from qsfh_torch.ops.fermion import FermionOperator
+
+    op = FermionOperator.zero()
+    for s in range(9):
+        x, y = s % 3, s // 3
+        phase = np.exp(1j * 2 * np.pi * (kx * x / 3 + ky * y / 3))
+        op += FermionOperator(((2 * s, 1 if dagger else 0),),
+                              (phase if dagger else phase.conjugate()) / 3.0)
+    return op
+
+
+def main_poles(res):
+    """spectral_3x3.py's main poles: weight above 1e-4, the 6 heaviest."""
+    live = res["weights"] > 1e-4
+    pairs = sorted(zip(res["poles"][live], res["weights"][live]), key=lambda t: -t[1])
+    return [[float(p), float(w)] for p, w in pairs[:6]]
+
+
+def band_edge(poles):
+    """The lowest pole of a main-pole list: for the particle branch the
+    addition edge E0(N+1) - E0(N), for the hole branch the removal edge
+    E0(N-1) - E0(N), the hole pole nearest the Fermi level (the highest in
+    the photoemission frequency -pole).  The other end of a main list is an
+    unconverged interior pole (0.07-0.11 apart between complex64 and
+    complex128 runs at m = 80)."""
+    return min(p for p, _ in poles)
+
+
+def broadened(alphas, betas, norm2, e0, omegas, eta):
+    """A(omega) of the Lanczos resolvent of the given coefficients."""
+    import numpy as np
+
+    from qsfh_torch.linalg.spectral import resolvent_poles
+
+    theta, w = resolvent_poles(alphas, betas, norm2)
+    return ((eta / np.pi) / ((omegas[:, None] - (theta - e0)[None, :]) ** 2 + eta ** 2)) @ w
+
+
+def resolvent_checks(ham, phi, e0, omegas, eta, planted=False):
+    """A(omega) of the kernel route (or, ``planted``, of a zeroed H psi)
+    against the complex128 plain Lanczos on the same seed: from the first
+    SPECTRAL_A_LEVELS levels (gated) and from all SPECTRAL_M (logged)."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.linalg.spectral import lanczos_tridiagonal
+
+    ref = lanczos_tridiagonal(lambda v: ham.apply_auto(v, K.PLAIN), phi, SPECTRAL_M)
+    matvec = (lambda v: torch.zeros_like(v)) if planted else ham.apply_auto
+    got = lanczos_tridiagonal(matvec, phi.to(torch.complex64), SPECTRAL_M)
+    out = {}
+    for key, depth in (("a_err", SPECTRAL_A_LEVELS), ("a_err_full", SPECTRAL_M)):
+        want = broadened(ref[0][:depth], ref[1][:depth], ref[2], e0, omegas, eta)
+        have = broadened(got[0][:depth], got[1][:depth], got[2], e0, omegas, eta)
+        out[key] = float(np.abs(have - want).max() / want.max())
+    out["alpha_diff_at_levels"] = float(np.abs(got[0][:SPECTRAL_A_LEVELS]
+                                               - ref[0][:SPECTRAL_A_LEVELS]).max())
+    return out
+
+
+def phase_spectral(dev):
+    """spectral_3x3.py (9 k-points x 2 branches, m = 80) and sqw_3x3.py (spin,
+    9 q-points, m = 80) from the ED cache's manifold[0], through the
+    port's entry points: H psi on pauli_apply_grouped, alpha and beta read
+    once a run.  Gates: the sum rules against the kernel-route n_k and the
+    static correlator, the band edges against spectral.json, the S^zz
+    weights against sqw.json, A(omega) against the complex128 plain
+    Lanczos (SPECTRAL_A_LEVELS levels); a zeroed H psi (the planted fault)
+    must fail."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.algos.dynamics import apply_on_host, excitation_operator
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine.expectation import Observable
+    from qsfh_torch.linalg.spectral import (dynamical_structure_factor, lanczos_tridiagonal,
+                                            spectral_function_lanczos)
+    from qsfh_torch.ops import correlations as C
+    from qsfh_torch.ops.fermion import hermitian_conjugated
+    from qsfh_torch.ops.jw import jordan_wigner
+
+    t0 = time.perf_counter()
+    # the scripts' arguments (1.0, 6.0) name the "t=1, U=6" cache: the tag
+    # collapses integer-valued floats (the "t=1.0, U=6.0" file holds the same arrays)
+    p = HubbardProblem(3, 3, 1.0, 6.0, 9, 5, 4, results_root=DEMO_ADAPT)
+    e0, manifold = p.ground_state(degenerate=True, n_states=4)
+    gs, e0 = np.asarray(manifold[0]), float(e0)
+    gs64 = torch.from_numpy(gs).to(dev).to(torch.complex64)
+    nk_up = C.momentum_distribution(C.one_body_density_matrix(gs64, 9, "up"), 3, 3)
+    committed = _json(DEMO_ADAPT, "spectral.json")
+    omegas = np.linspace(*SPECTRAL_OMEGAS)
+    ham = p.observables["H"]
+    tiles = ham.groups().n_tiles
+
+    def seed(op):  # |phi> on the host in complex128, then on the card
+        lad = Observable(jordan_wigner(excitation_operator(op)), 18)
+        return torch.from_numpy(apply_on_host(lad, gs)).to(dev)
+
+    rows, sweep_s = {}, 0.0
+    K.reset_launch_counts()
+    for kx in range(3):
+        for ky in range(3):
+            for branch, dagger in (("particle", True), ("hole", False)):
+                op = k_ladder(kx, ky, dagger)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                res = spectral_function_lanczos(p, gs, e0, op, m=SPECTRAL_M, omegas=omegas,
+                                                device=dev)
+                sweep_s += time.perf_counter() - t1
+                expect = (1.0 - nk_up[(kx, ky)]) if dagger else nk_up[(kx, ky)]
+                cband = committed["bands"][f"({kx},{ky})"][branch]
+                poles = main_poles(res)
+                rows[f"({kx},{ky}) {branch}"] = dict(
+                    sum_rule=float(res["weights"].sum()), n_k_expected=expect,
+                    sum_err=abs(float(res["weights"].sum()) - expect),
+                    committed_sum_rule=cband["sum_rule"], edge=band_edge(poles),
+                    edge_err=abs(band_edge(poles) - band_edge(cband["main_poles"])),
+                    far_end_err=abs(max(q for q, _ in poles)
+                                    - max(q for q, _ in cband["main_poles"])),
+                    main_poles=poles, op=op)
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    expected = len(rows) * SPECTRAL_M * tiles
+    if counts.get("pauli_apply_grouped") != expected or set(counts) - {"pauli_apply_grouped"}:
+        raise AssertionError(f"spectral: launches {counts}, the layout predicts "
+                             f"{expected} pauli_apply_grouped")
+    for row in rows.values():
+        row.update(resolvent_checks(ham, seed(row.pop("op")), e0, omegas, 0.05))
+    precision = {}
+    for kx, ky in SPECTRAL_PRECISION_KS:  # the plain complex64 version's full-depth A
+        phi = seed(k_ladder(kx, ky, True))
+        ref = lanczos_tridiagonal(lambda v: ham.apply_auto(v, K.PLAIN), phi, SPECTRAL_M)
+        low = lanczos_tridiagonal(lambda v: ham.apply_auto(v, K.PLAIN), phi.to(torch.complex64),
+                                  SPECTRAL_M)
+        want = broadened(*ref, e0, omegas, 0.05)
+        precision[f"({kx},{ky}) particle"] = float(
+            np.abs(broadened(*low, e0, omegas, 0.05) - want).max() / want.max())
+    worst = {k: max(r[k] for r in rows.values())
+             for k in ("sum_err", "edge_err", "far_end_err", "a_err", "a_err_full",
+                       "alpha_diff_at_levels")}
+    log(f"  spectral_3x3 (9 k x 2 branches, m = {SPECTRAL_M}): {sweep_s:.2f} s on the kernels "
+        f"(the JAX CPU run: {committed['wall_seconds']} s); sum rules within "
+        f"{worst['sum_err']:.2e} of the kernel-route n_k (tol {SUM_RULE_ATOL:g}); band edges "
+        f"within {worst['edge_err']:.2e} of spectral.json (tol {SPECTRAL_POLE_ATOL:g}); A(omega) "
+        f"of the first {SPECTRAL_A_LEVELS} levels within {worst['a_err']:.2e} of the complex128 "
+        f"plain Lanczos (tol {SPECTRAL_A_RTOL:g}; alpha within {worst['alpha_diff_at_levels']:.1e}"
+        f"); launches " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    log(f"    not gated: all {SPECTRAL_M} levels' A(omega) within {worst['a_err_full']:.2e} of "
+        f"complex128 (the plain complex64 version: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in precision.items())
+        + f"); the far end of the main poles {worst['far_end_err']:.2e} from spectral.json")
+    for key, row in rows.items():
+        if row["sum_err"] > SUM_RULE_ATOL or row["edge_err"] > SPECTRAL_POLE_ATOL or \
+                row["a_err"] > SPECTRAL_A_RTOL:
+            log(f"    {key}: sum {row['sum_err']:.2e}, edge {row['edge']:.5f} off by "
+                f"{row['edge_err']:.2e}, A {row['a_err']:.2e}; main poles "
+                + str([[round(a, 5), round(b, 5)] for a, b in row["main_poles"]]))
+    if worst["sum_err"] > SUM_RULE_ATOL or worst["edge_err"] > SPECTRAL_POLE_ATOL or \
+            worst["a_err"] > SPECTRAL_A_RTOL:
+        raise AssertionError("spectral: a gate failed")
+    res_out = dict(rows=rows, worst=worst, precision_complex64_plain=precision,
+                   sweep_seconds=sweep_s, launches=counts,
+                   launches_per_step={"pauli_apply_grouped": tiles})
+
+    # ms per Lanczos step and H psi's share, on the (0,0) particle seed
+    phi = seed(k_ladder(0, 0, True)).to(torch.complex64)
+    run_ms, _ = timed_once(lambda: lanczos_tridiagonal(ham.apply_auto, phi, SPECTRAL_M))
+    step_ms = run_ms / SPECTRAL_M
+    v = phi / torch.linalg.vector_norm(phi)
+    hpsi_ms = time_cuda(lambda: ham.apply_auto(v), reps=50)
+    res_out.update(step_ms=step_ms, hpsi_ms=hpsi_ms, hpsi_share=hpsi_ms / step_ms)
+    log(f"  Lanczos step {step_ms:.4f} ms (a run of {SPECTRAL_M}, host clock), H psi "
+        f"{hpsi_ms:.4f} ms of it ({hpsi_ms / step_ms:.2f})")
+
+    # the planted fault: a zeroed H psi in the recursion
+    bad = spectral_function_lanczos(p, gs, e0, k_ladder(0, 0, True), m=SPECTRAL_M, device=dev,
+                                     impl=dataclasses.replace(
+                                         K.KERNELS, apply_grouped=lambda psi, *a: psi * 0))
+    bad_edge = abs(band_edge(main_poles(bad))
+                   - band_edge(committed["bands"]["(0,0)"]["particle"]["main_poles"]))
+    bad_a = resolvent_checks(ham, seed(k_ladder(0, 0, True)), e0, omegas, 0.05,
+                             planted=True)["a_err"]
+    log(f"  planted fault (a zeroed H psi): band edge off by {bad_edge:.2e} (tol "
+        f"{SPECTRAL_POLE_ATOL:g}), A(omega) off by {bad_a:.2e} (tol {SPECTRAL_A_RTOL:g}); "
+        f"the sum rule holds by construction "
+        f"({abs(float(bad['weights'].sum()) - rows['(0,0) particle']['sum_rule']):.1e})")
+    if bad_edge <= SPECTRAL_POLE_ATOL or bad_a <= SPECTRAL_A_RTOL:
+        raise AssertionError("the zeroed H psi passed the spectral gates")
+    res_out["planted"] = dict(edge_err=bad_edge, a_err=bad_a)
+
+    # sqw_3x3.py: S^zz(q, omega), its weights against the static correlator
+    sqw = _json(DEMO_ADAPT, "sqw.json")
+    grid = np.load(os.path.join(DEMO_ADAPT, "sqw_grid.npz"))
+    omegas_s = np.linspace(*SQW_OMEGAS)
+    qrows, sqw_s = {}, 0.0
+    for qx in range(3):
+        for qy in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = dynamical_structure_factor(p, gs, e0, (qx, qy), kind="spin", m=SPECTRAL_M,
+                                             omegas=omegas_s, eta=0.1, device=dev)
+            sqw_s += time.perf_counter() - t1
+            sq = C.spin_q_operator(3, 3, qx, qy)
+            static = float(Observable(jordan_wigner(hermitian_conjugated(sq) * sq), 18)
+                           .expectation_scan(gs64))
+            w_sum = float(res["weights"].sum())
+            key = f"{qx},{qy}"
+            g_row = grid["A"][[str(q) for q in grid["qs"]].index(key)]
+            lad = Observable(jordan_wigner(sq), 18)
+            qrows[key] = dict(
+                weights_sum=w_sum, static=static, static_err=abs(w_sum - static),
+                committed_err=abs(w_sum - sqw["q_rows"][key]["static_SzzQ"]),
+                committed_a_err=float(np.abs(res["A"] - g_row).max() / g_row.max()),
+                **resolvent_checks(ham, torch.from_numpy(apply_on_host(lad, gs)).to(dev), e0,
+                                   omegas_s, 0.1))
+    q_worst = {k: max(r[k] for r in qrows.values())
+               for k in ("static_err", "committed_err", "a_err", "a_err_full", "committed_a_err")}
+    log(f"  sqw_3x3 (spin, 9 q, m = {SPECTRAL_M}): {sqw_s:.2f} s on the kernels (the JAX CPU "
+        f"run: {sqw['elapsed_s']} s); weights within {q_worst['static_err']:.2e} of the "
+        f"kernel-route static correlator and {q_worst['committed_err']:.2e} of sqw.json (tol "
+        f"{SUM_RULE_ATOL:g}); A(omega) of the first {SPECTRAL_A_LEVELS} levels within "
+        f"{q_worst['a_err']:.2e} of the complex128 plain Lanczos (tol {SPECTRAL_A_RTOL:g}); not "
+        f"gated: all levels {q_worst['a_err_full']:.2e}, sqw_grid.npz "
+        f"{q_worst['committed_a_err']:.2e}")
+    if q_worst["static_err"] > SUM_RULE_ATOL or q_worst["committed_err"] > SUM_RULE_ATOL or \
+            q_worst["a_err"] > SPECTRAL_A_RTOL:
+        raise AssertionError("sqw: a gate failed")
+    res_out.update(sqw=qrows, sqw_worst=q_worst, sqw_seconds=sqw_s,
+                   seconds=time.perf_counter() - t0)
+    log(f"  spectral phase: {res_out['seconds']:.1f} s")
+    return res_out
+
+
+MS_DEMO = dict(n_starts=16, n_epoch=400, reps=4, lr=3e-2, x_dimension=2, y_dimension=2,
+               n_electrons=4, n_spin_up=2, n_spin_down=2, tunneling=1.0, coulomb=6.0,
+               init_scale=0.1, seed=0)  # benchmarks/demo_multistart/run.py
+MS_ED_ATOL = 1e-5  # the best energy against the JSON's ED energy
+# starts whose float64 finals in multistart.json lie within this of the
+# JSON's best end at one minimum: float32 (~1e-7 |E| a rounding, ~1e-6
+# after 400 epochs) cannot order them, so the best start is gated to that set
+MS_TIE_ATOL = 1e-6
+MS_TRAJ_RTOL = 1e-4  # each start's trajectory against a single-start driver
+MS_3X3 = dict(n_starts=4, n_epoch=5, reps=10, lr=1e-2, x_dimension=3, y_dimension=3,
+              n_electrons=9, n_spin_up=5, n_spin_down=4, tunneling=1, coulomb=6,
+              init_scale=0.1, seed=0, ground_truth=False)
+MS_LIH = dict(n_starts=4, n_epoch=10, reps=HEA_REPS, lr=1e-1, seed=0)
+
+
+def trajectory_errors(energies, singles):
+    """The largest relative difference of each start's trajectory
+    (``energies[:, b]``) from its single-start run, and the same for the
+    planted fault: the rows rotated by one, as a batching bug that mixed
+    up the starts would leave them."""
+    import numpy as np
+
+    singles = np.asarray(singles).T  # (epochs, B)
+
+    def err(got):
+        return float(np.max(np.abs(got - singles) / np.abs(singles)))
+
+    return dict(traj_rel_err=err(energies), planted_rel_err=err(np.roll(energies, 1, axis=1)))
+
+
+def multistart_epochs(ms, label):
+    """ms.run() with the launch counters set to 0 just before and read just
+    after, then the final evaluation alone: ms and launches per epoch."""
+    import functools
+
+    import torch
+
+    from qsfh_torch.algos.multistart import batched_train
+    from qsfh_torch.engine import kernels as K
+
+    adam = functools.partial(torch.optim.Adam, lr=ms.lr)
+    batched_train(ms.loss, ms.batch_params, adam, 1)  # first use: layouts and tables
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ms.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    total = K.launch_counts()
+    K.reset_launch_counts()
+    t1 = time.perf_counter()
+    batched_train(ms.loss, ms.batch_params, adam, 0)
+    torch.cuda.synchronize()
+    final_s = time.perf_counter() - t1
+    final = K.launch_counts()
+    per_epoch = {k: (total[k] - final[k]) / ms.n_epoch for k in total if total[k] - final[k]}
+    ms_epoch = 1e3 * (run_s - final_s) / ms.n_epoch
+    log(f"  {label}: {ms.n_epoch} epochs of {ms.n_starts} starts in {run_s:.2f} s, "
+        f"{ms_epoch:.2f} ms an epoch; launches an epoch "
+        + ", ".join(f"{k} {v:g}" for k, v in per_epoch.items()))
+    return out, dict(run_seconds=run_s, ms_per_epoch=ms_epoch, launches=total,
+                     launches_per_epoch=per_epoch)
+
+
+def phase_multistart(dev, tmp):
+    """benchmarks/demo_multistart/run.py in full (2x2, B = 16, 400 epochs;
+    the per-term kernels): the best start among the JSON's tied best
+    starts and its energy within 1e-5 of the ED energy; then at full width
+    a 3x3 reps = 10 MultistartHVA (B = 4, 5 epochs) and a LiH MultistartHEA
+    (B = 4, 10 epochs), each start's trajectory against a single-start HVA
+    / VQE from its angles.  Planted faults: the saddle's zero-init start as
+    the best, and the starts' rows rotated by one."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from qsfh_torch.algos.hea import VQE
+    from qsfh_torch.algos.hva import HVA
+    from qsfh_torch.algos.multistart import MultistartHEA, MultistartHVA, batched_train
+
+    t0 = time.perf_counter()
+    res = {}
+    committed = _json(DEMO_MULTISTART, "multistart.json")
+    ms = MultistartHVA(results_root=DEMO_MULTISTART, device=dev, **MS_DEMO)
+    out, res["2x2"] = multistart_epochs(ms, "2x2 demo (B = 16, reps = 4)")
+    diffs = np.abs(out["final_energies"] - np.asarray(committed["final_energies"]))
+    zero = {k: torch.zeros_like(v[:1]) for k, v in ms.batch_params.items()}
+    _, zero_traj, zero_final = batched_train(
+        ms.loss, zero, functools.partial(torch.optim.Adam, lr=ms.lr), ms.n_epoch)
+    zero_final = float(zero_final[0])
+    ed_err = abs(out["best_energy"] - committed["ed_energy"])
+    log("  final energies (port | JSON): " + "; ".join(
+        f"{b}: {e:.9f} | {c:.9f}" for b, (e, c) in
+        enumerate(zip(out["final_energies"], committed["final_energies"]))))
+    json_e = np.asarray(committed["final_energies"])
+    ties = sorted(int(b) for b in np.nonzero(json_e - json_e.min() < MS_TIE_ATOL)[0])
+    zero_err = abs(zero_final - committed["ed_energy"])
+    log(f"  largest difference {diffs.max():.2e}; best start {out['best_index']} (the JSON's "
+        f"starts {ties} end within {float(np.ptp(json_e[ties])):.1e} of its best, below "
+        f"float32's resolution: the gate takes any of them), best energy "
+        f"{out['best_energy']:.9f}, {ed_err:.2e} from the ED energy (tol {MS_ED_ATOL:g}); the "
+        f"zero-init run ends at {zero_final:.6f} (JSON {committed['zero_init_final']:.6f}; "
+        f"rounding noise at the saddle: not gated)")
+    res["2x2"].update(final_energies=out["final_energies"].tolist(), best_index=out["best_index"],
+                      json_best_starts=ties, max_final_diff=float(diffs.max()),
+                      best_ed_err=ed_err, zero_init_final=zero_final)
+    if out["best_index"] not in ties or ed_err > MS_ED_ATOL:
+        raise AssertionError("multistart 2x2: the best start or its energy disagrees with the JSON")
+    # the planted fault: the zero-init start, stuck at the saddle, as the best
+    log(f"  planted fault (the zero-init start, the saddle, taken as the best): {zero_err:.2e} "
+        f"from the ED energy (must exceed {MS_ED_ATOL:g})")
+    if zero_err <= MS_ED_ATOL:
+        raise AssertionError("the saddle start passed the multistart ED gate")
+
+    # 3x3 reps = 10: each start against a single-start HVA from its angles
+    ms = MultistartHVA(results_root=os.path.join(tmp, "ms3x3"), device=dev, **MS_3X3)
+    out, res["3x3"] = multistart_epochs(ms, "3x3 HVA reps = 10 (B = 4)")
+    hva = HVA(n_epoch=MS_3X3["n_epoch"], reps=10, lr=MS_3X3["lr"], x_dimension=3, y_dimension=3,
+              n_electrons=9, n_spin_up=5, n_spin_down=4, tunneling=1, coulomb=6,
+              ground_truth=False, plot=False, log_metrics=False,
+              results_root=os.path.join(tmp, "ms3x3_single"), device=dev)
+    singles = []
+    for b in range(ms.n_starts):
+        th = torch.cat([ms.batch_params[k][b] for k in ("theta_U", "theta_v", "theta_h")])
+        th = th.clone()
+        opt = torch.optim.Adam([th], lr=hva.lr)
+        traj = []
+        for _ in range(ms.n_epoch):
+            th, opt, e, *_ = hva._step(th, opt)
+            traj.append(float(e))
+        singles.append(traj)
+    res["3x3"].update(trajectory_errors(out["energies"], singles))
+    log(f"  3x3: every start within {res['3x3']['traj_rel_err']:.2e} of a single-start HVA (tol "
+        f"{MS_TRAJ_RTOL:g}); planted fault (the starts' rows rotated by one): "
+        f"{res['3x3']['planted_rel_err']:.2e} (must exceed {MS_TRAJ_RTOL:g})")
+
+    # LiH: each start against a single-start VQE from its angles
+    ms = MultistartHEA(lih_molecule(), device=dev, **MS_LIH)
+    out, res["lih"] = multistart_epochs(ms, "LiH HEA (B = 4)")
+    vqe = VQE(lih_molecule(), n_epoch=MS_LIH["n_epoch"], reps=MS_LIH["reps"], lr=MS_LIH["lr"],
+              threshold=0.0, plot=False, log_metrics=False,
+              results_root=os.path.join(tmp, "ms_lih_single"), device=dev)
+    singles = []
+    for b in range(ms.n_starts):
+        th = ms.batch_params[b].clone()
+        opt = torch.optim.Adam([th], lr=vqe.lr)
+        traj = []
+        for _ in range(ms.n_epoch):
+            th, opt, e, _ = vqe._step(th, opt)
+            traj.append(float(e))
+        singles.append(traj)
+    res["lih"].update(trajectory_errors(out["energies"], singles))
+    log(f"  LiH: every start within {res['lih']['traj_rel_err']:.2e} of a single-start VQE (tol "
+        f"{MS_TRAJ_RTOL:g}; planted fault, rows rotated: {res['lih']['planted_rel_err']:.2e}); "
+        f"best {out['best_energy']:.6f}, {out['best_gap']:.2e} above FCI")
+    for cell in ("3x3", "lih"):
+        if res[cell]["traj_rel_err"] > MS_TRAJ_RTOL:
+            raise AssertionError(f"multistart {cell}: a start disagrees with its single-start driver")
+        if res[cell]["planted_rel_err"] <= MS_TRAJ_RTOL:
+            raise AssertionError(f"multistart {cell}: the rotated rows passed the trajectory gate")
+    for cell, names in (("3x3", ("rotation_resident", "adjoint_resident")),
+                        ("lih", ("rotation_resident", "adjoint_resident")),
+                        ("2x2", ("pauli_rotation", "adjoint_rotation"))):
+        missing = [k for k in names if not res[cell]["launches_per_epoch"].get(k)]
+        if missing:
+            raise AssertionError(f"multistart {cell}: {missing} did not launch")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  multistart phase: {res['seconds']:.1f} s")
+    return res
+
+
+SAMPLING_SHOTS = 2048  # benchmarks/tpu_sampling.py
+SAMPLING_E_RTOL = 1e-5
+SAMPLING_Z = 5.0
+
+
+def phase_sampling(dev):
+    """benchmarks/tpu_sampling.py's configuration: the 3x3 H in 32 QWC
+    groups, a default_rng(13) random state, 2048 shots a group: the
+    analytic E (``expectation_grouped``) against sampling_expected.json,
+    the grouped estimate within 5 sigma of it, the determinism probe;
+    ms per grouped estimate.  On a random state every Pauli string but the
+    identity averages ~2^(-n/2), so the estimate also runs on the cached
+    ED ground state (E0 = -5.5623, its hopping groups far from 0), where a
+    planted fault (the basis change skipped) must fail the 5 sigma gate."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import sampling as S
+
+    t0 = time.perf_counter()
+    expected = _json(HERE, "benchmarks", "sampling_expected.json")
+    p = HubbardProblem(3, 3, 1.0, 6.0, 9, 5, 4, results_root=DEMO_ADAPT)
+    ham, obs = p.qubit_hamiltonian, p.observables["H"]
+    groups = S.qwc_groups(ham)
+    const, masks, *_ = S.pack_groups(ham, 18, groups)
+    rng = np.random.default_rng(13)
+    v = rng.standard_normal(1 << 18) + 1j * rng.standard_normal(1 << 18)
+    v /= np.linalg.norm(v)
+    psi = torch.from_numpy(v).to(dev).to(torch.complex64)
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def z_score(state, analytic):
+        est = S.estimate_expectation_scan(state, 18, ham, SAMPLING_SHOTS, generator=gen,
+                                          groups=groups)
+        return est, abs(est.mean - analytic) / max(est.stderr, 1e-12)
+
+    K.reset_launch_counts()
+    analytic = float(obs.expectation_scan(psi))
+    est, z = z_score(psi, analytic)
+    counts = {k: c for k, c in K.launch_counts().items() if c}
+    e_err = abs(analytic - expected["analytic"]) / abs(expected["analytic"])
+    probe = torch.zeros(16, dtype=torch.complex64, device=dev)
+    probe[1] = 1.0
+    dp = int((S.sample_bitstrings(probe, 4, 64, generator=gen) != 1).sum())
+    basis = torch.zeros(1 << 18, dtype=torch.complex64, device=dev)
+    basis[123457] = 1.0
+    dp += int((S.sample_bitstrings(basis, 18, SAMPLING_SHOTS, generator=gen) != 123457).sum())
+    est_ms = time_cuda(lambda: S.estimate_expectation_scan(psi, 18, ham, SAMPLING_SHOTS,
+                                                           generator=gen, groups=groups), reps=3,
+                       warmup=1)
+    log(f"  {masks.shape[0]} QWC groups (JSON {expected['n_groups']}), {SAMPLING_SHOTS} shots a "
+        f"group: analytic E {analytic:.7f} within {e_err:.2e} of sampling_expected.json (tol "
+        f"{SAMPLING_E_RTOL:g}); estimate {est.mean:.5f} +- {est.stderr:.5f}, z = {z:.2f} (tol "
+        f"{SAMPLING_Z:g}); determinism probe {dp} (must be 0); {est_ms:.2f} ms per grouped "
+        f"estimate; launches " + ", ".join(f"{k} {c}" for k, c in counts.items()))
+    if masks.shape[0] != expected["n_groups"] or e_err > SAMPLING_E_RTOL or z > SAMPLING_Z or dp:
+        raise AssertionError("sampling: a gate failed")
+    if counts != {"expectation_grouped": inner_launches(obs.inner_groups(), 18)}:
+        raise AssertionError(f"sampling: unexpected launches {counts}")
+    # the ground state, and the planted fault: samples of the unrotated state
+    gs = torch.from_numpy(np.asarray(p.ground_state(degenerate=True, n_states=4)[1][0]))
+    gs = gs.to(dev).to(torch.complex64)
+    e_gs = float(obs.expectation_scan(gs))
+    est_gs, z_gs = z_score(gs, e_gs)
+    rotate = S._rotate_data_driven
+    S._rotate_data_driven = lambda psi_, n, xb, yb: psi_
+    try:
+        bad, bad_z = z_score(gs, e_gs)
+    finally:
+        S._rotate_data_driven = rotate
+    log(f"  ground state: E {e_gs:.6f}, estimate {est_gs.mean:.5f} +- {est_gs.stderr:.5f}, z = "
+        f"{z_gs:.2f} (tol {SAMPLING_Z:g}); planted fault (the basis change skipped): estimate "
+        f"{bad.mean:.4f}, z = {bad_z:.1f} (must exceed {SAMPLING_Z:g})")
+    if z_gs > SAMPLING_Z:
+        raise AssertionError("sampling: the ground-state estimate is off")
+    if bad_z <= SAMPLING_Z:
+        raise AssertionError("the skipped basis change passed the sampling gate")
+    return dict(n_groups=int(masks.shape[0]), analytic=analytic, analytic_rel_err=e_err,
+                estimate=est.mean, stderr=est.stderr, z=z, determinism_probe=dp,
+                estimate_ms=est_ms, launches=counts, ground_energy=e_gs,
+                ground_estimate=est_gs.mean, ground_z=z_gs, planted_z=bad_z,
+                seconds=time.perf_counter() - t0)
+
+
 # -- main ---------------------------------------------------------------------------------
 
 
@@ -3826,6 +4657,15 @@ def main():
     log("imaginary-time evolution (3x3):")
     ite = phase_ite(dev)
     out.update(product_state=big, hea=hea_res, vqd=vqd, dynamics=dyn, ite=ite)
+    log("the 3x3 analysis scripts' paths on the committed checkpoints:")
+    analysis = phase_analysis(dev)
+    log("Lanczos resolvent spectroscopy at 3x3 (spectral_3x3.py, sqw_3x3.py):")
+    spectral = phase_spectral(dev)
+    log("batched multistart (the 2x2 demo; 3x3 HVA and LiH HEA at B = 4):")
+    multistart = phase_multistart(dev, tmp)
+    log("shot-based grouped estimation at 3x3 (tpu_sampling.py):")
+    sampling = phase_sampling(dev)
+    out.update(analysis=analysis, spectral=spectral, multistart=multistart, sampling=sampling)
     if args.routes:
         log("routes, host clock, median (least) of 15 interleaved rounds:")
         adapt20 = build_adapt(dev, tmp, "routes20", CONFIG_20)
@@ -4005,6 +4845,22 @@ def main():
             head = big[n]["kernels"].get(name)
             if head is not None:
                 entry.update({f"{key}_{n}q": head[key] for key in ("ms", "bound_ms", "bound_by")})
+    for entry in line:  # this slice's paths: analysis, Lanczos, multistart, sampling
+        name = entry["name"]
+        # one spin matrix, rho_up and pair matrix on the trained ADAPT state
+        entry["launches_analysis"] = analysis["launches"][name]
+        entry["launches_spectral"] = spectral["launches"].get(name, 0)
+        entry["launches_per_lanczos_step"] = spectral["launches_per_step"].get(name, 0)
+        entry["launches_per_multistart_epoch"] = {
+            cell: multistart[cell]["launches_per_epoch"].get(name, 0)
+            for cell in ("2x2", "3x3", "lih")}
+        entry["launches_sampling"] = sampling["launches"].get(name, 0)
+        if name == "pauli_inner_grouped":
+            for m, row in analysis["matrices"].items():
+                entry.update({f"{key}_{m}_matrix": row[key] for key in
+                              ("kernel_ms", "bound_ms", "matrix_ms")})
+        if name == "pauli_apply_grouped":
+            entry.update(ms_lanczos_step=spectral["step_ms"], ms_lanczos_hpsi=spectral["hpsi_ms"])
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

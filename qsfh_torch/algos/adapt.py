@@ -442,6 +442,19 @@ class ADAPT:
         print(timer.report())
         return self.results
 
+    def get_ground_state_properties(self):
+        """Print the exact ground state's observables: energy, particle
+        number, and Sz and S^2 of each cached ED state on the expectation
+        route (the inner-product tiles on the card)."""
+        print("ground state energy: ", self.ground_state_energy)
+        print("particle number: ", self.problem.n_electrons)
+        obs = self.problem.observables
+        for i, psi in enumerate(self._gs):
+            tag = f" [{i}]" if len(self._gs) > 1 else ""
+            print(f"Sz{tag}: ", round(float(obs["Sz"].expectation_scan(psi, impl=self.impl)), 6))
+            print(f"S^2{tag}: ", round(float(obs["S^2"].expectation_scan(psi, impl=self.impl)), 6))
+        print("")
+
     # -- persistence ------------------------------------------------------------------
 
     def save_model(self):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 from ..engine.circuits import get_non_interacting_ground_state_indices
@@ -39,6 +40,14 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def state_on_device(psi, device=None) -> torch.Tensor:
+    """A state as a tensor: a tensor as it is, on its own device; an array
+    copied to ``resolve_device(device)``."""
+    if torch.is_tensor(psi):
+        return psi
+    return torch.as_tensor(np.asarray(psi)).to(resolve_device(device))
 
 
 def adam_step(thetas, grads, optimizer):

@@ -21,6 +21,10 @@ upper case sorts first), not in the flat order; :func:`hva_from_jax` and
 A JAX HEA driver holds its (reps + 1, n, 3) angles as one array under one
 ``optax.adam`` (:func:`hea_from_jax`).
 
+A JAX multistart driver holds its B starts as the leading axis of
+``batch_params``: the HVA dict of (B, ...) arrays or the HEA (B, reps + 1,
+n, 3) array (:func:`multistart_from_jax`).
+
 A JAX iQCC driver holds ``params`` (``theta``, ``phi``, ``tau``) and its
 current Hamiltonian, as the packed ``(H_x, H_z, H_c)`` arrays of a
 ``PauliSum`` or, with dense dressing, as the complex128 matrix (its
@@ -175,6 +179,26 @@ def hva_to_jax_leaves(optimizer: torch.optim.Adam, param: torch.Tensor,
     count, mu, nu = to_jax_leaves(optimizer, param)
     mu, nu = hva_split(mu, sizes), hva_split(nu, sizes)
     return [count] + [mu[k] for k in _HVA_TREE_ORDER] + [nu[k] for k in _HVA_TREE_ORDER]
+
+
+def multistart_from_jax(batch_params, device="cpu", dtype=torch.float64):
+    """The port's ``batch_params`` from a JAX multistart driver's (as numpy):
+    the HVA dict ``{theta_U, theta_v, theta_h}`` of (B, ...) arrays as a
+    dict of tensors, or the HEA (B, reps + 1, n, 3) array as a tensor, on
+    ``device`` in ``dtype`` (copies)."""
+    if isinstance(batch_params, dict):
+        missing = set(HVA_KEYS) - set(batch_params)
+        if missing:
+            raise ValueError(f"HVA batch_params lack {sorted(missing)}")
+        out = {k: torch.tensor(np.asarray(batch_params[k]), device=device, dtype=dtype)
+               for k in HVA_KEYS}
+        if len({v.shape[0] for v in out.values()}) != 1:
+            raise ValueError("HVA batch_params disagree on the number of starts")
+        return out
+    angles = torch.tensor(np.asarray(batch_params), device=device, dtype=dtype)
+    if angles.dim() != 4 or angles.shape[3] != 3:
+        raise ValueError(f"expected (B, reps + 1, n, 3) HEA angles, got {tuple(angles.shape)}")
+    return angles
 
 
 IQCC_KEYS = ("theta", "phi", "tau")

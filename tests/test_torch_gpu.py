@@ -906,3 +906,62 @@ def test_greens_function_on_card(dev):
     assert counts["pauli_apply_grouped"] + counts["pauli_apply"] >= 1
     _, ref = greens_function(p, gs, -5.2, 4, dt=0.05, n_steps=6, device="cpu")
     assert np.abs(got - ref).max() <= RTOL * np.abs(ref).max()
+
+
+def test_one_layout_correlations_on_card(dev):
+    """The 3x3 spin correlation matrix and rho_up through one
+    ``pauli_inner_grouped`` layout each (one launch per chunk of tiles, no
+    per-term inner product) against the complex128 per-entry loop on the
+    same state: within 1e-5 of the largest entry."""
+    from qsfh_torch.ops import correlations as C
+
+    psi = _t(_state(np.random.default_rng(12), 18), dev, torch.complex64)
+    K.reset_launch_counts()
+    spin = C.correlation_matrix(psi, 9, "spin")
+    rho = C.one_body_density_matrix(psi, 9, "up")
+    counts = K.launch_counts()
+    assert counts["pauli_inner_grouped"] >= 2 and counts["pauli_inner"] == 0
+    assert counts["expectation_grouped"] == 0
+    ref = psi.to(torch.complex128)
+    for got, want in ((spin, C.correlation_matrix(ref, 9, "spin", route="loop")),
+                      (rho, C.one_body_density_matrix(ref, 9, "up", route="loop"))):
+        assert np.abs(got - want).max() <= RTOL * np.abs(want).max()
+
+
+def test_lanczos_on_card(dev):
+    """A 3x3 Lanczos run of m = 12 on ``pauli_apply_grouped`` (one launch
+    per tile of H a step) against the complex128 plain run on the card:
+    alphas and betas within 1e-4 relative."""
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.linalg.spectral import lanczos_tridiagonal
+
+    p = HubbardProblem(3, 3, 1.0, 6.0, 9, 5, 4)
+    ham = p.observables["H"]
+    phi = _state(np.random.default_rng(13), 18)
+    K.reset_launch_counts()
+    a, b, _ = lanczos_tridiagonal(ham.apply_auto, _t(phi, dev, torch.complex64), 12)
+    assert K.launch_counts()["pauli_apply_grouped"] == 12 * ham.groups().n_tiles
+    ra, rb, _ = lanczos_tridiagonal(lambda v: ham.apply_auto(v, K.PLAIN),
+                                    _t(phi, dev, torch.complex128), 12)
+    assert np.abs(a - ra).max() <= 1e-4 * np.abs(ra).max()
+    assert np.abs(b - rb).max() <= 1e-4 * np.abs(rb).max()
+
+
+def test_multistart_epoch_on_card(dev):
+    """One epoch of a 3x3 reps = 2 ``MultistartHVA`` with B = 2: one
+    ``rotation_resident`` and one ``adjoint_resident`` launch per start,
+    energies within 1e-5 relative of the plain versions."""
+    from qsfh_torch.algos.multistart import MultistartHVA
+
+    ms = MultistartHVA(n_starts=2, n_epoch=1, reps=2, lr=1e-2, x_dimension=3, y_dimension=3,
+                       n_electrons=9, n_spin_up=5, n_spin_down=4, ground_truth=False,
+                       device=dev)
+    K.reset_launch_counts()
+    got = ms.run()
+    counts = K.launch_counts()
+    assert counts["rotation_resident"] == 2 * 2 and counts["adjoint_resident"] == 2
+    assert counts["pauli_rotation"] == 0 and counts["adjoint_rotation"] == 0
+    ms.impl = K.PLAIN
+    ref = ms.run()
+    np.testing.assert_allclose(got["energies"], ref["energies"], rtol=RTOL)
+    np.testing.assert_allclose(got["final_energies"], ref["final_energies"], rtol=RTOL)

@@ -3,14 +3,17 @@
 * ``import qsfh_torch.algos.adapt`` (and ``adapt_fused``, ``hva``,
   ``iqcc``, ``hea``, ``vqd``, ``dynamics``, ``ite``, ``grad.adjoint``,
   ``engine.gates``, ``engine.product_state``, ``linalg.lanczos``,
-  ``ops.dressing``, ``ops.dense_dressing``, ``ops.ilc``, ``molecules``)
-  succeeds with ``jax`` blocked and loads no ``qsfh_tpu`` module, and a
+  ``ops.dressing``, ``ops.dense_dressing``, ``ops.ilc``, ``molecules``,
+  ``ops.correlations``, ``ops.entanglement``, ``ops.export``,
+  ``linalg.spectral``, ``linalg.symmetry``, ``algos.multistart``,
+  ``engine.sampling``) succeeds with ``jax`` blocked and loads no ``qsfh_tpu`` module, and a
   molecule builds there (its FCI on the port's Lanczos);
 * no module of ``qsfh_torch`` (nor ``chip_smoke.py``) imports jax, optax
   or qsfh_tpu;
 * ``ADAPT(...)``, ``HVA(...)``, ``IQCC(...)``, ``VQE(...)`` (HEA),
-  ``VQD(...)``, ``TrotterEvolution(...)`` and ``ImaginaryTimeEvolution(...)``
-  with no device raise where CUDA is unavailable.
+  ``VQD(...)``, ``TrotterEvolution(...)``, ``ImaginaryTimeEvolution(...)``,
+  ``MultistartHVA(...)`` and ``MultistartHEA(...)`` with no device raise
+  where CUDA is unavailable.
 """
 
 import ast
@@ -61,6 +64,9 @@ def test_port_imports_with_jax_blocked():
         "import qsfh_torch.ops.ilc, qsfh_torch.molecules, qsfh_torch.utils.dense\n"
         "import qsfh_torch.engine.product_state, qsfh_torch.algos.hea, qsfh_torch.algos.vqd\n"
         "import qsfh_torch.algos.dynamics, qsfh_torch.algos.ite\n"
+        "import qsfh_torch.ops.correlations, qsfh_torch.ops.entanglement, qsfh_torch.ops.export\n"
+        "import qsfh_torch.linalg.spectral, qsfh_torch.linalg.symmetry\n"
+        "import qsfh_torch.algos.multistart, qsfh_torch.engine.sampling\n"
         "assert qsfh_torch.molecules.H2(0.74).fci_energy < -1.13\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'qsfh_tpu')\n"
         "assert not bad, bad\n"
@@ -122,6 +128,7 @@ def test_new_entry_points_without_device_raise_without_cuda(monkeypatch):
     from qsfh_torch.algos.dynamics import TrotterEvolution
     from qsfh_torch.algos.hea import VQE
     from qsfh_torch.algos.ite import ImaginaryTimeEvolution
+    from qsfh_torch.algos.multistart import MultistartHEA, MultistartHVA
     from qsfh_torch.algos.vqd import VQD
     from qsfh_torch.molecules import H2
 
@@ -132,9 +139,14 @@ def test_new_entry_points_without_device_raise_without_cuda(monkeypatch):
                               log_metrics=False),
                   lambda: VQD(h2, n_levels=1, log_metrics=False),
                   lambda: TrotterEvolution(p, dt=0.1),
-                  lambda: ImaginaryTimeEvolution(p, dbeta=0.01)):
+                  lambda: ImaginaryTimeEvolution(p, dbeta=0.01),
+                  lambda: MultistartHVA(n_starts=2, n_epoch=1, reps=1, lr=1e-2,
+                                        ground_truth=False),
+                  lambda: MultistartHEA(h2, n_starts=2, n_epoch=1, reps=1, lr=0.1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     # the CPU on request
     assert VQD(h2, n_levels=1, log_metrics=False, device="cpu").dtype == torch.complex128
     assert TrotterEvolution(p, dt=0.1, device="cpu").device == torch.device("cpu")
+    assert MultistartHEA(h2, n_starts=2, n_epoch=1, reps=1, lr=0.1,
+                         device="cpu").dtype == torch.complex128
