@@ -93,8 +93,9 @@ Phases (any failed check raises and the script exits nonzero):
    2x6: captures of K = 1, 2 and 8, one replay of K = 2 against 2 eager
    steps (``STEP_TOLERANCES_24``), ms per step at K = 2 and 8.
 9. The port's exact diagonalization of the 3x3 4-state ground manifold on
-   the CPU: energy within 1e-9 of the committed cache's, subspace
-   fidelity at least 1 - 1e-9, and its seconds.
+   the card (the sector Lanczos in complex128): energy within 1e-10 of the
+   committed cache's, subspace fidelity within 1e-10 of 1, and its seconds
+   beside the host solve's (16.5-21.2 s, PERF.md section 6).
 10. The HVA driver (``qsfh_torch.algos.hva.HVA``), the reference's
    ``hva_for_3x3.py`` experiment: 3x3, reps = 10 (1017 rotation terms, 71
    parameters; 297 of the terms the trainable x = 0 Z/ZZ strings of the
@@ -213,12 +214,33 @@ Phases (any failed check raises and the script exits nonzero):
    the estimate within 5 sigma, the determinism probe, ms per grouped
    estimate; on the ED ground state the estimate within 5 sigma and a
    planted fault (the basis change skipped) that must fail.
-21. A ``kernels`` JSON line (``expectation_norm_f64``'s launches counted
+21. The command line, ``qsfh_torch.cli.main`` in-process on the card:
+   ``adapt`` at 3x3 at full width (2 epochs of 20 inner iterations, no ED
+   cache: the 4-state manifold solved on the card, within 1e-10 of the
+   committed cache; launch counters set to 0 just before and read just
+   after, TPU kernels 1-5 launched and no plain version called; its
+   selections, energies and fidelities equal to the same ADAPT built
+   through the Python API, a float32 tie in the screen logged and either
+   side accepted); ``ed`` at 2x6 (24 qubits, 853,776 sector rows: host
+   build, entries, card Krylov seconds, peak memory, E to 12 digits; the
+   state put back into complex64 and checked through the 24-qubit kernels:
+   ||H psi - E psi|| / sum|c| within 1e-6 on ``pauli_apply_grouped``, the
+   Rayleigh quotient within 1e-5 relative on ``expectation_grouped``, N = 12
+   and Sz = 0 within 1e-5, no weight outside the sector, E below every 2x6
+   variational energy of the earlier phases; a planted fault, the Ritz
+   vector of 8 Krylov steps, that the residual gate must fail); then
+   ``hva``, ``hea``, ``vqd``, ``iqcc --molecule LiH``, ``dynamics
+   --initial neel``, ``ite``, ``symmetry``, ``spectral`` and
+   ``multistart`` (2x2, H2, LiH), each printed value or JSON file against
+   the same call through the Python API, and ``python -m qsfh_torch.cli
+   ed`` (2x2) in a process of its own.
+22. A ``kernels`` JSON line (``expectation_norm_f64``'s launches counted
    per capture, its replays beside them; every kernel's graph nodes per
    fused step; its launches on the HVA, iQCC, product-state, HEA, VQD,
    Trotter, ITE, analysis, Lanczos, multistart and sampling paths; ms and
-   bound at 26-30 qubits and per correlation matrix), then the device
-   JSON line, last.
+   bound at 26-30 qubits and per correlation matrix; the launches of the
+   CLI's 3x3 adapt run and of the 2x6 ED's checks), then the device JSON
+   line, last.
 
 ``--compare PARENT`` runs both main paths (3x3 and 2x6 selection and
 train step, host clock and profile) of the port in the checkout PARENT
@@ -264,6 +286,8 @@ GROUND_STATE = os.path.join(
     "Hubbard-3x3 (t=1, U=6, n_electrons=9) deg4.npz",
 )
 E_EXACT = -5.562308836311793  # the cached 4-state manifold's energy
+ED_TOL = 1e-10  # the card's 3x3 manifold against the committed cache: energy, 1 - fidelity
+HOST_ED_SECONDS = "16.5-21.2"  # the 3x3 4-state solve on the host (PERF.md section 6)
 
 # H100 SXM published peaks (NVIDIA data sheet), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -2518,11 +2542,13 @@ def phase_fused_24(adapt24, dev):
     return out
 
 
-def phase_ed():
+def phase_ed(dev):
     """The port's exact diagonalization of the 3x3 4-state ground manifold on
-    the CPU (complex128): the energy within 1e-9 of the committed cache's,
-    the subspace fidelity tr(P_port P_cache) / 4 at least 1 - 1e-9."""
+    the card (complex128): the energy within ED_TOL of the committed cache's,
+    the subspace fidelity tr(P_port P_cache) / 4 within ED_TOL of 1; its
+    seconds beside the host solve it replaces."""
     import numpy as np
+    import torch
 
     from qsfh_torch.algos.base import HubbardProblem
     from qsfh_torch.io.checkpoint import load_ground_state
@@ -2532,19 +2558,23 @@ def phase_ed():
     p = HubbardProblem(c["x_dimension"], c["y_dimension"], c["tunneling"], c["coulomb"],
                        c["n_electrons"], c["n_spin_up"], c["n_spin_down"],
                        results_root=tempfile.mkdtemp(prefix="qsfh_torch_ed_"))
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     energy, states = degenerate_ground_space(p.qubit_hamiltonian, p.n_qubits, c["n_electrons"],
-                                             c["n_spin_up"], c["n_spin_down"], n_states=4)
+                                             c["n_spin_up"], c["n_spin_down"], n_states=4,
+                                             device=dev)
+    torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     e_cache, cached = load_ground_state(GROUND_STATE)
-    mine = np.stack([s.numpy() for s in states])
+    mine = torch.stack(states).cpu().numpy()
     ref = np.stack(cached)
     overlap = mine.conj() @ ref.T
     fidelity = float(np.sum(np.abs(overlap) ** 2)) / len(cached)
-    log(f"  3x3 ED (CPU, complex128): {len(states)} states, E0 {energy:.15f} (cache "
-        f"{e_cache:.15f}, |diff| {abs(energy - E_EXACT):.2e}, tol 1e-9), subspace fidelity "
-        f"{fidelity:.15f} (tol 1 - 1e-9), {seconds:.2f} s")
-    if len(states) != 4 or abs(energy - E_EXACT) > 1e-9 or fidelity < 1 - 1e-9:
+    log(f"  3x3 ED (card, complex128): {len(states)} states, E0 {energy:.15f} (cache "
+        f"{e_cache:.15f}, |diff| {abs(energy - E_EXACT):.2e}, tol {ED_TOL:g}), subspace "
+        f"fidelity {fidelity:.15f} (tol 1 - {ED_TOL:g}), {seconds:.3f} s (the host solve: "
+        f"{HOST_ED_SECONDS} s)")
+    if len(states) != 4 or abs(energy - E_EXACT) > ED_TOL or abs(1 - fidelity) > ED_TOL:
         raise AssertionError("the port's 3x3 exact diagonalization disagrees with the cache")
     return dict(energy=energy, fidelity=fidelity, seconds=seconds, n_states=len(states))
 
@@ -4568,6 +4598,539 @@ def phase_sampling(dev):
                 seconds=time.perf_counter() - t0)
 
 
+# -- the command line: qsfh_torch.cli on the card -------------------------------------------
+
+CLI_ADAPT_ITERS = 20  # inner iterations per epoch of the 3x3 CLI run (2 epochs)
+CLI_RTOL = 1e-5  # the CLI runs against the same calls through the Python API, relative
+SCREEN_TIE = 1e-5  # two screen values within this share of max |g| are a float32 tie
+# ||H psi - E psi|| / sum_t |c_t| of the 2x6 ground state put back into complex64: its
+# rounding (2^-24 relative per amplitude) gives ~1e-8 (6.7e-9 on the H100); a Ritz vector of
+# an 8-step Krylov run gives ~3e-2
+ED24_RESIDUAL_TOL = 1e-6
+ED24_RTOL = 1e-5  # the Rayleigh quotient against E, relative; N and Sz, absolute
+CONFIG_ED24 = dict(x_dimension=2, y_dimension=6, tunneling=1.0, coulomb=6.0, n_electrons=12,
+                   n_spin_up=6, n_spin_down=6)
+CLI_KERNELS = ("rotation_resident", "pauli_apply_grouped", "expectation_grouped",
+               "adjoint_resident", "screen_grouped")  # TPU kernels 1-5: the 3x3 main path
+
+
+@contextlib.contextmanager
+def cli_instruments():
+    """Records of the runs made inside: ``adapts``, every ADAPT built (the
+    driver objects); ``selections``, each ``select_operator`` call's
+    (selected, gradients); ``solves``, the seconds of each sector Lanczos
+    solve that ``HubbardProblem.ground_state`` ran (card synchronized);
+    ``plain``, the calls of each plain version in ``engine/kernels.py``.
+    Everything is put back on exit."""
+    import torch
+
+    from qsfh_torch.algos import adapt as adapt_mod
+    from qsfh_torch.algos import base
+    from qsfh_torch.engine import kernels as K
+
+    rec = dict(adapts=[], selections=[], solves=[], plain={})
+    saved = []
+
+    def patch(owner, name, make):
+        original = getattr(owner, name)
+        saved.append((owner, name, original))
+        setattr(owner, name, make(original))
+
+    def init(original):
+        def wrapped(self, *a, **k):
+            rec["adapts"].append(self)
+            original(self, *a, **k)
+        return wrapped
+
+    def select(original):
+        def wrapped(self, *a, **k):
+            out = original(self, *a, **k)
+            rec["selections"].append((list(out[0]), [float(g) for g in out[1]]))
+            return out
+        return wrapped
+
+    def solve(original):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = original(*a, **k)
+            torch.cuda.synchronize()
+            rec["solves"].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def count(name):
+        def make(original):
+            def wrapped(*a, **k):
+                rec["plain"][name] = rec["plain"].get(name, 0) + 1
+                return original(*a, **k)
+            return wrapped
+        return make
+
+    patch(adapt_mod.ADAPT, "__init__", init)
+    patch(adapt_mod.ADAPT, "select_operator", select)
+    patch(base, "degenerate_ground_space", solve)
+    patch(base, "lanczos_ground_state", solve)
+    for name in dir(K):
+        if name.endswith("_plain") and callable(getattr(K, name)):
+            patch(K, name, count(name))
+    try:
+        yield rec
+    finally:
+        for owner, name, original in reversed(saved):
+            setattr(owner, name, original)
+
+
+def run_cli(argv, workdir):
+    """``qsfh_torch.cli.main(argv)`` in ``workdir`` (its JSON files land
+    there; results under ``workdir/results``), stdout captured: (stdout,
+    seconds on the host clock, card synchronized)."""
+    import io
+
+    import torch
+
+    from qsfh_torch import cli
+
+    os.makedirs(workdir, exist_ok=True)
+    buf, cwd = io.StringIO(), os.getcwd()
+    os.chdir(workdir)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(list(argv) + ["--results-root", os.path.join(workdir, "results")])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    out = buf.getvalue()
+    last = [s for s in out.splitlines() if s.strip()][-1:]
+    log(f"  qsfh_torch.cli {' '.join(argv)}: {seconds:.2f} s; last line: {last[0] if last else ''}")
+    return out, seconds
+
+
+def quiet(fn):
+    """fn()'s result, its printing captured (the drivers' per-step lines)."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def json_close(got, ref, rtol, path="$"):
+    """Raise unless two parsed JSON values agree: numbers within rtol of
+    max(1, |ref|), everything else equal."""
+    if isinstance(ref, dict):
+        if not isinstance(got, dict) or set(got) != set(ref):
+            raise AssertionError(f"{path}: keys {sorted(got)} vs {sorted(ref)}")
+        for k in ref:
+            json_close(got[k], ref[k], rtol, f"{path}.{k}")
+    elif isinstance(ref, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(ref):
+            raise AssertionError(f"{path}: lengths differ")
+        for i, (g, r) in enumerate(zip(got, ref)):
+            json_close(g, r, rtol, f"{path}[{i}]")
+    elif isinstance(ref, (int, float)) and not isinstance(ref, bool):
+        if not abs(float(got) - float(ref)) <= rtol * max(1.0, abs(float(ref))):
+            raise AssertionError(f"{path}: {got} vs {ref} (rtol {rtol:g})")
+    elif got != ref:
+        raise AssertionError(f"{path}: {got!r} vs {ref!r}")
+
+
+def results_json(root):
+    """{file name: parsed} of the drivers' results JSON under ``root``."""
+    out = {}
+    folder = os.path.join(root, "vqe_results")
+    for name in sorted(os.listdir(folder)):
+        if name.endswith(".json"):
+            with open(os.path.join(folder, name)) as fh:
+                out[name] = json.load(fh)
+    return out
+
+
+def manifold_against_cache(path):
+    """(energy, |E - E_cache|, 1 - subspace fidelity) of a 4-state manifold
+    file against the committed cache."""
+    import numpy as np
+
+    from qsfh_torch.io.checkpoint import load_ground_state
+
+    energy, states = load_ground_state(path)
+    e_cache, cached = load_ground_state(GROUND_STATE)
+    overlap = np.stack(states).conj() @ np.stack(cached).T
+    fidelity = float(np.sum(np.abs(overlap) ** 2)) / len(cached)
+    if len(states) != len(cached):
+        raise AssertionError(f"{path}: {len(states)} states, the cache {len(cached)}")
+    return energy, abs(energy - e_cache), abs(1.0 - fidelity)
+
+
+def cli_adapt_3x3(dev, tmp):
+    """``cli adapt`` at 3x3 (18 qubits, 2 epochs of CLI_ADAPT_ITERS inner
+    iterations) solving its 4-state manifold on the card, against the
+    committed cache and against the same run through the Python API."""
+    import torch
+
+    from qsfh_torch.algos.adapt import ADAPT
+    from qsfh_torch.engine import kernels as K
+
+    c = CONFIG
+    lattice = ["--x-dimension", "3", "--y-dimension", "3", "--n-electrons", "9",
+               "--n-spin-up", "5", "--n-spin-down", "4"]
+    argv = ["adapt"] + lattice + ["--degenerate-subspace", "4", "--n-epoch", "2",
+                                  "--max-inner-iterations", str(CLI_ADAPT_ITERS), "--no-plot"]
+    work = os.path.join(tmp, "cli_adapt")
+    with cli_instruments() as rec:
+        K.reset_launch_counts()
+        _, seconds = run_cli(argv, work)
+        counts = K.launch_counts()
+    (driver,) = rec["adapts"]
+    cache = driver.problem.ground_state_path().replace(".npz", " deg4.npz")
+    energy, e_err, f_err = manifold_against_cache(cache)
+    (solve_s,) = rec["solves"]
+    log(f"  the 4-state manifold solved on the card in {solve_s:.3f} s (the host: "
+        f"{HOST_ED_SECONDS} s): E0 {energy:.15f}, |E - cache| {e_err:.2e}, "
+        f"1 - fidelity {f_err:.2e} (tol {ED_TOL:g})")
+    if e_err > ED_TOL or f_err > ED_TOL:
+        raise AssertionError("cli adapt: the card's 3x3 manifold disagrees with the cache")
+    missing = [k for k in CLI_KERNELS if not counts[k]]
+    if missing or rec["plain"]:
+        raise AssertionError(f"cli adapt: kernels {missing} not launched, plain versions "
+                             f"{rec['plain']} called")
+    timer = driver.timer
+    step_ms = 1e3 * timer.totals["inner iteration"] / timer.counts["inner iteration"]
+    select_ms = 1e3 * timer.totals["screening"] / timer.counts["screening"]
+    log(f"  launches: {{{', '.join(f'{k}: {counts[k]}' for k in CLI_KERNELS)}}}, plain "
+        f"versions 0; {step_ms:.2f} ms per step, {select_ms:.1f} ms per selection (the "
+        f"driver's phase timer), {len(driver.selected_indices)} operators")
+
+    api_root = os.path.join(tmp, "api_adapt")
+    with cli_instruments() as rec_api:
+        kw = {k: c[k] for k in ("x_dimension", "y_dimension", "n_electrons", "n_spin_up",
+                                "n_spin_down", "tunneling", "coulomb")}
+        api = ADAPT(n_epoch=2, threshold1=1e-2, threshold2=1e-2,
+                    max_inner_iterations=CLI_ADAPT_ITERS, degenerate_subspace=4,
+                    results_root=api_root, plot=False, dtype=torch.complex64, device=dev,
+                    ground_state_path=cache, **kw)
+        quiet(api.run)
+    got = results_json(os.path.join(work, "results"))
+    ref = results_json(api_root)
+    (name,) = got
+    rows, api_rows = got[name], ref[name]
+    ties = []
+    for epoch, ((sel, grads), (api_sel, _)) in enumerate(zip(rec["selections"],
+                                                            rec_api["selections"])):
+        if set(sel) == set(api_sel):
+            continue
+        g, top = [abs(x) for x in grads], max(abs(x) for x in grads)
+        only = set(sel) ^ set(api_sel)
+        if max(g[i] for i in only) - min(g[i] for i in only) > SCREEN_TIE * top:
+            raise AssertionError(f"cli adapt: epoch {epoch + 1} selected {sorted(set(sel))} "
+                                 f"against the API's {sorted(set(api_sel))}")
+        ties.append(epoch + 1)
+        log(f"  epoch {epoch + 1}: a float32 tie in the screen ({sorted(only)}), either "
+            "accepted; later values not compared")
+        break
+    if not ties:
+        if rows["selected operators"] != api_rows["selected operators"]:
+            raise AssertionError("cli adapt: selected operators differ from the API run")
+        for key in ("epoch loss", "iteration loss", "fidelity", "Sz", "S^2", "n_params"):
+            json_close(rows[key], api_rows[key], CLI_RTOL, key)
+    log(f"  the API run: {len(api_rows['iteration loss'])} steps, the same selections"
+        f"{' up to the tie' if ties else ''}, energies and fidelities within {CLI_RTOL:g}; "
+        f"final E {rows['iteration loss'][-1]:.6f}, fidelity {rows['fidelity'][-1]:.6f}")
+    return dict(seconds=seconds, solve_seconds=solve_s, energy=energy, energy_err=e_err,
+                fidelity_err=f_err, launches=counts, step_ms=step_ms, select_ms=select_ms,
+                n_operators=len(driver.selected_indices), ties=ties,
+                final_energy=rows["iteration loss"][-1], final_fidelity=rows["fidelity"][-1])
+
+
+def ed24_checks(p, energy, psi, dev, label):
+    """(residual / sum |c|, Rayleigh relative error, N, Sz, weight outside
+    the sector, launches) of a 2x6 full-space state ``psi`` (complex64 on
+    the card) against energy E: H psi on ``pauli_apply_grouped``, the
+    expectation values on ``expectation_grouped``."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine.expectation import Observable
+    from qsfh_torch.linalg.sectors import jw_number_spin_indices
+    from qsfh_torch.ops.jw import jordan_wigner
+
+    n = p.n_qubits
+    H = p.observables["H"]
+    _, _, cre, cim = H._scan_terms()
+    sum_c = float(np.abs(cre + 1j * cim).sum())
+    number = Observable(jordan_wigner(p.fermion_operators["particle number"]), n)
+    K.reset_launch_counts()
+    norm2 = float(torch.linalg.vector_norm(psi)) ** 2
+    residual = float(torch.linalg.vector_norm(H.apply_auto(psi) - energy * psi)) / sum_c
+    rayleigh = float(H.expectation_auto(psi)) / norm2
+    n_val = float(number.expectation_auto(psi)) / norm2
+    sz = float(p.observables["Sz"].expectation_auto(psi)) / norm2
+    counts = K.launch_counts()
+    inside = torch.zeros(1 << n, dtype=torch.bool, device=dev)
+    inside[torch.as_tensor(jw_number_spin_indices(p.n_electrons, p.n_spin_up, p.n_spin_down, n),
+                           device=dev)] = True
+    outside = float(psi[~inside].abs().max())
+    rel = abs(rayleigh - energy) / abs(energy)
+    log(f"  [{label}] ||H psi - E psi|| / sum|c| = {residual:.3e} (tol {ED24_RESIDUAL_TOL:g}; "
+        f"sum|c| = {sum_c:g}), Rayleigh {rayleigh:.10f} (rel {rel:.2e}, tol {ED24_RTOL:g}), "
+        f"N {n_val:.7f}, Sz {sz:.2e}, max |psi| outside the sector {outside:g}; launches "
+        f"pauli_apply_grouped {counts['pauli_apply_grouped']}, expectation_grouped "
+        f"{counts['expectation_grouped']}")
+    return dict(residual=residual, rayleigh=rayleigh, rayleigh_rel_err=rel, N=n_val, Sz=sz,
+                outside=outside, launches=counts, sum_c=sum_c)
+
+
+def cli_ed_2x6(dev, tmp, variational):
+    """``cli ed`` at 2x6 (24 qubits, 853,776 sector rows) on the card: the
+    state through the 24-qubit application and inner-product kernels (the
+    residual, the Rayleigh quotient, N and Sz, no weight outside the
+    sector), E below every 2x6 variational energy of the earlier phases,
+    and a planted fault (a Ritz vector of 8 Krylov steps) the residual gate
+    must fail."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.io.checkpoint import load_ground_state
+    from qsfh_torch.linalg import lanczos
+
+    c = CONFIG_ED24
+    argv = ["ed", "--x-dimension", "2", "--y-dimension", "6", "--n-electrons", "12",
+            "--n-spin-up", "6", "--n-spin-down", "6"]
+    work = os.path.join(tmp, "cli_ed24")
+    torch.cuda.reset_peak_memory_stats()
+    with cli_instruments() as rec:
+        K.reset_launch_counts()
+        stdout, seconds = run_cli(argv, work)
+        cli_counts = K.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    (solve_s,) = rec["solves"]
+    printed = float(stdout.split("ground energy:")[1].split()[0])
+    p = HubbardProblem(**c, results_root=os.path.join(work, "results"))
+    energy, (state,) = load_ground_state(p.ground_state_path())
+    if printed != energy:
+        raise AssertionError(f"cli ed 2x6 printed {printed}, its cache holds {energy}")
+    if any(cli_counts.values()) or rec["plain"]:
+        raise AssertionError("cli ed 2x6 launched a statevector kernel or a plain version")
+
+    # the pieces of the solve, timed apart: the host build and the card's Krylov run
+    t0 = time.perf_counter()
+    mat, idx = lanczos.sector_hamiltonian(p.qubit_hamiltonian, p.n_qubits, c["n_electrons"],
+                                          c["n_spin_up"], c["n_spin_down"])
+    build_s = time.perf_counter() - t0
+    entries = int(mat.nnz)
+    card_bytes = entries * (16 + 8) + (mat.shape[0] + 1) * 8
+    csr = lanczos.device_matrix(mat, dev)
+    v0 = lanczos._start_vector(idx.size, 7, torch.complex128, dev)  # the solver's default
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evals, _ = lanczos.lanczos_eigsh(lambda v: csr @ v, v0, k=160)
+    torch.cuda.synchronize()
+    krylov_s = time.perf_counter() - t0
+    log(f"  2x6 ED (card, complex128): E = {energy:.12f}; host build {build_s:.2f} s, "
+        f"{entries:,} entries ({card_bytes / 2**20:.1f} MiB on the card as CSR, "
+        f"{mat.shape[0]:,} rows); card Krylov run (160 steps) {krylov_s:.2f} s (E "
+        f"{float(evals[0]):.12f}); the whole solve {solve_s:.2f} s, the CLI call {seconds:.2f} s; "
+        f"peak card memory {peak_gib:.2f} GiB")
+    if abs(float(evals[0]) - energy) > 1e-9:
+        raise AssertionError("the timed 2x6 Krylov run disagrees with the CLI's")
+
+    psi = torch.from_numpy(state).to(dev).to(torch.complex64)
+    del state
+    checks = ed24_checks(p, energy, psi, dev, "2x6 ground state")
+    if checks["residual"] > ED24_RESIDUAL_TOL:
+        raise AssertionError("2x6 ED: the residual gate failed")
+    if checks["rayleigh_rel_err"] > ED24_RTOL:
+        raise AssertionError("2x6 ED: the Rayleigh quotient disagrees with E")
+    if abs(checks["N"] - c["n_electrons"]) > ED24_RTOL or abs(checks["Sz"]) > ED24_RTOL:
+        raise AssertionError("2x6 ED: N or Sz off the sector's")
+    if checks["outside"] != 0.0:
+        raise AssertionError("2x6 ED: weight outside the sector")
+    if not checks["launches"]["pauli_apply_grouped"] or not checks["launches"][
+            "expectation_grouped"]:
+        raise AssertionError("2x6 ED checks: the 24-qubit kernels did not run")
+    lowest = min(variational)
+    log(f"  E {energy:.10f} below every 2x6 variational energy of the earlier phases "
+        f"({len(variational)} values, the lowest {lowest:.8f})")
+    if not energy < lowest:
+        raise AssertionError("2x6 ED: a variational energy lies below E")
+
+    _, vecs = lanczos.lanczos_eigsh(lambda v: csr @ v, v0, k=8)
+    planted = torch.zeros(1 << p.n_qubits, dtype=torch.complex64, device=dev)
+    planted[torch.from_numpy(idx).to(dev)] = vecs[0].to(torch.complex64)
+    e8 = float(torch.vdot(vecs[0], csr @ vecs[0]).real)
+    fault = ed24_checks(p, e8, planted, dev, "planted fault: 8 Krylov steps")
+    if fault["residual"] <= ED24_RESIDUAL_TOL:
+        raise AssertionError("the 8-step Ritz vector passed the 2x6 residual gate")
+    del csr, psi, planted
+    torch.cuda.empty_cache()
+    return dict(energy=energy, seconds=seconds, solve_seconds=solve_s, build_seconds=build_s,
+                krylov_seconds=krylov_s, entries=entries, card_bytes=card_bytes,
+                rows=int(mat.shape[0]), peak_gib=peak_gib, lowest_variational=lowest,
+                planted_residual=fault["residual"],
+                **{k: v for k, v in checks.items() if k != "launches"},
+                launches=checks["launches"])
+
+
+def cli_small(dev, tmp):
+    """The other subcommands at 2x2 / H2 / LiH on the card, each against the
+    same call through the Python API: (per subcommand seconds, launches)."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.algos.dynamics import TrotterEvolution, neel_occupied
+    from qsfh_torch.algos.hea import VQE
+    from qsfh_torch.algos.hva import HVA
+    from qsfh_torch.algos.iqcc import IQCC
+    from qsfh_torch.algos.ite import ImaginaryTimeEvolution
+    from qsfh_torch.algos.multistart import MultistartHVA
+    from qsfh_torch.algos.vqd import VQD
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine.expectation import Observable
+    from qsfh_torch.engine.state import basis_state
+    from qsfh_torch.linalg.spectral import spectral_function_lanczos
+    from qsfh_torch.linalg.symmetry import momentum_weights, symmetry_adapted_states
+    from qsfh_torch.molecules import H2, LiH
+    from qsfh_torch.ops.correlations import _momentum_sum
+    from qsfh_torch.ops.fermion import FermionOperator
+    from qsfh_torch.ops.jw import jordan_wigner
+
+    c64 = torch.complex64
+    lat = dict(x_dimension=2, y_dimension=2, tunneling=1.0, coulomb=6.0, n_electrons=4,
+               n_spin_up=2, n_spin_down=2)
+    out = {}
+
+    def cli(name, argv):
+        K.reset_launch_counts()
+        work = os.path.join(tmp, f"cli_{name}")
+        stdout, seconds = run_cli(argv, work)
+        out[name] = dict(seconds=seconds, launches=K.launch_counts())
+        return stdout, work
+
+    def api_root(name):
+        return os.path.join(tmp, f"api_{name}")
+
+    def same_results(name, work, rtol):
+        json_close(results_json(os.path.join(work, "results")), results_json(api_root(name)),
+                   rtol, name)
+
+    _, work = cli("hva", ["hva", "--n-epoch", "5", "--reps", "2", "--lr", "5e-2", "--no-plot"])
+    quiet(HVA(n_epoch=5, reps=2, lr=5e-2, threshold=1e-2, results_root=api_root("hva"),
+              plot=False, dtype=c64, device=dev, **lat).run)
+    same_results("hva", work, HVA_ENERGY_RTOL)
+
+    _, work = cli("hea", ["hea", "--molecule", "H2", "--n-epoch", "20", "--no-plot"])
+    quiet(VQE(H2(0.8), n_epoch=20, reps=5, lr=0.1, threshold=2e-3, results_root=api_root("hea"),
+              plot=False, dtype=c64, device=dev).run)
+    same_results("hea", work, HEA_RTOL)
+
+    stdout, work = cli("vqd", ["vqd", "--molecule", "H2", "--n-levels", "2", "--n-epoch", "40"])
+    energies = quiet(VQD(H2(0.8), n_levels=2, n_epoch=40, reps=3, lr=0.1, beta=5.0,
+                         threshold=1e-4, results_root=api_root("vqd"), tag="VQD-H2", dtype=c64,
+                         device=dev).run)
+    printed = json.loads(stdout.split("VQD energies:")[1].strip().splitlines()[0])
+    json_close(printed, energies, HEA_RTOL, "vqd")
+    same_results("vqd", work, HEA_RTOL)
+
+    _, work = cli("iqcc", ["iqcc", "--molecule", "LiH", "--n-epoch", "1", "--no-plot"])
+    quiet(IQCC(LiH(1.0), n_epoch=1, lr=1e-2, threshold=5e-3, results_root=api_root("iqcc"),
+               tag="iqcc-LiH", plot=False, dtype=c64, device=dev).run)
+    same_results("iqcc", work, IQCC_ENERGY_RTOL)
+
+    p = HubbardProblem(**lat, results_root=api_root("problem"))
+    _, work = cli("dynamics", ["dynamics", "--initial", "neel"])
+    obs = {"H": p.observables["H"],
+           "double_occupancy_U": Observable(jordan_wigner(p.interacting_term), p.n_qubits),
+           "Sz": p.observables["Sz"]}
+    psi0 = basis_state(p.n_qubits, neel_occupied(2, 2), dtype=c64, device=dev)
+    _, rec = TrotterEvolution(p, dt=0.02, order=2, dtype=c64, device=dev).evolve(psi0, 100, obs)
+    with open(os.path.join(work, "dynamics.json")) as fh:
+        disk = json.load(fh)
+    json_close({k: disk[k] for k in rec}, {k: [float(v) for v in s] for k, s in rec.items()},
+               CLI_RTOL, "dynamics")
+
+    _, work = cli("ite", ["ite", "--dbeta", "0.05", "--order", "6", "--n-steps", "200",
+                          "--initial", "neel"])
+    ite = ImaginaryTimeEvolution(p, dbeta=0.05, order=6, dtype=c64, device=dev)
+    _, rec = ite.run(psi0, n_steps=200, block=50, variance_tol=1e-8)
+    with open(os.path.join(work, "ite.json")) as fh:
+        disk = json.load(fh)
+    json_close(disk, {"dbeta": ite.dbeta, "order": 6, "initial": "neel",
+                      "steps": len(rec["energies"]), "energy": float(rec["energies"][-1]),
+                      "variance": float(rec["variances"][-1])}, CLI_RTOL, "ite")
+
+    e0, gs = p.ground_state(device=dev)
+    stdout, _ = cli("symmetry", ["symmetry"])
+    _, norms = symmetry_adapted_states(gs, 2, 2, device=dev)
+    weights = momentum_weights(gs, 2, 2, device=dev)
+    json_close(json.loads(stdout[stdout.index("{"):]),
+               {"energy": e0, "c4_irrep_norms": {k: round(v, 8) for k, v in norms.items()},
+                "momentum_weights": {f"({kx},{ky})": round(w, 8)
+                                     for (kx, ky), w in weights.items() if w > 1e-10}},
+               CLI_RTOL, "symmetry")
+
+    _, work = cli("spectral", ["spectral", "--kind", "particle", "--kx", "1", "--ky", "1",
+                               "--m", "40"])
+    op = _momentum_sum(2, 2, 1, 1, lambda s: FermionOperator(((2 * s, 1),)))
+    omegas = np.linspace(-10.0, 10.0, 201)
+    res = spectral_function_lanczos(p, gs, float(e0), op, m=40, omegas=omegas, eta=0.1,
+                                    dtype=c64, device=dev)
+    with open(os.path.join(work, "spectral.json")) as fh:
+        disk = json.load(fh)
+    live = res["weights"] > 1e-8
+    json_close({k: disk[k] for k in ("ground_energy", "norm2", "poles", "weights", "A")},
+               {"ground_energy": float(e0), "norm2": float(res["norm2"]),
+                "poles": [round(float(x), 8) for x in res["poles"][live]],
+                "weights": [round(float(x), 8) for x in res["weights"][live]],
+                "A": res["A"].tolist()}, CLI_RTOL, "spectral")
+
+    stdout, _ = cli("multistart", ["multistart", "--n-starts", "4", "--n-epoch", "20",
+                                   "--reps", "2"])
+    ms = MultistartHVA(n_starts=4, n_epoch=20, reps=2, lr=3e-2, init_scale=0.1, seed=0,
+                       results_root=api_root("multistart"), dtype=c64, device=dev, **lat)
+    res = ms.run()
+    line = stdout.splitlines()[0]
+    if f"best start {res['best_index']} energy {res['best_energy']:.8f}" not in line:
+        raise AssertionError(f"multistart: {line!r} against the API's best start "
+                             f"{res['best_index']} {res['best_energy']:.8f}")
+
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    work = os.path.join(tmp, "cli_ed_module")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "qsfh_torch.cli", "ed", "--results-root",
+                           os.path.join(work, "results")], cwd=work, env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m qsfh_torch.cli ed failed: {proc.stderr[-2000:]}")
+    printed = float(proc.stdout.split("ground energy:")[1].split()[0])
+    out["ed_module"] = dict(seconds=time.perf_counter() - t0, energy=printed)
+    log(f"  python -m qsfh_torch.cli ed (2x2, a process of its own): {proc.stdout.strip()} "
+        f"in {out['ed_module']['seconds']:.1f} s")
+    if abs(printed - e0) > ED_TOL:
+        raise AssertionError(f"python -m qsfh_torch.cli ed: {printed} against the API's {e0}")
+    log("  hva, hea, vqd, iqcc LiH, dynamics, ite, symmetry, spectral, multistart and the "
+        "module's ed equal the same calls through the Python API on the card")
+    return out
+
+
+def phase_cli(dev, tmp, variational_24):
+    """The port through its command line (``qsfh_torch.cli``) on the card:
+    adapt at 3x3 at full width, ed at 2x6, the other subcommands small."""
+    t0 = time.perf_counter()
+    out = dict(adapt_3x3=cli_adapt_3x3(dev, tmp))
+    out["ed_2x6"] = cli_ed_2x6(dev, tmp, variational_24)
+    out["small"] = cli_small(dev, tmp)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  CLI phase: {out['seconds']:.1f} s")
+    return out
+
+
 # -- main ---------------------------------------------------------------------------------
 
 
@@ -4643,8 +5206,8 @@ def main():
     iqcc["seconds"] = time.perf_counter() - t_iqcc
     out["iqcc"] = iqcc
     log(f"  iQCC phase: {iqcc['seconds']:.1f} s")
-    log("exact diagonalization at 3x3 (the port's Lanczos, CPU):")
-    ed = phase_ed()
+    log("exact diagonalization at 3x3 (the port's Lanczos, on the card):")
+    ed = phase_ed(dev)
     out.update(f64=f64, fused=fused, fused_24=fused24, ed=ed)
     log("product states at 26, 28 and 30 qubits against float64 closed forms:")
     big = phase_product_state(dev)
@@ -4666,6 +5229,13 @@ def main():
     log("shot-based grouped estimation at 3x3 (tpu_sampling.py):")
     sampling = phase_sampling(dev)
     out.update(analysis=analysis, spectral=spectral, multistart=multistart, sampling=sampling)
+    log("the command line (qsfh_torch.cli): adapt at 3x3, ed at 2x6, the other subcommands:")
+    variational_24 = [r["energy"] for rows in (main24["steps"], main24["plain_steps"],
+                                               hva_res["hva_24"]["steps"],
+                                               hva_res["hva_24"]["plain_steps"])
+                      for r in rows]
+    cli_res = phase_cli(dev, tmp, variational_24)
+    out["cli"] = cli_res
     if args.routes:
         log("routes, host clock, median (least) of 15 interleaved rounds:")
         adapt20 = build_adapt(dev, tmp, "routes20", CONFIG_20)
@@ -4861,6 +5431,9 @@ def main():
                               ("kernel_ms", "bound_ms", "matrix_ms")})
         if name == "pauli_apply_grouped":
             entry.update(ms_lanczos_step=spectral["step_ms"], ms_lanczos_hpsi=spectral["hpsi_ms"])
+    for entry in line:  # the command line: adapt at 3x3, the 2x6 ED's checks
+        entry["launches_cli_adapt"] = cli_res["adapt_3x3"]["launches"][entry["name"]]
+        entry["launches_cli_ed_2x6_checks"] = cli_res["ed_2x6"]["launches"][entry["name"]]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

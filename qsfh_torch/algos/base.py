@@ -3,7 +3,8 @@
 Counterpart of ``qsfh_tpu/algos/base.py``.  ``HubbardProblem.ground_state``
 reads the npz ground-state cache (the JAX package's path schema and file
 format, so either package reads what the other wrote) or computes it with
-the sector Lanczos solver on the CPU in complex128 and writes it.
+the sector Lanczos solver in complex128 on the card (or the CPU, when the
+caller asks for it) and writes it.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from ..engine.circuits import get_non_interacting_ground_state_indices
 from ..engine.expectation import Observable, diagonal_weight_vector
+from ..engine.state import resolve_device
 from ..io import checkpoint as ckpt
 from ..linalg.lanczos import degenerate_ground_space, ground_state as lanczos_ground_state
 from ..ops.fourier import fourier_transform, fourier_transform_matrix
@@ -28,18 +30,6 @@ from ..ops.lattice import (
     total_spin_number,
 )
 from ..ops.tools import get_interacting_term, get_quadratic_term
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``cuda`` unless the caller asks
-    for another.  Raises when CUDA is asked for (or defaulted to) and no
-    CUDA device exists; there is no silent move to the CPU."""
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 def state_on_device(psi, device=None) -> torch.Tensor:
@@ -162,16 +152,20 @@ class HubbardProblem:
     # -- exact ground truth ----------------------------------------------------
 
     def ground_state(self, degenerate: bool = False, n_states: int = 4, force: bool = False,
-                     path: str = None):
-        """Cached exact ground state (energy, wavefunction or list of them).
+                     path: str = None, device=None):
+        """Cached exact ground state (energy, wavefunction or list of them,
+        as host arrays).
 
         Reads ``path`` when given, else the cache under ``results_root``
         (``deg{n}`` suffix for a degenerate manifold), else the same file
         name in the shared directory ``QSFH_ED_CACHE_DIR`` (copied to the
         per-root path); otherwise, or with ``force``, solves with the
-        sector Lanczos solver (:mod:`qsfh_torch.linalg.lanczos`, CPU,
-        complex128) and writes the per-root file and the shared one.
+        sector Lanczos solver (:mod:`qsfh_torch.linalg.lanczos`, complex128)
+        on ``resolve_device(device)``, the card unless the caller asks for
+        the CPU, and writes the per-root file and the shared one: the states
+        come to the host there.
         """
+        dev = resolve_device(device)
         if path is None:
             path = self.ground_state_path()
             if degenerate:
@@ -196,11 +190,11 @@ class HubbardProblem:
         args = (self.qubit_hamiltonian, self.n_qubits, self.n_electrons, self.n_spin_up,
                 self.n_spin_down)
         if degenerate:
-            energy, states = degenerate_ground_space(*args, n_states=n_states)
+            energy, states = degenerate_ground_space(*args, n_states=n_states, device=dev)
         else:
-            energy, wf = lanczos_ground_state(*args)
+            energy, wf = lanczos_ground_state(*args, device=dev)
             states = [wf]
-        wfs = [s.numpy() for s in states]
+        wfs = [s.cpu().numpy() for s in states]
         ckpt.save_ground_state(path, energy, wfs)
         if shared:
             ckpt.save_ground_state(shared, energy, wfs)

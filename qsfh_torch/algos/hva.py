@@ -190,10 +190,12 @@ class HVA:
             gs = []
         elif degenerate_subspace:
             self.ground_state_energy, gs = p.ground_state(
-                degenerate=True, n_states=degenerate_subspace, path=ground_state_path
+                degenerate=True, n_states=degenerate_subspace, path=ground_state_path,
+                device=self.device,
             )
         else:
-            self.ground_state_energy, wf = p.ground_state(path=ground_state_path)
+            self.ground_state_energy, wf = p.ground_state(path=ground_state_path,
+                                                          device=self.device)
             gs = [wf]
         self._gs = [torch.as_tensor(w).to(device=self.device, dtype=self.dtype) for w in gs]
 

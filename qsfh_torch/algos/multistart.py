@@ -182,7 +182,7 @@ class MultistartHVA:
             "theta_h": init((B, reps * Nh)),
         }
         self.ground_state_energy = (
-            float(p.ground_state()[0]) if ground_truth else None
+            float(p.ground_state(device=self.device)[0]) if ground_truth else None
         )
 
     def loss(self, params):

@@ -1,20 +1,24 @@
 """Circuits lowered to homogeneous segments.
 
-Counterpart of ``qsfh_tpu/engine/compiled.py`` for ``rot``, ``diag`` and
-``rzlayer`` segments.  Consecutive ("rot", rot_terms, param_idx) ops
-become one segment of per-term arrays (flip mask, phase mask, scale,
-parameter index, string phase), rotated forward and backward, and swept in
-reverse by the adjoint for gradients.  Static-angle terms carry parameter
-index -1, which selects an appended constant 1.0.  A ("diag", weights, k)
-op (exp(-i theta_k D), D a real 2^n vector: the HVA Coulomb layer) and a
-("fixed", "rzlayer" | "rz", angles) op (a layer of static RZ gates) are
-one elementwise phase pass each, as ``qsfh_tpu/engine/compiled.py:
-232-248, 580-588`` computes them outside Pallas; the inverse negates the
-angle.  The ``u4``, ``se`` and ``x`` fixed ops are not ported yet: they
-come from programs over ``grad.adjoint.givens_network_ops`` (the Givens
-network as 4x4 gates) and ``qsfh_tpu/parallel/sharded_compiled.py``
-(ROADMAP.md, module item 8); the HEA lowers to a rot segment
-(``algos/hea.py``).
+Counterpart of ``qsfh_tpu/engine/compiled.py`` for ``rot``, ``u4``,
+``diag`` and ``rzlayer`` segments.  Consecutive ("rot", rot_terms,
+param_idx) ops become one segment of per-term arrays (flip mask, phase
+mask, scale, parameter index, string phase), rotated forward and backward,
+and swept in reverse by the adjoint for gradients.  Static-angle terms
+carry parameter index -1, which selects an appended constant 1.0.  A
+("diag", weights, k) op (exp(-i theta_k D), D a real 2^n vector: the HVA
+Coulomb layer) and a ("fixed", "rzlayer" | "rz", angles) op (a layer of
+static RZ gates) are one elementwise phase pass each, as
+``qsfh_tpu/engine/compiled.py:232-248, 580-588`` computes them outside
+Pallas; the inverse negates the angle.  Consecutive ("fixed", "u4" |
+"se" | "x", ...) ops (programs over ``grad.adjoint.givens_network_ops``:
+the Givens network as 4x4 gates) become one ``u4`` segment grouped as
+``qsfh_tpu/engine/compiled.py:180-235`` groups them (qubits ordered with
+the gate's axes swapped to match, ``se`` as its 4x4, ``x`` lifted onto its
+neighbour); each gate is one ``einsum`` over the state's (..., 2, ..., 2,
+...) view, where the JAX package (plain jnp in a scan, no Pallas) sums
+four flipped copies; the inverse is each gate's conjugate transpose in
+reverse order.  The HEA lowers to a rot segment (``algos/hea.py``).
 
 A segment is walked as the order-preserving tile runs of
 ``streaming.TileLayout``: runs of terms whose flip masks all lie in one
@@ -160,28 +164,79 @@ def _rot_segment(buf, n: int) -> Segment:
     )
 
 
+def _u4_segment(buf, n: int) -> Segment:
+    """(4x4 gate, qa, qb) entries as one ``u4`` segment: flat masks of the
+    lower and higher qubit and the gates as (T, 4, 4, 2) real planes, each
+    gate's axes swapped where qa > qb (the JAX package's layout)."""
+    fa, fb, mats = [], [], []
+    for (M, qa, qb) in buf:
+        Ma = np.asarray(M, dtype=np.complex128).reshape(4, 4)
+        if qa > qb:
+            Ma = Ma.reshape(2, 2, 2, 2).transpose(1, 0, 3, 2).reshape(4, 4)
+            qa, qb = qb, qa
+        fa.append(1 << (n - 1 - qa))
+        fb.append(1 << (n - 1 - qb))
+        mats.append(np.stack([Ma.real, Ma.imag], axis=-1))
+    return Segment("u4", dict(fa=np.asarray(fa, np.uint32), fb=np.asarray(fb, np.uint32),
+                              U=np.asarray(mats, np.float64)))
+
+
+_PAULI_X = np.array([[0, 1], [1, 0]], dtype=np.complex128)
+
+
+def _u4_entry(tag: str, payload):
+    """A ``u4``, ``se`` or ``x`` fixed op as (4x4 gate, qa, qb)."""
+    if tag == "u4":
+        flat, i, j = payload
+        return np.array(flat).reshape(4, 4), i, j
+    if tag == "se":
+        ang, i, j = payload
+        c, s = np.cos(ang / 2), np.sin(ang / 2)
+        M = np.array([[1, 0, 0, 0], [0, c, -s, 0], [0, s, c, 0], [0, 0, 0, 1]],
+                     dtype=np.complex128)
+        return M, i, j
+    # x: lifted to a u4 on (q, partner) to stay in the segment
+    q = payload[0]
+    partner = q - 1 if q > 0 else q + 1
+    M = np.kron(np.eye(2), _PAULI_X) if partner < q else np.kron(_PAULI_X, np.eye(2))
+    return M, min(partner, q), max(partner, q)
+
+
 def lower_program(ops: Sequence[tuple], n: int) -> List[Segment]:
     """Group a gate program into homogeneous segments: runs of ``rot`` ops
-    into one ``rot`` segment each, every ``diag`` op and every ``rzlayer``
+    into one ``rot`` segment each, runs of ``u4`` / ``se`` / ``x`` fixed ops
+    into one ``u4`` segment each, every ``diag`` op and every ``rzlayer``
     or ``rz`` fixed op into a phase segment of its own."""
     segments: List[Segment] = []
     rot_buf: List[tuple] = []
+    u4_buf: List[tuple] = []
 
     def flush_rot():
         if rot_buf:
             segments.append(_rot_segment(rot_buf, n))
             rot_buf.clear()
 
+    def flush_u4():
+        if u4_buf:
+            segments.append(_u4_segment(u4_buf, n))
+            u4_buf.clear()
+
     for op in ops:
         if op[0] == "rot":
+            flush_u4()
             _, rot_terms, k = op
             rot_buf.extend((x, z, scale, k) for (x, z, scale) in rot_terms)
         elif op[0] == "diag":
             flush_rot()
+            flush_u4()
             _, weights, k = op
             segments.append(Segment("diag", (weights, int(k))))
+        elif op[0] == "fixed" and op[1] in ("u4", "se", "x"):
+            flush_rot()
+            u4_buf.append(_u4_entry(op[1], op[2]))
         elif op[0] == "fixed" and op[1] in ("rzlayer", "rz"):
             flush_rot()
+            flush_u4()
             if op[1] == "rz":
                 phi, q = op[2]
                 angles = [0.0] * n
@@ -190,13 +245,11 @@ def lower_program(ops: Sequence[tuple], n: int) -> List[Segment]:
                 angles = [float(a) for a in op[2]]
             segments.append(Segment("rzlayer", tuple(angles)))
         elif op[0] == "fixed":
-            raise NotImplementedError(
-                f"fixed op {op[1]!r} is not ported yet: the u4 segment of Givens-network "
-                "programs comes with ROADMAP.md, module item 8"
-            )
+            raise ValueError(f"unknown fixed tag {op[1]!r}")
         else:
             raise ValueError(f"unknown op {op[0]!r}")
     flush_rot()
+    flush_u4()
     return segments
 
 
@@ -280,6 +333,28 @@ def _phase_pass(seg: Segment, out, thetas, n, direction: int):
     return out.mul_(seg._cache[key])
 
 
+def _u4_pass(seg: Segment, out, n, direction: int):
+    """A ``u4`` segment on ``out``: each gate one einsum over the (A, 2, B,
+    2, C) view whose axes 1 and 3 are its two qubits' bits; direction -1
+    applies each gate's conjugate transpose in reverse order.  Returns the
+    new state."""
+    key = ("u4", str(out.device), out.dtype, direction)
+    if key not in seg._cache:
+        d = seg.data
+        U = d["U"][..., 0] + 1j * d["U"][..., 1]
+        fa, fb = d["fa"], d["fb"]
+        if direction == -1:
+            U, fa, fb = U.conj().transpose(0, 2, 1)[::-1], fa[::-1], fb[::-1]
+        gates = torch.as_tensor(np.ascontiguousarray(U).reshape(-1, 2, 2, 2, 2))
+        bits = [(int(a).bit_length() - 1, int(b).bit_length() - 1) for a, b in zip(fa, fb)]
+        seg._cache[key] = (gates.to(device=out.device, dtype=out.dtype), bits)
+    gates, bits = seg._cache[key]
+    for gate, (hi, lo) in zip(gates, bits):
+        view = out.reshape(1 << (n - 1 - hi), 2, 1 << (hi - lo - 1), 2, 1 << lo)
+        out = torch.einsum("xyij,aibjc->axbyc", gate, view).reshape(-1)
+    return out
+
+
 def run_segments(segments, psi, thetas, n, direction: int = 1, impl=None):
     """Execute the program (direction=-1: exact inverse, reversed order).
 
@@ -290,6 +365,9 @@ def run_segments(segments, psi, thetas, n, direction: int = 1, impl=None):
     out = psi.clone()
     seq = segments if direction == 1 else list(reversed(segments))
     for seg in seq:
+        if seg.kind == "u4":
+            out = _u4_pass(seg, out, n, direction)
+            continue
         if seg.kind != "rot":
             _phase_pass(seg, out, thetas, n, direction)
             continue

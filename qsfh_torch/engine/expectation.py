@@ -335,6 +335,12 @@ class PackedPool:
         once)."""
         return _groups(self._tensor_cache, self.scan_arrays(), self.n, inner=True)
 
+    def screen(self, psi: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """grad_k = 2 Im <w | G_k psi> for every generator: the JAX package's
+        unrolled screen, the same function as :meth:`screen_scan` and the
+        same route (the ``screen_grouped`` kernel on the card)."""
+        return self.screen_scan(psi, w)
+
     def screen_scan(self, psi: torch.Tensor, w: torch.Tensor, impl=None) -> torch.Tensor:
         """grad_k = 2 Im <w | G_k psi> for every generator ((size,) real)."""
         impl = impl or KERNELS

@@ -32,6 +32,18 @@ def qmask_to_bmask(qmask: int, n: int) -> int:
 _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for another.  Raises when CUDA is asked for (or defaulted to) and no
+    CUDA device exists; there is no silent move to the CPU."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
 def real_dtype(cdtype: torch.dtype) -> torch.dtype:
     """Real dtype paired with a complex dtype."""
     try:

@@ -1,4 +1,4 @@
-"""Lanczos ground-state solver over an (N, Sz) sector, on the CPU in complex128.
+"""Lanczos ground-state solver over an (N, Sz) sector, on the card in complex128.
 
 Counterpart of ``qsfh_tpu/linalg/lanczos.py`` (``lanczos_eigsh``,
 ``ground_state``, ``degenerate_ground_space``) with the same algorithm:
@@ -8,22 +8,32 @@ passes), breakdown at beta < 1e-12, k = min(max(2 dim, 8), 160) steps
 deflated restart (found states shifted up by |e| 10 + 10), and a
 Gram-Schmidt pass over each state found.
 
-Placement: the JAX package runs its solver on the CPU under x64
-(``qsfh_tpu/algos/base.py:176``); so does this one, in complex128.  The
-matvec differs: the JAX package scatters to the full space, applies the
-packed Hamiltonian and gathers back; here the Hamiltonian restricted to
-the sector is built once as a CSR matrix in sector coordinates from the
-port's own term arrays (for each sector index b and term t, the entry
-b ^ x_t with its phase and sign, duplicates summed), so each matvec is one
-sparse product (3x3: 15,876 rows).
+Placement: the solver runs on ``resolve_device(device)``, the card unless
+the caller asks for the CPU, in complex128.  The sector matrix, the start
+vector, the Krylov basis and its reorthogonalization and the Ritz vectors
+live there; only the tridiagonal problem goes to the host (numpy), as in
+the JAX package, and the loop reads one number a step (beta, for the
+breakdown test).
 
-Start vectors come from a seeded ``torch.Generator``, so they differ from
-the JAX package's ``jax.random`` draws: energies and subspaces agree,
-vectors only up to phase (and within a degenerate manifold, a rotation).
+The matvec differs from the JAX package's, which scatters to the full
+space, applies the packed Hamiltonian and gathers back: here the
+Hamiltonian restricted to the sector is built once on the host as a CSR
+matrix in sector coordinates from the port's own term arrays, one distinct
+flip mask at a time (all x = 0 terms one diagonal; each other mask at most
+one entry a row, the sum over its terms of c_t (-1)^popcount(b & z_t)),
+and each matvec is one sparse product of torch's on the device (3x3:
+15,876 rows; 2x6: 853,776).
+
+Start vectors come from a seeded CPU ``torch.Generator`` (the same numbers
+on every device), so they differ from the JAX package's ``jax.random``
+draws: energies and subspaces agree, vectors only up to phase (and within
+a degenerate manifold, a rotation).
 """
 
 from __future__ import annotations
 
+import warnings
+from collections import defaultdict
 from typing import Callable, List, Tuple
 
 import numpy as np
@@ -31,81 +41,110 @@ import scipy.sparse
 import torch
 
 from ..engine.expectation import Observable
+from ..engine.state import resolve_device
 from ..ops.pauli import PauliSum
 from .sectors import jw_number_spin_indices, sector_dimension
 
 BREAKDOWN = 1e-12
 
 
+def _parity_signs(v: np.ndarray, z: int) -> np.ndarray:
+    return 1.0 - 2.0 * (np.bitwise_count(v & z) & 1).astype(np.float64)
+
+
 def sector_hamiltonian(
     hamiltonian: PauliSum, n_qubits: int, n_electrons: int, spin_up: int, spin_down: int
 ) -> Tuple[scipy.sparse.csr_matrix, np.ndarray]:
-    """(H restricted to the sector as CSR in sector coordinates, the
-    sector's flat indices).  Row r, column pos(idx[r] ^ x_t) gains
-    c_t (-1)^popcount(idx[r] & z_t) (the reorder sign folded into c_t, as
-    ``Observable`` does); entries whose column leaves the sector cancel in
-    H, which conserves (N, Sz), and are dropped."""
+    """(H restricted to the sector as a host CSR matrix in sector
+    coordinates, the sector's flat indices).
+
+    Built one distinct flip mask x at a time: row r, column
+    pos(idx[r] ^ x) gains sum_{t: x_t = x} c_t (-1)^popcount(idx[r] & z_t)
+    (the reorder sign folded into c_t, as ``Observable`` does), the x = 0
+    terms forming the diagonal; entries whose column leaves the sector
+    cancel in H, which conserves (N, Sz), and are dropped.  A mask gives a
+    row at most one entry, so no entry list per term is built."""
     idx = np.asarray(
         jw_number_spin_indices(n_electrons, spin_up, spin_down, n_qubits), dtype=np.int64)
     dim = idx.size
-    pos = np.full(1 << n_qubits, -1, dtype=np.int64)
+    pos = np.full(1 << n_qubits, -1, dtype=np.int32 if dim < 2**31 else np.int64)
     pos[idx] = np.arange(dim)
     xs, zs, cre, cim = Observable(hamiltonian, n_qubits)._scan_terms()
-    rows, cols, data = [], [], []
+    by_mask = defaultdict(list)
+    for x, z, c in zip(xs.tolist(), zs.tolist(), (cre + 1j * cim).tolist()):
+        by_mask[x].append((z, c))
     r = np.arange(dim, dtype=np.int64)
-    for x, z, c in zip(xs.astype(np.int64), zs.astype(np.int64), cre + 1j * cim):
+    rows, cols, data = [], [], []
+    for x, terms in by_mask.items():
         col = pos[idx ^ x]
         keep = col >= 0
-        signs = 1.0 - 2.0 * (np.bitwise_count(idx[keep] & z) % 2).astype(np.float64)
+        src = idx[keep]
+        val = np.zeros(src.size, dtype=np.complex128)
+        for z, c in terms:
+            val += c * _parity_signs(src, z)
         rows.append(r[keep])
-        cols.append(col[keep])
-        data.append(c * signs)
-    mat = scipy.sparse.coo_matrix(
-        (np.concatenate(data), (np.concatenate(rows), np.concatenate(cols))), shape=(dim, dim)
-    ).tocsr()
-    mat.sum_duplicates()
+        cols.append(col[keep].astype(np.int64))
+        data.append(val)
+    mat = scipy.sparse.csr_matrix(
+        (np.concatenate(data), (np.concatenate(rows), np.concatenate(cols))), shape=(dim, dim))
+    mat.eliminate_zeros()
     return mat, idx
 
 
-def _sector_matvec(hamiltonian, n_qubits, n_electrons, spin_up, spin_down):
-    """(matvec over sector coordinates on complex128 CPU tensors, sector
-    index array)."""
+def device_matrix(mat: scipy.sparse.csr_matrix, device) -> torch.Tensor:
+    """A host CSR matrix as a complex128 torch CSR tensor on ``device``,
+    with int64 row offsets and column indices."""
+    with warnings.catch_warnings():  # torch flags its CSR layout as beta
+        warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
+        warnings.filterwarnings("ignore", message="Sparse invariant checks")
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(mat.indptr.astype(np.int64)).to(device),
+            torch.from_numpy(mat.indices.astype(np.int64)).to(device),
+            torch.from_numpy(mat.data.astype(np.complex128)).to(device),
+            size=mat.shape,
+            check_invariants=False,
+        )
+
+
+def _sector_matvec(hamiltonian, n_qubits, n_electrons, spin_up, spin_down, device):
+    """(matvec over sector coordinates on complex128 tensors on
+    ``device``, sector index array)."""
     mat, idx = sector_hamiltonian(hamiltonian, n_qubits, n_electrons, spin_up, spin_down)
-
-    def mv(v: torch.Tensor) -> torch.Tensor:
-        return torch.from_numpy(mat @ v.numpy())
-
-    return mv, idx
+    csr = device_matrix(mat, device)
+    return (lambda v: csr @ v), idx
 
 
 def _lanczos_basis(matvec: Callable, v0: torch.Tensor, k: int):
-    """Up to k Lanczos steps with full reorthogonalization (two passes).
+    """Up to k Lanczos steps with full reorthogonalization (two passes),
+    on v0's device.
 
-    Returns (alphas, betas, V): V holds the m <= k basis vectors as rows,
-    m the steps taken before breakdown (beta < ``BREAKDOWN``).
+    Returns (alphas, betas, V): alphas and betas as host arrays, V the
+    m <= k basis vectors as rows, m the steps taken before breakdown
+    (beta < ``BREAKDOWN``: the one host read of a step).
     """
     dim = v0.shape[0]
-    V = torch.zeros((k, dim), dtype=v0.dtype)
+    V = torch.zeros((k, dim), dtype=v0.dtype, device=v0.device)
     v = v0 / torch.linalg.vector_norm(v0)
     V[0] = v
     alphas, betas = [], []
     beta_prev, v_prev = 0.0, torch.zeros_like(v)
     for j in range(k):
         w = matvec(v)
-        alpha = float(torch.vdot(v, w).real)
+        alpha = torch.vdot(v, w).real
         w = w - alpha * v - beta_prev * v_prev
         basis = V[: j + 1]
         for _ in range(2):  # overlaps conj(V) w as conj(V conj(w)): no conjugated copy of V
             w = w - torch.mv(basis.T, torch.mv(basis, w.conj()).conj())
-        beta = float(torch.linalg.vector_norm(w))
+        beta = torch.linalg.vector_norm(w)
         alphas.append(alpha)
         betas.append(beta)
-        if beta < BREAKDOWN or j + 1 == k:
+        if j + 1 == k or float(beta) < BREAKDOWN:
             break
         v_prev, v = v, w / beta
         V[j + 1] = v
         beta_prev = beta
-    return np.asarray(alphas), np.asarray(betas), V[: len(alphas)]
+    m = len(alphas)
+    return (torch.stack(alphas).cpu().numpy(), torch.stack(betas).cpu().numpy(), V[:m])
 
 
 def lanczos_eigsh(
@@ -113,7 +152,8 @@ def lanczos_eigsh(
 ) -> Tuple[np.ndarray, torch.Tensor]:
     """Lowest ``n_eigen`` eigenpairs of the Hermitian operator ``matvec``.
 
-    Returns (eigenvalues [numpy, ascending], eigenvectors [n_eigen, dim]).
+    Returns (eigenvalues [numpy, ascending], eigenvectors [n_eigen, dim]
+    on v0's device).
     """
     alphas, betas, V = _lanczos_basis(matvec, v0, k)
     m = alphas.size
@@ -123,23 +163,23 @@ def lanczos_eigsh(
         T += np.diag(off, 1) + np.diag(off, -1)
     evals, evecs = np.linalg.eigh(T)
     n_eigen = min(n_eigen, m)
-    Y = torch.from_numpy(evecs[:, :n_eigen]).to(V.dtype)
+    Y = torch.from_numpy(evecs[:, :n_eigen]).to(device=V.device, dtype=V.dtype)
     vecs = (V.T @ Y).T
     vecs = vecs / torch.linalg.vector_norm(vecs, dim=1, keepdim=True)
     return evals[:n_eigen], vecs
 
 
-def _start_vector(dim: int, seed: int, dtype) -> torch.Tensor:
+def _start_vector(dim: int, seed: int, dtype, device) -> torch.Tensor:
     gen = torch.Generator().manual_seed(seed)
     rdt = torch.float64 if dtype == torch.complex128 else torch.float32
     re = torch.randn(dim, generator=gen, dtype=rdt)
     im = torch.randn(dim, generator=gen, dtype=rdt)
-    return torch.complex(re, im)
+    return torch.complex(re, im).to(device)
 
 
 def _embed(v: torch.Tensor, idx: np.ndarray, n_qubits: int) -> torch.Tensor:
-    full = torch.zeros(1 << n_qubits, dtype=v.dtype)
-    full[torch.from_numpy(idx)] = v
+    full = torch.zeros(1 << n_qubits, dtype=v.dtype, device=v.device)
+    full[torch.from_numpy(idx).to(v.device)] = v
     return full
 
 
@@ -152,14 +192,17 @@ def ground_state(
     k: int = None,
     dtype=torch.complex128,
     seed: int = 7,
+    device=None,
 ) -> Tuple[float, torch.Tensor]:
-    """Sector-restricted ground state (energy, full-space state)."""
+    """Sector-restricted ground state (energy, full-space state on
+    ``resolve_device(device)``)."""
+    dev = resolve_device(device)
     dim_sector = sector_dimension(n_electrons, spin_up, n_qubits)
     if k is None:
         k = int(min(max(2 * dim_sector, 8), 160))
     k = min(k, max(dim_sector, 2))
-    mv, idx = _sector_matvec(hamiltonian, n_qubits, n_electrons, spin_up, spin_down)
-    v0 = _start_vector(dim_sector, seed, dtype)
+    mv, idx = _sector_matvec(hamiltonian, n_qubits, n_electrons, spin_up, spin_down, dev)
+    v0 = _start_vector(dim_sector, seed, dtype, dev)
     evals, vecs = lanczos_eigsh(mv, v0 / torch.linalg.vector_norm(v0), k=k, n_eigen=1)
     return float(evals[0]), _embed(vecs[0], idx, n_qubits)
 
@@ -175,22 +218,25 @@ def degenerate_ground_space(
     k: int = 220,
     dtype=torch.complex128,
     seed: int = 7,
+    device=None,
 ) -> Tuple[float, List[torch.Tensor]]:
-    """Lowest (possibly degenerate) ground subspace, orthonormalized.
+    """Lowest (possibly degenerate) ground subspace, orthonormalized, as
+    full-space states on ``resolve_device(device)``.
 
     One Krylov sequence finds one vector per degenerate eigenvalue, so each
     further state comes from a deflated restart: the states found so far
     are shifted up inside the matvec.  Stops at ``n_states`` or at the
     first energy above the ground energy by more than ``degeneracy_tol``.
     """
+    dev = resolve_device(device)
     dim_sector = sector_dimension(n_electrons, spin_up, n_qubits)
     k = min(k, dim_sector)
-    mv, idx = _sector_matvec(hamiltonian, n_qubits, n_electrons, spin_up, spin_down)
+    mv, idx = _sector_matvec(hamiltonian, n_qubits, n_electrons, spin_up, spin_down, dev)
     found: List[torch.Tensor] = []  # sector-coordinate eigenvectors
     energies: List[float] = []
     shift = None
     for s in range(n_states):
-        v0 = _start_vector(dim_sector, seed + s, dtype)
+        v0 = _start_vector(dim_sector, seed + s, dtype, dev)
         for u in found:
             v0 = v0 - torch.vdot(u, v0) * u
         v0 = v0 / torch.linalg.vector_norm(v0)

@@ -145,6 +145,7 @@ class Molecule:
             n_up,
             self.n_electrons - n_up,
             dtype=torch.complex128,
+            device="cpu",  # a host object: the integrals and their FCI live with it
         )
         return float(energy)
 

@@ -3,7 +3,9 @@
 ``expectation_scan`` and ``apply_scan`` for H, Sz and S^2, and
 ``screen_scan`` over the full pool, on random 2x2 and 2x3 states at
 complex128 within 1e-10 (JAX on its XLA scan path); the same for one
-18-qubit 3x3 state, with a slice of the 3x3 pool.
+18-qubit 3x3 state, with a slice of the 3x3 pool.  ``PackedPool.screen``
+(the JAX package's unrolled screen) against JAX's ``screen`` and the
+port's ``screen_scan``.
 """
 
 import jax.numpy as jnp
@@ -68,6 +70,21 @@ def test_screen_full_pool(problems):
     got = tpool.screen_scan(torch.as_tensor(psi), torch.as_tensor(w))
     assert got.shape == (tpool.size,)
     assert _rel(got.numpy(), ref) <= TOL
+
+
+def test_screen_matches_jax_screen_and_screen_scan(problems):
+    _, tp = problems
+    n = tp.n_qubits
+    x, y = tp.x_dimension, tp.y_dimension
+    jpool = JaxPool([jax_jw(g) for g in jax_pool_ops(x, y)], n)
+    tpool = PackedPool([jordan_wigner(g) for g in hubbard_interaction_pool_simplified(x, y)], n)
+    psi, w = _state(3, n), _state(4, n)
+    ref = np.asarray(jpool.screen(jnp.asarray(psi), jnp.asarray(w)))
+    got = tpool.screen(torch.as_tensor(psi), torch.as_tensor(w))
+    assert got.shape == (tpool.size,) and got.dtype == torch.float64
+    assert _rel(got.numpy(), ref) <= TOL
+    scan = tpool.screen_scan(torch.as_tensor(psi), torch.as_tensor(w))
+    assert torch.equal(got, scan)
 
 
 @pytest.fixture(scope="module")

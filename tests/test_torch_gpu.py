@@ -965,3 +965,52 @@ def test_multistart_epoch_on_card(dev):
     ref = ms.run()
     np.testing.assert_allclose(got["energies"], ref["energies"], rtol=RTOL)
     np.testing.assert_allclose(got["final_energies"], ref["final_energies"], rtol=RTOL)
+
+
+def test_sector_lanczos_on_card_matches_cpu(dev):
+    """The 2x3 sector Lanczos on the card against the same run on the CPU
+    (complex128, the same start vector): energy within 1e-10, the states
+    equal within 1e-10 up to a phase; the complex128 CSR product on the
+    card against the host's on a complex sum (1e-12)."""
+    from qsfh_torch.linalg import lanczos
+    from qsfh_torch.ops.jw import jordan_wigner
+    from qsfh_torch.ops.lattice import fermi_hubbard
+    from qsfh_torch.ops.pauli import PauliSum
+
+    hp = jordan_wigner(fermi_hubbard(2, 3, 1.0, 4.0))
+    e_card, wf_card = lanczos.ground_state(hp, 12, 6, 3, 3, device=dev)
+    e_cpu, wf_cpu = lanczos.ground_state(hp, 12, 6, 3, 3, device="cpu")
+    assert wf_card.device.type == "cuda" and wf_card.dtype == torch.complex128
+    assert abs(e_card - e_cpu) <= 1e-10
+    overlap = torch.vdot(wf_cpu, wf_card.cpu())
+    assert abs(abs(complex(overlap)) - 1.0) <= 1e-10
+    e4, states = lanczos.degenerate_ground_space(hp, 12, 6, 3, 3, n_states=2, device=dev)
+    assert abs(e4 - e_cpu) <= 1e-10 and all(s.device.type == "cuda" for s in states)
+    rng = np.random.default_rng(0)
+    op = PauliSum(rng.integers(0, 1 << 12, 60), rng.integers(0, 1 << 12, 60),
+                  rng.standard_normal(60) + 1j * rng.standard_normal(60))
+    mat, idx = lanczos.sector_hamiltonian(op, 12, 6, 3, 3)
+    v = rng.standard_normal(idx.size) + 1j * rng.standard_normal(idx.size)
+    got = (lanczos.device_matrix(mat, dev) @ torch.as_tensor(v).to(dev)).cpu().numpy()
+    np.testing.assert_allclose(got, mat @ v, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_u4_segment_on_card_matches_cpu(dev, dtype):
+    """The 3x3 Givens network as a u4 segment (``grad.adjoint.
+    givens_network_ops``) forward and inverse on the card against the CPU,
+    within 1e-5 (complex64) or 1e-12 (complex128) relative."""
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.engine.compiled import CompiledCircuit
+    from qsfh_torch.grad.adjoint import givens_network_ops
+
+    p = HubbardProblem(3, 3, 1.0, 6.0, 9, 5, 4)
+    cc = CompiledCircuit(givens_network_ops(18, p.diagonal, p.decomposition), 18)
+    assert "u4" in [s.kind for s in cc.segments]
+    psi = _state(np.random.default_rng(5), 18)
+    empty = torch.zeros(0, dtype=torch.float64)
+    tol = RTOL if dtype == torch.complex64 else 1e-12
+    for run in (cc.apply, cc.apply_inverse):
+        got = run(_t(psi, dev, dtype), empty.to(dev))
+        ref = run(torch.as_tensor(psi).to(dtype), empty)
+        assert _rel(got.cpu(), ref) <= tol

@@ -7,7 +7,8 @@
   the psi0 cotangent against autograd, and the gradient at theta = 0
   against the pool screen.
 * ``lower_program`` takes ``diag`` and ``rzlayer`` / ``rz`` ops as phase
-  segments (their inverse undoes them) and refuses the HEA ``u4`` op.
+  segments (their inverse undoes them) and the ``u4`` / ``se`` / ``x``
+  fixed ops as one ``u4`` segment equal to the gates.
 * ``ADAPT(circuit_mode="unrolled")`` at 2x2: gradients (both the adjoint
   and the autograd branch) equal the split route's within 1e-10.
 """
@@ -136,10 +137,18 @@ def test_phase_segments_lower_and_invert():
     only_diag = CompiledCircuit([("diag", diag, 1)], n).apply(psi, th)
     np.testing.assert_allclose(only_diag.numpy(), psi.numpy() * np.exp(0.7j * diag),
                                rtol=0, atol=1e-12)
-    # the u4 fixed op (Givens-network programs) is not ported: the error
-    # names the roadmap item that ports it
-    with pytest.raises(NotImplementedError, match="module item 8"):
-        lower_program([("fixed", "u4", (tuple([1.0] * 16), 0, 1))], n)
+    # the u4, se and x fixed ops (Givens-network programs) lower to one u4
+    # segment between the rot segments and equal the gates, both ways
+    u = np.linalg.qr(rng.standard_normal((4, 4)) + 1j * rng.standard_normal((4, 4)))[0]
+    u4_ops = [("fixed", "u4", (tuple(map(complex, u.ravel())), 3, 1)),
+              ("fixed", "se", (0.6, 0, 4)), ("fixed", "x", (5,))]
+    ops = gate_ops[1:2] + u4_ops + gate_ops[3:]
+    assert [s.kind for s in lower_program(ops, n)] == ["rot", "u4", "rot"]
+    cc = CompiledCircuit(ops, n)
+    out = cc.apply(psi, th)
+    np.testing.assert_allclose(out.numpy(), adjoint_apply(n, ops, psi, th).numpy(), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(cc.apply_inverse(out, th).numpy(), psi.numpy(), rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("threshold", [0, 99], ids=["adjoint", "autograd"])

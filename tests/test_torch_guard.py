@@ -6,14 +6,17 @@
   ``ops.dressing``, ``ops.dense_dressing``, ``ops.ilc``, ``molecules``,
   ``ops.correlations``, ``ops.entanglement``, ``ops.export``,
   ``linalg.spectral``, ``linalg.symmetry``, ``algos.multistart``,
-  ``engine.sampling``) succeeds with ``jax`` blocked and loads no ``qsfh_tpu`` module, and a
-  molecule builds there (its FCI on the port's Lanczos);
+  ``engine.sampling``, ``cli``, ``config``) succeeds with ``jax`` blocked and loads no
+  ``qsfh_tpu`` module, and a molecule builds there (its FCI on the port's Lanczos, on the
+  CPU, asked for);
 * no module of ``qsfh_torch`` (nor ``chip_smoke.py``) imports jax, optax
   or qsfh_tpu;
 * ``ADAPT(...)``, ``HVA(...)``, ``IQCC(...)``, ``VQE(...)`` (HEA),
   ``VQD(...)``, ``TrotterEvolution(...)``, ``ImaginaryTimeEvolution(...)``,
   ``MultistartHVA(...)`` and ``MultistartHEA(...)`` with no device raise
-  where CUDA is unavailable.
+  where CUDA is unavailable; so do the sector Lanczos (``ground_state``,
+  ``degenerate_ground_space``), ``HubbardProblem.ground_state`` and the
+  CLI (``qsfh_torch.cli.main``) with no device.
 """
 
 import ast
@@ -67,6 +70,7 @@ def test_port_imports_with_jax_blocked():
         "import qsfh_torch.ops.correlations, qsfh_torch.ops.entanglement, qsfh_torch.ops.export\n"
         "import qsfh_torch.linalg.spectral, qsfh_torch.linalg.symmetry\n"
         "import qsfh_torch.algos.multistart, qsfh_torch.engine.sampling\n"
+        "import qsfh_torch.cli, qsfh_torch.config\n"
         "assert qsfh_torch.molecules.H2(0.74).fci_energy < -1.13\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'qsfh_tpu')\n"
         "assert not bad, bad\n"
@@ -150,3 +154,28 @@ def test_new_entry_points_without_device_raise_without_cuda(monkeypatch):
     assert TrotterEvolution(p, dt=0.1, device="cpu").device == torch.device("cpu")
     assert MultistartHEA(h2, n_starts=2, n_epoch=1, reps=1, lr=0.1,
                          device="cpu").dtype == torch.complex128
+
+
+def test_exact_diagonalization_and_cli_default_to_the_card(tmp_path, monkeypatch):
+    from qsfh_torch import cli
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.linalg import lanczos
+    from qsfh_torch.ops.jw import jordan_wigner
+    from qsfh_torch.ops.lattice import fermi_hubbard
+
+    monkeypatch.delenv("QSFH_ED_CACHE_DIR", raising=False)
+    monkeypatch.chdir(tmp_path)
+    hp = jordan_wigner(fermi_hubbard(2, 2, 1.0, 4.0))
+    p = HubbardProblem(2, 2, 1.0, 4.0, 4, 2, 2, results_root=str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: lanczos.ground_state(hp, 8, 4, 2, 2),
+                  lambda: lanczos.degenerate_ground_space(hp, 8, 4, 2, 2, n_states=2),
+                  lambda: p.ground_state(),
+                  lambda: cli.main(["ed", "--results-root", str(tmp_path)]),
+                  lambda: cli.main(["hea", "--n-epoch", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    # the CPU on request
+    e, wf = lanczos.ground_state(hp, 8, 4, 2, 2, device="cpu")
+    assert wf.device == torch.device("cpu") and wf.dtype == torch.complex128
+    assert not os.path.exists(p.ground_state_path())

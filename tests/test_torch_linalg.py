@@ -70,7 +70,7 @@ def test_ground_energy_matches_jax(name):
     x, y, ne, up, down, U = LATTICES[name]
     n = 2 * x * y
     hp, jhp = _hamiltonians(x, y, U)
-    e, wf = lanczos.ground_state(hp, n, ne, up, down)
+    e, wf = lanczos.ground_state(hp, n, ne, up, down, device="cpu")
     je, jwf = jax_lanczos.ground_state(jhp, n, ne, up, down)
     assert abs(e - je) <= 1e-10
     assert wf.dtype == torch.complex128 and wf.shape == (1 << n,)
@@ -79,7 +79,8 @@ def test_ground_energy_matches_jax(name):
 
 def test_degenerate_space_1x4_matches_jax():
     hp, jhp = _hamiltonians(4, 1, 6.0)
-    e, states = lanczos.degenerate_ground_space(hp, 8, 3, 2, 1, n_states=2, k=120)
+    e, states = lanczos.degenerate_ground_space(hp, 8, 3, 2, 1, n_states=2, k=120,
+                                                 device="cpu")
     je, jstates = jax_lanczos.degenerate_ground_space(jhp, 8, 3, 2, 1, n_states=2, k=120)
     assert abs(e - je) <= 1e-10
     assert len(states) == len(jstates) >= 1
@@ -94,13 +95,14 @@ def test_lanczos_matches_scipy_exact():
     # the port's sparse matrix is the JAX package's
     assert abs(sp - jax_exact.get_sparse_operator(jhp, 8)).max() == 0.0
     e_ref, wf_ref = exact.jw_get_ground_state(sp, 4, 2, 2)
-    e, wf = lanczos.ground_state(hp, 8, 4, 2, 2, seed=3)
+    e, wf = lanczos.ground_state(hp, 8, 4, 2, 2, seed=3, device="cpu")
     assert abs(e - e_ref) <= 1e-10
     assert abs(abs(np.vdot(wf.numpy(), wf_ref)) - 1.0) <= 1e-8
     # the degenerate 1x4 level against ARPACK's lowest states
     sp4 = exact.get_sparse_operator(jordan_wigner(fermi_hubbard(4, 1, 1.0, 6.0)), 8)
     e4, states = lanczos.degenerate_ground_space(
-        jordan_wigner(fermi_hubbard(4, 1, 1.0, 6.0)), 8, 3, 2, 1, n_states=2, k=120)
+        jordan_wigner(fermi_hubbard(4, 1, 1.0, 6.0)), 8, 3, 2, 1, n_states=2, k=120,
+        device="cpu")
     e4_ref, states_ref = exact.jw_get_ground_space(sp4, 3, 2, 1, n_states=2, n_probe=6)
     assert abs(e4 - e4_ref) <= 1e-10
     dense = sp4.toarray()
@@ -125,7 +127,7 @@ def test_ground_state_cache(tmp_path, monkeypatch):
     shared = tmp_path / "shared"
     monkeypatch.setenv("QSFH_ED_CACHE_DIR", str(shared))
     p = _problem(tmp_path / "a")
-    energy, wf = p.ground_state()
+    energy, wf = p.ground_state(device="cpu")
     path = p.ground_state_path()
     name = os.path.basename(path)
     assert os.path.exists(path) and os.path.exists(shared / name)
@@ -133,25 +135,25 @@ def test_ground_state_cache(tmp_path, monkeypatch):
     je, jwfs = jax_ckpt.load_ground_state(path)
     assert je == energy and np.array_equal(jwfs[0], wf)
     # re-read, not recomputed
-    assert p.ground_state()[0] == energy
+    assert p.ground_state(device="cpu")[0] == energy
     # a fresh results_root reads through the shared cache and keeps a copy
     q = _problem(tmp_path / "b")
-    e2, wf2 = q.ground_state()
+    e2, wf2 = q.ground_state(device="cpu")
     assert e2 == energy and np.array_equal(wf2, wf)
     assert os.path.exists(q.ground_state_path())
     # force solves again
-    e3, _ = q.ground_state(force=True)
+    e3, _ = q.ground_state(force=True, device="cpu")
     assert abs(e3 - energy) <= 1e-10
     # the degenerate manifold carries the deg{n} suffix
-    ed, states = p.ground_state(degenerate=True, n_states=2)
+    ed, states = p.ground_state(degenerate=True, n_states=2, device="cpu")
     assert len(states) <= 2 and abs(ed - energy) <= 1e-10
     assert os.path.exists(path.replace(".npz", " deg2.npz"))
-    again = p.ground_state(degenerate=True, n_states=2)  # the states found, read back
+    again = p.ground_state(degenerate=True, n_states=2, device="cpu")  # the states found, read back
     assert again[0] == ed and len(again[1]) == len(states)
     # an explicit path is written where asked
     explicit = str(tmp_path / "c" / "gs.npz")
     monkeypatch.delenv("QSFH_ED_CACHE_DIR")
-    e4, _ = _problem(tmp_path / "d").ground_state(path=explicit)
+    e4, _ = _problem(tmp_path / "d").ground_state(path=explicit, device="cpu")
     assert os.path.exists(explicit) and abs(e4 - energy) <= 1e-10
 
 

@@ -44,7 +44,7 @@ def setup(request, tmp_path_factory):
     args = (nx, ny, 1.0, 6.0, n_e, (n_e + 1) // 2, n_e // 2)
     root = str(tmp_path_factory.mktemp("spectral"))
     tp = HubbardProblem(*args, results_root=root)
-    e0, gs = tp.ground_state()
+    e0, gs = tp.ground_state(device="cpu")
     return JaxProblem(*args, results_root=root), tp, e0, gs, CASES[request.param]
 
 
