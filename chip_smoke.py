@@ -234,13 +234,38 @@ Phases (any failed check raises and the script exits nonzero):
    ``multistart`` (2x2, H2, LiH), each printed value or JSON file against
    the same call through the Python API, and ``python -m qsfh_torch.cli
    ed`` (2x2) in a process of its own.
-22. A ``kernels`` JSON line (``expectation_norm_f64``'s launches counted
+22. The float64 polish engine (``qsfh_torch.native.statevec.Rot64Program``;
+   the kernels ``rot64_groups``, ``happly64``, ``adjoint64_groups``, one
+   launch per group) on the committed 3x3 ADAPT checkpoint (1719 operators
+   of the extended pool, loaded with ``load_model`` in complex128), the path
+   of ``benchmarks/demo_3x3/polish_fast.py``: (a) the grouped program is
+   the JAX package's (18 qubits, 1931 groups of 14123 terms: 1721 of 8, 145
+   of 2, 65 of 1; 68 diagonal, 212 static; H 100 terms); (b) E within 1e-10
+   and ||g|| within 1e-9 of the JAX package's records at the checkpoint,
+   E within 1e-10 at ``polish_fast_best.npz``; (c) at the checkpoint and
+   at a default_rng(5) step of 0.01 from it, the kernels against the plain
+   complex128 versions (state 1e-11, H psi 1e-11 relative, E 1e-11,
+   gradient 1e-10), two calls the same bits, central differences (1e-7),
+   a symmetric HVP (1e-6); (d) a planted fault, the static groups' angle
+   0, that (b) must fail; (e) L-BFGS-B as the script runs it, cut at 674
+   evaluations: evaluations 1-10 within 1e-9 of ``polish_fast.jsonl``, the
+   first parting printed, the best E below -5.562290; (f) Newton-CG on
+   central-difference HVPs, time-boxed to 20 s, never above its start, its
+   gap to ED in uHa; (g) ms per apply, h_apply, value_and_grad and hvp and
+   per wrapper call against the plain versions and the bounds (bytes at
+   3.35 TB/s, float64 at 34 TFLOP/s), launches per call, the idle share of
+   3 evaluations (``torch.profiler``), a complex128 CSR ``torch.mv`` as
+   ``happly64``'s library yardstick.  The launch counters are set to 0
+   just before the polish run and read just after.  The best point goes to
+   the run's temporary directory.
+23. A ``kernels`` JSON line (``expectation_norm_f64``'s launches counted
    per capture, its replays beside them; every kernel's graph nodes per
    fused step; its launches on the HVA, iQCC, product-state, HEA, VQD,
    Trotter, ITE, analysis, Lanczos, multistart and sampling paths; ms and
    bound at 26-30 qubits and per correlation matrix; the launches of the
-   CLI's 3x3 adapt run and of the 2x6 ED's checks), then the device JSON
-   line, last.
+   CLI's 3x3 adapt run and of the 2x6 ED's checks, and of the float64
+   polish run, where the three float64 group kernels report theirs), then
+   the device JSON line, last.
 
 ``--compare PARENT`` runs both main paths (3x3 and 2x6 selection and
 train step, host clock and profile) of the port in the checkout PARENT
@@ -269,6 +294,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import functools
 import json
@@ -323,6 +349,13 @@ REPLACES = {
     # no Pallas kernel: the JAX package's double-float readout in plain jnp
     "expectation_norm_f64": "qsfh_tpu/engine/dfloat.py:229 (expectation_norm_df, plain jnp; "
                             "no TPU Pallas counterpart)",
+    # no Pallas kernel: the JAX package's host C++ float64 engine
+    "rot64_groups": "qsfh_tpu/native/statevec64.cpp:153 (qsfh_sv64_apply, host C++; "
+                    "no TPU Pallas counterpart)",
+    "happly64": "qsfh_tpu/native/statevec64.cpp:171 (qsfh_sv64_happly, host C++; "
+                "no TPU Pallas counterpart)",
+    "adjoint64_groups": "qsfh_tpu/native/statevec64.cpp:203 (qsfh_sv64_adjoint, host C++; "
+                        "no TPU Pallas counterpart)",
 }
 # the kernels timed at 24 qubits only: the tile runs (past the chain cap)
 # and the inner-product tiles returning v_t (the folded wrappers' kernel)
@@ -1799,6 +1832,7 @@ def phase_main_path_24(adapt, dev, tmp):
     sel = [net.tiles(1, n, k, c), net.tiles(-1, n, k, c)]
     fwd, adj = seg.tiles(1, n, k, c), seg.tiles(-1, n, k, c)
     expected = dict(
+        dict.fromkeys(K.launch_counts(), 0),  # every other kernel: none
         pauli_rotation=2 * sum(t.n_single for t in sel) + N_STEPS * fwd.n_single,
         adjoint_rotation=N_STEPS * adj.n_single,
         rotation_tile_runs=2 * sum(t.n_runs for t in sel) + N_STEPS * fwd.n_runs,
@@ -5131,6 +5165,377 @@ def phase_cli(dev, tmp, variational_24):
     return out
 
 
+# -- this slice: the float64 polish engine on the flagship checkpoint ----------------------
+
+# benchmarks/demo_3x3/floor_hessian.json and polish_fast.jsonl eval 1: the
+# checkpoint's E and ||g||_2 on the JAX package's host float64 engine
+POLISH_E_CHECKPOINT = -5.562280730087479
+POLISH_GNORM_CHECKPOINT = 1.4643792537358481e-3
+POLISH_RECORD_E_ATOL = 1e-10
+POLISH_RECORD_G_ATOL = 1e-9
+# the kernels against their plain complex128 versions on the card
+POLISH_E_ATOL = 1e-11
+POLISH_G_ATOL = 1e-10
+POLISH_STATE_ATOL = 1e-11  # 2-norm of the difference
+POLISH_HPSI_RTOL = 1e-11
+POLISH_FD_ATOL = 1e-7  # central differences at eps 1e-6
+POLISH_HVP_RTOL = 1e-6  # <u, H v> = <v, H u>
+# polish_fast.py:117-125's L-BFGS-B, cut at the record's 674 evaluations
+POLISH_LBFGS = dict(maxiter=100000, maxcor=100, ftol=0.0, gtol=1e-9, maxls=60)
+POLISH_LBFGS_EVALS = 674
+POLISH_TRACE_ATOL = 1e-9  # evaluations 1-10 against polish_fast.jsonl
+POLISH_LBFGS_E_BOUND = -5.562290  # a gap under 18.8 uHa (the record: 14.06)
+POLISH_NEWTON_SECONDS = 20.0
+POLISH_HVP_EPS = 1e-6
+# Rot64Program.from_adapt on the committed checkpoint, as the JAX package groups it
+POLISH_STRUCTURE = dict(n=18, n_params=1719, groups=1931, subterms=14123,
+                        lengths={1: 65, 2: 145, 8: 1721}, diagonal=68, static=212, h_terms=100)
+F64_GROUP_KERNELS = ("rot64_groups", "happly64", "adjoint64_groups")
+
+
+def polish_structure(prog):
+    import numpy as np
+
+    lengths = np.bincount(np.diff(prog.goff))
+    return dict(n=prog.n, n_params=prog.n_params, groups=prog.G, subterms=len(prog.zsub),
+                lengths={k: int(v) for k, v in enumerate(lengths) if v},
+                diagonal=int((prog.gx == 0).sum()), static=int((prog.gpidx < 0).sum()),
+                h_terms=len(prog.hx))
+
+
+def polish_bounds(prog):
+    """(bound ms, by) of apply, h_apply, value_and_grad and hvp: the state in
+    and out (16 bytes an amplitude each way; value_and_grad and hvp read
+    psi0 and write floats) and the program's arrays read once, at 3.35
+    TB/s, against the least float64 arithmetic at 34 TFLOP/s.  Per
+    amplitude and group: the rotation 6 (cos psi[a] + (+-i) sin psi[a ^ x]:
+    2 + 2 + 2; a diagonal phase 6), the adjoint 17 (the contribution r
+    Im(conj(L) psi[a ^ x]) and its sum 5, two rotations 12).  H psi by the
+    application rule (real coefficients: 4 a flip mask, 1 a term) and E
+    from it (4)."""
+    dim = 1 << prog.n
+    prog_bytes = 4 * (3 * prog.G + len(prog.zsub)) + 8 * len(prog.wsub)
+    h_bytes = 24 * len(prog.hx)
+    real = not prog.hcim.any()
+    masks = len(set(prog.hx.tolist()))
+    h_flops = ((4 if real else 8) * masks + (1 if real else 2) * len(prog.hx) + 4) * dim
+    fwd, adj = 6 * dim * prog.G, 17 * dim * prog.G
+
+    def bound(nbytes, flops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F64_FLOPS_PER_S
+        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+    vg = bound(16 * dim + prog_bytes + h_bytes + 8 * (prog.n_params + 1), fwd + h_flops + adj)
+    return {
+        "apply": bound(32 * dim + prog_bytes + 8 * prog.n_params, fwd),
+        "h_apply": bound(32 * dim + h_bytes, h_flops),
+        "adjoint": bound(64 * dim + prog_bytes + 8 * prog.n_params, adj),
+        "value_and_grad": vg,
+        "hvp": (2 * vg[0], vg[1]),
+    }
+
+
+def polish_kernel_checks(prog, plain, th, psi0, label):
+    """Gate (c) at one point: the kernels against the plain complex128
+    versions (state, H psi, E, gradient), two calls the same bits, central
+    differences on 3 coordinates, a symmetric HVP."""
+    import numpy as np
+    import torch
+
+    psi, psi_p = prog.apply(th, psi0), plain.apply(th, psi0)
+    state_err = float(torch.linalg.vector_norm(psi - psi_p))
+    h, h_p = prog.h_apply(psi), plain.h_apply(psi)
+    h_err = rel_err(h, h_p)
+    e, g = prog.value_and_grad(th, psi0)
+    e2, g2 = prog.value_and_grad(th, psi0)
+    e_p, g_p = plain.value_and_grad(th, psi0)
+    res = dict(state_err=state_err, state_max_abs=max_abs(psi, psi_p), hpsi_rel=h_err,
+               hpsi_max_abs=max_abs(h, h_p), e_err=abs(e - e_p),
+               g_err=float(np.abs(g - g_p).max()), same_bits=e2 == e and np.array_equal(g2, g),
+               energy=e, gnorm=float(np.linalg.norm(g)))
+    eps, fd = 1e-6, {}
+    for k in (0, prog.n_params // 2, prog.n_params - 1):
+        tp, tm = th.copy(), th.copy()
+        tp[k] += eps
+        tm[k] -= eps
+        fd[k] = (prog.energy(tp, psi0) - prog.energy(tm, psi0)) / (2 * eps) - g[k]
+    res["fd_err"] = max(abs(v) for v in fd.values())
+    rng = np.random.default_rng(17)
+    u, v = rng.standard_normal(len(th)), rng.standard_normal(len(th))
+    hu = prog.hvp(th, psi0, u, eps=POLISH_HVP_EPS)
+    hv = prog.hvp(th, psi0, v, eps=POLISH_HVP_EPS)
+    uhv, vhu = float(np.dot(u, hv)), float(np.dot(v, hu))
+    res.update(u_hv=uhv, v_hu=vhu, hvp_rel=abs(uhv - vhu) / abs(uhv))
+    log(f"  {label}: E {e:+.15f}, ||g|| {res['gnorm']:.10e}; kernels against plain: state "
+        f"{state_err:.2e} (tol {POLISH_STATE_ATOL:g}), H psi {h_err:.2e} relative (tol "
+        f"{POLISH_HPSI_RTOL:g}), E {res['e_err']:.2e} (tol {POLISH_E_ATOL:g}), max |dg| "
+        f"{res['g_err']:.2e} (tol {POLISH_G_ATOL:g}), same bits on two calls {res['same_bits']}; "
+        f"central differences {res['fd_err']:.2e} (tol {POLISH_FD_ATOL:g}); <u,Hv> {uhv:.10e} "
+        f"<v,Hu> {vhu:.10e}, {res['hvp_rel']:.2e} relative (tol {POLISH_HVP_RTOL:g})")
+    if not (state_err <= POLISH_STATE_ATOL and h_err <= POLISH_HPSI_RTOL
+            and res["e_err"] <= POLISH_E_ATOL and res["g_err"] <= POLISH_G_ATOL
+            and res["same_bits"] and res["fd_err"] <= POLISH_FD_ATOL
+            and res["hvp_rel"] <= POLISH_HVP_RTOL):
+        raise AssertionError(f"f64 polish, {label}: a kernel gate failed: {res}")
+    return res, psi, h
+
+
+def polish_records_gate(prog, x0, best, psi0, label):
+    """Gate (b): E and ||g|| at the checkpoint, E at polish_fast_best.npz,
+    against the JAX package's records.  Returns (errors, passed)."""
+    import numpy as np
+
+    e0, g0 = prog.value_and_grad(x0, psi0)
+    e_best = prog.energy(best["t"], psi0)
+    errs = dict(e_checkpoint=abs(e0 - POLISH_E_CHECKPOINT),
+                gnorm_checkpoint=abs(float(np.linalg.norm(g0)) - POLISH_GNORM_CHECKPOINT),
+                e_best=abs(e_best - float(best["energy"])))
+    passed = (errs["e_checkpoint"] <= POLISH_RECORD_E_ATOL
+              and errs["gnorm_checkpoint"] <= POLISH_RECORD_G_ATOL
+              and errs["e_best"] <= POLISH_RECORD_E_ATOL)
+    log(f"  {label}: checkpoint E {e0:+.15f} ({errs['e_checkpoint']:.2e} from the record), "
+        f"||g|| {np.linalg.norm(g0):.16e} ({errs['gnorm_checkpoint']:.2e}); "
+        f"polish_fast_best E {e_best:+.15f} ({errs['e_best']:.2e}): "
+        f"{'within' if passed else 'outside'} the gates ({POLISH_RECORD_E_ATOL:g}, "
+        f"{POLISH_RECORD_G_ATOL:g})")
+    return dict(errs, e0=e0, gnorm0=float(np.linalg.norm(g0)), e_best=e_best), passed
+
+
+def polish_run(prog, x0, psi0, ed, tmp):
+    """Gates (e) and (f): polish_fast.py's path on the card from the
+    checkpoint, L-BFGS-B cut at 674 evaluations, then Newton-CG on
+    central-difference HVPs time-boxed by the script's Deadline (checked in
+    the HVPs too, so one CG solve cannot outrun it).  The best point goes
+    to ``tmp``."""
+    import numpy as np
+    from scipy.optimize import minimize
+
+    best_path = os.path.join(tmp, "polish_best.npz")
+    st = dict(n=0, best_e=np.inf, best_x=None, phase="lbfgs", trace=[], newton={})
+
+    class Deadline(Exception):
+        pass
+
+    def f(x):
+        e, g = prog.value_and_grad(x, psi0)
+        st["n"] += 1
+        st["trace"].append((st["phase"], e, float(np.linalg.norm(g))))
+        if st["phase"] == "newton":
+            st["newton"][x.tobytes()] = e
+        if e < st["best_e"]:
+            st["best_e"], st["best_x"] = e, np.array(x, np.float64)
+            np.savez(best_path + ".tmp.npz", t=st["best_x"], energy=e)
+            os.replace(best_path + ".tmp.npz", best_path)
+        if st["phase"] == "lbfgs" and st["n"] >= POLISH_LBFGS_EVALS:
+            raise Deadline
+        if st["phase"] == "newton" and time.perf_counter() - st["t0"] > POLISH_NEWTON_SECONDS:
+            raise Deadline
+        return e, g
+
+    def hessp(x, p):
+        if time.perf_counter() - st["t0"] > POLISH_NEWTON_SECONDS:
+            raise Deadline
+        st["hvps"] += 1
+        return prog.hvp(x, psi0, p, eps=POLISH_HVP_EPS)
+
+    t0 = time.perf_counter()
+    try:
+        res = minimize(f, x0, jac=True, method="L-BFGS-B", options=POLISH_LBFGS)
+        lbfgs_msg = f"status {res.status}: {res.message}"
+    except Deadline:
+        lbfgs_msg = f"cut at {POLISH_LBFGS_EVALS} evaluations"
+    lbfgs_s = time.perf_counter() - t0
+    lbfgs_evals, lbfgs_best = st["n"], st["best_e"]
+    x = st["best_x"]
+    st.update(phase="newton", t0=time.perf_counter(), hvps=0)
+    accepted = []
+
+    def callback(xk):
+        accepted.append(st["newton"].get(np.asarray(xk).tobytes()))
+
+    try:
+        res = minimize(f, x, jac=True, hessp=hessp, method="Newton-CG", callback=callback,
+                       options=dict(maxiter=300, xtol=1e-14))
+        newton_msg = f"status {res.status}: {res.message}"
+    except Deadline:
+        newton_msg = f"time box ({POLISH_NEWTON_SECONDS:g} s)"
+    newton_s = time.perf_counter() - st["t0"]
+    newton_evals = st["n"] - lbfgs_evals
+    return dict(lbfgs_msg=lbfgs_msg, lbfgs_s=lbfgs_s, lbfgs_evals=lbfgs_evals,
+                lbfgs_best=lbfgs_best, lbfgs_gap_uHa=1e6 * (lbfgs_best - ed),
+                newton_msg=newton_msg, newton_s=newton_s, newton_evals=newton_evals,
+                newton_hvps=st["hvps"], newton_start=lbfgs_best, newton_accepted=accepted,
+                best_e=st["best_e"], gap_uHa=1e6 * (st["best_e"] - ed), best_path=best_path,
+                trace=st["trace"])
+
+
+def polish_times(prog, plain, th, psi0, psi, h, bounds):
+    """Gate (g): ms per apply, h_apply, value_and_grad and hvp (CUDA events
+    and host clock) for the kernels and the plain versions, each wrapper's
+    own ms per call, launches per call, beside the bounds."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    u = np.random.default_rng(19).standard_normal(len(th))
+    th_ext = torch.cat([torch.from_numpy(th), torch.ones(1, dtype=torch.float64)]).to(psi.device)
+    lam = 2.0 * h
+    calls = {
+        "apply": (lambda p: p.apply(th, psi0), 20),
+        "h_apply": (lambda p: p.h_apply(psi), 50),
+        "value_and_grad": (lambda p: p.value_and_grad(th, psi0), 20),
+        "hvp": (lambda p: p.hvp(th, psi0, u, eps=POLISH_HVP_EPS), 5),
+    }
+    out = {}
+    for what, (fn, reps) in calls.items():
+        K.reset_launch_counts()
+        fn(prog)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in K.launch_counts().items() if v}
+        ms = time_cuda(lambda: fn(prog), reps)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(prog)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / reps
+        plain_ms = time_cuda(lambda: fn(plain), 1, warmup=0)
+        b_ms, b_by = bounds[what]
+        out[what] = dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         launches=launches)
+        log(f"  {what}: {ms:.4f} ms (host clock {host_ms:.4f}), plain {plain_ms:.1f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by}): {ms / b_ms:.1f}x; launches "
+            + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    # each wrapper's own call, on fresh copies of its inputs
+    g = prog.groups
+    kern = {
+        "rot64_groups": (lambda impl: impl.rot64_groups(psi0.clone(), g, th_ext), "apply"),
+        "happly64": (lambda impl: impl.happly64(psi, *prog.h_device, 2.0), "h_apply"),
+        "adjoint64_groups": (lambda impl: impl.adjoint64_groups(psi.clone(), lam.clone(), g,
+                                                                th_ext), "adjoint"),
+    }
+    for name, (fn, what) in kern.items():
+        ms = time_cuda(lambda: fn(K.KERNELS), 10)
+        plain_ms = time_cuda(lambda: fn(K.PLAIN), 1, warmup=0)
+        b_ms, b_by = bounds[what]
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"  {name} alone: {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}): {ms / b_ms:.1f}x")
+    return out
+
+
+def phase_polish(dev, tmp):
+    """The flagship's float64 endgame on the card: the committed 3x3 ADAPT
+    checkpoint (1719 operators of the extended pool) loaded with the port's
+    ``load_model``, lowered to the grouped float64 program
+    (``qsfh_torch.native.statevec.Rot64Program``), and
+    ``benchmarks/demo_3x3/polish_fast.py``'s path run on it, in complex128,
+    gates (a)-(g) as the module docstring lists them."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.algos.adapt import ADAPT
+    from qsfh_torch.algos.adapt_fused import initial_state
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.native.statevec import Rot64Program
+    from qsfh_torch.ops.pool import hubbard_interaction_pool_extended
+
+    t_phase = time.perf_counter()
+    vqe = ADAPT(n_epoch=0, threshold1=1e-3, threshold2=1e-3, results_root=DEMO_ADAPT,
+                pool=hubbard_interaction_pool_extended(3, 3), device=dev,
+                dtype=torch.complex128, **ANALYSIS_3X3)
+    ed = float(vqe.ground_state_energy)
+    t0 = time.perf_counter()
+    prog = Rot64Program.from_adapt(vqe)
+    plain = Rot64Program.from_adapt(vqe, impl=K.PLAIN)
+    res = dict(load_s=t0 - t_phase, lower_s=(time.perf_counter() - t0) / 2, ed=ed)
+    psi0 = initial_state(vqe)
+    x0 = vqe.params_t.cpu().numpy()
+    if psi0.dtype != torch.complex128 or x0.dtype != np.float64:
+        raise AssertionError("f64 polish: the checkpoint did not load in float64")
+
+    res["structure"] = polish_structure(prog)  # (a)
+    log(f"  (a) {res['structure']} (load {res['load_s']:.1f} s, lowering "
+        f"{res['lower_s']:.2f} s)")
+    if res["structure"] != POLISH_STRUCTURE:
+        raise AssertionError(f"f64 polish: the grouped program is not the JAX package's: "
+                             f"{res['structure']} against {POLISH_STRUCTURE}")
+    best = np.load(os.path.join(DEMO_ADAPT, "polish_fast_best.npz"))
+    res["records"], passed = polish_records_gate(prog, x0, best, psi0, "(b) records")
+    if not passed:
+        raise AssertionError("f64 polish: the card's engine disagrees with the JAX package's "
+                             "records")
+    faulty = copy.copy(prog)  # (d) the static groups' angle 0, not 1.0
+    faulty.theta_ext = torch.zeros_like(prog.theta_ext)
+    res["planted_static_angle_0"], passed = polish_records_gate(
+        faulty, x0, best, psi0, "(d) planted fault, static angle 0")
+    if passed:
+        raise AssertionError("f64 polish: the planted fault passed the record gates")
+
+    points = {"checkpoint": x0,
+              "checkpoint + 0.01 noise": x0 + 0.01 * np.random.default_rng(5).standard_normal(
+                  len(x0))}
+    res["kernel_checks"] = {}
+    for label, th in points.items():  # (c)
+        res["kernel_checks"][label], psi, h = polish_kernel_checks(prog, plain, th, psi0,
+                                                                   f"(c) {label}")
+
+    bounds = polish_bounds(prog)  # (g), before the run so its counts are the run's own
+    res["times"] = polish_times(prog, plain, x0, psi0, psi, h, bounds)
+    vg_host = res["times"]["value_and_grad"]["host_ms"]
+    profile_calls((("value_and_grad x 3", 3, lambda: prog.value_and_grad(x0, psi0),
+                    vg_host),), res, "f64 polish")
+    ref = prog.h_apply(psi)
+    hx, hz = (torch.as_tensor(a.astype(np.int64), device=dev) for a in (prog.hx, prog.hz))
+    c = torch.as_tensor(prog.hcre + 1j * prog.hcim, device=dev)
+    res["times"]["happly64"]["library_ms"] = library_sparse_apply(psi, hx, hz, c, ref)
+    log(f"  happly64: library (complex128 CSR torch.mv) "
+        f"{res['times']['happly64']['library_ms']} ms")
+
+    records = [json.loads(line) for line in
+               open(os.path.join(DEMO_ADAPT, "polish_fast.jsonl"))]
+    K.reset_launch_counts()  # the main path of this slice: the polish
+    run = polish_run(prog, x0, psi0, ed, tmp)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    res["launches"] = counts
+    evals = run["lbfgs_evals"] + run["newton_evals"] + 2 * run["newton_hvps"]
+    if (counts["rot64_groups"] != evals * prog.G or counts["adjoint64_groups"] != evals * prog.G
+            or counts["happly64"] != evals
+            or any(v for k, v in counts.items() if k not in F64_GROUP_KERNELS)):
+        raise AssertionError(f"f64 polish: launches {counts} for {evals} evaluations of "
+                             f"{prog.G} groups")
+    lbfgs = [e for phase, e, _ in run.pop("trace") if phase == "lbfgs"]
+    ref_e = [r["E"] for r in records if r["phase"] == "lbfgs"]
+    diffs = [abs(a - b) for a, b in zip(lbfgs, ref_e)]
+    part = next((i + 1 for i, d in enumerate(diffs) if d > POLISH_TRACE_ATOL), None)
+    run.update(trace_err_1_10=max(diffs[:10]), first_parting_eval=part,
+               record_best=min(ref_e), diff_to_record=run["lbfgs_best"] - min(ref_e))
+    log(f"  (e) L-BFGS-B ({run['lbfgs_msg']}): {run['lbfgs_evals']} evaluations in "
+        f"{run['lbfgs_s']:.2f} s ({1e3 * run['lbfgs_s'] / run['lbfgs_evals']:.2f} ms each); "
+        f"evaluations 1-10 within {run['trace_err_1_10']:.2e} of polish_fast.jsonl (tol "
+        f"{POLISH_TRACE_ATOL:g}); first parting by more than {POLISH_TRACE_ATOL:g} at "
+        f"evaluation {part}; best E {run['lbfgs_best']:+.15f}, gap {run['lbfgs_gap_uHa']:.4f} "
+        f"uHa (bound {POLISH_LBFGS_E_BOUND}); the record's {min(ref_e):+.15f}, difference "
+        f"{run['diff_to_record']:+.3e}")
+    accepted = [e for e in run["newton_accepted"] if e is not None]
+    log(f"  (f) Newton-CG ({run['newton_msg']}): {run['newton_evals']} evaluations and "
+        f"{run['newton_hvps']} HVPs in {run['newton_s']:.1f} s, {len(run['newton_accepted'])} "
+        f"iterates accepted; best E {run['best_e']:+.15f}, gap to ED {run['gap_uHa']:.4f} uHa "
+        f"(start {1e6 * (run['newton_start'] - ed):.4f}); best point in {run['best_path']}")
+    if run["trace_err_1_10"] > POLISH_TRACE_ATOL:
+        raise AssertionError("f64 polish: L-BFGS evaluations 1-10 part from polish_fast.jsonl")
+    if run["lbfgs_best"] >= POLISH_LBFGS_E_BOUND or run["lbfgs_evals"] != POLISH_LBFGS_EVALS:
+        raise AssertionError("f64 polish: L-BFGS did not reach the bound in 674 evaluations")
+    if any(e > run["newton_start"] for e in accepted) or run["best_e"] > run["newton_start"]:
+        raise AssertionError("f64 polish: Newton-CG rose above its start")
+    res["run"] = run
+    res["bounds"] = bounds
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  f64 polish phase: {res['seconds']:.1f} s")
+    return res
+
+
 # -- main ---------------------------------------------------------------------------------
 
 
@@ -5236,6 +5641,9 @@ def main():
                       for r in rows]
     cli_res = phase_cli(dev, tmp, variational_24)
     out["cli"] = cli_res
+    log("the float64 polish engine on the 1719-operator 3x3 checkpoint (polish_fast.py's path):")
+    polish = phase_polish(dev, tmp)
+    out["polish"] = polish
     if args.routes:
         log("routes, host clock, median (least) of 15 interleaved rounds:")
         adapt20 = build_adapt(dev, tmp, "routes20", CONFIG_20)
@@ -5434,6 +5842,27 @@ def main():
     for entry in line:  # the command line: adapt at 3x3, the 2x6 ED's checks
         entry["launches_cli_adapt"] = cli_res["adapt_3x3"]["launches"][entry["name"]]
         entry["launches_cli_ed_2x6_checks"] = cli_res["ed_2x6"]["launches"][entry["name"]]
+        entry["launches_f64_polish"] = polish["launches"][entry["name"]]
+    # this slice: the float64 group engine, its launches those of the polish run
+    # (L-BFGS and Newton-CG), its ms per wrapper call beside the plain version's
+    checks = polish["kernel_checks"].values()
+    errs = {"rot64_groups": max(c["state_max_abs"] for c in checks),
+            "happly64": max(c["hpsi_max_abs"] for c in checks),
+            "adjoint64_groups": max(c["g_err"] for c in checks)}
+    per_eval = {"rot64_groups": polish["structure"]["groups"], "happly64": 1,
+                "adjoint64_groups": polish["structure"]["groups"]}
+    for name in F64_GROUP_KERNELS:
+        head = polish["times"][name]
+        line.append(dict(
+            name=name, route="cuda", source=source, replaces=REPLACES[name],
+            launches=polish["launches"][name], max_abs_err=errs[name], ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head.get("library_ms"),
+            call="3x3 checkpoint, 18 qubits, 1931 groups / 100 H terms, complex128",
+            launches_per_evaluation=per_eval[name],
+            ms_per_evaluation=polish["times"]["value_and_grad"]["ms"],
+            ms_per_hvp=polish["times"]["hvp"]["ms"],
+        ))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1992,6 +1992,239 @@ inline int f64_blocks(int n) {
   return static_cast<int>(blocks < cap ? blocks : cap);
 }
 
+// ---------------------------------------------------------------------------
+// The float64 group engine: rot64_groups, happly64 and adjoint64_groups.
+//
+// No TPU Pallas counterpart: these replace the JAX package's host C++ float64
+// engine (qsfh_tpu/native/statevec64.cpp: qsfh_sv64_apply :153,
+// qsfh_sv64_happly :171, qsfh_sv64_adjoint :203), which runs the flagship's
+// float64 polish (L-BFGS and Newton-CG on the 1719-operator 3x3 ansatz) on
+// the host.  A program is a list of groups of rotation terms that share one
+// flip mask x, one parameter and one parity of x & z, so they commute:
+//     psi <- exp(-i theta_g M_g) psi,   M_g psi[b] = unit_g r_g(b) psi[b ^ x],
+//     r_g(b) = sum_k w_k s_k(b),   s_k(b) = (-1)^popcount(b & z_k),
+// unit 1 (gflip 0) or i (gflip 1), each term's string phase folded into its
+// real weight w_k, at most 8 terms a group.  The state is complex128, one
+// double2 per amplitude.  Each block forms the group's 2^S-entry tables of
+// r, cos(theta r) and sin(theta r) in shared memory from w and
+// theta_ext[gpidx[g]] (the angles are read on the device, so the launch
+// sequence carries no host scalar); a thread owns the pair (b, b ^ x), b the
+// member whose highest bit of x is clear (one amplitude where x = 0), forms
+// b's parity pattern with S __popc, and the partner's pattern is its
+// complement where gflip is set (parity(x & z_k) is the group's).  One
+// launch per group, the group loop in C.  Bound: at 18 qubits a group pass
+// is 4 MiB of L2-resident traffic against 6 float64 flops an amplitude
+// forward and 17 in the adjoint (1931 groups: ~0.09 and ~0.25 ms at 34
+// TFLOP/s), so the launch rate binds, not the arithmetic; chaining groups in
+// shared-memory tiles, as the resident kernels do, is the later design.  No
+// atomics: the adjoint's contributions are block partials per group, summed
+// per parameter in a fixed order by one fold kernel, so two calls give the
+// same bits.
+// ---------------------------------------------------------------------------
+constexpr int kRot64Threads = 256;
+constexpr int kRot64MaxTerms = 8;
+constexpr int kRot64BlocksPerSm = 8;
+
+// A group's phase masks and its tables: r[p] = sum_k w_k (1 - 2 bit_k(p)),
+// c[p] / s[p] = cos / sin(theta r[p]), for the S-bit parity patterns p.
+struct Group64Tables {
+  uint32_t z[kRot64MaxTerms];
+  double r[1 << kRot64MaxTerms];
+  double c[1 << kRot64MaxTerms];
+  double s[1 << kRot64MaxTerms];
+};
+
+// Fill the tables of group g (every thread of the block calls it); returns S.
+__device__ int group64_tables(Group64Tables& t, int g, const int32_t* __restrict__ goff,
+                              const int32_t* __restrict__ zsub, const double* __restrict__ wsub,
+                              const int32_t* __restrict__ gpidx,
+                              const double* __restrict__ theta_ext) {
+  const int t0 = goff[g];
+  const int S = goff[g + 1] - t0;
+  const double theta = theta_ext[gpidx[g]];
+  if (static_cast<int>(threadIdx.x) < S) t.z[threadIdx.x] = static_cast<uint32_t>(zsub[t0 + threadIdx.x]);
+  for (int p = threadIdx.x; p < (1 << S); p += blockDim.x) {
+    double r = 0.0;  // summed in term order, as the host engine sums it
+    for (int k = 0; k < S; ++k) r += ((p >> k) & 1) ? -wsub[t0 + k] : wsub[t0 + k];
+    double sn, cs;
+    sincos(theta * r, &sn, &cs);
+    t.r[p] = r;
+    t.c[p] = cs;
+    t.s[p] = sn;
+  }
+  __syncthreads();
+  return S;
+}
+
+// bit k of the pattern = parity(b & z_k)
+__device__ __forceinline__ uint32_t group64_pattern(uint32_t b, const uint32_t* z, int S) {
+  uint32_t pat = 0;
+  for (int k = 0; k < S; ++k) pat |= static_cast<uint32_t>(__popc(b & z[k]) & 1) << k;
+  return pat;
+}
+
+// psi <- exp(-i theta_g M_g) psi for group g, in place (qsfh_sv64_apply's
+// rot_pass and diag_pass, dir = -1).
+__global__ void __launch_bounds__(kRot64Threads)
+rot64_group_kernel(double2* __restrict__ psi, int n, int g, const int32_t* __restrict__ gx,
+                   const int32_t* __restrict__ goff, const int32_t* __restrict__ gflip,
+                   const int32_t* __restrict__ gpidx, const int32_t* __restrict__ zsub,
+                   const double* __restrict__ wsub, const double* __restrict__ theta_ext) {
+  __shared__ Group64Tables t;
+  const int S = group64_tables(t, g, goff, zsub, wsub, gpidx, theta_ext);
+  const uint32_t x = static_cast<uint32_t>(gx[g]);
+  const uint32_t stride = gridDim.x * blockDim.x;
+  const uint32_t first = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x == 0) {  // psi[b] *= exp(-i theta r(b))
+    for (uint32_t b = first; b < (1u << n); b += stride) {
+      const uint32_t pb = group64_pattern(b, t.z, S);
+      const double c = t.c[pb], s = -t.s[pb];
+      const double2 a = psi[b];
+      psi[b] = make_double2(c * a.x - s * a.y, c * a.y + s * a.x);
+    }
+    return;
+  }
+  const int hbit = 31 - __clz(x);
+  const bool unit_i = gflip[g] != 0;
+  const uint32_t pxor = unit_i ? (1u << S) - 1u : 0u;
+  for (uint32_t i = first; i < (1u << (n - 1)); i += stride) {
+    const uint32_t b = insert_zero_bit(i, hbit);
+    const uint32_t p = b ^ x;
+    const uint32_t pb = group64_pattern(b, t.z, S), pp = pb ^ pxor;
+    const double cb = t.c[pb], cp = t.c[pp];
+    const double2 vb = psi[b], vp = psi[p];
+    if (!unit_i) {  // psi'[a] = cos psi[a] - i sin psi[a ^ x]
+      const double sb = -t.s[pb], sp = -t.s[pp];
+      psi[b] = make_double2(cb * vb.x - sb * vp.y, cb * vb.y + sb * vp.x);
+      psi[p] = make_double2(cp * vp.x - sp * vb.y, cp * vp.y + sp * vb.x);
+    } else {  // psi'[a] = cos psi[a] + sin psi[a ^ x]
+      const double sb = t.s[pb], sp = t.s[pp];
+      psi[b] = make_double2(cb * vb.x + sb * vp.x, cb * vb.y + sb * vp.y);
+      psi[p] = make_double2(cp * vp.x + sp * vb.x, cp * vp.y + sp * vb.y);
+    }
+  }
+}
+
+// One group of the reverse sweep (qsfh_sv64_adjoint's loop body): the
+// block's part of contrib_g = Im <lam| M_g |psi> at the post-gate state into
+// partials[blockIdx.x], then psi and lam inverse-rotated in the same pair
+// loop.  The unit-1 and unit-i branches keep the host engine's signs.
+__global__ void __launch_bounds__(kRot64Threads)
+adjoint64_group_kernel(double2* __restrict__ psi, double2* __restrict__ lam, int n, int g,
+                       const int32_t* __restrict__ gx, const int32_t* __restrict__ goff,
+                       const int32_t* __restrict__ gflip, const int32_t* __restrict__ gpidx,
+                       const int32_t* __restrict__ zsub, const double* __restrict__ wsub,
+                       const double* __restrict__ theta_ext, double* __restrict__ partials) {
+  __shared__ Group64Tables t;
+  const int S = group64_tables(t, g, goff, zsub, wsub, gpidx, theta_ext);
+  const uint32_t x = static_cast<uint32_t>(gx[g]);
+  const uint32_t stride = gridDim.x * blockDim.x;
+  const uint32_t first = blockIdx.x * blockDim.x + threadIdx.x;
+  double acc = 0.0;
+  if (x == 0) {  // M diagonal: contrib = sum r(b) Im(conj(lam) psi); *= exp(+i theta r)
+    for (uint32_t b = first; b < (1u << n); b += stride) {
+      const uint32_t pb = group64_pattern(b, t.z, S);
+      const double r = t.r[pb], c = t.c[pb], s = t.s[pb];
+      const double2 a = psi[b], l = lam[b];
+      acc += r * (l.x * a.y - l.y * a.x);
+      psi[b] = make_double2(c * a.x - s * a.y, c * a.y + s * a.x);
+      lam[b] = make_double2(c * l.x - s * l.y, c * l.y + s * l.x);
+    }
+  } else {
+    const int hbit = 31 - __clz(x);
+    const bool unit_i = gflip[g] != 0;
+    const uint32_t pxor = unit_i ? (1u << S) - 1u : 0u;
+    for (uint32_t i = first; i < (1u << (n - 1)); i += stride) {
+      const uint32_t b = insert_zero_bit(i, hbit);
+      const uint32_t p = b ^ x;
+      const uint32_t pb = group64_pattern(b, t.z, S), pp = pb ^ pxor;
+      const double rb = t.r[pb], rp = t.r[pp];
+      const double cb = t.c[pb], sb = t.s[pb], cp = t.c[pp], sp = t.s[pp];
+      const double2 vb = psi[b], vp = psi[p], lb = lam[b], lp = lam[p];
+      if (!unit_i) {
+        // Im(conj(L) r psi[a ^ x]); inverse: psi'[a] = cos psi[a] + i sin psi[a ^ x]
+        acc += rb * (lb.x * vp.y - lb.y * vp.x);
+        acc += rp * (lp.x * vb.y - lp.y * vb.x);
+        psi[b] = make_double2(cb * vb.x - sb * vp.y, cb * vb.y + sb * vp.x);
+        psi[p] = make_double2(cp * vp.x - sp * vb.y, cp * vp.y + sp * vb.x);
+        lam[b] = make_double2(cb * lb.x - sb * lp.y, cb * lb.y + sb * lp.x);
+        lam[p] = make_double2(cp * lp.x - sp * lb.y, cp * lp.y + sp * lb.x);
+      } else {
+        // Im(conj(L) i r psi[a ^ x]) = r Re(conj(L) psi[a ^ x]); inverse:
+        // psi'[a] = cos psi[a] - sin psi[a ^ x]
+        acc += rb * (lb.x * vp.x + lb.y * vp.y);
+        acc += rp * (lp.x * vb.x + lp.y * vb.y);
+        psi[b] = make_double2(cb * vb.x - sb * vp.x, cb * vb.y - sb * vp.y);
+        psi[p] = make_double2(cp * vp.x - sp * vb.x, cp * vp.y - sp * vb.y);
+        lam[b] = make_double2(cb * lb.x - sb * lp.x, cb * lb.y - sb * lp.y);
+        lam[p] = make_double2(cp * lp.x - sp * lb.x, cp * lp.y - sp * lb.y);
+      }
+    }
+  }
+  const double sum = block_sum_f64(make_double2(acc, 0.0)).x;
+  if (threadIdx.x == 0) partials[blockIdx.x] = sum;
+}
+
+// grad[j] = sum over parameter j's groups (ascending) of the group's block
+// partials, each summed in a fixed order: one block per parameter.
+__global__ void __launch_bounds__(kRot64Threads)
+adjoint64_fold_kernel(const double* __restrict__ partials, int n_blocks,
+                      const int32_t* __restrict__ param_off,
+                      const int32_t* __restrict__ param_groups, double* __restrict__ grad) {
+  const int j = blockIdx.x;
+  double acc = 0.0;  // valid in thread 0
+  for (int q = param_off[j]; q < param_off[j + 1]; ++q) {
+    const double* row = partials + static_cast<size_t>(param_groups[q]) * n_blocks;
+    double v = 0.0;
+    for (int i = threadIdx.x; i < n_blocks; i += blockDim.x) v += row[i];
+    v = block_sum_f64(make_double2(v, 0.0)).x;
+    if (threadIdx.x == 0) acc += v;
+    __syncthreads();  // block_sum_f64's shared words are rewritten next round
+  }
+  if (threadIdx.x == 0) grad[j] = acc;
+}
+
+// out[b] = scale * sum_t c_t s_t(b) psi[b ^ x_t] (qsfh_sv64_happly), one
+// thread an amplitude, no atomics; terms with the same flip mask in a row
+// share one gather.  Each block's (Re <psi|H psi>, <psi|psi>) partial, taken
+// before the scale, goes to partials[blockIdx.x].
+__global__ void __launch_bounds__(kF64Threads)
+happly64_kernel(const double2* __restrict__ psi, double2* __restrict__ out, uint32_t dim,
+                int n_terms, const int32_t* __restrict__ hx, const int32_t* __restrict__ hz,
+                const double* __restrict__ cre, const double* __restrict__ cim, double scale,
+                double2* __restrict__ partials) {
+  double e = 0.0, norm = 0.0;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t b = blockIdx.x * blockDim.x + threadIdx.x; b < dim; b += stride) {
+    double hr = 0.0, hi = 0.0;
+    uint32_t last = 0xffffffffu;  // no mask of a state of at most 30 qubits
+    double2 v = make_double2(0.0, 0.0);
+    for (int t = 0; t < n_terms; ++t) {
+      const uint32_t x = static_cast<uint32_t>(hx[t]);
+      if (x != last) {
+        v = psi[b ^ x];
+        last = x;
+      }
+      const bool neg = __popc(b & static_cast<uint32_t>(hz[t])) & 1;
+      const double wr = neg ? -cre[t] : cre[t], wi = neg ? -cim[t] : cim[t];
+      hr += wr * v.x - wi * v.y;
+      hi += wr * v.y + wi * v.x;
+    }
+    const double2 a = psi[b];
+    e += a.x * hr + a.y * hi;
+    norm += a.x * a.x + a.y * a.y;
+    out[b] = make_double2(scale * hr, scale * hi);
+  }
+  const double2 sum = block_sum_f64(make_double2(e, norm));
+  if (threadIdx.x == 0) partials[blockIdx.x] = sum;
+}
+
+inline int rot64_blocks(int n) {
+  const unsigned blocks = blocks_for(1ull << (n - 1), kRot64Threads);
+  const unsigned cap = static_cast<unsigned>(sm_count()) * kRot64BlocksPerSm;
+  return static_cast<int>(blocks < cap ? blocks : cap);
+}
+
 }  // namespace
 
 extern "C" {
@@ -2422,6 +2655,92 @@ int qsfh_expectation_norm_f64(const void* psi, int n, int n_groups, const void* 
   if (err != cudaSuccess) return static_cast<int>(err);
   sum_f64_partials_kernel<<<1, kF64Threads, 0, s>>>(static_cast<const double2*>(partials), grid,
                                                    static_cast<double*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of a rot64 / adjoint64 group launch at n qubits (the adjoint's
+// partials hold n_groups rows of this many doubles).
+int qsfh_rot64_blocks(int n) {
+  if (n < 1 || n > 30) return 0;
+  return rot64_blocks(n);
+}
+
+// psi <- exp(-i theta_{G-1} M_{G-1}) ... exp(-i theta_0 M_0) psi in place,
+// one launch per group (see rot64_group_kernel): complex128 psi, int32 gx /
+// goff (n_groups + 1) / gflip / gpidx / zsub, float64 wsub and theta_ext,
+// all on the device.
+int qsfh_rot64_groups(void* psi, int n, int n_groups, const void* gx, const void* goff,
+                      const void* gflip, const void* gpidx, const void* zsub, const void* wsub,
+                      const void* theta_ext, void* stream) {
+  if (n < 1 || n > 30 || n_groups < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = rot64_blocks(n);
+  for (int g = 0; g < n_groups; ++g) {
+    rot64_group_kernel<<<grid, kRot64Threads, 0, s>>>(
+        static_cast<double2*>(psi), n, g, static_cast<const int32_t*>(gx),
+        static_cast<const int32_t*>(goff), static_cast<const int32_t*>(gflip),
+        static_cast<const int32_t*>(gpidx), static_cast<const int32_t*>(zsub),
+        static_cast<const double*>(wsub), static_cast<const double*>(theta_ext));
+    if (g == 0) {
+      const cudaError_t err = cudaPeekAtLastError();
+      if (err != cudaSuccess) return static_cast<int>(cudaGetLastError());
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out = scale * H psi (complex128; int32 hx / hz, float64 cre / cim on the
+// device) and e_out[4] = [Re <psi|H psi>, 0, <psi|psi>, 0] before the scale;
+// partials: qsfh_f64_blocks(n) double2 scratch.
+int qsfh_happly64(const void* psi, void* out, int n, int n_terms, const void* hx, const void* hz,
+                  const void* cre, const void* cim, double scale, void* partials, void* e_out,
+                  void* stream) {
+  if (n < 1 || n > 30 || n_terms < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = f64_blocks(n);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  happly64_kernel<<<grid, kF64Threads, 0, s>>>(
+      static_cast<const double2*>(psi), static_cast<double2*>(out),
+      static_cast<uint32_t>(1ull << n), n_terms, static_cast<const int32_t*>(hx),
+      static_cast<const int32_t*>(hz), static_cast<const double*>(cre),
+      static_cast<const double*>(cim), scale, static_cast<double2*>(partials));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_f64_partials_kernel<<<1, kF64Threads, 0, s>>>(static_cast<const double2*>(partials), grid,
+                                                   static_cast<double*>(e_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The reverse sweep over the groups in place on psi and lam (see
+// adjoint64_group_kernel), then grad[j] for j < n_params from the partials
+// (n_groups x qsfh_rot64_blocks(n) doubles) over the groups
+// param_groups[param_off[j] .. param_off[j + 1]] (int32, ascending).
+int qsfh_adjoint64_groups(void* psi, void* lam, int n, int n_groups, const void* gx,
+                          const void* goff, const void* gflip, const void* gpidx, const void* zsub,
+                          const void* wsub, const void* theta_ext, int n_params,
+                          const void* param_off, const void* param_groups, void* partials,
+                          void* grad, void* stream) {
+  if (n < 1 || n > 30 || n_groups < 0 || n_params < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = rot64_blocks(n);
+  double* part = static_cast<double*>(partials);
+  for (int g = n_groups - 1; g >= 0; --g) {
+    adjoint64_group_kernel<<<grid, kRot64Threads, 0, s>>>(
+        static_cast<double2*>(psi), static_cast<double2*>(lam), n, g,
+        static_cast<const int32_t*>(gx), static_cast<const int32_t*>(goff),
+        static_cast<const int32_t*>(gflip), static_cast<const int32_t*>(gpidx),
+        static_cast<const int32_t*>(zsub), static_cast<const double*>(wsub),
+        static_cast<const double*>(theta_ext), part + static_cast<size_t>(g) * grid);
+    if (g == n_groups - 1) {
+      const cudaError_t err = cudaPeekAtLastError();
+      if (err != cudaSuccess) return static_cast<int>(cudaGetLastError());
+    }
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_params == 0) return static_cast<int>(err);
+  adjoint64_fold_kernel<<<n_params, kRot64Threads, 0, s>>>(
+      part, grid, static_cast<const int32_t*>(param_off),
+      static_cast<const int32_t*>(param_groups), static_cast<double*>(grad));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -42,6 +42,15 @@ wrapper                  replaces (``qsfh_tpu/engine/pallas_kernels.py``)
 ``expectation_norm_f64`` no Pallas kernel: the float64 Rayleigh readout
                          that ``qsfh_tpu/engine/dfloat.py`` computes in
                          double-float jnp (``expectation_norm_df``)
+``rot64_groups``         no Pallas kernel: the forward pass of the host C++
+                         float64 engine (``qsfh_tpu/native/statevec64.cpp``
+                         ``qsfh_sv64_apply``, :153), complex128 groups of
+                         commuting rotations
+``happly64``             the same engine's H psi (``qsfh_sv64_happly``,
+                         :171), with E = Re <psi|H psi> beside it
+``adjoint64_groups``     the same engine's fused reverse sweep
+                         (``qsfh_sv64_adjoint``, :203), the gradient folded
+                         per parameter in a fixed order
 =======================  ==================================================
 
 The CUDA source is ``qsfh_torch/csrc/statevec_kernels.cu``.  It is built
@@ -70,6 +79,7 @@ every kernel against them on the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -200,6 +210,14 @@ def _load():
         lib.qsfh_expectation_norm_f64.argtypes = [p, i, i] + [p] * 8
         lib.qsfh_pauli_apply_grouped.restype = i
         lib.qsfh_pauli_apply_grouped.argtypes = [p, p, i, i, i, i] + [p] * 17 + [i, i, p]
+        lib.qsfh_rot64_blocks.restype = i
+        lib.qsfh_rot64_blocks.argtypes = [i]
+        lib.qsfh_rot64_groups.restype = i
+        lib.qsfh_rot64_groups.argtypes = [p, i, i] + [p] * 8
+        lib.qsfh_happly64.restype = i
+        lib.qsfh_happly64.argtypes = [p, p, i, i] + [p] * 4 + [ctypes.c_double, p, p, p]
+        lib.qsfh_adjoint64_groups.restype = i
+        lib.qsfh_adjoint64_groups.argtypes = [p, p, i, i] + [p] * 7 + [i] + [p] * 5
         _lib = lib
         return lib
 
@@ -216,15 +234,15 @@ def _stream() -> int:
     return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
-def _n_qubits(psi: torch.Tensor, name: str) -> int:
-    """Validate a CUDA state for the kernels; returns its qubit count."""
+def _n_qubits(psi: torch.Tensor, name: str, dtype=torch.complex64) -> int:
+    """Validate a CUDA state of ``dtype`` for the kernels; returns its qubit count."""
     if not psi.is_cuda:
         raise ValueError(
             f"{name}: the kernels take CUDA tensors (the plain version takes "
             f"all-CPU inputs), got {psi.device}"
         )
-    if psi.dtype != torch.complex64:
-        raise TypeError(f"{name}: the CUDA kernels take complex64 states, got {psi.dtype}")
+    if psi.dtype != dtype:
+        raise TypeError(f"{name}: the CUDA kernel takes {dtype} states, got {psi.dtype}")
     if psi.dim() != 1 or not psi.is_contiguous():
         raise ValueError(f"{name}: expected a flat contiguous state, got shape {tuple(psi.shape)}")
     dim = psi.shape[0]
@@ -1102,6 +1120,202 @@ def expectation_norm_f64_plain(psi, xs, zs, cre, cim, starts):
     return torch.stack([e, zero, torch.vdot(p, p).real, zero])
 
 
+# -- the float64 group engine ---------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Groups64:
+    """A float64 group program at the kernel boundary, on one device: G
+    groups of at most 8 commuting rotation terms (one flip mask, one
+    parameter, one parity of x & z each; ``native.statevec._group_terms``).
+    ``gx``, ``goff`` (G + 1 offsets into ``zsub`` / ``wsub``), ``gflip`` (1
+    where the group's unit is i), ``gpidx`` (the group's entry of
+    ``theta_ext``; a static group takes the last one), ``zsub`` are int32,
+    ``wsub`` (the real weights) float64; ``param_off`` / ``param_groups``
+    (int32) list each parameter's groups in ascending order, the order in
+    which its gradient is summed."""
+
+    gx: torch.Tensor
+    goff: torch.Tensor
+    gflip: torch.Tensor
+    gpidx: torch.Tensor
+    zsub: torch.Tensor
+    wsub: torch.Tensor
+    param_off: torch.Tensor
+    param_groups: torch.Tensor
+
+    @property
+    def n_groups(self) -> int:
+        return self.gx.shape[0]
+
+    @property
+    def n_params(self) -> int:
+        return self.param_off.shape[0] - 1
+
+    def check(self, psi, theta_ext, name: str):
+        """Raise unless every array lies on psi's device in the kernel's
+        type and ``theta_ext`` holds n_params + 1 float64 angles."""
+        for field in dataclasses.fields(self):
+            arr = getattr(self, field.name)
+            dtype = torch.float64 if field.name == "wsub" else torch.int32
+            if arr.device != psi.device or arr.dtype != dtype or not arr.is_contiguous():
+                raise ValueError(f"{name}: {field.name} must be contiguous {dtype} on "
+                                 f"{psi.device}, got {arr.dtype} on {arr.device}")
+        if self.goff.shape[0] != self.n_groups + 1:
+            raise ValueError(f"{name}: goff must hold n_groups + 1 offsets")
+        if (theta_ext.device != psi.device or theta_ext.dtype != torch.float64
+                or theta_ext.shape != (self.n_params + 1,)):
+            raise ValueError(f"{name}: theta_ext must be ({self.n_params + 1},) float64 on "
+                             f"{psi.device}")
+
+
+@_counted
+def rot64_groups(psi, groups: Groups64, theta_ext):
+    """psi <- exp(-i theta_{G-1} M_{G-1}) ... exp(-i theta_0 M_0) psi IN
+    PLACE (complex128), theta_g = theta_ext[gpidx[g]], M_g psi[b] = unit_g
+    r_g(b) psi[b ^ x_g], r_g(b) = sum_k w_k (-1)^popcount(b & z_k).  One
+    launch per group.  Returns psi."""
+    if psi.device.type == "cpu":
+        return rot64_groups_plain(psi, groups, theta_ext)
+    name = "rot64_groups"
+    n = _n_qubits(psi, name, torch.complex128)
+    groups.check(psi, theta_ext, name)
+    g = groups
+    lib = _load()
+    rc = lib.qsfh_rot64_groups(psi.data_ptr(), n, g.n_groups, g.gx.data_ptr(), g.goff.data_ptr(),
+                               g.gflip.data_ptr(), g.gpidx.data_ptr(), g.zsub.data_ptr(),
+                               g.wsub.data_ptr(), theta_ext.data_ptr(), _stream())
+    _check(lib, rc, name)
+    rot64_groups.launches += g.n_groups
+    return psi
+
+
+def _group64_r(idx, groups, g: int, goff):
+    """r_g(b) over the flat indices (float64), summed in term order."""
+    t0, t1 = goff[g], goff[g + 1]
+    z = groups.zsub[t0:t1].to(torch.int64)
+    s = parity_signs(idx[None, :], z[:, None], torch.float64)
+    r = torch.zeros_like(s[0])
+    for k in range(t1 - t0):
+        r = r + groups.wsub[t0 + k] * s[k]
+    return r
+
+
+def rot64_groups_plain(psi, groups: Groups64, theta_ext):
+    """Plain version of :func:`rot64_groups` (in place, any device)."""
+    n = psi.shape[0].bit_length() - 1
+    idx = index_bits(n, psi.device)
+    ang = theta_ext[groups.gpidx.to(torch.int64)]
+    goff, gx, gflip = (groups.goff.tolist(), groups.gx.tolist(), groups.gflip.tolist())
+    out = psi
+    for g in range(len(gx)):
+        r = _group64_r(idx, groups, g, goff)
+        c, s = torch.cos(ang[g] * r), torch.sin(ang[g] * r)
+        if gx[g] == 0:
+            out = torch.complex(c, -s) * out
+        else:  # unit 1: cos psi - i sin psi[b ^ x]; unit i: cos psi + sin psi[b ^ x]
+            out = c * out + (s if gflip[g] else -1j * s) * out[idx ^ gx[g]]
+    psi.copy_(out)
+    return psi
+
+
+@_counted
+def happly64(psi, xs, zs, cre, cim, scale: float = 1.0):
+    """(out, stats): out = scale * sum_t (cre_t + i cim_t) s_t(b) psi[b ^
+    xs_t] (complex128, a new tensor) and stats = [E, 0, N, 0] (float64), E =
+    Re <psi|H psi> before the scale, N = <psi|psi>.  Terms with the same
+    flip mask in a row share one gather (callers sort by mask).  One launch
+    (and a fixed-order partial-sum pass, not counted)."""
+    if psi.device.type == "cpu":
+        return happly64_plain(psi, xs, zs, cre, cim, scale)
+    name = "happly64"
+    n = _n_qubits(psi, name, torch.complex128)
+    T = xs.shape[0]
+    args = _terms(psi, T, name, (xs, _MASK), (zs, _MASK), (cre, torch.float64),
+                  (cim, torch.float64))
+    lib = _load()
+    out = torch.empty_like(psi)
+    partials = torch.empty(2 * lib.qsfh_f64_blocks(n), dtype=torch.float64, device=psi.device)
+    stats = torch.empty(4, dtype=torch.float64, device=psi.device)
+    rc = lib.qsfh_happly64(psi.data_ptr(), out.data_ptr(), n, T, *(a.data_ptr() for a in args),
+                           float(scale), partials.data_ptr(), stats.data_ptr(), _stream())
+    _check(lib, rc, name)
+    happly64.launches += 1
+    return out, stats
+
+
+def happly64_plain(psi, xs, zs, cre, cim, scale: float = 1.0):
+    """Plain version of :func:`happly64` (any device)."""
+    h = pauli_apply_plain(psi, xs.to(torch.int64), zs.to(torch.int64), cre, cim)
+    zero = torch.zeros((), dtype=torch.float64, device=psi.device)
+    stats = torch.stack([torch.vdot(psi, h).real, zero, torch.vdot(psi, psi).real, zero])
+    return scale * h, stats
+
+
+@_counted
+def adjoint64_groups(psi, lam, groups: Groups64, theta_ext):
+    """The reverse sweep of :func:`rot64_groups`, in place on psi (the
+    program's output) and lam (the cotangent): per group, last first,
+    contrib_g = Im <lam| M_g |psi>, then psi and lam inverse-rotated.
+    Returns the gradient (n_params,) float64: per parameter the sum of its
+    groups' contributions, in ascending group order (two calls give the
+    same bits).  One launch per group (and a fold pass, not counted)."""
+    if psi.device.type == "cpu" and lam.device.type == "cpu":
+        return adjoint64_groups_plain(psi, lam, groups, theta_ext)
+    name = "adjoint64_groups"
+    n = _n_qubits(psi, name, torch.complex128)
+    if _n_qubits(lam, name, torch.complex128) != n:
+        raise ValueError(f"{name}: states of different sizes")
+    groups.check(psi, theta_ext, name)
+    g = groups
+    lib = _load()
+    partials = torch.empty(g.n_groups * lib.qsfh_rot64_blocks(n), dtype=torch.float64,
+                           device=psi.device)
+    grad = torch.empty(g.n_params, dtype=torch.float64, device=psi.device)
+    rc = lib.qsfh_adjoint64_groups(psi.data_ptr(), lam.data_ptr(), n, g.n_groups,
+                                   g.gx.data_ptr(), g.goff.data_ptr(), g.gflip.data_ptr(),
+                                   g.gpidx.data_ptr(), g.zsub.data_ptr(), g.wsub.data_ptr(),
+                                   theta_ext.data_ptr(), g.n_params, g.param_off.data_ptr(),
+                                   g.param_groups.data_ptr(), partials.data_ptr(),
+                                   grad.data_ptr(), _stream())
+    _check(lib, rc, name)
+    adjoint64_groups.launches += g.n_groups
+    return grad
+
+
+def adjoint64_groups_plain(psi, lam, groups: Groups64, theta_ext):
+    """Plain version of :func:`adjoint64_groups` (in place, any device; the
+    contributions are summed per parameter on the host, in group order)."""
+    n = psi.shape[0].bit_length() - 1
+    idx = index_bits(n, psi.device)
+    ang = theta_ext[groups.gpidx.to(torch.int64)]
+    goff, gx, gflip = (groups.goff.tolist(), groups.gx.tolist(), groups.gflip.tolist())
+    contrib = torch.zeros(len(gx), dtype=torch.float64, device=psi.device)
+    p, l = psi, lam
+    for g in reversed(range(len(gx))):
+        r = _group64_r(idx, groups, g, goff)
+        c, s = torch.cos(ang[g] * r), torch.sin(ang[g] * r)
+        if gx[g] == 0:  # M diagonal; psi *= exp(+i theta r)
+            contrib[g] = (r * (l.conj() * p).imag).sum()
+            rot = torch.complex(c, s)
+            p, l = rot * p, rot * l
+        else:  # unit 1: Im(conj(L) r psi[b ^ x]); unit i: r Re(conj(L) psi[b ^ x])
+            gather = idx ^ gx[g]
+            pp, lp = p[gather], l[gather]
+            v = l.conj() * pp
+            contrib[g] = (r * (v.real if gflip[g] else v.imag)).sum()
+            q = -s if gflip[g] else 1j * s
+            p, l = c * p + q * pp, c * l + q * lp
+    psi.copy_(p)
+    lam.copy_(l)
+    rows = groups.param_groups.to(torch.int64).cpu()
+    owner = torch.repeat_interleave(torch.arange(groups.n_params),
+                                    torch.diff(groups.param_off.to(torch.int64).cpu()))
+    grad = torch.zeros(groups.n_params, dtype=torch.float64)
+    grad.index_add_(0, owner, contrib.cpu()[rows])
+    return grad.to(psi.device)
+
+
 # -- dispatch -------------------------------------------------------------------------
 
 
@@ -1110,7 +1324,8 @@ class Impl:
     """The statevector primitives the engine calls: the per-term ones, the
     resident ones it takes up to the chain cap of ``streaming``, the
     tile-run ones past it, the tile ones of inner products and
-    applications, and the float64 Rayleigh readout."""
+    applications, the float64 Rayleigh readout, and the float64 group
+    engine of ``qsfh_torch.native.statevec``."""
 
     rotation: Callable
     apply: Callable
@@ -1124,22 +1339,28 @@ class Impl:
     expectation_grouped: Callable
     screen_grouped: Callable
     expectation_norm_f64: Callable
+    rot64_groups: Callable
+    happly64: Callable
+    adjoint64_groups: Callable
 
 
 # the wrappers: CUDA kernels for CUDA tensors, plain versions for CPU tensors
 KERNELS = Impl(pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
                rotation_tile_runs, adjoint_tile_runs, rotation_resident, adjoint_resident,
-               pauli_apply_grouped, expectation_grouped, screen_grouped, expectation_norm_f64)
+               pauli_apply_grouped, expectation_grouped, screen_grouped, expectation_norm_f64,
+               rot64_groups, happly64, adjoint64_groups)
 # the plain versions on any device (a reference path on the card)
 PLAIN = Impl(pauli_rotation_plain, pauli_apply_plain, pauli_inner_plain, adjoint_rotation_plain,
              rotation_tile_runs_plain, adjoint_tile_runs_plain, rotation_resident_plain,
              adjoint_resident_plain, pauli_apply_grouped_plain, expectation_grouped_plain,
-             screen_grouped_plain, expectation_norm_f64_plain)
+             screen_grouped_plain, expectation_norm_f64_plain, rot64_groups_plain, happly64_plain,
+             adjoint64_groups_plain)
 
 WRAPPERS = (pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
             rotation_tile_runs, adjoint_tile_runs, pauli_inner_grouped, xor_gather,
             rotation_resident, adjoint_resident, pauli_apply_grouped, expectation_grouped,
-            screen_grouped, pauli_rotation_out, expectation_norm_f64)
+            screen_grouped, pauli_rotation_out, expectation_norm_f64, rot64_groups, happly64,
+            adjoint64_groups)
 
 
 def launch_counts() -> dict:

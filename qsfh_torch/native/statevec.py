@@ -1,0 +1,198 @@
+"""Float64 rot programs on the card: the flagship's polish engine.
+
+Counterpart of ``qsfh_tpu/native/statevec.py``, which binds the host C++
+engine ``statevec64.cpp`` for the float64 endgame of the 3x3 ADAPT ansatz
+(``benchmarks/demo_3x3/polish_fast.py``: scipy L-BFGS-B on
+``value_and_grad``, then Newton-CG on central-difference Hessian-vector
+products).  The semantics are the same: a rot segment's consecutive terms
+grouped by (flip mask, parameter, parity of x & z), each group one closed
+form exp(-i theta M), H psi from the observable's scan terms, and the fused
+adjoint sweep.  Here the group arrays and the state live on the card, in
+complex128, and every pass is a CUDA kernel (``engine.kernels``:
+``rot64_groups``, ``happly64``, ``adjoint64_groups``); with
+``device="cpu"`` the wrappers take their plain versions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..engine.compiled import CompiledCircuit, givens_network_static_ops
+from ..engine.kernels import KERNELS, Groups64
+from ..engine.state import resolve_device
+
+
+def _group_terms(xb, zb, scale, pidx, phre, phim, cap=8):
+    """Group consecutive rot terms by (x, pidx, parity(x&z)), cap subterms.
+
+    The closed form is exact because same-x equal-parity strings mutually
+    commute; exact per-group lengths, no padding, and the per-term phase is
+    folded into a REAL weight w_k = scale_k * (ph_k / unit) with unit = 1
+    (parity even, ph in {+-1}) or i (parity odd, ph in {+-i}).  Returns
+    (gx uint32, gpidx int32, gflip uint8, goff int64, zsub uint32, wsub
+    float64), the JAX package's arrays.
+    """
+    gx, gpidx, gflip, goff, zflat, wflat = [], [], [], [0], [], []
+    key = None
+    count = 0
+    for t in range(len(xb)):
+        x, z = int(xb[t]), int(zb[t])
+        par = (x & z).bit_count() & 1
+        kt = (x, int(pidx[t]), par)
+        if kt != key or count >= cap:
+            gx.append(x)
+            gpidx.append(int(pidx[t]))
+            gflip.append(par)
+            goff.append(goff[-1])
+            key = kt
+            count = 0
+        if par == 0:
+            if abs(phim[t]) >= 1e-12:
+                raise ValueError(f"term {t}: even parity with an imaginary phase")
+            w = float(scale[t]) * float(phre[t])
+        else:
+            if abs(phre[t]) >= 1e-12:
+                raise ValueError(f"term {t}: odd parity with a real phase")
+            w = float(scale[t]) * float(phim[t])
+        zflat.append(z)
+        wflat.append(w)
+        goff[-1] += 1
+        count += 1
+    return (
+        np.asarray(gx, np.uint32),
+        np.asarray(gpidx, np.int32),
+        np.asarray(gflip, np.uint8),
+        np.asarray(goff, np.int64),
+        np.asarray(zflat, np.uint32),
+        np.asarray(wflat, np.float64),
+    )
+
+
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+    return np.asarray(a, np.float64)
+
+
+class Rot64Program:
+    """A lowered rot segment and an observable, prepared for float64
+    evaluations on one device.
+
+    Build it from a rot segment's ``data`` (``engine.compiled.Segment``; numpy
+    or torch arrays) and an observable's scan terms
+    (``Observable._scan_terms()``), or from an ADAPT driver with
+    :meth:`from_adapt`.  ``device``: the card by default (raising where
+    there is none); ``"cpu"`` runs the plain versions.  ``impl``: the
+    wrappers (``engine.kernels.KERNELS``, the default) or ``PLAIN`` (the
+    plain versions on any device, a reference on the card).  ``theta`` and
+    ``psi0`` may be numpy arrays or tensors; states come back as complex128
+    tensors on the program's device.
+    """
+
+    def __init__(self, n, seg_data, h_terms, n_params, device=None, impl=None):
+        self.device = resolve_device(device)
+        self.impl = impl or KERNELS
+        self.n = int(n)
+        self.n_params = int(n_params)
+        (self.gx, self.gpidx, self.gflip, self.goff, self.zsub,
+         self.wsub) = _group_terms(*(np.asarray(seg_data[k]) for k in
+                                     ("xb", "zb", "scale", "pidx", "phre", "phim")))
+        self.G = len(self.gx)
+        xs, zs, cre, cim = (np.asarray(a) for a in h_terms)
+        self.hx = np.ascontiguousarray(xs, np.uint32)
+        self.hz = np.ascontiguousarray(zs, np.uint32)
+        self.hcre = np.ascontiguousarray(cre, np.float64)
+        self.hcim = np.ascontiguousarray(cim, np.float64)
+
+        dev = self.device
+        rows = np.flatnonzero(self.gpidx >= 0)
+        by_param = rows[np.argsort(self.gpidx[rows], kind="stable")]
+        counts = np.bincount(self.gpidx[rows], minlength=self.n_params)
+        if counts.shape[0] != self.n_params:
+            raise ValueError(f"a group's parameter index exceeds n_params = {self.n_params}")
+
+        def i32(a):
+            return torch.as_tensor(np.asarray(a, np.int64).astype(np.int32), device=dev)
+
+        self.groups = Groups64(
+            gx=i32(self.gx), goff=i32(self.goff), gflip=i32(self.gflip),
+            gpidx=i32(np.where(self.gpidx < 0, self.n_params, self.gpidx)),
+            zsub=i32(self.zsub), wsub=torch.as_tensor(self.wsub, device=dev),
+            param_off=i32(np.concatenate([[0], np.cumsum(counts)])), param_groups=i32(by_param),
+        )
+        # H's terms on the device, sorted by flip mask (stable): the kernel
+        # shares one gather along a run of equal masks
+        order = np.argsort(self.hx, kind="stable")
+        self.h_device = (i32(self.hx[order]), i32(self.hz[order]),
+                         torch.as_tensor(self.hcre[order], device=dev),
+                         torch.as_tensor(self.hcim[order], device=dev))
+        # the angles the kernels read, [theta | 1.0]: the static groups
+        # (parameter index -1) take the last entry
+        self.theta_ext = torch.ones(self.n_params + 1, dtype=torch.float64, device=dev)
+
+    @classmethod
+    def from_adapt(cls, vqe, indices=None, impl=None):
+        """Build from an ADAPT driver on its device: the selected pool
+        rotations and the Givens network as one rot segment, and H."""
+        if indices is None:
+            indices = tuple(vqe.selected_indices)
+        p = vqe.problem
+        ops = [("rot", tuple(vqe.pool_rot[i]), slot) for slot, i in enumerate(indices)]
+        net_ops, _ = givens_network_static_ops(vqe.n_qubits, p.diagonal, p.decomposition)
+        cc = CompiledCircuit(ops + net_ops, vqe.n_qubits)
+        if len(cc.segments) != 1 or cc.segments[0].kind != "rot":
+            raise ValueError("the ansatz did not lower to one rot segment")
+        return cls(vqe.n_qubits, cc.segments[0].data, p.observables["H"]._scan_terms(),
+                   len(indices), device=vqe.device, impl=impl)
+
+    def _angles(self, theta) -> torch.Tensor:
+        """theta into ``theta_ext`` (on the device); returns it."""
+        if not isinstance(theta, torch.Tensor):
+            theta = torch.from_numpy(_host(theta))
+        if theta.shape != (self.n_params,):
+            raise ValueError(f"expected ({self.n_params},) angles, got {tuple(theta.shape)}")
+        self.theta_ext[:-1].copy_(theta)
+        return self.theta_ext
+
+    def _state(self, psi) -> torch.Tensor:
+        """A complex128 copy of psi on the device."""
+        psi = torch.as_tensor(psi)
+        if psi.shape != (1 << self.n,):
+            raise ValueError(f"expected a ({1 << self.n},) state, got {tuple(psi.shape)}")
+        out = torch.empty(1 << self.n, dtype=torch.complex128, device=self.device)
+        return out.copy_(psi)
+
+    def apply(self, theta, psi0) -> torch.Tensor:
+        """The full program on psi0 (complex128)."""
+        return self.impl.rot64_groups(self._state(psi0), self.groups, self._angles(theta))
+
+    def h_apply(self, psi) -> torch.Tensor:
+        """H |psi> (complex128)."""
+        return self.impl.happly64(self._state(psi), *self.h_device)[0]
+
+    def energy(self, theta, psi0) -> float:
+        psi = self.apply(theta, psi0)
+        return float(self.impl.happly64(psi, *self.h_device)[1][0])
+
+    def value_and_grad(self, theta, psi0):
+        """(E, dE/dtheta) as (float, float64 numpy array), through the fused
+        adjoint sweep: lambda = 2 H psi, E = Re <psi|H psi> read before the
+        doubling.  One host read."""
+        psi = self.apply(theta, psi0)
+        lam, stats = self.impl.happly64(psi, *self.h_device, 2.0)
+        grad = self.impl.adjoint64_groups(psi, lam, self.groups, self.theta_ext)
+        out = torch.cat([stats[:1], grad]).cpu().numpy()
+        return float(out[0]), out[1:]
+
+    def hvp(self, theta, psi0, v, eps=1e-6) -> np.ndarray:
+        """Central-difference Hessian-vector product from two adjoint evals."""
+        v = _host(v)
+        vn = float(np.linalg.norm(v))
+        if vn == 0.0:
+            return np.zeros_like(v)
+        h = eps / vn
+        theta = _host(theta)
+        _, gp = self.value_and_grad(theta + h * v, psi0)
+        _, gm = self.value_and_grad(theta - h * v, psi0)
+        return (gp - gm) / (2.0 * h)

@@ -70,7 +70,7 @@ def test_port_imports_with_jax_blocked():
         "import qsfh_torch.ops.correlations, qsfh_torch.ops.entanglement, qsfh_torch.ops.export\n"
         "import qsfh_torch.linalg.spectral, qsfh_torch.linalg.symmetry\n"
         "import qsfh_torch.algos.multistart, qsfh_torch.engine.sampling\n"
-        "import qsfh_torch.cli, qsfh_torch.config\n"
+        "import qsfh_torch.cli, qsfh_torch.config, qsfh_torch.native.statevec\n"
         "assert qsfh_torch.molecules.H2(0.74).fci_energy < -1.13\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'qsfh_tpu')\n"
         "assert not bad, bad\n"
