@@ -235,8 +235,10 @@ Phases (any failed check raises and the script exits nonzero):
    the same call through the Python API, and ``python -m qsfh_torch.cli
    ed`` (2x2) in a process of its own.
 22. The float64 polish engine (``qsfh_torch.native.statevec.Rot64Program``;
-   the kernels ``rot64_groups``, ``happly64``, ``adjoint64_groups``, one
-   launch per group) on the committed 3x3 ADAPT checkpoint (1719 operators
+   on its resident route ``rot64_resident`` and ``adjoint64_resident``, one
+   cooperative launch a pass over 521 tile runs, and ``happly64``; the
+   per-group route ``rot64_groups`` / ``adjoint64_groups``, one launch per
+   group, beside it as the yardstick) on the committed 3x3 ADAPT checkpoint (1719 operators
    of the extended pool, loaded with ``load_model`` in complex128), the path
    of ``benchmarks/demo_3x3/polish_fast.py``: (a) the grouped program is
    the JAX package's (18 qubits, 1931 groups of 14123 terms: 1721 of 8, 145
@@ -246,25 +248,37 @@ Phases (any failed check raises and the script exits nonzero):
    at a default_rng(5) step of 0.01 from it, the kernels against the plain
    complex128 versions (state 1e-11, H psi 1e-11 relative, E 1e-11,
    gradient 1e-10), two calls the same bits, central differences (1e-7),
-   a symmetric HVP (1e-6); (d) a planted fault, the static groups' angle
-   0, that (b) must fail; (e) L-BFGS-B as the script runs it, cut at 674
+   a symmetric HVP (1e-6); the resident route against the per-group route
+   in the same call (state 1e-15 relative, its bits compared; gradient
+   1e-13 of max |g|), both resident kernels on a grid of 37 blocks the
+   same bits; (d) two planted faults: the static groups' angle 0, that (b)
+   must fail, and a layout whose run misses a flip bit of one of its
+   groups (built past the constructor's check), that (c) must fail; (e)
+   L-BFGS-B as the script runs it, cut at 674
    evaluations: evaluations 1-10 within 1e-9 of ``polish_fast.jsonl``, the
    first parting printed, the best E below -5.562290; (f) Newton-CG on
    central-difference HVPs, time-boxed to 20 s, never above its start, its
-   gap to ED in uHa; (g) ms per apply, h_apply, value_and_grad and hvp and
-   per wrapper call against the plain versions and the bounds (bytes at
-   3.35 TB/s, float64 at 34 TFLOP/s), launches per call, the idle share of
-   3 evaluations (``torch.profiler``), a complex128 CSR ``torch.mv`` as
-   ``happly64``'s library yardstick.  The launch counters are set to 0
-   just before the polish run and read just after.  The best point goes to
-   the run's temporary directory.
+   gap to ED in uHa; then the same L-BFGS-B on the per-group route (its
+   seconds beside the resident route's); (g) ms per apply, h_apply,
+   value_and_grad and hvp on both routes in turns and per wrapper call
+   against the plain versions and the bounds (bytes at 3.35 TB/s, float64
+   at 34 TFLOP/s), launches per call, the idle share of 3 evaluations on
+   each route (``torch.profiler``), a complex128 CSR ``torch.mv`` as
+   ``happly64``'s library yardstick, the resident route's ms at other
+   tile shapes (``POLISH_TILE_SHAPES``), and the cost of a run (each
+   resident kernel on layouts of 1, 2, 4 groups a run at most and the
+   shipped cap: a line through (runs, ms)).  The launch counters are set to 0
+   just before the polish run and read just after: one resident launch
+   each way and one ``happly64`` an evaluation (the tables and the fold
+   inside the launches), no per-group launch.  The best point goes to the
+   run's temporary directory.
 23. A ``kernels`` JSON line (``expectation_norm_f64``'s launches counted
    per capture, its replays beside them; every kernel's graph nodes per
    fused step; its launches on the HVA, iQCC, product-state, HEA, VQD,
    Trotter, ITE, analysis, Lanczos, multistart and sampling paths; ms and
    bound at 26-30 qubits and per correlation matrix; the launches of the
    CLI's 3x3 adapt run and of the 2x6 ED's checks, and of the float64
-   polish run, where the three float64 group kernels report theirs), then
+   polish run, where the five float64 kernels report theirs), then
    the device JSON line, last.
 
 ``--compare PARENT`` runs both main paths (3x3 and 2x6 selection and
@@ -356,6 +370,10 @@ REPLACES = {
                 "no TPU Pallas counterpart)",
     "adjoint64_groups": "qsfh_tpu/native/statevec64.cpp:203 (qsfh_sv64_adjoint, host C++; "
                         "no TPU Pallas counterpart)",
+    "rot64_resident": "qsfh_tpu/native/statevec64.cpp:153 (qsfh_sv64_apply, host C++; "
+                      "no TPU Pallas counterpart)",
+    "adjoint64_resident": "qsfh_tpu/native/statevec64.cpp:203 (qsfh_sv64_adjoint, host C++; "
+                          "no TPU Pallas counterpart)",
 }
 # the kernels timed at 24 qubits only: the tile runs (past the chain cap)
 # and the inner-product tiles returning v_t (the folded wrappers' kernel)
@@ -5128,6 +5146,12 @@ def cli_small(dev, tmp):
     ms = MultistartHVA(n_starts=4, n_epoch=20, reps=2, lr=3e-2, init_scale=0.1, seed=0,
                        results_root=api_root("multistart"), dtype=c64, device=dev, **lat)
     res = ms.run()
+    # Adam divides by |g|, so a gradient whose last bits vary (an atomic
+    # fold) parts the trajectories: a second run must give the same bits
+    again = ms.run()
+    if not (np.array_equal(res["energies"], again["energies"])
+            and np.array_equal(res["final_energies"], again["final_energies"])):
+        raise AssertionError("multistart: two API runs on the same seed gave different energies")
     line = stdout.splitlines()[0]
     if f"best start {res['best_index']} energy {res['best_energy']:.8f}" not in line:
         raise AssertionError(f"multistart: {line!r} against the API's best start "
@@ -5191,6 +5215,17 @@ POLISH_HVP_EPS = 1e-6
 POLISH_STRUCTURE = dict(n=18, n_params=1719, groups=1931, subterms=14123,
                         lengths={1: 65, 2: 145, 8: 1721}, diagonal=68, static=212, h_terms=100)
 F64_GROUP_KERNELS = ("rot64_groups", "happly64", "adjoint64_groups")
+F64_RESIDENT_KERNELS = ("rot64_resident", "adjoint64_resident")
+# the resident route against the plain versions (of max |g|, beside the absolute
+# POLISH_G_ATOL) and against the per-group route in the same call: the pair
+# arithmetic is the same, so equal state bits are expected; the gradient's sums
+# run in another order
+POLISH_G_RTOL = 1e-10
+POLISH_ROUTE_STATE_RTOL = 1e-15
+POLISH_ROUTE_G_RTOL = 1e-13
+POLISH_FEW_BLOCKS = 37  # fewer blocks than the 128 tiles of a run: the same bits
+# the resident route's other tile shapes (k, c), timed beside the shipped one
+POLISH_TILE_SHAPES = ((11, 1), (11, 0), (11, 2), (11, 3), (12, 1), (10, 1))
 
 
 def polish_structure(prog):
@@ -5252,7 +5287,8 @@ def polish_kernel_checks(prog, plain, th, psi0, label):
     res = dict(state_err=state_err, state_max_abs=max_abs(psi, psi_p), hpsi_rel=h_err,
                hpsi_max_abs=max_abs(h, h_p), e_err=abs(e - e_p),
                g_err=float(np.abs(g - g_p).max()), same_bits=e2 == e and np.array_equal(g2, g),
-               energy=e, gnorm=float(np.linalg.norm(g)))
+               energy=e, gnorm=float(np.linalg.norm(g)), route=prog.route)
+    res["g_rel"] = res["g_err"] / float(np.abs(g_p).max())
     eps, fd = 1e-6, {}
     for k in (0, prog.n_params // 2, prog.n_params - 1):
         tp, tm = th.copy(), th.copy()
@@ -5269,15 +5305,78 @@ def polish_kernel_checks(prog, plain, th, psi0, label):
     log(f"  {label}: E {e:+.15f}, ||g|| {res['gnorm']:.10e}; kernels against plain: state "
         f"{state_err:.2e} (tol {POLISH_STATE_ATOL:g}), H psi {h_err:.2e} relative (tol "
         f"{POLISH_HPSI_RTOL:g}), E {res['e_err']:.2e} (tol {POLISH_E_ATOL:g}), max |dg| "
-        f"{res['g_err']:.2e} (tol {POLISH_G_ATOL:g}), same bits on two calls {res['same_bits']}; "
+        f"{res['g_err']:.2e} (tol {POLISH_G_ATOL:g}), {res['g_rel']:.2e} of max |g| (tol "
+        f"{POLISH_G_RTOL:g}), same bits on two calls {res['same_bits']}; "
         f"central differences {res['fd_err']:.2e} (tol {POLISH_FD_ATOL:g}); <u,Hv> {uhv:.10e} "
         f"<v,Hu> {vhu:.10e}, {res['hvp_rel']:.2e} relative (tol {POLISH_HVP_RTOL:g})")
     if not (state_err <= POLISH_STATE_ATOL and h_err <= POLISH_HPSI_RTOL
             and res["e_err"] <= POLISH_E_ATOL and res["g_err"] <= POLISH_G_ATOL
+            and res["g_rel"] <= POLISH_G_RTOL
             and res["same_bits"] and res["fd_err"] <= POLISH_FD_ATOL
             and res["hvp_rel"] <= POLISH_HVP_RTOL):
         raise AssertionError(f"f64 polish, {label}: a kernel gate failed: {res}")
-    return res, psi, h
+    return res, psi, h, psi_p, g_p
+
+
+def polish_route_checks(prog, groups, th, psi0, psi_p, g_p, label):
+    """Gate (c), the routes: the resident kernels against the per-group
+    kernels in the same call (state and gradient), the per-group kernels
+    against the plain results ``psi_p`` / ``g_p`` (gate (c)'s tolerances),
+    and both resident kernels on a grid of POLISH_FEW_BLOCKS blocks
+    against the full grid, bit for bit."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    psi, psi_g = prog.apply(th, psi0), groups.apply(th, psi0)
+    e, g = prog.value_and_grad(th, psi0)
+    e_g, g_g = groups.value_and_grad(th, psi0)
+    th_ext = prog._angles(th).clone()
+    few = K.rot64_resident(prog._state(psi0), prog.groups, th_ext, prog.runs,
+                           blocks=POLISH_FEW_BLOCKS)
+    lam = 2.0 * prog.h_apply(psi)
+    g_full = K.adjoint64_resident(psi.clone(), lam.clone(), prog.groups, th_ext, prog.runs)
+    g_few = K.adjoint64_resident(psi.clone(), lam.clone(), prog.groups, th_ext, prog.runs,
+                                 blocks=POLISH_FEW_BLOCKS)
+    res = dict(state_rel=rel_err(psi, psi_g), state_equal_bits=bool(torch.equal(psi, psi_g)),
+               e_diff=abs(e - e_g), g_rel=float(np.abs(g - g_g).max() / np.abs(g_g).max()),
+               few_blocks_same_bits=bool(torch.equal(few, psi) and torch.equal(g_full, g_few)),
+               grid=K.resident64_grid(psi, prog.runs, False), runs=len(prog.runs),
+               groups_state_err=float(torch.linalg.vector_norm(psi_g - psi_p)),
+               groups_state_max_abs=max_abs(psi_g, psi_p),
+               groups_g_err=float(np.abs(g_g - g_p).max()))
+    log(f"  {label}: resident ({res['runs']} runs, {res['grid']} blocks) against per-group: "
+        f"state {res['state_rel']:.2e} relative (tol {POLISH_ROUTE_STATE_RTOL:g}; equal bits "
+        f"{res['state_equal_bits']}), E {res['e_diff']:.2e}, g {res['g_rel']:.2e} of max |g| "
+        f"(tol {POLISH_ROUTE_G_RTOL:g}); {POLISH_FEW_BLOCKS} blocks the same bits "
+        f"{res['few_blocks_same_bits']}; per-group against plain: state "
+        f"{res['groups_state_err']:.2e}, max |dg| {res['groups_g_err']:.2e}")
+    if not (res["state_rel"] <= POLISH_ROUTE_STATE_RTOL and res["g_rel"] <= POLISH_ROUTE_G_RTOL
+            and res["few_blocks_same_bits"] and res["groups_state_err"] <= POLISH_STATE_ATOL
+            and res["groups_g_err"] <= POLISH_G_ATOL):
+        raise AssertionError(f"f64 polish, {label}: the routes disagree: {res}")
+    return res
+
+
+def planted_layout_fault(prog):
+    """A copy of ``prog`` whose layout misses a flip bit of one group in
+    its middle run (the bit swapped for one outside the tile, so the tile
+    keeps k bits), built past the constructor's check."""
+    import numpy as np
+
+    runs = copy.copy(prog.runs)
+    r = len(runs) // 2
+    g = next(g for g in range(runs.run_start[r], runs.run_start[r + 1]) if prog.gx[g])
+    mask = int(runs.run_mask[r])
+    bit = 1 << (int(prog.gx[g]).bit_length() - 1)
+    spare = next(1 << b for b in range(prog.n) if not mask >> b & 1)
+    runs.run_mask = runs.run_mask.copy()
+    runs.run_mask[r] = np.int32(mask ^ bit ^ spare)
+    runs._place()
+    faulty = copy.copy(prog)
+    faulty.runs = runs
+    return faulty, dict(run=r, group=g, mask=mask, dropped_bit=bit, added_bit=spare)
 
 
 def polish_records_gate(prog, x0, best, psi0, label):
@@ -5301,12 +5400,12 @@ def polish_records_gate(prog, x0, best, psi0, label):
     return dict(errs, e0=e0, gnorm0=float(np.linalg.norm(g0)), e_best=e_best), passed
 
 
-def polish_run(prog, x0, psi0, ed, tmp):
+def polish_run(prog, x0, psi0, ed, tmp, newton=True):
     """Gates (e) and (f): polish_fast.py's path on the card from the
-    checkpoint, L-BFGS-B cut at 674 evaluations, then Newton-CG on
-    central-difference HVPs time-boxed by the script's Deadline (checked in
-    the HVPs too, so one CG solve cannot outrun it).  The best point goes
-    to ``tmp``."""
+    checkpoint, L-BFGS-B cut at 674 evaluations, then (``newton``)
+    Newton-CG on central-difference HVPs time-boxed by the script's
+    Deadline (checked in the HVPs too, so one CG solve cannot outrun it).
+    The best point goes to ``tmp``."""
     import numpy as np
     from scipy.optimize import minimize
 
@@ -5346,6 +5445,10 @@ def polish_run(prog, x0, psi0, ed, tmp):
         lbfgs_msg = f"cut at {POLISH_LBFGS_EVALS} evaluations"
     lbfgs_s = time.perf_counter() - t0
     lbfgs_evals, lbfgs_best = st["n"], st["best_e"]
+    if not newton:
+        return dict(lbfgs_msg=lbfgs_msg, lbfgs_s=lbfgs_s, lbfgs_evals=lbfgs_evals,
+                    lbfgs_best=lbfgs_best, lbfgs_gap_uHa=1e6 * (lbfgs_best - ed),
+                    trace=st["trace"])
     x = st["best_x"]
     st.update(phase="newton", t0=time.perf_counter(), hvps=0)
     accepted = []
@@ -5369,10 +5472,11 @@ def polish_run(prog, x0, psi0, ed, tmp):
                 trace=st["trace"])
 
 
-def polish_times(prog, plain, th, psi0, psi, h, bounds):
+def polish_times(prog, groups, plain, th, psi0, psi, h, bounds):
     """Gate (g): ms per apply, h_apply, value_and_grad and hvp (CUDA events
-    and host clock) for the kernels and the plain versions, each wrapper's
-    own ms per call, launches per call, beside the bounds."""
+    and host clock) on the resident route and the per-group route in turns
+    (resident, groups, groups, resident) and on the plain versions, each
+    wrapper's own ms per call, launches per call, beside the bounds."""
     import numpy as np
     import torch
 
@@ -5387,25 +5491,44 @@ def polish_times(prog, plain, th, psi0, psi, h, bounds):
         "value_and_grad": (lambda p: p.value_and_grad(th, psi0), 20),
         "hvp": (lambda p: p.hvp(th, psi0, u, eps=POLISH_HVP_EPS), 5),
     }
-    out = {}
-    for what, (fn, reps) in calls.items():
+
+    def launches_of(fn):
         K.reset_launch_counts()
-        fn(prog)
+        fn()
         torch.cuda.synchronize()
-        launches = {k: v for k, v in K.launch_counts().items() if v}
-        ms = time_cuda(lambda: fn(prog), reps)
+        return {k: v for k, v in K.launch_counts().items() if v}
+
+    def host_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
-            fn(prog)
+            fn()
         torch.cuda.synchronize()
-        host_ms = 1e3 * (time.perf_counter() - t0) / reps
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    out = {}
+    for what, (fn, reps) in calls.items():
+        launches = launches_of(lambda: fn(prog))
+        groups_launches = launches_of(lambda: fn(groups))
+        ms, g_ms, host, g_host = [], [], [], []
+        for route in ("resident", "groups", "groups", "resident"):
+            p = prog if route == "resident" else groups
+            (ms if route == "resident" else g_ms).append(time_cuda(lambda: fn(p), reps))
+            (host if route == "resident" else g_host).append(host_ms(lambda: fn(p), reps))
         plain_ms = time_cuda(lambda: fn(plain), 1, warmup=0)
         b_ms, b_by = bounds[what]
-        out[what] = dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         launches=launches)
-        log(f"  {what}: {ms:.4f} ms (host clock {host_ms:.4f}), plain {plain_ms:.1f} ms, bound "
-            f"{b_ms:.5f} ms ({b_by}): {ms / b_ms:.1f}x; launches "
-            + ", ".join(f"{k} {v}" for k, v in launches.items()))
+        out[what] = dict(ms=sum(ms) / 2, host_ms=sum(host) / 2, groups_ms=sum(g_ms) / 2,
+                         groups_host_ms=sum(g_host) / 2, turns_ms=ms, groups_turns_ms=g_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, launches=launches,
+                         groups_launches=groups_launches)
+        r = out[what]
+        log(f"  {what}: resident {r['ms']:.4f} ms (host clock {r['host_ms']:.4f}), per-group "
+            f"{r['groups_ms']:.4f} ms (host {r['groups_host_ms']:.4f}), in turns; plain "
+            f"{plain_ms:.1f} ms, bound {b_ms:.5f} ms ({b_by}): {r['ms'] / b_ms:.1f}x / "
+            f"{r['groups_ms'] / b_ms:.1f}x; launches "
+            + ", ".join(f"{k} {v}" for k, v in launches.items()) + " / "
+            + ", ".join(f"{k} {v}" for k, v in groups_launches.items()))
     # each wrapper's own call, on fresh copies of its inputs
     g = prog.groups
     kern = {
@@ -5413,6 +5536,10 @@ def polish_times(prog, plain, th, psi0, psi, h, bounds):
         "happly64": (lambda impl: impl.happly64(psi, *prog.h_device, 2.0), "h_apply"),
         "adjoint64_groups": (lambda impl: impl.adjoint64_groups(psi.clone(), lam.clone(), g,
                                                                 th_ext), "adjoint"),
+        "rot64_resident": (lambda impl: impl.rot64_resident(psi0.clone(), g, th_ext, prog.runs),
+                           "apply"),
+        "adjoint64_resident": (lambda impl: impl.adjoint64_resident(
+            psi.clone(), lam.clone(), g, th_ext, prog.runs), "adjoint"),
     }
     for name, (fn, what) in kern.items():
         ms = time_cuda(lambda: fn(K.KERNELS), 10)
@@ -5424,13 +5551,78 @@ def polish_times(prog, plain, th, psi0, psi, h, bounds):
     return out
 
 
+def polish_run_cost(prog, th, psi0):
+    """The resident kernels' cost of a run: each kernel alone on layouts of
+    the shipped tile shape whose runs hold at most 1, 2, 4 groups and the
+    shipped cap (the same groups, more runs), and a least-squares line
+    through (runs, ms): its slope the cost of a run (barrier, tile copies,
+    staging), its intercept the groups' own work."""
+    import numpy as np
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import streaming
+
+    th_ext = prog._angles(th).clone()
+    psi = prog.apply(th, psi0)
+    lam = 2.0 * prog.h_apply(psi)
+    rows = []
+    for cap in (1, 2, 4, streaming.RESIDENT64_RUN_GROUPS):
+        runs = streaming.Group64Runs(prog.gx, prog.goff, prog.zsub, prog.n, prog.runs.k,
+                                     prog.runs.c, max_groups=cap)
+        rows.append(dict(max_groups=cap, runs=len(runs), forward_ms=time_cuda(
+            lambda: K.rot64_resident(psi0.clone(), prog.groups, th_ext, runs), 10),
+            adjoint_ms=time_cuda(lambda: K.adjoint64_resident(
+                psi.clone(), lam.clone(), prog.groups, th_ext, runs), 10)))
+    x = np.array([r["runs"] for r in rows], np.float64)
+    out = dict(rows=rows)
+    for what in ("forward", "adjoint"):
+        slope, intercept = np.polyfit(x, [r[f"{what}_ms"] for r in rows], 1)
+        out[what] = dict(us_per_run=1e3 * float(slope), groups_ms=float(intercept))
+    log("  run cost: " + ", ".join(f"{r['runs']} runs {r['forward_ms']:.4f} / "
+                                   f"{r['adjoint_ms']:.4f} ms" for r in rows)
+        + f" (forward / adjoint); a run {out['forward']['us_per_run']:.2f} / "
+          f"{out['adjoint']['us_per_run']:.2f} us, the groups' own work "
+          f"{out['forward']['groups_ms']:.3f} / {out['adjoint']['groups_ms']:.3f} ms")
+    return out
+
+
+def polish_tile_shapes(vqe, groups, th, psi0):
+    """The resident route's ms per apply and value_and_grad at each of
+    POLISH_TILE_SHAPES, in turns with the shipped shape, each checked
+    against the per-group route's state bits and gradient."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.native.statevec import Rot64Program
+
+    psi_g = groups.apply(th, psi0)
+    _, g_g = groups.value_and_grad(th, psi0)
+    rows = []
+    for k, c in POLISH_TILE_SHAPES:
+        prog = Rot64Program.from_adapt(vqe, tile_bits=k, low_bits=c)
+        same = bool(torch.equal(prog.apply(th, psi0), psi_g))
+        g_rel = float(np.abs(prog.value_and_grad(th, psi0)[1] - g_g).max() / np.abs(g_g).max())
+        apply_ms = [time_cuda(lambda: prog.apply(th, psi0), 10) for _ in range(2)]
+        vg_ms = [time_cuda(lambda: prog.value_and_grad(th, psi0), 10) for _ in range(2)]
+        rows.append(dict(k=k, c=c, runs=len(prog.runs), most_entries=prog.runs.most_entries,
+                         apply_ms=min(apply_ms), value_and_grad_ms=min(vg_ms),
+                         state_equal_bits=same, g_rel=g_rel))
+        log(f"  tiles {k} / {c}: {len(prog.runs)} runs, apply {min(apply_ms):.4f} ms, "
+            f"value_and_grad {min(vg_ms):.4f} ms (least of 2 x 10); state bits equal to the "
+            f"per-group route {same}, g {g_rel:.2e} of max |g|")
+        if not same or g_rel > POLISH_ROUTE_G_RTOL:
+            raise AssertionError(f"f64 polish: tiles {k} / {c} disagree with the per-group route")
+    return rows
+
+
 def phase_polish(dev, tmp):
     """The flagship's float64 endgame on the card: the committed 3x3 ADAPT
     checkpoint (1719 operators of the extended pool) loaded with the port's
     ``load_model``, lowered to the grouped float64 program
-    (``qsfh_torch.native.statevec.Rot64Program``), and
-    ``benchmarks/demo_3x3/polish_fast.py``'s path run on it, in complex128,
-    gates (a)-(g) as the module docstring lists them."""
+    (``qsfh_torch.native.statevec.Rot64Program``, the resident route, the
+    per-group route beside it), and ``benchmarks/demo_3x3/polish_fast.py``'s
+    path run on it, in complex128, gates (a)-(g) as the module docstring
+    lists them."""
     import numpy as np
     import torch
 
@@ -5447,19 +5639,24 @@ def phase_polish(dev, tmp):
     ed = float(vqe.ground_state_energy)
     t0 = time.perf_counter()
     prog = Rot64Program.from_adapt(vqe)
-    plain = Rot64Program.from_adapt(vqe, impl=K.PLAIN)
-    res = dict(load_s=t0 - t_phase, lower_s=(time.perf_counter() - t0) / 2, ed=ed)
+    t1 = time.perf_counter()
+    groups = Rot64Program.from_adapt(vqe, route="groups")
+    plain = Rot64Program.from_adapt(vqe, impl=K.PLAIN, route="groups")
+    res = dict(load_s=t0 - t_phase, lower_s=t1 - t0, ed=ed, route=prog.route)
     psi0 = initial_state(vqe)
     x0 = vqe.params_t.cpu().numpy()
     if psi0.dtype != torch.complex128 or x0.dtype != np.float64:
         raise AssertionError("f64 polish: the checkpoint did not load in float64")
 
     res["structure"] = polish_structure(prog)  # (a)
-    log(f"  (a) {res['structure']} (load {res['load_s']:.1f} s, lowering "
-        f"{res['lower_s']:.2f} s)")
-    if res["structure"] != POLISH_STRUCTURE:
+    runs = prog.runs
+    res["layout"] = dict(k=runs.k, c=runs.c, runs=len(runs), most_groups=runs.most_groups,
+                         most_entries=runs.most_entries, entries=runs.n_entries)
+    log(f"  (a) {res['structure']} (load {res['load_s']:.1f} s, lowering and layout "
+        f"{res['lower_s']:.2f} s); route {prog.route}: {res['layout']}")
+    if res["structure"] != POLISH_STRUCTURE or prog.route != "resident":
         raise AssertionError(f"f64 polish: the grouped program is not the JAX package's: "
-                             f"{res['structure']} against {POLISH_STRUCTURE}")
+                             f"{res['structure']} against {POLISH_STRUCTURE}, route {prog.route}")
     best = np.load(os.path.join(DEMO_ADAPT, "polish_fast_best.npz"))
     res["records"], passed = polish_records_gate(prog, x0, best, psi0, "(b) records")
     if not passed:
@@ -5475,16 +5672,42 @@ def phase_polish(dev, tmp):
     points = {"checkpoint": x0,
               "checkpoint + 0.01 noise": x0 + 0.01 * np.random.default_rng(5).standard_normal(
                   len(x0))}
-    res["kernel_checks"] = {}
+    res["kernel_checks"], res["route_checks"] = {}, {}
     for label, th in points.items():  # (c)
-        res["kernel_checks"][label], psi, h = polish_kernel_checks(prog, plain, th, psi0,
-                                                                   f"(c) {label}")
+        res["kernel_checks"][label], psi, h, psi_p, g_p = polish_kernel_checks(
+            prog, plain, th, psi0, f"(c) {label}")
+        res["route_checks"][label] = polish_route_checks(prog, groups, th, psi0, psi_p, g_p,
+                                                         f"(c) routes, {label}")
+    faulty, where = planted_layout_fault(prog)  # (d) a run's tile misses a flip bit
+    try:
+        polish_kernel_checks(faulty, plain, x0, psi0, "(d) planted fault, layout")
+    except AssertionError as err:
+        res["planted_layout_fault"] = dict(where, failed=str(err)[:300])
+    else:
+        raise AssertionError("f64 polish: the planted layout fault passed the kernel gates")
+    log(f"  (d) planted layout fault {where}: the kernel gates failed, as planted")
 
     bounds = polish_bounds(prog)  # (g), before the run so its counts are the run's own
-    res["times"] = polish_times(prog, plain, x0, psi0, psi, h, bounds)
-    vg_host = res["times"]["value_and_grad"]["host_ms"]
-    profile_calls((("value_and_grad x 3", 3, lambda: prog.value_and_grad(x0, psi0),
-                    vg_host),), res, "f64 polish")
+    res["times"] = polish_times(prog, groups, plain, x0, psi0, psi, h, bounds)
+    res["tile_shapes"] = polish_tile_shapes(vqe, groups, x0, psi0)
+    res["run_cost"] = polish_run_cost(prog, x0, psi0)
+    profile_calls((
+        ("value_and_grad x 3", 3, lambda: prog.value_and_grad(x0, psi0),
+         res["times"]["value_and_grad"]["host_ms"]),
+        ("per-group value_and_grad x 3", 3, lambda: groups.value_and_grad(x0, psi0),
+         res["times"]["value_and_grad"]["groups_host_ms"])), res, "f64 polish")
+    # the resident evaluation's device time from CUDA events too: its three kernels
+    # alone (torch.profiler may miss a cooperative launch: its times are floors)
+    times = res["times"]
+    events_ms = sum(times[k]["ms"] for k in ("rot64_resident", "happly64",
+                                             "adjoint64_resident"))
+    host_ms = times["value_and_grad"]["host_ms"]
+    res["evaluation_split"] = dict(
+        events_kernel_ms=events_ms, host_ms=host_ms, idle_share_events=1 - events_ms / host_ms,
+        profiler_kernel_ms=res["profile"]["f64 polish value_and_grad x 3"]["kernel_ms"])
+    log(f"  a resident evaluation: its kernels {events_ms:.4f} ms alone (CUDA events) against "
+        f"{host_ms:.4f} ms on the host clock: idle share {1 - events_ms / host_ms:.3f}; the "
+        f"profiler saw {res['evaluation_split']['profiler_kernel_ms']:.3f} ms")
     ref = prog.h_apply(psi)
     hx, hz = (torch.as_tensor(a.astype(np.int64), device=dev) for a in (prog.hx, prog.hz))
     c = torch.as_tensor(prog.hcre + 1j * prog.hcim, device=dev)
@@ -5494,19 +5717,18 @@ def phase_polish(dev, tmp):
 
     records = [json.loads(line) for line in
                open(os.path.join(DEMO_ADAPT, "polish_fast.jsonl"))]
+    ref_e = [r["E"] for r in records if r["phase"] == "lbfgs"]
     K.reset_launch_counts()  # the main path of this slice: the polish
     run = polish_run(prog, x0, psi0, ed, tmp)
     torch.cuda.synchronize()
     counts = K.launch_counts()
     res["launches"] = counts
     evals = run["lbfgs_evals"] + run["newton_evals"] + 2 * run["newton_hvps"]
-    if (counts["rot64_groups"] != evals * prog.G or counts["adjoint64_groups"] != evals * prog.G
-            or counts["happly64"] != evals
-            or any(v for k, v in counts.items() if k not in F64_GROUP_KERNELS)):
-        raise AssertionError(f"f64 polish: launches {counts} for {evals} evaluations of "
-                             f"{prog.G} groups")
+    expected = dict(rot64_resident=evals, adjoint64_resident=evals, happly64=evals)
+    if any(v != expected.get(k, 0) for k, v in counts.items()):
+        raise AssertionError(f"f64 polish: launches {counts} for {evals} evaluations: expected "
+                             f"{expected} and no other")
     lbfgs = [e for phase, e, _ in run.pop("trace") if phase == "lbfgs"]
-    ref_e = [r["E"] for r in records if r["phase"] == "lbfgs"]
     diffs = [abs(a - b) for a, b in zip(lbfgs, ref_e)]
     part = next((i + 1 for i, d in enumerate(diffs) if d > POLISH_TRACE_ATOL), None)
     run.update(trace_err_1_10=max(diffs[:10]), first_parting_eval=part,
@@ -5530,6 +5752,28 @@ def phase_polish(dev, tmp):
     if any(e > run["newton_start"] for e in accepted) or run["best_e"] > run["newton_start"]:
         raise AssertionError("f64 polish: Newton-CG rose above its start")
     res["run"] = run
+
+    K.reset_launch_counts()  # the yardstick: the same L-BFGS-B on the per-group route
+    run_g = polish_run(groups, x0, psi0, ed, tmp, newton=False)
+    torch.cuda.synchronize()
+    counts_g = K.launch_counts()
+    lbfgs_g = [e for _, e, _ in run_g.pop("trace")]
+    run_g.update(launches=counts_g, trace_err_1_10=max(abs(a - b) for a, b in
+                                                        zip(lbfgs_g[:10], ref_e)),
+                 first_parting_from_resident=next(
+                     (i + 1 for i, (a, b) in enumerate(zip(lbfgs_g, lbfgs)) if a != b), None))
+    n_g = run_g["lbfgs_evals"]
+    log(f"  (e) per-group route, the same L-BFGS-B: {n_g} evaluations in {run_g['lbfgs_s']:.2f} "
+        f"s ({1e3 * run_g['lbfgs_s'] / n_g:.2f} ms each) against the resident route's "
+        f"{run['lbfgs_s']:.2f} s; best E {run_g['lbfgs_best']:+.15f}, gap "
+        f"{run_g['lbfgs_gap_uHa']:.4f} uHa; evaluations 1-10 within "
+        f"{run_g['trace_err_1_10']:.2e} of the record; first evaluation whose E differs from "
+        f"the resident run's in any bit: {run_g['first_parting_from_resident']}")
+    if (counts_g["rot64_groups"] != n_g * prog.G or counts_g["adjoint64_groups"] != n_g * prog.G
+            or counts_g["rot64_resident"] or counts_g["adjoint64_resident"]
+            or run_g["trace_err_1_10"] > POLISH_TRACE_ATOL):
+        raise AssertionError(f"f64 polish: the per-group run's launches {counts_g} or trace")
+    res["run_groups"] = run_g
     res["bounds"] = bounds
     res["seconds"] = time.perf_counter() - t_phase
     log(f"  f64 polish phase: {res['seconds']:.1f} s")
@@ -5843,26 +6087,41 @@ def main():
         entry["launches_cli_adapt"] = cli_res["adapt_3x3"]["launches"][entry["name"]]
         entry["launches_cli_ed_2x6_checks"] = cli_res["ed_2x6"]["launches"][entry["name"]]
         entry["launches_f64_polish"] = polish["launches"][entry["name"]]
-    # this slice: the float64 group engine, its launches those of the polish run
-    # (L-BFGS and Newton-CG), its ms per wrapper call beside the plain version's
-    checks = polish["kernel_checks"].values()
-    errs = {"rot64_groups": max(c["state_max_abs"] for c in checks),
+    # the float64 kernels: launches those of the polish run (L-BFGS and Newton-CG, the
+    # resident route), ms per wrapper call beside the plain version's
+    checks, routes = polish["kernel_checks"].values(), polish["route_checks"].values()
+    errs = {"rot64_resident": max(c["state_max_abs"] for c in checks),
             "happly64": max(c["hpsi_max_abs"] for c in checks),
-            "adjoint64_groups": max(c["g_err"] for c in checks)}
-    per_eval = {"rot64_groups": polish["structure"]["groups"], "happly64": 1,
-                "adjoint64_groups": polish["structure"]["groups"]}
-    for name in F64_GROUP_KERNELS:
+            "adjoint64_resident": max(c["g_err"] for c in checks),
+            "rot64_groups": max(r["groups_state_max_abs"] for r in routes),
+            "adjoint64_groups": max(r["groups_g_err"] for r in routes)}
+    structure, layout = polish["structure"], polish["layout"]
+    per_eval = {"rot64_groups": structure["groups"], "happly64": 1,
+                "adjoint64_groups": structure["groups"], "rot64_resident": 1,
+                "adjoint64_resident": 1}
+    call = (f"3x3 checkpoint, 18 qubits, {structure['groups']} groups / 100 H terms, "
+            f"complex128")
+    vg, hvp = polish["times"]["value_and_grad"], polish["times"]["hvp"]
+    for name in F64_GROUP_KERNELS + F64_RESIDENT_KERNELS:
         head = polish["times"][name]
-        line.append(dict(
+        entry = dict(
             name=name, route="cuda", source=source, replaces=REPLACES[name],
             launches=polish["launches"][name], max_abs_err=errs[name], ms=head["ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=head.get("library_ms"),
-            call="3x3 checkpoint, 18 qubits, 1931 groups / 100 H terms, complex128",
-            launches_per_evaluation=per_eval[name],
-            ms_per_evaluation=polish["times"]["value_and_grad"]["ms"],
-            ms_per_hvp=polish["times"]["hvp"]["ms"],
-        ))
+            library_ms=head.get("library_ms"), call=call,
+            launches_per_evaluation=per_eval[name], ms_per_evaluation=vg["ms"],
+            ms_per_hvp=hvp["ms"], launches_groups_route=polish["run_groups"]["launches"][name])
+        if name in ("rot64_groups", "adjoint64_groups"):
+            entry.update(call=call + " (the route of programs that fit no tile: 0 launches on "
+                                     "the polish run; its L-BFGS run beside it)",
+                         ms_per_evaluation=vg["groups_ms"], ms_per_hvp=hvp["groups_ms"])
+        if name in F64_RESIDENT_KERNELS:
+            entry.update(call=call + f", {layout['runs']} tile runs ({layout['k']} / "
+                                     f"{layout['c']}), one cooperative launch a pass",
+                         max_route_state_rel=max(r["state_rel"] for r in routes),
+                         max_route_g_rel=max(r["g_rel"] for r in routes),
+                         grid=max(r["grid"] for r in routes))
+        line.append(entry)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

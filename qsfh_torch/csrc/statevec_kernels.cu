@@ -2015,8 +2015,9 @@ inline int f64_blocks(int n) {
 // launch per group, the group loop in C.  Bound: at 18 qubits a group pass
 // is 4 MiB of L2-resident traffic against 6 float64 flops an amplitude
 // forward and 17 in the adjoint (1931 groups: ~0.09 and ~0.25 ms at 34
-// TFLOP/s), so the launch rate binds, not the arithmetic; chaining groups in
-// shared-memory tiles, as the resident kernels do, is the later design.  No
+// TFLOP/s), so the launch rate binds, not the arithmetic; rot64_resident /
+// adjoint64_resident (below) chain the groups in shared-memory tiles where
+// the layout allows, and these kernels serve the programs it does not.  No
 // atomics: the adjoint's contributions are block partials per group, summed
 // per parameter in a fixed order by one fold kernel, so two calls give the
 // same bits.
@@ -2063,6 +2064,19 @@ __device__ __forceinline__ uint32_t group64_pattern(uint32_t b, const uint32_t* 
   return pat;
 }
 
+// The pair updates of every float64 group kernel, with the rounding pinned
+// (an explicit fma over an explicit product, which the compiler does not
+// contract again), so that the per-group and resident kernels give the
+// same bits: (c v.x - s w.y, c v.y + s w.x) = c v + i s w, and (c v.x + s
+// w.x, c v.y + s w.y) = c v + s w.
+__device__ __forceinline__ double2 rot64_mix_unit1(double c, double s, double2 v, double2 w) {
+  return make_double2(__fma_rn(c, v.x, -__dmul_rn(s, w.y)), __fma_rn(c, v.y, __dmul_rn(s, w.x)));
+}
+
+__device__ __forceinline__ double2 rot64_mix_uniti(double c, double s, double2 v, double2 w) {
+  return make_double2(__fma_rn(c, v.x, __dmul_rn(s, w.x)), __fma_rn(c, v.y, __dmul_rn(s, w.y)));
+}
+
 // psi <- exp(-i theta_g M_g) psi for group g, in place (qsfh_sv64_apply's
 // rot_pass and diag_pass, dir = -1).
 __global__ void __launch_bounds__(kRot64Threads)
@@ -2078,9 +2092,8 @@ rot64_group_kernel(double2* __restrict__ psi, int n, int g, const int32_t* __res
   if (x == 0) {  // psi[b] *= exp(-i theta r(b))
     for (uint32_t b = first; b < (1u << n); b += stride) {
       const uint32_t pb = group64_pattern(b, t.z, S);
-      const double c = t.c[pb], s = -t.s[pb];
       const double2 a = psi[b];
-      psi[b] = make_double2(c * a.x - s * a.y, c * a.y + s * a.x);
+      psi[b] = rot64_mix_unit1(t.c[pb], -t.s[pb], a, a);
     }
     return;
   }
@@ -2094,13 +2107,11 @@ rot64_group_kernel(double2* __restrict__ psi, int n, int g, const int32_t* __res
     const double cb = t.c[pb], cp = t.c[pp];
     const double2 vb = psi[b], vp = psi[p];
     if (!unit_i) {  // psi'[a] = cos psi[a] - i sin psi[a ^ x]
-      const double sb = -t.s[pb], sp = -t.s[pp];
-      psi[b] = make_double2(cb * vb.x - sb * vp.y, cb * vb.y + sb * vp.x);
-      psi[p] = make_double2(cp * vp.x - sp * vb.y, cp * vp.y + sp * vb.x);
+      psi[b] = rot64_mix_unit1(cb, -t.s[pb], vb, vp);
+      psi[p] = rot64_mix_unit1(cp, -t.s[pp], vp, vb);
     } else {  // psi'[a] = cos psi[a] + sin psi[a ^ x]
-      const double sb = t.s[pb], sp = t.s[pp];
-      psi[b] = make_double2(cb * vb.x + sb * vp.x, cb * vb.y + sb * vp.y);
-      psi[p] = make_double2(cp * vp.x + sp * vb.x, cp * vp.y + sp * vb.y);
+      psi[b] = rot64_mix_uniti(cb, t.s[pb], vb, vp);
+      psi[p] = rot64_mix_uniti(cp, t.s[pp], vp, vb);
     }
   }
 }
@@ -2127,8 +2138,8 @@ adjoint64_group_kernel(double2* __restrict__ psi, double2* __restrict__ lam, int
       const double r = t.r[pb], c = t.c[pb], s = t.s[pb];
       const double2 a = psi[b], l = lam[b];
       acc += r * (l.x * a.y - l.y * a.x);
-      psi[b] = make_double2(c * a.x - s * a.y, c * a.y + s * a.x);
-      lam[b] = make_double2(c * l.x - s * l.y, c * l.y + s * l.x);
+      psi[b] = rot64_mix_unit1(c, s, a, a);
+      lam[b] = rot64_mix_unit1(c, s, l, l);
     }
   } else {
     const int hbit = 31 - __clz(x);
@@ -2145,19 +2156,19 @@ adjoint64_group_kernel(double2* __restrict__ psi, double2* __restrict__ lam, int
         // Im(conj(L) r psi[a ^ x]); inverse: psi'[a] = cos psi[a] + i sin psi[a ^ x]
         acc += rb * (lb.x * vp.y - lb.y * vp.x);
         acc += rp * (lp.x * vb.y - lp.y * vb.x);
-        psi[b] = make_double2(cb * vb.x - sb * vp.y, cb * vb.y + sb * vp.x);
-        psi[p] = make_double2(cp * vp.x - sp * vb.y, cp * vp.y + sp * vb.x);
-        lam[b] = make_double2(cb * lb.x - sb * lp.y, cb * lb.y + sb * lp.x);
-        lam[p] = make_double2(cp * lp.x - sp * lb.y, cp * lp.y + sp * lb.x);
+        psi[b] = rot64_mix_unit1(cb, sb, vb, vp);
+        psi[p] = rot64_mix_unit1(cp, sp, vp, vb);
+        lam[b] = rot64_mix_unit1(cb, sb, lb, lp);
+        lam[p] = rot64_mix_unit1(cp, sp, lp, lb);
       } else {
         // Im(conj(L) i r psi[a ^ x]) = r Re(conj(L) psi[a ^ x]); inverse:
         // psi'[a] = cos psi[a] - sin psi[a ^ x]
         acc += rb * (lb.x * vp.x + lb.y * vp.y);
         acc += rp * (lp.x * vb.x + lp.y * vb.y);
-        psi[b] = make_double2(cb * vb.x - sb * vp.x, cb * vb.y - sb * vp.y);
-        psi[p] = make_double2(cp * vp.x - sp * vb.x, cp * vp.y - sp * vb.y);
-        lam[b] = make_double2(cb * lb.x - sb * lp.x, cb * lb.y - sb * lp.y);
-        lam[p] = make_double2(cp * lp.x - sp * lb.x, cp * lp.y - sp * lb.y);
+        psi[b] = rot64_mix_uniti(cb, -sb, vb, vp);
+        psi[p] = rot64_mix_uniti(cp, -sp, vp, vb);
+        lam[b] = rot64_mix_uniti(cb, -sb, lb, lp);
+        lam[p] = rot64_mix_uniti(cp, -sp, lp, lb);
       }
     }
   }
@@ -2182,6 +2193,455 @@ adjoint64_fold_kernel(const double* __restrict__ partials, int n_blocks,
     __syncthreads();  // block_sum_f64's shared words are rewritten next round
   }
   if (threadIdx.x == 0) grad[j] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// rot64_resident / adjoint64_resident: a float64 group program's forward
+// pass or reverse sweep in ONE cooperative launch over tile runs.
+//
+// They take the place of rot64_groups / adjoint64_groups (the host engine's
+// qsfh_sv64_apply and qsfh_sv64_adjoint, qsfh_tpu/native/statevec64.cpp:153
+// and :203) wherever the host layout allows (native.statevec.Rot64Program
+// .route == "resident"; streaming.Group64Runs).  The groups, in order, are
+// cut into runs whose flip masks lie inside one tile of k flat bits (the low
+// c and the run's flip bits above them): 2^k complex128 amplitudes, 32 KiB at
+// k = 11, in shared memory.  The grid is persistent (a cooperative launch;
+// G from the occupancy at the real shared memory, capped at the tiles of a
+// run): in run r block b takes tiles o = b, b + G, ...; it copies the tile
+// in with cp.async.cg (through L2: after a barrier a tile may hold lines
+// another SM wrote, and L1 is not coherent across SMs), applies the run's
+// groups in order with a block barrier between groups (a thread per pair
+// (i, i ^ x) of the tile, as rot64_group_kernel has a thread per pair of the
+// state), and stores the tile back; grid_sync between runs.  An 18-qubit
+// state (4 MiB, psi and lam 8 MiB) stays in the 50 MB L2 throughout, so a
+// group costs a shared-memory pass in place of a launch and an L2 pass.
+//
+// Tables.  A group's phase masks z_k span a GF(2) space of rank R <= S (R
+// = 4 for the 8-term groups of a double excitation): with a basis zb_j of
+// them, parity(b & z_k) = parity(q(b) & coef_k) where bit j of q(b) is
+// parity(b & zb_j).  So the group's tables of r, cos(theta r) and sin(theta
+// r) need 2^R entries where group64_tables fills 2^S: entry q holds r =
+// sum_k w_k (1 - 2 parity(q & coef_k)), summed in term order, which is
+// group64_tables' r for the same pattern, bit for bit.  The launch fills one
+// table array for the whole program before its first barrier (an entry a
+// thread over the grid, the angle read from theta_ext on the device), and a
+// block copies a run's slice (contiguous, the groups being in order) and the
+// run's group records (flip mask and basis in tile coordinates, partner
+// map, table base; built by the host) into shared memory beside its first
+// tile of the run, so a group's pass reads only shared memory.  The outer
+// bits' pattern of each group is formed once a tile.  Each entry's sincos is
+// computed once a call, where computing the tables in the block would
+// repeat them for every block and run; no launch besides.  The partner's
+// index is q ^ pxor (bit j of pxor = parity(x & zb_j): all ones where the
+// unit is i, the complement of group64_pattern).  q(b) for b = outer |
+// deposit(i, mask) is parity(outer & zb_j) (once a group and tile) XOR
+// parity(i & zbt_j), zbt_j being zb_j in tile coordinates.
+//
+// The pair updates are rot64_mix_*, as in the per-group kernels: the two
+// routes give the same state bits.  The adjoint sums each group's
+// contributions within a tile per warp (shuffles) and over the warps in
+// order, one partial per (group, tile); after its last barrier the blocks
+// fold each parameter's groups in ascending order, each group's tiles in
+// tile order, a warp a parameter.  No float atomics: two calls give the same
+// bits whatever G.
+//
+// Bound at 18 qubits (1931 groups): the float64 arithmetic (0.09 / 0.25 ms
+// forward / adjoint at 34 TFLOP/s), not bytes (one L2 pass of the state per
+// run).  In practice (PERF.md) a run's fixed cost (the grid barrier, the
+// tile copies through L2, the staging; ~5-7 us) takes ~60% of a pass over
+// the 3x3 checkpoint's 521 runs, and the pairs' shared-memory traffic (4
+// amplitudes and 2 table entries a pair, the adjoint twice that) the rest.
+// ---------------------------------------------------------------------------
+constexpr int kRes64MinBits = 6;          // streaming.RESIDENT64_MIN_BITS: a warp of pairs
+constexpr int kRes64MaxBits = 12;         // streaming.RESIDENT64_MAX_BITS
+constexpr int kRes64MaxThreads = 1024;    // the forward kernel's bound
+constexpr int kRes64AdjMaxThreads = 512;  // the adjoint's (more registers a thread)
+constexpr int kRes64MaxRank = kRot64MaxTerms;
+constexpr int kRes64MaxRunGroups = 1024;
+constexpr int kRes64Rec = 20;  // int32 words of a group record (streaming.Group64Runs.grec)
+
+// The layout (streaming.Group64Runs) and the program's arrays, on the device.
+struct Res64Layout {
+  const int32_t* run_start;  // n_runs + 1 group offsets
+  const int32_t* run_mask;   // a tile bit set per run
+  const int32_t* grec;       // per group kRes64Rec words: xt, pxor, its table's
+                             // base in the run's tables, rank, then the basis in
+                             // tile coordinates (8) and flat (8), 0 past the rank
+  const int32_t* toff;       // G + 1 table entry offsets (even)
+  const int32_t* tgroup;     // per table entry: its group
+  const int32_t* csub;       // per term: its coefficient mask over the basis
+  const int32_t* goff;       // G + 1 term offsets
+  const int32_t* gpidx;      // per group: its entry of theta_ext
+  const double* wsub;        // per term: the real weight
+  const double* theta_ext;
+};
+
+// Every entry of the program's tables: tc[e] = cos(theta r), ts[e] = sin(theta
+// r), tr[e] = r (three arrays of n_entries doubles: a table read is then an
+// 8-byte load, and a group's 2^R <= 16 entries of each sit in distinct banks).
+__device__ void res64_fill_tables(const Res64Layout& L, int n_entries, double* __restrict__ tab) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n_entries; e += gridDim.x * blockDim.x) {
+    const int g = L.tgroup[e];
+    const uint32_t q = static_cast<uint32_t>(e - L.toff[g]);
+    const int t0 = L.goff[g], S = L.goff[g + 1] - t0;
+    double r = 0.0;  // in term order, as group64_tables
+    for (int k = 0; k < S; ++k)
+      r += (__popc(q & static_cast<uint32_t>(L.csub[t0 + k])) & 1) ? -L.wsub[t0 + k]
+                                                                    : L.wsub[t0 + k];
+    double sn, c;
+    sincos(L.theta_ext[L.gpidx[g]] * r, &sn, &c);
+    tab[e] = c;
+    tab[n_entries + e] = sn;
+    tab[2 * n_entries + e] = r;
+  }
+}
+
+// Where this thread's slots of a tile live: slot i = tid + s T (T =
+// blockDim.x, a power of two; s < 8) at flat index outer | deposit(i, mask)
+// = base | the step[b] of the bits b of s (deposit is linear over disjoint
+// bits), so a copy costs no deposit loop per slot.
+struct Tile64Map {
+  uint32_t base, step[3];
+  int slots;
+  __device__ __forceinline__ Tile64Map(int k, uint32_t outer, uint32_t mask) {
+    const int tb = 31 - __clz(blockDim.x);
+    base = outer | deposit(threadIdx.x, mask);
+#pragma unroll
+    for (int b = 0; b < 3; ++b) step[b] = tb + b < k ? deposit(1u << (tb + b), mask) : 0u;
+    slots = 1 << (k - tb);
+  }
+  __device__ __forceinline__ uint32_t global(int s) const {
+    return base | (s & 1 ? step[0] : 0u) | (s & 2 ? step[1] : 0u) | (s & 4 ? step[2] : 0u);
+  }
+};
+
+// tile[i] <- g[outer | deposit(i, mask)], asynchronously
+__device__ __forceinline__ void res64_load(double2* tile, const double2* __restrict__ g,
+                                           const Tile64Map& map) {
+  for (int s = 0; s < map.slots; ++s)
+    cp_async16(tile + threadIdx.x + s * blockDim.x, g + map.global(s));
+}
+
+// each thread stores the slots it loads: no barrier before the next copy
+__device__ __forceinline__ void res64_store(const double2* tile, double2* __restrict__ g,
+                                            const Tile64Map& map) {
+  for (int s = 0; s < map.slots; ++s) g[map.global(s)] = tile[threadIdx.x + s * blockDim.x];
+}
+
+// The run's group records and tables, from the layout and the launch's
+// table array into shared memory (asynchronously; the caller commits and
+// waits): `planes` of the cos, sin and r planes (2 forward, 3 adjoint), each
+// staged at stride `most` doubles.
+__device__ __forceinline__ void res64_stage(const Res64Layout& L, int g0, int g1,
+                                            const double* __restrict__ tab, int n_entries,
+                                            int planes, int32_t* srec, double* stab, int most) {
+  const int words = (g1 - g0) * kRes64Rec;  // a multiple of 4: 16-byte pieces
+  for (int m = 4 * threadIdx.x; m < words; m += 4 * blockDim.x)
+    cp_async16(srec + m, L.grec + static_cast<size_t>(g0) * kRes64Rec + m);
+  const int e0 = L.toff[g0], E = L.toff[g1] - e0;  // both even: 16-byte pieces
+  for (int m = 2 * threadIdx.x; m < planes * E; m += 2 * blockDim.x) {
+    const int plane = m / E, e = m - plane * E;
+    cp_async16(stab + plane * most + e, tab + static_cast<size_t>(plane) * n_entries + e0 + e);
+  }
+}
+
+// Each group's pattern of the tile's outer bits, q0 bit j = parity(outer &
+// zb_j), into sq0 (a thread a group; the caller synchronizes).
+__device__ __forceinline__ void res64_outer_patterns(const int32_t* srec, int n_groups,
+                                                     uint32_t outer, uint32_t* sq0) {
+  for (int m = threadIdx.x; m < n_groups; m += blockDim.x) {
+    const int32_t* rec = srec + m * kRes64Rec;
+    uint32_t q = 0u;
+    for (int j = 0; j < rec[3]; ++j)
+      q |= (__popc(outer & static_cast<uint32_t>(rec[12 + j])) & 1u) << j;
+    sq0[m] = q;
+  }
+}
+
+// A group's pattern for tile slot i: q0 XOR parity(i & zbt_j) << j, for the
+// first RB basis masks (zeros past the rank).
+template <int RB>
+struct Res64Pattern {
+  uint32_t zt[RB], q0;
+  __device__ __forceinline__ Res64Pattern(const int32_t* rec, uint32_t q0_) : q0(q0_) {
+#pragma unroll
+    for (int j = 0; j < RB; ++j) zt[j] = static_cast<uint32_t>(rec[4 + j]);
+  }
+  __device__ __forceinline__ uint32_t operator()(uint32_t i) const {
+    uint32_t q = q0;
+#pragma unroll
+    for (int j = 0; j < RB; ++j) q ^= (__popc(i & zt[j]) & 1u) << j;
+    return q;
+  }
+};
+
+// One group forward on the block's tile: psi <- exp(-i theta M) psi
+// (a thread a pair; t the group's (cos, sin) table in shared memory).
+template <int RB>
+__device__ __forceinline__ void rot64_tile_group(double2* tile, int k, const int32_t* rec,
+                                                 uint32_t q0, const double* tc,
+                                                 const double* ts) {
+  const Res64Pattern<RB> pat(rec, q0);
+  const uint32_t xt = static_cast<uint32_t>(rec[0]), pxor = static_cast<uint32_t>(rec[1]);
+  if (xt == 0u) {  // psi[b] *= exp(-i theta r(b))
+    for (uint32_t i = threadIdx.x; i < (1u << k); i += blockDim.x) {
+      const uint32_t q = pat(i);
+      const double2 a = tile[i];
+      tile[i] = rot64_mix_unit1(tc[q], -ts[q], a, a);
+    }
+    return;
+  }
+  const int hb = 31 - __clz(xt);
+  const bool unit_i = pxor != 0u;  // all ones where the unit is i, else 0
+#pragma unroll 4
+  for (uint32_t j = threadIdx.x; j < (1u << (k - 1)); j += blockDim.x) {
+    const uint32_t i = insert_zero_bit(j, hb), p = i ^ xt;
+    const uint32_t qi = pat(i), qp = qi ^ pxor;
+    const double2 vi = tile[i], vp = tile[p];
+    if (!unit_i) {  // psi'[a] = cos psi[a] - i sin psi[a ^ x]
+      tile[i] = rot64_mix_unit1(tc[qi], -ts[qi], vi, vp);
+      tile[p] = rot64_mix_unit1(tc[qp], -ts[qp], vp, vi);
+    } else {  // psi'[a] = cos psi[a] + sin psi[a ^ x]
+      tile[i] = rot64_mix_uniti(tc[qi], ts[qi], vi, vp);
+      tile[p] = rot64_mix_uniti(tc[qp], ts[qp], vp, vi);
+    }
+  }
+}
+
+// One group of the reverse sweep on the block's psi and lam tiles: returns
+// the thread's share of Im <lam| M |psi>, then both inverse-rotated.
+template <int RB>
+__device__ __forceinline__ double adjoint64_tile_group(double2* pt, double2* lt, int k,
+                                                       const int32_t* rec, uint32_t q0,
+                                                       const double* tc, const double* ts,
+                                                       const double* tr) {
+  const Res64Pattern<RB> pat(rec, q0);
+  const uint32_t xt = static_cast<uint32_t>(rec[0]), pxor = static_cast<uint32_t>(rec[1]);
+  double acc = 0.0;
+  if (xt == 0u) {  // contrib = sum r Im(conj(lam) psi); *= exp(+i theta r)
+    for (uint32_t i = threadIdx.x; i < (1u << k); i += blockDim.x) {
+      const uint32_t q = pat(i);
+      const double c = tc[q], sn = ts[q];
+      const double2 a = pt[i], l = lt[i];
+      acc += tr[q] * (l.x * a.y - l.y * a.x);
+      pt[i] = rot64_mix_unit1(c, sn, a, a);
+      lt[i] = rot64_mix_unit1(c, sn, l, l);
+    }
+    return acc;
+  }
+  const int hb = 31 - __clz(xt);
+  const bool unit_i = pxor != 0u;
+#pragma unroll 2
+  for (uint32_t j = threadIdx.x; j < (1u << (k - 1)); j += blockDim.x) {
+    const uint32_t i = insert_zero_bit(j, hb), p = i ^ xt;
+    const uint32_t qi = pat(i), qp = qi ^ pxor;
+    const double ri = tr[qi], rp = tr[qp];
+    const double2 ti = make_double2(tc[qi], ts[qi]), tp = make_double2(tc[qp], ts[qp]);
+    const double2 vi = pt[i], vp = pt[p], li = lt[i], lp = lt[p];
+    if (!unit_i) {
+      // Im(conj(L) r psi[a ^ x]); inverse: psi'[a] = cos psi[a] + i sin psi[a ^ x]
+      acc += ri * (li.x * vp.y - li.y * vp.x);
+      acc += rp * (lp.x * vi.y - lp.y * vi.x);
+      pt[i] = rot64_mix_unit1(ti.x, ti.y, vi, vp);
+      pt[p] = rot64_mix_unit1(tp.x, tp.y, vp, vi);
+      lt[i] = rot64_mix_unit1(ti.x, ti.y, li, lp);
+      lt[p] = rot64_mix_unit1(tp.x, tp.y, lp, li);
+    } else {
+      // r Re(conj(L) psi[a ^ x]); inverse: psi'[a] = cos psi[a] - sin psi[a ^ x]
+      acc += ri * (li.x * vp.x + li.y * vp.y);
+      acc += rp * (lp.x * vi.x + lp.y * vi.y);
+      pt[i] = rot64_mix_uniti(ti.x, -ti.y, vi, vp);
+      pt[p] = rot64_mix_uniti(tp.x, -tp.y, vp, vi);
+      lt[i] = rot64_mix_uniti(ti.x, -ti.y, li, lp);
+      lt[p] = rot64_mix_uniti(tp.x, -tp.y, lp, li);
+    }
+  }
+  return acc;
+}
+
+// Shared memory of a launch: the tile(s), the largest run's table planes
+// (cos and sin; r for the adjoint), group records and outer patterns, and
+// the adjoint's per-warp sums.  Every piece a multiple of 16 bytes.
+struct Res64Smem {
+  size_t stab, srec, sq0, wsum, total;
+  __host__ __device__ Res64Smem(bool adjoint, int k, int threads, int most_entries,
+                                int most_groups) {
+    const size_t tile = sizeof(double2) << k;
+    stab = (adjoint ? 2 : 1) * tile;
+    srec = stab + (adjoint ? 3 : 2) * static_cast<size_t>(most_entries) * sizeof(double);
+    sq0 = srec + static_cast<size_t>(most_groups) * kRes64Rec * sizeof(int32_t);
+    wsum = sq0 + ((static_cast<size_t>(most_groups) * sizeof(uint32_t) + 15) & ~size_t(15));
+    total = wsum + (adjoint ? static_cast<size_t>(threads / 32) * most_groups * sizeof(double) : 0);
+  }
+};
+
+__global__ void __launch_bounds__(kRes64MaxThreads)
+rot64_resident_kernel(double2* __restrict__ psi, int n, int k, int n_runs, int n_entries,
+                      int most_entries, int most_groups, Res64Layout L,
+                      double* __restrict__ tables, unsigned int* barrier) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Res64Smem lay(false, k, blockDim.x, most_entries, most_groups);
+  double2* tile = reinterpret_cast<double2*>(smem);
+  double* stab = reinterpret_cast<double*>(smem + lay.stab);  // cos, sin planes
+  int32_t* srec = reinterpret_cast<int32_t*>(smem + lay.srec);
+  uint32_t* sq0 = reinterpret_cast<uint32_t*>(smem + lay.sq0);
+  res64_fill_tables(L, n_entries, tables);
+  grid_sync(barrier);
+  const uint32_t n_tiles = 1u << (n - k), all = (1u << n) - 1u;
+  for (int r = 0; r < n_runs; ++r) {
+    const int g0 = L.run_start[r], g1 = L.run_start[r + 1];
+    const uint32_t mask = static_cast<uint32_t>(L.run_mask[r]);
+    for (uint32_t o = blockIdx.x; o < n_tiles; o += gridDim.x) {
+      const uint32_t outer = deposit(o, all & ~mask);
+      const Tile64Map map(k, outer, mask);
+      res64_load(tile, psi, map);
+      if (o == blockIdx.x) res64_stage(L, g0, g1, tables, n_entries, 2, srec, stab, most_entries);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      res64_outer_patterns(srec, g1 - g0, outer, sq0);
+      __syncthreads();
+      for (int m = 0; m < g1 - g0; ++m) {
+        const int32_t* rec = srec + m * kRes64Rec;
+        const double *tc = stab + rec[2], *ts = tc + most_entries;
+        const int rank = rec[3];
+        if (rank <= 2) rot64_tile_group<2>(tile, k, rec, sq0[m], tc, ts);
+        else if (rank <= 4) rot64_tile_group<4>(tile, k, rec, sq0[m], tc, ts);
+        else rot64_tile_group<kRes64MaxRank>(tile, k, rec, sq0[m], tc, ts);
+        __syncthreads();
+      }
+      res64_store(tile, psi, map);
+    }
+    if (r + 1 < n_runs) grid_sync(barrier);
+  }
+}
+
+__device__ __forceinline__ double warp_sum_double(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__global__ void __launch_bounds__(kRes64AdjMaxThreads)
+adjoint64_resident_kernel(double2* __restrict__ psi, double2* __restrict__ lam, int n, int k,
+                          int n_runs, int n_entries, int most_entries, int most_groups,
+                          Res64Layout L, double* __restrict__ tables,
+                          double* __restrict__ partials, int n_params,
+                          const int32_t* __restrict__ param_off,
+                          const int32_t* __restrict__ param_groups, double* __restrict__ grad,
+                          unsigned int* barrier) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Res64Smem lay(true, k, blockDim.x, most_entries, most_groups);
+  double2* pt = reinterpret_cast<double2*>(smem);
+  double2* lt = pt + (1u << k);
+  double* stab = reinterpret_cast<double*>(smem + lay.stab);  // cos, sin, r planes
+  int32_t* srec = reinterpret_cast<int32_t*>(smem + lay.srec);
+  uint32_t* sq0 = reinterpret_cast<uint32_t*>(smem + lay.sq0);
+  double* wsum = reinterpret_cast<double*>(smem + lay.wsum);  // [warp][group of the run]
+  res64_fill_tables(L, n_entries, tables);
+  grid_sync(barrier);
+  const uint32_t n_tiles = 1u << (n - k), all = (1u << n) - 1u;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  for (int r = n_runs - 1; r >= 0; --r) {
+    const int g0 = L.run_start[r], g1 = L.run_start[r + 1];
+    const uint32_t mask = static_cast<uint32_t>(L.run_mask[r]);
+    for (uint32_t o = blockIdx.x; o < n_tiles; o += gridDim.x) {
+      const uint32_t outer = deposit(o, all & ~mask);
+      const Tile64Map map(k, outer, mask);
+      res64_load(pt, psi, map);
+      res64_load(lt, lam, map);
+      if (o == blockIdx.x) res64_stage(L, g0, g1, tables, n_entries, 3, srec, stab, most_entries);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();  // also: the previous tile's partials have read wsum
+      res64_outer_patterns(srec, g1 - g0, outer, sq0);
+      __syncthreads();
+      for (int m = g1 - g0 - 1; m >= 0; --m) {
+        const int32_t* rec = srec + m * kRes64Rec;
+        const double *tc = stab + rec[2], *ts = tc + most_entries, *tr = ts + most_entries;
+        const int rank = rec[3];
+        double acc;
+        if (rank <= 2) acc = adjoint64_tile_group<2>(pt, lt, k, rec, sq0[m], tc, ts, tr);
+        else if (rank <= 4) acc = adjoint64_tile_group<4>(pt, lt, k, rec, sq0[m], tc, ts, tr);
+        else acc = adjoint64_tile_group<kRes64MaxRank>(pt, lt, k, rec, sq0[m], tc, ts, tr);
+        acc = warp_sum_double(acc);
+        if (lane == 0) wsum[warp * most_groups + m] = acc;
+        __syncthreads();
+      }
+      for (int m = threadIdx.x; m < g1 - g0; m += blockDim.x) {  // the tile's partials
+        double s = 0.0;
+        for (int w = 0; w < n_warps; ++w) s += wsum[w * most_groups + m];
+        partials[static_cast<size_t>(g0 + m) * n_tiles + o] = s;
+      }
+      res64_store(pt, psi, map);
+      res64_store(lt, lam, map);
+    }
+    grid_sync(barrier);
+  }
+  // grad[j] = its groups ascending, each group's tiles in order; a warp a
+  // parameter; the rows were written by other SMs, so they are read via L2
+  for (int j = blockIdx.x * n_warps + warp; j < n_params; j += gridDim.x * n_warps) {
+    double acc = 0.0;
+    for (int q = param_off[j]; q < param_off[j + 1]; ++q) {
+      const double* row = partials + static_cast<size_t>(param_groups[q]) * n_tiles;
+      double v = 0.0;
+      for (uint32_t o = lane; o < n_tiles; o += 32) v += __ldcg(row + o);
+      acc += warp_sum_double(v);
+    }
+    if (lane == 0) grad[j] = acc;
+  }
+}
+
+inline const void* res64_kernel(bool adjoint) {
+  return adjoint ? reinterpret_cast<const void*>(adjoint64_resident_kernel)
+                 : reinterpret_cast<const void*>(rot64_resident_kernel);
+}
+
+inline cudaError_t res64_allow(bool adjoint, size_t smem) {
+  return adjoint ? allow_smem(adjoint64_resident_kernel, smem)
+                 : allow_smem(rot64_resident_kernel, smem);
+}
+
+// threads: a power of two from a warp to the kernel's bound, at most the
+// tile's pairs and at least an eighth of its slots (Tile64Map)
+inline bool res64_shape_ok(bool adjoint, int n, int k, int threads, int most_entries,
+                           int most_groups) {
+  const int most_threads = adjoint ? kRes64AdjMaxThreads : kRes64MaxThreads;
+  return k >= kRes64MinBits && k <= kRes64MaxBits && k <= n && n <= 30 && threads >= 32 &&
+         threads <= most_threads && (threads & (threads - 1)) == 0 && threads <= (1 << (k - 1)) &&
+         (threads << 3) >= (1 << k) && most_entries >= 2 && most_entries % 2 == 0 &&
+         most_groups >= 1 && most_groups <= kRes64MaxRunGroups;
+}
+
+// Blocks of a float64 resident kernel the device holds at once, or a
+// negative CUDA error code.
+inline int res64_capacity(bool adjoint, int k, int threads, int most_entries, int most_groups) {
+  if (!res64_shape_ok(adjoint, k, k, threads, most_entries, most_groups))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  const size_t smem = Res64Smem(adjoint, k, threads, most_entries, most_groups).total;
+  if (err == cudaSuccess) err = res64_allow(adjoint, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, res64_kernel(adjoint), threads,
+                                                        smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (per_sm < 1) return -static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  return per_sm * sm_count();
+}
+
+constexpr int kRes64Arrays = 10;  // the pointers of Res64Layout
+
+inline Res64Layout res64_layout(const void* const* a) {
+  Res64Layout L;
+  const int32_t** ints[] = {&L.run_start, &L.run_mask, &L.grec, &L.toff,
+                            &L.tgroup,    &L.csub,     &L.goff, &L.gpidx};
+  for (int m = 0; m < kRes64Arrays - 2; ++m) *ints[m] = static_cast<const int32_t*>(a[m]);
+  L.wsub = static_cast<const double*>(a[kRes64Arrays - 2]);
+  L.theta_ext = static_cast<const double*>(a[kRes64Arrays - 1]);
+  return L;
 }
 
 // out[b] = scale * sum_t c_t s_t(b) psi[b ^ x_t] (qsfh_sv64_happly), one
@@ -2741,6 +3201,74 @@ int qsfh_adjoint64_groups(void* psi, void* lam, int n, int n_groups, const void*
   adjoint64_fold_kernel<<<n_params, kRot64Threads, 0, s>>>(
       part, grid, static_cast<const int32_t*>(param_off),
       static_cast<const int32_t*>(param_groups), static_cast<double*>(grad));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The largest cooperative grid of rot64_resident (adjoint = 0) or
+// adjoint64_resident (adjoint = 1) of `threads` a block at tiles of k bits
+// whose largest run holds most_entries table entries and most_groups
+// groups, or a negative CUDA error code.
+int qsfh_res64_capacity(int adjoint, int k, int threads, int most_entries, int most_groups) {
+  return res64_capacity(adjoint != 0, k, threads, most_entries, most_groups);
+}
+
+// The forward pass of a float64 group program over its n_runs tile runs, in
+// place on psi (complex128), in ONE cooperative launch of `grid` blocks (at
+// most the 2^(n - k) tiles of a run and the capacity above) of `threads`.
+// arrays: the 10 device pointers of Res64Layout in its order (a host
+// array); tables: 3 n_entries doubles of scratch; barrier: one unsigned
+// word, zero before the first launch on the stream and left zero by every
+// launch.
+int qsfh_rot64_resident(void* psi, int n, int k, int n_runs, int grid, int threads, int n_entries,
+                        int most_entries, int most_groups, const void* const* arrays,
+                        void* tables, void* barrier, void* stream) {
+  if (!res64_shape_ok(false, n, k, threads, most_entries, most_groups) || n_runs < 1 ||
+      grid < 1 || grid > (1 << (n - k)) || n_entries < most_entries)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = Res64Smem(false, k, threads, most_entries, most_groups).total;
+  cudaError_t err = res64_allow(false, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  double2* a_psi = static_cast<double2*>(psi);
+  Res64Layout L = res64_layout(arrays);
+  double* a_tab = static_cast<double*>(tables);
+  unsigned int* a_bar = static_cast<unsigned int*>(barrier);
+  void* args[] = {&a_psi, &n, &k, &n_runs, &n_entries, &most_entries, &most_groups, &L,
+                  &a_tab, &a_bar};
+  err = cudaLaunchCooperativeKernel(res64_kernel(false), dim3(grid), dim3(threads), args, smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The reverse sweep of the same program, in place on psi and lam, in ONE
+// cooperative launch: grad[j] for j < n_params over the groups
+// param_groups[param_off[j] .. param_off[j + 1]] (int32, ascending), from
+// partials (n_groups x 2^(n - k) doubles of scratch); the rest as
+// qsfh_rot64_resident.
+int qsfh_adjoint64_resident(void* psi, void* lam, int n, int k, int n_runs, int grid, int threads,
+                            int n_entries, int most_entries, int most_groups,
+                            const void* const* arrays, void* tables, void* partials,
+                            int n_params, const void* param_off, const void* param_groups,
+                            void* grad, void* barrier, void* stream) {
+  if (!res64_shape_ok(true, n, k, threads, most_entries, most_groups) || n_runs < 1 ||
+      grid < 1 || grid > (1 << (n - k)) || n_entries < most_entries || n_params < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = Res64Smem(true, k, threads, most_entries, most_groups).total;
+  cudaError_t err = res64_allow(true, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  double2 *a_psi = static_cast<double2*>(psi), *a_lam = static_cast<double2*>(lam);
+  Res64Layout L = res64_layout(arrays);
+  double *a_tab = static_cast<double*>(tables), *a_part = static_cast<double*>(partials),
+         *a_grad = static_cast<double*>(grad);
+  const int32_t *a_off = static_cast<const int32_t*>(param_off),
+                *a_groups = static_cast<const int32_t*>(param_groups);
+  unsigned int* a_bar = static_cast<unsigned int*>(barrier);
+  void* args[] = {&a_psi,  &a_lam,    &n,        &k,      &n_runs,   &n_entries,
+                  &most_entries, &most_groups, &L, &a_tab, &a_part, &n_params,
+                  &a_off,  &a_groups, &a_grad,   &a_bar};
+  err = cudaLaunchCooperativeKernel(res64_kernel(true), dim3(grid), dim3(threads), args, smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,7 +35,9 @@ smallest tile (``kernels.TILE_MIN_BITS``) takes the per-term kernels.
 
 The TPU workarounds of the JAX module are not carried over: per-term
 angles are the plain gather ``thetas_ext[pidx]`` (no one-hot matmul),
-gradients accumulate with ``index_add_``, and terms are not regrouped.
+gradients are summed per parameter by ``state.IndexFold`` (the same bits
+on every call, where ``index_add_`` adds with atomics on the card), and
+terms are not regrouped.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ import torch
 from . import streaming
 from .gates import static_rz_layer_phases
 from .kernels import KERNELS, TILE_MIN_BITS
-from .state import qmask_to_bmask, real_dtype
+from .state import IndexFold, qmask_to_bmask, real_dtype
 
 
 def givens_network_static_ops(n_qubits: int, diagonal, decomposition):
@@ -128,6 +130,8 @@ class Segment:
                 "pidx": torch.as_tensor(pidx, device=device),
                 "phre": torch.as_tensor(d["phre"], device=device).to(rdt),
                 "phim": torch.as_tensor(d["phim"], device=device).to(rdt),
+                # the adjoint's per-term contributions come in reversed order
+                "fold": IndexFold(pidx[::-1], n_params, device),
             }
         return self._cache[key]
 
@@ -395,9 +399,7 @@ def run_rot_adjoint(segment: Segment, psi_final, lam, thetas, n, impl=None):
     arrs = tuple(a.flip(0) for a in (d["xb"], d["zb"], angles, d["phre"], d["phim"]))
     v = adjoint_sweep(segment, psi, lam, arrs, n, impl)
     contribs = d["scale"].flip(0) * v.imag.to(rdt)
-    grads = torch.zeros(n_params + 1, dtype=rdt, device=psi.device)
-    grads.index_add_(0, d["pidx"].flip(0), contribs)
-    return psi, lam, grads[:n_params]
+    return psi, lam, d["fold"](contribs)
 
 
 class _RotSegment(torch.autograd.Function):

@@ -8,8 +8,8 @@ so every term acts as X^x Z^z applied left to right:
 (c X^x Z^z psi)[b] = c (-1)^popcount(z & x) (-1)^popcount(b & z) psi[b ^ x].
 
 ADAPT pool screening uses dE/de_k = 2 Im <w | G_k psi> with
-w = U^dag H U psi, evaluated term by term and summed per generator with
-``index_add_``.
+w = U^dag H U psi, evaluated term by term and summed per generator by
+``state.IndexFold`` (the same bits on every call).
 
 From ``kernels.INNER_TILE_MIN_BITS`` (9) qubits on, at every size,
 expectation values take ``expectation_grouped`` and screening
@@ -40,7 +40,7 @@ import torch
 from ..ops.pauli import PauliSum
 from . import streaming
 from .kernels import INNER_TILE_MIN_BITS, KERNELS
-from .state import index_bits, parity_signs, qmask_to_bmask, real_dtype
+from .state import IndexFold, index_bits, parity_signs, qmask_to_bmask, real_dtype
 
 
 def _apply(impl, owner, psi, xs, zs, c):
@@ -322,12 +322,12 @@ class PackedPool:
         return self._scan_arrays
 
     def _tensors(self, psi):
-        """(xb, zb, c, gen_index) tensors on psi's device."""
+        """(xb, zb, c) tensors on psi's device and the fold by generator."""
         arrays = self.scan_arrays()
         xs, zs, c = _device_terms(self._tensor_cache, arrays, psi)
         kkey = (str(psi.device), "ks")
         if kkey not in self._tensor_cache:
-            self._tensor_cache[kkey] = torch.as_tensor(arrays[4].astype(np.int64), device=psi.device)
+            self._tensor_cache[kkey] = IndexFold(arrays[4], self.size, psi.device)
         return xs, zs, c, self._tensor_cache[kkey]
 
     def inner_groups(self) -> streaming.GroupTiles:
@@ -344,10 +344,9 @@ class PackedPool:
     def screen_scan(self, psi: torch.Tensor, w: torch.Tensor, impl=None) -> torch.Tensor:
         """grad_k = 2 Im <w | G_k psi> for every generator ((size,) real)."""
         impl = impl or KERNELS
-        xs, zs, c, ks = self._tensors(psi)
+        xs, zs, c, fold = self._tensors(psi)
         if self.n < INNER_TILE_MIN_BITS:
             contribs = 2.0 * (c * impl.inner(w, psi, xs, zs).to(psi.dtype)).imag
         else:
             contribs = impl.screen_grouped(w, psi, xs, zs, c.real, c.imag, self.inner_groups())
-        grads = torch.zeros(self.size, dtype=real_dtype(psi.dtype), device=psi.device)
-        return grads.index_add_(0, ks, contribs)
+        return fold(contribs)

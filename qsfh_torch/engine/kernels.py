@@ -51,6 +51,11 @@ wrapper                  replaces (``qsfh_tpu/engine/pallas_kernels.py``)
 ``adjoint64_groups``     the same engine's fused reverse sweep
                          (``qsfh_sv64_adjoint``, :203), the gradient folded
                          per parameter in a fixed order
+``rot64_resident``       ``qsfh_sv64_apply`` (:153) over tile runs of
+                         groups in one cooperative launch, where the
+                         layout allows (``Rot64Program.route``)
+``adjoint64_resident``   ``qsfh_sv64_adjoint`` (:203) the same way, the
+                         gradient folded inside the launch
 =======================  ==================================================
 
 The CUDA source is ``qsfh_torch/csrc/statevec_kernels.cu``.  It is built
@@ -66,7 +71,10 @@ launches: one per span for the two resident kernels (the 18-qubit
 rotations and adjoint sweep: one per call where every term fits a tile),
 one per term for the two per-term rotations, one per run for the two
 tile-run kernels, one per tile for ``pauli_apply_grouped``, one per call
-for ``xor_gather``, ``pauli_rotation_out`` and ``expectation_norm_f64``,
+for ``xor_gather``, ``pauli_rotation_out``, ``expectation_norm_f64``,
+``happly64`` and the two float64 resident kernels (each of which fills its
+tables and, in the adjoint, folds the gradient inside the launch), one per
+group for ``rot64_groups`` and ``adjoint64_groups``,
 one per call (or per
 scratch-sized chunk) for ``pauli_apply``, ``pauli_inner`` and the three
 inner-product tile wrappers (the partial-sum pass is not counted).  The
@@ -91,6 +99,7 @@ from typing import Callable
 
 import torch
 
+from . import streaming
 from .state import index_bits, parity_signs, real_dtype
 from .streaming import INNER_SWIZZLE
 
@@ -218,6 +227,12 @@ def _load():
         lib.qsfh_happly64.argtypes = [p, p, i, i] + [p] * 4 + [ctypes.c_double, p, p, p]
         lib.qsfh_adjoint64_groups.restype = i
         lib.qsfh_adjoint64_groups.argtypes = [p, p, i, i] + [p] * 7 + [i] + [p] * 5
+        lib.qsfh_res64_capacity.restype = i
+        lib.qsfh_res64_capacity.argtypes = [i] * 5
+        lib.qsfh_rot64_resident.restype = i
+        lib.qsfh_rot64_resident.argtypes = [p] + [i] * 8 + [p] * 4
+        lib.qsfh_adjoint64_resident.restype = i
+        lib.qsfh_adjoint64_resident.argtypes = [p, p] + [i] * 8 + [p] * 3 + [i] + [p] * 5
         _lib = lib
         return lib
 
@@ -593,15 +608,23 @@ def resident_grid(psi, tiles, adjoint: bool, blocks=None) -> int:
     and shape), capped at the tiles of a run and at ``blocks``.  Raises if
     the query fails or the card holds no block of the kernel."""
     n = _n_qubits(psi, "resident_grid")
-    key = (psi.device.index, bool(adjoint), tiles.k, tiles.most_terms)
+    return _cooperative_grid(
+        n, tiles.k, (psi.device.index, "f32", bool(adjoint), tiles.k, tiles.most_terms),
+        lambda lib: lib.qsfh_resident_capacity(int(adjoint), tiles.k, tiles.most_terms),
+        f"resident capacity at k={tiles.k}, {tiles.most_terms} terms", blocks)
+
+
+def _cooperative_grid(n: int, k: int, key, query, what: str, blocks) -> int:
+    """The capacity ``query(lib)`` returns (blocks, or a negative CUDA
+    error code; cached under ``key``), capped at the 2^(n - k) tiles of a
+    run and at ``blocks``."""
     if key not in _capacity:
         lib = _load()
-        cap = lib.qsfh_resident_capacity(int(adjoint), tiles.k, tiles.most_terms)
+        cap = query(lib)
         if cap <= 0:
-            raise RuntimeError(f"resident capacity at k={tiles.k}, {tiles.most_terms} terms: "
-                               f"CUDA error {-cap}: {lib.qsfh_error_string(-cap).decode()}")
+            raise RuntimeError(f"{what}: CUDA error {-cap}: {lib.qsfh_error_string(-cap).decode()}")
         _capacity[key] = cap
-    grid = min(_capacity[key], 1 << (n - tiles.k))
+    grid = min(_capacity[key], 1 << (n - k))
     if blocks is not None:
         if blocks < 1:
             raise ValueError(f"resident launch of {blocks} blocks")
@@ -1316,6 +1339,112 @@ def adjoint64_groups_plain(psi, lam, groups: Groups64, theta_ext):
     return grad.to(psi.device)
 
 
+def resident64_threads(k: int) -> int:
+    """Threads of a float64 resident block at tiles of k bits:
+    ``streaming.RESIDENT64_THREADS`` capped at the tile's pairs, and at
+    least an eighth of its slots (a thread copies at most 8)."""
+    return max(min(streaming.RESIDENT64_THREADS, 1 << (k - 1)), 1 << (k - 3))
+
+
+def resident64_grid(psi, runs, adjoint: bool, blocks=None) -> int:
+    """Blocks G of a float64 resident launch on psi's card: the kernel's
+    co-resident capacity at the layout's tile shape and largest run
+    (cached per device and shape), capped at the tiles of a run and at
+    ``blocks``, as :func:`resident_grid`."""
+    n = _n_qubits(psi, "resident64_grid", torch.complex128)
+    threads = resident64_threads(runs.k)
+    return _cooperative_grid(
+        n, runs.k,
+        (psi.device.index, "f64", bool(adjoint), runs.k, threads, runs.most_entries,
+         runs.most_groups),
+        lambda lib: lib.qsfh_res64_capacity(int(adjoint), runs.k, threads, runs.most_entries,
+                                            runs.most_groups),
+        f"float64 resident capacity at k={runs.k}", blocks)
+
+
+def _res64_args(psi, groups: Groups64, theta_ext, runs, name: str):
+    """Checks of a float64 resident launch; returns (n, the 10 device
+    pointers of the kernel's layout as a ctypes array, table scratch)."""
+    n = _n_qubits(psi, name, torch.complex128)
+    groups.check(psi, theta_ext, name)
+    if runs.n_groups != groups.n_groups or runs.n != n:
+        raise ValueError(f"{name}: the layout is of {runs.n_groups} groups at {runs.n} qubits, "
+                         f"the program {groups.n_groups} at {n}")
+    g = groups
+    arrays = [*runs.tensors(psi.device), g.goff, g.gpidx, g.wsub, theta_ext]
+    ptrs = (ctypes.c_void_p * len(arrays))(*(a.data_ptr() for a in arrays))
+    tables = torch.empty(3 * runs.n_entries, dtype=torch.float64, device=psi.device)
+    return n, ptrs, tables
+
+
+@_counted
+def rot64_resident(psi, groups: Groups64, theta_ext, runs, blocks=None):
+    """:func:`rot64_groups` over the tile runs ``runs``
+    (``streaming.Group64Runs``) in ONE cooperative launch: the launch fills
+    the groups' tables, then G persistent blocks walk the runs in order
+    over the L2-resident state, block b taking tiles b, b + G, ... of each
+    run, with a grid barrier between runs (``blocks`` caps G; see
+    :func:`resident64_grid`).  In place; returns psi."""
+    if psi.device.type == "cpu":
+        return rot64_resident_plain(psi, groups, theta_ext, runs)
+    name = "rot64_resident"
+    n, ptrs, tables = _res64_args(psi, groups, theta_ext, runs, name)
+    grid = resident64_grid(psi, runs, False, blocks)
+    lib = _load()
+    rc = lib.qsfh_rot64_resident(psi.data_ptr(), n, runs.k, len(runs), grid,
+                                 resident64_threads(runs.k), runs.n_entries,
+                                 runs.most_entries, runs.most_groups, ptrs, tables.data_ptr(),
+                                 _barrier(psi).data_ptr(), _stream())
+    _check(lib, rc, name)
+    rot64_resident.launches += 1
+    return psi
+
+
+def rot64_resident_plain(psi, groups: Groups64, theta_ext, runs):
+    """Plain version of :func:`rot64_resident`: the layout check, then
+    :func:`rot64_groups_plain` (in place, any device)."""
+    runs.check("rot64_resident")
+    return rot64_groups_plain(psi, groups, theta_ext)
+
+
+@_counted
+def adjoint64_resident(psi, lam, groups: Groups64, theta_ext, runs, blocks=None):
+    """:func:`adjoint64_groups` over the tile runs ``runs`` in ONE
+    cooperative launch (runs last first, groups last first within a run):
+    one partial per (group, tile), and after a last grid barrier each
+    parameter's groups summed in ascending order, each group's tiles in
+    tile order, so two calls give the same bits whatever G.  psi and lam
+    are updated IN PLACE; returns the gradient (n_params,) float64."""
+    if psi.device.type == "cpu" and lam.device.type == "cpu":
+        return adjoint64_resident_plain(psi, lam, groups, theta_ext, runs)
+    name = "adjoint64_resident"
+    n, ptrs, tables = _res64_args(psi, groups, theta_ext, runs, name)
+    if _n_qubits(lam, name, torch.complex128) != n:
+        raise ValueError(f"{name}: states of different sizes")
+    grid = resident64_grid(psi, runs, True, blocks)
+    g = groups
+    partials = torch.empty((g.n_groups, 1 << (n - runs.k)), dtype=torch.float64,
+                           device=psi.device)
+    grad = torch.empty(g.n_params, dtype=torch.float64, device=psi.device)
+    lib = _load()
+    rc = lib.qsfh_adjoint64_resident(psi.data_ptr(), lam.data_ptr(), n, runs.k, len(runs), grid,
+                                     resident64_threads(runs.k), runs.n_entries,
+                                     runs.most_entries, runs.most_groups, ptrs,
+                                     tables.data_ptr(), partials.data_ptr(), g.n_params,
+                                     g.param_off.data_ptr(), g.param_groups.data_ptr(),
+                                     grad.data_ptr(), _barrier(psi).data_ptr(), _stream())
+    _check(lib, rc, name)
+    adjoint64_resident.launches += 1
+    return grad
+
+
+def adjoint64_resident_plain(psi, lam, groups: Groups64, theta_ext, runs):
+    """Plain version of :func:`adjoint64_resident`: the layout check, then
+    :func:`adjoint64_groups_plain` (in place, any device)."""
+    runs.check("adjoint64_resident")
+    return adjoint64_groups_plain(psi, lam, groups, theta_ext)
+
+
 # -- dispatch -------------------------------------------------------------------------
 
 
@@ -1342,25 +1471,27 @@ class Impl:
     rot64_groups: Callable
     happly64: Callable
     adjoint64_groups: Callable
+    rot64_resident: Callable
+    adjoint64_resident: Callable
 
 
 # the wrappers: CUDA kernels for CUDA tensors, plain versions for CPU tensors
 KERNELS = Impl(pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
                rotation_tile_runs, adjoint_tile_runs, rotation_resident, adjoint_resident,
                pauli_apply_grouped, expectation_grouped, screen_grouped, expectation_norm_f64,
-               rot64_groups, happly64, adjoint64_groups)
+               rot64_groups, happly64, adjoint64_groups, rot64_resident, adjoint64_resident)
 # the plain versions on any device (a reference path on the card)
 PLAIN = Impl(pauli_rotation_plain, pauli_apply_plain, pauli_inner_plain, adjoint_rotation_plain,
              rotation_tile_runs_plain, adjoint_tile_runs_plain, rotation_resident_plain,
              adjoint_resident_plain, pauli_apply_grouped_plain, expectation_grouped_plain,
              screen_grouped_plain, expectation_norm_f64_plain, rot64_groups_plain, happly64_plain,
-             adjoint64_groups_plain)
+             adjoint64_groups_plain, rot64_resident_plain, adjoint64_resident_plain)
 
 WRAPPERS = (pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
             rotation_tile_runs, adjoint_tile_runs, pauli_inner_grouped, xor_gather,
             rotation_resident, adjoint_resident, pauli_apply_grouped, expectation_grouped,
             screen_grouped, pauli_rotation_out, expectation_norm_f64, rot64_groups, happly64,
-            adjoint64_groups)
+            adjoint64_groups, rot64_resident, adjoint64_resident)
 
 
 def launch_counts() -> dict:

@@ -52,6 +52,39 @@ def real_dtype(cdtype: torch.dtype) -> torch.dtype:
         raise ValueError(f"expected a complex dtype, got {cdtype}") from None
 
 
+class IndexFold:
+    """``out[i] = sum of values[j] over idx[j] == i`` for ``i < size``, the
+    same bits on every call.  On the card ``index_add_`` adds with atomics,
+    so its order, and the last bits of a sum, change from call to call (and
+    an optimizer that divides by |g|, as Adam does, turns that into
+    trajectories that part).  Here each value goes to a slot of its own in
+    a ``(size, width)`` buffer, ``width`` the largest count of one index, in
+    ascending j, and the rows are summed; values with ``idx >= size`` are
+    dropped (each to a trailing slot of its own)."""
+
+    def __init__(self, idx, size: int, device="cpu"):
+        idx = np.asarray(idx, dtype=np.int64).reshape(-1)
+        if idx.size and idx.min() < 0:
+            raise ValueError("IndexFold: negative index")
+        keep = idx < size
+        counts = np.bincount(idx[keep], minlength=size) if size else np.zeros(0, np.int64)
+        self.size = int(size)
+        self.width = max(int(counts.max()) if counts.size else 0, 1)
+        order = np.argsort(idx, kind="stable")
+        ordered = idx[order]
+        rank = np.empty_like(idx)
+        rank[order] = np.arange(idx.size) - np.searchsorted(ordered, ordered, side="left")
+        dropped = np.cumsum(~keep) - 1
+        slot = np.where(keep, idx * self.width + rank, self.size * self.width + dropped)
+        self.n_slots = self.size * self.width + int((~keep).sum())
+        self.slot = torch.as_tensor(slot, device=device)
+
+    def __call__(self, values: torch.Tensor) -> torch.Tensor:
+        buf = values.new_zeros(self.n_slots)
+        buf[self.slot] = values
+        return buf[: self.size * self.width].view(self.size, self.width).sum(1)
+
+
 def zero_state(n_qubits: int, dtype=torch.complex128, device="cpu"):
     """|00...0> as a flat statevector."""
     psi = torch.zeros(1 << n_qubits, dtype=dtype, device=device)

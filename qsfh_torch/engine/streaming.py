@@ -65,6 +65,31 @@ TILE_LOW_BITS = 4
 # H100's 132 SMs idle.
 RESIDENT_TILE_BITS = 11
 RESIDENT_TILE_LOW_BITS = 3
+# The float64 group engine's resident route (native.statevec.Rot64Program,
+# Group64Runs): tiles of 2^RESIDENT64_TILE_BITS complex128 amplitudes (32
+# KiB at 11 bits), the low RESIDENT64_TILE_LOW_BITS flat bits and the
+# run's flip bits above them; a run's group tables (cos, sin and r, 24
+# bytes an entry) at most RESIDENT64_RUN_ENTRIES entries (48 KiB), at most
+# RESIDENT64_RUN_GROUPS groups.  On the 3x3 checkpoint (1931 groups), timed
+# with chip_smoke.py's polish phase on an NVIDIA H100 80GB HBM3 at 700 W
+# (value_and_grad, ms): 11 / 1 (521 runs) 10.03, 11 / 0 (488) 10.55,
+# 11 / 2 (553) 10.07, 11 / 3 (609) 10.81, 12 / 1 (424, 64 blocks) 11.58,
+# 10 / 1 (639) 11.24; the table budget closes no run at any of them.
+RESIDENT64_TILE_BITS = 11
+RESIDENT64_TILE_LOW_BITS = 1
+RESIDENT64_RUN_ENTRIES = 2048
+RESIDENT64_RUN_GROUPS = 128
+# tile shapes the kernels take: a warp of pair threads at least, two 64 KiB
+# complex128 tiles at most
+RESIDENT64_MIN_BITS = 6
+RESIDENT64_MAX_BITS = 12
+# threads of a block, both kernels (capped at the tile's pairs, at least an
+# eighth of its slots: a thread copies at most 8)
+RESIDENT64_THREADS = 256
+# int32 words of a group record (the kernels' kRes64Rec): xt, pxor, its
+# table's base in the run's tables, rank, the basis in tile coordinates (8)
+# and flat (8)
+RESIDENT64_RECORD = 20
 # A thread holds the 2^REG_BITS slots of a tile that differ in REG_BITS
 # chosen tile bits, in registers; terms per run, staged in shared memory.
 REG_BITS = 4
@@ -325,6 +350,179 @@ class TileLayout:
         """State passes of one call: one per tile run and per term that
         fits no tile."""
         return self.n_runs + self.n_single
+
+
+def group_basis(zs):
+    """A GF(2) basis of a group's phase masks, greedy in term order.
+
+    Returns ``(basis, coef)``: ``basis`` the masks of ``zs`` independent of
+    the earlier ones, and ``coef[k]`` the basis elements whose XOR is
+    ``zs[k]`` (bit j: element j).  Then parity(b & zs[k]) = parity(q &
+    coef[k]) with q bit j = parity(b & basis[j]).
+    """
+    basis, rows, coef = [], [], []
+    for z in np.asarray(zs, np.int64).tolist():
+        v, combo = z, 0
+        for pivot, vec, vcombo in rows:  # insertion order: no pivot comes back
+            if v >> pivot & 1:
+                v ^= vec
+                combo ^= vcombo
+        if v:
+            j = len(basis)
+            basis.append(z)
+            rows.append((v.bit_length() - 1, v, combo ^ (1 << j)))
+            coef.append(1 << j)
+        else:
+            coef.append(combo)
+    return basis, coef
+
+
+def order_group_runs(gx, entries, k: int, c: int, max_entries: int, max_groups: int):
+    """Order-preserving greedy partition of a float64 group program into
+    tile runs, by :func:`order_tile_runs`' rule: a group joins the open run
+    while the union of the run's flip bits at and above ``c`` stays within
+    ``k - c`` bits, its tables within ``max_entries`` entries and the run
+    within ``max_groups`` groups.  Returns ``[(g0, g1, hi)]``, or None when
+    a group fits no tile (its own flip bits or tables too many)."""
+    low = (1 << c) - 1
+    runs: list = []
+    for g, (x, e) in enumerate(zip(np.asarray(gx, np.int64).tolist(), entries)):
+        h = x & ~low
+        if bin(h).count("1") > k - c or e > max_entries:
+            return None
+        if runs:
+            g0, _, hi, used = runs[-1]
+            if (g - g0 < max_groups and used + e <= max_entries
+                    and bin(hi | h).count("1") <= k - c):
+                runs[-1] = [g0, g + 1, hi | h, used + e]
+                continue
+        runs.append([g, g + 1, h, e])
+    return [(g0, g1, hi) for g0, g1, hi, _ in runs]
+
+
+class Group64Runs:
+    """Tile runs of a float64 group program (``native.statevec``), in the
+    tables ``rot64_resident`` / ``adjoint64_resident`` read.
+
+    Run ``r`` covers groups ``[run_start[r], run_start[r + 1])``; its tile
+    is the flat bit set ``run_mask[r]`` (the low ``c`` bits and ``k - c``
+    others), tile coordinate bit j being the j-th lowest bit of the set.
+    Group g's phase masks have the basis ``zb[bstart[g]:bstart[g + 1]]``
+    (:func:`group_basis`; rank R_g), term t the coefficient mask
+    ``csub[t]``; its tables hold ``max(2, 2^R_g)`` entries from
+    ``toff[g]`` (entry q: r = sum_k w_k (1 - 2 parity(q & csub_k)), summed
+    in term order), ``tgroup`` names each entry's group.  Per group, in
+    its run's tile coordinates: the flip mask ``xt`` and the basis ``zbt``;
+    ``pxor`` (bit j = parity(x & zb_j)) maps a pattern to its partner's
+    (all ones where the group's unit is i, else 0).  The kernels read a
+    record per group, ``grec`` (``RESIDENT64_RECORD`` words: xt, pxor, the
+    table's base in its run's tables, rank, zbt and zb padded to 8 each).
+    Raises ValueError where a group fits no tile (:func:`group_runs_fit`).
+    """
+
+    def __init__(self, gx, goff, zsub, n: int, k: int, c: int,
+                 max_entries: int = RESIDENT64_RUN_ENTRIES,
+                 max_groups: int = RESIDENT64_RUN_GROUPS):
+        self.n, self.k, self.c = n, k, c
+        self.gx = np.asarray(gx, np.int64)
+        goff = np.asarray(goff, np.int64)
+        zsub = np.asarray(zsub, np.int64)
+        zb, bstart, csub, pxor, entries = [], [0], [], [], []
+        for g, x in enumerate(self.gx.tolist()):
+            basis, coef = group_basis(zsub[goff[g]:goff[g + 1]])
+            zb.extend(basis)
+            bstart.append(len(zb))
+            csub.extend(coef)
+            pxor.append(sum((bin(x & z).count("1") & 1) << j for j, z in enumerate(basis)))
+            entries.append(max(2, 1 << len(basis)))
+        runs = order_group_runs(self.gx, entries, k, c, max_entries, max_groups)
+        if n < k or runs is None:
+            raise ValueError(f"a group of the program fits no {k}-bit tile of {n} qubits")
+        i32 = lambda a: np.asarray(a, np.int64).astype(np.int32)  # noqa: E731
+        self.zb, self.bstart, self.csub, self.pxor = i32(zb), i32(bstart), i32(csub), i32(pxor)
+        self.toff = i32(np.concatenate([[0], np.cumsum(entries)]))
+        self.tgroup = i32(np.repeat(np.arange(len(entries)), entries))
+        self.run_start = i32([g0 for g0, _, _ in runs] + [len(self.gx)])
+        self.run_mask = i32([_pad((1 << c) - 1 | hi, k, range(c, n)) for _, _, hi in runs])
+        self._place()
+
+    def _place(self):
+        """The tile coordinates of every group from ``run_mask``."""
+        xt, zbt = np.zeros_like(self.gx), np.zeros(len(self.zb), np.int64)
+        for r, mask in enumerate(self.run_mask.tolist()):
+            g0, g1 = self.run_start[r], self.run_start[r + 1]
+            pos = _positions(mask)
+            xt[g0:g1] = pext(self.gx[g0:g1], pos)
+            b0, b1 = self.bstart[g0], self.bstart[g1]
+            zbt[b0:b1] = pext(self.zb[b0:b1], pos)
+        self.xt, self.zbt = xt.astype(np.int32), zbt.astype(np.int32)
+        rec = np.zeros((self.n_groups, RESIDENT64_RECORD), np.int64)
+        rank = np.diff(self.bstart)
+        run_of = np.repeat(np.arange(len(self)), np.diff(self.run_start))
+        rec[:, 0], rec[:, 1], rec[:, 3] = self.xt, self.pxor, rank
+        rec[:, 2] = self.toff[:-1] - self.toff[self.run_start[run_of]]
+        for g in range(self.n_groups):
+            b0, b1 = self.bstart[g], self.bstart[g + 1]
+            rec[g, 4:4 + b1 - b0] = self.zbt[b0:b1]
+            rec[g, 12:12 + b1 - b0] = self.zb[b0:b1]
+        self.grec = rec.astype(np.int32)
+        self._cache = {}
+
+    def __len__(self):
+        """The number of runs (state passes of one launch)."""
+        return int(self.run_mask.size)
+
+    @property
+    def n_groups(self) -> int:
+        return int(self.gx.size)
+
+    @property
+    def n_entries(self) -> int:
+        return int(self.toff[-1])
+
+    @property
+    def most_entries(self) -> int:
+        """The table entries of the largest run (shared memory)."""
+        return int(np.diff(self.toff[self.run_start]).max())
+
+    @property
+    def most_groups(self) -> int:
+        return int(np.diff(self.run_start).max())
+
+    def group_mask(self) -> np.ndarray:
+        """Each group's tile bit set (its run's)."""
+        return np.repeat(self.run_mask.astype(np.int64), np.diff(self.run_start))
+
+    def check(self, name: str):
+        """Raise unless the runs cover the groups in order and every flip
+        mask lies inside its run's tile."""
+        starts = np.diff(self.run_start)
+        if self.run_start[0] != 0 or self.run_start[-1] != self.n_groups or (starts < 1).any():
+            raise ValueError(f"{name}: the runs do not cover the groups in order")
+        bad = np.flatnonzero(self.gx & ~self.group_mask())
+        if bad.size:
+            raise ValueError(f"{name}: group {int(bad[0])} flips bits outside its run's tile")
+
+    def tensors(self, device):
+        """(run_start, run_mask, grec, toff, tgroup, csub) as int32 tensors
+        on ``device``, built once per device."""
+        key = str(device)
+        if key not in self._cache:
+            self._cache[key] = tuple(
+                torch.as_tensor(a, device=device)
+                for a in (self.run_start, self.run_mask, self.grec, self.toff, self.tgroup,
+                          self.csub))
+        return self._cache[key]
+
+
+def group_runs_fit(gx, n: int, k: int, c: int) -> bool:
+    """Whether a program of flip masks ``gx`` takes the resident route at
+    tiles of k bits (the low c flat bits): n >= k and every group's flip
+    bits above c fit k - c bits (the tables of a group, at most 256
+    entries, always fit a run)."""
+    low = (1 << c) - 1
+    return n >= k and all(bin(x & ~low).count("1") <= k - c
+                          for x in np.asarray(gx, np.int64).tolist())
 
 
 def group_by_x(xs, max_terms: int = 0):

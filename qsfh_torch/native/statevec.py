@@ -8,9 +8,16 @@ products).  The semantics are the same: a rot segment's consecutive terms
 grouped by (flip mask, parameter, parity of x & z), each group one closed
 form exp(-i theta M), H psi from the observable's scan terms, and the fused
 adjoint sweep.  Here the group arrays and the state live on the card, in
-complex128, and every pass is a CUDA kernel (``engine.kernels``:
-``rot64_groups``, ``happly64``, ``adjoint64_groups``); with
-``device="cpu"`` the wrappers take their plain versions.
+complex128, and every pass is a CUDA kernel (``engine.kernels``).  The
+forward pass and the adjoint sweep take one of two routes, chosen from the
+layout when the program is built and shown as ``prog.route``:
+``"resident"`` (``rot64_resident`` / ``adjoint64_resident``: the groups cut
+into tile runs, ``streaming.Group64Runs``, one cooperative launch a pass)
+wherever every group fits a tile of ``RESIDENT64_TILE_BITS`` (the low
+``RESIDENT64_TILE_LOW_BITS`` flat bits and the run's flip bits above them),
+else ``"groups"`` (``rot64_groups`` / ``adjoint64_groups``: one launch a
+group).  H psi is ``happly64``.  With ``device="cpu"`` the wrappers take
+their plain versions.
 """
 
 from __future__ import annotations
@@ -18,9 +25,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..engine import streaming
 from ..engine.compiled import CompiledCircuit, givens_network_static_ops
 from ..engine.kernels import KERNELS, Groups64
 from ..engine.state import resolve_device
+
+ROUTES = ("resident", "groups")
 
 
 def _group_terms(xb, zb, scale, pidx, phre, phim, cap=8):
@@ -87,10 +97,15 @@ class Rot64Program:
     wrappers (``engine.kernels.KERNELS``, the default) or ``PLAIN`` (the
     plain versions on any device, a reference on the card).  ``theta`` and
     ``psi0`` may be numpy arrays or tensors; states come back as complex128
-    tensors on the program's device.
+    tensors on the program's device.  ``route``: None chooses from the
+    layout (``"resident"`` where every group fits a tile of ``tile_bits``
+    bits, the low ``low_bits`` flat, and n >= tile_bits; else
+    ``"groups"``); ``"groups"`` forces the per-group kernels, and
+    ``"resident"`` raises where the layout does not allow it.
     """
 
-    def __init__(self, n, seg_data, h_terms, n_params, device=None, impl=None):
+    def __init__(self, n, seg_data, h_terms, n_params, device=None, impl=None, route=None,
+                 tile_bits=None, low_bits=None):
         self.device = resolve_device(device)
         self.impl = impl or KERNELS
         self.n = int(n)
@@ -131,8 +146,23 @@ class Rot64Program:
         # (parameter index -1) take the last entry
         self.theta_ext = torch.ones(self.n_params + 1, dtype=torch.float64, device=dev)
 
+        k = streaming.RESIDENT64_TILE_BITS if tile_bits is None else int(tile_bits)
+        c = streaming.RESIDENT64_TILE_LOW_BITS if low_bits is None else int(low_bits)
+        if not (streaming.RESIDENT64_MIN_BITS <= k <= streaming.RESIDENT64_MAX_BITS
+                and 0 <= c <= k):
+            raise ValueError(f"tiles of {k} bits, {c} low: the resident kernels take "
+                             f"{streaming.RESIDENT64_MIN_BITS}-{streaming.RESIDENT64_MAX_BITS}")
+        fits = streaming.group_runs_fit(self.gx, self.n, k, c)
+        if route not in (None, *ROUTES):
+            raise ValueError(f"route {route!r}: expected one of {ROUTES}")
+        if route == "resident" and not fits:
+            raise ValueError(f"a group fits no {k}-bit tile of {self.n} qubits")
+        self.route = route or ("resident" if fits else "groups")
+        self.runs = (streaming.Group64Runs(self.gx, self.goff, self.zsub, self.n, k, c)
+                     if self.route == "resident" else None)
+
     @classmethod
-    def from_adapt(cls, vqe, indices=None, impl=None):
+    def from_adapt(cls, vqe, indices=None, impl=None, **kwargs):
         """Build from an ADAPT driver on its device: the selected pool
         rotations and the Givens network as one rot segment, and H."""
         if indices is None:
@@ -144,7 +174,7 @@ class Rot64Program:
         if len(cc.segments) != 1 or cc.segments[0].kind != "rot":
             raise ValueError("the ansatz did not lower to one rot segment")
         return cls(vqe.n_qubits, cc.segments[0].data, p.observables["H"]._scan_terms(),
-                   len(indices), device=vqe.device, impl=impl)
+                   len(indices), device=vqe.device, impl=impl, **kwargs)
 
     def _angles(self, theta) -> torch.Tensor:
         """theta into ``theta_ext`` (on the device); returns it."""
@@ -165,7 +195,16 @@ class Rot64Program:
 
     def apply(self, theta, psi0) -> torch.Tensor:
         """The full program on psi0 (complex128)."""
-        return self.impl.rot64_groups(self._state(psi0), self.groups, self._angles(theta))
+        psi, th = self._state(psi0), self._angles(theta)
+        if self.route == "resident":
+            return self.impl.rot64_resident(psi, self.groups, th, self.runs)
+        return self.impl.rot64_groups(psi, self.groups, th)
+
+    def _adjoint(self, psi, lam) -> torch.Tensor:
+        """The reverse sweep on the route (in place on psi and lam)."""
+        if self.route == "resident":
+            return self.impl.adjoint64_resident(psi, lam, self.groups, self.theta_ext, self.runs)
+        return self.impl.adjoint64_groups(psi, lam, self.groups, self.theta_ext)
 
     def h_apply(self, psi) -> torch.Tensor:
         """H |psi> (complex128)."""
@@ -181,7 +220,7 @@ class Rot64Program:
         doubling.  One host read."""
         psi = self.apply(theta, psi0)
         lam, stats = self.impl.happly64(psi, *self.h_device, 2.0)
-        grad = self.impl.adjoint64_groups(psi, lam, self.groups, self.theta_ext)
+        grad = self._adjoint(psi, lam)
         out = torch.cat([stats[:1], grad]).cpu().numpy()
         return float(out[0]), out[1:]
 

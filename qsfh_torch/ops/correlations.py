@@ -20,7 +20,7 @@ many pairs), one inner-product layout (``streaming.GroupTiles``, built once
 per matrix and cached), one ``pauli_inner_grouped`` call returning
 <psi|P_t|psi> per term (``pauli_inner`` below ``INNER_TILE_MIN_BITS``
 qubits), then Re(c_t v_t) folded in torch and summed by entry with
-``index_add_``.  ``route="loop"`` is the JAX module's form: one
+``engine.state.IndexFold`` (the same bits on every call).  ``route="loop"`` is the JAX module's form: one
 ``Observable`` per entry, its plain ``expectation``.  ``route="auto"``
 takes the layout on the card and the loop on the CPU.  A numpy state goes
 to ``resolve_device(device)``; a tensor is read on its device.  Matrices
@@ -38,7 +38,7 @@ import torch
 from ..algos.base import state_on_device
 from ..engine.expectation import Observable, _device_terms, _groups
 from ..engine.kernels import INNER_TILE_MIN_BITS, pauli_inner, pauli_inner_grouped
-from ..engine.state import real_dtype
+from ..engine.state import IndexFold
 from .fermion import FermionOperator
 from .jw import jordan_wigner
 from .pauli import PauliSum
@@ -114,10 +114,10 @@ class EntryTerms:
         """The flat list's inner-product layout (built once)."""
         return _groups(self._cache, self.arrays, self.n, inner=True)
 
-    def _entry_index(self, psi):
+    def _entry_fold(self, psi):
         key = (str(psi.device), "entry")
         if key not in self._cache:
-            self._cache[key] = torch.as_tensor(self.entry, device=psi.device)
+            self._cache[key] = IndexFold(self.entry, self.n_entries, psi.device)
         return self._cache[key]
 
     def term_values(self, psi: torch.Tensor) -> torch.Tensor:
@@ -136,9 +136,9 @@ class EntryTerms:
         _, _, c = _device_terms(self._cache, self.arrays, psi)
         v = self.term_values(psi).to(psi.dtype)
         contribs = (c * v).real
-        idx = self._entry_index(psi) if entry is None else entry
-        out = torch.zeros(self.n_entries, dtype=real_dtype(psi.dtype), device=psi.device)
-        return out.index_add_(0, idx, contribs)
+        if entry is None:
+            return self._entry_fold(psi)(contribs)
+        return IndexFold(torch.as_tensor(entry).cpu().numpy(), self.n_entries, psi.device)(contribs)
 
 
 def _evaluate(psi, entries_of, n_sites: int, route: str, device=None) -> np.ndarray:

@@ -595,7 +595,9 @@ def test_float64_group_kernels(dev, tmp_path):
     ten operators of the extended pool: groups of 8 and diagonal groups)
     against their plain versions in complex128: the state and H psi within
     1e-12 relative, E within 1e-12, the gradient within 1e-12 of max |g|;
-    two calls give the same bits; a launch per group."""
+    two calls give the same bits; a launch per group (the per-group route,
+    asked for explicitly: the program's layout would take the resident
+    kernels)."""
     from qsfh_torch.algos.adapt import ADAPT
     from qsfh_torch.native.statevec import Rot64Program
     from qsfh_torch.ops.pool import hubbard_interaction_pool_extended
@@ -606,8 +608,9 @@ def test_float64_group_kernels(dev, tmp_path):
               dtype=torch.complex128, pool=hubbard_interaction_pool_extended(2, 3),
               results_root=str(tmp_path))
     indices = [0, 5, 10, 20, 40, 60, 80, 90, 100, 110]
-    prog = Rot64Program.from_adapt(a, indices)
+    prog = Rot64Program.from_adapt(a, indices, route="groups")
     plain = Rot64Program.from_adapt(a, indices, impl=K.PLAIN)
+    assert prog.route == "groups" and Rot64Program.from_adapt(a, indices).route == "resident"
     assert np.diff(prog.goff).max() == 8 and (prog.gx == 0).any()
     th = np.random.default_rng(7).normal(0.0, 0.4, len(indices))
     psi0 = a._initial_state()
@@ -628,6 +631,83 @@ def test_float64_group_kernels(dev, tmp_path):
     assert e2 == e and np.array_equal(g2, g)
     with pytest.raises(TypeError):
         K.happly64(psi.to(torch.complex64), *prog.h_device)
+
+
+def _random_group_program(n, dev, seed, n_ops=40, n_params=12, **kw):
+    """A float64 group program of random rotation terms at n qubits: flip
+    masks of up to 4 bits (a fifth of them diagonal), runs of 1-8 terms
+    sharing (x, parameter, parity) as the grouping takes them, static
+    terms among them, unit string phases; H a random term list."""
+    from qsfh_torch.native.statevec import Rot64Program
+
+    rng = np.random.default_rng(seed)
+    xb, zb, scale, pidx, phre, phim = [], [], [], [], [], []
+    for _ in range(n_ops):
+        x = 0 if rng.random() < 0.2 else int(sum(1 << int(b) for b in rng.choice(
+            n, size=int(rng.integers(1, 5)), replace=False)))
+        p = int(rng.integers(-1, n_params))
+        for _ in range(int(rng.integers(1, 9))):
+            z = int(rng.integers(0, 1 << n))
+            odd = bin(x & z).count("1") & 1
+            sign = 1.0 if rng.random() < 0.5 else -1.0
+            xb.append(x)
+            zb.append(z)
+            scale.append(float(rng.normal(0.0, 0.5)))
+            pidx.append(p)
+            phre.append(0.0 if odd else sign)
+            phim.append(sign if odd else 0.0)
+    seg = dict(xb=np.array(xb, np.uint32), zb=np.array(zb, np.uint32), scale=np.array(scale),
+               pidx=np.array(pidx, np.int32), phre=np.array(phre), phim=np.array(phim))
+    T = 30
+    h = (rng.integers(0, 1 << n, size=T).astype(np.uint32),
+         rng.integers(0, 1 << n, size=T).astype(np.uint32), rng.normal(size=T),
+         rng.normal(size=T) * 0.1)
+    th = rng.normal(0.0, 0.5, n_params)
+    psi0 = _state(rng, n)
+    make = lambda **extra: Rot64Program(n, seg, h, n_params, device=dev, **kw,  # noqa: E731
+                                        **extra)
+    return make, th, psi0
+
+
+@pytest.mark.parametrize("n,k", [(12, 8), (14, 9)])
+def test_float64_resident_kernels(dev, n, k):
+    """``rot64_resident`` and ``adjoint64_resident`` on random group
+    programs at n = 12 and 14 over tiles of k bits (many tiles and runs):
+    against the plain versions in complex128 (the state within 1e-12
+    relative, E within 1e-12, the gradient within 1e-12 of max |g|),
+    against the per-group kernels (the same state bits: the pair arithmetic
+    is shared; the gradient within 1e-13 of max |g|), one launch each way a
+    call, two calls and a grid of 3 blocks the same bits."""
+    make, th, psi0 = _random_group_program(n, dev, seed=n, tile_bits=k, low_bits=1)
+    prog, groups, plain = make(), make(route="groups"), make(impl=K.PLAIN)
+    assert prog.route == "resident" and len(prog.runs) > 2 and (prog.gx == 0).any()
+    K.reset_launch_counts()
+    psi = prog.apply(th, psi0)
+    e, g = prog.value_and_grad(th, psi0)
+    e2, g2 = prog.value_and_grad(th, psi0)
+    counts = K.launch_counts()
+    assert {k_: v for k_, v in counts.items() if v} == dict(
+        rot64_resident=3, adjoint64_resident=2, happly64=2)
+    psi_g = groups.apply(th, psi0)
+    e_g, g_g = groups.value_and_grad(th, psi0)
+    psi_p = plain.apply(th, psi0)
+    e_p, g_p = plain.value_and_grad(th, psi0)
+    torch.cuda.synchronize()
+    gmax = np.abs(g_p).max()
+    assert _rel(psi, psi_p) <= 1e-12 and abs(e - e_p) <= 1e-12
+    assert np.abs(g - g_p).max() <= 1e-12 * gmax
+    assert torch.equal(psi, psi_g) and e == e_g and np.abs(g - g_g).max() <= 1e-13 * gmax
+    assert e2 == e and np.array_equal(g2, g)
+    th_ext = prog._angles(th).clone()
+    few = K.rot64_resident(prog._state(psi0), prog.groups, th_ext, prog.runs, blocks=3)
+    lam = 2.0 * prog.h_apply(psi)
+    g_full = K.adjoint64_resident(psi.clone(), lam.clone(), prog.groups, th_ext, prog.runs)
+    g_few = K.adjoint64_resident(psi.clone(), lam.clone(), prog.groups, th_ext, prog.runs,
+                                 blocks=3)
+    torch.cuda.synchronize()
+    assert torch.equal(few, psi) and torch.equal(g_full, g_few)
+    with pytest.raises(TypeError):
+        K.rot64_resident(psi.to(torch.complex64), prog.groups, th_ext, prog.runs)
 
 
 def _fused_adapt(dev, tmp_path):
@@ -1005,6 +1085,34 @@ def test_multistart_epoch_on_card(dev):
     ref = ms.run()
     np.testing.assert_allclose(got["energies"], ref["energies"], rtol=RTOL)
     np.testing.assert_allclose(got["final_energies"], ref["final_energies"], rtol=RTOL)
+
+
+def test_index_fold_same_bits_on_card(dev):
+    """``IndexFold`` on the card: within 1e-5 relative of ``index_add_``
+    and the same bits on two calls; a 2x2 ``MultistartHVA`` (B = 4, 20
+    epochs of Adam, whose steps divide by |g|) run twice gives the same
+    energies bit for bit."""
+    from qsfh_torch.algos.multistart import MultistartHVA
+    from qsfh_torch.engine.state import IndexFold
+
+    rng = np.random.default_rng(11)
+    idx = rng.integers(0, 40, size=20000)
+    vals = torch.as_tensor(rng.standard_normal(20000).astype(np.float32), device=dev)
+    fold = IndexFold(idx, 37, dev)
+    got = fold(vals)
+    keep = torch.as_tensor(idx < 37, device=dev)
+    ref = torch.zeros(37, dtype=torch.float32, device=dev).index_add_(
+        0, torch.as_tensor(idx, device=dev)[keep], vals[keep])
+    assert torch.linalg.vector_norm(got - ref) <= RTOL * torch.linalg.vector_norm(ref)
+    assert torch.equal(got, fold(vals))
+
+    lat = dict(x_dimension=2, y_dimension=2, tunneling=1.0, coulomb=6.0, n_electrons=4,
+               n_spin_up=2, n_spin_down=2)
+    runs = [MultistartHVA(n_starts=4, n_epoch=20, reps=2, lr=3e-2, init_scale=0.1, seed=0,
+                          ground_truth=False, dtype=torch.complex64, device=dev, **lat).run()
+            for _ in range(2)]
+    np.testing.assert_array_equal(runs[0]["energies"], runs[1]["energies"])
+    np.testing.assert_array_equal(runs[0]["final_energies"], runs[1]["final_energies"])
 
 
 def test_sector_lanczos_on_card_matches_cpu(dev):
