@@ -72,12 +72,27 @@ Phases (any failed check raises and the script exits nonzero):
    gather (the same bytes), the gather in turns with
    ``torch.index_select`` with a prebuilt index, each split into host,
    wall and device ms per call.
-7. The float64 Rayleigh readout ``expectation_norm_f64`` on the 3x3 and
-   2x6 main paths' states against its plain version (the state upcast to
-   complex128; the Rayleigh quotient within 1e-12 relative, the same bits
-   on two calls), its gap to the float32 ``expectation_grouped`` energy,
-   timed beside its bound (bytes at 3.35 TB/s, float64 operations at 34
-   TFLOP/s).
+7. The float64 Rayleigh readout on the 3x3 and 2x6 main paths' states:
+   ``expectation_norm_f64_tiles`` (the inner-product tiles, the route of
+   ``expectation_norm_df`` from 9 qubits on) and ``expectation_norm_f64``
+   (per term) against their plain version (the state upcast to complex128;
+   the Rayleigh quotient and N within 1e-12 relative, the same bits on two
+   calls, one launch a call), a planted fault (one item's coefficient
+   dropped) that the tile gate must fail, the gap to the float32
+   ``expectation_grouped`` energy, both timed in turns (CUDA events, and in
+   a CUDA graph) beside the bound (bytes at 3.35 TB/s, float64 operations
+   at 34 TFLOP/s: the least of either design), the plain version and a
+   library yardstick (the state upcast, a complex128 CSR ``torch.mv`` and
+   ``torch.vdot``); H psi of the 2x6 state upcast to complex128 (24
+   qubits, ``happly64_tiles`` and ``happly64``: H psi within 1e-11 relative,
+   E within 1e-11 of the plain version, the same bits on two calls, in
+   turns, a planted fault); the 3x3 H with a term on
+   a 5-bit mask (it fits no tile) through both tile kernels, the spilled
+   term through the per-term kernels; at 10, 12, 14 and 16 qubits (the 1x5,
+   2x3, 1x7, 2x4 H on a seeded state) both readouts and both H psi kernels
+   against their plain versions and in turns (CUDA events and CUDA graph
+   replays), beside the route the code takes there
+   (``kernels.F64_TILE_MIN_QUBITS``).
 8. The fused runner (``qsfh_torch.algos.adapt_fused.FusedAdaptRunner``) at
    3x3 on the 12-operator ansatz, on the CUDA graph path: captures of K =
    1, 10 and 100 train steps (capture ms, graph-pool memory, whether the
@@ -236,7 +251,8 @@ Phases (any failed check raises and the script exits nonzero):
    ed`` (2x2) in a process of its own.
 22. The float64 polish engine (``qsfh_torch.native.statevec.Rot64Program``;
    on its resident route ``rot64_resident`` and ``adjoint64_resident``, one
-   cooperative launch a pass over 521 tile runs, and ``happly64``; the
+   cooperative launch a pass over 521 tile runs, and ``happly64_tiles``, H
+   in 2 application tiles, one launch each; the
    per-group route ``rot64_groups`` / ``adjoint64_groups``, one launch per
    group, beside it as the yardstick) on the committed 3x3 ADAPT checkpoint (1719 operators
    of the extended pool, loaded with ``load_model`` in complex128), the path
@@ -253,7 +269,8 @@ Phases (any failed check raises and the script exits nonzero):
    1e-13 of max |g|), both resident kernels on a grid of 37 blocks the
    same bits; (d) two planted faults: the static groups' angle 0, that (b)
    must fail, and a layout whose run misses a flip bit of one of its
-   groups (built past the constructor's check), that (c) must fail; (e)
+   groups (built past the constructor's check), that (c) must fail, and H
+   without one item's coefficient, that the H psi gate must fail; (e)
    L-BFGS-B as the script runs it, cut at 674
    evaluations: evaluations 1-10 within 1e-9 of ``polish_fast.jsonl``, the
    first parting printed, the best E below -5.562290; (f) Newton-CG on
@@ -263,23 +280,28 @@ Phases (any failed check raises and the script exits nonzero):
    value_and_grad and hvp on both routes in turns and per wrapper call
    against the plain versions and the bounds (bytes at 3.35 TB/s, float64
    at 34 TFLOP/s), launches per call, the idle share of 3 evaluations on
-   each route (``torch.profiler``), a complex128 CSR ``torch.mv`` as
-   ``happly64``'s library yardstick, the resident route's ms at other
+   each route (``torch.profiler``), H psi in turns on ``happly64`` and
+   ``happly64_tiles`` (CUDA events and CUDA graph replays), a complex128
+   CSR ``torch.mv`` as H psi's library yardstick,
+   the resident route's ms at other
    tile shapes (``POLISH_TILE_SHAPES``), and the cost of a run (each
    resident kernel on layouts of 1, 2, 4 groups a run at most and the
    shipped cap: a line through (runs, ms)).  The launch counters are set to 0
    just before the polish run and read just after: one resident launch
-   each way and one ``happly64`` an evaluation (the tables and the fold
-   inside the launches), no per-group launch.  The best point goes to the
+   each way and the ``happly64_tiles`` launches of its H layout an
+   evaluation (``Rot64Program.h_launches``; the tables and the folds inside
+   the launches), no per-group and no per-term H launch.  The best point goes to the
    run's temporary directory.
-23. A ``kernels`` JSON line (``expectation_norm_f64``'s launches counted
+23. A ``kernels`` JSON line (the readouts' launches counted
    per capture, its replays beside them; every kernel's graph nodes per
    fused step; its launches on the HVA, iQCC, product-state, HEA, VQD,
    Trotter, ITE, analysis, Lanczos, multistart and sampling paths; ms and
    bound at 26-30 qubits and per correlation matrix; the launches of the
    CLI's 3x3 adapt run and of the 2x6 ED's checks, and of the float64
-   polish run, where the five float64 kernels report theirs), then
-   the device JSON line, last.
+   polish run, where the six float64 kernels report theirs; the old
+   ``expectation_norm_f64`` and ``happly64`` beside the tile kernels that
+   redesign them, with their launches on the spilled-mask H), then the
+   device JSON line, last.
 
 ``--compare PARENT`` runs both main paths (3x3 and 2x6 selection and
 train step, host clock and profile) of the port in the checkout PARENT
@@ -299,7 +321,9 @@ the 24-qubit tile-run kernels over other tile sizes (k, c) on the 2x6
 segment, the folded inner-product tiles over tile
 shapes and item caps on the pool, H, Sz and S^2 at 18 qubits and on the
 pool, H and S^2 at 24, and the application tile kernel over the same
-shapes on H psi at 18 and 24 qubits.
+shapes on H psi at 18 and 24 qubits, and the float64 tile kernels (the
+readout at 3x3 and 2x6, H psi at 18 and 24 qubits) at tiles of 10, 11 and
+12 bits.
 
 It imports nothing of JAX or of the JAX package ``qsfh_tpu``.
 """
@@ -363,11 +387,15 @@ REPLACES = {
     # no Pallas kernel: the JAX package's double-float readout in plain jnp
     "expectation_norm_f64": "qsfh_tpu/engine/dfloat.py:229 (expectation_norm_df, plain jnp; "
                             "no TPU Pallas counterpart)",
+    "expectation_norm_f64_tiles": "qsfh_tpu/engine/dfloat.py:229 (expectation_norm_df, plain "
+                                  "jnp; no TPU Pallas counterpart)",
     # no Pallas kernel: the JAX package's host C++ float64 engine
     "rot64_groups": "qsfh_tpu/native/statevec64.cpp:153 (qsfh_sv64_apply, host C++; "
                     "no TPU Pallas counterpart)",
     "happly64": "qsfh_tpu/native/statevec64.cpp:171 (qsfh_sv64_happly, host C++; "
                 "no TPU Pallas counterpart)",
+    "happly64_tiles": "qsfh_tpu/native/statevec64.cpp:171 (qsfh_sv64_happly, host C++; "
+                      "no TPU Pallas counterpart)",
     "adjoint64_groups": "qsfh_tpu/native/statevec64.cpp:203 (qsfh_sv64_adjoint, host C++; "
                         "no TPU Pallas counterpart)",
     "rot64_resident": "qsfh_tpu/native/statevec64.cpp:153 (qsfh_sv64_apply, host C++; "
@@ -922,14 +950,12 @@ def sweep_apply_tile_sizes(obs, psi, ref):
     return rows
 
 
-def library_sparse_apply(psi, xs, zs, c, ref):
-    """ms of one ``torch`` CSR sparse matrix-vector product computing H psi
-    (a yardstick only; the port never calls it), or None where this
-    torch build cannot multiply a complex CSR matrix on the card.  The
-    matrix is built on the card mask by mask: row b holds one entry per
-    distinct flip mask x, at column b ^ x, the sum of c_t s_t(b) over the
-    terms of x (columns sorted within each row; 37 x 2^n entries for the
-    Hubbard H)."""
+def sparse_h(psi, xs, zs, c):
+    """The CSR matrix of sum_t c_t P_t in psi's dtype on psi's device (a
+    yardstick only; the port never builds it), built on the card mask by
+    mask: row b holds one entry per distinct flip mask x, at column b ^ x,
+    the sum of c_t s_t(b) over the terms of x (columns sorted within each
+    row; 37 x 2^n entries for the Hubbard H)."""
     import torch
 
     from qsfh_torch.engine.state import index_bits, parity_signs
@@ -940,7 +966,7 @@ def library_sparse_apply(psi, xs, zs, c, ref):
     vals = torch.zeros((dim, masks.numel()), dtype=psi.dtype, device=psi.device)
     for m, x in enumerate(masks):
         for t in torch.nonzero(xs == x).flatten().tolist():
-            vals[:, m] += c[t] * parity_signs(idx, zs[t], torch.float32)
+            vals[:, m] += c[t] * parity_signs(idx, zs[t], psi.real.dtype)
     cols = (idx[:, None] ^ masks[None, :]).to(torch.int32)
     cols, perm = cols.sort(dim=1)
     vals = vals.gather(1, perm)
@@ -949,8 +975,18 @@ def library_sparse_apply(psi, xs, zs, c, ref):
     crow = torch.arange(0, nnz + 1, masks.numel(), dtype=torch.int32, device=psi.device)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)  # "sparse support is in beta"
-        csr = torch.sparse_csr_tensor(crow, cols.flatten(), vals.flatten(), (dim, dim))
-    del cols, vals, idx
+        return torch.sparse_csr_tensor(crow, cols.flatten(), vals.flatten(), (dim, dim))
+
+
+def library_sparse_apply(psi, xs, zs, c, ref):
+    """ms of one ``torch`` CSR sparse matrix-vector product computing H psi
+    (:func:`sparse_h`; a yardstick only, the port never calls it), or None
+    where this torch build cannot multiply a complex CSR matrix on the
+    card."""
+    import torch
+
+    csr = sparse_h(psi, xs, zs, c)
+    nnz = csr.values().numel()
     try:
         out = torch.mv(csr, psi)
     except RuntimeError as exc:  # a missing sparse kernel in this torch build
@@ -2259,23 +2295,60 @@ def phase_compare(parent, dev, tmp, out):
 # -- the float64 readout, the fused runner and exact diagonalization --------------------
 
 
-def f64_bound(terms, dim):
-    """(bound ms, by) of the float64 Rayleigh readout over ``terms`` (the
-    f64 layout: masks, coefficients, group offsets) on a state of ``dim``
-    amplitudes: one read of the state and of the terms, 32 bytes out,
-    against the least float64 arithmetic per amplitude: |psi[b]|^2 and its
-    sum (4); per flip mask the product conj(psi[b]) psi[b^x] (6; 3 for
-    x = 0, |psi[b]|^2 again) and its real part against the weight and the
-    sum (2 for real weights, 4 for complex); per term its signed
-    coefficient added to the weight (1 real, 2 complex)."""
-    xs, zs, cre, cim, starts = terms
+def f64_bound(xs, cim, dim, k):
+    """(bound ms, by) of the float64 Rayleigh readout of a complex64 state
+    of ``dim`` amplitudes over the terms with flip masks ``xs`` (a tensor)
+    and imaginary parts ``cim``: one read of the state and of the terms
+    (masks and float64 coefficients), 32 bytes out, against the least
+    float64 arithmetic of either design per amplitude, at 34 TFLOP/s.
+    Per term (``expectation_norm_f64``): |psi[b]|^2 and its sum (4); per
+    flip mask the product conj(psi[b]) psi[b^x] (6; 3 for x = 0) and its
+    real part against the weight and the sum (2 for real weights, 4 for
+    complex); per term its signed coefficient added to the weight (1 real,
+    2 complex).  Over the tiles (``expectation_norm_f64_tiles``, tiles of
+    k bits): |psi[b]|^2 and N (4); per flip mask x != 0 half a product, the
+    pair (b, b^x) sharing one (3), and its bucket sum (1); the x = 0 terms
+    one Walsh-Hadamard transform of |psi|^2 over the tile (k adds); the
+    per-item and per-term work is once per tile position, 2^-k of it an
+    amplitude.  The smaller count is the bound, so that neither kernel can
+    read under it."""
     real = not bool(cim.any())
-    masks = xs[starts[:-1].long()]
-    per_amp = 4 + sum((3 if int(x) == 0 else 6) + (2 if real else 4) for x in masks)
-    per_amp += (1 if real else 2) * xs.shape[0]
-    bytes_moved = 8 * dim + 24 * xs.shape[0] + 4 * starts.shape[0] + 32
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, per_amp * dim / F64_FLOPS_PER_S
+    masks = xs.unique().tolist()
+    terms = 4 + sum((3 if int(x) == 0 else 6) + (2 if real else 4) for x in masks)
+    terms += (1 if real else 2) * xs.shape[0]
+    tiles = 4 + 4 * sum(1 for x in masks if int(x)) + (k if 0 in masks else 0)
+    bytes_moved = 8 * dim + 24 * xs.shape[0] + 32
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, min(terms, tiles) * dim / F64_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def h_apply_flops(xs, cim, tiles, dim):
+    """The least float64 arithmetic of H psi with E = Re <psi|H psi> and N
+    over the terms with flip masks ``xs`` (numpy) of either design, per
+    amplitude times ``dim``: E and N (4 each) and, per term
+    (``happly64``), per flip mask the coefficient times psi[b^x] and its
+    accumulation (4 for real coefficients, 8 complex) and per term its
+    signed coefficient (1 real, 2 complex); over the application tiles
+    (``happly64_tiles``, ``tiles`` its layout) the same per flip mask x !=
+    0, per item of x != 0 its table entry (1, 2), and per tile with a
+    diagonal one Walsh-Hadamard transform of the spectrum over the tile (k
+    adds, 2k complex) and its product with psi and accumulation (4, 8);
+    masks that fit no tile as per term.  The smaller count."""
+    import numpy as np
+
+    real = not bool(np.asarray(cim).any())
+    w, f = (4, 1) if real else (8, 2)
+    xs = np.asarray(xs, np.int64)
+    terms = (8 + w * np.unique(xs).size + f * xs.size) * dim
+    has_diag = np.diff(tiles.tile_diag) > 0
+    tile_of = np.repeat(np.arange(tiles.n_tiles), np.diff(tiles.tile_items))
+    own = (tiles.item_x != 0) | ~has_diag[tile_of]  # items not taken by a diagonal
+    item_x = xs[tiles.order[tiles.item_start[:-1]]]
+    spill = xs[tiles.spill_index]
+    per_amp = (8 + w * np.unique(item_x[own]).size + f * int(own.sum())
+               + int(has_diag.sum()) * (f * tiles.k + w) + w * np.unique(spill).size
+               + f * spill.size)
+    return min(terms, per_amp * dim)
 
 
 def ansatz_state(adapt, n_ansatz, dev):
@@ -2287,47 +2360,411 @@ def ansatz_state(adapt, n_ansatz, dev):
     return adapt.state(torch.full((n_ansatz,), 0.05, dtype=adapt._rdt, device=dev))
 
 
-def phase_f64(cases, dev):
-    """``expectation_norm_f64`` on the main paths' states (3x3 and 2x6, H)
-    against its plain version (the state upcast to complex128): the Rayleigh
-    quotient within 1e-12 relative, the same bits on two calls; its gap to
-    the float32 ``expectation_grouped`` energy; timed beside its bound and
-    the plain version."""
+F64_READOUT_RTOL = 1e-12  # both readouts against the plain version, the Rayleigh quotient
+F64_HPSI_RTOL = 1e-11  # H psi against the plain version, relative (the polish gate)
+F64_E_ATOL = 1e-11  # E = Re <psi|H psi> against the plain version
+# --tiles: the float64 tile kernels' shapes (k, c), timed beside the shipped ones
+F64_TILE_SHAPES = ((10, 2), (11, 2), (12, 2))
+
+
+def f64_dropped(tiles, cre):
+    """A copy of ``cre`` with the coefficient of the first term of the
+    layout's first item of x != 0 set to 0 (a planted fault)."""
+    it = next(i for i in range(tiles.n_items) if tiles.item_x[i])
+    t = int(tiles.order[tiles.item_start[it]])
+    faulty = cre.clone()
+    faulty[t] = 0.0
+    return faulty, dict(item=it, term=t, coefficient=float(cre[t]))
+
+
+def readout_rel(got, ref):
+    """(Rayleigh quotient relative error, N relative error)."""
+    from qsfh_torch.engine.dfloat import combine_rayleigh
+
+    e, e_ref = combine_rayleigh(got.cpu().numpy()), combine_rayleigh(ref.cpu().numpy())
+    return abs(e - e_ref) / abs(e_ref), abs(float(got[2] - ref[2])) / float(ref[2])
+
+
+def library_readout(psi, xs, zs, c, ref):
+    """ms of the readout's library yardstick on a complex64 state: the state
+    upcast to complex128, a complex128 CSR ``torch.mv`` of H (built as
+    :func:`library_sparse_apply` builds it) and two ``torch.vdot`` (never
+    called by the port), checked against the readout ``ref``; None where
+    the matrix does not fit beside the phase or this torch build cannot
+    multiply it."""
+    import torch
+
+    from qsfh_torch.engine.dfloat import combine_rayleigh
+
+    try:
+        csr = sparse_h(psi.to(torch.complex128), xs, zs, c.to(torch.complex128))
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        log("  readout yardstick: the complex128 CSR does not fit beside the phase")
+        return None
+
+    def readout():
+        q = psi.to(torch.complex64).to(torch.complex128)  # what the readout reads
+        return torch.stack([torch.vdot(q, torch.mv(csr, q)).real, torch.vdot(q, q).real])
+
+    try:
+        got = readout()
+    except RuntimeError as exc:  # a missing sparse kernel in this torch build
+        log(f"  readout yardstick unavailable: {str(exc).splitlines()[0]}")
+        return None
+    e, e_ref = float(got[0] / got[1]), combine_rayleigh(ref.cpu().numpy())
+    if abs(e - e_ref) > F64_READOUT_RTOL * abs(e_ref):
+        raise AssertionError(f"the readout's yardstick disagrees: {e} against {e_ref}")
+    out = time_cuda(readout, reps=10)
+    del csr
+    torch.cuda.empty_cache()
+    return out
+
+
+def f64_shapes(layout_of, call, ref, close, reps):
+    """--tiles: a float64 tile kernel at each of F64_TILE_SHAPES: its
+    layout's tiles and items, ms (least of two runs of ``reps``, CUDA
+    events; and ``reps`` calls replayed in a CUDA graph), checked against
+    ``ref`` by ``close``."""
+    rows = []
+    for k, c in F64_TILE_SHAPES:
+        tiles = layout_of(k, c)
+        got = call(tiles)
+        ms = min(time_cuda(lambda: call(tiles), reps) for _ in range(2))
+        rows.append(dict(k=k, c=c, tiles=tiles.n_tiles, items=tiles.n_items, ms=ms,
+                         graph_ms=graph_ms(lambda: call(tiles), reps), err=close(got, ref)))
+        log(f"    tiles {k} / {c}: {tiles.n_tiles} tiles, {tiles.n_items} items, {ms:.4f} ms, "
+            f"in a CUDA graph {rows[-1]['graph_ms']:.4f} ms, error {rows[-1]['err']:.2e}")
+    return rows
+
+
+def readout_turns(psi, terms, layout, reps):
+    """ms of the two float64 readouts in turns (per term, tiles, tiles, per
+    term): ({"terms": [a, b], "tiles": [a, b]} from CUDA events around
+    ``reps`` calls, the same from 20 calls replayed in a CUDA graph)."""
+    from qsfh_torch.engine import kernels as K
+
+    calls = {"terms": lambda: K.expectation_norm_f64(psi, *terms),
+             "tiles": lambda: K.expectation_norm_f64_tiles(psi, *layout)}
+    turns, graph = {"terms": [], "tiles": []}, {"terms": [], "tiles": []}
+    for side in ("terms", "tiles", "tiles", "terms"):
+        turns[side].append(time_cuda(calls[side], reps=reps))
+        graph[side].append(graph_ms(calls[side], reps=20))
+    return turns, graph
+
+
+# the lattices (x, y) of f64_route_sizes: 10, 12, 14 and 16 qubits, under
+# the main paths' 18 and 24
+F64_ROUTE_LATTICES = ((1, 5), (2, 3), (1, 7), (2, 4))
+
+
+def f64_route_sizes(dev):
+    """The float64 routes below the main paths' sizes: at each lattice of
+    F64_ROUTE_LATTICES, on a seeded random state under its H, both readouts
+    (complex64 state) and both H psi kernels (complex128, scale 2) against
+    their plain versions (the gates of phase_f64 and happly64_checks, a
+    planted fault included) and timed in turns, CUDA events and CUDA graph
+    replays; beside them the route the code takes there
+    (``dfloat.f64_route``, ``kernels.f64_tile_layout``) and which kernel
+    was faster in turns."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import streaming
+    from qsfh_torch.engine.dfloat import f64_layout, f64_route, f64_terms
+
+    rows = []
+    for x, y in F64_ROUTE_LATTICES:
+        sites = x * y
+        obs = HubbardProblem(x, y, 1.0, 4.0, sites, (sites + 1) // 2, sites // 2).observables["H"]
+        n = obs.n
+        gen = torch.Generator().manual_seed(23 + n)
+        psi = torch.randn(1 << n, dtype=torch.complex64, generator=gen)
+        psi = (psi / torch.linalg.vector_norm(psi)).to(dev)
+        terms, layout = f64_terms(obs, dev), f64_layout(obs, dev)
+        K.reset_launch_counts()
+        got, again = (K.expectation_norm_f64_tiles(psi, *layout) for _ in range(2))
+        old = K.expectation_norm_f64(psi, *terms)
+        torch.cuda.synchronize()
+        ref = K.expectation_norm_f64_tiles_plain(psi, *layout)
+        rel, old_rel = readout_rel(got, ref)[0], readout_rel(old, ref)[0]
+        faulty_cre, where = f64_dropped(layout[4], layout[2])
+        fault_rel = readout_rel(K.expectation_norm_f64_tiles(
+            psi, layout[0], layout[1], faulty_cre, layout[3], layout[4]), ref)[0]
+        turns, graph = readout_turns(psi, terms, layout, reps=50)
+        xs, zs, cre, cim = obs._scan_terms()
+        i32 = lambda a: torch.as_tensor(np.asarray(a, np.int64).astype(np.int32), device=dev)  # noqa
+        f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)  # noqa: E731
+        order = np.argsort(np.asarray(xs, np.int64), kind="stable")
+        h_input = (i32(xs), i32(zs), f64(cre), f64(cim))
+        h_sorted = tuple(a[torch.as_tensor(order, device=dev)] for a in h_input)
+        tiles = streaming.apply64_layout(xs, zs, n)
+        h, h_ok, _ = happly64_checks(psi.to(torch.complex128), h_input, h_sorted, tiles, 2.0, 50)
+        readout = dict(layout=dict(k=layout[4].k, tiles=layout[4].n_tiles,
+                                   items=layout[4].n_items, diag=layout[4].n_diag),
+                       rel_err=rel, old_rel_err=old_rel, same_bits=bool(torch.equal(got, again)),
+                       planted=dict(where, rel_err=fault_rel),
+                       ms=sum(turns["tiles"]) / 2, old_ms=sum(turns["terms"]) / 2,
+                       graph_ms=sum(graph["tiles"]) / 2, old_graph_ms=sum(graph["terms"]) / 2,
+                       turns_ms=turns, graph_turns_ms=graph, route=f64_route(obs, dev))
+        h["route"] = ("terms" if K.f64_tile_layout("happly64_tiles", n, lambda: tiles) is None
+                      else "tiles")
+        row = dict(lattice=f"{x}x{y}", n=n, terms=len(obs), readout=readout, happly64=h)
+        for key, r in (("readout", readout), ("happly64", h)):
+            r["faster"] = "tiles" if r["ms"] < r["old_ms"] else "terms"
+            r["faster_graph"] = "tiles" if r["graph_ms"] < r["old_graph_ms"] else "terms"
+            log(f"  {key} {row['lattice']} (n={n}, {r['layout']}): route {r['route']}; ms tiles "
+                f"{r['ms']:.4f} / per term {r['old_ms']:.4f} (in turns; in a CUDA graph "
+                f"{r['graph_ms']:.4f} / {r['old_graph_ms']:.4f}); faster {r['faster']} / "
+                f"{r['faster_graph']}")
+        log(f"    readout {rel:.2e} / {old_rel:.2e}, planted {fault_rel:.2e}; H psi "
+            f"{h['hpsi_rel']:.2e} / {h['old_hpsi_rel']:.2e}, E {h['e_err']:.2e}, planted "
+            f"{h['planted']['hpsi_rel']:.2e}")
+        if not (rel <= F64_READOUT_RTOL and old_rel <= F64_READOUT_RTOL and readout["same_bits"]
+                and h_ok):
+            raise AssertionError(f"the float64 kernels at {row['lattice']} failed a gate: {row}")
+        if fault_rel <= F64_READOUT_RTOL or h["planted"]["hpsi_rel"] <= F64_HPSI_RTOL:
+            raise AssertionError(f"a planted fault at {row['lattice']} passed its gate")
+        rows.append(row)
+    return rows
+
+
+def route_sizes(rows, key, tiles):
+    """{n: [ms in turns, ms in a CUDA graph, the route there]} of one of the
+    two kernels of ``key`` from :func:`f64_route_sizes`' rows."""
+    return {r["n"]: [r[key]["ms" if tiles else "old_ms"],
+                     r[key]["graph_ms" if tiles else "old_graph_ms"], r[key]["route"]]
+            for r in rows}
+
+
+def phase_f64(cases, dev, sweep_tiles=False):
+    """The float64 Rayleigh readout on the main paths' states (3x3 and 2x6,
+    H): ``expectation_norm_f64_tiles`` (the route of ``expectation_norm_df``
+    from 9 qubits on) and ``expectation_norm_f64`` (per term, the route of
+    smaller states and spilled masks) against their plain version (the
+    state upcast to complex128): the Rayleigh quotient and N within 1e-12
+    relative, the same bits on two calls, one launch a call; a planted
+    fault (one item's coefficient dropped) that the tile gate must fail;
+    timed in turns (per term, tiles, tiles, per term) beside the bound, the
+    plain version and the library yardstick (the upcast state, a complex128
+    CSR ``torch.mv`` and ``torch.vdot``); the float32 gap.  At 2x6 also
+    H psi (``happly64_tiles`` and ``happly64``) on the state upcast to
+    complex128, 24 qubits, past L2: H psi within 1e-11 relative and E
+    within 1e-11 of the plain version, the same bits, in turns, a planted
+    fault.  Then the 3x3 H with one term on a 5-bit mask (it fits no tile):
+    both tile kernels against their plain versions, the spilled term
+    through the per-term kernels.  ``sweep_tiles``: the tile kernels at
+    F64_TILE_SHAPES."""
+    import numpy as np
     import torch
 
     from qsfh_torch.engine import kernels as K
-    from qsfh_torch.engine.dfloat import combine_rayleigh, f64_terms
+    from qsfh_torch.engine import streaming
+    from qsfh_torch.engine.dfloat import f64_layout, f64_terms
 
     rows = []
     for label, adapt, n_ansatz in cases:
         n = adapt.n_qubits
         psi = ansatz_state(adapt, n_ansatz, dev)
         obs = adapt.problem.observables["H"]
-        terms = f64_terms(obs, dev)
-        got, again = K.expectation_norm_f64(psi, *terms), K.expectation_norm_f64(psi, *terms)
-        ref = K.expectation_norm_f64_plain(psi, *terms)
-        e32 = float(obs.expectation_scan(psi))
+        terms, layout = f64_terms(obs, dev), f64_layout(obs, dev)
+        tiles = layout[4]
+        K.reset_launch_counts()
+        got, again = (K.expectation_norm_f64_tiles(psi, *layout) for _ in range(2))
+        old, old_again = (K.expectation_norm_f64(psi, *terms) for _ in range(2))
         torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError(f"expectation_norm_f64 ({label}): two calls differ")
-        e, e_ref = combine_rayleigh(got.cpu().numpy()), combine_rayleigh(ref.cpu().numpy())
-        rel = abs(e - e_ref) / abs(e_ref)
-        b_ms, b_by = f64_bound(terms, 1 << n)
+        launches = {k: v for k, v in K.launch_counts().items() if v}
+        ref = K.expectation_norm_f64_tiles_plain(psi, *layout)
+        e32 = float(obs.expectation_scan(psi))
+        rel, n_rel = readout_rel(got, ref)
+        old_rel, old_n_rel = readout_rel(old, ref)
+        same = bool(torch.equal(got, again)) and bool(torch.equal(old, old_again))
+        faulty_cre, where = f64_dropped(tiles, layout[2])
+        fault_rel = readout_rel(K.expectation_norm_f64_tiles(psi, layout[0], layout[1], faulty_cre,
+                                                             layout[3], tiles), ref)[0]
+        reps = 50 if n <= 18 else 10
+        turns, graph = readout_turns(psi, terms, layout, reps)
+        b_ms, b_by = f64_bound(terms[0], terms[3], 1 << n, tiles.k)
+        xs64, zs64 = terms[0].long(), terms[1].long()
+        c = torch.complex(terms[2], terms[3])
         row = dict(call=f"H of {label}, {len(obs)} terms, {terms[4].shape[0] - 1} flip masks",
-                   n=n, terms=len(obs), rel_err=rel, max_abs_err=max_abs(got, ref),
-                   rayleigh=e, rayleigh_plain=e_ref, norm=float(got[2]),
+                   n=n, terms=len(obs), layout=dict(k=tiles.k, c=tiles.c, tiles=tiles.n_tiles,
+                                                    items=tiles.n_items, diag=tiles.n_diag,
+                                                    units=len(tiles.schedule(
+                                                        n, K.sm_count(dev), True)[1])),
+                   rel_err=rel, norm_rel_err=n_rel, max_abs_err=max_abs(got, ref),
+                   old_rel_err=old_rel, old_norm_rel_err=old_n_rel,
+                   old_max_abs_err=max_abs(old, ref), same_bits=same, launches=launches,
+                   planted=dict(where, rel_err=fault_rel), norm=float(got[2]),
                    f32_energy=e32, f32_gap=abs(e32 - float(got[0])),
-                   ms=time_cuda(lambda: K.expectation_norm_f64(psi, *terms), reps=50),
-                   plain_ms=time_cuda(lambda: K.expectation_norm_f64_plain(psi, *terms), reps=3),
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                   ms=sum(turns["tiles"]) / 2, old_ms=sum(turns["terms"]) / 2, turns_ms=turns,
+                   graph_ms=sum(graph["tiles"]) / 2, old_graph_ms=sum(graph["terms"]) / 2,
+                   graph_turns_ms=graph,
+                   plain_ms=time_cuda(lambda: K.expectation_norm_f64_tiles_plain(psi, *layout),
+                                      reps=3),
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_ms=library_readout(psi, xs64, zs64, c, ref))
+        log(f"  readout {label} (n={n}, {row['layout']}): tiles {rel:.2e}, per term "
+            f"{old_rel:.2e} (Rayleigh, relative; tol {F64_READOUT_RTOL:g}), N {n_rel:.2e} / "
+            f"{old_n_rel:.2e}; same bits on two calls {same}; launches {launches}; planted fault "
+            f"{where}: {fault_rel:.2e}; float32 gap {row['f32_gap']:.3e}; ms tiles "
+            f"{row['ms']:.4f} / per term {row['old_ms']:.4f} (in turns {turns}; in a CUDA graph "
+            f"{row['graph_ms']:.4f} / {row['old_graph_ms']:.4f}), plain "
+            f"{row['plain_ms']:.3f}, bound {b_ms:.5f} ({b_by}), library {row['library_ms']}")
+        if not (rel <= F64_READOUT_RTOL and n_rel <= F64_READOUT_RTOL and same
+                and old_rel <= F64_READOUT_RTOL and old_n_rel <= F64_READOUT_RTOL
+                and launches == {"expectation_norm_f64_tiles": 2, "expectation_norm_f64": 2}):
+            raise AssertionError(f"the float64 readout ({label}) failed a gate: {row}")
+        if fault_rel <= F64_READOUT_RTOL:
+            raise AssertionError(f"the readout's planted fault ({label}) passed its gate")
+        if sweep_tiles:
+            log(f"  readout tile shapes, {label}:")
+            row["tile_shapes"] = f64_shapes(
+                lambda k, c: streaming.GroupTiles(
+                    *(a.cpu().numpy() for a in layout[:2]), n, k, c, diagonal=False,
+                    inner_diagonal=True),
+                lambda t: K.expectation_norm_f64_tiles(psi, *layout[:4], t), ref,
+                lambda a, b: readout_rel(a, b)[0], reps)
+        if n > 18:
+            row["happly64"] = happly64_24(psi.to(torch.complex128), obs, dev, sweep_tiles)
         rows.append(row)
-        log(f"  expectation_norm_f64 {label} (n={n}): Rayleigh {e:.15f} vs plain {e_ref:.15f} "
-            f"(rel {rel:.2e}, tol 1e-12), norm {row['norm']:.12f}; float32 "
-            f"expectation_grouped {e32:.10f}, |E_f32 - E_f64| = {row['f32_gap']:.3e}; "
-            f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} bound_ms={b_ms:.5f} ({b_by})")
-        if rel > 1e-12:
-            raise AssertionError(f"expectation_norm_f64 ({label}) disagrees with its plain version")
+    rows.append(f64_spilled(cases[0][1], dev))
+    rows.append(f64_route_sizes(dev))
     return rows
+
+
+def happly64_checks(psi, h_input, h_sorted, tiles, scale, reps):
+    """``happly64_tiles`` and ``happly64`` on psi (complex128) against the
+    plain version: H psi (relative), E, N, the same bits on two calls, the
+    launches, a planted fault (one item's coefficient dropped) that the H
+    psi gate must fail; ms in turns (per term, tiles, tiles, per term),
+    CUDA events and CUDA graph replays."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    K.reset_launch_counts()
+    (h, st), (h2, st2) = (K.happly64_tiles(psi, *h_input, tiles, scale) for _ in range(2))
+    (ho, sto), (ho2, sto2) = (K.happly64(psi, *h_sorted, scale) for _ in range(2))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in K.launch_counts().items() if v}
+    ref, st_ref = K.happly64_tiles_plain(psi, *h_input, tiles, scale)
+    faulty, where = f64_dropped(tiles, h_input[2])
+    hf = K.happly64_tiles(psi, h_input[0], h_input[1], faulty, h_input[3], tiles, scale)[0]
+    calls = {"terms": lambda: K.happly64(psi, *h_sorted, scale),
+             "tiles": lambda: K.happly64_tiles(psi, *h_input, tiles, scale)}
+    turns, graph = ({side: [] for side in calls} for _ in range(2))
+    for side in ("terms", "tiles", "tiles", "terms"):
+        turns[side].append(time_cuda(calls[side], reps=reps))
+        graph[side].append(graph_ms(calls[side], reps=reps))
+    res = dict(hpsi_rel=rel_err(h, ref), hpsi_max_abs=max_abs(h, ref),
+               e_err=abs(float(st[0] - st_ref[0])), n_rel=abs(float(st[2] - st_ref[2])) /
+               float(st_ref[2]), old_hpsi_rel=rel_err(ho, ref), old_hpsi_max_abs=max_abs(ho, ref),
+               old_e_err=abs(float(sto[0] - st_ref[0])),
+               same_bits=bool(torch.equal(h, h2) and torch.equal(st, st2)
+                              and torch.equal(ho, ho2) and torch.equal(sto, sto2)),
+               launches=launches, planted=dict(where, hpsi_rel=rel_err(hf, ref)),
+               ms=sum(turns["tiles"]) / 2, old_ms=sum(turns["terms"]) / 2, turns_ms=turns,
+               graph_ms=sum(graph["tiles"]) / 2, old_graph_ms=sum(graph["terms"]) / 2,
+               graph_turns_ms=graph, energy=float(st[0]), layout=dict(k=tiles.k, c=tiles.c, tiles=tiles.n_tiles,
+                                                items=tiles.n_items))
+    ok = (res["hpsi_rel"] <= F64_HPSI_RTOL and res["e_err"] <= F64_E_ATOL
+          and res["n_rel"] <= F64_READOUT_RTOL and res["old_hpsi_rel"] <= F64_HPSI_RTOL
+          and res["old_e_err"] <= F64_E_ATOL and res["same_bits"]
+          and launches == {"happly64_tiles": 2 * tiles.n_tiles, "happly64": 2})
+    return res, ok, ref
+
+
+def happly64_24(psi, obs, dev, sweep_tiles):
+    """H psi of the 2x6 main path's state upcast to complex128 (24 qubits):
+    :func:`happly64_checks` on the shipped application layout, bound,
+    plain ms; ``sweep_tiles``: F64_TILE_SHAPES."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import streaming
+
+    n = psi.shape[0].bit_length() - 1
+    xs, zs, cre, cim = obs._scan_terms()
+    tiles = streaming.apply64_layout(xs, zs, n)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int64).astype(np.int32), device=dev)  # noqa
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)  # noqa: E731
+    h_input = (i32(xs), i32(zs), f64(cre), f64(cim))
+    order = np.argsort(np.asarray(xs, np.int64), kind="stable")
+    h_sorted = (i32(np.asarray(xs)[order]), i32(np.asarray(zs)[order]),
+                f64(np.asarray(cre)[order]), f64(np.asarray(cim)[order]))
+    res, ok, ref = happly64_checks(psi, h_input, h_sorted, tiles, 2.0, reps=5)
+    dim = 1 << n
+    flops = h_apply_flops(xs, cim, tiles, dim)
+    t_bytes, t_ops = (32 * dim + 24 * len(xs)) / HBM_BYTES_PER_S, flops / F64_FLOPS_PER_S
+    res.update(bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               plain_ms=time_cuda(lambda: K.happly64_tiles_plain(psi, *h_input, tiles, 2.0), 1,
+                                  warmup=0))
+    log(f"  happly64 at {n} qubits (complex128, {res['layout']}): tiles H psi "
+        f"{res['hpsi_rel']:.2e} relative, E {res['e_err']:.2e}, per term {res['old_hpsi_rel']:.2e} "
+        f"/ {res['old_e_err']:.2e} (tol {F64_HPSI_RTOL:g}, {F64_E_ATOL:g}); same bits "
+        f"{res['same_bits']}; launches {res['launches']}; planted fault {res['planted']}; ms "
+        f"tiles {res['ms']:.4f} / per term {res['old_ms']:.4f} (in turns; in a CUDA graph "
+        f"{res['graph_ms']:.4f} / {res['old_graph_ms']:.4f}), plain "
+        f"{res['plain_ms']:.1f}, bound {res['bound_ms']:.5f} ({res['bound_by']})")
+    if not ok:
+        raise AssertionError(f"happly64 at {n} qubits failed a gate: {res}")
+    if res["planted"]["hpsi_rel"] <= F64_HPSI_RTOL:
+        raise AssertionError(f"happly64's planted fault at {n} qubits passed its gate")
+    if sweep_tiles:
+        log(f"  happly64 tile shapes, {n} qubits:")
+        res["tile_shapes"] = f64_shapes(
+            lambda k, c: streaming.GroupTiles(xs, zs, n, k, c),
+            lambda t: K.happly64_tiles(psi, *h_input, t, 2.0)[0], ref, rel_err, 5)
+    return res
+
+
+def f64_spilled(adapt, dev):
+    """The 3x3 H with one more term on a 5-bit mask (it fits no tile): the
+    readout and H psi on the main path's state against their plain
+    versions, the spilled term through the per-term kernels (one launch
+    each beside the tile kernels')."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import streaming
+
+    n = adapt.n_qubits
+    xs, zs, cre, cim = adapt.problem.observables["H"]._scan_terms()
+    wide = 0b1001001001 | 1 << (n - 1)  # 5 flip bits: 0, 3, 6, 9 and the top one
+    xs = np.r_[np.asarray(xs, np.int64), wide]
+    zs, cre, cim = np.r_[np.asarray(zs, np.int64), 0b110], np.r_[cre, 0.125], np.r_[cim, 0.0]
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int64).astype(np.int32), device=dev)  # noqa
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)  # noqa: E731
+    args = (i32(xs), i32(zs), f64(cre), f64(cim))
+    rd = streaming.GroupTiles(xs, zs, n, streaming.INNER64_TILE_BITS,
+                              streaming.INNER64_TILE_LOW_BITS, diagonal=False, inner_diagonal=True)
+    ap = streaming.apply64_layout(xs, zs, n)
+    if rd.spill_index.tolist() != [len(xs) - 1] or ap.spill_index.tolist() != [len(xs) - 1]:
+        raise AssertionError("the 5-bit mask fits a tile")
+    psi = ansatz_state(adapt, N_ANSATZ, dev)
+    K.reset_launch_counts()
+    got = K.expectation_norm_f64_tiles(psi, *args, rd)
+    h, st = K.happly64_tiles(psi.to(torch.complex128), *args, ap, 1.0)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in K.launch_counts().items() if v}
+    rel = readout_rel(got, K.expectation_norm_f64_tiles_plain(psi, *args, rd))[0]
+    ref, st_ref = K.happly64_tiles_plain(psi.to(torch.complex128), *args, ap, 1.0)
+    res = dict(call="3x3 H + a 5-bit mask (spilled)", readout_rel=rel, hpsi_rel=rel_err(h, ref),
+               e_err=abs(float(st[0] - st_ref[0])), launches=launches)
+    log(f"  spilled mask, 3x3 H + 1 term: readout {rel:.2e}, H psi {res['hpsi_rel']:.2e}, E "
+        f"{res['e_err']:.2e}; launches {launches}")
+    if not (rel <= F64_READOUT_RTOL and res["hpsi_rel"] <= F64_HPSI_RTOL
+            and res["e_err"] <= F64_E_ATOL
+            and launches == {"expectation_norm_f64_tiles": 1, "expectation_norm_f64": 1,
+                             "happly64_tiles": ap.n_tiles, "happly64": 1}):
+        raise AssertionError(f"the spilled mask failed a gate: {res}")
+    return res
 
 
 def eager_rows(adapt, indices, dev, n_steps):
@@ -2468,6 +2905,16 @@ FUSED_KS = (1, 10, 100)
 FUSED_ROUNDS = (8, 4, 2)  # rounds of eager, fused, fused, eager at each K
 
 
+def check_f64_readout_route(launches, label):
+    """Each capture (with its warm-up step) took the chunk's float64 readout
+    through the tile kernel, and none through the per-term one."""
+    for k, counts in launches.items():
+        if counts["expectation_norm_f64_tiles"] < 1 or counts["expectation_norm_f64"]:
+            raise AssertionError(f"{label}: the capture of K={k} read the float64 energy through "
+                                 f"{counts['expectation_norm_f64_tiles']} tile and "
+                                 f"{counts['expectation_norm_f64']} per-term launches")
+
+
 def phase_fused(dev, tmp):
     """``FusedAdaptRunner`` on the 3x3 main path's 12-operator ansatz, on the
     CUDA graph path: captures at K = 1, 10 and 100 (capture ms, graph-pool
@@ -2491,6 +2938,7 @@ def phase_fused(dev, tmp):
             raise AssertionError(f"{name}: graph nodes per step differ between K=10 and K=100")
     if per_step["rotation_resident"] != 1 or per_step["adjoint_resident"] != 1:
         raise AssertionError(f"a captured step holds {per_step} resident launches")
+    check_f64_readout_route(launches, "fused 3x3")
     out["nodes_per_step"] = per_step
     log(f"  cooperative launches captured: yes ({launches[1]['rotation_resident']} "
         f"rotation_resident + {launches[1]['adjoint_resident']} adjoint_resident in the "
@@ -2580,6 +3028,7 @@ def phase_fused_24(adapt24, dev):
     chunks = capture_chunks(runner, adapt24, (1, 2, 8), dev, out)
     out["nodes_per_step"] = {name: out["launches"][2][name] - out["launches"][1][name]
                              for name in out["launches"][2]}
+    check_f64_readout_route(out["launches"], "fused 2x6")
     log(f"  counted graph nodes per step: "
         f"{{{', '.join(f'{a}: {b}' for a, b in out['nodes_per_step'].items() if b)}}}")
     del chunks[1]
@@ -5245,15 +5694,13 @@ def polish_bounds(prog):
     TB/s, against the least float64 arithmetic at 34 TFLOP/s.  Per
     amplitude and group: the rotation 6 (cos psi[a] + (+-i) sin psi[a ^ x]:
     2 + 2 + 2; a diagonal phase 6), the adjoint 17 (the contribution r
-    Im(conj(L) psi[a ^ x]) and its sum 5, two rotations 12).  H psi by the
-    application rule (real coefficients: 4 a flip mask, 1 a term) and E
-    from it (4)."""
+    Im(conj(L) psi[a ^ x]) and its sum 5, two rotations 12).  H psi with E
+    and N: :func:`h_apply_flops`, the least of the per-term and the tile
+    design."""
     dim = 1 << prog.n
     prog_bytes = 4 * (3 * prog.G + len(prog.zsub)) + 8 * len(prog.wsub)
     h_bytes = 24 * len(prog.hx)
-    real = not prog.hcim.any()
-    masks = len(set(prog.hx.tolist()))
-    h_flops = ((4 if real else 8) * masks + (1 if real else 2) * len(prog.hx) + 4) * dim
+    h_flops = h_apply_flops(prog.hx, prog.hcim, prog.h_tiles, dim)
     fwd, adj = 6 * dim * prog.G, 17 * dim * prog.G
 
     def bound(nbytes, flops):
@@ -5277,15 +5724,19 @@ def polish_kernel_checks(prog, plain, th, psi0, label):
     import numpy as np
     import torch
 
+    from qsfh_torch.engine import kernels as K
+
     psi, psi_p = prog.apply(th, psi0), plain.apply(th, psi0)
     state_err = float(torch.linalg.vector_norm(psi - psi_p))
     h, h_p = prog.h_apply(psi), plain.h_apply(psi)
     h_err = rel_err(h, h_p)
+    h_old = K.happly64(psi, *prog.h_arrays("terms"))[0]  # the per-term kernel on the same state
     e, g = prog.value_and_grad(th, psi0)
     e2, g2 = prog.value_and_grad(th, psi0)
     e_p, g_p = plain.value_and_grad(th, psi0)
     res = dict(state_err=state_err, state_max_abs=max_abs(psi, psi_p), hpsi_rel=h_err,
-               hpsi_max_abs=max_abs(h, h_p), e_err=abs(e - e_p),
+               hpsi_max_abs=max_abs(h, h_p), hpsi_old_rel=rel_err(h_old, h_p),
+               hpsi_old_max_abs=max_abs(h_old, h_p), h_route=prog.h_route, e_err=abs(e - e_p),
                g_err=float(np.abs(g - g_p).max()), same_bits=e2 == e and np.array_equal(g2, g),
                energy=e, gnorm=float(np.linalg.norm(g)), route=prog.route)
     res["g_rel"] = res["g_err"] / float(np.abs(g_p).max())
@@ -5303,13 +5754,15 @@ def polish_kernel_checks(prog, plain, th, psi0, label):
     uhv, vhu = float(np.dot(u, hv)), float(np.dot(v, hu))
     res.update(u_hv=uhv, v_hu=vhu, hvp_rel=abs(uhv - vhu) / abs(uhv))
     log(f"  {label}: E {e:+.15f}, ||g|| {res['gnorm']:.10e}; kernels against plain: state "
-        f"{state_err:.2e} (tol {POLISH_STATE_ATOL:g}), H psi {h_err:.2e} relative (tol "
-        f"{POLISH_HPSI_RTOL:g}), E {res['e_err']:.2e} (tol {POLISH_E_ATOL:g}), max |dg| "
+        f"{state_err:.2e} (tol {POLISH_STATE_ATOL:g}), H psi {h_err:.2e} relative on the "
+        f"{prog.h_route} route, {res['hpsi_old_rel']:.2e} per term (tol {POLISH_HPSI_RTOL:g}), "
+        f"E {res['e_err']:.2e} (tol {POLISH_E_ATOL:g}), max |dg| "
         f"{res['g_err']:.2e} (tol {POLISH_G_ATOL:g}), {res['g_rel']:.2e} of max |g| (tol "
         f"{POLISH_G_RTOL:g}), same bits on two calls {res['same_bits']}; "
         f"central differences {res['fd_err']:.2e} (tol {POLISH_FD_ATOL:g}); <u,Hv> {uhv:.10e} "
         f"<v,Hu> {vhu:.10e}, {res['hvp_rel']:.2e} relative (tol {POLISH_HVP_RTOL:g})")
     if not (state_err <= POLISH_STATE_ATOL and h_err <= POLISH_HPSI_RTOL
+            and res["hpsi_old_rel"] <= POLISH_HPSI_RTOL
             and res["e_err"] <= POLISH_E_ATOL and res["g_err"] <= POLISH_G_ATOL
             and res["g_rel"] <= POLISH_G_RTOL
             and res["same_bits"] and res["fd_err"] <= POLISH_FD_ATOL
@@ -5530,10 +5983,12 @@ def polish_times(prog, groups, plain, th, psi0, psi, h, bounds):
             + ", ".join(f"{k} {v}" for k, v in launches.items()) + " / "
             + ", ".join(f"{k} {v}" for k, v in groups_launches.items()))
     # each wrapper's own call, on fresh copies of its inputs
-    g = prog.groups
+    g, h_terms = prog.groups, prog.h_arrays("terms")
     kern = {
         "rot64_groups": (lambda impl: impl.rot64_groups(psi0.clone(), g, th_ext), "apply"),
-        "happly64": (lambda impl: impl.happly64(psi, *prog.h_device, 2.0), "h_apply"),
+        "happly64": (lambda impl: impl.happly64(psi, *h_terms, 2.0), "h_apply"),
+        "happly64_tiles": (lambda impl: impl.happly64_tiles(psi, *prog.h_args, prog.h_tiles, 2.0),
+                           "h_apply"),
         "adjoint64_groups": (lambda impl: impl.adjoint64_groups(psi.clone(), lam.clone(), g,
                                                                 th_ext), "adjoint"),
         "rot64_resident": (lambda impl: impl.rot64_resident(psi0.clone(), g, th_ext, prog.runs),
@@ -5548,6 +6003,19 @@ def polish_times(prog, groups, plain, th, psi0, psi, h, bounds):
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         log(f"  {name} alone: {ms:.4f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.5f} ms "
             f"({b_by}): {ms / b_ms:.1f}x")
+    # the two H psi kernels in turns (per term, tiles, tiles, per term), 5 rounds,
+    # CUDA events around 20 calls and 20 calls replayed in a CUDA graph
+    sides = ("happly64", "happly64_tiles")
+    turns, graph = ({name: [] for name in sides} for _ in range(2))
+    for _ in range(5):
+        for name in sides + sides[::-1]:
+            turns[name].append(time_cuda(lambda: kern[name][0](K.KERNELS), 20))
+            graph[name].append(graph_ms(lambda: kern[name][0](K.KERNELS), 20))
+    for name, ms in turns.items():
+        out[name].update(turns_ms=ms, ms=float(np.median(ms)), graph_turns_ms=graph[name],
+                         graph_ms=float(np.median(graph[name])))
+    log("  H psi in turns (median of 10 x 20 calls; in a CUDA graph): " + ", ".join(
+        f"{name} {out[name]['ms']:.4f} / {out[name]['graph_ms']:.4f} ms" for name in sides))
     return out
 
 
@@ -5615,7 +6083,35 @@ def polish_tile_shapes(vqe, groups, th, psi0):
     return rows
 
 
-def phase_polish(dev, tmp):
+def planted_h_fault(prog, plain, psi):
+    """(d) A copy of ``prog`` whose H misses one item's coefficient (the
+    first term of its first item of x != 0 set to 0): its H psi must fail
+    the H psi gate against the plain version."""
+    faulty = copy.copy(prog)
+    cre, where = f64_dropped(prog.h_tiles, prog.h_args[2])
+    faulty.h_args = (prog.h_args[0], prog.h_args[1], cre, prog.h_args[3])
+    rel = rel_err(faulty.h_apply(psi), plain.h_apply(psi))
+    log(f"  (d) planted fault, H without one item's coefficient {where}: H psi {rel:.2e} "
+        f"relative (tol {POLISH_HPSI_RTOL:g})")
+    if rel <= POLISH_HPSI_RTOL:
+        raise AssertionError("f64 polish: the planted H fault passed the H psi gate")
+    return dict(where, hpsi_rel=rel)
+
+
+def polish_h_shapes(prog, psi):
+    """--tiles: ``happly64_tiles`` on the checkpoint's state at
+    F64_TILE_SHAPES, against the shipped shape's H psi."""
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.engine import streaming
+
+    log("  happly64 tile shapes, 18 qubits:")
+    ref = prog.h_apply(psi)
+    return f64_shapes(lambda k, c: streaming.GroupTiles(prog.hx, prog.hz, prog.n, k, c),
+                      lambda t: K.happly64_tiles(psi, *prog.h_args, t, 2.0)[0],
+                      2.0 * ref, rel_err, 20)
+
+
+def phase_polish(dev, tmp, sweep_tiles=False):
     """The flagship's float64 endgame on the card: the committed 3x3 ADAPT
     checkpoint (1719 operators of the extended pool) loaded with the port's
     ``load_model``, lowered to the grouped float64 program
@@ -5654,7 +6150,12 @@ def phase_polish(dev, tmp):
                          most_entries=runs.most_entries, entries=runs.n_entries)
     log(f"  (a) {res['structure']} (load {res['load_s']:.1f} s, lowering and layout "
         f"{res['lower_s']:.2f} s); route {prog.route}: {res['layout']}")
-    if res["structure"] != POLISH_STRUCTURE or prog.route != "resident":
+    res["h_layout"] = dict(route=prog.h_route, k=prog.h_tiles.k, c=prog.h_tiles.c,
+                           tiles=prog.h_tiles.n_tiles, items=prog.h_tiles.n_items,
+                           launches=prog.h_launches())
+    log(f"  H psi route {prog.h_route}: {res['h_layout']}")
+    if (res["structure"] != POLISH_STRUCTURE or prog.route != "resident"
+            or prog.h_route != "tiles"):
         raise AssertionError(f"f64 polish: the grouped program is not the JAX package's: "
                              f"{res['structure']} against {POLISH_STRUCTURE}, route {prog.route}")
     best = np.load(os.path.join(DEMO_ADAPT, "polish_fast_best.npz"))
@@ -5687,6 +6188,9 @@ def phase_polish(dev, tmp):
         raise AssertionError("f64 polish: the planted layout fault passed the kernel gates")
     log(f"  (d) planted layout fault {where}: the kernel gates failed, as planted")
 
+    res["h_fault"] = planted_h_fault(prog, plain, psi)  # (d) one item's coefficient dropped
+    if sweep_tiles:
+        res["h_tile_shapes"] = polish_h_shapes(prog, psi)
     bounds = polish_bounds(prog)  # (g), before the run so its counts are the run's own
     res["times"] = polish_times(prog, groups, plain, x0, psi0, psi, h, bounds)
     res["tile_shapes"] = polish_tile_shapes(vqe, groups, x0, psi0)
@@ -5699,7 +6203,7 @@ def phase_polish(dev, tmp):
     # the resident evaluation's device time from CUDA events too: its three kernels
     # alone (torch.profiler may miss a cooperative launch: its times are floors)
     times = res["times"]
-    events_ms = sum(times[k]["ms"] for k in ("rot64_resident", "happly64",
+    events_ms = sum(times[k]["ms"] for k in ("rot64_resident", "happly64_tiles",
                                              "adjoint64_resident"))
     host_ms = times["value_and_grad"]["host_ms"]
     res["evaluation_split"] = dict(
@@ -5711,9 +6215,10 @@ def phase_polish(dev, tmp):
     ref = prog.h_apply(psi)
     hx, hz = (torch.as_tensor(a.astype(np.int64), device=dev) for a in (prog.hx, prog.hz))
     c = torch.as_tensor(prog.hcre + 1j * prog.hcim, device=dev)
-    res["times"]["happly64"]["library_ms"] = library_sparse_apply(psi, hx, hz, c, ref)
-    log(f"  happly64: library (complex128 CSR torch.mv) "
-        f"{res['times']['happly64']['library_ms']} ms")
+    lib_ms = library_sparse_apply(psi, hx, hz, c, ref)
+    for name in ("happly64", "happly64_tiles"):
+        res["times"][name]["library_ms"] = lib_ms
+    log(f"  H psi: library (complex128 CSR torch.mv) {lib_ms} ms")
 
     records = [json.loads(line) for line in
                open(os.path.join(DEMO_ADAPT, "polish_fast.jsonl"))]
@@ -5724,7 +6229,8 @@ def phase_polish(dev, tmp):
     counts = K.launch_counts()
     res["launches"] = counts
     evals = run["lbfgs_evals"] + run["newton_evals"] + 2 * run["newton_hvps"]
-    expected = dict(rot64_resident=evals, adjoint64_resident=evals, happly64=evals)
+    expected = dict(rot64_resident=evals, adjoint64_resident=evals,
+                    **{k: evals * v for k, v in prog.h_launches().items()})
     if any(v != expected.get(k, 0) for k, v in counts.items()):
         raise AssertionError(f"f64 polish: launches {counts} for {evals} evaluations: expected "
                              f"{expected} and no other")
@@ -5841,7 +6347,7 @@ def main():
     single = {n: phase_single(dev, n) for n in (18, 24)}
     out["single"] = single
     log("the float64 Rayleigh readout on the main paths' states:")
-    f64 = phase_f64([("3x3", adapt, N_ANSATZ), ("2x6", adapt24, N_ANSATZ_24)], dev)
+    f64 = phase_f64([("3x3", adapt, N_ANSATZ), ("2x6", adapt24, N_ANSATZ_24)], dev, args.tiles)
     log("the fused runner at 3x3 (CUDA graphs of K train steps):")
     fused = phase_fused(dev, tmp)
     log("the fused runner at 2x6:")
@@ -5886,7 +6392,7 @@ def main():
     cli_res = phase_cli(dev, tmp, variational_24)
     out["cli"] = cli_res
     log("the float64 polish engine on the 1719-operator 3x3 checkpoint (polish_fast.py's path):")
-    polish = phase_polish(dev, tmp)
+    polish = phase_polish(dev, tmp, args.tiles)
     out["polish"] = polish
     if args.routes:
         log("routes, host clock, median (least) of 15 interleaved rounds:")
@@ -6016,22 +6522,29 @@ def main():
         index_select_split_18q=single[18]["xor_gather"]["library_split"],
         index_select_split_24q=head["library_split"],
     ))
-    f18, f24 = f64
+    f18, f24, f_spill, f_sizes = f64
     captured = fused["launches"]
-    line.append(dict(
-        name="expectation_norm_f64", route="cuda", source=source,
-        replaces=REPLACES["expectation_norm_f64"],
-        launches=sum(captured[k]["expectation_norm_f64"] for k in captured),
-        replays=fused["replays"],
-        max_abs_err=max(f18["max_abs_err"], f24["max_abs_err"]), ms=f18["ms"],
-        plain_ms=f18["plain_ms"], bound_ms=f18["bound_ms"], bound_by=f18["bound_by"],
-        library_ms=None, call=f18["call"] + " (the fused 3x3 path: launches counted per capture "
-                                            "and warm-up step)",
-        rel_err=max(f18["rel_err"], f24["rel_err"]), ms_24q=f24["ms"], plain_ms_24q=f24["plain_ms"],
-        bound_ms_24q=f24["bound_ms"], bound_by_24q=f24["bound_by"],
-        launches_24q=sum(fused24["launches"][k]["expectation_norm_f64"]
-                         for k in fused24["launches"]),
-    ))
+    for name in ("expectation_norm_f64_tiles", "expectation_norm_f64"):
+        tiles = name.endswith("tiles")
+        pick = (lambda row, key: row[key if tiles else f"old_{key}"])  # noqa: E731
+        line.append(dict(
+            name=name, route="cuda", source=source, replaces=REPLACES[name],
+            launches=sum(captured[k][name] for k in captured), replays=fused["replays"],
+            max_abs_err=max(pick(f18, "max_abs_err"), pick(f24, "max_abs_err")),
+            ms=pick(f18, "ms"), plain_ms=f18["plain_ms"], bound_ms=f18["bound_ms"],
+            bound_by=f18["bound_by"], library_ms=f18["library_ms"],
+            call=f18["call"] + (" (the fused 3x3 path: launches counted per capture and warm-up "
+                                "step)" if tiles else " (states under 9 qubits and masks that "
+                                                      "fit no tile: 0 launches on the main paths; "
+                                                      "timed in turns with the tiles)"),
+            rel_err=max(pick(f18, "rel_err"), pick(f24, "rel_err")), ms_24q=pick(f24, "ms"),
+            plain_ms_24q=f24["plain_ms"], bound_ms_24q=f24["bound_ms"],
+            bound_by_24q=f24["bound_by"], library_ms_24q=f24["library_ms"],
+            launches_24q=sum(fused24["launches"][k][name] for k in fused24["launches"]),
+            launches_spilled_h=f_spill["launches"].get(name, 0),
+            planted_rel_err=f18["planted"]["rel_err"] if tiles else None,
+            ms_by_qubits=route_sizes(f_sizes, "readout", tiles),
+        ))
     for entry in line:  # the kernels each captured train step holds, as graph nodes
         entry["graph_nodes_per_fused_step"] = fused["nodes_per_step"][entry["name"]]
         entry["graph_nodes_per_fused_step_24q"] = fused24["nodes_per_step"][entry["name"]]
@@ -6091,18 +6604,19 @@ def main():
     # resident route), ms per wrapper call beside the plain version's
     checks, routes = polish["kernel_checks"].values(), polish["route_checks"].values()
     errs = {"rot64_resident": max(c["state_max_abs"] for c in checks),
-            "happly64": max(c["hpsi_max_abs"] for c in checks),
+            "happly64_tiles": max(c["hpsi_max_abs"] for c in checks),
+            "happly64": max(c["hpsi_old_max_abs"] for c in checks),
             "adjoint64_resident": max(c["g_err"] for c in checks),
             "rot64_groups": max(r["groups_state_max_abs"] for r in routes),
             "adjoint64_groups": max(r["groups_g_err"] for r in routes)}
     structure, layout = polish["structure"], polish["layout"]
-    per_eval = {"rot64_groups": structure["groups"], "happly64": 1,
+    per_eval = {"rot64_groups": structure["groups"], "happly64": 0,
                 "adjoint64_groups": structure["groups"], "rot64_resident": 1,
-                "adjoint64_resident": 1}
+                "adjoint64_resident": 1, **polish["h_layout"]["launches"]}
     call = (f"3x3 checkpoint, 18 qubits, {structure['groups']} groups / 100 H terms, "
             f"complex128")
     vg, hvp = polish["times"]["value_and_grad"], polish["times"]["hvp"]
-    for name in F64_GROUP_KERNELS + F64_RESIDENT_KERNELS:
+    for name in F64_GROUP_KERNELS + F64_RESIDENT_KERNELS + ("happly64_tiles",):
         head = polish["times"][name]
         entry = dict(
             name=name, route="cuda", source=source, replaces=REPLACES[name],
@@ -6121,6 +6635,21 @@ def main():
                          max_route_state_rel=max(r["state_rel"] for r in routes),
                          max_route_g_rel=max(r["g_rel"] for r in routes),
                          grid=max(r["grid"] for r in routes))
+        if name in ("happly64", "happly64_tiles"):  # also at 24 qubits, the 2x6 state
+            h24, tiles, lay = f24["happly64"], name == "happly64_tiles", polish["h_layout"]
+            entry.update(ms_24q=h24["ms" if tiles else "old_ms"], plain_ms_24q=h24["plain_ms"],
+                         bound_ms_24q=h24["bound_ms"], bound_by_24q=h24["bound_by"],
+                         max_abs_err_24q=h24["hpsi_max_abs" if tiles else "old_hpsi_max_abs"],
+                         launches_spilled_h=f_spill["launches"].get(name, 0),
+                         ms_by_qubits=route_sizes(f_sizes, "happly64", tiles))
+            if tiles:
+                entry.update(call=call + f", H in {lay['tiles']} application tiles ({lay['k']} / "
+                                         f"{lay['c']}), one launch a tile",
+                             planted_hpsi_rel=polish["h_fault"]["hpsi_rel"])
+            else:
+                entry.update(call=call + " (states under 18 qubits and masks that fit no tile: "
+                                         "0 launches on the polish run; timed in turns with "
+                                         "happly64_tiles)")
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1912,6 +1912,10 @@ inline cudaError_t resident_setup(bool adjoint, int n, int k, int c, int n_runs,
 // no float atomics, so two calls give the same bits.  Bound: one read of
 // the state (8 B an amplitude) against ~10 float64 flops per flip mask and
 // amplitude; at 18 qubits the state sits in L2 and the float64 rate binds.
+// Each thread gathers psi[b ^ x] once per flip mask, so past L2 every mask
+// costs a pass of the state: expectation_f64_tiles (below) is the readout's
+// route from 9 qubits on, and this kernel serves smaller states and the
+// terms of masks that fit no tile.
 // ---------------------------------------------------------------------------
 constexpr int kF64Threads = 256;
 constexpr int kF64BlocksPerSm = 8;
@@ -2647,7 +2651,9 @@ inline Res64Layout res64_layout(const void* const* a) {
 // out[b] = scale * sum_t c_t s_t(b) psi[b ^ x_t] (qsfh_sv64_happly), one
 // thread an amplitude, no atomics; terms with the same flip mask in a row
 // share one gather.  Each block's (Re <psi|H psi>, <psi|psi>) partial, taken
-// before the scale, goes to partials[blockIdx.x].
+// before the scale, goes to partials[blockIdx.x].  The route of states
+// under 9 qubits and of the terms of masks that fit no tile; happly64_tiles
+// (below) takes H psi from 9 qubits on.
 __global__ void __launch_bounds__(kF64Threads)
 happly64_kernel(const double2* __restrict__ psi, double2* __restrict__ out, uint32_t dim,
                 int n_terms, const int32_t* __restrict__ hx, const int32_t* __restrict__ hz,
@@ -2677,6 +2683,731 @@ happly64_kernel(const double2* __restrict__ psi, double2* __restrict__ out, uint
   }
   const double2 sum = block_sum_f64(make_double2(e, norm));
   if (threadIdx.x == 0) partials[blockIdx.x] = sum;
+}
+
+// ---------------------------------------------------------------------------
+// The float64 tile kernels: expectation_f64_tiles (the Rayleigh readout of a
+// complex64 state; the redesign of expectation_norm_f64_kernel) and
+// happly64_tiles (H psi of a complex128 state with E and N; the redesign of
+// happly64_kernel), over the tiles of streaming.GroupTiles, walked as
+// pauli_inner_tiles_kernel and pauli_apply_tiles_kernel walk them in
+// float32.
+//
+// No TPU Pallas counterpart (see expectation_norm_f64 and the float64 group
+// engine above).  What bounds the per-amplitude kernels they replace: each
+// thread walks all of H's terms, so each of its ~36 off-diagonal flip masks
+// gathers psi[b ^ x] once more.  At 24 qubits the 128 MiB state is past the
+// 50 MB L2 and each gather is close to a full HBM pass (~4.8 GB for 0.13 GB
+// of compulsory bytes); at 18 qubits ~150 MB of L2 reads for 8 MiB of state.
+// Here a block reads its tile of the state once and serves every item (the
+// terms of one flip mask that agree off 4 bits) inside the tile's bits from
+// shared memory; the x = 0 terms take one Walsh-Hadamard transform of the
+// tile.  What bounds them then: the float64 arithmetic and the
+// shared-memory reads of each item's pass over the tile.
+//
+// Float64 end to end: the coefficients are read as float64 by input term
+// index (never through float32 planes); the readout forms every product of
+// two float32 amplitudes exactly in float64 (a float32 product fits the
+// 53-bit significand); every table, bucket, transform and sum is float64.
+// No float atomics: each block writes one (E, N) partial, and the block
+// whose arrival on an integer counter is the last sums the partials in
+// block order and sets the counter back to 0, inside the launch (no second
+// fold kernel; a captured launch replays; two calls give the same bits).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ double add64(double a, double b) { return a + b; }
+__device__ __forceinline__ double2 add64(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ double sub64(double a, double b) { return a - b; }
+__device__ __forceinline__ double2 sub64(double2 a, double2 b) {
+  return make_double2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ double shfl64(double v, int m) {
+  return __shfl_xor_sync(0xffffffffu, v, m);
+}
+__device__ __forceinline__ double2 shfl64(double2 v, int m) {
+  return make_double2(__shfl_xor_sync(0xffffffffu, v.x, m), __shfl_xor_sync(0xffffffffu, v.y, m));
+}
+// acc + c p
+__device__ __forceinline__ double2 fma64(double c, double2 p, double2 acc) {
+  return make_double2(fma(c, p.x, acc.x), fma(c, p.y, acc.y));
+}
+__device__ __forceinline__ double2 fma64(double2 c, double2 p, double2 acc) {
+  return make_double2(fma(c.x, p.x, fma(-c.y, p.y, acc.x)), fma(c.x, p.y, fma(c.y, p.x, acc.y)));
+}
+// one Walsh-Hadamard butterfly seen from one side (as butterfly above)
+template <typename T>
+__device__ __forceinline__ T bfly64(T v, T p, bool up) {
+  return up ? sub64(p, v) : add64(v, p);
+}
+// v with its sign flipped where sbit (bit 31) is set
+__device__ __forceinline__ double flip_sign64(double v, uint32_t sbit) {
+  return __longlong_as_double(__double_as_longlong(v) ^
+                              static_cast<long long>(static_cast<unsigned long long>(sbit) << 32));
+}
+
+// The end of a float64 tile launch: the block's (E, N) partial (valid in
+// thread 0; every thread calls) goes to partials[b]; the block whose
+// arrival on `count` is the last sums the n_blocks partials in index order
+// (lane-strided, then a fixed shuffle tree) into out[4] = [E, 0, N, 0] and
+// sets count back to 0.  The order of the sums does not depend on which
+// block arrives last.
+__device__ void fold64_last(double2 part, int b, int n_blocks, double2* __restrict__ partials,
+                            unsigned int* __restrict__ count, double* __restrict__ out) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partials[b] = part;
+    __threadfence();
+    last = atomicAdd(count, 1u) == static_cast<unsigned int>(n_blocks) - 1u;
+  }
+  __syncthreads();
+  if (!last || threadIdx.x >= 32) return;
+  __threadfence();
+  double2 acc = make_double2(0.0, 0.0);
+  for (int j = static_cast<int>(threadIdx.x); j < n_blocks; j += 32) {
+    const double2 v = __ldcg(partials + j);
+    acc.x += v.x;
+    acc.y += v.y;
+  }
+  acc = warp_sum_f64(acc);
+  if (threadIdx.x == 0) {
+    out[0] = acc.x;
+    out[1] = 0.0;
+    out[2] = acc.y;
+    out[3] = 0.0;
+    *count = 0u;
+  }
+}
+
+// The readout's diagonal unit (the list's x = 0 terms, and N) over the tile
+// positions [p0, p1) of the tile `mask`: per position the R = 2^(k - 8)
+// slots t = tid | r << 8 of |psi|^2 in float64, their Walsh-Hadamard
+// transform over the tile U[m] = sum_t (-1)^popc(t & m) |psi[t]|^2 (the r
+// bits in registers, the 5 lane bits by shuffles, the 3 warp bits through
+// shared memory, as inner_diagonal), then term q adds (-1)^popc(outer &
+// zout[q]) U[zin[q]] to its sum (thread q mod 256 owns term q) and thread
+// 0 adds U[0], the position's sum of |psi|^2, to nn.  Ends with this
+// thread's share of E: its terms' sums times their real coefficients
+// (cre[rows[q]]), in term order.
+template <int R>
+__device__ __forceinline__ void readout64_diagonal(unsigned char* smem,
+                                                   const float2* __restrict__ psi, int n, int c,
+                                                   uint32_t mask, uint32_t p0, uint32_t p1,
+                                                   const int32_t* __restrict__ zin,
+                                                   const int32_t* __restrict__ zout, int n_diag,
+                                                   const int32_t* __restrict__ rows,
+                                                   const double* __restrict__ cre, double& e,
+                                                   double& nn) {
+  constexpr int kLogR = R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
+  double* U = reinterpret_cast<double*>(smem);
+  double* dsum = U + (R << 8);
+  const uint32_t tid = threadIdx.x;
+  for (int q = static_cast<int>(tid); q < n_diag; q += kInnerTileThreads) dsum[q] = 0.0;
+  // slot t at flat index outer | deposit(t >> c, hi) | (t & low), linear in t
+  const uint32_t low = (1u << c) - 1u, hi = mask & ~low;
+  const uint32_t rest = ((1u << n) - 1u) & ~mask;
+  const uint32_t gt = deposit(tid >> c, hi) | (tid & low);
+  uint32_t gb[kLogR];
+#pragma unroll
+  for (int b = 0; b < kLogR; ++b) {
+    const uint32_t t = 1u << (8 + b);
+    gb[b] = deposit(t >> c, hi) | (t & low);
+  }
+  for (uint32_t p = p0; p < p1; ++p) {
+    const uint32_t outer = deposit(p, rest);
+    double v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      uint32_t g = outer | gt;
+#pragma unroll
+      for (int b = 0; b < kLogR; ++b)
+        if ((r >> b) & 1) g |= gb[b];
+      const float2 a = psi[g];
+      const double ax = a.x, ay = a.y;
+      v[r] = fma(ax, ax, ay * ay);
+    }
+#pragma unroll
+    for (int b = 0; b < kLogR; ++b) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!((r >> b) & 1)) {
+          const double lo = v[r], up = v[r | (1 << b)];
+          v[r] = lo + up;
+          v[r | (1 << b)] = lo - up;
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < 5; ++b) {
+      const bool up = (tid >> b) & 1u;
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[r] = bfly64(v[r], shfl64(v[r], 1 << b), up);
+    }
+#pragma unroll
+    for (int b = 5; b < 8; ++b) {
+      __syncthreads();  // every read of U (the last stage, position or terms) is done
+#pragma unroll
+      for (int r = 0; r < R; ++r) U[tid | (r << 8)] = v[r];
+      __syncthreads();
+      const bool up = (tid >> b) & 1u;
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[r] = bfly64(v[r], U[(tid ^ (1u << b)) | (r << 8)], up);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < R; ++r) U[tid | (r << 8)] = v[r];
+    __syncthreads();
+    for (int q = static_cast<int>(tid); q < n_diag; q += kInnerTileThreads) {
+      const uint32_t sbit = (__popc(outer & static_cast<uint32_t>(__ldg(zout + q))) & 1u) << 31;
+      dsum[q] += flip_sign64(U[__ldg(zin + q)], sbit);
+    }
+    if (tid == 0) nn += U[0];
+  }
+  for (int q = static_cast<int>(tid); q < n_diag; q += kInnerTileThreads)
+    e = fma(__ldg(cre + __ldg(rows + q)), dsum[q], e);
+}
+
+// The readout's items [i0, i0 + n_items) of one tile over the tile
+// positions [p0, p1), the float32 tile in shared memory at the swizzled
+// slots of pauli_inner_tiles_kernel.  With a = psi the buckets pair up: slot
+// j ^ XJ of the 16 (XJ = item_x, x on the bucket bits) is the partner of
+// slot j with the same sign s (the bucket bits carry no common phase bit),
+// so B[j ^ XJ] = conj(B[j]) exactly (the products are exact and the
+// rounding of the sums symmetric) and a lane keeps only the 8 buckets j
+// with bit 0 clear: B[j] += s conj(psi[i_j]) psi[i_j ^ x], two loads and
+// two float64 products a pair.  E of an item is then sum_j Re(C[j] B[j])
+// with C[j] = sum_t c_t (-1)^popc(j & d_t) its 16-point coefficient table,
+// which the block forms in float64 before the first position and keeps
+// folded by pair: (Cre[j] + Cre[j ^ XJ], Cim[j ^ XJ] - Cim[j]) against
+// (Re B[j], Im B[j]).  Each lane adds its share to e in a fixed order
+// (positions, then the warp's items).  The unit's terms are staged into
+// shared memory (coefficient, phase bits on J) in one pass of independent
+// loads before the tables are formed from them.
+__device__ __forceinline__ void readout64_items(
+    unsigned char* smem, const float2* __restrict__ psi, int n, int k, int c, uint64_t swizzle,
+    uint32_t mask, int i0, int n_items, int most_items, uint32_t p0, uint32_t p1,
+    const int32_t* __restrict__ item_cols, const int32_t* __restrict__ item_x,
+    const int32_t* __restrict__ item_zlc, const int32_t* __restrict__ item_zout,
+    const int32_t* __restrict__ item_start, const int32_t* __restrict__ term_d,
+    const int32_t* __restrict__ order, const double* __restrict__ cre,
+    const double* __restrict__ cim, double& e) {
+  float2* at = reinterpret_cast<float2*>(smem);
+  double2* ctab = reinterpret_cast<double2*>(smem + (sizeof(float2) << k));  // [item][8]
+  double2* scoef = ctab + 8 * most_items;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const uint32_t lane = static_cast<uint32_t>(tid & 31);
+  const int tb = __ldg(item_start + i0), n_terms = __ldg(item_start + i0 + n_items) - tb;
+  int32_t* sbits = reinterpret_cast<int32_t*>(scoef + n_terms);
+  for (int q = tid; q < n_terms; q += kInnerTileThreads) {  // the unit's terms, staged
+    const int o = __ldg(order + tb + q);
+    sbits[q] = __ldg(term_d + tb + q);
+    scoef[q] = make_double2(__ldg(cre + o), __ldg(cim + o));
+  }
+  __syncthreads();
+  for (int q = tid; q < 8 * n_items; q += kInnerTileThreads) {
+    const int item = i0 + (q >> 3);
+    const uint32_t j = 2u * static_cast<uint32_t>(q & 7);
+    const uint32_t jp = j ^ static_cast<uint32_t>(__ldg(item_x + item));
+    double cr = 0.0, ci = 0.0, pr = 0.0, pi = 0.0;
+    for (int t = __ldg(item_start + item) - tb; t < __ldg(item_start + item + 1) - tb; ++t) {
+      const uint32_t d = static_cast<uint32_t>(sbits[t]);
+      const double re = scoef[t].x, im = scoef[t].y;
+      const uint32_t s = (__popc(j & d) & 1u) << 31, sp = (__popc(jp & d) & 1u) << 31;
+      cr += flip_sign64(re, s);
+      ci += flip_sign64(im, s);
+      pr += flip_sign64(re, sp);
+      pi += flip_sign64(im, sp);
+    }
+    ctab[q] = make_double2(cr + pr, pi - ci);
+  }
+  // this thread copies the tile slots tid | m << 8 (pauli_inner_tiles_kernel)
+  const uint32_t low = (1u << c) - 1u;
+  const uint32_t hi = mask & ~low;
+  const uint32_t rest = ((1u << n) - 1u) & ~mask;
+  const uint32_t t0 = static_cast<uint32_t>(tid);
+  const uint32_t g0 = deposit(t0 >> c, hi) | (t0 & low), s0 = inner_slot(t0, swizzle);
+  uint32_t gb[5], sb[5];
+#pragma unroll
+  for (int b = 0; b < 5; ++b) {
+    const uint32_t t = 1u << (8 + b);
+    gb[b] = deposit(t >> c, hi) | (t & low);
+    sb[b] = inner_slot(t, swizzle);
+  }
+  const int copies = 1 << (k - 8);
+  const int chunks = 1 << (k - 9);
+  for (uint32_t p = p0; p < p1; ++p) {
+    const uint32_t outer = deposit(p, rest);
+#pragma unroll
+    for (int m = 0; m < (1 << (kInnerTileMaxBits - 8)); ++m) {
+      if (m < copies) {
+        uint32_t g = outer | g0, sl = s0;
+#pragma unroll
+        for (int b = 0; b < 5; ++b) {
+          if ((m >> b) & 1) {
+            g ^= gb[b];
+            sl ^= sb[b];
+          }
+        }
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                         static_cast<uint32_t>(__cvta_generic_to_shared(at + sl))),
+                     "l"(psi + g));
+      }
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();  // the tile (and, at the first position, the tables) complete
+    for (int it = warp; it < n_items; it += kInnerTileWarps) {
+      const int item = i0 + it;
+      const int4* row = reinterpret_cast<const int4*>(item_cols + kItemCols * item);
+      const int4 q0 = __ldg(row), q1 = __ldg(row + 1), q2 = __ldg(row + 2), q3 = __ldg(row + 3);
+      // columns: lane bits 0-4, bucket bits 5-8, chunk bits 9-12
+      const uint32_t lc[5] = {static_cast<uint32_t>(q0.x), static_cast<uint32_t>(q0.y),
+                              static_cast<uint32_t>(q0.z), static_cast<uint32_t>(q0.w),
+                              static_cast<uint32_t>(q1.x)};
+      const uint32_t jc[4] = {static_cast<uint32_t>(q1.y), static_cast<uint32_t>(q1.z),
+                              static_cast<uint32_t>(q1.w), static_cast<uint32_t>(q2.x)};
+      const uint32_t cc[4] = {static_cast<uint32_t>(q2.y), static_cast<uint32_t>(q2.z),
+                              static_cast<uint32_t>(q2.w), static_cast<uint32_t>(q3.x)};
+      uint32_t lane_off = 0u;
+#pragma unroll
+      for (int b = 0; b < 5; ++b)
+        if ((lane >> b) & 1u) lane_off ^= lc[b];
+      // the slot offsets of the buckets j = 2m, and of the partner (x on J)
+      uint32_t jo[8];
+      jo[0] = 0u;
+#pragma unroll
+      for (int m = 1; m < 8; ++m) jo[m] = jo[m & (m - 1)] ^ jc[m & 1 ? 1 : m & 2 ? 2 : 3];
+      const uint32_t xj = static_cast<uint32_t>(__ldg(item_x + item));
+      uint32_t xo = 0u;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if ((xj >> b) & 1u) xo ^= jc[b];
+      const uint32_t zlc = static_cast<uint32_t>(__ldg(item_zlc + item));
+      const uint32_t sign0 = __popc(outer & static_cast<uint32_t>(__ldg(item_zout + item))) & 1u;
+      double2 B[8];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) B[m] = make_double2(0.0, 0.0);
+      for (int ch = 0; ch < chunks; ++ch) {
+        const uint32_t base = lane_off ^ (ch & 1 ? cc[0] : 0u) ^ (ch & 2 ? cc[1] : 0u) ^
+                              (ch & 4 ? cc[2] : 0u) ^ (ch & 8 ? cc[3] : 0u);
+        const uint32_t l9 = lane | (static_cast<uint32_t>(ch) << 5);
+        const uint32_t sbit = ((__popc(l9 & zlc) ^ sign0) & 1u) << 31;
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          const float2 u = at[base ^ jo[m]], w = at[base ^ jo[m] ^ xo];
+          const double ux = u.x, uy = u.y, wx = w.x, wy = w.y;
+          B[m].x += flip_sign64(fma(ux, wx, uy * wy), sbit);   // Re conj(u) w, exact products
+          B[m].y += flip_sign64(fma(ux, wy, -(uy * wx)), sbit);  // Im conj(u) w
+        }
+      }
+      const double2* ct = ctab + 8 * it;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        e = fma(ct[m].x, B[m].x, e);
+        e = fma(ct[m].y, B[m].y, e);
+      }
+    }
+    __syncthreads();  // the tile is read: the next position may overwrite it
+  }
+}
+
+// tiles the readout takes: 9 <= k <= 12 (its diagonal holds 2^(k - 8)
+// doubles a thread; 32 at 13 bits would not fit 128 registers)
+constexpr int kReadout64MaxBits = 12;
+
+// [E, 0, N, 0] of a complex64 state over the units of a GroupTiles
+// schedule with its diagonal unit always present (grid: units x position
+// slices, `positions` tile positions a block): E = sum_t Re(c_t <psi|P_t|psi>)
+// over the layout's terms (items and the list's diagonal), N = <psi|psi>
+// from the diagonal unit (on the tile diag_mask).  partials: one double2 a
+// block; count: zero before and after.
+__global__ void __launch_bounds__(kInnerTileThreads, 2)
+expectation_f64_tiles_kernel(const float2* __restrict__ psi, int n, int k, int c,
+                             uint64_t swizzle, const int32_t* __restrict__ tile_mask,
+                             const int4* __restrict__ units, const int32_t* __restrict__ item_cols,
+                             const int32_t* __restrict__ item_x,
+                             const int32_t* __restrict__ item_zlc,
+                             const int32_t* __restrict__ item_zout,
+                             const int32_t* __restrict__ item_start,
+                             const int32_t* __restrict__ term_d, const int32_t* __restrict__ order,
+                             const int32_t* __restrict__ diag_zin,
+                             const int32_t* __restrict__ diag_zout, int n_diag, int diag_row,
+                             uint32_t diag_mask, int most_items, int positions,
+                             const double* __restrict__ cre,
+                             const double* __restrict__ cim, double2* __restrict__ partials,
+                             double* __restrict__ out, unsigned int* __restrict__ count) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int4 unit = units[blockIdx.x];  // (tile, first item, items, diagonal)
+  const uint32_t p0 = blockIdx.y * static_cast<uint32_t>(positions);
+  const uint32_t p1 = min(p0 + static_cast<uint32_t>(positions), 1u << (n - k));
+  double e = 0.0, nn = 0.0;
+  if (unit.w) {
+    const int32_t* rows = order + diag_row;
+#define QSFH_READOUT_DIAG(R)                                                                   \
+  readout64_diagonal<R>(smem, psi, n, c, diag_mask, p0, p1, diag_zin, diag_zout, n_diag, rows, \
+                        cre, e, nn)
+    switch (k) {
+      case 9: QSFH_READOUT_DIAG(2); break;
+      case 10: QSFH_READOUT_DIAG(4); break;
+      case 11: QSFH_READOUT_DIAG(8); break;
+      default: QSFH_READOUT_DIAG(16); break;  // k = 12
+    }
+#undef QSFH_READOUT_DIAG
+  } else {
+    readout64_items(smem, psi, n, k, c, swizzle, static_cast<uint32_t>(tile_mask[unit.x]), unit.y,
+                    unit.z, most_items, p0, p1, item_cols, item_x, item_zlc, item_zout,
+                    item_start, term_d, order, cre, cim, e);
+  }
+  const double2 part = block_sum_f64(make_double2(e, nn));
+  fold64_last(part, static_cast<int>(blockIdx.x * gridDim.y + blockIdx.y),
+              static_cast<int>(gridDim.x * gridDim.y), partials, count, out);
+}
+
+// happly64_tiles: a thread owns the 8 slots of a tile that differ in its top
+// kApply64TopBits bits (pauli_apply_tiles_kernel owns 16 in float32; 8
+// complex128 accumulators and coefficients keep a thread within the 128
+// registers of a 512-thread block).  item_ehi is built for the float32
+// kernel's 4 top bits: its entries 1-3 are these 3 bits.
+constexpr int kApply64TopBits = 3;
+constexpr int kApply64Slots = 1 << kApply64TopBits;
+constexpr int kApply64MinBits = 9;   // kernels.INNER_TILE_MIN_BITS: two warps at least
+constexpr int kApply64MaxBits = 12;  // the psi tile and the spectrum, 64 KiB each
+constexpr int kApply64MaxThreads = 1 << (kApply64MaxBits - kApply64TopBits);
+
+// The byte offsets of this thread's 8 table entries of one item
+// (apply_item_offsets with the top 3 tile bits).
+__device__ __forceinline__ void apply64_item_offsets(uint32_t (&E)[kApply64Slots],
+                                                     uint32_t table, uint32_t entry, uint32_t tid,
+                                                     uint32_t outer, uint32_t jt, uint32_t zt,
+                                                     uint32_t ehi, uint32_t zo) {
+  uint32_t jb = 0u;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) jb |= ((tid >> ((jt >> (4 * m)) & 15u)) & 1u) << m;
+  const uint32_t s = (__popc(tid & zt) ^ __popc(outer & zo)) & 1u;
+  uint32_t eb[kApply64TopBits];
+#pragma unroll
+  for (int b = 0; b < kApply64TopBits; ++b)
+    eb[b] = ((ehi >> (5 * (b + kApplyTopBits - kApply64TopBits))) & 31u) * entry;
+  E[0] = table + (jb | s << 4) * entry;
+#pragma unroll
+  for (int r = 1; r < kApply64Slots; ++r) E[r] = E[r & (r - 1)] ^ eb[r & 1 ? 0 : r & 2 ? 1 : 2];
+}
+
+__device__ __forceinline__ void load_coef64(double& v, const double2& s) { v = s.x; }
+__device__ __forceinline__ void load_coef64(double2& v, const double2& s) { v = s; }
+
+// The tile's diagonal on this thread's 8 slots into acc (apply_diagonal in
+// float64): the Walsh-Hadamard transform of the spectrum at spec_off (its
+// real parts with T = double) over the top 3 tile bits in registers, the 5
+// lane bits by shuffles and the warp bits through the same shared memory;
+// then acc += d psi.
+template <typename T>
+__device__ __forceinline__ void apply64_diagonal(unsigned char* smem, uint32_t spec_off,
+                                                 uint32_t tid, int hb,
+                                                 const uint32_t (&sa)[kApply64Slots],
+                                                 double2 (&acc)[kApply64Slots]) {
+  const double2* spec2 = reinterpret_cast<const double2*>(smem + spec_off);
+  T* spec = reinterpret_cast<T*>(smem + spec_off);
+  T v[kApply64Slots];
+#pragma unroll
+  for (int r = 0; r < kApply64Slots; ++r)
+    load_coef64(v[r], spec2[tid + (static_cast<uint32_t>(r) << hb)]);
+#pragma unroll
+  for (int b = 0; b < kApply64TopBits; ++b) {
+#pragma unroll
+    for (int r = 0; r < kApply64Slots; ++r) {
+      if (!((r >> b) & 1)) {
+        const T a = v[r], c = v[r | (1 << b)];
+        v[r] = add64(a, c);
+        v[r | (1 << b)] = sub64(a, c);
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < 5; ++b) {
+    const bool up = (tid >> b) & 1u;
+#pragma unroll
+    for (int r = 0; r < kApply64Slots; ++r) v[r] = bfly64(v[r], shfl64(v[r], 1 << b), up);
+  }
+  for (int b = 5; b < hb; ++b) {
+    __syncthreads();  // every read of the previous stage (or of the spectrum) is done
+#pragma unroll
+    for (int r = 0; r < kApply64Slots; ++r) spec[tid + (static_cast<uint32_t>(r) << hb)] = v[r];
+    __syncthreads();
+    const bool up = (tid >> b) & 1u;
+#pragma unroll
+    for (int r = 0; r < kApply64Slots; ++r)
+      v[r] = bfly64(v[r], spec[(tid ^ (1u << b)) + (static_cast<uint32_t>(r) << hb)], up);
+  }
+#pragma unroll
+  for (int r = 0; r < kApply64Slots; ++r)
+    acc[r] = fma64(v[r], *reinterpret_cast<const double2*>(smem + sa[r]), acc[r]);
+}
+
+// The items [i0, i0 + n_items) of one tile on this thread's 8 slots into
+// acc (apply_items in float64): per item one table entry a slot (double
+// with REAL, the tile's coefficients all real), summed over a run of items
+// of one x, then one partner load psi[slot ^ x] and product a slot.
+template <bool REAL>
+__device__ __forceinline__ void apply64_items(const unsigned char* smem, uint32_t table, int i0,
+                                              int n_items, bool skip_diagonal, uint32_t tid,
+                                              uint32_t outer, const uint32_t (&sa)[kApply64Slots],
+                                              double2 (&acc)[kApply64Slots],
+                                              const int32_t* __restrict__ item_jt,
+                                              const int32_t* __restrict__ item_zt,
+                                              const int32_t* __restrict__ item_xa,
+                                              const int32_t* __restrict__ item_ehi,
+                                              const int32_t* __restrict__ item_zout) {
+  constexpr uint32_t entry = REAL ? sizeof(double) : sizeof(double2);
+  using Coef = typename std::conditional<REAL, double, double2>::type;
+  uint32_t E[kApply64Slots];
+  int it = 0;
+  while (it < n_items) {
+    const uint32_t xa = static_cast<uint32_t>(__ldg(item_xa + i0 + it));
+    if (skip_diagonal && xa == 0u) {
+      while (it < n_items && __ldg(item_xa + i0 + it) == 0) ++it;
+      continue;
+    }
+    Coef coef[kApply64Slots];
+    bool first = true;
+    do {
+      const int item = i0 + it;
+      apply64_item_offsets(E, table + static_cast<uint32_t>(it) * kApplyTable * entry, entry, tid,
+                           outer, static_cast<uint32_t>(__ldg(item_jt + item)),
+                           static_cast<uint32_t>(__ldg(item_zt + item)),
+                           static_cast<uint32_t>(__ldg(item_ehi + item)),
+                           static_cast<uint32_t>(__ldg(item_zout + item)));
+#pragma unroll
+      for (int r = 0; r < kApply64Slots; ++r) {
+        const Coef w = *reinterpret_cast<const Coef*>(smem + E[r]);
+        coef[r] = first ? w : add64(coef[r], w);
+      }
+      first = false;
+      ++it;
+    } while (it < n_items && static_cast<uint32_t>(__ldg(item_xa + i0 + it)) == xa);
+    const uint32_t xo = xa * static_cast<uint32_t>(sizeof(double2));
+#pragma unroll
+    for (int r = 0; r < kApply64Slots; ++r)
+      acc[r] = fma64(coef[r], *reinterpret_cast<const double2*>(smem + (sa[r] ^ xo)), acc[r]);
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// Shared memory of a happly64_tiles launch (byte offsets, each a multiple
+// of 512 up to the staged terms): the psi tile; with a diagonal its
+// spectrum; on a later tile the out tile; the items' double2 tables, their
+// real parts; the tile's terms staged (coefficient, phase bits).
+struct Apply64Smem {
+  uint32_t spec, ot, ctab, rtab, stage, sbits, total;
+  __host__ __device__ Apply64Smem(int k, bool diagonal, bool accumulate, int n_items,
+                                  int n_staged) {
+    const uint32_t tile = static_cast<uint32_t>(sizeof(double2)) << k;
+    spec = tile;
+    ot = spec + (diagonal ? tile : 0u);
+    ctab = ot + (accumulate ? tile : 0u);
+    rtab = ctab + static_cast<uint32_t>(n_items) * kApplyTable * sizeof(double2);
+    stage = rtab + static_cast<uint32_t>(n_items) * kApplyTable * sizeof(double);
+    sbits = stage + static_cast<uint32_t>(n_staged) * sizeof(double2);
+    total = sbits + static_cast<uint32_t>(n_staged) * sizeof(int32_t);
+  }
+};
+
+// The tables of an application layout the H psi kernel reads (device
+// pointers).
+struct Apply64Tables {
+  const int32_t *item_start, *term_d, *order, *item_jt, *item_zt, *item_xa, *item_ehi,
+      *item_zout, *diag_zin, *diag_start, *diag_term, *diag_zout;
+  const double *cre, *cim;
+};
+
+// One tile of H psi over a streaming.GroupTiles application layout, in
+// complex128: block b takes tile position b (2^(n - k) blocks of 2^(k - 3)
+// threads).  The first tile (`first`) stores its sum in out, a later one
+// adds the sum out holds (its out tile prefetched by cp.async while the
+// tables and the items run); the last (`last`) scales the finished H psi
+// by `scale` as it stores it and, from the same values before the scale
+// and its psi tile, takes the block's (Re <psi|H psi>, <psi|psi>) partial,
+// folded in the launch into stats[4] = [E, 0, N, 0].  Each slot is owned by
+// one thread of one block a launch, and the launches run in tile order.
+// The tile's terms (items' rows [t0, t0 + n_terms), diagonal rows [dt0,
+// dt0 + n_dterms)) are staged into shared memory in one pass of
+// independent loads before the tables are formed from them: a chain of
+// dependent loads per term (row, input index, coefficient) would otherwise
+// set the launch's length at 18 qubits.  (One cooperative launch over all
+// tiles, a grid barrier between them, measured no faster at 18 qubits and
+// slower at 24.)
+__global__ void __launch_bounds__(kApply64MaxThreads)
+happly64_tiles_kernel(const double2* __restrict__ psi, double2* __restrict__ out, int n, int k,
+                      int c, uint32_t mask, int i0, int n_items, int d0, int d1, int t0,
+                      int n_terms, int dt0, int n_dterms, Apply64Tables T, double scale,
+                      int first, int last, double2* __restrict__ partials,
+                      double* __restrict__ stats, unsigned int* __restrict__ count) {
+  extern __shared__ __align__(16) unsigned char smem[];  // tiles in tile order
+  const bool diagonal = d1 > d0;
+  const Apply64Smem lay(k, diagonal, !first, n_items, n_terms + n_dterms);
+  const uint32_t spec_off = lay.spec, ctab = lay.ctab, rtab = lay.rtab;
+  double2* spec = reinterpret_cast<double2*>(smem + spec_off);
+  double2* ctables = reinterpret_cast<double2*>(smem + ctab);
+  double* rtables = reinterpret_cast<double*>(smem + rtab);
+  double2* scoef = reinterpret_cast<double2*>(smem + lay.stage);
+  int32_t* sbits = reinterpret_cast<int32_t*>(smem + lay.sbits);
+  const uint32_t tid = threadIdx.x;
+  const int hb = k - kApply64TopBits;  // the register slots' tile bits: hb .. k - 1
+
+  // slot t = tid | r << hb at flat index outer | deposit(t >> c, hi) | (t & low),
+  // linear in t: the parts of tid and of each top bit are formed once
+  const uint32_t low = (1u << c) - 1u, hi = mask & ~low;
+  const uint32_t outer = deposit(blockIdx.x, ((1u << n) - 1u) & ~mask);
+  uint32_t gr[kApply64TopBits];
+#pragma unroll
+  for (int b = 0; b < kApply64TopBits; ++b) {
+    const uint32_t t = 1u << (hb + b);
+    gr[b] = deposit(t >> c, hi) | (t & low);
+  }
+  uint32_t g[kApply64Slots], sa[kApply64Slots];
+  g[0] = outer | deposit(tid >> c, hi) | (tid & low);
+#pragma unroll
+  for (int r = 1; r < kApply64Slots; ++r) g[r] = g[r & (r - 1)] | gr[r & 1 ? 0 : r & 2 ? 1 : 2];
+#pragma unroll
+  for (int r = 0; r < kApply64Slots; ++r) {
+    sa[r] = (tid | (static_cast<uint32_t>(r) << hb)) * static_cast<uint32_t>(sizeof(double2));
+    cp_async16(smem + sa[r], psi + g[r]);
+  }
+  cp_async_commit();
+  if (!first) {  // the earlier tiles' sum, needed at the end
+#pragma unroll
+    for (int r = 0; r < kApply64Slots; ++r) cp_async16(smem + lay.ot + sa[r], out + g[r]);
+    cp_async_commit();
+  }
+
+  // while the copies are in flight: the tile's terms staged; the diagonal's
+  // spectrum (zero, then one entry per z on the tile: its terms'
+  // coefficients signed by their phase bits off the tile, in a fixed
+  // order), the items' tables (C[j] at j, -C[j] at j | 16), and whether any
+  // coefficient of the tile is complex
+  for (int q = static_cast<int>(tid); q < n_terms + n_dterms; q += blockDim.x) {
+    const bool item_row = q < n_terms;
+    const int o = item_row ? T.order[t0 + q] : T.diag_term[dt0 + q - n_terms];
+    sbits[q] = item_row ? T.term_d[t0 + q] : T.diag_zout[dt0 + q - n_terms];
+    scoef[q] = make_double2(__ldg(T.cre + o), __ldg(T.cim + o));
+  }
+  if (diagonal) {
+#pragma unroll
+    for (int r = 0; r < kApply64Slots; ++r)
+      spec[tid | (static_cast<uint32_t>(r) << hb)] = make_double2(0.0, 0.0);
+  }
+  __syncthreads();
+  int complex_coeffs = 0;
+  for (int q = d0 + static_cast<int>(tid); q < d1; q += blockDim.x) {
+    double2 v = make_double2(0.0, 0.0);
+    for (int t = T.diag_start[q] - dt0 + n_terms; t < T.diag_start[q + 1] - dt0 + n_terms; ++t) {
+      const uint32_t sbit = (__popc(outer & static_cast<uint32_t>(sbits[t])) & 1u) << 31;
+      v.x += flip_sign64(scoef[t].x, sbit);
+      v.y += flip_sign64(scoef[t].y, sbit);
+    }
+    spec[T.diag_zin[q]] = v;
+    complex_coeffs |= v.y != 0.0;
+  }
+  for (int q = static_cast<int>(tid); q < 16 * n_items; q += blockDim.x) {
+    const int it = q >> 4, item = i0 + it;
+    if (diagonal && __ldg(T.item_xa + item) == 0) continue;
+    const uint32_t j = static_cast<uint32_t>(q & 15);
+    double2 v = make_double2(0.0, 0.0);
+    for (int t = T.item_start[item] - t0; t < T.item_start[item + 1] - t0; ++t) {
+      const uint32_t sbit = (__popc(j & static_cast<uint32_t>(sbits[t])) & 1u) << 31;
+      v.x += flip_sign64(scoef[t].x, sbit);
+      v.y += flip_sign64(scoef[t].y, sbit);
+    }
+    ctables[it * kApplyTable + j] = v;
+    ctables[it * kApplyTable + j + 16] = make_double2(-v.x, -v.y);
+    rtables[it * kApplyTable + j] = v.x;
+    rtables[it * kApplyTable + j + 16] = -v.x;
+    complex_coeffs |= v.y != 0.0;
+  }
+  if (first)
+    cp_async_wait_all();
+  else
+    cp_async_wait_one();  // the psi tile; the out tile may still be in flight
+  const bool real = !__syncthreads_or(complex_coeffs);
+
+  double2 acc[kApply64Slots];
+#pragma unroll
+  for (int r = 0; r < kApply64Slots; ++r) acc[r] = make_double2(0.0, 0.0);
+  if (diagonal) {
+    if (real)
+      apply64_diagonal<double>(smem, spec_off, tid, hb, sa, acc);
+    else
+      apply64_diagonal<double2>(smem, spec_off, tid, hb, sa, acc);
+  }
+  if (real)
+    apply64_items<true>(smem, rtab, i0, n_items, diagonal, tid, outer, sa, acc, T.item_jt,
+                        T.item_zt, T.item_xa, T.item_ehi, T.item_zout);
+  else
+    apply64_items<false>(smem, ctab, i0, n_items, diagonal, tid, outer, sa, acc, T.item_jt,
+                         T.item_zt, T.item_xa, T.item_ehi, T.item_zout);
+
+  if (!first) cp_async_wait_all();  // this thread's slots of the out tile
+  double e = 0.0, nn = 0.0;
+#pragma unroll
+  for (int r = 0; r < kApply64Slots; ++r) {
+    double2 h = acc[r];
+    if (!first) {  // the earlier tiles' sum, unscaled
+      const double2 o = *reinterpret_cast<const double2*>(smem + lay.ot + sa[r]);
+      h = make_double2(o.x + h.x, o.y + h.y);
+    }
+    if (last) {
+      const double2 a = *reinterpret_cast<const double2*>(smem + sa[r]);
+      e += a.x * h.x + a.y * h.y;
+      nn += a.x * a.x + a.y * a.y;
+      h = make_double2(scale * h.x, scale * h.y);
+    }
+    out[g[r]] = h;
+  }
+  if (!last) return;
+  const double2 part = block_sum_f64(make_double2(e, nn));
+  fold64_last(part, static_cast<int>(blockIdx.x), static_cast<int>(gridDim.x), partials, count,
+              stats);
+}
+
+// The arrays of qsfh_happly64_tiles: [0, 5) HOST tile_mask, tile_items,
+// tile_diag, item_start, diag_start; [5, 17) the device tables item_start,
+// term_d, order, item_jt, item_zt, item_xa, item_ehi, item_zout, diag_zin,
+// diag_start, diag_term, diag_zout.
+struct Apply64Host {
+  const int32_t *tile_mask, *tile_items, *tile_diag, *item_start, *diag_start;
+  Apply64Tables dev;
+  Apply64Host(const void* const* a, const void* cre, const void* cim) {
+    const int32_t** host[] = {&tile_mask, &tile_items, &tile_diag, &item_start, &diag_start};
+    for (int m = 0; m < 5; ++m) *host[m] = static_cast<const int32_t*>(a[m]);
+    const int32_t** d[] = {&dev.item_start, &dev.term_d,     &dev.order,     &dev.item_jt,
+                           &dev.item_zt,    &dev.item_xa,    &dev.item_ehi,  &dev.item_zout,
+                           &dev.diag_zin,   &dev.diag_start, &dev.diag_term, &dev.diag_zout};
+    for (int m = 0; m < 12; ++m) *d[m] = static_cast<const int32_t*>(a[5 + m]);
+    dev.cre = static_cast<const double*>(cre);
+    dev.cim = static_cast<const double*>(cim);
+  }
+  // dynamic shared memory of tile r's pass
+  uint32_t smem(int k, int r) const {
+    const int i0 = tile_items[r], d0 = tile_diag[r];
+    return Apply64Smem(k, tile_diag[r + 1] > d0, r > 0, tile_items[r + 1] - i0,
+                       item_start[tile_items[r + 1]] - item_start[i0] +
+                           diag_start[tile_diag[r + 1]] - diag_start[d0])
+        .total;
+  }
+  uint32_t most_smem(int k, int n_tiles) const {
+    uint32_t most = 0;
+    for (int r = 0; r < n_tiles; ++r) most = smem(k, r) > most ? smem(k, r) : most;
+    return most;
+  }
+};
+
+inline bool apply64_shape_ok(int n, int k, int c, int n_tiles) {
+  return k >= kApply64MinBits && k <= kApply64MaxBits && k <= n && n <= 30 && c >= 1 &&
+         c <= k - kApply64TopBits && n_tiles >= 1;
 }
 
 inline int rot64_blocks(int n) {
@@ -3168,6 +3899,83 @@ int qsfh_happly64(const void* psi, void* out, int n, int n_terms, const void* hx
   sum_f64_partials_kernel<<<1, kF64Threads, 0, s>>>(static_cast<const double2*>(partials), grid,
                                                    static_cast<double*>(e_out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// out[4] = [E, 0, N, 0] of a complex64 state in float64 over the n_units
+// units (int32 rows of 4 on the device: tile, first item, items, diagonal)
+// of a streaming.GroupTiles schedule whose last unit is the diagonal (see
+// expectation_f64_tiles_kernel): ONE launch of n_units x
+// ceil(2^(n - k) / positions) blocks, the fold inside it.  The item, term
+// and diagonal tables are the layout's (device arrays), order + diag_row
+// the diagonal's input indices, diag_mask its tile, most_items the most
+// items of one unit; cre and cim are float64 on the device, read by input
+// term index.  partials: a double2 a block of scratch; count: one word, 0
+// before and after.
+int qsfh_expectation_f64_tiles(const void* psi, int n, int k, int c, unsigned long long swizzle,
+                               const void* tile_mask, const void* units, int n_units,
+                               const void* item_cols, const void* item_x, const void* item_zlc,
+                               const void* item_zout, const void* item_start, const void* term_d,
+                               const void* order, const void* diag_zin, const void* diag_zout,
+                               int n_diag, int diag_row, int diag_mask, int most_items,
+                               int most_terms, int positions, const void* cre, const void* cim,
+                               void* partials, void* out, void* count, void* stream) {
+  if (k < kInnerTileMinBits || k > kReadout64MaxBits || k > n || n > 30 || c < 1 || c > 8 ||
+      n_units < 1 || positions < 1 || most_items < 0 || most_items > 1024 || most_terms < 0 ||
+      n_diag < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned slices = ((1u << (n - k)) + positions - 1) / positions;
+  if (slices > static_cast<unsigned>(kMaxGridY)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t items_smem = (sizeof(float2) << k) +
+                            static_cast<size_t>(most_items) * 8 * sizeof(double2) +
+                            static_cast<size_t>(most_terms) * (sizeof(double2) + sizeof(int32_t));
+  const size_t diag_smem = (sizeof(double) << k) + static_cast<size_t>(n_diag) * sizeof(double);
+  const size_t smem = items_smem > diag_smem ? items_smem : diag_smem;
+  cudaError_t err = allow_smem(expectation_f64_tiles_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  expectation_f64_tiles_kernel<<<dim3(n_units, slices), kInnerTileThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(psi), n, k, c, static_cast<uint64_t>(swizzle),
+      static_cast<const int32_t*>(tile_mask), static_cast<const int4*>(units),
+      static_cast<const int32_t*>(item_cols), static_cast<const int32_t*>(item_x),
+      static_cast<const int32_t*>(item_zlc), static_cast<const int32_t*>(item_zout),
+      static_cast<const int32_t*>(item_start), static_cast<const int32_t*>(term_d),
+      static_cast<const int32_t*>(order), static_cast<const int32_t*>(diag_zin),
+      static_cast<const int32_t*>(diag_zout), n_diag, diag_row, static_cast<uint32_t>(diag_mask),
+      most_items, positions, static_cast<const double*>(cre), static_cast<const double*>(cim),
+      static_cast<double2*>(partials), static_cast<double*>(out),
+      static_cast<unsigned int*>(count));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out = scale * sum_t c_t P_t psi (complex128) over the n_tiles tiles of a
+// streaming.GroupTiles application layout, one launch per tile in table
+// order (see happly64_tiles_kernel), and stats[4] = [Re <psi|H psi>, 0,
+// <psi|psi>, 0] before the scale, folded in the last launch.  arrays: the
+// 17 pointers of Apply64Host (a host array); cre and cim are
+// float64 on the device, read by input term index.  partials: 2^(n - k)
+// double2 of scratch; count: one word, 0 before and after.
+int qsfh_happly64_tiles(const void* psi, void* out, int n, int k, int c, int n_tiles,
+                        const void* const* arrays, const void* cre, const void* cim, double scale,
+                        void* partials, void* stats, void* count, void* stream) {
+  if (!apply64_shape_ok(n, k, c, n_tiles)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Apply64Host H(arrays, cre, cim);
+  cudaError_t err = allow_smem(happly64_tiles_kernel, H.most_smem(k, n_tiles));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int r = 0; r < n_tiles; ++r) {
+    const int i0 = H.tile_items[r], i1 = H.tile_items[r + 1];
+    const int d0 = H.tile_diag[r], d1 = H.tile_diag[r + 1];
+    const int t0 = H.item_start[i0], dt0 = H.diag_start[d0];
+    happly64_tiles_kernel<<<1u << (n - k), 1u << (k - kApply64TopBits), H.smem(k, r), s>>>(
+        static_cast<const double2*>(psi), static_cast<double2*>(out), n, k, c,
+        static_cast<uint32_t>(H.tile_mask[r]), i0, i1 - i0, d0, d1, t0, H.item_start[i1] - t0,
+        dt0, H.diag_start[d1] - dt0, H.dev, scale, r == 0 ? 1 : 0, r == n_tiles - 1 ? 1 : 0,
+        static_cast<double2*>(partials), static_cast<double*>(stats),
+        static_cast<unsigned int*>(count));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
 }
 
 // The reverse sweep over the groups in place on psi and lam (see

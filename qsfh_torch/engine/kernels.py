@@ -39,15 +39,26 @@ wrapper                  replaces (``qsfh_tpu/engine/pallas_kernels.py``)
 ``adjoint_tile_runs``    ``adjoint_stream_pallas`` (:2142, local :2032,
                          crossing :2095)
 ``xor_gather``           ``xor_gather_pallas`` (:378)
-``expectation_norm_f64`` no Pallas kernel: the float64 Rayleigh readout
+``expectation_norm_f64_tiles``
+                         no Pallas kernel: the float64 Rayleigh readout
                          that ``qsfh_tpu/engine/dfloat.py`` computes in
-                         double-float jnp (``expectation_norm_df``)
+                         double-float jnp (``expectation_norm_df``), over
+                         the inner-product tiles
+``expectation_norm_f64`` the same readout one amplitude a thread over the
+                         terms: states under the route's threshold
+                         (``F64_TILE_MIN_QUBITS``: 9), masks that fit no
+                         tile
 ``rot64_groups``         no Pallas kernel: the forward pass of the host C++
                          float64 engine (``qsfh_tpu/native/statevec64.cpp``
                          ``qsfh_sv64_apply``, :153), complex128 groups of
                          commuting rotations
-``happly64``             the same engine's H psi (``qsfh_sv64_happly``,
-                         :171), with E = Re <psi|H psi> beside it
+``happly64_tiles``       the same engine's H psi (``qsfh_sv64_happly``,
+                         :171), with E = Re <psi|H psi> beside it, over
+                         the application tiles in complex128
+``happly64``             the same, one amplitude a thread over the terms:
+                         states under the route's threshold
+                         (``F64_TILE_MIN_QUBITS``: 18), masks that fit no
+                         tile
 ``adjoint64_groups``     the same engine's fused reverse sweep
                          (``qsfh_sv64_adjoint``, :203), the gradient folded
                          per parameter in a fixed order
@@ -72,8 +83,10 @@ rotations and adjoint sweep: one per call where every term fits a tile),
 one per term for the two per-term rotations, one per run for the two
 tile-run kernels, one per tile for ``pauli_apply_grouped``, one per call
 for ``xor_gather``, ``pauli_rotation_out``, ``expectation_norm_f64``,
-``happly64`` and the two float64 resident kernels (each of which fills its
-tables and, in the adjoint, folds the gradient inside the launch), one per
+``expectation_norm_f64_tiles`` (its fold inside the launch), ``happly64``
+and the two float64 resident kernels (each of which fills its tables and,
+in the adjoint, folds the gradient inside the launch), one per tile for
+``happly64_tiles`` (E and N folded inside the last), one per
 group for ``rot64_groups`` and ``adjoint64_groups``,
 one per call (or per
 scratch-sized chunk) for ``pauli_apply``, ``pauli_inner`` and the three
@@ -97,6 +110,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 
 from . import streaming
@@ -225,6 +239,11 @@ def _load():
         lib.qsfh_rot64_groups.argtypes = [p, i, i] + [p] * 8
         lib.qsfh_happly64.restype = i
         lib.qsfh_happly64.argtypes = [p, p, i, i] + [p] * 4 + [ctypes.c_double, p, p, p]
+        lib.qsfh_expectation_f64_tiles.restype = i
+        lib.qsfh_expectation_f64_tiles.argtypes = ([p, i, i, i, ctypes.c_ulonglong, p, p, i]
+                                                   + [p] * 9 + [i] * 6 + [p] * 6)
+        lib.qsfh_happly64_tiles.restype = i
+        lib.qsfh_happly64_tiles.argtypes = [p, p, i, i, i, i, p, p, p, ctypes.c_double] + [p] * 4
         lib.qsfh_adjoint64_groups.restype = i
         lib.qsfh_adjoint64_groups.argtypes = [p, p, i, i] + [p] * 7 + [i] + [p] * 5
         lib.qsfh_res64_capacity.restype = i
@@ -1136,11 +1155,144 @@ def expectation_norm_f64_plain(psi, xs, zs, cre, cim, starts):
     to float32 planes) upcast to complex128, then :func:`pauli_inner_plain`."""
     if starts.shape[0] < 1 or starts.shape[0] - 1 > xs.shape[0]:
         raise ValueError("expectation_norm_f64: bad group offsets")
+    return _rayleigh64_plain(psi, xs, zs, cre, cim)
+
+
+def _rayleigh64_plain(psi, xs, zs, cre, cim):
+    """[E, 0, N, 0] of psi's complex64 rounding upcast to complex128."""
     p = psi.to(torch.complex64).to(torch.complex128)
     v = pauli_inner_plain(p, p, xs.to(torch.int64), zs.to(torch.int64))
     e = (torch.complex(cre.to(torch.float64), cim.to(torch.float64)) * v).real.sum()
     zero = torch.zeros((), dtype=torch.float64, device=psi.device)
     return torch.stack([e, zero, torch.vdot(p, p).real, zero])
+
+
+def _f64_planes(psi, cre, cim, n_terms: int, name: str):
+    """(cre, cim) as contiguous float64 tensors on psi's device, the planes
+    the float64 tile kernels read by input term index: float64 inputs as
+    they are (the same storage, every bit), float32 ones widened exactly;
+    never through the float32 planes of :func:`_coefficient_planes`."""
+    out = []
+    for arr in (cre, cim):
+        if arr.device != psi.device:
+            raise ValueError(f"{name}: term arrays must be on {psi.device}, got {arr.device}")
+        if arr.shape != (n_terms,):
+            raise ValueError(f"{name}: expected ({n_terms},) term arrays, got {tuple(arr.shape)}")
+        if arr.dtype not in (torch.float64, torch.float32):
+            raise TypeError(f"{name}: float64 coefficients, got {arr.dtype}")
+        out.append(arr.to(torch.float64).contiguous())
+    return out
+
+
+def _spill64(tiles, device):
+    """(index, starts) of the terms of masks that fit no tile, for the
+    per-term float64 kernels: their input indices sorted by flip mask
+    (stable) and the offsets of each mask's group, as int64 / int32 tensors
+    on ``device``, built once beside the layout."""
+    key = ("spill64", str(device))
+    if key not in tiles._cache:
+        order = np.argsort(tiles.spill_xs, kind="stable")
+        xs = tiles.spill_xs[order]
+        starts = np.r_[np.flatnonzero(np.r_[True, xs[1:] != xs[:-1]]), xs.size]
+        tiles._cache[key] = (torch.as_tensor(tiles.spill_index[order], device=device),
+                             torch.as_tensor(starts.astype(np.int32), device=device))
+    return tiles._cache[key]
+
+
+# the qubits from which each float64 tile kernel is the route, the per-term
+# kernel below: where it was faster in turns on the card (device time; at
+# 10-16 qubits the tile readout was, H psi's tiles were not: too few blocks a
+# launch), timed by chip_smoke.py f64_route_sizes
+F64_TILE_MIN_QUBITS = {"expectation_norm_f64_tiles": INNER_TILE_MIN_BITS, "happly64_tiles": 18}
+
+
+def f64_tile_layout(kernel: str, n: int, build):
+    """The route of the float64 readout (``kernel`` =
+    ``"expectation_norm_f64_tiles"``) or H psi (``"happly64_tiles"``) at n
+    qubits: the layout ``build()`` (a ``streaming.GroupTiles``) for the tile
+    kernel from ``F64_TILE_MIN_QUBITS[kernel]`` qubits on where it holds a
+    tile or the list's diagonal; None for the per-term kernel (below the
+    threshold ``build`` is not called)."""
+    if n < F64_TILE_MIN_QUBITS[kernel]:
+        return None
+    tiles = build()
+    return tiles if tiles.n_tiles or tiles.n_diag else None
+
+
+# tiles the float64 readout kernel takes: 9 <= k <= 12 (its diagonal holds
+# 2^(k - 8) doubles a thread)
+INNER64_MAX_BITS = 12
+
+
+def _readout64_args(tiles, n: int, device):
+    """(blocks, the layout's arguments of qsfh_expectation_f64_tiles from
+    tile_mask to positions) of the readout at n qubits on ``device``, built
+    once: the schedule with its diagonal unit, the tables' pointers, the
+    most items and staged terms of a unit."""
+    key = ("readout64", n, str(device))
+    if key not in tiles._cache:
+        positions, units = tiles.schedule(n, sm_count(device), diagonal_unit=True)
+        slices = -(-(1 << (n - tiles.k)) // positions)
+        (tmask, _, cols, ix, zlc, zout, start, term_d, order, dzin, dzout) = (
+            t.data_ptr() for t in tiles.tensors(device))
+        rows = units[units[:, 3] == 0]
+        most_terms = int((tiles.item_start[rows[:, 1] + rows[:, 2]]
+                          - tiles.item_start[rows[:, 1]]).max(initial=0))
+        unit_rows = tiles.unit_tensor(n, sm_count(device), device, diagonal_unit=True)
+        tiles._cache[key] = (len(units) * slices, (
+            tmask, unit_rows.data_ptr(), len(units), cols, ix, zlc, zout, start, term_d, order,
+            dzin, dzout, tiles.n_diag, int(tiles.item_start[-1]), tiles.diag_mask,
+            int(units[:, 2].max()), most_terms, positions))
+    return tiles._cache[key]
+
+
+@_counted
+def expectation_norm_f64_tiles(psi, xs, zs, cre, cim, tiles):
+    """:func:`expectation_norm_f64` over the inner-product tiles: [E, 0, N,
+    0], a float64 (4,) tensor, of a complex64 state, every product formed
+    exactly and every sum taken in float64.  ``tiles`` is the
+    ``streaming.GroupTiles`` of (xs, zs) built with ``inner_diagonal`` (the
+    x = 0 terms as one Walsh-Hadamard diagonal, which also takes N); the
+    terms are in any order and cre / cim (float64) are read by input index.
+    ONE launch, the (E, N) fold inside it (counted here: two calls give the
+    same bits, and a CUDA graph replays it).  The terms of masks that fit
+    no tile take :func:`expectation_norm_f64` (counted there), never a
+    float32 kernel, and add their E.
+    """
+    if psi.device.type == "cpu":
+        return expectation_norm_f64_tiles_plain(psi, xs, zs, cre, cim, tiles)
+    name = "expectation_norm_f64_tiles"
+    n = _n_qubits(psi, name)
+    T = xs.shape[0]
+    if T != tiles.n_terms:
+        raise ValueError(f"{name}: {T} terms against a layout of {tiles.n_terms}")
+    if xs.device != psi.device or zs.device != psi.device:
+        raise ValueError(f"{name}: term arrays must be on {psi.device}")
+    if not INNER_TILE_MIN_BITS <= tiles.k <= min(n, INNER64_MAX_BITS) or not 1 <= tiles.c <= 8:
+        raise ValueError(f"{name}: tiles of {tiles.k} bits, {tiles.c} low; the kernel takes "
+                         f"{INNER_TILE_MIN_BITS} <= k <= min(n, {INNER64_MAX_BITS}), 1 <= c <= 8")
+    cre, cim = _f64_planes(psi, cre, cim, T, name)
+    blocks, args = _readout64_args(tiles, n, psi.device)
+    partials = torch.empty(2 * blocks, dtype=torch.float64, device=psi.device)
+    out = torch.empty(4, dtype=torch.float64, device=psi.device)
+    lib = _load()
+    rc = lib.qsfh_expectation_f64_tiles(
+        psi.data_ptr(), n, tiles.k, tiles.c, _SWIZZLE, *args, cre.data_ptr(), cim.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), _fold_count(psi).data_ptr(), _stream())
+    _check(lib, rc, name)
+    expectation_norm_f64_tiles.launches += 1
+    if tiles.spill_index.size:
+        idx, starts = _spill64(tiles, psi.device)
+        out[:1] += expectation_norm_f64(psi, xs[idx], zs[idx], cre[idx], cim[idx], starts)[:1]
+    return out
+
+
+def expectation_norm_f64_tiles_plain(psi, xs, zs, cre, cim, tiles):
+    """Plain version of :func:`expectation_norm_f64_tiles`: the layout
+    check, then the readout of :func:`expectation_norm_f64_plain` (any
+    device)."""
+    _check_group_tiles(xs, tiles, "expectation_norm_f64_tiles")
+    return _rayleigh64_plain(psi, xs, zs, cre, cim)
 
 
 # -- the float64 group engine ---------------------------------------------------------
@@ -1273,6 +1425,83 @@ def happly64_plain(psi, xs, zs, cre, cim, scale: float = 1.0):
     zero = torch.zeros((), dtype=torch.float64, device=psi.device)
     stats = torch.stack([torch.vdot(psi, h).real, zero, torch.vdot(psi, psi).real, zero])
     return scale * h, stats
+
+
+# tiles the float64 application kernel takes: 2^(k - 3) threads (8 slots
+# each), two warps to 512; a 64 KiB complex128 tile and its spectrum at most
+APPLY64_MIN_BITS = 9
+APPLY64_MAX_BITS = 12
+
+
+def _apply64_args(tiles, device):
+    """The ``arrays`` of qsfh_happly64_tiles on ``device``, a ctypes array
+    built once beside the layout: the host tile tables and term offsets
+    (numpy, kept alive by the layout) and the device tables."""
+    key = ("apply64", str(device))
+    if key not in tiles._cache:
+        _, _, _, _, _, zout, start, term_d, order = tiles.tensors(device)[:9]
+        jt, zt, xa, ehi, dzin, dstart, dterm, dzout = tiles.apply_tensors(device)
+        host = (tiles.tile_mask, tiles.tile_items, tiles.tile_diag, tiles.item_start,
+                tiles.diag_start)
+        if not all(a.dtype == np.int32 and a.flags.c_contiguous for a in host):
+            raise TypeError("happly64_tiles: the layout's host tables must be contiguous int32")
+        ptrs = [a.ctypes.data for a in host] + [t.data_ptr() for t in (
+            start, term_d, order, jt, zt, xa, ehi, zout, dzin, dstart, dterm, dzout)]
+        tiles._cache[key] = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    return tiles._cache[key]
+
+
+@_counted
+def happly64_tiles(psi, xs, zs, cre, cim, tiles, scale: float = 1.0):
+    """:func:`happly64` over the application tiles: (out, stats), out =
+    scale * sum_t (cre_t + i cim_t) s_t(b) psi[b ^ xs_t] (complex128, a new
+    tensor) and stats = [E, 0, N, 0] (float64), E = Re <psi|H psi> before
+    the scale, N = <psi|psi>.  ``tiles`` is the ``streaming.GroupTiles`` of
+    (xs, zs) (with ``diagonal``, a tile's x = 0 items as one Walsh-Hadamard
+    diagonal); the terms are in any order and cre / cim (float64) are read
+    by input index.  One launch per tile in a fixed order (counted here):
+    the first stores out, each later one adds, the last scales and folds E
+    and N inside its launch.  The terms of masks that fit no tile take
+    :func:`happly64` (counted there), never a float32 kernel, added last.
+    """
+    if psi.device.type == "cpu":
+        return happly64_tiles_plain(psi, xs, zs, cre, cim, tiles, scale)
+    name = "happly64_tiles"
+    n = _n_qubits(psi, name, torch.complex128)
+    T = xs.shape[0]
+    if T != tiles.n_terms:
+        raise ValueError(f"{name}: {T} terms against a layout of {tiles.n_terms}")
+    if xs.device != psi.device or zs.device != psi.device:
+        raise ValueError(f"{name}: term arrays must be on {psi.device}")
+    if (not tiles.n_tiles or not APPLY64_MIN_BITS <= tiles.k <= min(n, APPLY64_MAX_BITS)
+            or not 1 <= tiles.c <= tiles.k - 3):
+        raise ValueError(f"{name}: {tiles.n_tiles} tiles of {tiles.k} bits, {tiles.c} low; the "
+                         f"kernel takes one tile at least, {APPLY64_MIN_BITS} <= k <= "
+                         f"min(n, {APPLY64_MAX_BITS}), 1 <= c <= k - 3")
+    cre, cim = _f64_planes(psi, cre, cim, T, name)
+    out = torch.empty_like(psi)
+    stats = torch.empty(4, dtype=torch.float64, device=psi.device)
+    partials = torch.empty(2 << (n - tiles.k), dtype=torch.float64, device=psi.device)
+    lib = _load()
+    rc = lib.qsfh_happly64_tiles(
+        psi.data_ptr(), out.data_ptr(), n, tiles.k, tiles.c, tiles.n_tiles,
+        _apply64_args(tiles, psi.device), cre.data_ptr(), cim.data_ptr(), float(scale),
+        partials.data_ptr(), stats.data_ptr(), _fold_count(psi).data_ptr(), _stream())
+    _check(lib, rc, name)
+    happly64_tiles.launches += tiles.n_tiles
+    if tiles.spill_index.size:
+        idx = _spill64(tiles, psi.device)[0]
+        h, s = happly64(psi, xs[idx], zs[idx], cre[idx], cim[idx], scale)
+        out += h
+        stats[:1] += s[:1]
+    return out, stats
+
+
+def happly64_tiles_plain(psi, xs, zs, cre, cim, tiles, scale: float = 1.0):
+    """Plain version of :func:`happly64_tiles`: the layout check, then
+    :func:`happly64_plain` (any device)."""
+    _check_group_tiles(xs, tiles, "happly64_tiles")
+    return happly64_plain(psi, xs, zs, cre, cim, scale)
 
 
 @_counted
@@ -1453,8 +1682,9 @@ class Impl:
     """The statevector primitives the engine calls: the per-term ones, the
     resident ones it takes up to the chain cap of ``streaming``, the
     tile-run ones past it, the tile ones of inner products and
-    applications, the float64 Rayleigh readout, and the float64 group
-    engine of ``qsfh_torch.native.statevec``."""
+    applications, the float64 Rayleigh readout (per term and over the
+    tiles), and the float64 group engine of ``qsfh_torch.native.statevec``
+    (its H psi per term and over the tiles)."""
 
     rotation: Callable
     apply: Callable
@@ -1473,25 +1703,30 @@ class Impl:
     adjoint64_groups: Callable
     rot64_resident: Callable
     adjoint64_resident: Callable
+    expectation_norm_f64_tiles: Callable
+    happly64_tiles: Callable
 
 
 # the wrappers: CUDA kernels for CUDA tensors, plain versions for CPU tensors
 KERNELS = Impl(pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
                rotation_tile_runs, adjoint_tile_runs, rotation_resident, adjoint_resident,
                pauli_apply_grouped, expectation_grouped, screen_grouped, expectation_norm_f64,
-               rot64_groups, happly64, adjoint64_groups, rot64_resident, adjoint64_resident)
+               rot64_groups, happly64, adjoint64_groups, rot64_resident, adjoint64_resident,
+               expectation_norm_f64_tiles, happly64_tiles)
 # the plain versions on any device (a reference path on the card)
 PLAIN = Impl(pauli_rotation_plain, pauli_apply_plain, pauli_inner_plain, adjoint_rotation_plain,
              rotation_tile_runs_plain, adjoint_tile_runs_plain, rotation_resident_plain,
              adjoint_resident_plain, pauli_apply_grouped_plain, expectation_grouped_plain,
              screen_grouped_plain, expectation_norm_f64_plain, rot64_groups_plain, happly64_plain,
-             adjoint64_groups_plain, rot64_resident_plain, adjoint64_resident_plain)
+             adjoint64_groups_plain, rot64_resident_plain, adjoint64_resident_plain,
+             expectation_norm_f64_tiles_plain, happly64_tiles_plain)
 
 WRAPPERS = (pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
             rotation_tile_runs, adjoint_tile_runs, pauli_inner_grouped, xor_gather,
             rotation_resident, adjoint_resident, pauli_apply_grouped, expectation_grouped,
             screen_grouped, pauli_rotation_out, expectation_norm_f64, rot64_groups, happly64,
-            adjoint64_groups, rot64_resident, adjoint64_resident)
+            adjoint64_groups, rot64_resident, adjoint64_resident, expectation_norm_f64_tiles,
+            happly64_tiles)
 
 
 def launch_counts() -> dict:

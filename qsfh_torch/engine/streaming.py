@@ -137,6 +137,17 @@ INNER_TILE_POSITIONS = 32
 INNER_SLICE_ITEMS = 8
 INNER_BLOCKS_PER_SM = 8
 INNER_MAX_SLICES = 65535
+# The float64 tile kernels' layouts (GroupTiles of the float64 Rayleigh
+# readout, expectation_norm_f64_tiles, and of the polish engine's H psi,
+# happly64_tiles): tiles of 2^k amplitudes, the low c flat bits.  The
+# readout keeps the float32 inner products' shape (a complex64 tile, 32 KiB
+# at 12 bits, and the same schedule, its diagonal unit always present: it
+# takes N); H psi holds a complex128 tile (32 KiB at 11 bits) and, on a
+# tile with a diagonal, its spectrum beside it (apply64_layout).  The shapes
+# are timed with chip_smoke.py --tiles (k = 10, 11, 12; numbers in PERF.md).
+INNER64_TILE_BITS = 12
+INNER64_TILE_LOW_BITS = 2
+APPLY64_TILE_LOW_BITS = 2
 
 def order_runs(xs, local_bits: int) -> List[Tuple[int, List[int]]]:
     """Order-preserving run partition of a rotation-like term sequence.
@@ -706,6 +717,7 @@ class GroupTiles:
             items = [idx[inv.reshape(-1) == u] for u in np.argsort(first)]
             pieces.extend((x, J, items[i:i + max_items]) for i in range(0, len(items), max_items))
         self.spill_index = np.sort(np.concatenate(spill + [np.zeros(0, np.int64)]))
+        self.spill_xs = xs[self.spill_index]
         def cover(ids):
             found = cover_masks([pieces[p][1] & ~low for p in ids],
                                 [len(pieces[p][2]) for p in ids], k - c, max_items)
@@ -834,20 +846,23 @@ class GroupTiles:
         """The most items of one tile among tiles ``[r0, r1)``."""
         return int(np.diff(self.tile_items[r0:r1 + 1]).max(initial=0))
 
-    def schedule(self, n: int, sms: int):
+    def schedule(self, n: int, sms: int, diagonal_unit: bool = False):
         """``(positions, units)`` of the inner-product tile kernel at n
         qubits on a card of ``sms`` SMs: a block takes ``positions``
         consecutive tile positions (2^(n - k) in all) of one unit; unit u
         is the row ``units[u] = (tile, first item, items, diagonal)``: a
         slice of a tile's items, or (diagonal 1, no items) the diagonal on
         the last tile.  Units go tile by tile, a tile's slices in item
-        order, the diagonal last.  Positions per block start at
+        order, the diagonal last (with ``diagonal_unit`` also where the
+        list has no x = 0 term: the float64 readout takes N there; its
+        tile is then the last one, or the low k bits where there is none).
+        Positions per block start at
         ``INNER_TILE_POSITIONS`` and items per slice at ``MAX_TILE_ITEMS``
         (a slice per tile); while the launch has fewer than
         ``INNER_BLOCKS_PER_SM`` blocks per SM, positions are halved down
         to one, then the slices down to ``INNER_SLICE_ITEMS`` items.
-        Built once per (n, sms)."""
-        key = ("schedule", n, sms)
+        Built once per (n, sms, diagonal_unit)."""
+        key = ("schedule", n, sms) + (("diagonal unit",) if diagonal_unit else ())
         if key not in self._cache:
             every = 1 << (n - self.k)
             least = max(1, -(-every // INNER_MAX_SLICES))
@@ -858,8 +873,8 @@ class GroupTiles:
                 for r in range(self.n_tiles):
                     i0, i1 = int(self.tile_items[r]), int(self.tile_items[r + 1])
                     out += [(r, i, min(per, i1 - i), 0) for i in range(i0, i1, per)]
-                if self.n_diag:
-                    out.append((self.n_tiles - 1, 0, 0, 1))
+                if self.n_diag or diagonal_unit:
+                    out.append((max(self.n_tiles - 1, 0), 0, 0, 1))
                 return out
 
             while -(-every // positions) * len(units(per)) < INNER_BLOCKS_PER_SM * sms:
@@ -930,12 +945,19 @@ class GroupTiles:
             )
         return self._cache[key]
 
-    def unit_tensor(self, n: int, sms: int, device) -> torch.Tensor:
+    def unit_tensor(self, n: int, sms: int, device, diagonal_unit: bool = False) -> torch.Tensor:
         """The units of :meth:`schedule` as an int32 tensor on ``device``."""
-        key = ("units", n, sms, str(device))
+        key = ("units", n, sms, str(device), diagonal_unit)
         if key not in self._cache:
-            self._cache[key] = torch.as_tensor(self.schedule(n, sms)[1], device=device)
+            self._cache[key] = torch.as_tensor(self.schedule(n, sms, diagonal_unit)[1],
+                                               device=device)
         return self._cache[key]
+
+    @property
+    def diag_mask(self) -> int:
+        """The tile of the list's diagonal (``idiag_zin`` is in its
+        coordinates): the last tile, or the low k bits where there is none."""
+        return int(self.tile_mask[-1]) if self.n_tiles else (1 << self.k) - 1
 
     def apply_tensors(self, device):
         """(item_jt, item_zt, item_xa, item_ehi, diag_zin, diag_start,
@@ -951,3 +973,10 @@ class GroupTiles:
                           self.diag_start, self.diag_term, self.diag_zout)
             )
         return self._cache[key]
+
+
+def apply64_layout(xs, zs, n: int) -> GroupTiles:
+    """The application tiles of ``happly64_tiles`` for the terms (xs, zs) at
+    n qubits: 11 bits to 18 qubits, 12 above (the fastest of 10, 11 and 12
+    at 18, 20 and 24 qubits), the low ``APPLY64_TILE_LOW_BITS`` flat."""
+    return GroupTiles(xs, zs, n, 11 if n <= 18 else 12, APPLY64_TILE_LOW_BITS)

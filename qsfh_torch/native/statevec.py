@@ -16,8 +16,12 @@ into tile runs, ``streaming.Group64Runs``, one cooperative launch a pass)
 wherever every group fits a tile of ``RESIDENT64_TILE_BITS`` (the low
 ``RESIDENT64_TILE_LOW_BITS`` flat bits and the run's flip bits above them),
 else ``"groups"`` (``rot64_groups`` / ``adjoint64_groups``: one launch a
-group).  H psi is ``happly64``.  With ``device="cpu"`` the wrappers take
-their plain versions.
+group).  H psi takes one of two kernels, shown as ``prog.h_route``:
+``"tiles"`` (``happly64_tiles``: H's terms in the application tiles of
+``streaming.apply64_layout``, one state pass and launch a tile, E and N
+folded in the last) where ``kernels.f64_tile_layout`` takes H's layout,
+else ``"terms"`` (``happly64``: one amplitude a thread over
+H's terms).  With ``device="cpu"`` the wrappers take their plain versions.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 
 from ..engine import streaming
 from ..engine.compiled import CompiledCircuit, givens_network_static_ops
-from ..engine.kernels import KERNELS, Groups64
+from ..engine.kernels import KERNELS, Groups64, f64_tile_layout
 from ..engine.state import resolve_device
 
 ROUTES = ("resident", "groups")
@@ -101,7 +105,11 @@ class Rot64Program:
     layout (``"resident"`` where every group fits a tile of ``tile_bits``
     bits, the low ``low_bits`` flat, and n >= tile_bits; else
     ``"groups"``); ``"groups"`` forces the per-group kernels, and
-    ``"resident"`` raises where the layout does not allow it.
+    ``"resident"`` raises where the layout does not allow it.  H psi's
+    kernel, ``h_route``, comes from H's layout: ``"tiles"`` where
+    ``kernels.f64_tile_layout`` takes H's tiles
+    (``streaming.apply64_layout``), else ``"terms"``; ``h_args``
+    holds the H arrays that route reads (:meth:`h_arrays`).
     """
 
     def __init__(self, n, seg_data, h_terms, n_params, device=None, impl=None, route=None,
@@ -136,12 +144,12 @@ class Rot64Program:
             zsub=i32(self.zsub), wsub=torch.as_tensor(self.wsub, device=dev),
             param_off=i32(np.concatenate([[0], np.cumsum(counts)])), param_groups=i32(by_param),
         )
-        # H's terms on the device, sorted by flip mask (stable): the kernel
-        # shares one gather along a run of equal masks
-        order = np.argsort(self.hx, kind="stable")
-        self.h_device = (i32(self.hx[order]), i32(self.hz[order]),
-                         torch.as_tensor(self.hcre[order], device=dev),
-                         torch.as_tensor(self.hcim[order], device=dev))
+        # H's application tiles where the route takes them, and the H arrays
+        # on the device that the route reads
+        self.h_tiles = f64_tile_layout(
+            "happly64_tiles", self.n, lambda: streaming.apply64_layout(self.hx, self.hz, self.n))
+        self.h_route = "terms" if self.h_tiles is None else "tiles"
+        self.h_args = self.h_arrays(self.h_route)
         # the angles the kernels read, [theta | 1.0]: the static groups
         # (parameter index -1) take the last entry
         self.theta_ext = torch.ones(self.n_params + 1, dtype=torch.float64, device=dev)
@@ -206,20 +214,47 @@ class Rot64Program:
             return self.impl.adjoint64_resident(psi, lam, self.groups, self.theta_ext, self.runs)
         return self.impl.adjoint64_groups(psi, lam, self.groups, self.theta_ext)
 
+    def h_arrays(self, route: str):
+        """H's terms (xs, zs, cre, cim) on the device as ``route``'s kernel
+        reads them: ``"tiles"`` in their own order (the layout reads the
+        coefficients by input index), ``"terms"`` sorted by flip mask,
+        stable (``happly64`` shares one gather along a run of equal masks)."""
+        order = (np.arange(self.hx.size) if route == "tiles"
+                 else np.argsort(self.hx, kind="stable"))
+        dev = self.device
+        return (torch.as_tensor(self.hx[order].astype(np.int32), device=dev),
+                torch.as_tensor(self.hz[order].astype(np.int32), device=dev),
+                torch.as_tensor(self.hcre[order], device=dev),
+                torch.as_tensor(self.hcim[order], device=dev))
+
+    def _happly(self, psi, scale=1.0):
+        """(scale H psi, [E, 0, N, 0]) on the H route."""
+        if self.h_route == "tiles":
+            return self.impl.happly64_tiles(psi, *self.h_args, self.h_tiles, scale)
+        return self.impl.happly64(psi, *self.h_args, scale)
+
+    def h_launches(self) -> dict:
+        """The kernel launches of one H psi on the H route (an evaluation
+        makes one H psi, an HVP two evaluations)."""
+        if self.h_route == "terms":
+            return {"happly64": 1}
+        spill = {"happly64": 1} if self.h_tiles.spill_index.size else {}
+        return {"happly64_tiles": self.h_tiles.n_tiles, **spill}
+
     def h_apply(self, psi) -> torch.Tensor:
         """H |psi> (complex128)."""
-        return self.impl.happly64(self._state(psi), *self.h_device)[0]
+        return self._happly(self._state(psi))[0]
 
     def energy(self, theta, psi0) -> float:
         psi = self.apply(theta, psi0)
-        return float(self.impl.happly64(psi, *self.h_device)[1][0])
+        return float(self._happly(psi)[1][0])
 
     def value_and_grad(self, theta, psi0):
         """(E, dE/dtheta) as (float, float64 numpy array), through the fused
         adjoint sweep: lambda = 2 H psi, E = Re <psi|H psi> read before the
         doubling.  One host read."""
         psi = self.apply(theta, psi0)
-        lam, stats = self.impl.happly64(psi, *self.h_device, 2.0)
+        lam, stats = self._happly(psi, 2.0)
         grad = self._adjoint(psi, lam)
         out = torch.cat([stats[:1], grad]).cpu().numpy()
         return float(out[0]), out[1:]

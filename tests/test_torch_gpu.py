@@ -599,6 +599,7 @@ def test_float64_group_kernels(dev, tmp_path):
     asked for explicitly: the program's layout would take the resident
     kernels)."""
     from qsfh_torch.algos.adapt import ADAPT
+    from qsfh_torch.engine import streaming
     from qsfh_torch.native.statevec import Rot64Program
     from qsfh_torch.ops.pool import hubbard_interaction_pool_extended
 
@@ -622,6 +623,7 @@ def test_float64_group_kernels(dev, tmp_path):
     counts = K.launch_counts()
     assert (counts["rot64_groups"], counts["happly64"], counts["adjoint64_groups"]) == (
         3 * prog.G, 3, 2 * prog.G)
+    assert prog.h_route == "terms"  # H psi under 18 qubits: the per-term kernel
     psi_ref = plain.apply(th, psi0)
     e_ref, g_ref = plain.value_and_grad(th, psi0)
     h_ref = plain.h_apply(psi_ref)
@@ -630,7 +632,117 @@ def test_float64_group_kernels(dev, tmp_path):
     assert abs(e - e_ref) <= 1e-12 and np.abs(g - g_ref).max() <= 1e-12 * np.abs(g_ref).max()
     assert e2 == e and np.array_equal(g2, g)
     with pytest.raises(TypeError):
-        K.happly64(psi.to(torch.complex64), *prog.h_device)
+        K.happly64(psi.to(torch.complex64), *prog.h_arrays("terms"))
+    with pytest.raises(TypeError):
+        K.happly64_tiles(psi.to(torch.complex64), *prog.h_arrays("tiles"),
+                         streaming.apply64_layout(prog.hx, prog.hz, prog.n))
+
+
+F64_LATTICES = {12: (2, 3, 1, 4, 6, 3, 3), 18: (3, 3, 1, 6, 9, 5, 4), 24: (2, 6, 1, 6, 12, 6, 6)}
+
+
+@pytest.mark.parametrize("n", sorted(F64_LATTICES))
+def test_expectation_norm_f64_tiles(dev, n):
+    """The float64 readout over the tiles (``expectation_norm_df``'s route
+    from 9 qubits on) on the Hubbard H against its plain version and the
+    per-term kernel: the Rayleigh quotient and N within 1e-12 relative; the
+    same bits on two calls and in a CUDA graph's replays; one launch a
+    call, the arrival count back at 0."""
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.engine.dfloat import combine_rayleigh, f64_layout, f64_terms
+
+    obs = HubbardProblem(*F64_LATTICES[n]).observables["H"]
+    psi = _t(_state(np.random.default_rng(n), n), dev, torch.complex64)
+    layout = f64_layout(obs, dev)
+    K.reset_launch_counts()
+    got = K.expectation_norm_f64_tiles(psi, *layout)
+    again = K.expectation_norm_f64_tiles(psi, *layout)
+    counts = K.launch_counts()
+    ref = K.expectation_norm_f64_tiles_plain(psi, *layout)
+    old = K.expectation_norm_f64(psi, *f64_terms(obs, dev))
+    torch.cuda.synchronize()
+    assert counts["expectation_norm_f64_tiles"] == 2 and counts["expectation_norm_f64"] == 0
+    assert torch.equal(got, again) and int(K._fold_count(psi).item()) == 0
+    e_ref = combine_rayleigh(ref.cpu().numpy())
+    for out in (got, old):
+        assert abs(combine_rayleigh(out.cpu().numpy()) - e_ref) <= 1e-12 * abs(e_ref)
+        assert abs(float(out[2]) - float(ref[2])) <= 1e-12 * float(ref[2])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.expectation_norm_f64_tiles(psi, *layout)  # the capture stream's count word
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = K.expectation_norm_f64_tiles(psi, *layout)
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, got)
+
+
+@pytest.mark.parametrize("n", sorted(F64_LATTICES))
+def test_happly64_tiles(dev, n):
+    """H psi over the application tiles in complex128 on the Hubbard H at
+    tiles of 10, 11 and 12 bits against the plain version and the
+    per-term kernel: H psi within 1e-12 relative, E (before the scale) and
+    N within 1e-12; the same bits on two calls; one launch a tile."""
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.engine import streaming
+
+    xs, zs, cre, cim = HubbardProblem(*F64_LATTICES[n]).observables["H"]._scan_terms()
+    args = (_t(np.asarray(xs, np.int64), dev, torch.int32), _t(np.asarray(zs, np.int64), dev,
+                                                                torch.int32),
+            _t(cre, dev, torch.float64), _t(cim, dev, torch.float64))
+    psi = _t(_state(np.random.default_rng(n + 1), n), dev, torch.complex128)
+    ref, st_ref = K.happly64_plain(psi, *args, 2.0)
+    for k in (10, 11, 12):
+        tiles = streaming.GroupTiles(xs, zs, n, k, 2)
+        K.reset_launch_counts()
+        out, st = K.happly64_tiles(psi, *args, tiles, 2.0)
+        out2, st2 = K.happly64_tiles(psi, *args, tiles, 2.0)
+        assert K.launch_counts()["happly64_tiles"] == 2 * tiles.n_tiles
+        old, st_old = K.happly64(psi, *args, 2.0)
+        torch.cuda.synchronize()
+        assert torch.equal(out, out2) and torch.equal(st, st2)
+        for h, s in ((out, st), (old, st_old)):
+            assert _rel(h, ref) <= 1e-12
+            assert abs(float(s[0] - st_ref[0])) <= 1e-12 * abs(float(st_ref[0]))
+            assert abs(float(s[2] - st_ref[2])) <= 1e-12 * float(st_ref[2])
+        assert int(K._fold_count(psi).item()) == 0
+
+
+def test_float64_tiles_spilled_mask(dev):
+    """Random terms at 14 qubits with masks that fit no tile: both tile
+    kernels against their plain versions (1e-12), the spilled terms through
+    the per-term float64 kernels, one launch each."""
+    from qsfh_torch.engine import streaming
+
+    rng = np.random.default_rng(14)
+    n, T = 14, 60
+    xs = np.array([sum(1 << int(b) for b in rng.choice(n, size=int(rng.integers(0, 5)),
+                                                       replace=False)) for _ in range(T)])
+    xs[::7] = 0b1011011  # 5 bits: no tile
+    zs = rng.integers(0, 1 << n, size=T)
+    c = rng.standard_normal(T) + 1j * rng.standard_normal(T)
+    args = (_t(xs, dev, torch.int64), _t(zs, dev, torch.int64), _t(c.real, dev, torch.float64),
+            _t(c.imag, dev, torch.float64))
+    rd = streaming.GroupTiles(xs, zs, n, 10, 2, diagonal=False, inner_diagonal=True)
+    ap = streaming.GroupTiles(xs, zs, n, 10, 2)
+    assert rd.spill_index.size and ap.spill_index.size and ap.n_tiles
+    psi32 = _t(_state(rng, n), dev, torch.complex64)
+    psi = psi32.to(torch.complex128)
+    K.reset_launch_counts()
+    got = K.expectation_norm_f64_tiles(psi32, *args, rd)
+    out, st = K.happly64_tiles(psi, *args, ap, 1.0)
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    ref = K.expectation_norm_f64_tiles_plain(psi32, *args, rd)
+    h_ref, st_ref = K.happly64_tiles_plain(psi, *args, ap, 1.0)
+    torch.cuda.synchronize()
+    assert counts == dict(expectation_norm_f64_tiles=1, expectation_norm_f64=1,
+                          happly64_tiles=ap.n_tiles, happly64=1)
+    assert abs(float(got[0] - ref[0])) <= 1e-12 * float(np.abs(c).sum())
+    assert _rel(out, h_ref) <= 1e-12 and abs(float(st[0] - st_ref[0])) <= 1e-12 * np.abs(c).sum()
 
 
 def _random_group_program(n, dev, seed, n_ops=40, n_params=12, **kw):
