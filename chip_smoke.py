@@ -292,7 +292,30 @@ Phases (any failed check raises and the script exits nonzero):
    evaluation (``Rot64Program.h_launches``; the tables and the folds inside
    the launches), no per-group and no per-term H launch.  The best point goes to the
    run's temporary directory.
-23. A ``kernels`` JSON line (the readouts' launches counted
+23. The amplitude-sharded engine (``qsfh_torch.parallel``), after the
+   optional phases: ``ADAPT(mesh_devices=D)`` on D ranks started by
+   ``parallel.spawn_ranks``, all on this one card, their exchanges and
+   rank-order sums over gloo staged through the host (no NVLink or NCCL
+   time): 3x3 at D = 2 and 4 (the 12-operator bench ansatz, 2 selections
+   and 5 steps) and 2x6 at D = 2 (23 local qubits: the tile runs; 2
+   selections and 2 steps), with the launch, exchange, byte and staging
+   counters set to 0 just before and read just after on every rank: each
+   configuration's kernels launched on every rank, the exchanges a step
+   those its rotation runs predict; against the single-card path on the
+   same configuration (``mesh_reference``): steps within
+   ``STEP_TOLERANCES`` (2x6: ``_24``), the gradients at theta = 0.05
+   within 1e-4 of max |g|, the pool gradients and selection as
+   ``check_selection``; thetas, gradients and pool gradients the same bits
+   on every rank; the peak device memory of each rank and of the single
+   card over the selections and over the steps; rank 0's kernels held to
+   their plain versions over a step and the selection from the trained
+   ansatz (psi_k no basis state); a planted fault (the observable's
+   exchanges with rank d ^ m ^ 1, swapped in on its engine) the energy gate
+   must fail; ``expectation_partner`` at 17
+   and 23 local qubits on rank 0's shard of the H's cross terms and three
+   x_lo = 0 terms against its plain version, timed beside its bound.
+   ``--mesh-only`` runs the card phase and this one alone.
+24. A ``kernels`` JSON line (the readouts' launches counted
    per capture, its replays beside them; every kernel's graph nodes per
    fused step; its launches on the HVA, iQCC, product-state, HEA, VQD,
    Trotter, ITE, analysis, Lanczos, multistart and sampling paths; ms and
@@ -300,8 +323,9 @@ Phases (any failed check raises and the script exits nonzero):
    CLI's 3x3 adapt run and of the 2x6 ED's checks, and of the float64
    polish run, where the six float64 kernels report theirs; the old
    ``expectation_norm_f64`` and ``happly64`` beside the tile kernels that
-   redesign them, with their launches on the spilled-mask H), then the
-   device JSON line, last.
+   redesign them, with their launches on the spilled-mask H; the partner
+   form ``expectation_partner``, and every kernel's launches on the sharded
+   path), then the device JSON line, last.
 
 ``--compare PARENT`` runs both main paths (3x3 and 2x6 selection and
 train step, host clock and profile) of the port in the checkout PARENT
@@ -376,6 +400,7 @@ REPLACES = {
     "pauli_inner": f"{TPU_KERNELS}:645,927",
     "expectation_grouped": f"{TPU_KERNELS}:645,1581,1596,1714,1804",
     "screen_grouped": f"{TPU_KERNELS}:927,1474,1522",
+    "expectation_partner": f"{TPU_KERNELS}:1596 (expectation_stream_planes, partner planes)",
     "pauli_rotation_out": f"{TPU_KERNELS}:571",
     "adjoint_rotation": f"{TPU_KERNELS}:826",
     "rotation_tile_runs": f"{TPU_KERNELS}:2268",
@@ -6289,6 +6314,399 @@ def phase_polish(dev, tmp, sweep_tiles=False):
 # -- main ---------------------------------------------------------------------------------
 
 
+# -- the amplitude-sharded engine (qsfh_torch.parallel) -------------------------------------
+
+# D ranks on the one card of this machine, their exchanges and rank-order
+# sums over gloo, staged through the host: no NVLink or NCCL time in them
+MESH_TRANSPORT = "gloo through the host, {} ranks on one H100"
+MESH_RUNS = {2: ("3x3", "2x6"), 4: ("3x3",)}
+MESH_CONFIGS = {"3x3": (CONFIG, N_ANSATZ, N_STEPS), "2x6": (CONFIG_24, N_ANSATZ_24, 2)}
+MESH_TIMEOUT = 600
+# terms that flip the sharded qubit 0 alone (x_lo = 0 at D = 2): the
+# partner form's Walsh-Hadamard diagonal with a != psi
+MESH_EXTRA = (("X0", 0.3), ("Y0 Z4", -0.2), ("X0 Z1 Z9", 0.15))
+# the kernels each configuration's sharded path must launch on every rank;
+# rank 0 holds them to their plain versions over a step and a selection from
+# the trained ansatz (at 2x6 the selection's plain screens take ~13 s a call)
+MESH_KERNELS = {
+    "3x3": ("rotation_resident", "adjoint_resident", "pauli_apply_grouped",
+            "expectation_grouped", "expectation_partner", "screen_grouped"),
+    "2x6": ("rotation_tile_runs", "adjoint_tile_runs", "pauli_apply_grouped",
+            "expectation_grouped", "expectation_partner", "screen_grouped"),
+}
+# the kernels (Impl fields) a held run compares with their plain versions:
+# (field, wrapper name, leading state arguments, what it returns)
+HELD = (("rotation", "pauli_rotation", 1, "state"),
+        ("rotation_resident", "rotation_resident", 1, "state"),
+        ("rotation_runs", "rotation_tile_runs", 1, "state"),
+        ("adjoint", "adjoint_rotation", 2, "inner"),
+        ("adjoint_resident", "adjoint_resident", 2, "inner"),
+        ("adjoint_runs", "adjoint_tile_runs", 2, "inner"),
+        ("apply", "pauli_apply", 1, "state"),
+        ("apply_grouped", "pauli_apply_grouped", 1, "state"),
+        ("inner", "pauli_inner", 2, "inner"),
+        ("expectation_grouped", "expectation_grouped", 1, "sum"),
+        ("expectation_partner", "expectation_partner", 2, "sum"),
+        ("screen_grouped", "screen_grouped", 2, "screen"))
+
+
+def held_impl(report):
+    """The kernel wrappers, each call also run through its plain version on
+    copies of the same inputs (on the card) and held to STATE_RTOL: states
+    by relative error, inner products by inner_err (scale ||a|| ||psi||,
+    times sum |c_t| for a folded sum, 2 max |c_t| for the screen).  Each
+    wrapper's calls and largest error go into ``report``."""
+    import dataclasses
+
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    def err(got, ref, scale=0.0):
+        # relative to max(||ref||, scale); absolute where both are 0 (a zero
+        # shard: a basis state's other ranks)
+        den = max(float(torch.linalg.vector_norm(ref)), scale)
+        diff = float(torch.linalg.vector_norm(got.reshape(-1) - ref.reshape(-1).to(got.dtype)))
+        return diff / den if den > 0 else diff
+
+    def held(field, name, n_states, kind):
+        kernel, plain = getattr(K.KERNELS, field), getattr(K.PLAIN, field)
+
+        def call(*args, **kw):
+            states, rest = args[:n_states], args[n_states:]
+            copies = [s.clone() for s in states]
+            ref = plain(*copies, *rest)
+            got = kernel(*args, **kw)
+            norms = [float(torch.linalg.vector_norm(s)) for s in copies]
+            errs = [err(s, c) for s, c in zip(states, copies)] if kind != "sum" else []
+            if kind in ("inner", "sum", "screen"):
+                scale = norms[0] * (norms[1] if n_states > 1 else norms[0])
+                if kind in ("sum", "screen"):
+                    c = torch.complex(rest[2].double(), rest[3].double()).abs()
+                    scale *= float(c.sum()) if kind == "sum" else 2.0 * float(c.max())
+                if kind == "screen":
+                    errs = []
+                errs.append(err(got, ref, scale))
+            elif kind == "state" and got is not args[0]:
+                errs.append(err(got, ref))
+            entry = report.setdefault(name, dict(calls=0, max_rel_err=0.0, max_abs_ref=0.0))
+            entry["calls"] += 1
+            entry["max_rel_err"] = max([entry["max_rel_err"]] + errs)
+            if kind != "state":  # a screen of a basis state is exact, and shows as 0 error
+                entry["max_abs_ref"] = max(entry["max_abs_ref"], float(ref.abs().max()))
+            if entry["max_rel_err"] > STATE_RTOL:
+                raise AssertionError(f"{name} disagrees with its plain version on a shard: "
+                                     f"{entry['max_rel_err']:.3e}")
+            return got
+
+        return call
+
+    return dataclasses.replace(K.KERNELS, **{f: held(f, n, s, k) for f, n, s, k in HELD})
+
+
+def partner_timing(engine, problem, psi, partner):
+    """The partner-form expectation (``expectation_partner``: Re sum_t c_t
+    <psi_own|P_t|psi_partner>) on this rank's shard of the H's cross terms
+    (x_hi = 1) and MESH_EXTRA's (x_lo = 0: the diagonal with a != psi),
+    against its plain version there and on two seeded random shards (E far
+    from 0): error, ms (CUDA events, a CUDA graph) on the main path's
+    shards, plain ms, bound, launches a call."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.ops.pauli import qubit_operator
+    from qsfh_torch.parallel.sharded_compiled import ShardedObservable
+
+    op = problem.qubit_hamiltonian
+    for term in MESH_EXTRA:
+        op = op + qubit_operator(*term)
+    part = ShardedObservable.of(engine, op).parts[1]
+    xs, zs, c = part._tensors(psi)
+    tiles = part.inner_groups()
+    gen = torch.Generator(device=psi.device).manual_seed(17)
+    dim = psi.shape[0]
+    errs, values = [], []
+    # the main path's shards, then two seeded random ones (E far from 0)
+    for a, b in ((psi, partner), tuple(torch.randn(dim, dtype=psi.dtype, device=psi.device,
+                                                   generator=gen) / dim ** 0.5
+                                       for _ in range(2))):
+        args = (a, b, xs, zs, c.real, c.imag, tiles)
+        before = K.expectation_partner.launches
+        got = K.expectation_partner(*args)
+        launches = K.expectation_partner.launches - before
+        ref = K.expectation_partner_plain(*args)
+        scale = float(c.abs().sum()) * float(torch.linalg.vector_norm(a) *
+                                             torch.linalg.vector_norm(b))
+        err = abs(float(got) - float(ref))
+        if err > STATE_RTOL * max(abs(float(ref)), scale):
+            raise AssertionError(f"expectation_partner disagrees with its plain version: {err:.3e}")
+        errs.append((err, err / max(abs(float(ref)), scale)))
+        values.append((float(got), float(ref)))
+    args = (psi, partner, xs, zs, c.real, c.imag, tiles)  # timed on the main path's shards
+    b_ms, b_by = bound(2 * 8 * dim, inner_bound_flops(xs, False, tiles, dim))
+    return dict(n_local=engine.n_local, terms=int(xs.shape[0]), x_lo_zero=int((xs == 0).sum()),
+                tiles=tiles.n_tiles, n_diag=tiles.n_diag, launches_per_call=launches,
+                max_abs_err=max(e[0] for e in errs), rel_err=max(e[1] for e in errs),
+                values=values,
+                ms=time_cuda(lambda: K.expectation_partner(*args), 20),
+                graph_ms=graph_ms(lambda: K.expectation_partner(*args), 10),
+                plain_ms=time_cuda(lambda: K.expectation_partner_plain(*args), 2, warmup=1),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def mesh_case(mesh, label, tmp):
+    """One configuration on this rank: two selections from the empty
+    ansatz and the sharded train steps, counted (launches, exchanges,
+    bytes, staging ms, the rank's peak device memory; counters set to 0
+    just before, read just after); the gradient at theta = 0.05; a held
+    step and a held selection from the trained ansatz (rank 0's kernels
+    against their plain versions, psi_k no basis state); the planted wrong
+    partner; the partner-form timing on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from qsfh_torch.algos.adapt import ADAPT
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.parallel import comm
+    from qsfh_torch.parallel.sharded_compiled import adjoint_energy_grads
+
+    config, n_ansatz, n_steps = MESH_CONFIGS[label]
+    dev = mesh.device
+    t0 = time.perf_counter()
+    adapt = ADAPT(n_epoch=1, results_root=os.path.join(tmp, f"mesh_{label}_{mesh.size}"),
+                  device=dev, mesh_devices=mesh.size, **config)
+    res = dict(rank=mesh.rank, build_s=time.perf_counter() - t0)
+    K.reset_launch_counts()
+    comm.reset_counts()
+    mem = peak_memory(dev)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        selected, _ = adapt.select_operator()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    res.update(select_launches=K.launch_counts(), select_comm=comm.counts(),
+               selected=selected, select_ms=times, select_mem=mem())
+    res["pool_grads"] = adapt._screen_for(())(adapt.params_t[:0]).cpu().numpy()
+
+    K.reset_launch_counts()
+    comm.reset_counts()
+    mem = peak_memory(dev)
+    res["rows"] = bench_steps(adapt, dev, n_ansatz, n_steps)
+    res.update(step_launches=K.launch_counts(), step_comm=comm.counts(), step_mem=mem(),
+               thetas=adapt.params_t.cpu().numpy())
+    indices = tuple(range(n_ansatz))
+    step = adapt._build_step(indices)
+    program, ham, extras = step.program, step.observable, step.extras
+    res["exchanges_per_step_predicted"] = 2 * program.exchanges + len(
+        set(ham.cross) | set(extras.cross))
+    res["runs"] = [int(m) for m, _ in program.pieces]
+    # terms a run, and the cross terms (x_hi != 0) among all: the work a
+    # rank does against one card's, and the exchanges the per-term form
+    # would make
+    res["run_terms"] = [int(len(seg.data["xb"])) for _, seg in program.pieces]
+    res["cross_terms"] = int(((program.full.data["xb"] >> program.engine.n_local) != 0).sum())
+
+    engine = program.engine
+    psi0 = engine.basis_state(adapt._occupied_modes, adapt.dtype)
+    th = torch.full((n_ansatz,), 0.05, dtype=adapt._rdt, device=dev)
+    res["grads"] = adjoint_energy_grads(engine, program, th, psi0, ham)[1].cpu().numpy()
+
+    # rank 0's kernels held to their plain versions over a step, then over
+    # the selection from the trained ansatz (psi_k no basis state, so the
+    # screen's per-term values are sums, not single exact products)
+    held = {}
+    if mesh.rank == 0:
+        adapt.impl = held_impl(held)
+    adapt._screen_cache = {}
+    bench_steps(adapt, dev, n_ansatz, 1)
+    adapt.select_operator()
+    adapt.impl = K.KERNELS
+    res["held"] = held
+
+    # the planted fault: the observable's exchanges with rank d ^ m ^ 1 in
+    # place of d ^ m, swapped in on this engine alone
+    psi = program.apply(psi0, th)
+    e_ok = float(ham.expectation(psi))
+    ham.engine.exchange = lambda t, m: comm.exchange(t, m ^ 1)
+    try:
+        e_bad = float(ham.expectation(psi))
+    finally:
+        del ham.engine.exchange
+    res["planted"] = dict(energy=e_ok, energy_wrong_partner=e_bad)
+
+    if mesh.size == 2:
+        partner = engine.exchange(psi, 1)
+        if mesh.rank == 0:
+            res["partner"] = partner_timing(engine, adapt.problem, psi, partner)
+    dist.barrier()
+    return res
+
+
+def mesh_rank(mesh, labels, tmp):
+    """One rank of phase_mesh: each configuration of ``labels`` in turn."""
+    return {label: mesh_case(mesh, label, tmp) for label in labels}
+
+
+def peak_memory(dev):
+    """Starts a reading of the process's peak device memory: returns a
+    function giving (MiB allocated at the start, MiB at the peak since)."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    return lambda: (base / 2**20, torch.cuda.max_memory_allocated(dev) / 2**20)
+
+
+def mesh_reference(adapt, n_ansatz, n_steps, dev):
+    """The single-card path on the same configuration: the selection and
+    pool gradients from the empty ansatz, the adjoint gradient at theta =
+    0.05 and ``n_steps`` train steps from there (bench_steps), with the
+    peak device memory of the selection and of the steps."""
+    import torch
+
+    adapt.selected_indices, adapt.params_t = [], adapt.params_t[:0]
+    adapt._screen_cache = {}
+    mem = peak_memory(dev)
+    selected, _ = adapt.select_operator()
+    select_mem = mem()
+    pool_grads = empty_ansatz_gradients(adapt)
+    raw = adapt._build_stages(tuple(range(n_ansatz)))
+    th = torch.full((n_ansatz,), 0.05, dtype=adapt._rdt, device=dev)
+    psi = raw["fwd_from"](adapt._initial_state(), th)
+    grads = raw["adjoint"](psi, raw["cotangent"](psi), th).cpu().numpy()
+    del psi, raw
+    mem = peak_memory(dev)
+    rows = bench_steps(adapt, dev, n_ansatz, n_steps)
+    return dict(selected=selected, pool_grads=pool_grads, grads=grads, rows=rows,
+                select_mem=select_mem, step_mem=mem())
+
+
+def mesh_gates(label, ranks, ref, up, down):
+    """The gates of one configuration on D ranks against the single-card
+    reference; returns its summary."""
+    import numpy as np
+
+    d = len(ranks)
+    r0 = ranks[0]
+    tol = STEP_TOLERANCES if label == "3x3" else STEP_TOLERANCES_24
+    for r in ranks:
+        check_steps(r["rows"], up, down, f"{label} D={d} rank {r['rank']}",
+                    e_floor=E_EXACT if label == "3x3" else None)
+        compare_steps(r["rows"], ref["rows"], tol)
+        check_selection(r["pool_grads"], ref["pool_grads"], r["selected"], ref["selected"])
+        g_tol = GRAD_RTOL * float(np.abs(ref["grads"]).max())
+        g_err = float(np.abs(r["grads"] - ref["grads"]).max())
+        if g_err > g_tol:
+            raise AssertionError(f"{label} D={d}: gradients {g_err:.3e} from the single card")
+        for key in ("thetas", "grads", "pool_grads"):
+            if not np.array_equal(r[key], r0[key]):
+                raise AssertionError(f"{label} D={d}: rank {r['rank']}'s {key} differ from rank "
+                                     f"0's bits")
+        for name in MESH_KERNELS[label]:
+            if r["step_launches"][name] + r["select_launches"][name] == 0:
+                raise AssertionError(f"{label} D={d}: {name} never launched on rank {r['rank']}")
+        n_steps = len(r["rows"])
+        if r["step_comm"]["exchanges"] != n_steps * r["exchanges_per_step_predicted"]:
+            raise AssertionError(f"{label} D={d}: {r['step_comm']['exchanges']} exchanges in "
+                                 f"{n_steps} steps, the runs predict "
+                                 f"{r['exchanges_per_step_predicted']} a step")
+        e_ok, e_bad = r["planted"]["energy"], r["planted"]["energy_wrong_partner"]
+        if abs(e_bad - e_ok) <= tol[0][1] * abs(e_ok):
+            raise AssertionError(f"{label} D={d}: the wrong partner passes the energy gate")
+    held = r0["held"]
+    for name in MESH_KERNELS[label]:
+        if name not in held:
+            raise AssertionError(f"{label} D={d}: {name} was not held on rank 0's shard")
+    n_steps = len(r0["rows"])
+    per_step = {k: v / n_steps for k, v in r0["step_comm"].items()}
+    summary = dict(
+        transport=MESH_TRANSPORT.format(d), ranks=d,
+        step_ms=median_ms(r0["rows"]) if n_steps > 2 else r0["rows"][-1]["ms"],
+        step_ms_by_rank=[[row["ms"] for row in r["rows"]] for r in ranks],
+        single_card_step_ms=median_ms(ref["rows"]) if n_steps > 2 else ref["rows"][-1]["ms"],
+        select_ms=r0["select_ms"][-1], exchanges_per_step=per_step["exchanges"],
+        exchange_bytes_per_step=per_step["exchange_bytes"],
+        sum_bytes_per_step=per_step["sum_bytes"], sums_per_step=per_step["sums"],
+        staging_ms_per_step=per_step["staging_ms"],
+        exchanges_per_selection=r0["select_comm"]["exchanges"] / 2,
+        staging_ms_per_selection=r0["select_comm"]["staging_ms"] / 2,
+        launches_per_step={k: v / n_steps for k, v in r0["step_launches"].items() if v},
+        launches_per_selection={k: v / 2 for k, v in r0["select_launches"].items() if v},
+        launches={k: [r["step_launches"][k] + r["select_launches"][k] for r in ranks]
+                  for k in r0["step_launches"]},
+        runs=r0["runs"], run_terms=r0["run_terms"], cross_terms=r0["cross_terms"],
+        work_share=(sum(t * (2 if m else 1) for m, t in zip(r0["runs"], r0["run_terms"]))
+                    / (d * sum(r0["run_terms"]))),
+        held=held, planted=r0["planted"], build_s=r0["build_s"],
+        partner=r0.get("partner"),
+        memory_mib=dict(
+            note="(allocated at the start, peak) of each process: a rank's, the single card's",
+            step=[r["step_mem"] for r in ranks], step_single_card=ref["step_mem"],
+            selection=[r["select_mem"] for r in ranks],
+            selection_single_card=ref["select_mem"]),
+        max_grad_err=max(float(np.abs(r["grads"] - ref["grads"]).max()) for r in ranks),
+        selected=r0["selected"])
+    log(f"  [{label} D={d}] {summary['transport']}: step {summary['step_ms']:.2f} ms "
+        f"(single card {summary['single_card_step_ms']:.2f}), selection "
+        f"{summary['select_ms']:.1f} ms; per step {per_step['exchanges']:g} exchanges, "
+        f"{per_step['exchange_bytes'] / 2**20:.2f} MiB sent, {per_step['sums']:g} rank-order sums, "
+        f"staging {per_step['staging_ms']:.2f} ms; runs {summary['runs']} of "
+        f"{summary['run_terms']} terms ({summary['cross_terms']} cross): a rank's rotation work "
+        f"{summary['work_share']:.4f} of one card's")
+    log(f"  [{label} D={d}] launches per step per rank {summary['launches_per_step']}, per "
+        f"selection {summary['launches_per_selection']}")
+    log(f"  [{label} D={d}] held on rank 0's shard: " + ", ".join(
+        f"{k} {v['calls']} calls {v['max_rel_err']:.1e}" for k, v in held.items())
+        + f" (the screen's largest plain value {held['screen_grouped']['max_abs_ref']:.3e})")
+    mem = summary["memory_mib"]
+    log(f"  [{label} D={d}] device MiB (allocated at the start, peak) a step: ranks "
+        + ", ".join(f"({a:.1f}, {p:.1f})" for a, p in mem["step"])
+        + f", single card ({mem['step_single_card'][0]:.1f}, {mem['step_single_card'][1]:.1f}); "
+        f"a selection: ranks " + ", ".join(f"({a:.1f}, {p:.1f})" for a, p in mem["selection"])
+        + f", single card ({mem['selection_single_card'][0]:.1f}, "
+        f"{mem['selection_single_card'][1]:.1f})")
+    log(f"  [{label} D={d}] planted wrong partner: E {e_bad:.7f} against {e_ok:.7f} (fails the "
+        f"gate); thetas, gradients and pool gradients the same bits on every rank; gradients "
+        f"within {summary['max_grad_err']:.2e} of the single card")
+    if summary["partner"]:
+        p = summary["partner"]
+        log(f"  [{label} D={d}] expectation_partner at {p['n_local']} local qubits: {p['terms']} "
+            f"terms ({p['x_lo_zero']} with x_lo = 0, {p['n_diag']} diagonal), {p['tiles']} tiles, "
+            f"{p['launches_per_call']} launches a call; kernel / plain E "
+            + ", ".join(f"{g:.7g} / {r:.7g}" for g, r in p["values"])
+            + f" (main-path shards, seeded random ones); rel_err {p['rel_err']:.2e}, "
+            f"ms {p['ms']:.4f} (graph {p['graph_ms']:.4f}), plain {p['plain_ms']:.3f}, bound "
+            f"{p['bound_ms']:.5f} ({p['bound_by']})")
+        if not p["x_lo_zero"]:
+            raise AssertionError("no cross term with x_lo = 0 in the partner-form check")
+    return summary
+
+
+def phase_mesh(adapt, adapt24, dev, tmp):
+    """ADAPT(mesh_devices=D) at 3x3 (D = 2, 4) and 2x6 (D = 2) through the
+    Hopper kernels, the ranks on this one card over gloo, against the
+    single-card path (mesh_reference)."""
+    from qsfh_torch.parallel import spawn_ranks
+
+    refs = {"3x3": mesh_reference(adapt, N_ANSATZ, N_STEPS, dev),
+            "2x6": mesh_reference(adapt24, N_ANSATZ_24, 2, dev)}
+    spins = {"3x3": (CONFIG["n_spin_up"], CONFIG["n_spin_down"]),
+             "2x6": (CONFIG_24["n_spin_up"], CONFIG_24["n_spin_down"])}
+    out = {}
+    for d, labels in MESH_RUNS.items():
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(mesh_rank, d, backend="gloo", device="cuda", timeout=MESH_TIMEOUT,
+                            args=(labels, tmp))
+        log(f"  {d} ranks ({', '.join(labels)}): {time.perf_counter() - t0:.1f} s")
+        for label in labels:
+            out[f"{label}_D{d}"] = mesh_gates(label, [r[label] for r in ranks], refs[label],
+                                              *spins[label])
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write every measurement to this JSON file")
@@ -6298,6 +6716,9 @@ def main():
                         help="time the per-term, resident and stream routes at 18-24 qubits")
     parser.add_argument("--tiles", action="store_true",
                         help="time the resident and tile kernels over other tile shapes")
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="the card phase and the sharded engine's phase only (a quick check "
+                             "of qsfh_torch.parallel; no kernels line)")
     parser.add_argument("--compare", metavar="PARENT",
                         help="time both main paths of the port in the checkout PARENT against "
                              "this one, in turns")
@@ -6319,6 +6740,19 @@ def main():
 
     smi = phase_card()
     tmp = tempfile.mkdtemp(prefix="qsfh_torch_smoke_")
+    if args.mesh_only:
+        log("the amplitude-sharded engine (ranks on this card over gloo):")
+        mesh = phase_mesh(build_adapt(dev, tmp, "mesh_ref"),
+                          build_adapt(dev, tmp, "mesh_ref24", CONFIG_24), dev, tmp)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(dict(mesh=mesh, nvidia_smi=smi), fh, indent=1, default=str)
+        log(f"smoke test took {time.time() - t_start:.1f} s")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     adapt = build_adapt(dev, tmp, "kernels")
     log("kernels at the main path's shapes (CUDA events, ms per call):")
     kern = phase_kernels(adapt, dev, args.tiles)
@@ -6411,6 +6845,11 @@ def main():
     if args.compare:
         log(f"the parent's port ({args.compare}) against this one, in turns:")
         phase_compare(args.compare, dev, tmp, out)
+    log("the amplitude-sharded engine: ADAPT(mesh_devices=D), ranks on this card over gloo:")
+    t_mesh = time.perf_counter()
+    mesh = phase_mesh(adapt, adapt24, dev, tmp)
+    log(f"  mesh phase: {time.perf_counter() - t_mesh:.1f} s")
+    out["mesh"] = mesh
     log(f"smoke test took {time.time() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -6651,6 +7090,27 @@ def main():
                                          "0 launches on the polish run; timed in turns with "
                                          "happly64_tiles)")
         line.append(entry)
+    # the amplitude-sharded path (phase_mesh): the partner form of row 8, and every
+    # kernel's launches there, summed over the ranks of each configuration
+    p17, p23 = mesh["3x3_D2"]["partner"], mesh["2x6_D2"]["partner"]
+    line.append(dict(
+        name="expectation_partner", route="cuda", source=source,
+        replaces=REPLACES["expectation_partner"],
+        launches=sum(sum(m["launches"]["expectation_partner"]) for m in mesh.values()),
+        max_abs_err=max(p17["max_abs_err"], p23["max_abs_err"]), ms=p17["ms"],
+        plain_ms=p17["plain_ms"], bound_ms=p17["bound_ms"], bound_by=p17["bound_by"],
+        library_ms=None,
+        call=(f"3x3 H cross terms and 3 x_lo = 0 terms on rank 0's shard, {p17['n_local']} local "
+              f"qubits, D = 2 (the sharded path: {MESH_TRANSPORT.format(2)})"),
+        graph_ms=p17["graph_ms"], ms_23q=p23["ms"], graph_ms_23q=p23["graph_ms"],
+        plain_ms_23q=p23["plain_ms"], bound_ms_23q=p23["bound_ms"], bound_by_23q=p23["bound_by"],
+        launches_per_step={c: m["launches_per_step"].get("expectation_partner", 0)
+                           for c, m in mesh.items()},
+        launches_per_selection={c: m["launches_per_selection"].get("expectation_partner", 0)
+                                for c, m in mesh.items()}))
+    for entry in line:
+        entry["launches_mesh"] = {c: sum(m["launches"].get(entry["name"], [0]))
+                                  for c, m in mesh.items()}
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -23,9 +23,16 @@ network Fourier-transforms to real space.
 ``adjoint_threshold`` qubits and from autograd below it; it checks that
 the kernels' adjoint sweep equals autodiff.  The default ("auto" picks
 "split") is the kernel route above.  The JAX driver's ``program_salt`` (a
-TPU compile-cache workaround) is gone; ``mesh_devices`` waits for the
-multi-GPU port.  Entry points run on ``cuda`` unless ``device`` says
-otherwise.
+TPU compile-cache workaround) is gone.  Entry points run on ``cuda`` unless
+``device`` says otherwise.
+
+``mesh_devices=D > 1`` shards the state over the D ranks of an initialized
+``torch.distributed`` group (``qsfh_torch.parallel``: started by
+``parallel.spawn_ranks`` or ``torchrun``; without one the constructor
+raises, saying so): the selection and the train step run on each rank's
+shard (``parallel.sharded_adapt``), every rank selects the same operators
+and holds the same thetas, and rank 0 alone writes results, checkpoints,
+metrics and plots, in the single-card schema.
 """
 
 from __future__ import annotations
@@ -83,6 +90,7 @@ class ADAPT:
         ground_state_path: Optional[str] = None,
         adjoint_threshold: Optional[int] = None,
         circuit_mode: str = "auto",
+        mesh_devices: int = 1,
     ):
         """``device``: ``cuda`` by default (raises where none exists).
         ``ground_state_path``: an explicit ground-state cache file instead
@@ -91,7 +99,9 @@ class ADAPT:
         which takes its gradients from the gate-level adjoint from
         ``adjoint_threshold`` qubits on (default 0 on the CPU, where the
         adjoint is faster at every size, else 20, the reference's
-        crossover) and from autograd below."""
+        crossover) and from autograd below.  ``mesh_devices``: ranks of the
+        amplitude mesh (1: one device; D > 1 needs a process group of D
+        ranks, each on its device: ``parallel.amplitude_mesh``)."""
         self.n_epoch = n_epoch
         self.threshold1 = threshold1
         self.threshold2 = threshold2
@@ -100,6 +110,15 @@ class ADAPT:
         self.max_inner_iterations = max_inner_iterations
         self.plot = plot
         self.device = resolve_device(device)
+        self.mesh_devices = int(mesh_devices)
+        self.mesh = None
+        if self.mesh_devices > 1:
+            from ..parallel import amplitude_mesh
+
+            self.mesh = amplitude_mesh(self.mesh_devices, device=self.device)
+            self.device = self.mesh.device
+        # rank 0 (or the only process) writes results, checkpoints and plots
+        self.writes = self.mesh is None or self.mesh.rank == 0
         self.dtype = dtype or default_dtype(self.device)
         if circuit_mode == "auto":
             circuit_mode = "split"
@@ -108,6 +127,8 @@ class ADAPT:
                 f"circuit_mode={circuit_mode!r}: use 'split' (default) or "
                 "'unrolled' (cross-check lowering)"
             )
+        if self.mesh is not None and circuit_mode != "split":
+            raise ValueError("mesh_devices > 1 runs the split step on the shards")
         self.circuit_mode = circuit_mode
         if adjoint_threshold is None:
             adjoint_threshold = 0 if self.device.type == "cpu" else 20
@@ -168,7 +189,9 @@ class ADAPT:
         self.result_filepath = os.path.join(results_root, "vqe_results", tag + ".json")
         self.model_filepath = os.path.join(results_root, "saved_model", tag + ".npz")
         self.metrics = MetricsLogger(
-            os.path.join(results_root, "vqe_results", tag + ".jsonl") if log_metrics else None
+            os.path.join(results_root, "vqe_results", tag + ".jsonl")
+            if log_metrics and self.writes else None,
+            echo=self.writes,
         )
 
         self._rdt = real_dtype(self.dtype)
@@ -210,8 +233,19 @@ class ADAPT:
                                     self.problem.decomposition)
 
     def state(self, thetas=None) -> torch.Tensor:
-        """Real-space ansatz state."""
+        """Real-space ansatz state (on a mesh: the whole state, on every
+        rank)."""
         thetas = self.params_t if thetas is None else thetas
+        if self.mesh is not None:
+            from ..parallel import gather_statevector
+            from ..parallel.sharded_compiled import ShardedRotations
+            from ..parallel.shmap_engine import ShardedPauliEngine
+
+            engine = ShardedPauliEngine(self.n_qubits, self.mesh, self.impl)
+            program = ShardedRotations(
+                engine, self._ansatz_ops(self.selected_indices) + self._net_ops, self._net_phase)
+            psi0 = engine.basis_state(self._occupied_modes, self.dtype)
+            return gather_statevector(program.apply(psi0, thetas), self.mesh)
         cc = CompiledCircuit(
             self._ansatz_ops(self.selected_indices) + self._net_ops,
             self.n_qubits,
@@ -226,6 +260,13 @@ class ADAPT:
         if indices in self._screen_cache:
             return self._screen_cache[indices]
         impl = self.impl
+        if self.mesh is not None:
+            from ..parallel.sharded_adapt import build_sharded_screen_fn
+
+            fn = build_sharded_screen_fn(self.problem, self.pool_rot, list(indices),
+                                         self.packed_pool, self.mesh, self.dtype, impl)
+            self._screen_cache[indices] = fn
+            return fn
         ansatz = CompiledCircuit(self._ansatz_ops(indices), self.n_qubits)
         net = CompiledCircuit(self._net_ops, self.n_qubits, global_phase=self._net_phase)
         h = self.problem.observables["H"]
@@ -271,7 +312,11 @@ class ADAPT:
         separate H pass) and ``adj_upd`` (psi, lambda, thetas, optimizer)
         -> ``update`` of the ``adjoint`` gradients; and ``energy_df`` psi
         -> the float64 Rayleigh readout of H (:mod:`qsfh_torch.engine.dfloat`).
+        One device only: on a mesh the step is the sharded one.
         """
+        if self.mesh is not None:
+            raise ValueError("the stage form (and the fused runner) runs on one device; "
+                             "mesh_devices > 1 runs the sharded step")
         obs = self.problem.observables
         impl = self.impl
         n = self.n_qubits
@@ -324,6 +369,12 @@ class ADAPT:
         ``torch.optim.Adam`` over ``[thetas]``); the metrics are 0-d
         tensors on the device.
         """
+        if self.mesh is not None:
+            from ..parallel.sharded_adapt import build_sharded_adapt_train_step
+
+            return build_sharded_adapt_train_step(self.problem, self.pool_rot, list(indices),
+                                                  self.mesh, self.dtype, gs=self._gs,
+                                                  impl=self.impl)[0]
         if self.circuit_mode == "unrolled":
             return self._build_step_unrolled(indices)
         raw = self._build_stages(indices)
@@ -377,15 +428,16 @@ class ADAPT:
     def run(self):
         timer = PhaseTimer()
         self.timer = timer
+        say = print if self.writes else (lambda *a, **k: None)
         if self.ground_state_energy is not None:
-            print("ground state energy: ", self.ground_state_energy)
+            say("ground state energy: ", self.ground_state_energy)
         i_epoch = len(self.results["epoch loss"])
 
         while i_epoch < self.n_epoch:
             with timer.phase("screening"):
                 new_indices, max_grads = self.select_operator()
             if not new_indices:
-                print("\nconvergence criterion has satisfied, break the loop!")
+                say("\nconvergence criterion has satisfied, break the loop!")
                 break
 
             self.selected_indices += new_indices
@@ -401,7 +453,7 @@ class ADAPT:
             n_new = len(new_indices)
             lr = float(np.linalg.norm(max_grads) / np.sqrt(n_new) * self.lr_scale)
             optimizer = torch.optim.Adam([self.params_t], lr=lr)
-            print(f"epoch {i_epoch + 1}: selected {n_new} operators, lr = {lr:.6f}")
+            say(f"epoch {i_epoch + 1}: selected {n_new} operators, lr = {lr:.6f}")
 
             with timer.phase("step build"):
                 step = self._build_step(tuple(self.selected_indices))
@@ -433,7 +485,7 @@ class ADAPT:
             i_epoch += 1
             with timer.phase("checkpoint"):
                 self.save_model()
-            if self.plot and self.ground_state_energy is not None:
+            if self.plot and self.writes and self.ground_state_energy is not None:
                 plot_energy_iterations(
                     self.img_filepath,
                     self.results["iteration loss"],
@@ -441,7 +493,7 @@ class ADAPT:
                     self.ground_state_energy,
                 )
 
-        print(timer.report())
+        say(timer.report())
         return self.results
 
     def get_ground_state_properties(self):
@@ -460,6 +512,8 @@ class ADAPT:
     # -- persistence ------------------------------------------------------------------
 
     def save_model(self):
+        if not self.writes:
+            return
         ckpt.save_model(
             self.model_filepath,
             {

@@ -1,8 +1,7 @@
 """Hamiltonian-Variational-Ansatz VQE driver.
 
 Counterpart of ``qsfh_tpu/algos/hva.py`` (class HVA) with the same
-constructor arguments (``mesh_devices`` waits for the multi-GPU port),
-checkpoint files, result histories and metrics log:
+constructor arguments, checkpoint files, result histories and metrics log:
 
 * state prep = the Slater determinant of the occupied momentum modes,
   built once on the device (:func:`engine.circuits.slater_prep_state`);
@@ -19,6 +18,12 @@ adjoint sweep for the gradients, E / Sz / S^2 on the inner-product tiles.
 ``"unrolled"`` is the cross-check lowering: autograd through the gates of
 :mod:`engine.gates` with the Coulomb layer as one diagonal pass.  Entry
 points run on ``cuda`` unless ``device`` says otherwise.
+
+``mesh_devices=D > 1`` shards the state over the D ranks of an initialized
+``torch.distributed`` group (``qsfh_torch.parallel``; without one the
+constructor raises, saying how to start one): the split step on each
+rank's shard (``parallel.sharded_hva_shmap``), the same thetas on every
+rank, rank 0 alone writing results, checkpoints, metrics and plots.
 """
 
 from __future__ import annotations
@@ -122,10 +127,13 @@ class HVA:
         circuit_mode: str = "auto",
         device=None,
         ground_state_path: Optional[str] = None,
+        mesh_devices: int = 1,
     ):
         """``device``: ``cuda`` by default (raises where none exists).
         ``ground_state_path``: an explicit ground-state cache file instead
-        of the one under ``results_root``."""
+        of the one under ``results_root``.  ``mesh_devices``: ranks of the
+        amplitude mesh (1: one device; D > 1 needs a process group of D
+        ranks: ``parallel.amplitude_mesh``)."""
         self.n_epoch = n_epoch
         self.reps = reps
         self.lr = lr
@@ -134,6 +142,15 @@ class HVA:
         self.plot = plot
         self.checkpoint_every = checkpoint_every
         self.device = resolve_device(device)
+        self.mesh_devices = int(mesh_devices)
+        self.mesh = None
+        if self.mesh_devices > 1:
+            from ..parallel import amplitude_mesh
+
+            self.mesh = amplitude_mesh(self.mesh_devices, device=self.device)
+            self.device = self.mesh.device
+        # rank 0 (or the only process) writes results, checkpoints and plots
+        self.writes = self.mesh is None or self.mesh.rank == 0
         self.dtype = dtype or default_dtype(self.device)
         self._rdt = real_dtype(self.dtype)
         if circuit_mode == "auto":
@@ -143,6 +160,8 @@ class HVA:
                 f"circuit_mode={circuit_mode!r}: use 'split' (default) or "
                 "'unrolled' (cross-check lowering)"
             )
+        if self.mesh is not None and circuit_mode != "split":
+            raise ValueError("mesh_devices > 1 runs the split step on the shards")
         self.circuit_mode = circuit_mode
         # the kernel wrappers; a reference run on the card may set
         # engine.kernels.PLAIN before the step is built
@@ -204,7 +223,9 @@ class HVA:
         self.result_filepath = os.path.join(results_root, "vqe_results", tag + ".json")
         self.model_filepath = os.path.join(results_root, "saved_model", tag + ".npz")
         self.metrics = MetricsLogger(
-            os.path.join(results_root, "vqe_results", tag + ".jsonl") if log_metrics else None
+            os.path.join(results_root, "vqe_results", tag + ".jsonl")
+            if log_metrics and self.writes else None,
+            echo=self.writes,
         )
 
         # the live optimizer (run() keeps it across calls) and Adam state
@@ -231,6 +252,8 @@ class HVA:
         circuit as ONE rot segment (:func:`hva_program_rot`) through
         ``engine.compiled.rot_segment`` (the kernels forward, the adjoint
         sweep backward), where the JAX ``HVA.circuit`` runs the gates."""
+        if self.mesh is not None:
+            raise ValueError("HVA.circuit is the single-device form; on a mesh use state()")
         thetas = flatten_hva_params(params) if isinstance(params, dict) else params
         return rot_segment(self._rot_segment, self._psi0,
                            thetas.to(device=self.device, dtype=self._rdt), self.n_qubits,
@@ -238,8 +261,14 @@ class HVA:
 
     def state(self, thetas=None) -> torch.Tensor:
         """The ansatz state (the Coulomb layers as diagonal passes, the
-        hopping classes on the kernels)."""
+        hopping classes on the kernels; on a mesh the sharded step's
+        program, the whole state on every rank)."""
         thetas = self.params_t if thetas is None else thetas
+        if self.mesh is not None:
+            from ..parallel import gather_statevector
+
+            program, psi0 = self._step.program, self._step.psi0
+            return gather_statevector(program.apply(psi0, thetas), self.mesh)
         cc = CompiledCircuit(hva_program(self.reps, self._v_rot, self._h_rot,
                                          self._coulomb_diag), self.n_qubits)
         return cc.apply(self._psi0, thetas, impl=self.impl)
@@ -289,7 +318,13 @@ class HVA:
         """step(thetas, optimizer) -> (thetas, optimizer, E, Sz, S^2, fid,
         gnorm): updates ``thetas`` in place through ``optimizer`` (a
         ``torch.optim.Adam`` over ``[thetas]``); the metrics are 0-d
-        tensors on the device.  Split mode exposes ``step.raw_stages``."""
+        tensors on the device.  Split mode exposes ``step.raw_stages``; on a
+        mesh the step is ``parallel.build_sharded_hva_train_step``'s."""
+        if self.mesh is not None:
+            from ..parallel import build_sharded_hva_train_step
+
+            return build_sharded_hva_train_step(self.problem, self.reps, self.mesh, self.dtype,
+                                                self.lr, gs=self._gs, impl=self.impl)[0]
         if self.circuit_mode == "split":
             raw = self._build_stages()
 
@@ -348,7 +383,7 @@ class HVA:
                 Sz=sz,
                 S_square=s2,
             )
-            if self.plot and self.ground_state_energy is not None:
+            if self.plot and self.writes and self.ground_state_energy is not None:
                 plot_energy_fidelity(
                     self.img_filepath,
                     self.results["loss"],
@@ -368,6 +403,8 @@ class HVA:
     # -- persistence ------------------------------------------------------------------
 
     def save_model(self):
+        if not self.writes:
+            return
         leaves = None
         if self._optimizer is not None:
             leaves = hva_to_jax_leaves(self._optimizer, self.params_t, self.sizes)

@@ -21,8 +21,14 @@ Deviations from the JAX CLI:
   (the kernels' dtype, as the JAX package keeps complex64 on its
   accelerator) and a line says so; on the CPU the states are complex128
   with ``--x64`` and complex64 without it.
-* ``--mesh-devices`` accepts 0 or 1 only: the port's drivers do not
-  shard the state over several cards yet (ROADMAP.md, section 1 item 10).
+* ``hva`` and ``adapt`` with ``--mesh-devices D > 1`` start D ranks of a
+  ``torch.distributed`` group (``qsfh_torch.parallel.spawn_ranks``), each
+  running the subcommand on its shard of the state; ``--dist-backend``
+  names the group's backend: ``nccl`` (the default; one card a rank) or
+  ``gloo`` (every rank on ``--device``, the exchanges staged through the
+  host).  Rank 0 alone prints and writes the results.  Multistart's
+  ``--mesh-devices`` is its start axis, not this engine, and accepts 0 or 1
+  only (ROADMAP.md, section 1 item 10).
 
 No global state is set: the dtype and device go to each driver
 explicitly, so ``main`` may run several times in one process.
@@ -31,10 +37,13 @@ explicitly, so ``main`` may run several times in one process.
 from __future__ import annotations
 
 import argparse
+import sys
 
 MOLECULES = ("H2", "HeH_Ion", "LiH", "BeH2", "H2O", "H4", "H6")
-MESH_HELP = ("amplitude sharding over several cards is not ported yet (ROADMAP.md, "
+MESH_HELP = ("sharding the start axis over several devices is not ported yet (ROADMAP.md, "
              "section 1 item 10): 0 or 1 only")
+SHARD_HELP = ("D > 1 starts D ranks, each holding 1/D of the state (a power of two; "
+              "--dist-backend names the process group's backend)")
 
 
 def _add_lattice_args(p: argparse.ArgumentParser):
@@ -65,6 +74,14 @@ def _add_mesh_arg(p: argparse.ArgumentParser, default: int, what: str):
     p.add_argument("--mesh-devices", type=int, default=default, help=f"{what}; {MESH_HELP}")
 
 
+def _add_shard_args(p: argparse.ArgumentParser):
+    p.add_argument("--mesh-devices", type=int, default=1,
+                   help=f"amplitude-shard the statevector over this many devices; {SHARD_HELP}")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default="nccl",
+                   help="the process group's backend with --mesh-devices > 1: nccl (one card a "
+                        "rank) or gloo (every rank on --device, exchanges through the host)")
+
+
 def build_parser():
     """(the parser, the multistart subparser whose defaults the
     ``--molecule`` warning reads)."""
@@ -80,13 +97,13 @@ def build_parser():
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--threshold", type=float, default=1e-2)
     p.add_argument("--early-stop", action="store_true")
-    _add_mesh_arg(p, 1, "amplitude-shard the statevector over this many devices")
+    _add_shard_args(p)
 
     p = sub.add_parser("adapt", help="ADAPT-VQE with pool screening")
     _add_lattice_args(p)
     _add_run_args(p)
     p.add_argument("--n-epoch", type=int, default=100)
-    _add_mesh_arg(p, 1, "amplitude-shard the statevector over this many devices")
+    _add_shard_args(p)
     p.add_argument("--threshold1", type=float, default=1e-2)
     p.add_argument("--threshold2", type=float, default=1e-2)
     p.add_argument(
@@ -265,7 +282,7 @@ def _backend(args):
 
     from .engine.state import resolve_device
 
-    if getattr(args, "mesh_devices", 0) > 1:
+    if args.command == "multistart" and args.mesh_devices > 1:
         raise SystemExit(f"--mesh-devices {args.mesh_devices}: {MESH_HELP}")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
@@ -309,9 +326,26 @@ def _ground_state(problem, args, dev):
     return energy, np.asarray(psi0)
 
 
+def _rank_main(mesh, argv):
+    """One rank of a sharded ``hva`` / ``adapt`` run."""
+    main(argv)
+
+
 def main(argv=None):
     parser, multistart_parser = build_parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parser.parse_args(argv)
+    if args.command in ("hva", "adapt") and args.mesh_devices > 1:
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            from .parallel import spawn_ranks
+
+            if args.mesh_devices & (args.mesh_devices - 1):
+                raise SystemExit(f"--mesh-devices {args.mesh_devices}: a power of two")
+            spawn_ranks(_rank_main, args.mesh_devices, backend=args.dist_backend,
+                        device=args.device, args=(argv,))
+            return
     dev, dtype = _backend(args)
 
     if args.command == "hva":
@@ -329,6 +363,7 @@ def main(argv=None):
             plot=not args.no_plot,
             dtype=dtype,
             device=dev,
+            mesh_devices=args.mesh_devices,
             **_lattice_kwargs(args),
         )
         vqe.run()
@@ -355,6 +390,7 @@ def main(argv=None):
             plot=not args.no_plot,
             dtype=dtype,
             device=dev,
+            mesh_devices=args.mesh_devices,
             **_lattice_kwargs(args),
         )
         vqe.run()

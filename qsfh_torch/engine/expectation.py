@@ -190,6 +190,16 @@ class Observable:
         self.n = n_qubits
         self._tensor_cache = {}
 
+    @classmethod
+    def from_scan_terms(cls, xs, zs, cre, cim, n_qubits: int) -> "Observable":
+        """An observable given by its flat scan arrays (flat masks, the
+        reorder sign folded into the coefficients), for the scan forms only:
+        the shard-local parts of the sharded engine."""
+        obs = cls(None, n_qubits)
+        obs._scan_cache = (np.asarray(xs, np.uint32), np.asarray(zs, np.uint32),
+                           np.asarray(cre, np.float64), np.asarray(cim, np.float64))
+        return obs
+
     @property
     def x_groups(self):
         """The op's terms by flip mask (:func:`group_by_x`), built once."""
@@ -245,6 +255,16 @@ class Observable:
             return (c * impl.inner(psi, psi, xs, zs).to(psi.dtype)).real.sum()
         return impl.expectation_grouped(psi, xs, zs, c.real, c.imag, self.inner_groups())
 
+    def expectation_partner_scan(self, a: torch.Tensor, psi: torch.Tensor,
+                                 impl=None) -> torch.Tensor:
+        """Re sum_t c_t <a|P_t|psi> for a state a other than psi (a 0-d
+        real tensor): the partner form of a sharded expectation."""
+        impl = impl or KERNELS
+        xs, zs, c = self._tensors(psi)
+        if self.n < INNER_TILE_MIN_BITS:
+            return (c * impl.inner(a, psi, xs, zs).to(psi.dtype)).real.sum()
+        return impl.expectation_partner(a, psi, xs, zs, c.real, c.imag, self.inner_groups())
+
     def apply_scan(self, psi: torch.Tensor, impl=None) -> torch.Tensor:
         """op|psi> (a new state)."""
         impl = impl or KERNELS
@@ -296,6 +316,18 @@ class PackedPool:
             for x, (zs, cs, ks) in flat.items()
         }
         self._tensor_cache = {}
+
+    @classmethod
+    def from_scan_arrays(cls, xs, zs, cre, cim, ks, size: int, n_qubits: int) -> "PackedPool":
+        """A pool given by its flat scan arrays and generator indices (the
+        layout of :meth:`scan_arrays`), for :meth:`screen_scan` only: the
+        shard-local parts of the sharded screen."""
+        pool = cls([], n_qubits)
+        pool.size = int(size)
+        pool._scan_arrays = (np.asarray(xs, np.uint32), np.asarray(zs, np.uint32),
+                             np.asarray(cre, np.float64), np.asarray(cim, np.float64),
+                             np.asarray(ks, np.int32))
+        return pool
 
     def scan_arrays(self):
         """Flat per-term arrays (xb, zb, c_re, c_im, gen_index), built once."""

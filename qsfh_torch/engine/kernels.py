@@ -25,6 +25,10 @@ wrapper                  replaces (``qsfh_tpu/engine/pallas_kernels.py``)
                          the inner-product tiles, the x = 0 terms as one
                          Walsh-Hadamard diagonal, the coefficients folded
                          into the partial-sum pass
+``expectation_partner``  ``expectation_stream_planes`` (:1596) with its
+                         partner planes: E = sum_t Re(c_t <a|P_t|psi>),
+                         a != psi (a shard and its XOR partner's), the
+                         same kernel and fold
 ``screen_grouped``       ``screen_chain_pallas`` (:927) and
                          ``screen_stream_*`` (:1474, :1522): 2 Im(c_t
                          <w|P_t|psi>) per term, the same way
@@ -89,7 +93,7 @@ in the adjoint, folds the gradient inside the launch), one per tile for
 ``happly64_tiles`` (E and N folded inside the last), one per
 group for ``rot64_groups`` and ``adjoint64_groups``,
 one per call (or per
-scratch-sized chunk) for ``pauli_apply``, ``pauli_inner`` and the three
+scratch-sized chunk) for ``pauli_apply``, ``pauli_inner`` and the four
 inner-product tile wrappers (the partial-sum pass is not counted).  The
 ``*_plain`` functions compute the same thing from an index gather
 ``psi[idx ^ x]`` and an XOR-folded popcount parity, on any device; the CPU
@@ -1020,6 +1024,31 @@ def expectation_grouped_plain(psi, xs, zs, cre, cim, tiles):
 
 
 @_counted
+def expectation_partner(a, psi, xs, zs, cre, cim, tiles):
+    """E = sum_t Re(c_t <a|P_t|psi>) with a != psi, a 0-d real tensor: the
+    fold of :func:`expectation_grouped` over two states (the kernel loads an
+    a tile beside each psi tile; the x = 0 terms' Walsh-Hadamard diagonal
+    transforms conj(a) psi).  The partner form of a sharded expectation:
+    a = this rank's shard, psi = the shard of its XOR partner, the masks
+    local.  Launches counted as there.
+    """
+    if psi.device.type == "cpu" and a.device.type == "cpu":
+        return expectation_partner_plain(a, psi, xs, zs, cre, cim, tiles)
+    out, launches = _inner_tiles("expectation_partner", a, psi, xs, zs, tiles,
+                                 _FOLD_EXPECTATION, cre, cim)
+    expectation_partner.launches += launches
+    return out
+
+
+def expectation_partner_plain(a, psi, xs, zs, cre, cim, tiles):
+    """Plain version of :func:`expectation_partner`: the layout check, then
+    :func:`pauli_inner_plain` and the fold in torch (any device)."""
+    _check_group_tiles(xs, tiles, "expectation_partner")
+    v = pauli_inner_plain(a, psi, xs, zs)
+    return (torch.complex(cre, cim).to(v.dtype) * v).real.sum()
+
+
+@_counted
 def screen_grouped(w, psi, xs, zs, cre, cim, tiles):
     """2 Im(c_t <w|P_t|psi>) for every term, in input order (a real (T,)
     tensor): :func:`pauli_inner_grouped` with a = w and the coefficients
@@ -1705,6 +1734,7 @@ class Impl:
     adjoint64_resident: Callable
     expectation_norm_f64_tiles: Callable
     happly64_tiles: Callable
+    expectation_partner: Callable
 
 
 # the wrappers: CUDA kernels for CUDA tensors, plain versions for CPU tensors
@@ -1712,21 +1742,21 @@ KERNELS = Impl(pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
                rotation_tile_runs, adjoint_tile_runs, rotation_resident, adjoint_resident,
                pauli_apply_grouped, expectation_grouped, screen_grouped, expectation_norm_f64,
                rot64_groups, happly64, adjoint64_groups, rot64_resident, adjoint64_resident,
-               expectation_norm_f64_tiles, happly64_tiles)
+               expectation_norm_f64_tiles, happly64_tiles, expectation_partner)
 # the plain versions on any device (a reference path on the card)
 PLAIN = Impl(pauli_rotation_plain, pauli_apply_plain, pauli_inner_plain, adjoint_rotation_plain,
              rotation_tile_runs_plain, adjoint_tile_runs_plain, rotation_resident_plain,
              adjoint_resident_plain, pauli_apply_grouped_plain, expectation_grouped_plain,
              screen_grouped_plain, expectation_norm_f64_plain, rot64_groups_plain, happly64_plain,
              adjoint64_groups_plain, rot64_resident_plain, adjoint64_resident_plain,
-             expectation_norm_f64_tiles_plain, happly64_tiles_plain)
+             expectation_norm_f64_tiles_plain, happly64_tiles_plain, expectation_partner_plain)
 
 WRAPPERS = (pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
             rotation_tile_runs, adjoint_tile_runs, pauli_inner_grouped, xor_gather,
             rotation_resident, adjoint_resident, pauli_apply_grouped, expectation_grouped,
             screen_grouped, pauli_rotation_out, expectation_norm_f64, rot64_groups, happly64,
             adjoint64_groups, rot64_resident, adjoint64_resident, expectation_norm_f64_tiles,
-            happly64_tiles)
+            happly64_tiles, expectation_partner)
 
 
 def launch_counts() -> dict:

@@ -9,9 +9,11 @@ is 1e-9; a printed number within one unit of its last printed digit).
 This file holds the analysis subcommands (ed, symmetry, spectral,
 dynamics, ite) and the parser; ``test_torch_cli_drivers.py`` the training
 drivers.  Also: the two argparse trees have the same subcommands, options
-and defaults apart from the deviations (``--platform`` -> ``--device``);
+and defaults apart from the deviations (``--platform`` -> ``--device``, and
+the port's ``--dist-backend``);
 an unknown molecule exits; the multistart ``--molecule`` warnings are the
-JAX CLI's; ``--mesh-devices 2`` exits naming ROADMAP item 10; the default
+JAX CLI's; multistart's ``--mesh-devices 2`` exits naming ROADMAP item 10,
+and hva's and adapt's run on two gloo ranks as the API run does; the default
 device raises without a card; ``python -m qsfh_torch.cli`` runs with JAX
 blocked.
 """
@@ -210,7 +212,7 @@ def _tree(parser, drop):
 
 def test_argparse_trees_match_apart_from_the_deviations(monkeypatch):
     jtree = _tree(_jax_parser(monkeypatch), ("--platform",))
-    ttree = _tree(tcli.build_parser()[0], ("--device",))
+    ttree = _tree(tcli.build_parser()[0], ("--device", "--dist-backend"))
     assert list(ttree) == list(jtree)
     for name in jtree:
         assert ttree[name] == jtree[name], name
@@ -225,10 +227,49 @@ def test_unknown_molecule_exits():
         tcli.main(["hea", "--molecule", "Unobtainium", "--device", "cpu"])
 
 
+MESH_ARGV = {
+    "hva": ["--n-epoch", "3", "--reps", "1"],
+    "adapt": ["--n-epoch", "1", "--max-inner-iterations", "3", "--threshold2", "1e-1"],
+}
+
+
+def _api_run(command, argv, root):
+    """The results of the same run through the Python API, on one process."""
+    from qsfh_torch.algos.adapt import ADAPT
+    from qsfh_torch.algos.hva import HVA
+
+    args = tcli.build_parser()[0].parse_args([command] + argv)
+    common = dict(load_model=False, degenerate_subspace=0, results_root=root, plot=False,
+                  dtype=torch.complex128, device="cpu", **tcli._lattice_kwargs(args))
+    if command == "hva":
+        return HVA(n_epoch=args.n_epoch, reps=args.reps, lr=args.lr, threshold=args.threshold,
+                   early_stop=False, **common).run()
+    return ADAPT(n_epoch=args.n_epoch, threshold1=args.threshold1, threshold2=args.threshold2,
+                 max_inner_iterations=args.max_inner_iterations, **common).run()
+
+
 @pytest.mark.parametrize("command", ["hva", "adapt", "multistart"])
-def test_mesh_devices_above_one_exits_naming_item_10(command):
-    with pytest.raises(SystemExit, match="item 10"):
-        tcli.main([command, "--mesh-devices", "2", "--device", "cpu"])
+def test_mesh_devices_above_one_exits_naming_item_10(command, tmp_path, monkeypatch):
+    """multistart's --mesh-devices (its start axis) exits naming ROADMAP item
+    10; hva and adapt with --mesh-devices 2 --dist-backend gloo run on two
+    gloo ranks and write what the same run through the API gives (1e-9)."""
+    if command == "multistart":
+        with pytest.raises(SystemExit, match="item 10"):
+            tcli.main([command, "--mesh-devices", "2", "--device", "cpu"])
+        return
+    monkeypatch.chdir(tmp_path)
+    argv = MESH_ARGV[command] + ["--no-plot", "--x64"]
+    tcli.main([command, "--mesh-devices", "2", "--dist-backend", "gloo", "--device", "cpu",
+               "--results-root", str(tmp_path / "mesh")] + argv)
+    ref = _api_run(command, argv, str(tmp_path / "api"))
+    (path,) = (tmp_path / "mesh" / "vqe_results").glob("*.json")
+    got = json.loads(path.read_text())
+    assert sorted(got) == sorted(ref)
+    for key, values in ref.items():
+        if key == "selected operators":
+            assert got[key] == values
+        else:
+            np.testing.assert_allclose(got[key], values, rtol=0, atol=1e-9, err_msg=key)
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

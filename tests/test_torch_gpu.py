@@ -540,6 +540,41 @@ def test_folded_inner_products_random_lists(dev, monkeypatch):
         K.screen_grouped(w, psi, txs, tzs, tc.real.cpu(), tc.imag.cpu(), tiles)
 
 
+@pytest.mark.parametrize("n,k", [(12, 9), (17, 12), (20, 12)])
+def test_expectation_partner(dev, n, k, monkeypatch):
+    """``expectation_partner`` (E over two states, the partner form of a
+    sharded expectation) against its plain version: random lists with x = 0
+    terms (the Walsh-Hadamard diagonal over conj(a) psi), complex
+    coefficients, two seeded random states; two calls give the same bits;
+    at 12 qubits a small partials cap (several launches, summed)."""
+    from qsfh_torch.engine.streaming import GroupTiles
+
+    rng = np.random.default_rng(n + 70)
+    xs, zs = _inner_terms(rng, n, 400, wide=0)
+    xs[::5] = 0
+    c = rng.standard_normal(400) + 1j * rng.standard_normal(400)
+    tiles = GroupTiles(xs, zs, n, k, 2, diagonal=False, inner_diagonal=True)
+    assert tiles.n_diag and tiles.n_tiles and not tiles.spill_index.size
+    a = _t(_state(rng, n), dev, torch.complex64)
+    psi = _t(_state(rng, n), dev, torch.complex64)
+    txs, tzs, tc = _t(xs, dev, torch.int64), _t(zs, dev, torch.int64), _t(c, dev, torch.complex64)
+    launches = 1
+    if n == 12:
+        positions = tiles.schedule(n, K.sm_count(dev))[0]
+        monkeypatch.setattr(K, "PARTIALS_CAP", 64 * -(-(1 << (n - k)) // positions))
+        launches = len(tiles.chunks(-(-(1 << (n - k)) // positions), K.PARTIALS_CAP))
+        assert launches > 1
+    K.reset_launch_counts()
+    got = K.expectation_partner(a, psi, txs, tzs, tc.real, tc.imag, tiles)
+    again = K.expectation_partner(a, psi, txs, tzs, tc.real, tc.imag, tiles)
+    ref = K.expectation_partner_plain(a, psi, txs, tzs, tc.real, tc.imag, tiles)
+    torch.cuda.synchronize()
+    assert abs(float(got) - float(ref)) <= RTOL * max(abs(float(ref)), float(tc.abs().sum()))
+    assert torch.equal(got, again)
+    assert K.launch_counts()["expectation_partner"] == 2 * launches
+    assert K.launch_counts()["expectation_grouped"] == 0
+
+
 def test_folded_expectation_between_resident_launches(dev):
     """The folded expectation's arrival count is a word of its own: an
     adjoint sweep (one grid barrier per run, so the barrier word's top bit
