@@ -6707,6 +6707,598 @@ def phase_mesh(adapt, adapt24, dev, tmp):
     return out
 
 
+# -- the sharded evolution, spectroscopy and start axis (phase_mesh_evolution) --------
+
+MESH_EVOLUTION_RUNS = {2: ("trotter_3x3", "trotter_2x6", "ite", "lanczos", "multistart"),
+                       4: ("trotter_3x3", "multistart")}
+TROTTER_3X3 = (3, 3, 1.0, 4.0, 9, 5, 4)  # benchmarks/tpu_dynamics.py's quench
+TROTTER_2X6 = (2, 6, 1.0, 4.0, 12, 6, 6)
+TROTTER_2X6_STEPS = 3
+ITE_3X3 = (3, 3, 1.0, 6.0, 9, 5, 4)  # benchmarks/tpu_ite.py
+LANCZOS_3X3 = (3, 3, 1.0, 6.0, 9, 5, 4)  # spectral_3x3.py, on the ED cache's manifold[0]
+MESH_ITE_STEPS = 50
+MS_PLANTED_EPOCHS = 2
+# the kernels each case must launch on every rank
+EVOLUTION_KERNELS = {
+    "trotter_3x3": ("rotation_resident", "expectation_grouped", "expectation_partner"),
+    "trotter_2x6": ("rotation_tile_runs", "expectation_grouped", "expectation_partner"),
+    "ite": ("pauli_apply_grouped",),
+    "lanczos": ("pauli_apply_grouped",),
+    "multistart": ("rotation_resident", "adjoint_resident", "expectation_grouped"),
+}
+
+
+def sharded_rotation_launches(program):
+    """The rotation launches one pass of a ShardedRotations program makes:
+    per piece (its local runs on n_local qubits, a pair run on n_local + 1)
+    one resident launch a span up to the chain cap, one tile-run launch a
+    run above it, one per-term launch a term that fits no tile."""
+    from qsfh_torch.engine.compiled import _tile_route
+
+    out = dict(rotation_resident=0, rotation_tile_runs=0, pauli_rotation=0)
+    for m, seg in program.pieces:
+        layout, resident = _tile_route(seg, 1, program.engine.n_local + (1 if m else 0))
+        for tiles, t0, t1 in layout.spans:
+            if tiles is None:
+                out["pauli_rotation"] += t1 - t0
+            elif resident:
+                out["rotation_resident"] += 1
+            else:
+                out["rotation_tile_runs"] += len(tiles)
+    return out
+
+
+def trotter_setup(cfg, dev, mesh=None):
+    """(evolution, observables UD and H, the Neel start) of the quench."""
+    import torch
+
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.algos.dynamics import TrotterEvolution, neel_occupied
+    from qsfh_torch.engine.expectation import Observable
+    from qsfh_torch.engine.state import basis_state
+    from qsfh_torch.ops.jw import jordan_wigner
+
+    p = HubbardProblem(*cfg)
+    ev = TrotterEvolution(p, dt=0.05, order=2, device=dev, mesh=mesh)
+    obs = {"UD": Observable(jordan_wigner(p.interacting_term), p.n_qubits),
+           "H": p.observables["H"]}
+    psi0 = basis_state(p.n_qubits, neel_occupied(cfg[0], cfg[1]), dtype=torch.complex64,
+                       device=dev)
+    return ev, obs, psi0
+
+
+def counted(fn, dev):
+    """(fn(), ms on the host clock, kernel launches, collectives, (MiB
+    allocated at the start, peak MiB)): the counters set to 0 just before,
+    read just after."""
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.parallel import comm
+
+    K.reset_launch_counts()
+    comm.reset_counts()
+    mem = peak_memory(dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    return out, ms, {k: v for k, v in K.launch_counts().items() if v}, comm.counts(), mem()
+
+
+def evolution_trotter(mesh, label, n_steps):
+    """The quench on the shards: a warm-up step, then ``n_steps`` recorded
+    steps counted; at D = 2 on 3x3 also the planted wrong partner (every
+    exchange of the evolution with rank d ^ m ^ 1)."""
+    from qsfh_torch.parallel import comm
+    from qsfh_torch.parallel.mesh import gather_statevector
+
+    cfg = TROTTER_3X3 if label == "trotter_3x3" else TROTTER_2X6
+    ev, obs, psi0 = trotter_setup(cfg, mesh.device, mesh)
+    ev.evolve(psi0, 1, obs)  # first use: layouts and tables
+    (psi, rec), ms, launches, comms, mem = counted(lambda: ev.evolve(psi0, n_steps, obs),
+                                                   mesh.device)
+    prog = ev.program
+    res = dict(records={k: v.tolist() for k, v in rec.items()}, ms_per_step=ms / n_steps,
+               launches=launches, comm=comms, memory_mib=mem, runs=[int(m) for m, _ in prog.pieces],
+               run_terms=[int(len(seg.data["xb"])) for _, seg in prog.pieces],
+               pair_runs=prog.exchanges, rotation_expected=sharded_rotation_launches(prog),
+               cross=sorted({m for o in obs.values() for m in ev.sharded(o).cross}))
+    if label == "trotter_3x3":
+        res["state"] = gather_statevector(psi, mesh).cpu().numpy()
+    else:
+        res["shard"] = psi.cpu().numpy()
+    if label == "trotter_3x3" and mesh.size == 2:
+        ev.engine.exchange_into = lambda ts, outs, m: comm.exchange_into(ts, outs, m ^ 1)
+        try:
+            _, bad = ev.evolve(psi0, n_steps, obs)
+        finally:
+            del ev.engine.exchange_into
+        res["planted_ud"] = bad["UD"].tolist()
+    return res
+
+
+def evolution_ite(mesh, v):
+    """ITE from the seed-19 state on the shards: 4 steps counted against the
+    layouts, then MESH_ITE_STEPS timed."""
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.algos.ite import ImaginaryTimeEvolution
+
+    ite = ImaginaryTimeEvolution(HubbardProblem(*ITE_3X3), dbeta=0.01, order=2, mesh=mesh)
+    (_, rec), _, launches, comms, _ = counted(lambda: ite.run(v, n_steps=4, block=4),
+                                              mesh.device)
+    (_, long), ms, _, _, mem = counted(lambda: ite.run(v, n_steps=MESH_ITE_STEPS,
+                                                       block=MESH_ITE_STEPS), mesh.device)
+    tiles = {int(m): part.groups().n_tiles for m, part in ite.sharded_h.parts.items()}
+    return dict(energies=rec["energies"].tolist(), variances=rec["variances"].tolist(),
+                launches=launches, comm=comms, tiles=tiles, order=ite.order,
+                ms_per_step=ms / MESH_ITE_STEPS, memory_mib=mem,
+                final_energy=float(long["energies"][-1]))
+
+
+def evolution_lanczos(mesh):
+    """spectral_3x3.py's k = (0, 0) seeds, both branches, m = SPECTRAL_M on the
+    shards: the driver's poles and weights (counted), and the recursion's
+    coefficients from the same seed (for A(omega) of the first levels)."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.algos.dynamics import excitation_operator
+    from qsfh_torch.linalg.spectral import lanczos_tridiagonal, spectral_function_lanczos
+    from qsfh_torch.ops.jw import jordan_wigner
+    from qsfh_torch.parallel.mesh import shard_input
+    from qsfh_torch.parallel.sharded_compiled import ShardedObservable
+    from qsfh_torch.parallel.shmap_engine import ShardedPauliEngine
+
+    p = HubbardProblem(*LANCZOS_3X3, results_root=DEMO_ADAPT)
+    e0, manifold = p.ground_state(degenerate=True, n_states=4)
+    gs, e0 = np.asarray(manifold[0]), float(e0)
+    omegas = np.linspace(*SPECTRAL_OMEGAS)
+    engine = ShardedPauliEngine(p.n_qubits, mesh)
+    ham = ShardedObservable.of(engine, p.qubit_hamiltonian)
+    out = {}
+    for branch, dagger in (("particle", True), ("hole", False)):
+        op = k_ladder(0, 0, dagger)
+        res, ms, launches, comms, _ = counted(lambda: spectral_function_lanczos(
+            p, gs, e0, op, m=SPECTRAL_M, omegas=omegas, mesh=mesh), mesh.device)
+        phi = ShardedObservable.of(engine, jordan_wigner(excitation_operator(op))).apply(
+            shard_input(gs, mesh, p.n_qubits, torch.complex64))
+        coeffs = lanczos_tridiagonal(ham.apply, phi, SPECTRAL_M, mesh=mesh)
+        out[branch] = dict(poles=res["poles"], weights=res["weights"], A=res["A"],
+                           norm2=res["norm2"], coeffs=coeffs, ms=ms, launches=launches,
+                           comm=comms, tiles={int(m): part.groups().n_tiles
+                                              for m, part in ham.parts.items()})
+    return out
+
+
+def evolution_multistart(mesh, tmp):
+    """MultistartHVA(mesh_devices=D) at 3x3 reps = 10, B = 4: a warm-up epoch,
+    the run counted; at D = 2 the planted fault: rank 1's starts shifted by
+    one row."""
+    import functools
+
+    import torch
+
+    from qsfh_torch.algos import multistart as M
+
+    ms = M.MultistartHVA(results_root=os.path.join(tmp, f"ms_mesh_{mesh.size}"),
+                         device=mesh.device, mesh_devices=mesh.size, **MS_3X3)
+    M.batched_train(ms.loss, ms.batch_params, functools.partial(torch.optim.Adam, lr=ms.lr), 1,
+                    mesh=ms.mesh)
+    out, run_ms, launches, comms, mem = counted(ms.run, mesh.device)
+    res = dict(energies=out["energies"], final_energies=out["final_energies"],
+               best_index=out["best_index"], best_params=out["best_params"],
+               run_ms=run_ms, ms_per_epoch=run_ms / ms.n_epoch, launches=launches, comm=comms,
+               memory_mib=mem, rows=[M.rank_rows(ms.n_starts, ms.mesh).start,
+                                     M.rank_rows(ms.n_starts, ms.mesh).stop])
+    if mesh.size == 2:
+        original = M.rank_rows
+        if mesh.rank == 1:
+            M.rank_rows = lambda n, m: slice(original(n, m).start - 1, original(n, m).stop - 1)
+        try:
+            ms.n_epoch = MS_PLANTED_EPOCHS
+            res["planted_energies"] = ms.run()["energies"]
+        finally:
+            M.rank_rows = original
+    return res
+
+
+def mesh_evolution_rank(mesh, tmp, ite_v):
+    """One rank of phase_mesh_evolution: each case of MESH_EVOLUTION_RUNS."""
+    import torch.distributed as dist
+
+    cases = MESH_EVOLUTION_RUNS[mesh.size]
+    out = dict(rank=mesh.rank, seconds={})
+    for case in cases:
+        t0 = time.perf_counter()
+        if case == "trotter_3x3":
+            out[case] = evolution_trotter(mesh, case, DYN_STEPS)
+        elif case == "trotter_2x6":
+            out[case] = evolution_trotter(mesh, case, TROTTER_2X6_STEPS)
+        elif case == "ite":
+            out[case] = evolution_ite(mesh, ite_v)
+        elif case == "lanczos":
+            out[case] = evolution_lanczos(mesh)
+        else:
+            out[case] = evolution_multistart(mesh, tmp)
+        out["seconds"][case] = time.perf_counter() - t0
+        dist.barrier()
+    return out
+
+
+def seed_phi(p, gs, op, dev):
+    """|phi> = op |gs> on the host in complex128, then on the card."""
+    import torch
+
+    from qsfh_torch.algos.dynamics import apply_on_host, excitation_operator
+    from qsfh_torch.engine.expectation import Observable
+    from qsfh_torch.ops.jw import jordan_wigner
+
+    lad = Observable(jordan_wigner(excitation_operator(op)), p.n_qubits)
+    return torch.from_numpy(apply_on_host(lad, gs)).to(dev)
+
+
+def mesh_evolution_reference(dev, tmp, ite_v):
+    """The single-card runs of the phase's inputs, in the same call: the two
+    quenches, ITE, the two Lanczos seeds (the kernel route and the complex128
+    plain recursion) and the 3x3 multistart."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from qsfh_torch.algos.base import HubbardProblem
+    from qsfh_torch.algos.ite import ImaginaryTimeEvolution
+    from qsfh_torch.algos.multistart import MultistartHVA, batched_train
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.linalg.spectral import lanczos_tridiagonal, spectral_function_lanczos
+
+    ref = {}
+    for label, cfg, n_steps in (("trotter_3x3", TROTTER_3X3, DYN_STEPS),
+                                ("trotter_2x6", TROTTER_2X6, TROTTER_2X6_STEPS)):
+        ev, obs, psi0 = trotter_setup(cfg, dev)
+        ev.evolve(psi0, 1, obs)
+        (psi, rec), ms, launches, _, mem = counted(lambda: ev.evolve(psi0, n_steps, obs), dev)
+        ref[label] = dict(records=rec, state=psi.cpu().numpy(), ms_per_step=ms / n_steps,
+                          launches=launches, memory_mib=mem)
+        del psi, ev, psi0
+    ite = ImaginaryTimeEvolution(HubbardProblem(*ITE_3X3), dbeta=0.01, order=2, device=dev)
+    (_, rec), _, launches, _, _ = counted(lambda: ite.run(ite_v, n_steps=4, block=4), dev)
+    _, ms, _, _, mem = counted(lambda: ite.run(ite_v, n_steps=MESH_ITE_STEPS,
+                                               block=MESH_ITE_STEPS), dev)
+    ref["ite"] = dict(energies=rec["energies"], variances=rec["variances"], launches=launches,
+                      ms_per_step=ms / MESH_ITE_STEPS, memory_mib=mem)
+    p = HubbardProblem(*LANCZOS_3X3, results_root=DEMO_ADAPT)
+    e0, manifold = p.ground_state(degenerate=True, n_states=4)
+    gs, e0 = np.asarray(manifold[0]), float(e0)
+    ham = p.observables["H"]
+    ref["lanczos"] = {}
+    for branch, dagger in (("particle", True), ("hole", False)):
+        op = k_ladder(0, 0, dagger)
+        res, ms, launches, _, _ = counted(lambda: spectral_function_lanczos(
+            p, gs, e0, op, m=SPECTRAL_M, omegas=np.linspace(*SPECTRAL_OMEGAS), device=dev), dev)
+        phi = seed_phi(p, gs, op, dev)
+        ref["lanczos"][branch] = dict(
+            poles=res["poles"], weights=res["weights"], ms=ms, launches=launches, e0=e0,
+            plain128=lanczos_tridiagonal(lambda v: ham.apply_auto(v, K.PLAIN), phi, SPECTRAL_M),
+            coeffs=lanczos_tridiagonal(ham.apply_auto, phi.to(torch.complex64), SPECTRAL_M))
+    ms = MultistartHVA(results_root=os.path.join(tmp, "ms_mesh_ref"), device=dev, **MS_3X3)
+    batched_train(ms.loss, ms.batch_params, functools.partial(torch.optim.Adam, lr=ms.lr), 1)
+    out, run_ms, launches, _, mem = counted(ms.run, dev)
+    ref["multistart"] = dict(out, run_ms=run_ms, ms_per_epoch=run_ms / ms.n_epoch,
+                             launches=launches, memory_mib=mem)
+    return ref
+
+
+def _rel(a, b, floor=0.0):
+    """max |a - b| over max(max |b|, floor)."""
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b)) / max(float(np.max(np.abs(b))), floor))
+
+
+def _state_rel(got, ref):
+    import numpy as np
+
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+def _same_bits(ranks, case, *keys):
+    """Raises unless every rank's ``case`` entries at the dotted ``keys``
+    (arrays, lists, tuples of arrays, dicts of them) are rank 0's bits."""
+    import numpy as np
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return sorted(a) == sorted(b) and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (tuple, list)) and a and not np.isscalar(a[0]):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return np.array_equal(np.asarray(a), np.asarray(b))
+
+    for r in ranks[1:]:
+        for key in keys:
+            a, b = ranks[0][case], r[case]
+            for k in key.split("."):
+                a, b = a[k], b[k]
+            if not same(a, b):
+                raise AssertionError(f"{case}: rank {r['rank']}'s {key} differ from rank 0's bits")
+
+
+def _need(launches, names, label):
+    missing = [k for k in names if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{label}: {missing} never launched")
+
+
+def _per_step(comm_counts, n):
+    return {k: v / n for k, v in comm_counts.items()}
+
+
+def evolution_trotter_gates(label, ranks, ref, n_steps, trace):
+    """The quench's gates on D ranks: the records against the single card
+    (and, at 3x3, the committed trace), the final state, the same record
+    bits on every rank, the launches against the runs, the collectives a
+    step; at 3x3 D = 2 the planted wrong partner must move UD."""
+    import numpy as np
+
+    d = len(ranks)
+    r0 = ranks[0][label]
+    if label == "trotter_3x3":
+        states = [r[label]["state"] for r in ranks]
+        _same_bits(ranks, label, "state")
+        state = states[0]
+    else:
+        state = np.concatenate([r[label]["shard"] for r in ranks])
+    summary = dict(ranks=d, transport=MESH_TRANSPORT.format(d), n_steps=n_steps,
+                   state_rel=_state_rel(state, ref["state"]))
+    # <H> of the Neel quench stays near its start, far below 1: relative to
+    # max(|<H>|, 1), the Hamiltonian's energy scale
+    errs = {k: _rel(r0["records"][k], ref["records"][k], 1.0) for k in ("UD", "H")}
+    summary["records_rel"] = errs
+    if trace is not None:
+        summary["ud_trace_rel"] = _rel(r0["records"]["UD"], trace["energies"])
+    _same_bits(ranks, label, "records")
+    expected = r0["rotation_expected"]
+    for r in ranks:
+        rr = r[label]
+        for name in ("rotation_resident", "rotation_tile_runs", "pauli_rotation"):
+            if rr["launches"].get(name, 0) != n_steps * expected[name]:
+                raise AssertionError(f"{label} D={d} rank {r['rank']}: {name} "
+                                     f"{rr['launches'].get(name, 0)} launches in {n_steps} steps, "
+                                     f"the runs predict {expected[name]} a step")
+        _need(rr["launches"], EVOLUTION_KERNELS[label], f"{label} D={d} rank {r['rank']}")
+        want = n_steps * (rr["pair_runs"] + len(rr["cross"]))
+        if rr["comm"]["exchanges"] != want or rr["comm"]["sums"] != n_steps:
+            raise AssertionError(f"{label} D={d} rank {r['rank']}: {rr['comm']['exchanges']} "
+                                 f"exchanges and {rr['comm']['sums']} sums in {n_steps} steps, "
+                                 f"predicted {want} and {n_steps}")
+    if expected["pauli_rotation"]:
+        raise AssertionError(f"{label} D={d}: terms that fit no tile")
+    if max(errs.values()) > 10 * STATE_RTOL or summary["state_rel"] > 10 * STATE_RTOL or \
+            summary.get("ud_trace_rel", 0.0) > TRACE_RTOL:
+        raise AssertionError(f"{label} D={d}: the sharded quench disagrees: {summary}")
+    summary.update(
+        ms_per_step=[r[label]["ms_per_step"] for r in ranks],
+        single_card_ms_per_step=ref["ms_per_step"], runs=r0["runs"], run_terms=r0["run_terms"],
+        pair_runs=r0["pair_runs"], cross=r0["cross"],
+        launches_per_step={k: v / n_steps for k, v in r0["launches"].items()},
+        single_card_launches_per_step={k: v / n_steps for k, v in ref["launches"].items()},
+        comm_per_step=_per_step(r0["comm"], n_steps),
+        memory_mib=dict(note="(allocated at the start, peak) of each process",
+                        ranks=[r[label]["memory_mib"] for r in ranks],
+                        single_card=ref["memory_mib"]),
+        launches={k: [r[label]["launches"].get(k, 0) for r in ranks]
+                  for k in set().union(*(r[label]["launches"] for r in ranks))})
+    if "planted_ud" in r0:
+        summary["planted_ud_trace_rel"] = _rel(r0["planted_ud"], trace["energies"])
+        if summary["planted_ud_trace_rel"] <= TRACE_RTOL:
+            raise AssertionError(f"{label} D={d}: the wrong partner passes the UD gate")
+    c = summary["comm_per_step"]
+    log(f"  [{label} D={d}] {summary['transport']}: {n_steps} steps, "
+        + ", ".join(f"{ms:.2f}" for ms in summary["ms_per_step"])
+        + f" ms a recorded step by rank (single card {ref['ms_per_step']:.3f}); records within "
+        + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+        + f" and the state within {summary['state_rel']:.1e} of the single card"
+        + (f", UD within {summary['ud_trace_rel']:.1e} of the trace" if trace is not None else "")
+        + f"; runs {r0['runs']} of {r0['run_terms']} terms; per step {c['exchanges']:g} "
+        f"exchanges ({c['exchange_bytes'] / 2**20:.2f} MiB sent), {c['sums']:g} sums, staging "
+        f"{c['staging_ms']:.2f} ms; launches a step " + ", ".join(
+            f"{k} {v:g}" for k, v in summary["launches_per_step"].items()))
+    mem = summary["memory_mib"]
+    log(f"  [{label} D={d}] device MiB (allocated at the start, peak): ranks "
+        + ", ".join(f"({a:.1f}, {b:.1f})" for a, b in mem["ranks"])
+        + f", single card ({mem['single_card'][0]:.1f}, {mem['single_card'][1]:.1f})"
+        + (f"; planted wrong partner: UD {summary['planted_ud_trace_rel']:.2e} from the trace "
+           f"(fails the gate)" if "planted_ud_trace_rel" in summary else ""))
+    return summary
+
+
+def evolution_ite_gates(ranks, ref, trace):
+    import numpy as np
+
+    d = len(ranks)
+    r0 = ranks[0]["ite"]
+    _same_bits(ranks, "ite", "energies", "variances")
+    s = dict(ranks=d, transport=MESH_TRANSPORT.format(d),
+             energy_trace_rel=_rel(r0["energies"], trace["energies"]),
+             variance_trace_rel=_rel(r0["variances"], trace["variances"]),
+             energy_rel=_rel(r0["energies"], ref["energies"]),
+             variance_rel=_rel(r0["variances"], ref["variances"]))
+    tiles = sum(r0["tiles"].values())
+    for r in ranks:
+        ri = r["ite"]
+        want = 4 * ri["order"] * tiles
+        if ri["launches"].get("pauli_apply_grouped") != want:
+            raise AssertionError(f"ite D={d} rank {r['rank']}: "
+                                 f"{ri['launches'].get('pauli_apply_grouped')} "
+                                 f"pauli_apply_grouped launches in 4 steps, the layouts predict "
+                                 f"{want}")
+        cross = len([m for m in ri["tiles"] if m])
+        if ri["comm"]["sums"] != 8 or ri["comm"]["exchanges"] != 4 * ri["order"] * cross:
+            raise AssertionError(f"ite D={d}: collectives {ri['comm']}")
+    if max(s["energy_trace_rel"], s["variance_trace_rel"]) > TRACE_RTOL or \
+            max(s["energy_rel"], s["variance_rel"]) > 10 * STATE_RTOL:
+        raise AssertionError(f"ite D={d}: the sharded ITE disagrees: {s}")
+    s.update(ms_per_step=[r["ite"]["ms_per_step"] for r in ranks],
+             single_card_ms_per_step=ref["ms_per_step"], tiles=r0["tiles"],
+             launches_per_step={k: v / 4 for k, v in r0["launches"].items()},
+             comm_per_step=_per_step(r0["comm"], 4),
+             memory_mib=dict(ranks=[r["ite"]["memory_mib"] for r in ranks],
+                             single_card=ref["memory_mib"]),
+             final_energy=r0["final_energy"],
+             launches={k: [r["ite"]["launches"].get(k, 0) for r in ranks]
+                       for k in r0["launches"]})
+    c = s["comm_per_step"]
+    log(f"  [ite D={d}] energies within {s['energy_trace_rel']:.1e} and variances within "
+        f"{s['variance_trace_rel']:.1e} of the trace (single card {s['energy_rel']:.1e}, "
+        f"{s['variance_rel']:.1e}); {MESH_ITE_STEPS} steps: "
+        + ", ".join(f"{ms:.3f}" for ms in s["ms_per_step"])
+        + f" ms a step by rank (single card {ref['ms_per_step']:.3f}); per step "
+        f"{c['exchanges']:g} exchanges, {c['sums']:g} sums, staging {c['staging_ms']:.2f} ms; "
+        f"pauli_apply_grouped {s['launches_per_step'].get('pauli_apply_grouped', 0):g} a step "
+        f"(tiles by x_hi {r0['tiles']})")
+    return s
+
+
+def evolution_lanczos_gates(ranks, ref, committed):
+    d = len(ranks)
+    omegas = __import__("numpy").linspace(*SPECTRAL_OMEGAS)
+    out = dict(ranks=d, transport=MESH_TRANSPORT.format(d))
+    for branch in ("particle", "hole"):
+        _same_bits(ranks, "lanczos", *(f"{branch}.{k}" for k in ("poles", "weights", "A",
+                                                                "coeffs")))
+        got, want = ranks[0]["lanczos"][branch], ref["lanczos"][branch]
+        e0 = want["e0"]
+        lv = SPECTRAL_A_LEVELS
+        plain = broadened(want["plain128"][0][:lv], want["plain128"][1][:lv], want["plain128"][2],
+                          e0, omegas, 0.05)
+        single = broadened(want["coeffs"][0][:lv], want["coeffs"][1][:lv], want["coeffs"][2], e0,
+                           omegas, 0.05)
+        mine = broadened(got["coeffs"][0][:lv], got["coeffs"][1][:lv], got["coeffs"][2], e0,
+                         omegas, 0.05)
+        edge = band_edge(main_poles(got))
+        row = dict(a_err=float(abs(mine - plain).max() / plain.max()),
+                   a_err_single_card=float(abs(mine - single).max() / single.max()),
+                   edge=edge, edge_err=abs(edge - band_edge(
+                       committed["bands"]["(0,0)"][branch]["main_poles"])),
+                   single_card_edge=band_edge(main_poles(want)), ms=got["ms"],
+                   single_card_ms=want["ms"], launches=got["launches"],
+                   single_card_launches=want["launches"], comm=got["comm"], tiles=got["tiles"])
+        _need(got["launches"], EVOLUTION_KERNELS["lanczos"], f"lanczos {branch}")
+        floor = SPECTRAL_M * sum(got["tiles"].values())
+        if got["launches"].get("pauli_apply_grouped", 0) < floor:
+            raise AssertionError(f"lanczos {branch}: fewer H psi launches than {floor}")
+        if row["a_err"] > SPECTRAL_A_RTOL or row["edge_err"] > SPECTRAL_POLE_ATOL:
+            raise AssertionError(f"lanczos D={d} {branch}: {row}")
+        out[branch] = row
+        log(f"  [lanczos D={d} {branch}] A(omega) of the first {lv} levels within "
+            f"{row['a_err']:.2e} of the complex128 plain Lanczos (tol {SPECTRAL_A_RTOL:g}; the "
+            f"single card {row['a_err_single_card']:.2e}); band edge {edge:.5f}, "
+            f"{row['edge_err']:.1e} from spectral.json (tol {SPECTRAL_POLE_ATOL:g}); "
+            f"{row['ms']:.1f} ms a run of {SPECTRAL_M} (single card {row['single_card_ms']:.1f}); "
+            f"{row['comm']['exchanges']} exchanges and {row['comm']['sums']} sums; launches "
+            + ", ".join(f"{k} {v}" for k, v in row["launches"].items()))
+    out["launches"] = {k: [sum(r["lanczos"][b]["launches"].get(k, 0) for b in
+                               ("particle", "hole")) for r in ranks]
+                       for k in ranks[0]["lanczos"]["particle"]["launches"]}
+    return out
+
+
+def evolution_multistart_gates(ranks, ref):
+    import numpy as np
+
+    d = len(ranks)
+    for r in ranks:
+        m = r["multistart"]
+        same = (np.array_equal(m["energies"], ref["energies"])
+                and np.array_equal(m["final_energies"], ref["final_energies"])
+                and m["best_index"] == ref["best_index"]
+                and all(np.array_equal(m["best_params"][k], v)
+                        for k, v in ref["best_params"].items()))
+        if not same:
+            err = float(np.abs(m["energies"] - ref["energies"]).max())
+            raise AssertionError(f"multistart D={d} rank {r['rank']}: not the one process's bits "
+                                 f"(trajectories {err:.2e} apart)")
+        if m["comm"]["exchanges"] or m["comm"]["sums"] or m["comm"]["gathers"] != 5:
+            raise AssertionError(f"multistart D={d}: collectives {m['comm']}")
+        _need(m["launches"], EVOLUTION_KERNELS["multistart"], f"multistart D={d}")
+    r0 = ranks[0]["multistart"]
+    s = dict(ranks=d, transport=MESH_TRANSPORT.format(d), same_bits=True,
+             ms_per_epoch=[r["multistart"]["ms_per_epoch"] for r in ranks],
+             single_card_ms_per_epoch=ref["ms_per_epoch"],
+             rows=[r["multistart"]["rows"] for r in ranks], comm=r0["comm"],
+             launches_per_epoch={k: v / MS_3X3["n_epoch"] for k, v in r0["launches"].items()},
+             single_card_launches_per_epoch={k: v / MS_3X3["n_epoch"]
+                                             for k, v in ref["launches"].items()},
+             memory_mib=dict(ranks=[r["multistart"]["memory_mib"] for r in ranks],
+                             single_card=ref["memory_mib"]),
+             launches={k: [r["multistart"]["launches"].get(k, 0) for r in ranks]
+                       for k in r0["launches"]})
+    if "planted_energies" in r0:
+        planted = r0["planted_energies"]
+        s["planted_traj_diff"] = float(np.abs(planted - ref["energies"][:len(planted)]).max())
+        if np.array_equal(planted, ref["energies"][:len(planted)]):
+            raise AssertionError("multistart: rank 1's shifted rows pass the equality gate")
+    log(f"  [multistart D={d}] energies, trajectories, best index and best params the same bits "
+        f"as the one process on every rank; "
+        + ", ".join(f"{ms:.1f}" for ms in s["ms_per_epoch"])
+        + f" ms an epoch by rank (single card {ref['ms_per_epoch']:.1f}, all {MS_3X3['n_starts']} "
+        f"starts); the run's collectives {r0['comm']['exchanges']} exchanges, "
+        f"{r0['comm']['sums']} sums, {r0['comm']['gathers']} gathers after the last epoch"
+        + (f"; planted fault (rank 1's rows shifted by one): trajectories "
+           f"{s['planted_traj_diff']:.2e} apart (fails the gate)" if "planted_traj_diff" in s
+           else ""))
+    return s
+
+
+def phase_mesh_evolution(dev, tmp):
+    """Trotter dynamics (3x3 at D = 2, 4; 2x6 at D = 2), ITE and Lanczos
+    spectroscopy (3x3, D = 2) and the multistart start axis (3x3 reps = 10,
+    D = 2, 4) through the Hopper kernels, the ranks on this one card over
+    gloo, against the single-card runs of the same inputs."""
+    import numpy as np
+
+    from qsfh_torch.parallel import spawn_ranks
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)  # phase_ite's start
+    dim = 1 << (2 * ITE_3X3[0] * ITE_3X3[1])
+    ite_v = rng.standard_normal(dim) + 1j * rng.standard_normal(dim)
+    ite_v /= np.linalg.norm(ite_v)
+    ref = mesh_evolution_reference(dev, tmp, ite_v)
+    log(f"  single-card references: {time.perf_counter() - t0:.1f} s")
+    with open(DYN_TRACE) as fh:
+        dyn_trace = json.load(fh)
+    with open(ITE_TRACE) as fh:
+        ite_trace = json.load(fh)
+    committed = _json(DEMO_ADAPT, "spectral.json")
+    out = {}
+    for d, cases in MESH_EVOLUTION_RUNS.items():
+        t1 = time.perf_counter()
+        ranks = spawn_ranks(mesh_evolution_rank, d, backend="gloo", device="cuda",
+                            timeout=MESH_TIMEOUT, args=(tmp, ite_v))
+        log(f"  {d} ranks ({', '.join(cases)}): {time.perf_counter() - t1:.1f} s; rank 0's "
+            "cases " + ", ".join(f"{k} {v:.1f} s" for k, v in ranks[0]["seconds"].items()))
+        for case in cases:
+            key = f"{case}_D{d}"
+            if case.startswith("trotter"):
+                n_steps = DYN_STEPS if case == "trotter_3x3" else TROTTER_2X6_STEPS
+                out[key] = evolution_trotter_gates(case, ranks, ref[case], n_steps,
+                                                   dyn_trace if case == "trotter_3x3" else None)
+            elif case == "ite":
+                out[key] = evolution_ite_gates(ranks, ref["ite"], ite_trace)
+            elif case == "lanczos":
+                out[key] = evolution_lanczos_gates(ranks, ref, committed)
+            else:
+                out[key] = evolution_multistart_gates(ranks, ref["multistart"])
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  sharded evolution phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write every measurement to this JSON file")
@@ -6744,10 +7336,13 @@ def main():
         log("the amplitude-sharded engine (ranks on this card over gloo):")
         mesh = phase_mesh(build_adapt(dev, tmp, "mesh_ref"),
                           build_adapt(dev, tmp, "mesh_ref24", CONFIG_24), dev, tmp)
+        log("the sharded evolution, spectroscopy and start axis (ranks on this card over gloo):")
+        evolution = phase_mesh_evolution(dev, tmp)
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as fh:
-                json.dump(dict(mesh=mesh, nvidia_smi=smi), fh, indent=1, default=str)
+                json.dump(dict(mesh=mesh, mesh_evolution=evolution, nvidia_smi=smi), fh,
+                          indent=1, default=str)
         log(f"smoke test took {time.time() - t_start:.1f} s")
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -6850,11 +7445,15 @@ def main():
     mesh = phase_mesh(adapt, adapt24, dev, tmp)
     log(f"  mesh phase: {time.perf_counter() - t_mesh:.1f} s")
     out["mesh"] = mesh
+    log("the sharded evolution, spectroscopy and start axis: Trotter, ITE, Lanczos and "
+        "multistart on D ranks on this card over gloo:")
+    evolution = phase_mesh_evolution(dev, tmp)
+    out["mesh_evolution"] = evolution
     log(f"smoke test took {time.time() - t_start:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
-            json.dump(out, fh, indent=1)
+            json.dump(out, fh, indent=1, default=str)
 
     line = []
     source = "qsfh_torch/csrc/statevec_kernels.cu"
@@ -7111,6 +7710,10 @@ def main():
     for entry in line:
         entry["launches_mesh"] = {c: sum(m["launches"].get(entry["name"], [0]))
                                   for c, m in mesh.items()}
+        # the sharded Trotter, ITE, Lanczos and multistart runs, summed over the ranks
+        entry["launches_mesh_evolution"] = {
+            c: sum(m["launches"].get(entry["name"], [0])) for c, m in evolution.items()
+            if isinstance(m, dict)}
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

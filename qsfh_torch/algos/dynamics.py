@@ -22,9 +22,21 @@ segment's two angles; no segment is built per step.
 
 Observables per step take ``Observable.expectation_scan`` (the
 inner-product tiles); ``evolve`` keeps each record on the device and
-copies it to the host once, at the end.  The JAX ``mesh`` argument is
-dropped (the multi-GPU port is a later module).  Entry points run on
-``cuda`` unless ``device`` says otherwise.
+copies it to the host once, at the end.  Entry points run on ``cuda``
+unless ``device`` says otherwise.
+
+``mesh`` (``parallel.amplitude_mesh``, D ranks of an initialized
+``torch.distributed`` group): the state is amplitude-sharded.  The step's
+segment goes to a ``parallel.sharded_compiled.ShardedRotations`` once (its
+local runs on the shard, its pair runs on [own | partner], one exchange
+each); each step runs it on the rank's pair buffer with the step's two
+angles.  Observables become ``ShardedObservable`` (one exchange per
+distinct cross x_hi, shared by all of them), overlaps local ``vdot`` of
+the references' shards, and one step's records meet in ONE rank-order sum:
+the same bits on every rank.  ``evolve`` takes the start state whole or
+as the rank's shard and returns the rank's shard of the final state (the
+JAX function returns the whole host state; ``parallel.gather_statevector``
+gives it).
 """
 
 from __future__ import annotations
@@ -68,15 +80,20 @@ def trotter_program(u_rot, groups, order: int):
 
 
 class TrotterEvolution:
-    """Fixed-step real-time propagator for a :class:`HubbardProblem`."""
+    """Fixed-step real-time propagator for a :class:`HubbardProblem`.
 
-    def __init__(self, problem, dt: float, order: int = 2, dtype=None, device=None):
+    ``mesh``: a ``parallel.Mesh`` of an initialized group; the state is
+    amplitude-sharded over its ranks (the module docstring), the device
+    the mesh's."""
+
+    def __init__(self, problem, dt: float, order: int = 2, dtype=None, device=None, mesh=None):
         if order not in (1, 2):
             raise ValueError("order must be 1 (Lie) or 2 (Strang)")
         self.problem = problem
         self.dt = float(dt)
         self.order = order
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.dtype = dtype or default_dtype(self.device)
         self.n_qubits = problem.n_qubits
         # the kernel wrappers; a reference run on the card may set
@@ -87,8 +104,18 @@ class TrotterEvolution:
         self._groups = [g.rotation_terms() for g in (h_rots + v_rots)]
         self._u_rot = jordan_wigner(problem.interacting_term).rotation_terms()
         self._t = float(problem.tunneling)
-        (self.segment,) = CompiledCircuit(
-            trotter_program(self._u_rot, self._groups, order), self.n_qubits).segments
+        ops = trotter_program(self._u_rot, self._groups, order)
+        (self.segment,) = CompiledCircuit(ops, self.n_qubits).segments
+        # on a mesh: the step's runs on the shards, and the sharded
+        # observables (built at first use, one per Observable)
+        self.engine = self.program = None
+        self._sharded = {}
+        if mesh is not None:
+            from ..parallel.sharded_compiled import ShardedRotations
+            from ..parallel.shmap_engine import ShardedPauliEngine
+
+            self.engine = ShardedPauliEngine(self.n_qubits, mesh)
+            self.program = ShardedRotations(self.engine, ops)
         # the Coulomb layer drops JW(H)'s identity component, so the
         # propagator implements exp(-i (H - energy_shift) t): a GLOBAL
         # phase, invisible to expectation values but essential when
@@ -110,14 +137,27 @@ class TrotterEvolution:
         return torch.as_tensor(angles).to(device=self.device, dtype=real_dtype(self.dtype))
 
     def step(self, psi: torch.Tensor, t_scale=None, u_scale=None) -> torch.Tensor:
-        """One Trotter step of ``dt`` (a new state; ``psi`` untouched),
-        the couplings scaled by ``t_scale`` / ``u_scale`` (None = 1)."""
+        """One Trotter step of ``dt`` (a new state; ``psi`` untouched; on a
+        mesh the rank's shard), the couplings scaled by ``t_scale`` /
+        ``u_scale`` (None = 1)."""
         if t_scale is None and u_scale is None:
             angles = self._static
         else:
             angles = self.step_angles(1.0 if t_scale is None else t_scale,
                                       1.0 if u_scale is None else u_scale)
+        if self.mesh is not None:
+            return self.program.apply(psi, angles, impl=self.impl)
         return run_segments([self.segment], psi, angles, self.n_qubits, impl=self.impl)
+
+    def sharded(self, obs: Observable):
+        """``obs`` on the mesh's shards (a ``ShardedObservable``, built once
+        per observable)."""
+        from ..parallel.sharded_compiled import ShardedObservable
+
+        key = id(obs)
+        if key not in self._sharded:
+            self._sharded[key] = (obs, ShardedObservable.of(self.engine, obs.op))
+        return self._sharded[key][1]
 
     # -- trajectory ---------------------------------------------------------------
 
@@ -134,7 +174,9 @@ class TrotterEvolution:
         names to FIXED reference vectors and records the complex series
         ``<ref | psi(t)>``.  Returns ``(psi_final, records)``: the final
         state on the device and per record a host numpy series of
-        ``n_steps`` values.
+        ``n_steps`` values.  On a mesh ``psi0`` and the references are
+        whole states or the rank's shards, and ``psi_final`` is the rank's
+        shard.
         """
         return self._evolve(psi0, n_steps, observables, overlaps, None)
 
@@ -146,6 +188,8 @@ class TrotterEvolution:
                 f"observable and overlap records share one namespace; "
                 f"duplicate name(s): {sorted(clash)}"
             )
+        if self.mesh is not None:
+            return self._evolve_sharded(psi0, n_steps, obs, overlaps or {}, angles)
         refs = {name: as_state(v, self.device, self.dtype)
                 for name, v in (overlaps or {}).items()}
         psi = as_state(psi0, self.device, self.dtype)
@@ -166,6 +210,42 @@ class TrotterEvolution:
             else:
                 records[name] = np.zeros(0, np.complex128 if complex_ else np.float64)
         return psi, records
+
+    def _evolve_sharded(self, psi0, n_steps, obs, overlaps, angles):
+        """:meth:`_evolve` on the mesh: the state in the first half of the
+        program's pair buffer, the first partner's shard received into its
+        second half, one step's records in one rank-order sum."""
+        from ..parallel import comm
+        from ..parallel.mesh import shard_input
+
+        mesh, prog = self.mesh, self.program
+        sharded = {name: self.sharded(o) for name, o in obs.items()}
+        refs = {name: shard_input(v, mesh, self.n_qubits, self.dtype)
+                for name, v in overlaps.items()}
+        cross = {m for o in sharded.values() for m in o.cross}
+        buf = prog.pair_buffer(shard_input(psi0, mesh, self.n_qubits, self.dtype))
+        half = 1 << self.engine.n_local
+        rows = []
+        for k in range(n_steps):
+            psi = prog.run(buf, self._static if angles is None else angles[k], impl=self.impl)
+            partners = self.engine.partners(psi, cross, buf[half:] if prog.exchanges else None)
+            vals = [o.partial(psi, partners, self.impl).reshape(1) for o in sharded.values()]
+            for ref in refs.values():
+                ov = torch.vdot(ref, psi)
+                vals.append(torch.stack([ov.real, ov.imag]))
+            del partners
+            if vals:
+                rows.append(comm.all_sum(torch.cat(vals)))
+        table = torch.stack(rows).cpu().numpy() if rows else None
+        records = {}
+        for i, name in enumerate(sharded):
+            records[name] = table[:, i] if table is not None else np.zeros(0, np.float64)
+        for j, name in enumerate(refs):
+            col = len(sharded) + 2 * j
+            records[name] = (table[:, col] + 1j * table[:, col + 1] if table is not None
+                             else np.zeros(0, np.complex128))
+        psi = buf[:half]
+        return (psi.clone() if prog.exchanges else psi), records
 
 
 def _schedule_values(schedule, default, times):
@@ -271,6 +351,7 @@ def greens_function(
     order: int = 2,
     dtype=None,
     device=None,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Retarded single-particle Green's function via real-time evolution.
 
@@ -280,11 +361,22 @@ def greens_function(
     propagator's device (``Observable.apply_auto``), evolved with the
     Trotter propagator and overlapped against itself each step; the
     ``e^{+i E0 t}`` rotating frame is folded in on the host.  Returns
-    ``(times, G)`` (complex, length ``n_steps``).
+    ``(times, G)`` (complex, length ``n_steps``).  ``mesh``: the
+    evolution on the shards (``ground_state`` whole or the rank's shard),
+    ``|phi>`` built on them (the ladder's cross terms on the partner's
+    shard), every overlap a rank-order sum.
     """
-    ev = TrotterEvolution(problem, dt=dt, order=order, dtype=dtype, device=device)
-    op = Observable(jordan_wigner(excitation_operator(mode, kind)), problem.n_qubits)
-    phi = op.apply_auto(as_state(ground_state, ev.device, ev.dtype), impl=ev.impl)
+    ev = TrotterEvolution(problem, dt=dt, order=order, dtype=dtype, device=device, mesh=mesh)
+    ladder = jordan_wigner(excitation_operator(mode, kind))
+    if mesh is not None:
+        from ..parallel.mesh import shard_input
+        from ..parallel.sharded_compiled import ShardedObservable
+
+        gs = shard_input(ground_state, mesh, problem.n_qubits, ev.dtype)
+        phi = ShardedObservable.of(ev.engine, ladder).apply(gs, impl=ev.impl)
+    else:
+        op = Observable(ladder, problem.n_qubits)
+        phi = op.apply_auto(as_state(ground_state, ev.device, ev.dtype), impl=ev.impl)
     _, rec = ev.evolve(phi, n_steps, overlaps={"G": phi})
     times = (np.arange(n_steps) + 1) * dt
     # the propagator evolves under H - energy_shift (global phase); the

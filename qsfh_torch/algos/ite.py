@@ -15,9 +15,16 @@ Where the JAX driver runs a block of steps as one jitted scan, this one
 runs them in a host loop and reads a block's energies and variances once,
 at its end.  :meth:`thermal_expectation` takes a ``torch.Generator`` (or
 the start vectors themselves, ``draws``) where the JAX one takes a
-``PRNGKey``; the two give different numbers from one seed.  The JAX
-``mesh`` argument is dropped.  Entry points run on ``cuda`` unless
-``device`` says otherwise.
+``PRNGKey``; the two give different numbers from one seed.  Entry points
+run on ``cuda`` unless ``device`` says otherwise.
+
+``mesh`` (``parallel.amplitude_mesh``): the state is amplitude-sharded.
+Each H application is ``ShardedObservable.apply`` (the x_hi = 0 terms on
+the shard, each cross x_hi on the partner's shard, one exchange each); a
+step's E and <H psi|H psi> share one rank-order sum and the norm takes a
+second, so every rank holds the same bits.  ``run`` takes the start state
+whole or as the rank's shard and returns the rank's shard; the thermal
+draws are made whole on every rank, each keeping its shard.
 
 Stability: the Taylor polynomial only contracts eigencomponents with
 ``dbeta * (E_k - E)`` inside a bounded region, so ``dbeta`` must resolve
@@ -64,12 +71,14 @@ class ImaginaryTimeEvolution:
         order: int = 4,
         dtype=None,
         device=None,
+        mesh=None,
     ):
         if order < 1:
             raise ValueError("Taylor order must be >= 1")
         self.problem = problem
         self.n_qubits = problem.n_qubits
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.dtype = dtype or default_dtype(self.device)
         self.order = int(order)
         ham = problem.qubit_hamiltonian
@@ -78,6 +87,43 @@ class ImaginaryTimeEvolution:
         # the kernel wrappers; a reference run on the card may set
         # engine.kernels.PLAIN
         self.impl = KERNELS
+        self.engine = self.sharded_h = None
+        self._sharded_obs = {}
+        self._sum = lambda x: x
+        if mesh is not None:
+            from ..parallel import comm
+            from ..parallel.sharded_compiled import ShardedObservable
+            from ..parallel.shmap_engine import ShardedPauliEngine
+
+            self.engine = ShardedPauliEngine(self.n_qubits, mesh)
+            self.sharded_h = ShardedObservable.of(self.engine, ham)
+            self._sum = comm.all_sum
+
+    def _apply(self, psi):
+        """H psi (on a mesh: the rank's shard of it)."""
+        if self.mesh is not None:
+            return self.sharded_h.apply(psi, impl=self.impl)
+        return self.observable.apply_auto(psi, impl=self.impl)
+
+    def _state(self, vec):
+        """A start state on the device (on a mesh: the rank's shard of a
+        whole state, or the shard itself)."""
+        if self.mesh is not None:
+            from ..parallel.mesh import shard_input
+
+            return shard_input(vec, self.mesh, self.n_qubits, self.dtype)
+        return as_state(vec, self.device, self.dtype)
+
+    def _expectation(self, obs: Observable, psi):
+        """Re <psi|obs|psi> (on a mesh: the same bits on every rank; the
+        sharded layouts built once per observable)."""
+        if self.mesh is None:
+            return obs.expectation_scan(psi, impl=self.impl)
+        from ..parallel.sharded_compiled import ShardedObservable
+
+        if id(obs) not in self._sharded_obs:
+            self._sharded_obs[id(obs)] = (obs, ShardedObservable.of(self.engine, obs.op))
+        return self._sharded_obs[id(obs)][1].expectation(psi, impl=self.impl)
 
     # -- one step -----------------------------------------------------------------
 
@@ -92,19 +138,18 @@ class ImaginaryTimeEvolution:
         polynomial approximates ``exp(-dbeta (H - E))``), which thermal
         typicality accumulates into Boltzmann weights.
         """
-        apply = self.observable.apply_auto
-        h_psi = apply(psi, impl=self.impl)
-        energy = torch.vdot(psi, h_psi).real
-        h2 = torch.vdot(h_psi, h_psi).real
+        h_psi = self._apply(psi)
+        energy, h2 = self._sum(torch.stack([torch.vdot(psi, h_psi).real,
+                                            torch.vdot(h_psi, h_psi).real]))
         variance = h2 - energy * energy
         # accumulate  sum_j (-dbeta)^j / j! (H - E)^j |psi>
         term = psi
         acc = psi
         for j in range(1, self.order + 1):
-            applied = h_psi if j == 1 else apply(term, impl=self.impl)
+            applied = h_psi if j == 1 else self._apply(term)
             term = (-self.dbeta / j) * (applied - energy * term)
             acc = acc + term
-        nrm = torch.sqrt(torch.vdot(acc, acc).real)
+        nrm = torch.sqrt(self._sum(torch.vdot(acc, acc).real))
         logw = torch.log(nrm) - self.dbeta * energy
         return acc / nrm, energy, variance, logw
 
@@ -122,11 +167,11 @@ class ImaginaryTimeEvolution:
         each block's energies and variances once, at its end, and stopping
         early when the last variance drops below ``variance_tol``.
 
-        Returns ``(psi_final, records)``: the final state on the device and
-        host numpy ``energies`` and ``variances`` series (one entry per
-        executed step).
+        Returns ``(psi_final, records)``: the final state on the device (on
+        a mesh the rank's shard) and host numpy ``energies`` and
+        ``variances`` series (one entry per executed step).
         """
-        psi = as_state(psi0, self.device, self.dtype)
+        psi = self._state(psi0)
         energies, variances = [], []
         executed = 0
         while executed < n_steps:
@@ -205,7 +250,7 @@ class ImaginaryTimeEvolution:
             else:
                 v = random_sector_state(self.n_qubits, sector[0], sector[1], generator=generator,
                                         dtype=self.dtype, device=generator.device)
-            return as_state(v, self.device, self.dtype)
+            return self._state(v)
 
         logws = np.zeros(n_samples)
         values = {name: np.zeros(n_samples) for name in obs}
@@ -217,7 +262,7 @@ class ImaginaryTimeEvolution:
                 logw = logw + lw
             logws[r] = 2.0 * float(logw)  # w_r = ||e^{-beta H/2} r||^2
             for name, o in obs.items():
-                values[name][r] = float(o.expectation_scan(psi, impl=self.impl))
+                values[name][r] = float(self._expectation(o, psi))
 
         w = np.exp(logws - logws.max())
         w_sum = w.sum()

@@ -18,9 +18,17 @@ kernels from 9 qubits, the per-term ones below), the HEA as the rot
 segment of :func:`algos.hea.hea_program`; the energy through
 ``Observable.expectation_auto``.  The initial angles are numpy
 ``default_rng(seed)`` draws, the JAX driver's, so both packages start from
-the same bits.  The JAX ``start_mesh`` / ``mesh_devices`` (the start axis
-over a device mesh) are not ported: one card.  Entry points run on
-``cuda`` unless ``device`` says otherwise.
+the same bits.  Entry points run on ``cuda`` unless ``device`` says
+otherwise.
+
+The start axis over ranks (``mesh_devices=D``, :func:`start_mesh`): in an
+initialized ``torch.distributed`` group of D ranks, rank r trains the rows
+[r B/D, (r+1) B/D) of the whole batch, which every rank draws.  The rows
+share nothing and Adam is elementwise, so the epochs make no collective,
+as the JAX program's scan body compiles to none; after the last epoch the
+final parameters, the trajectories and the final energies are gathered in
+rank order (``comm.all_gather_cat``), and every rank returns the same full
+result, the one process's bits.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from __future__ import annotations
 import functools
 import math
 import warnings
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -44,6 +52,22 @@ from .hea import hea_program
 from .hva import flatten_hva_params, hva_program_rot
 
 
+def start_mesh(n_devices: Optional[int] = None, backend: Optional[str] = None, device=None):
+    """The mesh of the multistart batch axis: the initialized process group
+    (``parallel.group_mesh``; any number of ranks, no power-of-two rule).
+    Raises where ``n_devices`` is not the group's size, or is above 1 with
+    no group."""
+    from ..parallel.mesh import group_mesh
+
+    return group_mesh(n_devices, backend, device)
+
+
+def rank_rows(n_starts: int, mesh) -> slice:
+    """The rows of the batch that ``mesh``'s rank trains."""
+    per = n_starts // mesh.size
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
 def _rows(batch_params):
     """(leaves, row(b)) of a (B, ...) tensor or a dict of them."""
     if isinstance(batch_params, dict):
@@ -52,7 +76,8 @@ def _rows(batch_params):
     return [batch_params], lambda b: batch_params[b]
 
 
-def batched_train(loss_fn: Callable, batch_params, optimizer: Callable, n_epoch: int):
+def batched_train(loss_fn: Callable, batch_params, optimizer: Callable, n_epoch: int,
+                  mesh=None):
     """Train every leading-axis row of ``batch_params`` independently.
 
     ``batch_params``: a (B, ...) tensor or a dict of them (copied, not
@@ -67,7 +92,22 @@ def batched_train(loss_fn: Callable, batch_params, optimizer: Callable, n_epoch:
     parameters' device: ``energy_traj[e, b]`` is start b's energy BEFORE
     update e and ``final_energies[b]`` is evaluated at the final
     parameters.
+
+    ``mesh`` (:func:`start_mesh`, D ranks): ``batch_params`` is the whole
+    batch on every rank (B a multiple of D); this rank trains its rows
+    (:func:`rank_rows`) with no collective, and the results are gathered
+    after the last epoch: every rank returns the whole batch's.
     """
+    if mesh is not None and mesh.size > 1:
+        leaves, _ = _rows(batch_params)
+        n_all = leaves[0].shape[0]
+        if n_all % mesh.size:
+            raise ValueError(f"{n_all} starts do not divide over {mesh.size} ranks")
+        rows = rank_rows(n_all, mesh)
+        if isinstance(batch_params, dict):
+            batch_params = {k: v[rows] for k, v in batch_params.items()}
+        else:
+            batch_params = batch_params[rows]
     if isinstance(batch_params, dict):
         params = {k: v.detach().clone().requires_grad_(True) for k, v in batch_params.items()}
     else:
@@ -92,12 +132,37 @@ def batched_train(loss_fn: Callable, batch_params, optimizer: Callable, n_epoch:
         traj = torch.stack(traj)
     else:
         traj = torch.zeros((0, n_starts), dtype=final.dtype, device=final.device)
+    if mesh is not None and mesh.size > 1:
+        from ..parallel.comm import all_gather_cat
+
+        # (rows, epochs) gathered along the rows, then back to (epochs, B)
+        if isinstance(final_params, dict):
+            final_params = {k: all_gather_cat(v) for k, v in final_params.items()}
+        else:
+            final_params = all_gather_cat(final_params)
+        if n_epoch:
+            traj = all_gather_cat(traj.T).T
+        else:
+            traj = torch.zeros((0, n_starts * mesh.size), dtype=final.dtype, device=final.device)
+        final = all_gather_cat(final)
     return final_params, traj, final
 
 
-def _check_starts(n_starts: int):
+def _check_starts(n_starts: int, mesh_devices):
     if n_starts < 1:
         raise ValueError("n_starts must be >= 1")
+    if mesh_devices and n_starts % mesh_devices:
+        raise ValueError(
+            f"n_starts={n_starts} must divide evenly over mesh_devices={mesh_devices}")
+
+
+def _mesh_and_device(mesh_devices, device):
+    """(the start mesh or None, the device): ``mesh_devices`` 0 / None is no
+    mesh, as in the JAX driver; the mesh's device is the rank's."""
+    if not mesh_devices:
+        return None, resolve_device(device)
+    mesh = start_mesh(mesh_devices, device=device)
+    return mesh, mesh.device
 
 
 class MultistartHVA:
@@ -106,7 +171,9 @@ class MultistartHVA:
     The physics arguments of ``HVA``; ``n_starts`` starts drawn
     uniform(-init_scale, init_scale) (zero angles are the 2x2 saddle).
     ``batch_params`` is the JAX dict ``{theta_U: (B, reps+1), theta_v: (B,
-    reps Nv), theta_h: (B, reps Nh)}`` of tensors on the device.
+    reps Nv), theta_h: (B, reps Nh)}`` of tensors on the device (the whole
+    batch on every rank).  ``mesh_devices``: the start axis over the D
+    ranks of an initialized group (:func:`start_mesh`; D divides B).
     """
 
     def __init__(
@@ -126,16 +193,17 @@ class MultistartHVA:
         init_scale: float = 0.1,
         seed: int = 0,
         dtype=None,
+        mesh_devices: Optional[int] = None,
         ground_truth: bool = True,
         results_root: str = "./results",
         device=None,
     ):
-        _check_starts(n_starts)
+        _check_starts(n_starts, mesh_devices)
         self.n_starts = n_starts
         self.n_epoch = n_epoch
         self.reps = reps
         self.lr = lr
-        self.device = resolve_device(device)
+        self.mesh, self.device = _mesh_and_device(mesh_devices, device)
         self.dtype = dtype or default_dtype(self.device)
         rdt = real_dtype(self.dtype)
         self._rdt = rdt
@@ -181,9 +249,15 @@ class MultistartHVA:
             "theta_v": init((B, reps * Nv)),
             "theta_h": init((B, reps * Nh)),
         }
-        self.ground_state_energy = (
-            float(p.ground_state(device=self.device)[0]) if ground_truth else None
-        )
+        if ground_truth:
+            from ..parallel.comm import rank_zero_first
+
+            # on a mesh rank 0 solves (or reads) the ED cache first, the
+            # other ranks then read the file it wrote
+            self.ground_state_energy = float(
+                rank_zero_first(lambda: p.ground_state(device=self.device))[0])
+        else:
+            self.ground_state_energy = None
 
     def loss(self, params):
         """E of one start: ``params`` the JAX dict of rows or the flat
@@ -194,16 +268,16 @@ class MultistartHVA:
 
     def run(self) -> dict:
         return _run_batched(
-            self.loss, self.batch_params, self.lr, self.n_epoch,
+            self.loss, self.batch_params, self.lr, self.n_epoch, self.mesh,
             reference_energy=self.ground_state_energy,
             reference_key="ground_state_energy",
         )
 
 
-def _run_batched(loss, batch_params, lr, n_epoch,
+def _run_batched(loss, batch_params, lr, n_epoch, mesh=None,
                  reference_energy=None, reference_key="reference_energy"):
     final_params, traj, final_e = batched_train(
-        loss, batch_params, functools.partial(torch.optim.Adam, lr=lr), n_epoch
+        loss, batch_params, functools.partial(torch.optim.Adam, lr=lr), n_epoch, mesh=mesh
     )
     e = final_e.double().cpu().numpy()
     traj = traj.double().cpu().numpy()
@@ -241,7 +315,8 @@ class MultistartHEA:
     ``hea.VQE`` plus ``n_starts``; the starts are uniform(-pi, pi) draws
     (the reference HEA's band), ``batch_params`` a (B, reps + 1, n, 3)
     tensor; the gap is reported against the molecule's FCI energy when it
-    has one."""
+    has one.  ``mesh_devices``: the start axis, as for
+    :class:`MultistartHVA`."""
 
     def __init__(
         self,
@@ -252,15 +327,16 @@ class MultistartHEA:
         lr: float,
         seed: int = 0,
         dtype=None,
+        mesh_devices: Optional[int] = None,
         device=None,
     ):
-        _check_starts(n_starts)
+        _check_starts(n_starts, mesh_devices)
         self.molecule = molecule
         self.n_starts = n_starts
         self.n_epoch = n_epoch
         self.reps = reps
         self.lr = lr
-        self.device = resolve_device(device)
+        self.mesh, self.device = _mesh_and_device(mesh_devices, device)
         self.dtype = dtype or default_dtype(self.device)
         self.n_qubits = molecule.n_qubits
         self.impl = KERNELS
@@ -288,6 +364,6 @@ class MultistartHEA:
 
     def run(self) -> dict:
         return _run_batched(
-            self.loss, self.batch_params, self.lr, self.n_epoch,
+            self.loss, self.batch_params, self.lr, self.n_epoch, self.mesh,
             reference_energy=self.fci_energy, reference_key="fci_energy",
         )

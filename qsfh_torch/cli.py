@@ -26,9 +26,10 @@ Deviations from the JAX CLI:
   running the subcommand on its shard of the state; ``--dist-backend``
   names the group's backend: ``nccl`` (the default; one card a rank) or
   ``gloo`` (every rank on ``--device``, the exchanges staged through the
-  host).  Rank 0 alone prints and writes the results.  Multistart's
-  ``--mesh-devices`` is its start axis, not this engine, and accepts 0 or 1
-  only (ROADMAP.md, section 1 item 10).
+  host).  Rank 0 alone prints and writes the results.  ``multistart
+  --mesh-devices D > 1`` spawns D ranks the same way over its start axis
+  (any D that divides ``--n-starts``): each rank trains its rows of the
+  batch, and rank 0 prints the gathered result.
 
 No global state is set: the dtype and device go to each driver
 explicitly, so ``main`` may run several times in one process.
@@ -40,8 +41,6 @@ import argparse
 import sys
 
 MOLECULES = ("H2", "HeH_Ion", "LiH", "BeH2", "H2O", "H4", "H6")
-MESH_HELP = ("sharding the start axis over several devices is not ported yet (ROADMAP.md, "
-             "section 1 item 10): 0 or 1 only")
 SHARD_HELP = ("D > 1 starts D ranks, each holding 1/D of the state (a power of two; "
               "--dist-backend names the process group's backend)")
 
@@ -70,13 +69,13 @@ def _add_run_args(p: argparse.ArgumentParser):
     p.add_argument("--degenerate-subspace", type=int, default=0)
 
 
-def _add_mesh_arg(p: argparse.ArgumentParser, default: int, what: str):
-    p.add_argument("--mesh-devices", type=int, default=default, help=f"{what}; {MESH_HELP}")
-
-
 def _add_shard_args(p: argparse.ArgumentParser):
     p.add_argument("--mesh-devices", type=int, default=1,
                    help=f"amplitude-shard the statevector over this many devices; {SHARD_HELP}")
+    _add_backend_arg(p)
+
+
+def _add_backend_arg(p: argparse.ArgumentParser):
     p.add_argument("--dist-backend", choices=["nccl", "gloo"], default="nccl",
                    help="the process group's backend with --mesh-devices > 1: nccl (one card a "
                         "rank) or gloo (every rank on --device, exchanges through the host)")
@@ -242,7 +241,10 @@ def build_parser():
              "uniform(-pi,pi) like the reference)",
     )
     p.add_argument("--seed", type=int, default=0)
-    _add_mesh_arg(p, 0, "shard the start axis over this many devices (data parallelism)")
+    p.add_argument("--mesh-devices", type=int, default=0,
+                   help="shard the start axis over this many devices (data parallelism): "
+                        "D > 1 starts D ranks, each training n-starts / D of the starts")
+    _add_backend_arg(p)
     p.add_argument("--molecule", default=None,
                    help="run a B-start HEA on this molecule instead of the lattice HVA")
     p.add_argument("--r", type=float, default=0.8, help="bond length [angstrom]")
@@ -282,8 +284,6 @@ def _backend(args):
 
     from .engine.state import resolve_device
 
-    if args.command == "multistart" and args.mesh_devices > 1:
-        raise SystemExit(f"--mesh-devices {args.mesh_devices}: {MESH_HELP}")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         if args.x64:
@@ -327,25 +327,30 @@ def _ground_state(problem, args, dev):
 
 
 def _rank_main(mesh, argv):
-    """One rank of a sharded ``hva`` / ``adapt`` run."""
-    main(argv)
+    """One rank of a sharded ``hva`` / ``adapt`` / ``multistart`` run."""
+    return main(argv)
 
 
 def main(argv=None):
+    """Runs one subcommand; ``multistart`` returns its result dict (on
+    several ranks rank 0's, which every rank shares)."""
     parser, multistart_parser = build_parser()
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parser.parse_args(argv)
-    if args.command in ("hva", "adapt") and args.mesh_devices > 1:
+    if args.command in ("hva", "adapt", "multistart") and args.mesh_devices > 1:
         import torch.distributed as dist
 
         if not dist.is_initialized():
             from .parallel import spawn_ranks
 
-            if args.mesh_devices & (args.mesh_devices - 1):
+            if args.command == "multistart":
+                if args.n_starts % args.mesh_devices:
+                    raise SystemExit(f"--mesh-devices {args.mesh_devices} must divide "
+                                     f"--n-starts {args.n_starts}")
+            elif args.mesh_devices & (args.mesh_devices - 1):
                 raise SystemExit(f"--mesh-devices {args.mesh_devices}: a power of two")
-            spawn_ranks(_rank_main, args.mesh_devices, backend=args.dist_backend,
-                        device=args.device, args=(argv,))
-            return
+            return spawn_ranks(_rank_main, args.mesh_devices, backend=args.dist_backend,
+                               device=args.device, args=(argv,))[0]
     dev, dtype = _backend(args)
 
     if args.command == "hva":
@@ -429,6 +434,7 @@ def main(argv=None):
                 lr=args.lr,
                 seed=args.seed,
                 dtype=dtype,
+                mesh_devices=args.mesh_devices,
                 device=dev,
             )
             ref_key, ref_label = "fci_energy", "FCI"
@@ -442,11 +448,16 @@ def main(argv=None):
                 seed=args.seed,
                 results_root=args.results_root,
                 dtype=dtype,
+                mesh_devices=args.mesh_devices,
                 device=dev,
                 **_lattice_kwargs(args),
             )
             ref_key, ref_label = "ground_state_energy", "ED"
         out = ms.run()
+        from .parallel.comm import rank
+
+        if rank() != 0:  # rank 0 alone prints the gathered result
+            return out
         print(
             f"multistart: {args.n_starts} starts x {args.n_epoch} epochs | "
             f"best start {out['best_index']} energy {out['best_energy']:.8f}"
@@ -461,6 +472,7 @@ def main(argv=None):
             f"final energies: min {spread.min():.8f} median "
             f"{float(np.median(spread)):.8f} max {spread.max():.8f}"
         )
+        return out
     elif args.command == "iqcc":
         from .algos.iqcc import IQCC
 

@@ -15,11 +15,17 @@ reorthogonalization: deep runs can produce near-zero-weight "ghost"
 poles, which broaden away).  H psi is ``Observable.apply_auto``: the
 application tiles (``pauli_apply_grouped``) on the card.  Alpha and beta
 stay on the device for all m steps and are read once; the run is
-truncated at Krylov breakdown on the host afterwards.  The JAX module's
-``mesh=`` is not ported (one card).  ``device``: where a numpy ground
-state goes (``resolve_device``); a tensor is read on its device.
-``impl``: the kernel wrappers (``engine.kernels.KERNELS``) or the plain
-versions (``PLAIN``, e.g. a complex128 reference run on the card).
+truncated at Krylov breakdown on the host afterwards.  ``device``: where a
+numpy ground state goes (``resolve_device``); a tensor is read on its
+device.  ``impl``: the kernel wrappers (``engine.kernels.KERNELS``) or the
+plain versions (``PLAIN``, e.g. a complex128 reference run on the card).
+
+``mesh`` (``parallel.amplitude_mesh``): the recursion on the rank's
+shards.  ``matvec`` maps a shard to its shard; alpha and beta are
+rank-order sums (two a step: the update needs alpha before beta), norm2 a
+float64 one, so every rank holds the same coefficients.  The drivers build
+|phi> on the shards (``ShardedObservable.apply``: the ladder's cross terms
+on the partner's shard) and H psi is ``ShardedObservable.apply``.
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ __all__ = [
 ]
 
 
-def lanczos_tridiagonal(matvec, phi, m: int, device=None) -> Tuple[np.ndarray, np.ndarray, float]:
+def lanczos_tridiagonal(matvec, phi, m: int, device=None, mesh=None, n_qubits=None
+                        ) -> Tuple[np.ndarray, np.ndarray, float]:
     """``m`` Lanczos steps from ``phi`` keeping three vectors.
 
     Returns host ``(alphas, betas, norm2)``: the tridiagonal coefficients
@@ -54,21 +61,47 @@ def lanczos_tridiagonal(matvec, phi, m: int, device=None) -> Tuple[np.ndarray, n
     ``betas[:-1]``) and ``norm2 = <phi|phi>`` in float64.  The recursion
     runs in phi's dtype on phi's device (a numpy phi goes to
     ``resolve_device(device)``), reading the coefficients once at the end.
+
+    ``mesh``: ``phi`` is the rank's shard, or the whole state where it has
+    ``2**n_qubits`` entries (then sharded here); ``matvec`` maps the rank's
+    shard to its shard; every rank returns the same coefficients.
     """
-    phi = state_on_device(phi, device)
-    norm2 = float(torch.linalg.vector_norm(phi.to(torch.complex128)) ** 2)
+    if mesh is None:
+        phi = state_on_device(phi, device)
+        norm2 = float(torch.linalg.vector_norm(phi.to(torch.complex128)) ** 2)
+
+        def norm(w):
+            return torch.linalg.vector_norm(w)
+
+        def dot(v, w):
+            return torch.vdot(v, w)
+    else:
+        from ..parallel import comm
+        from ..parallel.mesh import shard_input, sharded_norm2
+
+        phi = phi if torch.is_tensor(phi) else torch.from_numpy(np.array(phi))
+        if n_qubits is not None:
+            phi = shard_input(phi, mesh, n_qubits, phi.dtype)
+        phi = phi.to(mesh.device)
+        norm2 = sharded_norm2(phi)
+
+        def norm(w):
+            return torch.sqrt(comm.all_sum(torch.vdot(w, w).real))
+
+        def dot(v, w):
+            return comm.all_sum(torch.vdot(v, w))
     if norm2 < 1e-28:
         return np.zeros(0), np.zeros(0), 0.0
     rdt = real_dtype(phi.dtype)
-    v = phi / torch.linalg.vector_norm(phi)
+    v = phi / norm(phi)
     v_prev = torch.zeros_like(v)
     beta_prev = torch.zeros((), dtype=rdt, device=v.device)
     alphas, betas = [], []
     for _ in range(m):
         w = matvec(v)
-        alpha = torch.vdot(v, w).real.to(rdt)
+        alpha = dot(v, w).real.to(rdt)
         w = w - alpha * v - beta_prev * v_prev
-        beta = torch.linalg.vector_norm(w).to(rdt)
+        beta = norm(w).to(rdt)
         v_next = torch.where(beta > 1e-14, w / torch.clamp(beta, min=1e-30), w * 0)
         v_prev, v, beta_prev = v, v_next, beta
         alphas.append(alpha)
@@ -108,6 +141,7 @@ def spectral_function_lanczos(
     dtype=None,
     device=None,
     impl=None,
+    mesh=None,
 ):
     """Single-particle spectral function via the Lanczos resolvent.
 
@@ -119,14 +153,31 @@ def spectral_function_lanczos(
     energies ``E_n - E0``), their ``weights`` (``sum = <phi|phi>``), and,
     when ``omegas`` is given, the broadened
     ``A(omega) = sum_k w_k * eta/pi / ((omega - pole_k)^2 + eta^2)``.
+    ``mesh``: the recursion on the shards (``ground_state`` whole or the
+    rank's shard, in ``dtype`` on the rank's device), |phi> built there by
+    the partner apply; every rank returns the same result.
     """
-    dev = ground_state.device if torch.is_tensor(ground_state) else resolve_device(device)
-    dtype = dtype or default_dtype(dev)
-    ladder = Observable(jordan_wigner(excitation_operator(mode, kind)), problem.n_qubits)
-    phi = torch.from_numpy(apply_on_host(ladder, ground_state, dtype)).to(dev)
-    ham = problem.observables["H"]
     impl = impl or KERNELS
-    alphas, betas, norm2 = lanczos_tridiagonal(lambda v: ham.apply_auto(v, impl), phi, m)
+    ladder_op = jordan_wigner(excitation_operator(mode, kind))
+    if mesh is not None:
+        from ..parallel.mesh import shard_input
+        from ..parallel.sharded_compiled import ShardedObservable
+        from ..parallel.shmap_engine import ShardedPauliEngine
+
+        dtype = dtype or default_dtype(mesh.device)
+        engine = ShardedPauliEngine(problem.n_qubits, mesh)
+        gs = shard_input(ground_state, mesh, problem.n_qubits, dtype)
+        phi = ShardedObservable.of(engine, ladder_op).apply(gs, impl=impl)
+        ham = ShardedObservable.of(engine, problem.qubit_hamiltonian)
+        alphas, betas, norm2 = lanczos_tridiagonal(lambda v: ham.apply(v, impl=impl), phi, m,
+                                                   mesh=mesh)
+    else:
+        dev = ground_state.device if torch.is_tensor(ground_state) else resolve_device(device)
+        dtype = dtype or default_dtype(dev)
+        ladder = Observable(ladder_op, problem.n_qubits)
+        phi = torch.from_numpy(apply_on_host(ladder, ground_state, dtype)).to(dev)
+        ham = problem.observables["H"]
+        alphas, betas, norm2 = lanczos_tridiagonal(lambda v: ham.apply_auto(v, impl), phi, m)
     theta, weights = resolvent_poles(alphas, betas, norm2)
     poles = theta - float(ground_energy)
     out = {"poles": poles, "weights": weights, "norm2": norm2}
@@ -150,6 +201,7 @@ def dynamical_structure_factor(
     dtype=None,
     device=None,
     impl=None,
+    mesh=None,
 ):
     """Dynamical spin/charge structure factor via the Lanczos resolvent:
     ``S^{zz}(q, omega)`` (``kind='spin'``) or ``N(q, omega)``
@@ -179,4 +231,5 @@ def dynamical_structure_factor(
         dtype=dtype,
         device=device,
         impl=impl,
+        mesh=mesh,
     )

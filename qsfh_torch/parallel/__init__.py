@@ -4,7 +4,8 @@ the port of ``qsfh_tpu/parallel/`` (its GSPMD placement hints
 counterpart; :mod:`.comm` and :func:`spawn_ranks` are the port's own)."""
 
 from .comm import all_sum, exchange, spawn_ranks
-from .mesh import Mesh, amplitude_mesh, gather_statevector, local_qubits, shard_statevector
+from .mesh import (Mesh, amplitude_mesh, gather_statevector, group_mesh, local_qubits,
+                   shard_input, shard_statevector, sharded_norm2)
 from .sharded_hva import build_sharded_hva_step
 from .sharded_hva_shmap import build_sharded_hva_step_shmap, build_sharded_hva_train_step
 from .sharded_stream import sharded_expectation_stream
@@ -18,8 +19,11 @@ __all__ = [
     "build_sharded_hva_train_step",
     "exchange",
     "gather_statevector",
+    "group_mesh",
     "local_qubits",
+    "shard_input",
     "shard_statevector",
     "sharded_expectation_stream",
+    "sharded_norm2",
     "spawn_ranks",
 ]

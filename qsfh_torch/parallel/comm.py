@@ -39,10 +39,11 @@ import traceback
 import torch
 import torch.distributed as dist
 
-# exchanges and rank-order sums since the last reset_counts(), their bytes
-# (sent by this rank), and the milliseconds spent staging device tensors
-# through the host (gloo)
-COUNTS = dict(exchanges=0, exchange_bytes=0, sums=0, sum_bytes=0, staging_ms=0.0)
+# exchanges, rank-order sums and gathers since the last reset_counts(), their
+# bytes (sent by this rank), and the milliseconds spent staging device
+# tensors through the host (gloo)
+COUNTS = dict(exchanges=0, exchange_bytes=0, sums=0, sum_bytes=0, gathers=0, gather_bytes=0,
+              staging_ms=0.0)
 
 
 def reset_counts() -> None:
@@ -172,10 +173,26 @@ def all_gather_cat(x: torch.Tensor) -> torch.Tensor:
         v = _to_host(v)
     parts = [torch.empty_like(v) for _ in range(world)]
     dist.all_gather(parts, v)
+    COUNTS["gathers"] += 1
+    COUNTS["gather_bytes"] += v.numel() * v.element_size()
     out = torch.cat(parts)
     if staged:
         out = _to_device(out, x.device)
     return torch.view_as_complex(out) if x.is_complex() else out
+
+
+def rank_zero_first(fn):
+    """``fn()`` on rank 0, then on the other ranks once rank 0 has returned
+    (a barrier between): what rank 0 writes, such as an ED cache file, the
+    others read.  A group of one calls ``fn()``."""
+    if world_size() == 1:
+        return fn()
+    if rank() == 0:
+        out = fn()
+        dist.barrier()
+        return out
+    dist.barrier()
+    return fn()
 
 
 # -- launching a group -----------------------------------------------------------------

@@ -17,10 +17,11 @@ import os
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..engine.state import resolve_device
+from ..engine.state import as_state, resolve_device
 from . import comm
 
 
@@ -54,12 +55,24 @@ def amplitude_mesh(n_devices: Optional[int] = None, backend: Optional[str] = Non
         n_devices = comm.world_size()
     if n_devices < 1 or n_devices & (n_devices - 1):
         raise ValueError(f"amplitude mesh needs a power-of-two device count, got {n_devices}")
+    return group_mesh(n_devices, backend, device)
+
+
+def group_mesh(n_devices: Optional[int] = None, backend: Optional[str] = None,
+               device=None) -> Mesh:
+    """:func:`amplitude_mesh` without its power-of-two rule: the mesh of the
+    initialized group of ``n_devices`` ranks, as any axis over the ranks
+    (multistart's start axis) takes it."""
+    if n_devices is None:
+        n_devices = comm.world_size()
+    if n_devices < 1:
+        raise ValueError(f"a mesh needs at least one device, got {n_devices}")
     if n_devices > 1 and not dist.is_initialized() and "WORLD_SIZE" in os.environ:
         dist.init_process_group(backend or "nccl", init_method="env://")
     world = comm.world_size()
     if n_devices > 1 and not dist.is_initialized():
         raise RuntimeError(
-            f"an amplitude mesh of {n_devices} ranks needs an initialized process group of "
+            f"a mesh of {n_devices} ranks needs an initialized process group of "
             f"{n_devices} ranks: start them with qsfh_torch.parallel.spawn_ranks(fn, "
             f"{n_devices}, backend=...) or torchrun --nproc-per-node {n_devices}")
     if n_devices != world and n_devices > 1:
@@ -93,3 +106,25 @@ def shard_statevector(psi: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def gather_statevector(psi_l: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The full state from the ranks' shards, on every rank."""
     return comm.all_gather_cat(psi_l) if mesh.size > 1 else psi_l.clone()
+
+
+def shard_input(vec, mesh: Mesh, n_qubits: int, dtype) -> torch.Tensor:
+    """This rank's shard of a state given whole (2^n entries: a numpy array
+    or a tensor, host or device) or as the rank's shard (2^n / D entries),
+    told apart by its length: a tensor of ``dtype`` on the mesh's device (a
+    shard already there is returned as it is)."""
+    size = int(vec.shape[0])
+    if size == 1 << n_qubits:
+        full = vec if torch.is_tensor(vec) else torch.from_numpy(np.array(vec))
+        return shard_statevector(full, mesh).to(dtype)
+    if size == (1 << n_qubits) // mesh.size:
+        return as_state(vec, mesh.device, dtype)
+    raise ValueError(f"a state of {size} entries is neither the {n_qubits}-qubit state nor "
+                     f"its shard over {mesh.size} ranks")
+
+
+def sharded_norm2(psi_l: torch.Tensor) -> float:
+    """<psi|psi> over the whole state in float64 (each shard's share
+    widened, then summed in rank order)."""
+    share = torch.linalg.vector_norm(psi_l.to(torch.complex128)) ** 2
+    return float(comm.all_sum(share.reshape(1))[0])

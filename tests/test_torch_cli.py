@@ -12,8 +12,8 @@ drivers.  Also: the two argparse trees have the same subcommands, options
 and defaults apart from the deviations (``--platform`` -> ``--device``, and
 the port's ``--dist-backend``);
 an unknown molecule exits; the multistart ``--molecule`` warnings are the
-JAX CLI's; multistart's ``--mesh-devices 2`` exits naming ROADMAP item 10,
-and hva's and adapt's run on two gloo ranks as the API run does; the default
+JAX CLI's; hva's, adapt's and multistart's ``--mesh-devices 2`` run on two
+gloo ranks as the API run does; the default
 device raises without a card; ``python -m qsfh_torch.cli`` runs with JAX
 blocked.
 """
@@ -230,6 +230,7 @@ def test_unknown_molecule_exits():
 MESH_ARGV = {
     "hva": ["--n-epoch", "3", "--reps", "1"],
     "adapt": ["--n-epoch", "1", "--max-inner-iterations", "3", "--threshold2", "1e-1"],
+    "multistart": ["--n-starts", "4", "--n-epoch", "3", "--reps", "1"],
 }
 
 
@@ -237,8 +238,14 @@ def _api_run(command, argv, root):
     """The results of the same run through the Python API, on one process."""
     from qsfh_torch.algos.adapt import ADAPT
     from qsfh_torch.algos.hva import HVA
+    from qsfh_torch.algos.multistart import MultistartHVA
 
     args = tcli.build_parser()[0].parse_args([command] + argv)
+    if command == "multistart":
+        return MultistartHVA(n_starts=args.n_starts, n_epoch=args.n_epoch, reps=args.reps,
+                             lr=args.lr, init_scale=args.init_scale, seed=args.seed,
+                             results_root=root, dtype=torch.complex128, device="cpu",
+                             **tcli._lattice_kwargs(args)).run()
     common = dict(load_model=False, degenerate_subspace=0, results_root=root, plot=False,
                   dtype=torch.complex128, device="cpu", **tcli._lattice_kwargs(args))
     if command == "hva":
@@ -249,15 +256,27 @@ def _api_run(command, argv, root):
 
 
 @pytest.mark.parametrize("command", ["hva", "adapt", "multistart"])
-def test_mesh_devices_above_one_exits_naming_item_10(command, tmp_path, monkeypatch):
-    """multistart's --mesh-devices (its start axis) exits naming ROADMAP item
-    10; hva and adapt with --mesh-devices 2 --dist-backend gloo run on two
-    gloo ranks and write what the same run through the API gives (1e-9)."""
-    if command == "multistart":
-        with pytest.raises(SystemExit, match="item 10"):
-            tcli.main([command, "--mesh-devices", "2", "--device", "cpu"])
-        return
+def test_mesh_devices_above_one_run_on_gloo_ranks(command, tmp_path, monkeypatch, capfd):
+    """hva, adapt and multistart with --mesh-devices 2 --dist-backend gloo
+    run on two gloo ranks: hva and adapt write, and multistart (its start
+    axis) returns and prints once, what the same run through the API gives
+    (1e-9)."""
     monkeypatch.chdir(tmp_path)
+    if command == "multistart":
+        argv = MESH_ARGV[command] + ["--x64", "--results-root", str(tmp_path / "mesh")]
+        got = tcli.main([command, "--mesh-devices", "2", "--dist-backend", "gloo", "--device",
+                         "cpu"] + argv)
+        out = capfd.readouterr().out
+        ref = _api_run(command, argv, str(tmp_path / "api"))
+        assert out.count("multistart: 4 starts x 3 epochs") == 1
+        assert got["best_index"] == ref["best_index"]
+        for key in ("energies", "final_energies", "best_energy", "best_gap"):
+            np.testing.assert_allclose(got[key], ref[key], rtol=0, atol=1e-9, err_msg=key)
+        for key, values in ref["best_params"].items():
+            np.testing.assert_allclose(got["best_params"][key], values, rtol=0, atol=1e-9)
+        with pytest.raises(SystemExit, match="must divide"):
+            tcli.main([command, "--mesh-devices", "3", "--device", "cpu"] + argv)
+        return
     argv = MESH_ARGV[command] + ["--no-plot", "--x64"]
     tcli.main([command, "--mesh-devices", "2", "--dist-backend", "gloo", "--device", "cpu",
                "--results-root", str(tmp_path / "mesh")] + argv)

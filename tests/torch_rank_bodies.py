@@ -1,5 +1,6 @@
 """Rank bodies of the sharded-engine tests (``tests/test_torch_shmap_engine.py``,
-``tests/test_torch_parallel.py``, ``tests/test_torch_cli.py``).
+``tests/test_torch_parallel.py``, ``tests/test_torch_parallel_evolution.py``,
+``tests/test_torch_cli.py``).
 
 Each function runs on every rank of a group that ``qsfh_torch.parallel.
 spawn_ranks`` started, takes the mesh and plain host inputs, and returns
@@ -208,3 +209,107 @@ def hang(mesh):
     if mesh.rank == 1:
         comm.exchange(torch.zeros(4), 1)
     time.sleep(600)
+
+
+# -- the sharded evolution, spectroscopy and multistart (test_torch_parallel_evolution.py) --
+
+# the ScheduledEvolution case's couplings (a U ramp and a t schedule of 5 steps)
+T_RAMP = np.linspace(1.0, 0.5, 5)
+
+
+def u_ramp(tau):
+    return 4.0 + 8.0 * tau
+
+
+def _counted(fn):
+    """(fn(), the collectives it made)."""
+    comm.reset_counts()
+    out = fn()
+    return out, comm.counts()
+
+
+def evolution_cases(mesh, inp):
+    """Every case of ``tests/test_torch_parallel_evolution.py`` on one group,
+    complex128 on the shards: Trotter, a schedule, Green's functions, ITE and
+    its thermal estimate, Lanczos and both spectral drivers, multistart; each
+    with its collectives counted."""
+    from qsfh_torch.algos.dynamics import ScheduledEvolution, TrotterEvolution, greens_function
+    from qsfh_torch.algos.ite import ImaginaryTimeEvolution
+    from qsfh_torch.algos.multistart import MultistartHVA
+    from qsfh_torch.linalg.spectral import (dynamical_structure_factor, lanczos_tridiagonal,
+                                            spectral_function_lanczos)
+    from qsfh_torch.parallel.sharded_compiled import ShardedObservable
+
+    c128 = torch.complex128
+    out = {"rank": mesh.rank, "seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        out["seconds"][name] = now - clock[0]
+        clock[0] = now
+
+    p = _problem(inp["quench"])
+    obs = {"H": p.observables["H"]}
+    psi0 = inp["psi0"]
+
+    ev = TrotterEvolution(p, dt=0.05, order=2, dtype=c128, mesh=mesh)
+    (psi, rec), counts = _counted(lambda: ev.evolve(psi0, 20, obs))
+    psi_s, rec_s = ev.evolve(shard_statevector(torch.as_tensor(psi0), mesh), 20, obs)
+    out["trotter"] = dict(state=_full(psi, mesh), H=rec["H"], counts=counts,
+                          pair_runs=ev.program.exchanges,
+                          cross=len(ev.sharded(obs["H"]).cross),
+                          shard_in_same=bool(torch.equal(psi, psi_s)
+                                             and np.array_equal(rec["H"], rec_s["H"])))
+
+    sched = ScheduledEvolution(p, dt=0.08, order=2, dtype=c128, mesh=mesh)
+    psi, rec = sched.evolve(psi0, 5, observables=obs, overlaps={"psi0": psi0}, coulomb=u_ramp,
+                            tunneling=T_RAMP)
+    out["scheduled"] = dict(state=_full(psi, mesh), **rec)
+    lap("real time")
+
+    out["greens"] = {}
+    for kind in ("particle", "hole"):
+        times, g = greens_function(p, inp["greens_gs"], -3.1, 0, dt=0.1, n_steps=5, kind=kind,
+                                   dtype=c128, mesh=mesh)
+        out["greens"][kind] = dict(times=times, G=g)
+    lap("greens")
+
+    pi = _problem(inp["ite"])
+    ite = ImaginaryTimeEvolution(pi, dbeta=0.05, order=2, dtype=c128, mesh=mesh)
+    (psi, rec), counts = _counted(lambda: ite.run(inp["ite_v"], n_steps=7, block=3))
+    out["ite"] = dict(state=_full(psi, mesh), counts=counts,
+                      cross=len(ite.sharded_h.cross), **rec)
+    thermal = ImaginaryTimeEvolution(pi, dbeta=0.05, order=4, dtype=c128, mesh=mesh)
+    est, diag = thermal.thermal_expectation(1.0, {"H": pi.observables["H"]},
+                                            draws=inp["thermal_draws"])
+    out["thermal"] = dict(estimates=est, diagnostics=diag)
+    lap("imaginary time")
+
+    ps = _problem(inp["spectral"])
+    from qsfh_torch.parallel.shmap_engine import ShardedPauliEngine
+
+    ham = ShardedObservable.of(ShardedPauliEngine(ps.n_qubits, mesh), ps.qubit_hamiltonian)
+    (a, b, n2), counts = _counted(lambda: lanczos_tridiagonal(
+        lambda v: ham.apply(v), torch.as_tensor(inp["lanczos_phi"]), 12, mesh=mesh,
+        n_qubits=ps.n_qubits))
+    out["lanczos"] = dict(alphas=a, betas=b, norm2=n2, counts=counts)
+    gs, e0, omegas = inp["spectral_gs"], inp["spectral_e0"], inp["omegas"]
+    out["spectral"] = {
+        f"{kind} {mode}": spectral_function_lanczos(ps, gs, e0, mode, kind, m=inp["spectral_m"],
+                                                    omegas=omegas, dtype=c128, mesh=mesh)
+        for kind, mode in inp["spectral_modes"]}
+    out["dsf"] = {
+        f"{kind} {q}": dynamical_structure_factor(ps, gs, e0, q, kind=kind, m=inp["spectral_m"],
+                                                  omegas=omegas, eta=0.1, dtype=c128,
+                                                  mesh=mesh)
+        for kind, q in inp["dsf_cases"]}
+    lap("lanczos")
+
+    ms = MultistartHVA(mesh_devices=mesh.size, device=mesh.device, dtype=c128,
+                       **inp["multistart"])
+    res, counts = _counted(ms.run)
+    out["multistart"] = dict(result=res, counts=counts,
+                             leaves=len(ms.batch_params))
+    lap("multistart")
+    return out
