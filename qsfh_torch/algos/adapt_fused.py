@@ -35,7 +35,12 @@ most of a step.  This runner runs the inner loop in chunks:
   other's file.  A resume continues the epoch's iteration budget (the
   iterations done less those in the epoch-boundary checkpoint), so it
   ends where a run without the stop would; the JAX runner restarts the
-  budget.
+  budget;
+* the chunk, its in-flight save and the selection are spans of
+  ``utils/profiling.py`` (``fused.chunk``, ``fused.inflight_save``,
+  ``fused.select``) and a replay is its device interval
+  (``fused.replay``); :meth:`FusedAdaptRunner.run_inner` takes a callback
+  after each chunk's save.
 
 Not ported: the TPU compile-service workarounds of the JAX runner (the
 program salt bump, the K -> K/2 halving after a rejected compile, the 30 s
@@ -54,6 +59,7 @@ import torch
 from ..engine.dfloat import combine_rayleigh
 from ..io import checkpoint as ckpt
 from ..io.convert import from_jax, load_adam_state, to_jax_leaves
+from ..utils.profiling import device, span
 
 
 def initial_state(vqe) -> torch.Tensor:
@@ -194,7 +200,8 @@ class FusedAdaptRunner:
             graph, final = self._capture(raw, th, optimizer, k, out)
 
             def run():
-                graph.replay()
+                with device("fused.replay"):
+                    graph.replay()
                 self.replays += 1
                 self.final_state = final
                 return self._unpack(out.cpu().numpy(), k)
@@ -298,8 +305,20 @@ class FusedAdaptRunner:
 
     def _run_inner(self, lr: float, epoch: int, adam_state: Optional[dict] = None,
                    inner: int = 0) -> float:
+        """:meth:`run_inner` without a callback."""
+        return self.run_inner(lr, epoch, adam_state, inner)
+
+    def run_inner(self, lr: float, epoch: int, adam_state: Optional[dict] = None,
+                  inner: int = 0, on_chunk=None) -> float:
         """Chunked inner optimization, ``inner`` of the epoch's iterations
-        already done; returns the final gradient norm."""
+        already done; returns the final gradient norm.
+
+        Each chunk is the span ``fused.chunk`` (the replay and the readback)
+        and its in-flight save the span ``fused.inflight_save``
+        (``utils/profiling.py``).  ``on_chunk(results, chunk_s, save_s)`` is
+        called after each chunk's save with the chunk's results (as
+        :meth:`build_chunk`'s callable returns them) and the two spans'
+        seconds."""
         vqe = self.vqe
         th = vqe.params_t.detach().clone()
         optimizer = torch.optim.Adam([th], lr=lr, capturable=th.is_cuda)
@@ -309,9 +328,8 @@ class FusedAdaptRunner:
         chunk = self.build_chunk(th, optimizer, k)
         gnorm = float("inf")
         while inner < self.max_inner_iterations:
-            t0 = time.time()
-            res = chunk()
-            dt = time.time() - t0
+            with span("fused.chunk", steps=k) as timed:
+                res = chunk()
             es, gns = res["energy"], res["gnorm"]
             sz, s2, fid = res["Sz"], res["S2"], res["fidelity"]
             e_df = combine_rayleigh(res["df"]) if res["df"] is not None else None
@@ -336,13 +354,16 @@ class FusedAdaptRunner:
             inner += len(es)
             gnorm = float(gns[-1])
             vqe.params_t = th
-            self._save_inflight(th, optimizer, epoch, lr)
+            with span("fused.inflight_save") as saved:
+                self._save_inflight(th, optimizer, epoch, lr)
             df_part = f" | E_df {e_df:+.12f}" if e_df is not None else ""
             self._log(
                 f"[fused] epoch {epoch + 1} iter {len(vqe.results['iteration loss'])}"
                 f" | E {es[-1]:+.7f}{df_part} | gnorm {gnorm:.3e} | fid {fid[-1]:.6f}"
-                f" | {dt / len(es) * 1e3:.2f} ms/iter (K={k})"
+                f" | {timed.seconds / len(es) * 1e3:.2f} ms/iter (K={k})"
             )
+            if on_chunk is not None:
+                on_chunk(res, timed.seconds, saved.seconds)
             if bool(np.any(gns < vqe.threshold2)):
                 break
         return gnorm
@@ -387,9 +408,9 @@ class FusedAdaptRunner:
             i_epoch += 1
 
         while i_epoch < vqe.n_epoch:
-            t0 = time.time()
-            new_indices, max_grads = select_fn()
-            self._log(f"[fused] screening: {len(new_indices)} ops in {time.time() - t0:.1f}s")
+            with span("fused.select") as timed:
+                new_indices, max_grads = select_fn()
+            self._log(f"[fused] screening: {len(new_indices)} ops in {timed.seconds:.1f}s")
             if not new_indices:
                 self._log("\nconvergence criterion has satisfied, break the loop!")
                 break
@@ -412,7 +433,7 @@ class FusedAdaptRunner:
     def _finish_epoch(self, lr: float, i_epoch: int, adam_state: Optional[dict], inner: int = 0):
         vqe = self.vqe
         self._last_df_energy = None
-        self._run_inner(lr, i_epoch, adam_state, inner)
+        self.run_inner(lr, i_epoch, adam_state, inner)
         vqe.results["epoch loss"].append(vqe.results["iteration loss"][-1])
         if self._last_df_energy is not None:
             # the float64 Rayleigh energy of each epoch's final state beside

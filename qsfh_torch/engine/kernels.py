@@ -99,6 +99,10 @@ inner-product tile wrappers (the partial-sum pass is not counted).  The
 ``psi[idx ^ x]`` and an XOR-folded popcount parity, on any device; the CPU
 tests hold them against the JAX package, and the chip smoke test holds
 every kernel against them on the card.
+
+Every launch of the library passes through one helper, ``_launch``, which
+brackets the library call alone with a device interval of the recorder
+(``utils/profiling.py``) named after the kernel: off, one flag check.
 """
 
 from __future__ import annotations
@@ -117,6 +121,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import streaming
 from .state import index_bits, parity_signs, real_dtype
 from .streaming import INNER_SWIZZLE
@@ -260,9 +265,15 @@ def _load():
         return lib
 
 
-def _check(lib, rc: int, name: str):
+def _launch(name: str, fn, *args):
+    """``fn(*args)``, a launch of the library, inside the recorder's device
+    interval ``name`` (``utils.profiling.device``: CUDA events around the
+    library call alone, not the wrapper's preparation); raises on its
+    error code.  Every launch of the library passes here."""
+    with profiling.device(name):
+        rc = fn(*args)
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}: {lib.qsfh_error_string(rc).decode()}")
+        raise RuntimeError(f"{name}: CUDA error {rc}: {_lib.qsfh_error_string(rc).decode()}")
 
 
 def _stream() -> int:
@@ -337,8 +348,8 @@ def pauli_rotation(psi, xs, zs, angles, phre, phim):
     args = _terms(psi, T, "pauli_rotation", (xs, _MASK), (zs, _MASK),
                   (angles, _SCALAR), (phre, _SCALAR), (phim, _SCALAR))
     lib = _load()
-    rc = lib.qsfh_pauli_rotation(psi.data_ptr(), n, *(a.data_ptr() for a in args), T, _stream())
-    _check(lib, rc, "pauli_rotation")
+    _launch("pauli_rotation", lib.qsfh_pauli_rotation, psi.data_ptr(), n,
+            *(a.data_ptr() for a in args), T, _stream())
     pauli_rotation.launches += T
     return psi
 
@@ -376,9 +387,8 @@ def pauli_apply(psi, xs, zs, cre, cim):
         return out.zero_()
     args = _terms(psi, T, "pauli_apply", (xs, _MASK), (zs, _MASK), (cre, _SCALAR), (cim, _SCALAR))
     lib = _load()
-    rc = lib.qsfh_pauli_apply(psi.data_ptr(), out.data_ptr(), n,
-                              *(a.data_ptr() for a in args), T, _stream())
-    _check(lib, rc, "pauli_apply")
+    _launch("pauli_apply", lib.qsfh_pauli_apply, psi.data_ptr(), out.data_ptr(), n,
+            *(a.data_ptr() for a in args), T, _stream())
     pauli_apply.launches += 1
     return out
 
@@ -428,10 +438,9 @@ def pauli_inner(a, psi, xs, zs):
     chunks = _chunks(T, width)
     partials = torch.empty((chunks[0][1], width), dtype=torch.complex64, device=psi.device)
     for t0, t1 in chunks:
-        rc = lib.qsfh_pauli_inner(a.data_ptr(), psi.data_ptr(), n, xs[t0:].data_ptr(),
-                                  zs[t0:].data_ptr(), t1 - t0, partials.data_ptr(),
-                                  out[t0:].data_ptr(), _stream())
-        _check(lib, rc, "pauli_inner")
+        _launch("pauli_inner", lib.qsfh_pauli_inner, a.data_ptr(), psi.data_ptr(), n,
+                xs[t0:].data_ptr(), zs[t0:].data_ptr(), t1 - t0, partials.data_ptr(),
+                out[t0:].data_ptr(), _stream())
         # the C side also chunks the 65535-term grid-y limit
         pauli_inner.launches += -(-(t1 - t0) // 65535)
     return out
@@ -480,10 +489,9 @@ def adjoint_rotation(psi, lam, xs, zs, angles, phre, phim):
     chunks = _chunks(T, width)
     partials = torch.empty((chunks[0][1], width), dtype=torch.complex64, device=psi.device)
     for t0, t1 in chunks:
-        rc = lib.qsfh_adjoint_rotation(psi.data_ptr(), lam.data_ptr(), n,
-                                       *(t[t0:].data_ptr() for t in args), t1 - t0,
-                                       partials.data_ptr(), out[t0:].data_ptr(), _stream())
-        _check(lib, rc, "adjoint_rotation")
+        _launch("adjoint_rotation", lib.qsfh_adjoint_rotation, psi.data_ptr(), lam.data_ptr(), n,
+                *(t[t0:].data_ptr() for t in args), t1 - t0, partials.data_ptr(),
+                out[t0:].data_ptr(), _stream())
     adjoint_rotation.launches += T
     return out
 
@@ -558,11 +566,9 @@ def rotation_tile_runs(psi, xs, zs, angles, phre, phim, tiles):
     T = xs.shape[0]
     args = _terms(psi, T, "rotation_tile_runs", (angles, _SCALAR), (phre, _SCALAR), (phim, _SCALAR))
     lib = _load()
-    rc = lib.qsfh_rotation_tile_runs(
-        psi.data_ptr(), n, tiles.k, tiles.c, *_tile_tables(tiles, 0, len(tiles)),
-        *(t.data_ptr() for t in tiles.tensors(psi.device)), *(a.data_ptr() for a in args),
-        _stream())
-    _check(lib, rc, "rotation_tile_runs")
+    _launch("rotation_tile_runs", lib.qsfh_rotation_tile_runs, psi.data_ptr(), n, tiles.k, tiles.c,
+            *_tile_tables(tiles, 0, len(tiles)), *(t.data_ptr() for t in tiles.tensors(psi.device)),
+            *(a.data_ptr() for a in args), _stream())
     rotation_tile_runs.launches += len(tiles)
     return psi
 
@@ -602,11 +608,10 @@ def adjoint_tile_runs(psi, lam, xs, zs, angles, phre, phim, tiles):
     partials = torch.empty((rows, width), dtype=torch.complex64, device=psi.device)
     tables = [t.data_ptr() for t in tiles.tensors(psi.device)]
     for r0, r1 in chunks:
-        rc = lib.qsfh_adjoint_tile_runs(
-            psi.data_ptr(), lam.data_ptr(), n, tiles.k, tiles.c, *_tile_tables(tiles, r0, r1),
-            *tables, *(a.data_ptr() for a in args), partials.data_ptr(),
-            out[int(starts[r0]):].data_ptr(), _stream())
-        _check(lib, rc, "adjoint_tile_runs")
+        _launch("adjoint_tile_runs", lib.qsfh_adjoint_tile_runs, psi.data_ptr(), lam.data_ptr(), n,
+                tiles.k, tiles.c, *_tile_tables(tiles, r0, r1), *tables,
+                *(a.data_ptr() for a in args), partials.data_ptr(),
+                out[int(starts[r0]):].data_ptr(), _stream())
     adjoint_tile_runs.launches += len(tiles)
     return out
 
@@ -694,12 +699,10 @@ def rotation_resident(psi, xs, zs, angles, phre, phim, tiles, blocks=None):
     args = _terms(psi, xs.shape[0], name, (angles, _SCALAR), (phre, _SCALAR), (phim, _SCALAR))
     grid = resident_grid(psi, tiles, False, blocks)
     lib = _load()
-    rc = lib.qsfh_rotation_resident(
-        psi.data_ptr(), n, tiles.k, tiles.c, len(tiles), grid, tiles.run_start.ctypes.data,
-        *(t.data_ptr() for t in tiles.run_tensors(psi.device)),
-        *(t.data_ptr() for t in tiles.tensors(psi.device)), *(a.data_ptr() for a in args),
-        _barrier(psi).data_ptr(), _stream())
-    _check(lib, rc, name)
+    _launch(name, lib.qsfh_rotation_resident, psi.data_ptr(), n, tiles.k, tiles.c, len(tiles), grid,
+            tiles.run_start.ctypes.data, *(t.data_ptr() for t in tiles.run_tensors(psi.device)),
+            *(t.data_ptr() for t in tiles.tensors(psi.device)), *(a.data_ptr() for a in args),
+            _barrier(psi).data_ptr(), _stream())
     rotation_resident.launches += 1
     return psi
 
@@ -732,12 +735,11 @@ def adjoint_resident(psi, lam, xs, zs, angles, phre, phim, tiles, blocks=None):
     out = torch.empty(T, dtype=torch.complex64, device=psi.device)
     partials = torch.empty((T, 1 << (n - tiles.k)), dtype=torch.complex64, device=psi.device)
     lib = _load()
-    rc = lib.qsfh_adjoint_resident(
-        psi.data_ptr(), lam.data_ptr(), n, tiles.k, tiles.c, len(tiles), grid,
-        tiles.run_start.ctypes.data, *(t.data_ptr() for t in tiles.run_tensors(psi.device)),
-        *(t.data_ptr() for t in tiles.tensors(psi.device)), *(a.data_ptr() for a in args),
-        partials.data_ptr(), out.data_ptr(), _barrier(psi).data_ptr(), _stream())
-    _check(lib, rc, name)
+    _launch(name, lib.qsfh_adjoint_resident, psi.data_ptr(), lam.data_ptr(), n, tiles.k, tiles.c,
+            len(tiles), grid, tiles.run_start.ctypes.data,
+            *(t.data_ptr() for t in tiles.run_tensors(psi.device)),
+            *(t.data_ptr() for t in tiles.tensors(psi.device)), *(a.data_ptr() for a in args),
+            partials.data_ptr(), out.data_ptr(), _barrier(psi).data_ptr(), _stream())
     adjoint_resident.launches += 1
     return out
 
@@ -775,8 +777,8 @@ def xor_gather(psi, x):
         raise ValueError("xor_gather: the state must be 16-byte aligned")
     out = torch.empty_like(psi)
     lib = _load()
-    rc = lib.qsfh_xor_gather(psi.data_ptr(), out.data_ptr(), n, mask_dev, mask, _stream())
-    _check(lib, rc, "xor_gather")
+    _launch("xor_gather", lib.qsfh_xor_gather, psi.data_ptr(), out.data_ptr(), n, mask_dev, mask,
+            _stream())
     xor_gather.launches += 1
     return out
 
@@ -829,12 +831,12 @@ def _rotation_out(psi, out, x, z, theta, phre, phim):
     lib = _load()
     if (type(x) is int and type(z) is int and type(theta) is float and type(phre) is float
             and type(phim) is float):  # plain numbers: the short entry
-        rc = lib.qsfh_pauli_rotation_out_values(psi.data_ptr(), out.data_ptr(), n, x, z, theta,
-                                                phre, phim, _stream())
+        _launch(name, lib.qsfh_pauli_rotation_out_values, psi.data_ptr(), out.data_ptr(), n, x,
+                z, theta, phre, phim, _stream())
     else:
         args, keep = _scalar_args(psi, name, x, z, theta, phre, phim)
-        rc = lib.qsfh_pauli_rotation_out(psi.data_ptr(), out.data_ptr(), n, *args, _stream())
-    _check(lib, rc, name)
+        _launch(name, lib.qsfh_pauli_rotation_out, psi.data_ptr(), out.data_ptr(), n, *args,
+                _stream())
     pauli_rotation_out.launches += 1
     return out
 
@@ -948,13 +950,12 @@ def _inner_tiles(name, a, psi, xs, zs, tiles, mode, cre=None, cim=None):
         count = _fold_count(psi).data_ptr() if mode == _FOLD_EXPECTATION else 0
         lib = _load()
         for j, (u0, n_units, t0, n_rows, most) in enumerate(plan):
-            rc = lib.qsfh_pauli_inner_tiles(
-                a.data_ptr(), psi.data_ptr(), n, tiles.k, tiles.c, _SWIZZLE, tmask,
-                unit_rows.data_ptr() + 16 * u0, n_units, cols, ix, zlc, zout, start, term_d, order,
-                dzin, dzout, tiles.n_diag, int(tiles.item_start[-1]), t0, n_rows, most, positions,
-                scratch.data_ptr(), mode, fre.data_ptr(), fim.data_ptr(), stride, out.data_ptr(),
-                bsum, count, int(j > 0), _stream())
-            _check(lib, rc, name)
+            _launch(name, lib.qsfh_pauli_inner_tiles, a.data_ptr(), psi.data_ptr(), n, tiles.k,
+                    tiles.c, _SWIZZLE, tmask, unit_rows.data_ptr() + 16 * u0, n_units, cols, ix,
+                    zlc, zout, start, term_d, order, dzin, dzout, tiles.n_diag,
+                    int(tiles.item_start[-1]), t0, n_rows, most, positions, scratch.data_ptr(),
+                    mode, fre.data_ptr(), fim.data_ptr(), stride, out.data_ptr(), bsum, count,
+                    int(j > 0), _stream())
             launches += 1
     elif mode == _FOLD_EXPECTATION:
         out.zero_()
@@ -1120,13 +1121,12 @@ def pauli_apply_grouped(psi, xs, zs, cre, cim, tiles):
         _, _, _, _, _, zout, start, term_d, order = tiles.tensors(psi.device)[:9]
         jt, zt, xa, ehi, dzin, dstart, dterm, dzout = tiles.apply_tensors(psi.device)
         lib = _load()
-        rc = lib.qsfh_pauli_apply_grouped(
-            psi.data_ptr(), out.data_ptr(), n, tiles.k, tiles.c, tiles.n_tiles,
-            tiles.tile_mask.ctypes.data, tiles.tile_items.ctypes.data, tiles.tile_diag.ctypes.data,
-            *(t.data_ptr() for t in (start, term_d, order, jt, zt, xa, ehi, zout, dzin, dstart,
-                                     dterm, dzout)),
-            cre.data_ptr(), cim.data_ptr(), stride, 0, _stream())
-        _check(lib, rc, name)
+        _launch(name, lib.qsfh_pauli_apply_grouped, psi.data_ptr(), out.data_ptr(), n, tiles.k,
+                tiles.c, tiles.n_tiles, tiles.tile_mask.ctypes.data, tiles.tile_items.ctypes.data,
+                tiles.tile_diag.ctypes.data,
+                *(t.data_ptr() for t in (start, term_d, order, jt, zt, xa, ehi, zout, dzin,
+                                         dstart, dterm, dzout)),
+                cre.data_ptr(), cim.data_ptr(), stride, 0, _stream())
         pauli_apply_grouped.launches += tiles.n_tiles
     else:
         out.zero_()
@@ -1169,10 +1169,9 @@ def expectation_norm_f64(psi, xs, zs, cre, cim, starts):
     lib = _load()
     partials = torch.empty(2 * lib.qsfh_f64_blocks(n), dtype=torch.float64, device=psi.device)
     out = torch.empty(4, dtype=torch.float64, device=psi.device)
-    rc = lib.qsfh_expectation_norm_f64(psi.data_ptr(), n, starts.shape[0] - 1, starts.data_ptr(),
-                                       *(a.data_ptr() for a in args), partials.data_ptr(),
-                                       out.data_ptr(), _stream())
-    _check(lib, rc, name)
+    _launch(name, lib.qsfh_expectation_norm_f64, psi.data_ptr(), n, starts.shape[0] - 1,
+            starts.data_ptr(), *(a.data_ptr() for a in args), partials.data_ptr(), out.data_ptr(),
+            _stream())
     expectation_norm_f64.launches += 1
     return out
 
@@ -1305,10 +1304,9 @@ def expectation_norm_f64_tiles(psi, xs, zs, cre, cim, tiles):
     partials = torch.empty(2 * blocks, dtype=torch.float64, device=psi.device)
     out = torch.empty(4, dtype=torch.float64, device=psi.device)
     lib = _load()
-    rc = lib.qsfh_expectation_f64_tiles(
-        psi.data_ptr(), n, tiles.k, tiles.c, _SWIZZLE, *args, cre.data_ptr(), cim.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), _fold_count(psi).data_ptr(), _stream())
-    _check(lib, rc, name)
+    _launch(name, lib.qsfh_expectation_f64_tiles, psi.data_ptr(), n, tiles.k, tiles.c, _SWIZZLE,
+            *args, cre.data_ptr(), cim.data_ptr(), partials.data_ptr(), out.data_ptr(),
+            _fold_count(psi).data_ptr(), _stream())
     expectation_norm_f64_tiles.launches += 1
     if tiles.spill_index.size:
         idx, starts = _spill64(tiles, psi.device)
@@ -1386,10 +1384,9 @@ def rot64_groups(psi, groups: Groups64, theta_ext):
     groups.check(psi, theta_ext, name)
     g = groups
     lib = _load()
-    rc = lib.qsfh_rot64_groups(psi.data_ptr(), n, g.n_groups, g.gx.data_ptr(), g.goff.data_ptr(),
-                               g.gflip.data_ptr(), g.gpidx.data_ptr(), g.zsub.data_ptr(),
-                               g.wsub.data_ptr(), theta_ext.data_ptr(), _stream())
-    _check(lib, rc, name)
+    _launch(name, lib.qsfh_rot64_groups, psi.data_ptr(), n, g.n_groups, g.gx.data_ptr(),
+            g.goff.data_ptr(), g.gflip.data_ptr(), g.gpidx.data_ptr(), g.zsub.data_ptr(),
+            g.wsub.data_ptr(), theta_ext.data_ptr(), _stream())
     rot64_groups.launches += g.n_groups
     return psi
 
@@ -1441,9 +1438,9 @@ def happly64(psi, xs, zs, cre, cim, scale: float = 1.0):
     out = torch.empty_like(psi)
     partials = torch.empty(2 * lib.qsfh_f64_blocks(n), dtype=torch.float64, device=psi.device)
     stats = torch.empty(4, dtype=torch.float64, device=psi.device)
-    rc = lib.qsfh_happly64(psi.data_ptr(), out.data_ptr(), n, T, *(a.data_ptr() for a in args),
-                           float(scale), partials.data_ptr(), stats.data_ptr(), _stream())
-    _check(lib, rc, name)
+    _launch(name, lib.qsfh_happly64, psi.data_ptr(), out.data_ptr(), n, T,
+            *(a.data_ptr() for a in args), float(scale), partials.data_ptr(), stats.data_ptr(),
+            _stream())
     happly64.launches += 1
     return out, stats
 
@@ -1512,11 +1509,10 @@ def happly64_tiles(psi, xs, zs, cre, cim, tiles, scale: float = 1.0):
     stats = torch.empty(4, dtype=torch.float64, device=psi.device)
     partials = torch.empty(2 << (n - tiles.k), dtype=torch.float64, device=psi.device)
     lib = _load()
-    rc = lib.qsfh_happly64_tiles(
-        psi.data_ptr(), out.data_ptr(), n, tiles.k, tiles.c, tiles.n_tiles,
-        _apply64_args(tiles, psi.device), cre.data_ptr(), cim.data_ptr(), float(scale),
-        partials.data_ptr(), stats.data_ptr(), _fold_count(psi).data_ptr(), _stream())
-    _check(lib, rc, name)
+    _launch(name, lib.qsfh_happly64_tiles, psi.data_ptr(), out.data_ptr(), n, tiles.k, tiles.c,
+            tiles.n_tiles, _apply64_args(tiles, psi.device), cre.data_ptr(), cim.data_ptr(),
+            float(scale), partials.data_ptr(), stats.data_ptr(), _fold_count(psi).data_ptr(),
+            _stream())
     happly64_tiles.launches += tiles.n_tiles
     if tiles.spill_index.size:
         idx = _spill64(tiles, psi.device)[0]
@@ -1553,13 +1549,11 @@ def adjoint64_groups(psi, lam, groups: Groups64, theta_ext):
     partials = torch.empty(g.n_groups * lib.qsfh_rot64_blocks(n), dtype=torch.float64,
                            device=psi.device)
     grad = torch.empty(g.n_params, dtype=torch.float64, device=psi.device)
-    rc = lib.qsfh_adjoint64_groups(psi.data_ptr(), lam.data_ptr(), n, g.n_groups,
-                                   g.gx.data_ptr(), g.goff.data_ptr(), g.gflip.data_ptr(),
-                                   g.gpidx.data_ptr(), g.zsub.data_ptr(), g.wsub.data_ptr(),
-                                   theta_ext.data_ptr(), g.n_params, g.param_off.data_ptr(),
-                                   g.param_groups.data_ptr(), partials.data_ptr(),
-                                   grad.data_ptr(), _stream())
-    _check(lib, rc, name)
+    _launch(name, lib.qsfh_adjoint64_groups, psi.data_ptr(), lam.data_ptr(), n, g.n_groups,
+            g.gx.data_ptr(), g.goff.data_ptr(), g.gflip.data_ptr(), g.gpidx.data_ptr(),
+            g.zsub.data_ptr(), g.wsub.data_ptr(), theta_ext.data_ptr(), g.n_params,
+            g.param_off.data_ptr(), g.param_groups.data_ptr(), partials.data_ptr(), grad.data_ptr(),
+            _stream())
     adjoint64_groups.launches += g.n_groups
     return grad
 
@@ -1649,11 +1643,9 @@ def rot64_resident(psi, groups: Groups64, theta_ext, runs, blocks=None):
     n, ptrs, tables = _res64_args(psi, groups, theta_ext, runs, name)
     grid = resident64_grid(psi, runs, False, blocks)
     lib = _load()
-    rc = lib.qsfh_rot64_resident(psi.data_ptr(), n, runs.k, len(runs), grid,
-                                 resident64_threads(runs.k), runs.n_entries,
-                                 runs.most_entries, runs.most_groups, ptrs, tables.data_ptr(),
-                                 _barrier(psi).data_ptr(), _stream())
-    _check(lib, rc, name)
+    _launch(name, lib.qsfh_rot64_resident, psi.data_ptr(), n, runs.k, len(runs), grid,
+            resident64_threads(runs.k), runs.n_entries, runs.most_entries, runs.most_groups, ptrs,
+            tables.data_ptr(), _barrier(psi).data_ptr(), _stream())
     rot64_resident.launches += 1
     return psi
 
@@ -1685,13 +1677,10 @@ def adjoint64_resident(psi, lam, groups: Groups64, theta_ext, runs, blocks=None)
                            device=psi.device)
     grad = torch.empty(g.n_params, dtype=torch.float64, device=psi.device)
     lib = _load()
-    rc = lib.qsfh_adjoint64_resident(psi.data_ptr(), lam.data_ptr(), n, runs.k, len(runs), grid,
-                                     resident64_threads(runs.k), runs.n_entries,
-                                     runs.most_entries, runs.most_groups, ptrs,
-                                     tables.data_ptr(), partials.data_ptr(), g.n_params,
-                                     g.param_off.data_ptr(), g.param_groups.data_ptr(),
-                                     grad.data_ptr(), _barrier(psi).data_ptr(), _stream())
-    _check(lib, rc, name)
+    _launch(name, lib.qsfh_adjoint64_resident, psi.data_ptr(), lam.data_ptr(), n, runs.k, len(runs),
+            grid, resident64_threads(runs.k), runs.n_entries, runs.most_entries, runs.most_groups,
+            ptrs, tables.data_ptr(), partials.data_ptr(), g.n_params, g.param_off.data_ptr(),
+            g.param_groups.data_ptr(), grad.data_ptr(), _barrier(psi).data_ptr(), _stream())
     adjoint64_resident.launches += 1
     return grad
 

@@ -33,6 +33,7 @@ from ..engine import streaming
 from ..engine.compiled import CompiledCircuit, givens_network_static_ops
 from ..engine.kernels import KERNELS, Groups64, f64_tile_layout
 from ..engine.state import resolve_device
+from ..utils.profiling import span
 
 ROUTES = ("resident", "groups")
 
@@ -252,11 +253,13 @@ class Rot64Program:
     def value_and_grad(self, theta, psi0):
         """(E, dE/dtheta) as (float, float64 numpy array), through the fused
         adjoint sweep: lambda = 2 H psi, E = Re <psi|H psi> read before the
-        doubling.  One host read."""
-        psi = self.apply(theta, psi0)
-        lam, stats = self._happly(psi, 2.0)
-        grad = self._adjoint(psi, lam)
-        out = torch.cat([stats[:1], grad]).cpu().numpy()
+        doubling.  One host read; the call is the span
+        ``f64.value_and_grad`` (``utils/profiling.py``)."""
+        with span("f64.value_and_grad"):
+            psi = self.apply(theta, psi0)
+            lam, stats = self._happly(psi, 2.0)
+            grad = self._adjoint(psi, lam)
+            out = torch.cat([stats[:1], grad]).cpu().numpy()
         return float(out[0]), out[1:]
 
     def hvp(self, theta, psi0, v, eps=1e-6) -> np.ndarray:

@@ -11,6 +11,7 @@ per-term vectors, which is float32 rounding over differently ordered sums.
 """
 
 import gc
+import time
 
 import numpy as np
 import pytest
@@ -937,6 +938,129 @@ def test_failed_capture_raises(dev, tmp_path, monkeypatch):
         runner.build_chunk(th, torch.optim.Adam([th], lr=1e-2, capturable=True), 2)
     assert runner.replays == 0 and runner.captures == 0
     torch.cuda.synchronize()
+
+
+@pytest.fixture
+def recorder():
+    from qsfh_torch.utils import profiling as P
+
+    P.collect()
+    P.enable()
+    try:
+        yield P
+    finally:
+        P.disable()
+        P.collect()
+
+
+def test_recorder_device_gap_matches_the_host_clock(dev):
+    """Two launches through a wrapper with 5 ms of host work between them,
+    inside the span ``probe.sleep``: on the host clock the first launch's
+    interval ends before its call returns and the second's starts during
+    its call (within the anchors' windows and 20 us of queueing), so the
+    device gap reads the 5 ms plus the second call's own host work before
+    its launch; its midpoint falls inside the span; the anchors' windows
+    and the drift are under 0.1 ms."""
+    from qsfh_torch.utils import profiling as P
+
+    psi = torch.zeros(1 << 10, dtype=torch.complex64, device=dev)
+    K.xor_gather(psi, 3)  # the library loaded and the kernel warm
+    torch.cuda.synchronize()
+    P.collect()
+    P.enable()
+    try:
+        K.xor_gather(psi, 4)  # the recorder's own path warm
+        torch.cuda.synchronize()
+        P.collect()
+        h0 = time.perf_counter_ns()
+        K.xor_gather(psi, 5)
+        h1 = time.perf_counter_ns()
+        with P.span("probe.sleep"):
+            while time.perf_counter_ns() - h1 < 5_000_000:
+                pass
+        h2 = time.perf_counter_ns()
+        K.xor_gather(psi, 6)
+        h3 = time.perf_counter_ns()
+        tr = P.collect()
+    finally:
+        P.disable()
+        P.collect()
+    first, second = [d for d in tr["device"] if d["name"] == "xor_gather"]
+    assert first["span"] == second["span"] == 0
+    (sleep,) = [s for s in tr["spans"] if s["name"] == "probe.sleep"]
+    slack = 1e6 * max(tr["anchor_ms"]) + 20_000
+    gap_ms = 1e-6 * (second["start_ns"] - first["end_ns"])
+    seen = dict(gap_ms=gap_ms, first=first, second=second, sleep=sleep, host=(h0, h1, h2, h3),
+                anchor_ms=tr["anchor_ms"], drift_ms=tr["drift_ms"])
+    assert h0 - slack <= first["start_ns"] <= first["end_ns"] <= h1 + slack, seen
+    assert h2 - slack <= second["start_ns"] <= h3 + slack, seen
+    assert 1e-6 * (h2 - h1 - 2 * slack) <= gap_ms <= 1e-6 * (h3 - h1 + 2 * slack), seen
+    mid = 0.5 * (first["end_ns"] + second["start_ns"])
+    assert sleep["start_ns"] <= mid <= sleep["end_ns"], seen
+    assert max(tr["anchor_ms"]) < 0.1 and abs(tr["drift_ms"]) < 0.1, seen
+
+
+def test_capture_with_the_recorder_on(dev, tmp_path, recorder, monkeypatch):
+    """A chunk captured with the recorder on: every eager launch of the
+    warm-up step has its device interval, no launch inside the capture
+    has one, each replay is one ``fused.replay`` interval, and the replays
+    match eager steps as in ``test_fused_chunk_replays_eager_steps``."""
+    from qsfh_torch.algos.adapt_fused import FusedAdaptRunner
+
+    P = recorder
+    a = _fused_adapt(dev, tmp_path)
+    th = torch.full((12,), 0.05, dtype=torch.float32, device=dev)
+    opt = torch.optim.Adam([th], lr=1e-2)
+    step = a._build_step(tuple(range(12)))
+    eager = [step(th, opt) for _ in range(8)]
+    eager = [(float(r[2]), float(r[6])) for r in eager]
+    P.collect()
+
+    launch, calls = K._launch, []
+
+    def counted(name, fn, *args):
+        calls.append((name, torch.cuda.is_current_stream_capturing()))
+        return launch(name, fn, *args)
+
+    monkeypatch.setattr(K, "_launch", counted)
+    runner = FusedAdaptRunner(a, chunk_iters=4, verbose=False)
+    th2 = torch.full((12,), 0.05, dtype=torch.float32, device=dev)
+    chunk = runner.build_chunk(th2, torch.optim.Adam([th2], lr=1e-2, capturable=True), 4)
+    built = P.collect()
+    assert any(captured for _, captured in calls)
+    assert [d["name"] for d in built["device"]] == [n for n, captured in calls if not captured]
+    res = [chunk(), chunk()]
+    replayed = P.collect()
+    assert [d["name"] for d in replayed["device"]] == ["fused.replay"] * 2
+    fused = [(e, g) for r in res for e, g in zip(r["energy"], r["gnorm"])]
+    for (e, g), (e_ref, g_ref) in zip(fused, eager):
+        assert abs(e - e_ref) <= 1e-4 * abs(e_ref)
+        assert abs(g - g_ref) <= 1e-4 * abs(g_ref)
+
+
+def test_float64_launch_intervals_inside_value_and_grad(dev, tmp_path, recorder):
+    """Each float64 evaluation is one ``f64.value_and_grad`` span whose
+    kernels' device intervals carry its id and lie inside it on the host
+    clock (within the anchors' windows)."""
+    from qsfh_torch.algos.adapt_fused import initial_state
+    from qsfh_torch.native.statevec import Rot64Program
+
+    P = recorder
+    a = _fused_adapt(dev, tmp_path)
+    prog = Rot64Program.from_adapt(a)
+    psi0 = initial_state(a)
+    x = np.full(12, 0.05)
+    prog.value_and_grad(x, psi0)
+    P.collect()
+    for _ in range(3):
+        prog.value_and_grad(x, psi0)
+    tr = P.collect()
+    spans = {s["id"]: s for s in tr["spans"] if s["name"] == "f64.value_and_grad"}
+    assert len(spans) == 3 and len(tr["device"]) >= 3 * 3
+    slack = 1e6 * max(tr["anchor_ms"])
+    for d in tr["device"]:
+        s = spans[d["span"]]
+        assert s["start_ns"] - slack <= d["start_ns"] <= d["end_ns"] <= s["end_ns"] + slack
 
 
 # (lattice, (Lx, Ly, electrons, up, down)): the 3x3 HVA at 18 qubits (the
