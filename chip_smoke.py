@@ -741,8 +741,9 @@ def per_launch_ms(seg, n, direction, arrs, psi, lam, resident_ms, out):
     return "one launch per run: " + ", ".join(parts) + f" (resident {resident_ms:.4f} ms)"
 
 
-# (k, c) of the resident tiles that --tiles times on the 3x3 segment
-RESIDENT_TILE_SHAPES = ((10, 3), (10, 4), (11, 3), (11, 4), (12, 3), (12, 4), (13, 3), (13, 4))
+# (k, c) of the resident tiles that --tiles times on the 3x3 segment (the
+# adjoint's kernel takes at most 12 bits: kernels.RESIDENT_ADJOINT_MAX_BITS)
+RESIDENT_TILE_SHAPES = ((10, 3), (10, 4), (11, 3), (11, 4), (12, 3), (12, 4))
 
 
 def sweep_resident_shapes(seg, n, psi, lam, rot, adj, ref, v_ref):

@@ -316,12 +316,47 @@ __global__ void pauli_apply_kernel(const float2* __restrict__ psi,
 // banks whichever tile bits R takes.  The sign of slot j is
 // parity(j & z_reg) ^ parity(base & z_tile) ^ the block's sign: the first
 // from the kParity4 table, the rest one bit per thread and term.
+//
+// Fused groups (streaming.fused_groups, TileRuns.frec): 3 to 8 consecutive
+// terms with one flip mask, one parameter and one parity of x & z commute, so their product is exp(-i M), M psi[b] = u r(b) psi[b ^
+// x] with u = 1 (even parity) or i (odd), r(b) = sum_k a_k w_k s_k(b) (a_k
+// the term's angle, w_k its string phase over u): ONE rotation of each pair
+// by the angle r(b), the closed form of qsfh_tpu/engine/compiled.py:307-420
+// (_group_rot_terms, _grot_mix) and of the float64 engine.  With a GF(2)
+// basis zb_i of the group's phase masks (rank R <= 4), s_k(b) =
+// (-1)^parity(q(b) & coef_k), q(b) bit i = parity(b & zb_i), so r takes 2^R
+// values: the block forms the group's table (cos phi_q, dir sin phi_q) while
+// it stages the run, from the call's angles (they change on the card between
+// graph replays).  A fused group is a register group of its own, run
+// straight through shared memory a pair at a time (no register copy of the
+// 16 slots, which would leave the adjoint short of registers); for slot j of
+// a thread, q = q0 ^ the columns of j's register bits (q0 from the tile's
+// outer bits, staged per tile, and the thread's base); r(b ^ x) = r(b) (u =
+// 1) or -r(b) (u = i), so a pair reads one entry.  In the adjoint the
+// group's terms commute with its rotation, so each <lam | P_t psi> is read at
+// the group's end state: the pair's products conj(l[j]) p[j ^ x] go into
+// each term's signed sum before the pair is rotated back, and one transposed
+// warp sum serves all the terms (16 shuffles for 8 terms, where a warp sum a
+// term takes 10 each).
 // ---------------------------------------------------------------------------
 
 constexpr int kRegSlots = 16;         // 2^streaming.REG_BITS
 constexpr int kMaxRunTerms = 256;     // streaming.MAX_RUN_TERMS
+constexpr int kFusedRec = 12;         // streaming.FUSED_RECORD: int32 words of a fused record
+constexpr int kFusedTable = 16;       // table entries of a fused group: 2^streaming.FUSED_MAX_RANK
+constexpr int kFusedMaxTerms = 8;     // streaming.FUSED_CAP
+// A fused group's register word carries kFusedGroup (streaming.FUSED_GROUP);
+// its terms' code words their coefficient masks at bit 12, its first term's
+// also the group's terms less one at 16 and its record within the run at 20.
+constexpr uint32_t kFusedGroup = 1u << 16;
 constexpr int kTileMinBits = 9;       // 2^(k - 4) threads: at least one warp
 constexpr int kTileMaxBits = 13;      // 512 threads
+// adjoint_resident_kernel: 256 threads at most and one block an SM, so that a
+// thread may hold up to 255 registers (bound to 512 threads, ptxas gave it
+// 128 and spilled its per-term loop, p and lam's 16 slots each, beside the
+// fused groups' path); the resident route runs one block an SM anyway
+// (streaming.RESIDENT_TILE_BITS = 11: 128 tiles of 128 threads at 18 qubits)
+constexpr int kResidentAdjointMaxBits = 12;
 
 // A bijection of tile slots that keeps bit 0 (16-byte pairs stay whole for
 // the copies) and XORs bits 1-3 with a fold of the bits above 4.
@@ -425,9 +460,10 @@ __device__ __forceinline__ void adjoint_slots(float2 (&p)[kRegSlots], float2 (&l
 
 // What a tile-run block stages in shared memory while its tile arrives: per term
 // cos and m = dir * (-i sin ph) (dir = 1 forward, -1 adjoint), a code word
-// (x_reg in bits 0-3, z_reg 4-7, the current tile's outer sign 8, KIND
-// 9-10), z_tile and z_out.  `extra` bytes per term (8-byte aligned) follow
-// coef for the caller.
+// (x_reg in bits 0-3, z_reg 4-7, the current tile's outer sign 8, KIND 9-10,
+// the fused bits above), z_tile and z_out; then the fused groups' area
+// (fused_area), whose place follows from these pointers.  `extra` bytes per
+// term (8-byte aligned) follow coef for the caller.
 struct RunStage {
   float4* coef;
   unsigned char* extra;
@@ -436,10 +472,51 @@ struct RunStage {
   uint32_t* zo;
 };
 
-__device__ __forceinline__ RunStage stage_run(unsigned char* smem, int n_terms, size_t extra,
-                                              float dir, const int32_t* __restrict__ code,
+// The fused groups' area after z_out, padded to an even count of terms (so
+// 8-byte aligned; pointer arithmetic alone, so the compiler keeps it in
+// shared memory): their count (an 8-byte header), then per group kFusedBytes:
+// its record (kFusedRec words; word 10 the tile's outer pattern, bit i =
+// parity(outer & zb_i)) and its table (kFusedTable entries (cos phi_q, dir
+// sin phi_q)).
+constexpr int kFusedBytes = kFusedRec * sizeof(int32_t) + kFusedTable * sizeof(float2);
+
+__device__ __forceinline__ unsigned char* fused_area(const RunStage& st) {
+  return reinterpret_cast<unsigned char*>(st.zo + (((st.zo - st.zt) + 1) & ~1));
+}
+
+__device__ __forceinline__ int32_t* fused_rec(const RunStage& st, int f) {
+  return reinterpret_cast<int32_t*>(fused_area(st) + 8 + f * kFusedBytes);
+}
+
+__device__ __forceinline__ float2* fused_tab(const RunStage& st, int f) {
+  return reinterpret_cast<float2*>(fused_rec(st, f) + kFusedRec);
+}
+
+// Shared memory of the staging of a run of n_terms terms, n_fused of its
+// groups fused, `extra` bytes a term for the caller.
+__host__ __device__ constexpr size_t stage_bytes(int n_terms, int n_fused, size_t extra) {
+  return static_cast<size_t>(n_terms) * (sizeof(float4) + extra + 8) +
+         static_cast<size_t>((n_terms + 1) & ~1) * 4 + 8 +
+         static_cast<size_t>(n_fused) * kFusedBytes;
+}
+
+__device__ __forceinline__ uint32_t outer_pattern(const int32_t* rec, uint32_t outer) {
+  uint32_t q = 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q |= (__popc(outer & static_cast<uint32_t>(rec[6 + i])) & 1u) << i;
+  return q;
+}
+
+// The staging of a run for the block's first tile (outer: its outer bits):
+// every term as before the fused groups (their members' scalars too: a
+// branch on a loaded code word would hold the angle's load back), then each
+// fused group's record and table from the layout and the call's angles.
+__device__ __forceinline__ RunStage stage_run(unsigned char* smem, int n_terms, int n_fused,
+                                              size_t extra, float dir, uint32_t outer,
+                                              const int32_t* __restrict__ code,
                                               const int32_t* __restrict__ z_tile,
                                               const int32_t* __restrict__ z_out,
+                                              const int32_t* __restrict__ frec,
                                               const float* __restrict__ angles,
                                               const float* __restrict__ phre,
                                               const float* __restrict__ phim) {
@@ -455,18 +532,49 @@ __device__ __forceinline__ RunStage stage_run(unsigned char* smem, int n_terms, 
     const float pr = phre[t], pi = phim[t];
     st.coef[t] = make_float4(c, dir * sn * pi, -dir * sn * pr, 0.0f);
     const uint32_t kind = pr == 0.0f ? 0u : pi == 0.0f ? 1u : 2u;
-    st.code[t] = static_cast<uint32_t>(code[t]) | (kind << 9);
+    const uint32_t zo = static_cast<uint32_t>(z_out[t]);
+    st.code[t] = static_cast<uint32_t>(code[t]) | (kind << 9) | ((__popc(outer & zo) & 1u) << 8);
     st.zt[t] = static_cast<uint32_t>(z_tile[t]);
-    st.zo[t] = static_cast<uint32_t>(z_out[t]);
+    st.zo[t] = zo;
+  }
+  if (threadIdx.x == 0) *reinterpret_cast<int*>(fused_area(st)) = n_fused;
+  for (int f = threadIdx.x; f < n_fused; f += blockDim.x) {
+    int32_t* rec = fused_rec(st, f);
+    for (int w = 0; w < kFusedRec; ++w) rec[w] = frec[f * kFusedRec + w];
+    rec[10] = static_cast<int32_t>(outer_pattern(frec + f * kFusedRec, outer));
+  }
+  // the tables: entry q of group f, phi_q = sum_k a_k w_k (1 - 2 parity(q & coef_k)),
+  // w_k the term's phase over the unit, in term order (the same bits every call)
+  for (int e = threadIdx.x; e < n_fused * kFusedTable; e += blockDim.x) {
+    const uint32_t head = static_cast<uint32_t>(frec[(e / kFusedTable) * kFusedRec]);
+    const uint32_t q = static_cast<uint32_t>(e % kFusedTable);
+    if (q >> ((head >> 12) & 7u)) continue;  // past the group's 2^R entries
+    const int t0 = head & 255u, S = ((head >> 8) & 7u) + 1;
+    const float* w = (head >> 15) & 1u ? phim : phre;
+    float phi = 0.0f;
+    for (int m = 0; m < S; ++m) {
+      const float a = angles[t0 + m] * w[t0 + m];
+      const uint32_t coef = (static_cast<uint32_t>(code[t0 + m]) >> 12) & 15u;
+      phi += (__popc(q & coef) & 1u) ? -a : a;
+    }
+    float sn, c;
+    sincosf(phi, &sn, &c);
+    fused_tab(st, e / kFusedTable)[q] = make_float2(c, dir * sn);
   }
   return st;
 }
 
-// The outer sign of every term for the block's tile, into code bit 8 (each
-// thread rewrites the entries it staged).
+// A later tile of the run: the outer sign of every term into code bit 8 and
+// each fused group's outer pattern into word 10 of its record (after a block
+// barrier since the staging).
 __device__ __forceinline__ void set_outer_signs(const RunStage& st, int n_terms, uint32_t outer) {
   for (int t = threadIdx.x; t < n_terms; t += blockDim.x)
     st.code[t] = (st.code[t] & ~0x100u) | ((__popc(outer & st.zo[t]) & 1u) << 8);
+  const int n_fused = *reinterpret_cast<const int*>(fused_area(st));
+  for (int f = threadIdx.x; f < n_fused; f += blockDim.x) {
+    int32_t* rec = fused_rec(st, f);
+    rec[10] = static_cast<int32_t>(outer_pattern(rec, outer));
+  }
 }
 
 __device__ __forceinline__ uint32_t case_key(uint32_t code) {
@@ -548,6 +656,175 @@ __device__ __forceinline__ uint32_t term_flips(uint32_t code, uint32_t zt, uint3
   return kParity4[(code >> 4) & 15u] ^ (odd ? 0xffffu : 0u);
 }
 
+// A fused group's pattern of this thread's slot j: q0 ^ the columns of j's
+// register bits.
+struct FusedPattern {
+  uint32_t q0, col[4];
+  __device__ __forceinline__ FusedPattern(const int32_t* rec, uint32_t base) {
+    q0 = static_cast<uint32_t>(rec[10]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q0 ^= (__popc(base & static_cast<uint32_t>(rec[2 + i])) & 1u) << i;
+    const uint32_t cols = static_cast<uint32_t>(rec[1]);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) col[b] = (cols >> (4 * b)) & 15u;
+  }
+  __device__ __forceinline__ uint32_t at(int j) const {
+    return q0 ^ (j & 1 ? col[0] : 0u) ^ (j & 2 ? col[1] : 0u) ^ (j & 4 ? col[2] : 0u) ^
+           (j & 8 ? col[3] : 0u);
+  }
+};
+
+// (c a - i s b, c b - i s a) for U = 0, (c a + s b, c b - s a) for U = 1: a
+// pair of a fused group with its table entry t = (c, s).
+template <int U>
+__device__ __forceinline__ void fused_pair(float2& a, float2& b, float2 t) {
+  const float2 a0 = a, b0 = b;
+  if (U == 0) {
+    a = make_float2(fmaf(t.y, b0.y, t.x * a0.x), fmaf(-t.y, b0.x, t.x * a0.y));
+    b = make_float2(fmaf(t.y, a0.y, t.x * b0.x), fmaf(-t.y, a0.x, t.x * b0.y));
+  } else {
+    a = make_float2(fmaf(t.y, b0.x, t.x * a0.x), fmaf(t.y, b0.y, t.x * a0.y));
+    b = make_float2(fmaf(-t.y, a0.x, t.x * b0.x), fmaf(-t.y, a0.y, t.x * b0.y));
+  }
+}
+
+// (c - i s) a
+__device__ __forceinline__ float2 fused_phase(float2 a, float2 t) {
+  return make_float2(fmaf(t.y, a.y, t.x * a.x), fmaf(-t.y, a.x, t.x * a.y));
+}
+
+// A fused group forward on the tile, straight through shared memory (the
+// group is its register group: no register copy of the 16 slots): exp(-i M)
+// on this thread's slots, a pair at a time.
+template <int X, int U>
+__device__ __forceinline__ void fused_rotation_slots(float2* tile, const GroupSlots& s,
+                                                     const float2* tab, const FusedPattern& q) {
+  constexpr int kPivot = X & 8 ? 8 : X & 4 ? 4 : X & 2 ? 2 : 1;
+#pragma unroll
+  for (int j = 0; j < kRegSlots; ++j) {
+    if (X == 0) {
+      tile[s.at(j)] = fused_phase(tile[s.at(j)], tab[q.at(j)]);
+    } else if ((j & kPivot) == 0) {
+      float2 a = tile[s.at(j)], b = tile[s.at(j ^ X)];
+      fused_pair<U>(a, b, tab[q.at(j)]);
+      tile[s.at(j)] = a;
+      tile[s.at(j ^ X)] = b;
+    }
+  }
+}
+
+__device__ __forceinline__ void fused_rotation(float2* tile, const RunStage& st, uint32_t code_t,
+                                               const GroupSlots& s) {
+  const int32_t* rec = fused_rec(st, code_t >> 20);
+  const float2* tab = fused_tab(st, code_t >> 20);
+  const FusedPattern q(rec, s.base);
+  switch ((code_t & 15u) | ((static_cast<uint32_t>(rec[0]) >> 11) & 16u)) {
+#define QSFH_FUSED_CASE(X, U)                        \
+  case X | (U << 4):                                 \
+    fused_rotation_slots<X, U>(tile, s, tab, q);     \
+    break;
+    QSFH_X_CASES(QSFH_FUSED_CASE, 0) QSFH_X_CASES(QSFH_FUSED_CASE, 1)
+#undef QSFH_FUSED_CASE
+  }
+}
+
+// The sums over the warp of the 16 values of each lane in 16 shuffles (a
+// sum a value takes 5): lanes 16, 8, 4 and 2 apart trade halves of what they
+// hold, then lanes 1 apart add; lane L ends with value L / 2.  The loops run
+// over step counts, so that they unroll and v stays in registers.
+__device__ __forceinline__ float transposed_warp_sum(float (&v)[2 * kFusedMaxTerms], int lane) {
+#pragma unroll
+  for (int step = 0; step < 4; ++step) {
+    const int h = kFusedMaxTerms >> step, off = 16 >> step;
+    const bool up = lane & off;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = up ? v[i] : v[i + h];
+      const float keep = up ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+}
+
+// s_m(j) of a term's flips as +-1.0f
+__device__ __forceinline__ float flip_unit(uint32_t flips, int j) {
+  return __uint_as_float(0x3f800000u | sign_bit(flips, j));
+}
+
+// A fused group of the adjoint (its own register group; the first staged
+// term t, its code word code_t) on the psi and lam tiles, a pair at a time:
+// the pair's products conj(l[j]) p[j ^ X] (at the group's end state: its
+// terms commute with its rotation) go into every term's signed sum acc[2m] +
+// i acc[2m + 1] (the flips of terms past the group's 0), then the pair of
+// each state is rotated by exp(+i M); the sums go over the warp into
+// wsum[warp][t..t + S) by one transposed sum (before the string phase).
+template <int X, int U>
+__device__ __forceinline__ void fused_adjoint_xu(float2* pt, float2* lt, const RunStage& st, int t,
+                                                 uint32_t code_t, const GroupSlots& s,
+                                                 float2* wsum, int n_terms, int lane, int warp) {
+  constexpr int kPivot = X & 8 ? 8 : X & 4 ? 4 : X & 2 ? 2 : 1;
+  const int S = ((code_t >> 16) & 7u) + 1;
+  const FusedPattern q(fused_rec(st, code_t >> 20), s.base);
+  const float2* tab = fused_tab(st, code_t >> 20);
+  uint32_t flips[kFusedMaxTerms];
+  float acc[2 * kFusedMaxTerms];
+#pragma unroll
+  for (int m = 0; m < kFusedMaxTerms; ++m) {
+    flips[m] = m < S ? term_flips(st.code[t + m], st.zt[t + m], s.base) : 0u;
+    acc[2 * m] = acc[2 * m + 1] = 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < kRegSlots; ++j) {
+    if (X == 0) {
+      const float2 p = pt[s.at(j)], l = lt[s.at(j)], tj = tab[q.at(j)];
+      const float2 d = cdot(l, p);
+#pragma unroll
+      for (int m = 0; m < kFusedMaxTerms; ++m) {
+        const float f = flip_unit(flips[m], j);
+        acc[2 * m] = fmaf(f, d.x, acc[2 * m]);
+        acc[2 * m + 1] = fmaf(f, d.y, acc[2 * m + 1]);
+      }
+      pt[s.at(j)] = fused_phase(p, tj);
+      lt[s.at(j)] = fused_phase(l, tj);
+    } else if ((j & kPivot) == 0) {
+      const int k = j ^ X;
+      float2 pj = pt[s.at(j)], pk = pt[s.at(k)], lj = lt[s.at(j)], lk = lt[s.at(k)];
+      const float2 dj = cdot(lj, pk), dk = cdot(lk, pj), tj = tab[q.at(j)];
+#pragma unroll
+      for (int m = 0; m < kFusedMaxTerms; ++m) {
+        const float fj = flip_unit(flips[m], j), fk = flip_unit(flips[m], k);
+        acc[2 * m] = fmaf(fk, dk.x, fmaf(fj, dj.x, acc[2 * m]));
+        acc[2 * m + 1] = fmaf(fk, dk.y, fmaf(fj, dj.y, acc[2 * m + 1]));
+      }
+      fused_pair<U>(pj, pk, tj);
+      fused_pair<U>(lj, lk, tj);
+      pt[s.at(j)] = pj;
+      pt[s.at(k)] = pk;
+      lt[s.at(j)] = lj;
+      lt[s.at(k)] = lk;
+    }
+  }
+  const float sum = transposed_warp_sum(acc, lane);
+  const int e = lane >> 1;  // term e / 2, its real (e even) or imaginary part
+  if ((lane & 1) == 0 && (e >> 1) < S)
+    reinterpret_cast<float*>(wsum)[2 * (warp * n_terms + t + (e >> 1)) + (e & 1)] = sum;
+}
+
+__device__ __forceinline__ void fused_adjoint(float2* pt, float2* lt, const RunStage& st, int t,
+                                              uint32_t code_t, const GroupSlots& s, float2* wsum,
+                                              int n_terms, int lane, int warp) {
+  const uint32_t unit = (static_cast<uint32_t>(fused_rec(st, code_t >> 20)[0]) >> 11) & 16u;
+  switch ((code_t & 15u) | unit) {
+#define QSFH_FUSED_ADJ_CASE(X, U)                                                \
+  case X | (U << 4):                                                             \
+    fused_adjoint_xu<X, U>(pt, lt, st, t, code_t, s, wsum, n_terms, lane, warp); \
+    break;
+    QSFH_X_CASES(QSFH_FUSED_ADJ_CASE, 0) QSFH_X_CASES(QSFH_FUSED_ADJ_CASE, 1)
+#undef QSFH_FUSED_ADJ_CASE
+  }
+}
+
 // The register groups [g0, g1) of a rotation run on one tile in shared
 // memory; group g covers the staged terms [gstart[g], gstart[g + 1]) -
 // t_base.  Ends with the tile written back and the block synchronised.
@@ -556,7 +833,13 @@ __device__ __forceinline__ void rotation_groups(float2* tile, const RunStage& st
                                                 const int32_t* __restrict__ gregs, int g0,
                                                 int g1, int t_base) {
   for (int g = g0; g < g1; ++g) {
-    const GroupSlots s(static_cast<uint32_t>(gregs[g]));
+    const uint32_t regs = static_cast<uint32_t>(gregs[g]);
+    const GroupSlots s(regs);
+    if (regs & kFusedGroup) {  // a fused group, its own register group: its terms at once
+      fused_rotation(tile, st, st.code[gstart[g] - t_base], s);
+      __syncthreads();
+      continue;
+    }
     float2 v[kRegSlots];
 #pragma unroll
     for (int j = 0; j < kRegSlots; ++j) v[j] = tile[s.at(j)];
@@ -592,7 +875,14 @@ __device__ __forceinline__ void adjoint_groups(float2* pt, float2* lt, const Run
                                                int g1, int t_base) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int g = g0; g < g1; ++g) {
-    const GroupSlots s(static_cast<uint32_t>(gregs[g]));
+    const uint32_t regs = static_cast<uint32_t>(gregs[g]);
+    const GroupSlots s(regs);
+    const int t0 = gstart[g] - t_base;
+    if (regs & kFusedGroup) {  // a fused group, its own register group
+      fused_adjoint(pt, lt, st, t0, st.code[t0], s, wsum, n_terms, lane, warp);
+      __syncthreads();
+      continue;
+    }
     float2 p[kRegSlots], l[kRegSlots];
 #pragma unroll
     for (int j = 0; j < kRegSlots; ++j) {
@@ -600,10 +890,10 @@ __device__ __forceinline__ void adjoint_groups(float2* pt, float2* lt, const Run
       l[j] = lt[s.at(j)];
     }
     const int t1 = gstart[g + 1] - t_base;
-    for (int t = gstart[g] - t_base; t < t1; ++t) {
+    for (int t = t0; t < t1; ++t) {
+      const uint32_t code_t = st.code[t];
       const float4 cf = st.coef[t];
       const float2 m = make_float2(cf.y, cf.z);
-      const uint32_t code_t = st.code[t];
       const uint32_t flips = term_flips(code_t, st.zt[t], s.base);
       float2 share = make_float2(0.0f, 0.0f);
       switch (case_key(code_t)) {
@@ -663,17 +953,17 @@ rotation_tile_run_kernel(float2* __restrict__ psi, int n, int k, int c, uint32_t
                          int n_terms, const int32_t* __restrict__ code,
                          const int32_t* __restrict__ z_tile, const int32_t* __restrict__ z_out,
                          const int32_t* __restrict__ gstart, const int32_t* __restrict__ gregs,
-                         int n_groups, int t_base, const float* __restrict__ angles,
-                         const float* __restrict__ phre, const float* __restrict__ phim) {
+                         int n_groups, int t_base, const int32_t* __restrict__ frec, int n_fused,
+                         const float* __restrict__ angles, const float* __restrict__ phre,
+                         const float* __restrict__ phim) {
   extern __shared__ __align__(16) unsigned char smem[];
   float2* tile = reinterpret_cast<float2*>(smem);
   const uint32_t outer = deposit(blockIdx.x, ((1u << n) - 1u) & ~tile_mask);
   const uint32_t hi_mask = tile_mask & ~((1u << c) - 1u);
   load_tile(tile, psi, TileMap(k, c, outer, hi_mask));
   cp_async_commit();
-  const RunStage st = stage_run(smem + (sizeof(float2) << k), n_terms, 0, 1.0f, code, z_tile,
-                                z_out, angles, phre, phim);
-  set_outer_signs(st, n_terms, outer);
+  const RunStage st = stage_run(smem + (sizeof(float2) << k), n_terms, n_fused, 0, 1.0f, outer,
+                                code, z_tile, z_out, frec, angles, phre, phim);
   cp_async_wait_all();
   __syncthreads();
   rotation_groups(tile, st, gstart, gregs, 0, n_groups, t_base);
@@ -701,9 +991,9 @@ adjoint_tile_run_kernel(float2* __restrict__ psi, float2* __restrict__ lam, int 
                         uint32_t tile_mask, int n_terms, const int32_t* __restrict__ code,
                         const int32_t* __restrict__ z_tile, const int32_t* __restrict__ z_out,
                         const int32_t* __restrict__ gstart, const int32_t* __restrict__ gregs,
-                        int n_groups, int t_base, const float* __restrict__ angles,
-                        const float* __restrict__ phre, const float* __restrict__ phim,
-                        float2* __restrict__ partials) {
+                        int n_groups, int t_base, const int32_t* __restrict__ frec, int n_fused,
+                        const float* __restrict__ angles, const float* __restrict__ phre,
+                        const float* __restrict__ phim, float2* __restrict__ partials) {
   extern __shared__ __align__(16) unsigned char smem[];
   float2* pt = reinterpret_cast<float2*>(smem);
   float2* lt = pt + (1u << k);
@@ -716,10 +1006,9 @@ adjoint_tile_run_kernel(float2* __restrict__ psi, float2* __restrict__ lam, int 
     cp_async_commit();
   }
   const int n_warps = blockDim.x >> 5;
-  const RunStage st = stage_run(smem + 2 * (sizeof(float2) << k), n_terms,
-                                n_warps * sizeof(float2), -1.0f, code, z_tile, z_out, angles,
-                                phre, phim);
-  set_outer_signs(st, n_terms, outer);
+  const RunStage st = stage_run(smem + 2 * (sizeof(float2) << k), n_terms, n_fused,
+                                n_warps * sizeof(float2), -1.0f, outer, code, z_tile, z_out, frec,
+                                angles, phre, phim);
   float2* wsum = reinterpret_cast<float2*>(st.extra);  // [warp][t]
   cp_async_wait_all();
   __syncthreads();
@@ -788,11 +1077,13 @@ __global__ void __launch_bounds__(1 << (kTileMaxBits - 4))
 rotation_resident_kernel(float2* __restrict__ psi, int n, int k, int c, int n_runs,
                          const int32_t* __restrict__ run_start,
                          const int32_t* __restrict__ run_mask,
-                         const int32_t* __restrict__ run_group, const int32_t* __restrict__ code,
+                         const int32_t* __restrict__ run_group,
+                         const int32_t* __restrict__ run_fgroup, const int32_t* __restrict__ code,
                          const int32_t* __restrict__ z_tile, const int32_t* __restrict__ z_out,
                          const int32_t* __restrict__ gstart, const int32_t* __restrict__ gregs,
-                         const float* __restrict__ angles, const float* __restrict__ phre,
-                         const float* __restrict__ phim, unsigned int* barrier) {
+                         const int32_t* __restrict__ frec, const float* __restrict__ angles,
+                         const float* __restrict__ phre, const float* __restrict__ phim,
+                         unsigned int* barrier) {
   extern __shared__ __align__(16) unsigned char smem[];
   float2* tile = reinterpret_cast<float2*>(smem);
   const uint32_t n_tiles = 1u << (n - k), all = (1u << n) - 1u;
@@ -807,9 +1098,11 @@ rotation_resident_kernel(float2* __restrict__ psi, int n, int k, int c, int n_ru
       load_tile(tile, psi, map);
       cp_async_commit();
       if (o == blockIdx.x)  // the run's scalars, staged while the first tile's copy is in flight
-        st = stage_run(smem + (sizeof(float2) << k), T, 0, 1.0f, code + t0, z_tile + t0,
-                       z_out + t0, angles + t0, phre + t0, phim + t0);
-      set_outer_signs(st, T, outer);
+        st = stage_run(smem + (sizeof(float2) << k), T, run_fgroup[r + 1] - run_fgroup[r], 0,
+                       1.0f, outer, code + t0, z_tile + t0, z_out + t0,
+                       frec + run_fgroup[r] * kFusedRec, angles + t0, phre + t0, phim + t0);
+      else
+        set_outer_signs(st, T, outer);
       cp_async_wait_all();
       __syncthreads();
       rotation_groups(tile, st, gstart, gregs, run_group[r], run_group[r + 1], t0);
@@ -820,14 +1113,16 @@ rotation_resident_kernel(float2* __restrict__ psi, int n, int k, int c, int n_ru
   }
 }
 
-__global__ void __launch_bounds__(1 << (kTileMaxBits - 4))
+__global__ void __launch_bounds__(1 << (kResidentAdjointMaxBits - 4), 1)
 adjoint_resident_kernel(float2* __restrict__ psi, float2* __restrict__ lam, int n, int k, int c,
                         int n_runs, const int32_t* __restrict__ run_start,
                         const int32_t* __restrict__ run_mask,
-                        const int32_t* __restrict__ run_group, const int32_t* __restrict__ code,
+                        const int32_t* __restrict__ run_group,
+                        const int32_t* __restrict__ run_fgroup, const int32_t* __restrict__ code,
                         const int32_t* __restrict__ z_tile, const int32_t* __restrict__ z_out,
                         const int32_t* __restrict__ gstart, const int32_t* __restrict__ gregs,
-                        const float* __restrict__ angles, const float* __restrict__ phre,
+                        const int32_t* __restrict__ frec, const float* __restrict__ angles,
+                        const float* __restrict__ phre,
                         const float* __restrict__ phim, float2* __restrict__ partials,
                         float2* __restrict__ out, unsigned int* barrier) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -847,10 +1142,12 @@ adjoint_resident_kernel(float2* __restrict__ psi, float2* __restrict__ lam, int 
       load_tile(lt, lam, map);
       cp_async_commit();
       if (o == blockIdx.x)  // the run's scalars, staged while the first tiles' copies are in flight
-        st = stage_run(smem + 2 * (sizeof(float2) << k), T, n_warps * sizeof(float2), -1.0f,
-                       code + t0, z_tile + t0, z_out + t0, angles + t0, phre + t0, phim + t0);
+        st = stage_run(smem + 2 * (sizeof(float2) << k), T, run_fgroup[r + 1] - run_fgroup[r],
+                       n_warps * sizeof(float2), -1.0f, outer, code + t0, z_tile + t0, z_out + t0,
+                       frec + run_fgroup[r] * kFusedRec, angles + t0, phre + t0, phim + t0);
+      else
+        set_outer_signs(st, T, outer);
       float2* wsum = reinterpret_cast<float2*>(st.extra);  // [warp][t]
-      set_outer_signs(st, T, outer);
       cp_async_wait_all();
       __syncthreads();  // also: the previous tile's partials have read wsum
       adjoint_groups(pt, lt, st, wsum, T, gstart, gregs, run_group[r], run_group[r + 1], t0);
@@ -1845,13 +2142,13 @@ inline bool tile_shape_ok(int n, int k, int c) {
   return k >= kTileMinBits && k <= kTileMaxBits && k <= n && c >= 1 && c <= k - 3;
 }
 
-// Dynamic shared memory of a resident launch: the tile(s), then the staged
-// scalars of the longest run (cos and m, code, z_tile, z_out; the adjoint
-// adds a float2 per warp for the warp rows).
+// Dynamic shared memory of a resident launch: the tile(s), then the staging
+// of the longest run (stage_run; the adjoint adds a float2 per warp and term
+// for the warp rows), its fused groups at most one per two terms.
 inline size_t resident_smem(bool adjoint, int k, int most_terms) {
   const size_t tiles = (adjoint ? 2 : 1) * (sizeof(float2) << k);
   const size_t warp_rows = adjoint ? ((1u << (k - 4)) / 32) * sizeof(float2) : 0;
-  return tiles + static_cast<size_t>(most_terms) * (sizeof(float4) + 12 + warp_rows);
+  return tiles + stage_bytes(most_terms, most_terms / 2, warp_rows);
 }
 
 inline const void* resident_kernel(bool adjoint) {
@@ -1862,7 +2159,8 @@ inline const void* resident_kernel(bool adjoint) {
 // Blocks of a resident kernel that the device holds at once (the largest
 // cooperative grid), or a negative CUDA error code.
 inline int resident_capacity(bool adjoint, int k, int most_terms) {
-  if (k < kTileMinBits || k > kTileMaxBits || most_terms < 1 || most_terms > kMaxRunTerms)
+  if (k < kTileMinBits || k > (adjoint ? kResidentAdjointMaxBits : kTileMaxBits) ||
+      most_terms < 1 || most_terms > kMaxRunTerms)
     return -static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1884,7 +2182,8 @@ inline int resident_capacity(bool adjoint, int k, int most_terms) {
 // is the HOST copy of the span's run table.
 inline cudaError_t resident_setup(bool adjoint, int n, int k, int c, int n_runs,
                                   const int32_t* run_start, int grid, size_t* smem) {
-  if (!tile_shape_ok(n, k, c) || n_runs < 1 || grid < 1 || grid > (1 << (n - k)))
+  if (!tile_shape_ok(n, k, c) || (adjoint && k > kResidentAdjointMaxBits) || n_runs < 1 ||
+      grid < 1 || grid > (1 << (n - k)))
     return cudaErrorInvalidValue;
   int most = 0;
   for (int r = 0; r < n_runs; ++r) most = max(most, run_start[r + 1] - run_start[r]);
@@ -3514,33 +3813,47 @@ int qsfh_pauli_apply(const void* psi, void* out, int n, const void* xs,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The largest staging (stage_run) of the runs [0, n_runs) of a table, or 0
+// where a run holds more than kMaxRunTerms terms.
+inline size_t most_stage_bytes(int n_runs, const int32_t* run_start, const int32_t* run_fgroup,
+                               size_t extra) {
+  size_t most = 0;
+  for (int r = 0; r < n_runs; ++r) {
+    const int T = run_start[r + 1] - run_start[r];
+    if (T > kMaxRunTerms) return 0;
+    most = max(most, stage_bytes(T, run_fgroup[r + 1] - run_fgroup[r], extra));
+  }
+  return most;
+}
+
 // The tile runs [0, n_runs) of a streaming.TileRuns table, in place: one
 // launch per run, one block per tile.  run_start (n_runs + 1), run_mask
-// (n_runs) and run_group (n_runs + 1) are HOST arrays; code, z_tile, z_out,
-// angles, phre and phim are device arrays indexed by the table's term
-// index (run_start values), gstart and gregs by its group index (run_group
-// values).
+// (n_runs), run_group and run_fgroup (n_runs + 1 each) are HOST arrays;
+// code, z_tile, z_out, angles, phre and phim are device arrays indexed by
+// the table's term index (run_start values), gstart and gregs by its group
+// index (run_group values), frec by its fused record (run_fgroup values).
 int qsfh_rotation_tile_runs(void* psi, int n, int k, int c, int n_runs,
                             const int32_t* run_start, const int32_t* run_mask,
-                            const int32_t* run_group, const void* code, const void* z_tile,
-                            const void* z_out, const void* gstart, const void* gregs,
-                            const void* angles, const void* phre, const void* phim,
-                            void* stream) {
+                            const int32_t* run_group, const int32_t* run_fgroup, const void* code,
+                            const void* z_tile, const void* z_out, const void* gstart,
+                            const void* gregs, const void* frec, const void* angles,
+                            const void* phre, const void* phim, void* stream) {
   if (!tile_shape_ok(n, k, c)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t per_term = sizeof(float4) + 12, tile = sizeof(float2) << k;
-  int most = 0;
-  for (int r = 0; r < n_runs; ++r) most = max(most, run_start[r + 1] - run_start[r]);
-  if (most > kMaxRunTerms) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(rotation_tile_run_kernel, tile + most * per_term);
+  const size_t tile = sizeof(float2) << k;
+  const size_t most = most_stage_bytes(n_runs, run_start, run_fgroup, 0);
+  if (most == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(rotation_tile_run_kernel, tile + most);
   if (err != cudaSuccess) return static_cast<int>(err);
   for (int r = 0; r < n_runs; ++r) {
     const int t0 = run_start[r], T = run_start[r + 1] - t0, g0 = run_group[r];
-    rotation_tile_run_kernel<<<1u << (n - k), 1u << (k - 4), tile + T * per_term, s>>>(
+    const int f0 = run_fgroup[r], F = run_fgroup[r + 1] - f0;
+    rotation_tile_run_kernel<<<1u << (n - k), 1u << (k - 4), tile + stage_bytes(T, F, 0), s>>>(
         static_cast<float2*>(psi), n, k, c, static_cast<uint32_t>(run_mask[r]), T,
         static_cast<const int32_t*>(code) + t0, static_cast<const int32_t*>(z_tile) + t0,
         static_cast<const int32_t*>(z_out) + t0, static_cast<const int32_t*>(gstart) + g0,
         static_cast<const int32_t*>(gregs) + g0, run_group[r + 1] - g0, t0,
+        static_cast<const int32_t*>(frec) + static_cast<size_t>(f0) * kFusedRec, F,
         static_cast<const float*>(angles) + t0, static_cast<const float*>(phre) + t0,
         static_cast<const float*>(phim) + t0);
     err = cudaGetLastError();
@@ -3556,29 +3869,32 @@ int qsfh_rotation_tile_runs(void* psi, int n, int k, int c, int n_runs,
 // launch.  partials: (run_start[n_runs] - run_start[0]) x 2^(n - k) float2.
 int qsfh_adjoint_tile_runs(void* psi, void* lam, int n, int k, int c, int n_runs,
                            const int32_t* run_start, const int32_t* run_mask,
-                           const int32_t* run_group, const void* code, const void* z_tile,
-                           const void* z_out, const void* gstart, const void* gregs,
-                           const void* angles, const void* phre, const void* phim,
-                           void* partials, void* out, void* stream) {
+                           const int32_t* run_group, const int32_t* run_fgroup, const void* code,
+                           const void* z_tile, const void* z_out, const void* gstart,
+                           const void* gregs, const void* frec, const void* angles,
+                           const void* phre, const void* phim, void* partials, void* out,
+                           void* stream) {
   if (!tile_shape_ok(n, k, c)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned threads = 1u << (k - 4), grid = 1u << (n - k);
-  const size_t per_term = sizeof(float4) + 12 + (threads / 32) * sizeof(float2);
+  const size_t warp_rows = (threads / 32) * sizeof(float2);
   const size_t tiles = 2 * (sizeof(float2) << k);
-  int most = 0;
-  for (int r = 0; r < n_runs; ++r) most = max(most, run_start[r + 1] - run_start[r]);
-  if (most > kMaxRunTerms) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(adjoint_tile_run_kernel, tiles + most * per_term);
+  const size_t most = most_stage_bytes(n_runs, run_start, run_fgroup, warp_rows);
+  if (most == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(adjoint_tile_run_kernel, tiles + most);
   if (err != cudaSuccess) return static_cast<int>(err);
   float2* part = static_cast<float2*>(partials);
   for (int r = 0; r < n_runs; ++r) {
     const int t0 = run_start[r], T = run_start[r + 1] - t0, g0 = run_group[r];
-    adjoint_tile_run_kernel<<<grid, threads, tiles + T * per_term, s>>>(
+    const int f0 = run_fgroup[r], F = run_fgroup[r + 1] - f0;
+    adjoint_tile_run_kernel<<<grid, threads, tiles + stage_bytes(T, F, warp_rows), s>>>(
         static_cast<float2*>(psi), static_cast<float2*>(lam), n, k, c,
         static_cast<uint32_t>(run_mask[r]), T, static_cast<const int32_t*>(code) + t0,
         static_cast<const int32_t*>(z_tile) + t0, static_cast<const int32_t*>(z_out) + t0,
         static_cast<const int32_t*>(gstart) + g0, static_cast<const int32_t*>(gregs) + g0,
-        run_group[r + 1] - g0, t0, static_cast<const float*>(angles) + t0,
+        run_group[r + 1] - g0, t0,
+        static_cast<const int32_t*>(frec) + static_cast<size_t>(f0) * kFusedRec, F,
+        static_cast<const float*>(angles) + t0,
         static_cast<const float*>(phre) + t0, static_cast<const float*>(phim) + t0,
         part + static_cast<size_t>(t0 - run_start[0]) * grid);
     err = cudaGetLastError();
@@ -3600,15 +3916,16 @@ int qsfh_resident_capacity(int adjoint, int k, int most_terms) {
 // cooperative launch of `grid` blocks (at most the tiles of a run and the
 // capacity above).  run_start_host is the host copy of run_start; every
 // other array is on the device: run_start (n_runs + 1), run_mask (n_runs)
-// and run_group (n_runs + 1), then the arrays of qsfh_rotation_tile_runs.
-// barrier: one unsigned word, zero before the first launch on the stream
-// and left zero by every launch.
+// run_group and run_fgroup (n_runs + 1 each), then the arrays of
+// qsfh_rotation_tile_runs.  barrier: one unsigned word, zero before the
+// first launch on the stream and left zero by every launch.
 int qsfh_rotation_resident(void* psi, int n, int k, int c, int n_runs, int grid,
                            const int32_t* run_start_host, const void* run_start,
-                           const void* run_mask, const void* run_group, const void* code,
-                           const void* z_tile, const void* z_out, const void* gstart,
-                           const void* gregs, const void* angles, const void* phre,
-                           const void* phim, void* barrier, void* stream) {
+                           const void* run_mask, const void* run_group, const void* run_fgroup,
+                           const void* code, const void* z_tile, const void* z_out,
+                           const void* gstart, const void* gregs, const void* frec,
+                           const void* angles, const void* phre, const void* phim,
+                           void* barrier, void* stream) {
   size_t smem = 0;
   cudaError_t err = resident_setup(false, n, k, c, n_runs, run_start_host, grid, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -3616,16 +3933,19 @@ int qsfh_rotation_resident(void* psi, int n, int k, int c, int n_runs, int grid,
   const int32_t *a_start = static_cast<const int32_t*>(run_start),
                 *a_mask = static_cast<const int32_t*>(run_mask),
                 *a_group = static_cast<const int32_t*>(run_group),
+                *a_fgroup = static_cast<const int32_t*>(run_fgroup),
                 *a_code = static_cast<const int32_t*>(code),
                 *a_zt = static_cast<const int32_t*>(z_tile),
                 *a_zo = static_cast<const int32_t*>(z_out),
                 *a_gs = static_cast<const int32_t*>(gstart),
-                *a_gr = static_cast<const int32_t*>(gregs);
+                *a_gr = static_cast<const int32_t*>(gregs),
+                *a_frec = static_cast<const int32_t*>(frec);
   const float *a_ang = static_cast<const float*>(angles), *a_re = static_cast<const float*>(phre),
               *a_im = static_cast<const float*>(phim);
   unsigned int* a_bar = static_cast<unsigned int*>(barrier);
-  void* args[] = {&a_psi, &n,     &k,     &c,     &n_runs, &a_start, &a_mask, &a_group, &a_code,
-                  &a_zt,  &a_zo,  &a_gs,  &a_gr,  &a_ang,  &a_re,    &a_im,   &a_bar};
+  void* args[] = {&a_psi, &n,     &k,    &c,    &n_runs, &a_start, &a_mask, &a_group,
+                  &a_fgroup, &a_code, &a_zt, &a_zo, &a_gs, &a_gr,  &a_frec, &a_ang,
+                  &a_re,  &a_im,  &a_bar};
   err = cudaLaunchCooperativeKernel(resident_kernel(false), dim3(grid), dim3(1u << (k - 4)), args,
                                     smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -3639,11 +3959,11 @@ int qsfh_rotation_resident(void* psi, int n, int k, int c, int n_runs, int grid,
 // partials: run_start[n_runs] x 2^(n - k) float2 scratch.
 int qsfh_adjoint_resident(void* psi, void* lam, int n, int k, int c, int n_runs, int grid,
                           const int32_t* run_start_host, const void* run_start,
-                          const void* run_mask, const void* run_group, const void* code,
-                          const void* z_tile, const void* z_out, const void* gstart,
-                          const void* gregs, const void* angles, const void* phre,
-                          const void* phim, void* partials, void* out, void* barrier,
-                          void* stream) {
+                          const void* run_mask, const void* run_group, const void* run_fgroup,
+                          const void* code, const void* z_tile, const void* z_out,
+                          const void* gstart, const void* gregs, const void* frec,
+                          const void* angles, const void* phre, const void* phim,
+                          void* partials, void* out, void* barrier, void* stream) {
   size_t smem = 0;
   cudaError_t err = resident_setup(true, n, k, c, n_runs, run_start_host, grid, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -3651,18 +3971,20 @@ int qsfh_adjoint_resident(void* psi, void* lam, int n, int k, int c, int n_runs,
   const int32_t *a_start = static_cast<const int32_t*>(run_start),
                 *a_mask = static_cast<const int32_t*>(run_mask),
                 *a_group = static_cast<const int32_t*>(run_group),
+                *a_fgroup = static_cast<const int32_t*>(run_fgroup),
                 *a_code = static_cast<const int32_t*>(code),
                 *a_zt = static_cast<const int32_t*>(z_tile),
                 *a_zo = static_cast<const int32_t*>(z_out),
                 *a_gs = static_cast<const int32_t*>(gstart),
-                *a_gr = static_cast<const int32_t*>(gregs);
+                *a_gr = static_cast<const int32_t*>(gregs),
+                *a_frec = static_cast<const int32_t*>(frec);
   const float *a_ang = static_cast<const float*>(angles), *a_re = static_cast<const float*>(phre),
               *a_im = static_cast<const float*>(phim);
   float2 *a_part = static_cast<float2*>(partials), *a_out = static_cast<float2*>(out);
   unsigned int* a_bar = static_cast<unsigned int*>(barrier);
-  void* args[] = {&a_psi, &a_lam, &n,    &k,    &c,     &n_runs, &a_start, &a_mask,
-                  &a_group, &a_code, &a_zt, &a_zo, &a_gs, &a_gr,  &a_ang,   &a_re,
-                  &a_im,  &a_part, &a_out, &a_bar};
+  void* args[] = {&a_psi,  &a_lam,  &n,      &k,    &c,    &n_runs, &a_start, &a_mask,
+                  &a_group, &a_fgroup, &a_code, &a_zt, &a_zo, &a_gs,  &a_gr,    &a_frec,
+                  &a_ang,  &a_re,   &a_im,   &a_part, &a_out, &a_bar};
   err = cudaLaunchCooperativeKernel(resident_kernel(true), dim3(grid), dim3(1u << (k - 4)), args,
                                     smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);

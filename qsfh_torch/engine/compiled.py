@@ -37,7 +37,10 @@ The TPU workarounds of the JAX module are not carried over: per-term
 angles are the plain gather ``thetas_ext[pidx]`` (no one-hot matmul),
 gradients are summed per parameter by ``state.IndexFold`` (the same bits
 on every call, where ``index_add_`` adds with atomics on the card), and
-terms are not regrouped.
+terms are not reordered.  The JAX module's grouping of consecutive
+commuting same-flip strings into one closed-form rotation
+(``_group_rot_terms``) lives inside the tile kernels: each layout's
+``streaming.fused_groups``.
 """
 
 from __future__ import annotations
@@ -137,11 +140,15 @@ class Segment:
 
     def tiles(self, direction: int, n: int, k: int, c: int) -> streaming.TileLayout:
         """The tile layout of the terms in application order (reversed for
-        direction -1, the inverse and the adjoint sweep)."""
+        direction -1, the inverse and the adjoint sweep), its fused groups
+        (``streaming.fused_groups``) from the parameter indices and string
+        phases."""
         key = ("tiles", direction, n, k, c)
         if key not in self._cache:
+            d = self.data
             self._cache[key] = streaming.TileLayout(
-                self.data["xb"][::direction], self.data["zb"][::direction], n, k, c)
+                *(d[name][::direction] for name in ("xb", "zb")), n, k, c,
+                *(d[name][::direction] for name in ("pidx", "phre", "phim")))
         return self._cache[key]
 
 

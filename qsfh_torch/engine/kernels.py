@@ -95,6 +95,9 @@ group for ``rot64_groups`` and ``adjoint64_groups``,
 one per call (or per
 scratch-sized chunk) for ``pauli_apply``, ``pauli_inner`` and the four
 inner-product tile wrappers (the partial-sum pass is not counted).  The
+two resident wrappers also keep ``fused_terms``, the terms their launches
+ran in closed form (``FUSED_WRAPPERS``; the recorder's counter
+``<name>.fused_terms`` besides).  The
 ``*_plain`` functions compute the same thing from an index gather
 ``psi[idx ^ x]`` and an XOR-folded popcount parity, on any device; the CPU
 tests hold them against the JAX package, and the chip smoke test holds
@@ -144,6 +147,9 @@ SWEEP_PARTIALS_CAP = 1 << 23
 # tiles the tile-run kernels take: 2^(k - 4) threads, one warp to 512
 TILE_MIN_BITS = 9
 TILE_MAX_BITS = 13
+# adjoint_resident's largest tile (the kernel's kResidentAdjointMaxBits: 256
+# threads, so that a thread may hold 255 registers)
+RESIDENT_ADJOINT_MAX_BITS = 12
 # tiles the inner-product tile kernel takes: 5 lane bits and 4 bucket bits
 # at least, two 64 KiB tiles at most
 INNER_TILE_MIN_BITS = 9
@@ -217,15 +223,15 @@ def _load():
         lib.qsfh_pauli_apply.restype = i
         lib.qsfh_pauli_apply.argtypes = [p, p, i, p, p, p, p, i, p]
         lib.qsfh_rotation_tile_runs.restype = i
-        lib.qsfh_rotation_tile_runs.argtypes = [p, i, i, i, i] + [p] * 12
+        lib.qsfh_rotation_tile_runs.argtypes = [p, i, i, i, i] + [p] * 14
         lib.qsfh_adjoint_tile_runs.restype = i
-        lib.qsfh_adjoint_tile_runs.argtypes = [p, p, i, i, i, i] + [p] * 14
+        lib.qsfh_adjoint_tile_runs.argtypes = [p, p, i, i, i, i] + [p] * 16
         lib.qsfh_resident_capacity.restype = i
         lib.qsfh_resident_capacity.argtypes = [i, i, i]
         lib.qsfh_rotation_resident.restype = i
-        lib.qsfh_rotation_resident.argtypes = [p, i, i, i, i, i] + [p] * 14
+        lib.qsfh_rotation_resident.argtypes = [p, i, i, i, i, i] + [p] * 16
         lib.qsfh_adjoint_resident.restype = i
-        lib.qsfh_adjoint_resident.argtypes = [p, p, i, i, i, i, i] + [p] * 16
+        lib.qsfh_adjoint_resident.argtypes = [p, p, i, i, i, i, i] + [p] * 18
         lib.qsfh_xor_gather.restype = i
         lib.qsfh_xor_gather.argtypes = [p, p, i, p, i, p]
         lib.qsfh_pauli_inner_tiles.restype = i
@@ -537,8 +543,8 @@ def _tile_check(psi, xs, tiles, name: str) -> int:
 def _tile_tables(tiles, r0: int, r1: int):
     """Host pointers of the run tables of runs [r0, r1)."""
     i32 = ctypes.sizeof(ctypes.c_int32)
-    return (r1 - r0, tiles.run_start.ctypes.data + r0 * i32,
-            tiles.run_mask.ctypes.data + r0 * i32, tiles.run_group.ctypes.data + r0 * i32)
+    return (r1 - r0, *(a.ctypes.data + r0 * i32 for a in (
+        tiles.run_start, tiles.run_mask, tiles.run_group, tiles.run_fgroup)))
 
 
 def _check_tiles(xs, tiles, name: str):
@@ -684,13 +690,22 @@ def _fold_count(psi) -> torch.Tensor:
     return _fold_counts[key]
 
 
+def _count_fused(fn, tiles):
+    """``fn.fused_terms`` and the recorder's counter ``<name>.fused_terms``
+    (``utils/profiling.py``) gain the terms a launch ran in closed form."""
+    fn.fused_terms += tiles.fused_terms
+    profiling.count(f"{fn.__name__}.fused_terms", tiles.fused_terms)
+
+
 @_counted
 def rotation_resident(psi, xs, zs, angles, phre, phim, tiles, blocks=None):
     """:func:`rotation_tile_runs` over the whole span ``tiles`` in ONE
     cooperative launch: G persistent blocks walk the runs in order over
     the L2-resident state, block b taking tiles b, b + G, ... of each run,
     with a grid barrier between runs (``blocks`` caps G; see
-    :func:`resident_grid`).  In place; returns psi.
+    :func:`resident_grid`).  The layout's fused groups each run as one
+    closed-form pair rotation (``streaming.fused_groups``); ``.fused_terms``
+    adds their terms a launch.  In place; returns psi.
     """
     if psi.device.type == "cpu":
         return rotation_resident_plain(psi, xs, zs, angles, phre, phim, tiles)
@@ -704,6 +719,7 @@ def rotation_resident(psi, xs, zs, angles, phre, phim, tiles, blocks=None):
             *(t.data_ptr() for t in tiles.tensors(psi.device)), *(a.data_ptr() for a in args),
             _barrier(psi).data_ptr(), _stream())
     rotation_resident.launches += 1
+    _count_fused(rotation_resident, tiles)
     return psi
 
 
@@ -720,13 +736,18 @@ def adjoint_resident(psi, lam, xs, zs, angles, phre, phim, tiles, blocks=None):
     REVERSED order) in ONE cooperative launch, as
     :func:`rotation_resident`.  Each tile's share of <lam | P_t psi> is a
     partial of its own, and the launch sums each term's partials in a
-    fixed order after a last grid barrier: the same bits whatever G.  psi
-    and lam are updated IN PLACE; returns v (complex, (T,)).
+    fixed order after a last grid barrier: the same bits whatever G.  A
+    fused group reads every term's share at the group's end state (its
+    terms commute) and rotates back once.  psi and lam are updated IN
+    PLACE; returns v (complex, (T,)).
     """
     if psi.device.type == "cpu" and lam.device.type == "cpu":
         return adjoint_resident_plain(psi, lam, xs, zs, angles, phre, phim, tiles)
     name = "adjoint_resident"
     n = _tile_check(psi, xs, tiles, name)
+    if tiles.k > RESIDENT_ADJOINT_MAX_BITS:
+        raise ValueError(f"{name}: tiles of {tiles.k} bits; the kernel takes at most "
+                         f"{RESIDENT_ADJOINT_MAX_BITS}")
     if _n_qubits(lam, name) != n or lam.data_ptr() % 16:
         raise ValueError(f"{name}: lam must be a 16-byte aligned state of psi's size")
     T = xs.shape[0]
@@ -741,6 +762,7 @@ def adjoint_resident(psi, lam, xs, zs, angles, phre, phim, tiles, blocks=None):
             *(t.data_ptr() for t in tiles.tensors(psi.device)), *(a.data_ptr() for a in args),
             partials.data_ptr(), out.data_ptr(), _barrier(psi).data_ptr(), _stream())
     adjoint_resident.launches += 1
+    _count_fused(adjoint_resident, tiles)
     return out
 
 
@@ -1329,7 +1351,7 @@ def expectation_norm_f64_tiles_plain(psi, xs, zs, cre, cim, tiles):
 class Groups64:
     """A float64 group program at the kernel boundary, on one device: G
     groups of at most 8 commuting rotation terms (one flip mask, one
-    parameter, one parity of x & z each; ``native.statevec._group_terms``).
+    parameter, one parity of x & z each; ``streaming.group_terms``).
     ``gx``, ``goff`` (G + 1 offsets into ``zsub`` / ``wsub``), ``gflip`` (1
     where the group's unit is i), ``gpidx`` (the group's entry of
     ``theta_ext``; a static group takes the last one), ``zsub`` are int32,
@@ -1752,6 +1774,15 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
+# the wrappers that also count the terms they run in closed form
+FUSED_WRAPPERS = (rotation_resident, adjoint_resident)
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    for fn in FUSED_WRAPPERS:
+        fn.fused_terms = 0
+
+
+reset_launch_counts()

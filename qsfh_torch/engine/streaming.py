@@ -18,7 +18,10 @@ chunks, (8, 128) row blocks, one-hot slots, group-permuted outputs).
   ``adjoint_resident``: persistent blocks, a grid barrier between runs).
   Above it a run costs one pass over the state in HBM, one launch each
   (``rotation_tile_runs`` / ``adjoint_tile_runs``, tiles of ``TILE_BITS``
-  / ``TILE_LOW_BITS``).
+  / ``TILE_LOW_BITS``).  Inside a run, each group of 3-8 consecutive
+  commuting terms that :func:`fused_groups` finds (a double excitation's 8
+  strings) runs as ONE closed-form pair rotation, its table of 2^R angles
+  formed on the device every call; every other term runs alone.
 * Expectation values and pool screening, sums over terms, cut the terms
   into items (one flip mask, phase masks equal off ``REG_BITS`` bits) and
   cover the items with tiles of chosen bits (:class:`GroupTiles`: the low
@@ -94,6 +97,27 @@ RESIDENT64_RECORD = 20
 # chosen tile bits, in registers; terms per run, staged in shared memory.
 REG_BITS = 4
 MAX_RUN_TERMS = 256
+# Fused groups (fused_groups): the terms of one group_terms group, at least
+# FUSED_MIN_TERMS, whose phase masks have rank at most FUSED_MAX_RANK over
+# GF(2), run in closed form from a table of 2^rank (cos, sin) entries, each
+# a register group of its own; a group of higher rank is cut into
+# consecutive pieces.  A pair (a Givens rotation's two strings, a hopping
+# bond's XX and YY) runs its terms alone: as a register group of its own it
+# took longer than beside its neighbours (PERF.md, PR 22).  FUSED_RECORD
+# int32 words a group (the kernels' kFusedRec; TileRuns.frec).  A fused
+# group's register word carries FUSED_GROUP (above the 4 register bits'
+# 16); its terms' code words (x_reg 0-3, z_reg 4-7; 8-10 the kernels' own)
+# their coefficient masks over the group's basis at FUSED_COEF_SHIFT, its
+# first term's also the group's terms less one at FUSED_SIZE_SHIFT and its
+# record within the run at FUSED_INDEX_SHIFT.
+FUSED_MAX_RANK = 4
+FUSED_MIN_TERMS = 3
+FUSED_CAP = 8
+FUSED_RECORD = 12
+FUSED_GROUP = 1 << 16
+FUSED_COEF_SHIFT = 12
+FUSED_SIZE_SHIFT = 16
+FUSED_INDEX_SHIFT = 20
 # Inner-product tiles: 2^INNER_TILE_BITS amplitudes, the low
 # INNER_TILE_LOW_BITS flat bits and the others chosen per tile so that the
 # bits of every item of the tile lie inside.  The kernel keeps 16 bucket
@@ -182,18 +206,20 @@ def pext(values, positions) -> np.ndarray:
     return out
 
 
-def order_tile_runs(xs, k: int, c: int, max_terms: int = MAX_RUN_TERMS):
+def order_tile_runs(xs, k: int, c: int, max_terms: int = MAX_RUN_TERMS, ends=None):
     """Order-preserving greedy partition of a rotation-like term sequence
     into tile runs.
 
     A run's tile spans the low ``c`` flat bits plus ``k - c`` higher bits:
     the union ``hi`` of its terms' flip bits at and above ``c``, padded
     later.  A term joins the open run while that union stays within
-    ``k - c`` bits and the run within ``max_terms`` terms.  A term whose
-    own flips above ``c`` exceed ``k - c`` bits, or whose flips exceed the
-    ``REG_BITS`` a register group holds, fits no tile and is a run of its
-    own with ``hi = None``.  Returns ``[(t0, t1, hi)]``.  Greedy is optimal
-    here: any sub-run of a feasible run is feasible.
+    ``k - c`` bits and the run within ``max_terms`` terms, counted to
+    ``ends[t]``, the end of the term's fused group (``t + 1`` for a term
+    alone, the default): a fused group, one flip mask, is never cut.  A
+    term whose own flips above ``c`` exceed ``k - c`` bits, or whose flips
+    exceed the ``REG_BITS`` a register group holds, fits no tile and is a
+    run of its own with ``hi = None``.  Returns ``[(t0, t1, hi)]``.  Greedy
+    is optimal here: any sub-run of a feasible run is feasible.
     """
     low = (1 << c) - 1
     runs: list = []
@@ -203,7 +229,8 @@ def order_tile_runs(xs, k: int, c: int, max_terms: int = MAX_RUN_TERMS):
             runs.append([t, t + 1, None])
             continue
         last = runs[-1] if runs else None
-        if (last is not None and last[2] is not None and t - last[0] < max_terms
+        end = t + 1 if ends is None else int(ends[t])
+        if (last is not None and last[2] is not None and end - last[0] <= max_terms
                 and bin(last[2] | h).count("1") <= k - c):
             last[1], last[2] = t + 1, last[2] | h
         else:
@@ -234,37 +261,91 @@ class TileRuns:
     bits each in ``group_regs[g]`` (ascending).  A thread holds the
     2^REG_BITS slots that differ in those bits, so every term of the group
     pairs slots inside one thread.  Per term: ``code = x_reg | z_reg << 4``
-    (flip and phase masks compressed to the register bits), ``z_tile``
-    (phase mask in tile coordinates) and ``z_out = z & ~run_mask`` (the
-    phase bits outside the tile: one sign per block and term).
+    (flip and phase masks compressed to the register bits) and the fused
+    bits (``FUSED_COEF_SHIFT`` ...), ``z_tile`` (phase mask in tile
+    coordinates) and ``z_out = z & ~run_mask`` (the phase bits outside the
+    tile: one sign per block and term).
+
+    ``fused`` lists the span's fused groups ``[(t0, t1)]`` (indices of the
+    term list that ``runs`` cuts, :func:`fused_groups`; ``self.fused``
+    holds them relative to the span); each is a register group of its own
+    (``FUSED_GROUP`` in its register word), which the kernels run through
+    shared memory.  Run ``r``'s are records ``[run_fgroup[r], run_fgroup[r
+    + 1])`` of ``frec`` (``FUSED_RECORD`` words each): the first term
+    (run-relative) | terms
+    less one << 8 | rank R << 12 | unit << 15 (1: odd parity, the strings'
+    phases +-i), then the columns of the register bits (nibble j: bit i
+    set where basis mask i holds register bit j), the basis (group_basis
+    of the phase masks) in tile coordinates (4 words) and flat (4 words),
+    zero past R, and two words the kernels fill.  A slot's pattern, bit i =
+    parity(b & basis_i), indexes the group's table of 2^R angles
+    phi_q = sum_k a_k w_k (1 - 2 parity(q & coef_k)) (a_k the term's angle,
+    w_k its phase over the unit, coef_k at ``FUSED_COEF_SHIFT`` in its
+    code), which the kernels form from the call's angles.
     """
 
-    def __init__(self, xs, zs, runs, n: int, k: int, c: int):
+    def __init__(self, xs, zs, runs, n: int, k: int, c: int, fused=()):
         self.k, self.c = k, c
         xs, zs = np.asarray(xs, np.int64), np.asarray(zs, np.int64)
         t_base = runs[0][0]
-        run_start, run_mask, run_group = [0], [], [0]
+        fused = sorted((int(a), int(b)) for a, b in fused)
+        run_start, run_mask, run_group, run_fgroup = [0], [], [0], [0]
         group_start, group_regs = [], []
-        code, z_tile, z_out = [], [], []
+        code, z_tile, z_out, frec = [], [], [], []
+        f = 0
         for t0, t1, hi in runs:
             mask = _pad((1 << c) - 1 | hi, k, range(c, n))
             pos = _positions(mask)
             xt, zt = pext(xs[t0:t1], pos), pext(zs[t0:t1], pos)
-            for g0, g1, union in _register_groups(xt):
+            f1 = f  # the run's fused groups: fused[f:f1]
+            while f1 < len(fused) and fused[f1][0] < t1:
+                f1 += 1
+            run_fused = [(a - t0, b - t0) for a, b in fused[f:f1]]
+            if run_fused and (run_fused[0][0] < 0 or run_fused[-1][1] > t1 - t0):
+                raise ValueError(f"a fused group crosses run [{t0}, {t1})")
+            run_code, term_regs = [], []
+            for g0, g1, union in _register_groups(xt, run_fused):
                 regs = _positions(_pad(union, REG_BITS, range(k - 1, -1, -1)))
+                term_regs.extend([regs] * (g1 - g0))
                 group_start.append(t0 - t_base + g0)
-                group_regs.append(sum(p << (4 * j) for j, p in enumerate(regs)))
-                code.extend((pext(xt[g0:g1], regs) | pext(zt[g0:g1], regs) << 4).tolist())
+                group_regs.append(sum(p << (4 * j) for j, p in enumerate(regs))
+                                  | (FUSED_GROUP if (g0, g1) in run_fused else 0))
+                run_code.extend((pext(xt[g0:g1], regs) | pext(zt[g0:g1], regs) << 4).tolist())
+            run_code = np.asarray(run_code, np.int64)
+            for n_f, (a, b) in enumerate(fused[f:f1]):
+                group_z = zs[a:b].tolist()
+                basis, coef = group_basis(group_z)
+                # the basis in tile coordinates: the staged z_tile of the terms it came from
+                zbt = [int(zt[a - t0 + group_z.index(z)]) for z in basis]
+                regs = term_regs[a - t0]
+                cols = sum((zb >> r & 1) << (4 * j + i)
+                           for i, zb in enumerate(zbt) for j, r in enumerate(regs))
+                unit = bin(group_z[0] & int(xs[a])).count("1") & 1
+                pad = [0] * (4 - len(basis))
+                frec.append([(a - t0) | (b - a - 1) << 8 | len(basis) << 12 | unit << 15, cols,
+                             *zbt, *pad, *basis, *pad, 0, 0])
+                for m, cm in enumerate(coef):
+                    run_code[a - t0 + m] |= cm << FUSED_COEF_SHIFT
+                run_code[a - t0] |= (b - a - 1) << FUSED_SIZE_SHIFT | n_f << FUSED_INDEX_SHIFT
+            code.extend(run_code.tolist())
             z_tile.extend(zt.tolist())
             z_out.extend((zs[t0:t1] & ~mask).tolist())
             run_start.append(t1 - t_base)
             run_mask.append(mask)
             run_group.append(len(group_start))
+            run_fgroup.append(run_fgroup[-1] + f1 - f)
+            f = f1
+        if f != len(fused):
+            raise ValueError("a fused group lies outside the span's runs")
         group_start.append(run_start[-1])
         i32 = lambda a: np.asarray(a, np.int64).astype(np.int32)  # noqa: E731
         self.run_start, self.run_mask, self.run_group = i32(run_start), i32(run_mask), i32(run_group)
         self.group_start, self.group_regs = i32(group_start), i32(group_regs)
         self.code, self.z_tile, self.z_out = i32(code), i32(z_tile), i32(z_out)
+        self.run_fgroup = i32(run_fgroup)
+        self.frec = i32(np.reshape(frec, (-1, FUSED_RECORD)))
+        self.fused = np.asarray([(a - t_base, b - t_base) for a, b in fused],
+                                np.int64).reshape(-1, 2)
         self.term_mask = np.repeat(self.run_mask, np.diff(self.run_start))
         self._cache = {}
 
@@ -280,25 +361,37 @@ class TileRuns:
     def n_groups(self) -> int:
         return int(self.group_regs.size)
 
+    @property
+    def fused_groups(self) -> int:
+        """Groups run in closed form."""
+        return int(self.fused.shape[0])
+
+    @property
+    def fused_terms(self) -> int:
+        """Terms inside those groups."""
+        return int((self.fused[:, 1] - self.fused[:, 0]).sum())
+
     def tensors(self, device):
-        """(code, z_tile, z_out, group_start, group_regs) as int32 tensors
-        on ``device``, built once per device."""
+        """(code, z_tile, z_out, group_start, group_regs, frec) as int32
+        tensors on ``device``, built once per device."""
         key = str(device)
         if key not in self._cache:
             self._cache[key] = tuple(
                 torch.as_tensor(a, device=device)
-                for a in (self.code, self.z_tile, self.z_out, self.group_start, self.group_regs)
+                for a in (self.code, self.z_tile, self.z_out, self.group_start, self.group_regs,
+                          self.frec.reshape(-1))
             )
         return self._cache[key]
 
     def run_tensors(self, device):
-        """(run_start, run_mask, run_group) as int32 tensors on ``device``
-        (a resident launch reads them there), built once per device."""
+        """(run_start, run_mask, run_group, run_fgroup) as int32 tensors on
+        ``device`` (a resident launch reads them there), built once per
+        device."""
         key = ("runs", str(device))
         if key not in self._cache:
             self._cache[key] = tuple(
                 torch.as_tensor(a, device=device)
-                for a in (self.run_start, self.run_mask, self.run_group)
+                for a in (self.run_start, self.run_mask, self.run_group, self.run_fgroup)
             )
         return self._cache[key]
 
@@ -308,16 +401,28 @@ class TileRuns:
         return int(np.diff(self.run_start).max())
 
 
-def _register_groups(x_tile):
+def _register_groups(x_tile, fused=()):
     """Greedy order-preserving groups of a run's flip masks (tile
     coordinates) whose union has at most ``REG_BITS`` bits: ``[(t0, t1,
-    union)]`` with term indices relative to the run."""
+    union)]`` with term indices relative to the run.  Each fused group
+    ``[a, b)`` of ``fused`` (run-relative) is a group of its own."""
+    ends = dict(fused)
     groups: list = []
-    for t, x in enumerate(x_tile.tolist()):
-        if groups and bin(groups[-1][2] | x).count("1") <= REG_BITS:
+    grows = False  # whether the last group takes more terms
+    x_tile = x_tile.tolist()
+    t = 0
+    while t < len(x_tile):
+        x = x_tile[t]
+        if t in ends:
+            groups.append([t, ends[t], x])
+            grows, t = False, ends[t]
+            continue
+        if grows and bin(groups[-1][2] | x).count("1") <= REG_BITS:
             groups[-1][1], groups[-1][2] = t + 1, groups[-1][2] | x
         else:
             groups.append([t, t + 1, x])
+            grows = True
+        t += 1
     return groups
 
 
@@ -332,21 +437,27 @@ class TileLayout:
 
     __slots__ = ("k", "c", "spans", "n_runs", "n_single")
 
-    def __init__(self, xs, zs, n: int, k: int, c: int):
+    def __init__(self, xs, zs, n: int, k: int, c: int, pidx=None, phre=None, phim=None):
         k = min(k, n)
         c = min(c, k)
         if k < REG_BITS:
             raise ValueError(f"a tile of {k} bits cannot hold {REG_BITS} register bits")
         self.k, self.c = k, c
+        fused = fused_groups(xs, zs, pidx, phre, phim)
+        ends = np.arange(1, len(xs) + 1)
+        for a, b in fused:
+            ends[a:b] = b
         pieces: list = []
-        for run in order_tile_runs(xs, k, c):
+        for run in order_tile_runs(xs, k, c, ends=ends):
             fits = run[2] is not None
             if pieces and pieces[-1][0] == fits:
                 pieces[-1][1].append(run)
             else:
                 pieces.append((fits, [run]))
         self.spans = [
-            (TileRuns(xs, zs, runs, n, k, c) if fits else None, runs[0][0], runs[-1][1])
+            (TileRuns(xs, zs, runs, n, k, c,
+                      [g for g in fused if runs[0][0] <= g[0] < runs[-1][1]])
+             if fits else None, runs[0][0], runs[-1][1])
             for fits, runs in pieces
         ]
         self.n_runs = sum(len(s[0]) for s in self.spans if s[0] is not None)
@@ -355,6 +466,11 @@ class TileLayout:
     @property
     def n_groups(self) -> int:
         return sum(s[0].n_groups for s in self.spans if s[0] is not None)
+
+    @property
+    def fused_terms(self) -> int:
+        """Terms the tile kernels run in closed form (:func:`fused_groups`)."""
+        return sum(s[0].fused_terms for s in self.spans if s[0] is not None)
 
     @property
     def passes(self) -> int:
@@ -386,6 +502,80 @@ def group_basis(zs):
         else:
             coef.append(combo)
     return basis, coef
+
+
+def group_terms(xb, zb, scale, pidx, phre, phim, cap=FUSED_CAP):
+    """Group consecutive rot terms by (x, pidx, parity(x&z)), cap subterms.
+
+    The closed form is exact because same-x equal-parity strings mutually
+    commute; exact per-group lengths, no padding, and the per-term phase is
+    folded into a REAL weight w_k = scale_k * (ph_k / unit) with unit = 1
+    (parity even, ph in {+-1}) or i (parity odd, ph in {+-i}).  Returns
+    (gx uint32, gpidx int32, gflip uint8, goff int64, zsub uint32, wsub
+    float64), the JAX package's arrays; raises ValueError where a phase is
+    off its unit.
+    """
+    gx, gpidx, gflip, goff, zflat, wflat = [], [], [], [0], [], []
+    key = None
+    count = 0
+    for t in range(len(xb)):
+        x, z = int(xb[t]), int(zb[t])
+        par = (x & z).bit_count() & 1
+        kt = (x, int(pidx[t]), par)
+        if kt != key or count >= cap:
+            gx.append(x)
+            gpidx.append(int(pidx[t]))
+            gflip.append(par)
+            goff.append(goff[-1])
+            key = kt
+            count = 0
+        if par == 0:
+            if abs(phim[t]) >= 1e-12:
+                raise ValueError(f"term {t}: even parity with an imaginary phase")
+            w = float(scale[t]) * float(phre[t])
+        else:
+            if abs(phre[t]) >= 1e-12:
+                raise ValueError(f"term {t}: odd parity with a real phase")
+            w = float(scale[t]) * float(phim[t])
+        zflat.append(z)
+        wflat.append(w)
+        goff[-1] += 1
+        count += 1
+    return (
+        np.asarray(gx, np.uint32),
+        np.asarray(gpidx, np.int32),
+        np.asarray(gflip, np.uint8),
+        np.asarray(goff, np.int64),
+        np.asarray(zflat, np.uint32),
+        np.asarray(wflat, np.float64),
+    )
+
+
+def fused_groups(xs, zs, pidx, phre, phim):
+    """The groups of a rot term list that the float32 tile kernels run in
+    closed form: ``[(t0, t1)]``, the :func:`group_terms` groups cut into
+    maximal consecutive pieces whose phase masks have rank at most
+    ``FUSED_MAX_RANK``, the pieces of at least ``FUSED_MIN_TERMS`` terms.
+    Empty without ``pidx`` and the phases, or where a phase is off its
+    unit: every term then runs alone."""
+    if pidx is None or phre is None or phim is None:
+        return []
+    zs = np.asarray(zs, np.int64)
+    try:
+        goff = group_terms(xs, zs, np.ones(zs.size), pidx, phre, phim)[3].tolist()
+    except ValueError:
+        return []
+    out = []
+    for g0, g1 in zip(goff[:-1], goff[1:]):
+        a = g0
+        while a < g1:
+            b = a + 1
+            while b < g1 and len(group_basis(zs[a:b + 1])[0]) <= FUSED_MAX_RANK:
+                b += 1
+            if b - a >= FUSED_MIN_TERMS:
+                out.append((a, b))
+            a = b
+    return out
 
 
 def order_group_runs(gx, entries, k: int, c: int, max_entries: int, max_groups: int):

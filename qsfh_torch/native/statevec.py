@@ -38,52 +38,6 @@ from ..utils.profiling import span
 ROUTES = ("resident", "groups")
 
 
-def _group_terms(xb, zb, scale, pidx, phre, phim, cap=8):
-    """Group consecutive rot terms by (x, pidx, parity(x&z)), cap subterms.
-
-    The closed form is exact because same-x equal-parity strings mutually
-    commute; exact per-group lengths, no padding, and the per-term phase is
-    folded into a REAL weight w_k = scale_k * (ph_k / unit) with unit = 1
-    (parity even, ph in {+-1}) or i (parity odd, ph in {+-i}).  Returns
-    (gx uint32, gpidx int32, gflip uint8, goff int64, zsub uint32, wsub
-    float64), the JAX package's arrays.
-    """
-    gx, gpidx, gflip, goff, zflat, wflat = [], [], [], [0], [], []
-    key = None
-    count = 0
-    for t in range(len(xb)):
-        x, z = int(xb[t]), int(zb[t])
-        par = (x & z).bit_count() & 1
-        kt = (x, int(pidx[t]), par)
-        if kt != key or count >= cap:
-            gx.append(x)
-            gpidx.append(int(pidx[t]))
-            gflip.append(par)
-            goff.append(goff[-1])
-            key = kt
-            count = 0
-        if par == 0:
-            if abs(phim[t]) >= 1e-12:
-                raise ValueError(f"term {t}: even parity with an imaginary phase")
-            w = float(scale[t]) * float(phre[t])
-        else:
-            if abs(phre[t]) >= 1e-12:
-                raise ValueError(f"term {t}: odd parity with a real phase")
-            w = float(scale[t]) * float(phim[t])
-        zflat.append(z)
-        wflat.append(w)
-        goff[-1] += 1
-        count += 1
-    return (
-        np.asarray(gx, np.uint32),
-        np.asarray(gpidx, np.int32),
-        np.asarray(gflip, np.uint8),
-        np.asarray(goff, np.int64),
-        np.asarray(zflat, np.uint32),
-        np.asarray(wflat, np.float64),
-    )
-
-
 def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu()
@@ -120,7 +74,7 @@ class Rot64Program:
         self.n = int(n)
         self.n_params = int(n_params)
         (self.gx, self.gpidx, self.gflip, self.goff, self.zsub,
-         self.wsub) = _group_terms(*(np.asarray(seg_data[k]) for k in
+         self.wsub) = streaming.group_terms(*(np.asarray(seg_data[k]) for k in
                                      ("xb", "zb", "scale", "pidx", "phre", "phim")))
         self.G = len(self.gx)
         xs, zs, cre, cim = (np.asarray(a) for a in h_terms)

@@ -11,6 +11,7 @@ per-term vectors, which is float32 rounding over differently ordered sums.
 """
 
 import gc
+import os
 import time
 
 import numpy as np
@@ -275,7 +276,116 @@ def test_resident_rejects_what_it_cannot_launch(dev):
     small = TileLayout(np.asarray([0b11]), np.asarray([0]), 12, 6, 2).spans[0][0]
     with pytest.raises(ValueError):
         K.adjoint_resident(psi, lam, *(a[:1] for a in args), small)
+    wide = TileLayout(np.asarray([0b11]), np.asarray([0]), 14, 13, 4).spans[0][0]
+    psi14 = torch.zeros(1 << 14, dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError):  # the adjoint kernel takes tiles of 12 bits at most
+        K.adjoint_resident(psi14, psi14.clone(), *(a[:1] for a in args), wide)
     assert K.launch_counts()["rotation_resident"] == K.launch_counts()["adjoint_resident"] == 0
+
+
+# -- fused groups (streaming.fused_groups) ------------------------------------------------
+
+
+def _segment_arrays(seg, dev, thetas, rdt):
+    """A rot segment's term arrays on the card, forward and reversed: the
+    masks, each term's angle theta_ext[pidx] * scale, the string phases."""
+    d = seg.tensors(dev, rdt, thetas.shape[0])
+    ext = torch.cat([thetas.to(device=dev, dtype=rdt), torch.ones(1, dtype=rdt, device=dev)])
+    arrs = (d["xb"], d["zb"], ext[d["pidx"]] * d["scale"], d["phre"], d["phim"])
+    return arrs, tuple(a.flip(0) for a in arrs)
+
+
+def _fused_against_plain(dev, seg, n, thetas, rng, unfused=False):
+    """The segment forward and its reverse sweep on the engine's route
+    (``rotate_segment`` / ``adjoint_sweep``: the resident kernels up to 18
+    qubits, the tile runs above) against the per-term plain versions in
+    complex128; a second call gives the same bits.  Returns the forward
+    layout and the errors (state, per-term vector over its largest entry,
+    psi and lam after the sweep); with ``unfused`` also those of the same
+    kernels on layouts that fuse nothing (every term alone)."""
+    from qsfh_torch.engine import streaming
+    from qsfh_torch.engine.compiled import _tile_route, adjoint_sweep, rotate_segment
+
+    fwd, rev = _segment_arrays(seg, dev, thetas, torch.float32)
+    fwd64, rev64 = _segment_arrays(seg, dev, thetas, torch.float64)
+    psi = torch.as_tensor(_state(rng, n), device=dev)
+    lam = torch.as_tensor(_state(rng, n), device=dev)
+    ref = rotate_segment(seg, psi.clone(), fwd64, n, 1, K.PLAIN)
+    pr, lr = psi.clone(), lam.clone()
+    vr = adjoint_sweep(seg, pr, lr, rev64, n, K.PLAIN)
+
+    def errors(runs):
+        got, v, p, l = (a.to(torch.complex128) for a in runs)
+        return (_rel(got, ref), float((v - vr).abs().max() / vr.abs().max()), _rel(p, pr),
+                _rel(l, lr))
+
+    runs = []
+    for _ in range(2):
+        p, l = psi.to(torch.complex64), lam.to(torch.complex64)
+        got = rotate_segment(seg, p.clone(), fwd, n, 1, K.KERNELS)
+        runs.append((got, adjoint_sweep(seg, p, l, rev, n, K.KERNELS), p, l))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    layout, resident = _tile_route(seg, 1, n)
+    if not unfused:
+        return layout, errors(runs[0])
+    d = seg.data
+    one = [streaming.TileLayout(d["xb"][::s], d["zb"][::s], n, layout.k, layout.c).spans[0][0]
+           for s in (1, -1)]
+    rot, adj = ((K.rotation_resident, K.adjoint_resident) if resident
+                else (K.rotation_tile_runs, K.adjoint_tile_runs))
+    p, l = psi.to(torch.complex64), lam.to(torch.complex64)
+    got = rot(p.clone(), *fwd, one[0])
+    alone = (got, adj(p, l, *rev, one[1]), p, l)
+    torch.cuda.synchronize()
+    return layout, errors(runs[0]), errors(alone)
+
+
+@pytest.mark.parametrize("n", [18, 24])
+def test_fused_groups_mixed_program(dev, n):
+    """Every shape of fused group (tests/fused_programs.py) and terms alone,
+    through the resident kernels at 18 qubits and the tile runs at 24,
+    against the per-term plain versions; the same bits twice; the resident
+    wrappers count the fused terms of each launch."""
+    from fused_programs import mixed_segment
+
+    rng = np.random.default_rng(n + 41)
+    seg, n_params = mixed_segment(rng, n)
+    K.reset_launch_counts()
+    layout, errs = _fused_against_plain(dev, seg, n, torch.as_tensor(
+        rng.uniform(-1.5, 1.5, n_params)), rng)
+    assert 0 < layout.fused_terms < len(seg)
+    assert max(errs) <= RTOL
+    resident = 2 if n <= 18 else 0  # two calls each way
+    assert K.rotation_resident.fused_terms == resident * layout.fused_terms
+    assert K.adjoint_resident.fused_terms == resident * layout.fused_terms
+
+
+def test_fused_groups_checkpoint_3x3(dev):
+    """The committed 1719-operator 3x3 checkpoint's train segment (14,123
+    terms, 13,768 of them in 1,723 fused groups) on the resident kernels
+    against the per-term plain versions, at the checkpoint's angles: within
+    1e-4 (the chip smoke test's gradient tolerance) and no further off than
+    the same kernels with every term alone."""
+    from qsfh_torch.algos.adapt import ADAPT
+    from qsfh_torch.engine.compiled import CompiledCircuit
+    from qsfh_torch.ops.pool import hubbard_interaction_pool_extended
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    a = ADAPT(pool=hubbard_interaction_pool_extended(3, 3), n_epoch=0, threshold1=1e-3,
+              threshold2=1e-3, x_dimension=3, y_dimension=3, n_electrons=9, n_spin_up=5,
+              n_spin_down=4, tunneling=1, coulomb=6, degenerate_subspace=4, load_model=True,
+              plot=False, log_metrics=False, device="cpu",
+              results_root=os.path.join(root, "benchmarks", "demo_3x3"))
+    seg = CompiledCircuit(a._ansatz_ops(a.selected_indices) + a._net_ops, 18).segments[0]
+    K.reset_launch_counts()
+    layout, errs, alone = _fused_against_plain(
+        dev, seg, 18, torch.as_tensor(a.params_t.detach().cpu().numpy()), np.random.default_rng(3),
+        unfused=True)
+    assert max(errs) <= 1e-4 and all(e <= e1 for e, e1 in zip(errs, alone))
+    assert K.launch_counts()["rotation_resident"] == K.launch_counts()["adjoint_resident"] == 3
+    for fn in K.FUSED_WRAPPERS:  # the unfused call adds nothing
+        assert fn.fused_terms == 2 * 13768 and fn.fused_terms / (2 * len(seg)) >= 0.95
 
 
 @pytest.mark.parametrize("n", [10, 18])

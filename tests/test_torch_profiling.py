@@ -317,6 +317,22 @@ def test_device_interval_needs_an_anchor(recorder):
     assert P._device == []
 
 
+def test_counters(recorder):
+    """``count`` adds under its name while the recorder is on; ``collect``
+    returns the totals and clears them, ``summarize`` carries them."""
+    P.count("rotation_resident.fused_terms", 13768)
+    P.count("rotation_resident.fused_terms", 13768)
+    P.count("adjoint_resident.fused_terms", 7)
+    tr = P.collect()
+    assert tr["counters"] == {"rotation_resident.fused_terms": 27536,
+                              "adjoint_resident.fused_terms": 7}
+    assert P.summarize(tr)["counters"] == tr["counters"]
+    assert P.collect()["counters"] == {}
+    P.disable()
+    P.count("off", 1)  # off: nothing kept
+    assert P.collect()["counters"] == {}
+
+
 def test_summarize():
     ms = 1_000_000
     trace = dict(
