@@ -95,9 +95,11 @@ group for ``rot64_groups`` and ``adjoint64_groups``,
 one per call (or per
 scratch-sized chunk) for ``pauli_apply``, ``pauli_inner`` and the four
 inner-product tile wrappers (the partial-sum pass is not counted).  The
-two resident wrappers also keep ``fused_terms``, the terms their launches
-ran in closed form (``FUSED_WRAPPERS``; the recorder's counter
-``<name>.fused_terms`` besides).  The
+two resident and the two tile-run wrappers also keep ``fused_terms``, the
+terms their launches ran in closed form (``FUSED_WRAPPERS``), and the
+tile-run wrappers ``passes``, the passes their runs make over the state in
+HBM (``PASS_WRAPPERS``); the recorder's counters ``<name>.fused_terms`` and
+``<name>.passes`` besides.  The
 ``*_plain`` functions compute the same thing from an index gather
 ``psi[idx ^ x]`` and an XOR-folded popcount parity, on any device; the CPU
 tests hold them against the JAX package, and the chip smoke test holds
@@ -564,6 +566,8 @@ def rotation_tile_runs(psi, xs, zs, angles, phre, phim, tiles):
     :func:`pauli_rotation`).  One launch per run: each run is one pass of
     the state through shared memory and registers.  The kernel reads the
     masks from the layout's tables; xs and zs serve the plain version.
+    The layout's fused groups each run as one closed-form pair rotation;
+    ``.fused_terms`` adds their terms a call and ``.passes`` its runs.
     Returns psi.
     """
     if psi.device.type == "cpu":
@@ -576,6 +580,8 @@ def rotation_tile_runs(psi, xs, zs, angles, phre, phim, tiles):
             *_tile_tables(tiles, 0, len(tiles)), *(t.data_ptr() for t in tiles.tensors(psi.device)),
             *(a.data_ptr() for a in args), _stream())
     rotation_tile_runs.launches += len(tiles)
+    _count_fused(rotation_tile_runs, tiles)
+    _count_passes(rotation_tile_runs, tiles)
     return psi
 
 
@@ -591,8 +597,9 @@ def adjoint_tile_runs(psi, lam, xs, zs, angles, phre, phim, tiles):
     """The reverse adjoint sweep (terms in REVERSED order) over the
     consecutive tile runs ``tiles``: the contract of
     :func:`adjoint_rotation`, in one launch per run and one partial-sum
-    pass per chunk of runs whose partials fit ``SWEEP_PARTIALS_CAP``.  psi
-    and lam are updated IN PLACE; returns v (complex, (T,)).
+    pass per chunk of runs whose partials fit ``SWEEP_PARTIALS_CAP``;
+    ``.fused_terms`` and ``.passes`` count as in :func:`rotation_tile_runs`.
+    psi and lam are updated IN PLACE; returns v (complex, (T,)).
     """
     if psi.device.type == "cpu" and lam.device.type == "cpu":
         return adjoint_tile_runs_plain(psi, lam, xs, zs, angles, phre, phim, tiles)
@@ -619,6 +626,8 @@ def adjoint_tile_runs(psi, lam, xs, zs, angles, phre, phim, tiles):
                 *(a.data_ptr() for a in args), partials.data_ptr(),
                 out[int(starts[r0]):].data_ptr(), _stream())
     adjoint_tile_runs.launches += len(tiles)
+    _count_fused(adjoint_tile_runs, tiles)
+    _count_passes(adjoint_tile_runs, tiles)
     return out
 
 
@@ -695,6 +704,13 @@ def _count_fused(fn, tiles):
     (``utils/profiling.py``) gain the terms a launch ran in closed form."""
     fn.fused_terms += tiles.fused_terms
     profiling.count(f"{fn.__name__}.fused_terms", tiles.fused_terms)
+
+
+def _count_passes(fn, tiles):
+    """``fn.passes`` and the recorder's counter ``<name>.passes`` gain the
+    passes a call's runs make over the state (one a run)."""
+    fn.passes += len(tiles)
+    profiling.count(f"{fn.__name__}.passes", len(tiles))
 
 
 @_counted
@@ -1774,8 +1790,10 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
-# the wrappers that also count the terms they run in closed form
-FUSED_WRAPPERS = (rotation_resident, adjoint_resident)
+# the wrappers that also count the terms they run in closed form, and those
+# that count their passes over the state
+FUSED_WRAPPERS = (rotation_resident, adjoint_resident, rotation_tile_runs, adjoint_tile_runs)
+PASS_WRAPPERS = (rotation_tile_runs, adjoint_tile_runs)
 
 
 def reset_launch_counts() -> None:
@@ -1783,6 +1801,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in FUSED_WRAPPERS:
         fn.fused_terms = 0
+    for fn in PASS_WRAPPERS:
+        fn.passes = 0
 
 
 reset_launch_counts()

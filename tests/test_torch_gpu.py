@@ -384,8 +384,54 @@ def test_fused_groups_checkpoint_3x3(dev):
         unfused=True)
     assert max(errs) <= 1e-4 and all(e <= e1 for e, e1 in zip(errs, alone))
     assert K.launch_counts()["rotation_resident"] == K.launch_counts()["adjoint_resident"] == 3
-    for fn in K.FUSED_WRAPPERS:  # the unfused call adds nothing
+    for fn in (K.rotation_resident, K.adjoint_resident):  # the unfused call adds nothing
         assert fn.fused_terms == 2 * 13768 and fn.fused_terms / (2 * len(seg)) >= 0.95
+    assert K.rotation_tile_runs.fused_terms == K.adjoint_tile_runs.fused_terms == 0
+
+
+def test_tile_run_counters_checkpoint_2x6(dev, tmp_path):
+    """The committed 2x6 checkpoint (portbench/data/adapt2x6_checkpoint.npz,
+    24 qubits) through one forward pass and one adjoint sweep of its train
+    step: the tile-run wrappers count the layouts' fused terms and runs
+    (``.fused_terms``, ``.passes`` and the recorder's counters), the
+    resident wrappers nothing; most of the terms are fused."""
+    from qsfh_torch.algos.adapt import ADAPT
+    from qsfh_torch.engine.compiled import CompiledCircuit, _tile_route
+    from qsfh_torch.utils import profiling
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ck = np.load(os.path.join(root, "portbench", "data", "adapt2x6_checkpoint.npz"))
+    a = ADAPT(n_epoch=0, threshold1=1e-2, threshold2=1e-2, x_dimension=2, y_dimension=6,
+              n_electrons=12, n_spin_up=6, n_spin_down=6, tunneling=1, coulomb=2,
+              ground_truth=False, plot=False, log_metrics=False, device=dev,
+              results_root=str(tmp_path))
+    idx = [int(i) for i in ck["param__selected_indices"]]
+    raw = a._build_stages(tuple(idx))
+    seg = CompiledCircuit(a._ansatz_ops(idx) + a._net_ops, 24).segments[0]
+    fwd, resident = _tile_route(seg, 1, 24)
+    adj, _ = _tile_route(seg, -1, 24)
+    assert not resident and fwd.n_single == adj.n_single == 0
+    th = torch.as_tensor(ck["param__t"], dtype=torch.float32, device=dev)
+    K.reset_launch_counts()
+    profiling.enable()
+    try:
+        psi = raw["fwd_from"](a._initial_state(), th)
+        raw["adjoint"](psi, raw["cotangent"](psi), th)
+        torch.cuda.synchronize()
+        counters = profiling.collect()["counters"]
+    finally:
+        profiling.disable()
+    rot, adjt = K.rotation_tile_runs, K.adjoint_tile_runs
+    assert (rot.fused_terms, rot.passes) == (fwd.fused_terms, fwd.n_runs)
+    assert (adjt.fused_terms, adjt.passes) == (adj.fused_terms, adj.n_runs)
+    assert rot.passes == K.launch_counts()["rotation_tile_runs"]
+    assert K.rotation_resident.fused_terms == K.adjoint_resident.fused_terms == 0
+    for fn in (rot, adjt):
+        assert counters[f"{fn.__name__}.fused_terms"] == fn.fused_terms
+        assert counters[f"{fn.__name__}.passes"] == fn.passes
+    # a double excitation is 8 strings in one fused group
+    assert fwd.fused_terms == adj.fused_terms >= 8 * len(idx)
+    assert fwd.fused_terms / len(seg) >= 0.5
 
 
 @pytest.mark.parametrize("n", [10, 18])
