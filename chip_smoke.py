@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper card:
 
-    python3 chip_smoke.py [--out results.json] [--profile] [--routes] [--tiles]
+    python3 chip_smoke.py [--out results.json] [--profile] [--routes] [--tiles] [--sweeps]
 
 Phases (any failed check raises and the script exits nonzero):
 
@@ -331,6 +331,15 @@ Phases (any failed check raises and the script exits nonzero):
 train step, host clock and profile) of the port in the checkout PARENT
 (loaded under another name) and of this one in one process, in rounds
 of parent, change, change, parent.
+
+``--sweeps`` runs phase 1 and then only the float32 resident sweeps
+(``rotation_resident``, ``adjoint_resident``) on the 1719-operator 3x3
+checkpoint's train segment, on its runs cut to one term each (a run's
+fixed cost) and on HVA 3x3 reps = 10: CUDA-event ms a launch and us a
+run, each result against the plain version and bit for bit against the
+tile-run kernels over the same layout; with ``--compare PARENT``, the
+parent's kernels in rounds of parent, change, change, parent, and bit for
+bit against them.
 
 ``--routes`` also times the per-term route, the resident route (at 18
 and 20 qubits) and the stream route at 18 (3x3), 20 (2x5) and 24 qubits
@@ -2316,6 +2325,168 @@ def phase_compare(parent, dev, tmp, out):
             f"{rows[f'{side} {lattice}']['step_ms']:.3f} ms (host clock, median of "
             f"{2 * rounds}), device {rows[f'{side} {lattice}']['selection_device_ms']:.3f} / "
             f"{rows[f'{side} {lattice}']['train step_device_ms']:.3f} ms" for side in ports))
+
+
+# -- --sweeps: the float32 resident sweeps, launch by launch ---------------------------------
+
+SWEEP_ROUNDS = 6  # rounds of parent, change, change, parent (the change alone: one a round)
+SWEEP_REPS = 20  # launches a CUDA-event timing
+
+
+def first_terms(tiles, arrs, n):
+    """The runs of ``tiles`` cut to their first term, nothing fused: the
+    same passes over the state with almost no work inside (a run's fixed
+    cost), and those terms' arrays."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.engine import streaming
+
+    idx = torch.as_tensor(tiles.run_start[:-1].astype(np.int64), device=arrs[0].device)
+    sub = tuple(a[idx] for a in arrs)
+    runs = [(r, r + 1, int(m)) for r, m in enumerate(tiles.run_mask)]
+    return streaming.TileRuns(sub[0].cpu().numpy(), sub[1].cpu().numpy(), runs, n, tiles.k,
+                              tiles.c), sub
+
+
+def sweep_programs(dev):
+    """The programs --sweeps times on the float32 resident kernels, each
+    one span of resident tile runs both ways: [(label, n, forward span,
+    adjoint span, forward arrays, reversed arrays)] for the committed
+    1719-operator 3x3 checkpoint's train segment at its angles (14,123
+    terms, 609 runs each way), the same runs cut to their first term
+    (:func:`first_terms`) and HVA 3x3 reps = 10 (1017 terms, 80 runs) at
+    :func:`hva_thetas`."""
+    import torch
+
+    from qsfh_torch.algos.adapt import ADAPT
+    from qsfh_torch.algos.hva import HVA, hva_program_rot
+    from qsfh_torch.engine.compiled import CompiledCircuit
+    from qsfh_torch.ops.pool import hubbard_interaction_pool_extended
+
+    adapt = ADAPT(n_epoch=0, threshold1=1e-3, threshold2=1e-3, results_root=DEMO_ADAPT,
+                  pool=hubbard_interaction_pool_extended(3, 3), device=dev, **ANALYSIS_3X3)
+    hva = HVA(n_epoch=0, reps=10, lr=1e-2, results_root=DEMO_HVA, device=dev, **ANALYSIS_3X3)
+    n = adapt.n_qubits
+    programs = []
+    for label, ops, thetas in (
+            ("3x3 checkpoint", adapt._ansatz_ops(adapt.selected_indices) + adapt._net_ops,
+             adapt.params_t.detach()),
+            ("HVA 3x3 reps=10", hva_program_rot(hva.reps, hva._v_rot, hva._h_rot, hva._u_rot),
+             hva_thetas(hva))):
+        seg = CompiledCircuit(ops, n).segments[0]
+        d = seg.tensors(dev, torch.float32, thetas.shape[0])
+        ext = torch.cat([thetas.to(device=dev, dtype=torch.float32),
+                         torch.ones(1, dtype=torch.float32, device=dev)])
+        fwd = (d["xb"], d["zb"], ext[d["pidx"]] * d["scale"], d["phre"], d["phim"])
+        rev = tuple(a.flip(0) for a in fwd)
+        spans = [resident_span(seg, n, s) for s in (1, -1)]
+        programs.append((label, n, *spans, fwd, rev))
+        if label == "3x3 checkpoint":
+            (one_f, one_fwd), (one_a, one_rev) = (first_terms(spans[0], fwd, n),
+                                                  first_terms(spans[1], rev, n))
+            programs.append(("3x3 checkpoint, one term a run", n, one_f, one_a, one_fwd, one_rev))
+    return programs
+
+
+def phase_sweeps(dev, out, parent=None):
+    """--sweeps: ``rotation_resident`` and ``adjoint_resident`` on each of
+    :func:`sweep_programs`, one launch a span, CUDA-event ms a launch and
+    us a run (the median of ``SWEEP_ROUNDS`` timings of ``SWEEP_REPS``
+    launches), with the port in the checkout ``parent`` (loaded under
+    another name, with its own kernel build) in rounds of parent, change,
+    change, parent.  Each side's state, psi and lam (relative 2-norm) and
+    per-term vector (over its largest entry) are held to the plain version
+    in complex128 within GRAD_RTOL (float32 over ~1e4 terms) and
+    compared bit for bit with the parent's and with the tile-run kernels
+    (``rotation_tile_runs``, ``adjoint_tile_runs``: one launch a run) over
+    the same layout."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from qsfh_torch.engine import kernels as K
+
+    ports = {"change": K}
+    if parent:
+        load_port(parent, "qsfh_torch_parent")
+        ports = {"parent": importlib.import_module("qsfh_torch_parent.engine.kernels"),
+                 "change": K}
+        ports["parent"]._load()
+    for side, Kx in ports.items():  # the resident kernels' registers, stack and spills
+        lines = Kx.build_info.get("log", "").splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and "_resident_kernel" in line:
+                log(f"  ptxas ({side}): {line.split()[-1]}: "
+                    + "; ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]))
+    order = ("parent", "change", "change", "parent") if parent else ("change",)
+    rng = np.random.default_rng(24)
+    rows = out.setdefault("sweeps", {})
+    for label, n, ftiles, atiles, fwd, rev in sweep_programs(dev):
+        states = []
+        for _ in range(2):
+            v = rng.standard_normal(1 << n) + 1j * rng.standard_normal(1 << n)
+            states.append(torch.as_tensor(v / np.linalg.norm(v), device=dev))
+        psi, lam = (s.to(torch.complex64) for s in states)
+        wide = lambda arrs: tuple(a.to(torch.float64) if a.is_floating_point() else a  # noqa: E731
+                                  for a in arrs)
+        ref = K.rotation_resident_plain(states[0].clone(), *wide(fwd), ftiles)
+        pr, lr = states[0].clone(), states[1].clone()
+        v_ref = K.adjoint_resident_plain(pr, lr, *wide(rev), atiles)
+        got, row = {}, dict(terms=ftiles.n_terms, runs=len(ftiles), adjoint_runs=len(atiles),
+                            most_terms=ftiles.most_terms, fused_terms=ftiles.fused_terms)
+        for side, Kx in ports.items():
+            Kx.reset_launch_counts()
+            state = Kx.rotation_resident(psi.clone(), *fwd, ftiles)
+            p, l = psi.clone(), lam.clone()
+            v = Kx.adjoint_resident(p, l, *rev, atiles)
+            tile_state = Kx.rotation_tile_runs(psi.clone(), *fwd, ftiles)
+            tp, tl = psi.clone(), lam.clone()
+            tv = Kx.adjoint_tile_runs(tp, tl, *rev, atiles)
+            torch.cuda.synchronize()
+            got[side] = (state, v, p, l)
+            errs = [rel_err(state.to(torch.complex128), ref),
+                    max_abs(v.to(torch.complex128), v_ref) / float(v_ref.abs().max()),
+                    rel_err(p.to(torch.complex128), pr), rel_err(l.to(torch.complex128), lr)]
+            row[side] = dict(
+                rel_err=max(errs), grid=Kx.resident_grid(psi, ftiles, False),
+                adjoint_grid=Kx.resident_grid(psi, atiles, True),
+                tile_runs_bit_equal=dict(
+                    forward=torch.equal(state, tile_state),
+                    adjoint=all(torch.equal(a, b) for a, b in ((v, tv), (p, tp), (l, tl)))),
+                prefetched_runs={name: getattr(getattr(Kx, name), "prefetched_runs", None)
+                                 for name in RESIDENT_KERNELS},
+                forward_ms=[], adjoint_ms=[])
+            if max(errs) > GRAD_RTOL:
+                raise AssertionError(f"--sweeps {label} ({side}): errors {errs} against plain")
+        if parent:
+            row["bit_equal_to_parent"] = [torch.equal(a, b)
+                                          for a, b in zip(got["parent"], got["change"])]
+        for _ in range(SWEEP_ROUNDS):
+            for side in order:
+                Kx = ports[side]
+                buf, p, l = psi.clone(), psi.clone(), lam.clone()
+                row[side]["forward_ms"].append(time_cuda(
+                    lambda: Kx.rotation_resident(buf, *fwd, ftiles), reps=SWEEP_REPS, warmup=1))
+                row[side]["adjoint_ms"].append(time_cuda(
+                    lambda: Kx.adjoint_resident(p, l, *rev, atiles), reps=SWEEP_REPS, warmup=1))
+        for side in ports:
+            r = row[side]
+            for what, runs in (("forward", len(ftiles)), ("adjoint", len(atiles))):
+                ms = sorted(r[f"{what}_ms"])
+                r[f"{what}_median_ms"] = ms[len(ms) // 2]
+                r[f"{what}_us_per_run"] = 1e3 * r[f"{what}_median_ms"] / runs
+            log(f"  {label} ({side}): forward {r['forward_median_ms']:.4f} ms "
+                f"({r['forward_us_per_run']:.3f} us a run of {len(ftiles)}, {r['grid']} blocks), "
+                f"adjoint {r['adjoint_median_ms']:.4f} ms ({r['adjoint_us_per_run']:.3f} us a "
+                f"run of {len(atiles)}, {r['adjoint_grid']} blocks); rel_err {r['rel_err']:.2e}; "
+                f"bit-equal to the tile runs {r['tile_runs_bit_equal']}; prefetched runs "
+                f"{r['prefetched_runs']}")
+        if parent:
+            log(f"  {label}: bit-equal to the parent (state, v, psi, lam) "
+                f"{row['bit_equal_to_parent']}")
+        rows[label] = row
 
 
 # -- the float64 readout, the fused runner and exact diagonalization --------------------
@@ -7309,6 +7480,9 @@ def main():
                         help="time the per-term, resident and stream routes at 18-24 qubits")
     parser.add_argument("--tiles", action="store_true",
                         help="time the resident and tile kernels over other tile shapes")
+    parser.add_argument("--sweeps", action="store_true",
+                        help="the card phase and the float32 resident sweeps only (with "
+                             "--compare, the parent's in turns)")
     parser.add_argument("--mesh-only", action="store_true",
                         help="the card phase and the sharded engine's phase only (a quick check "
                              "of qsfh_torch.parallel; no kernels line)")
@@ -7333,6 +7507,17 @@ def main():
 
     smi = phase_card()
     tmp = tempfile.mkdtemp(prefix="qsfh_torch_smoke_")
+    if args.sweeps:
+        log("the float32 resident sweeps (CUDA events, median of "
+            f"{SWEEP_ROUNDS} timings of {SWEEP_REPS} launches):")
+        out = dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi, torch=torch.__version__)
+        phase_sweeps(dev, out, args.compare)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(out, fh, indent=1, default=str)
+        log(f"smoke test took {time.time() - t_start:.1f} s")
+        return 0
     if args.mesh_only:
         log("the amplitude-sharded engine (ranks on this card over gloo):")
         mesh = phase_mesh(build_adapt(dev, tmp, "mesh_ref"),

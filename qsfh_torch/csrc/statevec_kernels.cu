@@ -1040,13 +1040,28 @@ adjoint_tile_run_kernel(float2* __restrict__ psi, float2* __restrict__ lam, int 
 // L2: after a barrier a tile may hold lines another SM wrote, and L1 is not
 // coherent across SMs), sets the outer signs of the run's staged terms for
 // that tile, runs the register groups with the tile-run device code, and
-// stores the tile back.  The run's per-term scalars are staged in shared
-// memory once per run, while the block's first tile of the run is copied
-// in.  Between runs, grid_sync.  The adjoint writes one
-// partial per (term, tile), partials[t, o], so the order of every sum is
-// fixed by the layout and not by G; after a last barrier the blocks sum
-// each term's row in the order of reduce_partials_kernel.  No float
-// atomics: two calls on the same inputs give the same bits, whatever G.
+// stores the tile back.  The adjoint writes one partial per (term, tile),
+// partials[t, o], so the order of every sum is fixed by the layout and not
+// by G; after a last barrier the blocks sum each term's row in the order
+// of reduce_partials_kernel.  No float atomics: two calls on the same
+// inputs give the same bits, whatever G.
+//
+// The run loop is pipelined: only the state's round trip lies between two
+// runs.  Everything else a run needs is independent of the state and is
+// made ready a run ahead, in the one of two stage buffers in shared memory
+// that run r does not use (ResidentRun):
+//   - at the start of run r, after its first tile's copy is issued, the
+//     block reads run r + 1's bounds and copies its term arrays, fused
+//     records and register-group table in with cp.async, while run r's
+//     tile arrives and its groups run (the group loops then read no
+//     global memory);
+//   - after storing its tile of run r, the block arrives at a split-phase
+//     grid barrier (SplitBarrier: a release reduction that returns
+//     nothing), stages run r + 1 from that buffer with stage_run (the same
+//     expressions as the tile-run kernels: the same bits), its outer signs
+//     for its first tile of run r + 1 included, and only then waits.
+// The critical path between runs is wait -> tile copy -> register groups
+// -> store -> arrive.  A span of one run has nothing to prefetch.
 //
 // Bound at 18 qubits: the float32 pipes per term (~0.01 / 0.04 ms for the
 // 467-term segment forward / adjoint), not bytes (one L2 pass of the state
@@ -1073,8 +1088,150 @@ __device__ __forceinline__ void grid_sync(unsigned int* count) {
   __syncthreads();
 }
 
+__device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// grid_sync's word and protocol in two halves, for the float32 resident
+// kernels.  arrive(): after a block barrier, thread 0 releases the block's
+// stores with one reduction that returns nothing (red.release: no separate
+// fence, and no returned value to wait for); wait(): thread 0 polls
+// (acquire) until the top bit flips, then a block barrier.  Work between
+// the two overlaps the other blocks' arrivals.  Thread 0 reads the top bit
+// once at the launch's start: no barrier of the launch completes before
+// this block arrives, so that bit is the phase, and each barrier flips it.
+struct SplitBarrier {
+  unsigned int* count;
+  unsigned int phase;  // thread 0's: the top bit until the next barrier completes
+  __device__ __forceinline__ explicit SplitBarrier(unsigned int* word) : count(word), phase(0u) {
+    if (threadIdx.x == 0) phase = ld_acquire(word) & 0x80000000u;
+  }
+  __device__ __forceinline__ void arrive() {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1u) : 1u;
+      asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(count), "r"(add) : "memory");
+    }
+  }
+  __device__ __forceinline__ void wait() {
+    if (threadIdx.x == 0) {
+      while (((ld_acquire(count) ^ phase) & 0x80000000u) == 0u) {
+      }
+      phase ^= 0x80000000u;
+    }
+    __syncthreads();
+  }
+};
+
+// One of a resident block's two stage buffers: stage_run's staging of a
+// run for most terms (most / 2 fused groups, `extra` bytes a term), then
+// the run's header (t0, terms, fused records, register groups, tile mask)
+// and the inputs stage_run and the group loops read, copied from the
+// layout and the call's arrays (the terms' code, z_tile, z_out, angle,
+// phre, phim; the fused records; group_start for its groups and the next,
+// group_regs).  Pointer arithmetic from the buffer's base alone, so the
+// compiler keeps them in shared memory.
+constexpr int kResidentHeader = 5;  // words
+
+__host__ __device__ constexpr size_t align16(size_t bytes) { return (bytes + 15) & ~size_t(15); }
+
+__host__ __device__ constexpr size_t resident_buffer_bytes(int most, size_t extra) {
+  return align16(stage_bytes(most, most / 2, extra)) +
+         align16(sizeof(int32_t) * (kResidentHeader + 6 * static_cast<size_t>(most) +
+                                    static_cast<size_t>(most / 2) * kFusedRec + 2 * most + 1));
+}
+
+struct ResidentRun {
+  unsigned char* staged;
+  int32_t* hdr;
+  __device__ __forceinline__ ResidentRun(unsigned char* base, int most, size_t extra)
+      : staged(base),
+        hdr(reinterpret_cast<int32_t*>(base + align16(stage_bytes(most, most / 2, extra)))) {}
+  __device__ __forceinline__ int t0() const { return hdr[0]; }
+  __device__ __forceinline__ int terms() const { return hdr[1]; }
+  __device__ __forceinline__ int n_fused() const { return hdr[2]; }
+  __device__ __forceinline__ int n_groups() const { return hdr[3]; }
+  __device__ __forceinline__ uint32_t mask() const { return static_cast<uint32_t>(hdr[4]); }
+  // the inputs: array a (0 code, 1 z_tile, 2 z_out, 3 angles, 4 phre, 5 phim) of most terms
+  __device__ __forceinline__ int32_t* term(int a, int most) const {
+    return hdr + kResidentHeader + a * most;
+  }
+  __device__ __forceinline__ const float* termf(int a, int most) const {
+    return reinterpret_cast<const float*>(term(a, most));
+  }
+  __device__ __forceinline__ int32_t* frec(int most) const { return term(6, most); }
+  __device__ __forceinline__ int32_t* gstart(int most) const {
+    return frec(most) + (most / 2) * kFusedRec;
+  }
+  __device__ __forceinline__ int32_t* gregs(int most) const { return gstart(most) + most + 1; }
+};
+
+// A 4-byte cp.async through L1 (the layout's tables and the call's arrays
+// do not change during the launch)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+// all committed groups but the last
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// Run r's header (thread 0) and inputs (every thread, by cp.async: the
+// caller commits and waits) into buffer b.  Every thread reads the bounds
+// (the same words: one transaction a warp).
+__device__ __forceinline__ void fetch_run(const ResidentRun& b, int most, int r,
+                                          const int32_t* __restrict__ run_start,
+                                          const int32_t* __restrict__ run_mask,
+                                          const int32_t* __restrict__ run_group,
+                                          const int32_t* __restrict__ run_fgroup,
+                                          const int32_t* __restrict__ code,
+                                          const int32_t* __restrict__ z_tile,
+                                          const int32_t* __restrict__ z_out,
+                                          const int32_t* __restrict__ gstart,
+                                          const int32_t* __restrict__ gregs,
+                                          const int32_t* __restrict__ frec,
+                                          const float* __restrict__ angles,
+                                          const float* __restrict__ phre,
+                                          const float* __restrict__ phim) {
+  const int t0 = __ldg(run_start + r), T = __ldg(run_start + r + 1) - t0;
+  const int f0 = __ldg(run_fgroup + r), nf = __ldg(run_fgroup + r + 1) - f0;
+  const int g0 = __ldg(run_group + r), ng = __ldg(run_group + r + 1) - g0;
+  if (threadIdx.x == 0) {
+    b.hdr[0] = t0;
+    b.hdr[1] = T;
+    b.hdr[2] = nf;
+    b.hdr[3] = ng;
+    b.hdr[4] = __ldg(run_mask + r);
+  }
+  const void* src[6] = {code + t0, z_tile + t0, z_out + t0, angles + t0, phre + t0, phim + t0};
+#pragma unroll
+  for (int a = 0; a < 6; ++a)
+    for (int t = threadIdx.x; t < T; t += blockDim.x)
+      cp_async4(b.term(a, most) + t, static_cast<const int32_t*>(src[a]) + t);
+  for (int w = threadIdx.x; w < nf * kFusedRec; w += blockDim.x)
+    cp_async4(b.frec(most) + w, frec + f0 * kFusedRec + w);
+  for (int g = threadIdx.x; g <= ng; g += blockDim.x) {
+    cp_async4(b.gstart(most) + g, gstart + g0 + g);
+    if (g < ng) cp_async4(b.gregs(most) + g, gregs + g0 + g);
+  }
+}
+
+// The staging of buffer b's run for the block's first tile of it (outer:
+// its outer bits), from the buffer's inputs (after a block barrier since
+// they arrived)
+__device__ __forceinline__ RunStage stage_buffer(const ResidentRun& b, int most, size_t extra,
+                                                 float dir, uint32_t outer) {
+  return stage_run(b.staged, b.terms(), b.n_fused(), extra, dir, outer,
+                   b.term(0, most), b.term(1, most), b.term(2, most), b.frec(most),
+                   b.termf(3, most), b.termf(4, most), b.termf(5, most));
+}
+
 __global__ void __launch_bounds__(1 << (kTileMaxBits - 4))
-rotation_resident_kernel(float2* __restrict__ psi, int n, int k, int c, int n_runs,
+rotation_resident_kernel(float2* __restrict__ psi, int n, int k, int c, int n_runs, int most,
                          const int32_t* __restrict__ run_start,
                          const int32_t* __restrict__ run_mask,
                          const int32_t* __restrict__ run_group,
@@ -1086,36 +1243,63 @@ rotation_resident_kernel(float2* __restrict__ psi, int n, int k, int c, int n_ru
                          unsigned int* barrier) {
   extern __shared__ __align__(16) unsigned char smem[];
   float2* tile = reinterpret_cast<float2*>(smem);
-  const uint32_t n_tiles = 1u << (n - k), all = (1u << n) - 1u;
+  unsigned char* stage = smem + (sizeof(float2) << k);  // the two stage buffers
+  const size_t stride = resident_buffer_bytes(most, 0);
+  const uint32_t n_tiles = 1u << (n - k), all = (1u << n) - 1u, low = (1u << c) - 1u;
+  SplitBarrier bar(barrier);
+  const ResidentRun first(stage, most, 0);
+  fetch_run(first, most, 0, run_start, run_mask, run_group, run_fgroup, code, z_tile, z_out, gstart,
+            gregs, frec, angles, phre, phim);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  // the block's first tile of the next run (here run 0): its outer bits, copy map and staging
+  uint32_t outer = deposit(blockIdx.x, all & ~first.mask());
+  TileMap map(k, c, outer, first.mask() & ~low);
+  RunStage st = stage_buffer(first, most, 0, 1.0f, outer);
+  __syncthreads();
   for (int r = 0; r < n_runs; ++r) {
-    const int t0 = run_start[r], T = run_start[r + 1] - t0;
-    const uint32_t mask = static_cast<uint32_t>(run_mask[r]);
-    const uint32_t hi_mask = mask & ~((1u << c) - 1u);
-    RunStage st{};
-    for (uint32_t o = blockIdx.x; o < n_tiles; o += gridDim.x) {
-      const uint32_t outer = deposit(o, all & ~mask);
-      const TileMap map(k, c, outer, hi_mask);
+    const ResidentRun cur(stage + (r & 1) * stride, most, 0);
+    const ResidentRun nxt(stage + ((r + 1) & 1) * stride, most, 0);
+    const int T = cur.terms();
+    const uint32_t mask = cur.mask();
+    for (uint32_t o = blockIdx.x;;) {
       load_tile(tile, psi, map);
       cp_async_commit();
-      if (o == blockIdx.x)  // the run's scalars, staged while the first tile's copy is in flight
-        st = stage_run(smem + (sizeof(float2) << k), T, run_fgroup[r + 1] - run_fgroup[r], 0,
-                       1.0f, outer, code + t0, z_tile + t0, z_out + t0,
-                       frec + run_fgroup[r] * kFusedRec, angles + t0, phre + t0, phim + t0);
-      else
+      if (o != blockIdx.x) {
         set_outer_signs(st, T, outer);
-      cp_async_wait_all();
+        cp_async_wait_all();
+      } else if (r + 1 < n_runs) {  // run r + 1's inputs, in flight while run r computes
+        fetch_run(nxt, most, r + 1, run_start, run_mask, run_group, run_fgroup, code, z_tile,
+                  z_out, gstart, gregs, frec, angles, phre, phim);
+        cp_async_commit();
+        cp_async_wait_prior();
+      } else {
+        cp_async_wait_all();
+      }
       __syncthreads();
-      rotation_groups(tile, st, gstart, gregs, run_group[r], run_group[r + 1], t0);
+      rotation_groups(tile, st, cur.gstart(most), cur.gregs(most), 0, cur.n_groups(), cur.t0());
       // each thread stores the slots it loads next: no barrier before the next copy
       store_tile(tile, psi, map);
+      o += gridDim.x;
+      if (o >= n_tiles) break;
+      outer = deposit(o, all & ~mask);
+      map = TileMap(k, c, outer, mask & ~low);
     }
-    if (r + 1 < n_runs) grid_sync(barrier);
+    if (r + 1 < n_runs) {
+      cp_async_wait_all();  // this thread's copies of run r + 1's inputs, before arrive's barrier
+      bar.arrive();
+      outer = deposit(blockIdx.x, all & ~nxt.mask());
+      map = TileMap(k, c, outer, nxt.mask() & ~low);
+      st = stage_buffer(nxt, most, 0, 1.0f, outer);
+      bar.wait();
+    }
   }
 }
 
 __global__ void __launch_bounds__(1 << (kResidentAdjointMaxBits - 4), 1)
 adjoint_resident_kernel(float2* __restrict__ psi, float2* __restrict__ lam, int n, int k, int c,
-                        int n_runs, const int32_t* __restrict__ run_start,
+                        int n_runs, int most, const int32_t* __restrict__ run_start,
                         const int32_t* __restrict__ run_mask,
                         const int32_t* __restrict__ run_group,
                         const int32_t* __restrict__ run_fgroup, const int32_t* __restrict__ code,
@@ -1128,34 +1312,66 @@ adjoint_resident_kernel(float2* __restrict__ psi, float2* __restrict__ lam, int 
   extern __shared__ __align__(16) unsigned char smem[];
   float2* pt = reinterpret_cast<float2*>(smem);
   float2* lt = pt + (1u << k);
-  const uint32_t n_tiles = 1u << (n - k), all = (1u << n) - 1u;
+  unsigned char* stage = smem + 2 * (sizeof(float2) << k);  // the two stage buffers
+  const uint32_t n_tiles = 1u << (n - k), all = (1u << n) - 1u, low = (1u << c) - 1u;
   const int n_warps = blockDim.x >> 5;
+  const size_t extra = n_warps * sizeof(float2), stride = resident_buffer_bytes(most, extra);
+  SplitBarrier bar(barrier);
+  const ResidentRun first(stage, most, extra);
+  fetch_run(first, most, 0, run_start, run_mask, run_group, run_fgroup, code, z_tile, z_out, gstart,
+            gregs, frec, angles, phre, phim);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  // the block's first tile of the next run (here run 0): its outer bits, copy map and staging
+  uint32_t outer = deposit(blockIdx.x, all & ~first.mask());
+  TileMap map(k, c, outer, first.mask() & ~low);
+  RunStage st = stage_buffer(first, most, extra, -1.0f, outer);
+  __syncthreads();
   for (int r = 0; r < n_runs; ++r) {
-    const int t0 = run_start[r], T = run_start[r + 1] - t0;
-    const uint32_t mask = static_cast<uint32_t>(run_mask[r]);
-    const uint32_t hi_mask = mask & ~((1u << c) - 1u);
-    RunStage st{};
-    for (uint32_t o = blockIdx.x; o < n_tiles; o += gridDim.x) {
-      const uint32_t outer = deposit(o, all & ~mask);
-      const TileMap map(k, c, outer, hi_mask);
+    const ResidentRun cur(stage + (r & 1) * stride, most, extra);
+    const ResidentRun nxt(stage + ((r + 1) & 1) * stride, most, extra);
+    const int T = cur.terms();
+    const uint32_t mask = cur.mask();
+    float2* wsum = reinterpret_cast<float2*>(st.extra);  // [warp][t]
+    for (uint32_t o = blockIdx.x;;) {
       load_tile(pt, psi, map);
       load_tile(lt, lam, map);
       cp_async_commit();
-      if (o == blockIdx.x)  // the run's scalars, staged while the first tiles' copies are in flight
-        st = stage_run(smem + 2 * (sizeof(float2) << k), T, run_fgroup[r + 1] - run_fgroup[r],
-                       n_warps * sizeof(float2), -1.0f, outer, code + t0, z_tile + t0, z_out + t0,
-                       frec + run_fgroup[r] * kFusedRec, angles + t0, phre + t0, phim + t0);
-      else
+      if (o != blockIdx.x) {
         set_outer_signs(st, T, outer);
-      float2* wsum = reinterpret_cast<float2*>(st.extra);  // [warp][t]
-      cp_async_wait_all();
+        cp_async_wait_all();
+      } else if (r + 1 < n_runs) {  // run r + 1's inputs, in flight while run r computes
+        fetch_run(nxt, most, r + 1, run_start, run_mask, run_group, run_fgroup, code, z_tile,
+                  z_out, gstart, gregs, frec, angles, phre, phim);
+        cp_async_commit();
+        cp_async_wait_prior();
+      } else {
+        cp_async_wait_all();
+      }
       __syncthreads();  // also: the previous tile's partials have read wsum
-      adjoint_groups(pt, lt, st, wsum, T, gstart, gregs, run_group[r], run_group[r + 1], t0);
-      write_term_partials(wsum, T, phre + t0, phim + t0, partials, t0, n_tiles, o);
+      adjoint_groups(pt, lt, st, wsum, T, cur.gstart(most), cur.gregs(most), 0, cur.n_groups(),
+                     cur.t0());
+      write_term_partials(wsum, T, cur.termf(4, most), cur.termf(5, most), partials, cur.t0(),
+                          n_tiles, o);
       store_tile(pt, psi, map);
       store_tile(lt, lam, map);
+      o += gridDim.x;
+      if (o >= n_tiles) break;
+      outer = deposit(o, all & ~mask);
+      map = TileMap(k, c, outer, mask & ~low);
     }
-    grid_sync(barrier);
+    if (r + 1 < n_runs) {
+      cp_async_wait_all();  // this thread's copies of run r + 1's inputs, before arrive's barrier
+      bar.arrive();
+      outer = deposit(blockIdx.x, all & ~nxt.mask());
+      map = TileMap(k, c, outer, nxt.mask() & ~low);
+      st = stage_buffer(nxt, most, extra, -1.0f, outer);
+      bar.wait();
+    } else {  // the partials, before the sums below
+      bar.arrive();
+      bar.wait();
+    }
   }
   // out[t] = sum_o partials[t, o]: a warp per term, in reduce_partials_kernel's
   // order; the rows were written by other SMs, so they are read through L2
@@ -2142,13 +2358,14 @@ inline bool tile_shape_ok(int n, int k, int c) {
   return k >= kTileMinBits && k <= kTileMaxBits && k <= n && c >= 1 && c <= k - 3;
 }
 
-// Dynamic shared memory of a resident launch: the tile(s), then the staging
-// of the longest run (stage_run; the adjoint adds a float2 per warp and term
-// for the warp rows), its fused groups at most one per two terms.
+// Dynamic shared memory of a resident launch: the tile(s), then two stage
+// buffers (resident_buffer_bytes) for the longest run (the adjoint's
+// staging adds a float2 per warp and term for the warp rows), its fused
+// groups at most one per two terms.
 inline size_t resident_smem(bool adjoint, int k, int most_terms) {
   const size_t tiles = (adjoint ? 2 : 1) * (sizeof(float2) << k);
   const size_t warp_rows = adjoint ? ((1u << (k - 4)) / 32) * sizeof(float2) : 0;
-  return tiles + stage_bytes(most_terms, most_terms / 2, warp_rows);
+  return tiles + 2 * resident_buffer_bytes(most_terms, warp_rows);
 }
 
 inline const void* resident_kernel(bool adjoint) {
@@ -2178,17 +2395,17 @@ inline int resident_capacity(bool adjoint, int k, int most_terms) {
   return per_sm * sm_count();
 }
 
-// Checks and shared memory of a resident launch of `grid` blocks; run_start
-// is the HOST copy of the span's run table.
+// Checks, the longest run's terms and the shared memory of a resident
+// launch of `grid` blocks; run_start is the HOST copy of the span's run table.
 inline cudaError_t resident_setup(bool adjoint, int n, int k, int c, int n_runs,
-                                  const int32_t* run_start, int grid, size_t* smem) {
+                                  const int32_t* run_start, int grid, int* most, size_t* smem) {
   if (!tile_shape_ok(n, k, c) || (adjoint && k > kResidentAdjointMaxBits) || n_runs < 1 ||
       grid < 1 || grid > (1 << (n - k)))
     return cudaErrorInvalidValue;
-  int most = 0;
-  for (int r = 0; r < n_runs; ++r) most = max(most, run_start[r + 1] - run_start[r]);
-  if (most < 1 || most > kMaxRunTerms) return cudaErrorInvalidValue;
-  *smem = resident_smem(adjoint, k, most);
+  *most = 0;
+  for (int r = 0; r < n_runs; ++r) *most = max(*most, run_start[r + 1] - run_start[r]);
+  if (*most < 1 || *most > kMaxRunTerms) return cudaErrorInvalidValue;
+  *smem = resident_smem(adjoint, k, *most);
   return adjoint ? allow_smem(adjoint_resident_kernel, *smem)
                  : allow_smem(rotation_resident_kernel, *smem);
 }
@@ -3927,7 +4144,8 @@ int qsfh_rotation_resident(void* psi, int n, int k, int c, int n_runs, int grid,
                            const void* angles, const void* phre, const void* phim,
                            void* barrier, void* stream) {
   size_t smem = 0;
-  cudaError_t err = resident_setup(false, n, k, c, n_runs, run_start_host, grid, &smem);
+  int most = 0;
+  cudaError_t err = resident_setup(false, n, k, c, n_runs, run_start_host, grid, &most, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   float2* a_psi = static_cast<float2*>(psi);
   const int32_t *a_start = static_cast<const int32_t*>(run_start),
@@ -3943,9 +4161,9 @@ int qsfh_rotation_resident(void* psi, int n, int k, int c, int n_runs, int grid,
   const float *a_ang = static_cast<const float*>(angles), *a_re = static_cast<const float*>(phre),
               *a_im = static_cast<const float*>(phim);
   unsigned int* a_bar = static_cast<unsigned int*>(barrier);
-  void* args[] = {&a_psi, &n,     &k,    &c,    &n_runs, &a_start, &a_mask, &a_group,
-                  &a_fgroup, &a_code, &a_zt, &a_zo, &a_gs, &a_gr,  &a_frec, &a_ang,
-                  &a_re,  &a_im,  &a_bar};
+  void* args[] = {&a_psi,  &n,     &k,    &c,    &n_runs, &most,   &a_start, &a_mask,
+                  &a_group, &a_fgroup, &a_code, &a_zt, &a_zo, &a_gs, &a_gr,  &a_frec,
+                  &a_ang,  &a_re,  &a_im,  &a_bar};
   err = cudaLaunchCooperativeKernel(resident_kernel(false), dim3(grid), dim3(1u << (k - 4)), args,
                                     smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -3965,7 +4183,8 @@ int qsfh_adjoint_resident(void* psi, void* lam, int n, int k, int c, int n_runs,
                           const void* angles, const void* phre, const void* phim,
                           void* partials, void* out, void* barrier, void* stream) {
   size_t smem = 0;
-  cudaError_t err = resident_setup(true, n, k, c, n_runs, run_start_host, grid, &smem);
+  int most = 0;
+  cudaError_t err = resident_setup(true, n, k, c, n_runs, run_start_host, grid, &most, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   float2 *a_psi = static_cast<float2*>(psi), *a_lam = static_cast<float2*>(lam);
   const int32_t *a_start = static_cast<const int32_t*>(run_start),
@@ -3982,9 +4201,9 @@ int qsfh_adjoint_resident(void* psi, void* lam, int n, int k, int c, int n_runs,
               *a_im = static_cast<const float*>(phim);
   float2 *a_part = static_cast<float2*>(partials), *a_out = static_cast<float2*>(out);
   unsigned int* a_bar = static_cast<unsigned int*>(barrier);
-  void* args[] = {&a_psi,  &a_lam,  &n,      &k,    &c,    &n_runs, &a_start, &a_mask,
-                  &a_group, &a_fgroup, &a_code, &a_zt, &a_zo, &a_gs,  &a_gr,    &a_frec,
-                  &a_ang,  &a_re,   &a_im,   &a_part, &a_out, &a_bar};
+  void* args[] = {&a_psi,   &a_lam,   &n,      &k,    &c,    &n_runs, &most,   &a_start,
+                  &a_mask,  &a_group, &a_fgroup, &a_code, &a_zt, &a_zo,  &a_gs,   &a_gr,
+                  &a_frec,  &a_ang,   &a_re,   &a_im,   &a_part, &a_out, &a_bar};
   err = cudaLaunchCooperativeKernel(resident_kernel(true), dim3(grid), dim3(1u << (k - 4)), args,
                                     smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);

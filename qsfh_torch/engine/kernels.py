@@ -98,8 +98,10 @@ inner-product tile wrappers (the partial-sum pass is not counted).  The
 two resident and the two tile-run wrappers also keep ``fused_terms``, the
 terms their launches ran in closed form (``FUSED_WRAPPERS``), and the
 tile-run wrappers ``passes``, the passes their runs make over the state in
-HBM (``PASS_WRAPPERS``); the recorder's counters ``<name>.fused_terms`` and
-``<name>.passes`` besides.  The
+HBM (``PASS_WRAPPERS``), and the resident wrappers ``prefetched_runs``, the
+runs whose inputs a launch copied in and staged a run ahead
+(``PREFETCH_WRAPPERS``); the recorder's counters ``<name>.fused_terms``,
+``<name>.passes`` and ``<name>.prefetched_runs`` besides.  The
 ``*_plain`` functions compute the same thing from an index gather
 ``psi[idx ^ x]`` and an XOR-folded popcount parity, on any device; the CPU
 tests hold them against the JAX package, and the chip smoke test holds
@@ -713,15 +715,27 @@ def _count_passes(fn, tiles):
     profiling.count(f"{fn.__name__}.passes", len(tiles))
 
 
+def _count_prefetched(fn, tiles):
+    """``fn.prefetched_runs`` and the recorder's counter
+    ``<name>.prefetched_runs`` gain the runs of a resident launch whose
+    inputs were copied in and staged before their grid barrier: every run
+    but the first."""
+    fn.prefetched_runs += len(tiles) - 1
+    profiling.count(f"{fn.__name__}.prefetched_runs", len(tiles) - 1)
+
+
 @_counted
 def rotation_resident(psi, xs, zs, angles, phre, phim, tiles, blocks=None):
     """:func:`rotation_tile_runs` over the whole span ``tiles`` in ONE
     cooperative launch: G persistent blocks walk the runs in order over
     the L2-resident state, block b taking tiles b, b + G, ... of each run,
     with a grid barrier between runs (``blocks`` caps G; see
-    :func:`resident_grid`).  The layout's fused groups each run as one
-    closed-form pair rotation (``streaming.fused_groups``); ``.fused_terms``
-    adds their terms a launch.  In place; returns psi.
+    :func:`resident_grid`).  A block copies in and stages run r + 1's
+    inputs while run r runs, behind a split-phase barrier;
+    ``.prefetched_runs`` adds those runs a launch (all but the first).  The
+    layout's fused groups each run as one closed-form pair rotation
+    (``streaming.fused_groups``); ``.fused_terms`` adds their terms a
+    launch.  In place; returns psi.
     """
     if psi.device.type == "cpu":
         return rotation_resident_plain(psi, xs, zs, angles, phre, phim, tiles)
@@ -736,6 +750,7 @@ def rotation_resident(psi, xs, zs, angles, phre, phim, tiles, blocks=None):
             _barrier(psi).data_ptr(), _stream())
     rotation_resident.launches += 1
     _count_fused(rotation_resident, tiles)
+    _count_prefetched(rotation_resident, tiles)
     return psi
 
 
@@ -754,8 +769,9 @@ def adjoint_resident(psi, lam, xs, zs, angles, phre, phim, tiles, blocks=None):
     partial of its own, and the launch sums each term's partials in a
     fixed order after a last grid barrier: the same bits whatever G.  A
     fused group reads every term's share at the group's end state (its
-    terms commute) and rotates back once.  psi and lam are updated IN
-    PLACE; returns v (complex, (T,)).
+    terms commute) and rotates back once; ``.prefetched_runs`` counts as
+    in :func:`rotation_resident`.  psi and lam are updated IN PLACE;
+    returns v (complex, (T,)).
     """
     if psi.device.type == "cpu" and lam.device.type == "cpu":
         return adjoint_resident_plain(psi, lam, xs, zs, angles, phre, phim, tiles)
@@ -779,6 +795,7 @@ def adjoint_resident(psi, lam, xs, zs, angles, phre, phim, tiles, blocks=None):
             partials.data_ptr(), out.data_ptr(), _barrier(psi).data_ptr(), _stream())
     adjoint_resident.launches += 1
     _count_fused(adjoint_resident, tiles)
+    _count_prefetched(adjoint_resident, tiles)
     return out
 
 
@@ -1790,10 +1807,12 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
-# the wrappers that also count the terms they run in closed form, and those
-# that count their passes over the state
+# the wrappers that also count the terms they run in closed form, those
+# that count their passes over the state, and those that count the runs
+# they stage a run ahead
 FUSED_WRAPPERS = (rotation_resident, adjoint_resident, rotation_tile_runs, adjoint_tile_runs)
 PASS_WRAPPERS = (rotation_tile_runs, adjoint_tile_runs)
+PREFETCH_WRAPPERS = (rotation_resident, adjoint_resident)
 
 
 def reset_launch_counts() -> None:
@@ -1803,6 +1822,8 @@ def reset_launch_counts() -> None:
         fn.fused_terms = 0
     for fn in PASS_WRAPPERS:
         fn.passes = 0
+    for fn in PREFETCH_WRAPPERS:
+        fn.prefetched_runs = 0
 
 
 reset_launch_counts()

@@ -230,7 +230,8 @@ RESIDENT_CASES = [(12, 9, 2, None), (18, 11, 3, None), (18, 11, 3, 7), (18, 10, 
 
 @pytest.mark.parametrize("n,k,c,blocks", RESIDENT_CASES)
 def test_rotation_resident(dev, n, k, c, blocks):
-    """rotation_resident against its plain version: one launch per span."""
+    """rotation_resident against its plain version: one launch per span; a
+    second call, and a call on another grid, give the same bits."""
     tiles, args, psi, _ = _resident_case(dev, n, k, c, n + k + 11)
     got, ref = psi.clone(), psi.clone()
     K.reset_launch_counts()
@@ -238,8 +239,13 @@ def test_rotation_resident(dev, n, k, c, blocks):
     K.rotation_resident_plain(ref, *args, tiles)
     torch.cuda.synchronize()
     assert K.launch_counts()["rotation_resident"] == 1
+    assert K.rotation_resident.prefetched_runs == len(tiles) - 1
     assert K.resident_grid(psi, tiles, False, blocks) <= 1 << (n - k)
     assert _rel(got, ref) <= RTOL
+    for other in (blocks, 3):
+        again = K.rotation_resident(psi.clone(), *args, tiles, blocks=other)
+        torch.cuda.synchronize()
+        assert torch.equal(again, got)
 
 
 @pytest.mark.parametrize("n,k,c,blocks", RESIDENT_CASES)
@@ -361,12 +367,12 @@ def test_fused_groups_mixed_program(dev, n):
     assert K.adjoint_resident.fused_terms == resident * layout.fused_terms
 
 
-def test_fused_groups_checkpoint_3x3(dev):
-    """The committed 1719-operator 3x3 checkpoint's train segment (14,123
-    terms, 13,768 of them in 1,723 fused groups) on the resident kernels
-    against the per-term plain versions, at the checkpoint's angles: within
-    1e-4 (the chip smoke test's gradient tolerance) and no further off than
-    the same kernels with every term alone."""
+@pytest.fixture(scope="module")
+def checkpoint_3x3():
+    """(segment, angles) of the committed 1719-operator 3x3 checkpoint's
+    train segment (14,123 terms, 609 resident runs each way)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
     from qsfh_torch.algos.adapt import ADAPT
     from qsfh_torch.engine.compiled import CompiledCircuit
     from qsfh_torch.ops.pool import hubbard_interaction_pool_extended
@@ -378,15 +384,67 @@ def test_fused_groups_checkpoint_3x3(dev):
               plot=False, log_metrics=False, device="cpu",
               results_root=os.path.join(root, "benchmarks", "demo_3x3"))
     seg = CompiledCircuit(a._ansatz_ops(a.selected_indices) + a._net_ops, 18).segments[0]
+    return seg, torch.as_tensor(a.params_t.detach().cpu().numpy())
+
+
+def test_fused_groups_checkpoint_3x3(dev, checkpoint_3x3):
+    """The committed 1719-operator 3x3 checkpoint's train segment (14,123
+    terms, 13,768 of them in 1,723 fused groups) on the resident kernels
+    against the per-term plain versions, at the checkpoint's angles: within
+    1e-4 (the chip smoke test's gradient tolerance) and no further off than
+    the same kernels with every term alone."""
+    seg, thetas = checkpoint_3x3
     K.reset_launch_counts()
-    layout, errs, alone = _fused_against_plain(
-        dev, seg, 18, torch.as_tensor(a.params_t.detach().cpu().numpy()), np.random.default_rng(3),
-        unfused=True)
+    layout, errs, alone = _fused_against_plain(dev, seg, 18, thetas, np.random.default_rng(3),
+                                               unfused=True)
     assert max(errs) <= 1e-4 and all(e <= e1 for e, e1 in zip(errs, alone))
     assert K.launch_counts()["rotation_resident"] == K.launch_counts()["adjoint_resident"] == 3
     for fn in (K.rotation_resident, K.adjoint_resident):  # the unfused call adds nothing
         assert fn.fused_terms == 2 * 13768 and fn.fused_terms / (2 * len(seg)) >= 0.95
     assert K.rotation_tile_runs.fused_terms == K.adjoint_tile_runs.fused_terms == 0
+
+
+def test_resident_checkpoint_3x3(dev, checkpoint_3x3):
+    """The checkpoint's train segment at the shipped resident layout (one
+    span of 609 runs each way, at the checkpoint's angles):
+    rotation_resident and adjoint_resident against the plain version in
+    complex128, the states within RTOL of their 2-norm and the per-term
+    vector within 1e-4 of its largest entry (as the test above: float32
+    over 14,123 terms reads ~1.5e-5 there), bit-equal to rotation_tile_runs
+    / adjoint_tile_runs over the same layout (the same staging and register
+    groups, one launch a run), and each launch counts its 608 prefetched
+    runs."""
+    from qsfh_torch.engine.compiled import _tile_route
+
+    seg, thetas = checkpoint_3x3
+    fwd, rev = _segment_arrays(seg, dev, thetas, torch.float32)
+    fwd64, rev64 = _segment_arrays(seg, dev, thetas, torch.float64)
+    (flayout, resident), (alayout, _) = _tile_route(seg, 1, 18), _tile_route(seg, -1, 18)
+    assert resident and len(flayout.spans) == len(alayout.spans) == 1
+    ftiles, atiles = flayout.spans[0][0], alayout.spans[0][0]
+    assert len(ftiles) == len(atiles) == 609
+    rng = np.random.default_rng(24)
+    psi = torch.as_tensor(_state(rng, 18), device=dev)
+    lam = torch.as_tensor(_state(rng, 18), device=dev)
+    ref = K.rotation_resident_plain(psi.clone(), *fwd64, ftiles)
+    pr, lr = psi.clone(), lam.clone()
+    v_ref = K.adjoint_resident_plain(pr, lr, *rev64, atiles)
+    p32, l32 = psi.to(torch.complex64), lam.to(torch.complex64)
+    K.reset_launch_counts()
+    got = K.rotation_resident(p32.clone(), *fwd, ftiles)
+    p, l = p32.clone(), l32.clone()
+    v = K.adjoint_resident(p, l, *rev, atiles)
+    tiled = K.rotation_tile_runs(p32.clone(), *fwd, ftiles)
+    tp, tl = p32.clone(), l32.clone()
+    tv = K.adjoint_tile_runs(tp, tl, *rev, atiles)
+    torch.cuda.synchronize()
+    c128 = torch.complex128
+    assert _rel(got.to(c128), ref) <= RTOL
+    assert float((v.to(c128) - v_ref).abs().max() / v_ref.abs().max()) <= 1e-4
+    assert _rel(p.to(c128), pr) <= RTOL and _rel(l.to(c128), lr) <= RTOL
+    assert torch.equal(got, tiled)
+    assert torch.equal(v, tv) and torch.equal(p, tp) and torch.equal(l, tl)
+    assert K.rotation_resident.prefetched_runs == K.adjoint_resident.prefetched_runs == 608
 
 
 def test_tile_run_counters_checkpoint_2x6(dev, tmp_path):
