@@ -2455,8 +2455,7 @@ def phase_sweeps(dev, out, parent=None):
                 tile_runs_bit_equal=dict(
                     forward=torch.equal(state, tile_state),
                     adjoint=all(torch.equal(a, b) for a, b in ((v, tv), (p, tp), (l, tl)))),
-                prefetched_runs={name: getattr(getattr(Kx, name), "prefetched_runs", None)
-                                 for name in RESIDENT_KERNELS},
+                staged_runs=dict(forward=len(ftiles) - 1, adjoint=len(atiles) - 1),
                 forward_ms=[], adjoint_ms=[])
             if max(errs) > GRAD_RTOL:
                 raise AssertionError(f"--sweeps {label} ({side}): errors {errs} against plain")
@@ -2481,8 +2480,8 @@ def phase_sweeps(dev, out, parent=None):
                 f"({r['forward_us_per_run']:.3f} us a run of {len(ftiles)}, {r['grid']} blocks), "
                 f"adjoint {r['adjoint_median_ms']:.4f} ms ({r['adjoint_us_per_run']:.3f} us a "
                 f"run of {len(atiles)}, {r['adjoint_grid']} blocks); rel_err {r['rel_err']:.2e}; "
-                f"bit-equal to the tile runs {r['tile_runs_bit_equal']}; prefetched runs "
-                f"{r['prefetched_runs']}")
+                f"bit-equal to the tile runs {r['tile_runs_bit_equal']}; runs staged a run ahead "
+                f"{r['staged_runs']}")
         if parent:
             log(f"  {label}: bit-equal to the parent (state, v, psi, lam) "
                 f"{row['bit_equal_to_parent']}")
@@ -6603,9 +6602,9 @@ def partner_timing(engine, problem, psi, partner):
                                                    generator=gen) / dim ** 0.5
                                        for _ in range(2))):
         args = (a, b, xs, zs, c.real, c.imag, tiles)
-        before = K.expectation_partner.launches
+        before = K.launch_counts()["expectation_partner"]
         got = K.expectation_partner(*args)
-        launches = K.expectation_partner.launches - before
+        launches = K.launch_counts()["expectation_partner"] - before
         ref = K.expectation_partner_plain(*args)
         scale = float(c.abs().sum()) * float(torch.linalg.vector_norm(a) *
                                              torch.linalg.vector_norm(b))

@@ -81,35 +81,32 @@ become int32 at the kernel boundary; per-term scalars become float32.
 
 Every wrapper takes the plain version for a tensor on the CPU and launches
 its kernel for a tensor on a CUDA device, or raises: there is no fallback.
-Each wrapper keeps a plain-integer ``launches`` count of its kernel's
-launches: one per span for the two resident kernels (the 18-qubit
-rotations and adjoint sweep: one per call where every term fits a tile),
-one per term for the two per-term rotations, one per run for the two
-tile-run kernels, one per tile for ``pauli_apply_grouped``, one per call
-for ``xor_gather``, ``pauli_rotation_out``, ``expectation_norm_f64``,
-``expectation_norm_f64_tiles`` (its fold inside the launch), ``happly64``
-and the two float64 resident kernels (each of which fills its tables and,
-in the adjoint, folds the gradient inside the launch), one per tile for
-``happly64_tiles`` (E and N folded inside the last), one per
-group for ``rot64_groups`` and ``adjoint64_groups``,
-one per call (or per
-scratch-sized chunk) for ``pauli_apply``, ``pauli_inner`` and the four
-inner-product tile wrappers (the partial-sum pass is not counted).  The
-two resident and the two tile-run wrappers also keep ``fused_terms``, the
-terms their launches ran in closed form (``FUSED_WRAPPERS``), and the
-tile-run wrappers ``passes``, the passes their runs make over the state in
-HBM (``PASS_WRAPPERS``), and the resident wrappers ``prefetched_runs``, the
-runs whose inputs a launch copied in and staged a run ahead
-(``PREFETCH_WRAPPERS``); the recorder's counters ``<name>.fused_terms``,
-``<name>.passes`` and ``<name>.prefetched_runs`` besides.  The
-``*_plain`` functions compute the same thing from an index gather
+The ``*_plain`` functions compute the same thing from an index gather
 ``psi[idx ^ x]`` and an XOR-folded popcount parity, on any device; the CPU
 tests hold them against the JAX package, and the chip smoke test holds
 every kernel against them on the card.
 
 Every launch of the library passes through one helper, ``_launch``, which
 brackets the library call alone with a device interval of the recorder
-(``utils/profiling.py``) named after the kernel: off, one flag check.
+(``utils/profiling.py``) named after the kernel (off: one flag check) and
+adds the kernel launches the call made to a table under the wrapper's
+name: one per span for the two resident kernels (the 18-qubit rotations
+and adjoint sweep: one per call where every term fits a tile), one per
+term for the two per-term rotations, one per run for the two tile-run
+kernels, one per tile for ``pauli_apply_grouped`` and ``happly64_tiles``
+(E and N folded inside the last), one per group for ``rot64_groups`` and
+``adjoint64_groups``, one per call for ``xor_gather``,
+``pauli_rotation_out``, ``expectation_norm_f64``,
+``expectation_norm_f64_tiles`` (its fold inside the launch), ``happly64``
+and the two float64 resident kernels (each of which fills its tables and,
+in the adjoint, folds the gradient inside the launch), one per call (or
+per scratch-sized chunk) for ``pauli_apply``, ``pauli_inner`` and the four
+inner-product tile wrappers (a partial-sum pass is not counted).
+:func:`launch_counts` reads the table and :func:`reset_launch_counts`
+zeroes it.  What a launch did beyond that its layout says: the terms it
+ran in closed form (``TileRuns.fused_terms``), its passes over the state
+(``len(tiles)``, ``TileLayout.passes``), and, for a resident launch, the
+runs it staged a run ahead (every run but the first, ``len(tiles) - 1``).
 """
 
 from __future__ import annotations
@@ -122,6 +119,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
 from dataclasses import dataclass
 from typing import Callable
 
@@ -275,15 +273,22 @@ def _load():
         return lib
 
 
-def _launch(name: str, fn, *args):
-    """``fn(*args)``, a launch of the library, inside the recorder's device
-    interval ``name`` (``utils.profiling.device``: CUDA events around the
-    library call alone, not the wrapper's preparation); raises on its
-    error code.  Every launch of the library passes here."""
+# kernel launches under each wrapper's name since the last reset_launch_counts()
+_launches: Counter = Counter()
+
+
+def _launch(name: str, fn, *args, launches: int = 1):
+    """``fn(*args)``, a call of the library that makes ``launches`` kernel
+    launches, inside the recorder's device interval ``name``
+    (``utils.profiling.device``: CUDA events around the library call alone,
+    not the wrapper's preparation); raises on its error code, else adds
+    ``launches`` to the table under ``name`` (:func:`launch_counts`).
+    Every launch of the library passes here."""
     with profiling.device(name):
         rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}: {_lib.qsfh_error_string(rc).decode()}")
+    _launches[name] += launches
 
 
 def _stream() -> int:
@@ -327,11 +332,6 @@ _MASK = torch.int32
 _SCALAR = torch.float32
 
 
-def _counted(fn: Callable) -> Callable:
-    fn.launches = 0
-    return fn
-
-
 def _chunks(T: int, width: int):
     """Term chunks whose (chunk, width) partials fit ``PARTIALS_CAP``."""
     step = max(1, PARTIALS_CAP // width)
@@ -341,7 +341,6 @@ def _chunks(T: int, width: int):
 # -- pauli_rotation ---------------------------------------------------------------
 
 
-@_counted
 def pauli_rotation(psi, xs, zs, angles, phre, phim):
     """psi <- exp(-i angles[T-1] P_{T-1}) ... exp(-i angles[0] P_0) psi,
     IN PLACE, with P_t psi[b] = (phre_t + i phim_t) s_t(b) psi[b ^ xs_t].
@@ -359,8 +358,7 @@ def pauli_rotation(psi, xs, zs, angles, phre, phim):
                   (angles, _SCALAR), (phre, _SCALAR), (phim, _SCALAR))
     lib = _load()
     _launch("pauli_rotation", lib.qsfh_pauli_rotation, psi.data_ptr(), n,
-            *(a.data_ptr() for a in args), T, _stream())
-    pauli_rotation.launches += T
+            *(a.data_ptr() for a in args), T, _stream(), launches=T)
     return psi
 
 
@@ -385,7 +383,6 @@ def pauli_rotation_plain(psi, xs, zs, angles, phre, phim):
 # -- pauli_apply ------------------------------------------------------------------
 
 
-@_counted
 def pauli_apply(psi, xs, zs, cre, cim):
     """out[b] = sum_t (cre_t + i cim_t) s_t(b) psi[b ^ xs_t] (a new tensor)."""
     if psi.device.type == "cpu":
@@ -399,7 +396,6 @@ def pauli_apply(psi, xs, zs, cre, cim):
     lib = _load()
     _launch("pauli_apply", lib.qsfh_pauli_apply, psi.data_ptr(), out.data_ptr(), n,
             *(a.data_ptr() for a in args), T, _stream())
-    pauli_apply.launches += 1
     return out
 
 
@@ -426,7 +422,6 @@ def pauli_apply_plain(psi, xs, zs, cre, cim):
 # -- pauli_inner ------------------------------------------------------------------
 
 
-@_counted
 def pauli_inner(a, psi, xs, zs):
     """v_t = sum_b conj(a[b]) s_t(b) psi[b ^ xs_t] for every term (complex, (T,)).
 
@@ -448,11 +443,10 @@ def pauli_inner(a, psi, xs, zs):
     chunks = _chunks(T, width)
     partials = torch.empty((chunks[0][1], width), dtype=torch.complex64, device=psi.device)
     for t0, t1 in chunks:
+        # the C side also chunks the 65535-term grid-y limit
         _launch("pauli_inner", lib.qsfh_pauli_inner, a.data_ptr(), psi.data_ptr(), n,
                 xs[t0:].data_ptr(), zs[t0:].data_ptr(), t1 - t0, partials.data_ptr(),
-                out[t0:].data_ptr(), _stream())
-        # the C side also chunks the 65535-term grid-y limit
-        pauli_inner.launches += -(-(t1 - t0) // 65535)
+                out[t0:].data_ptr(), _stream(), launches=-(-(t1 - t0) // 65535))
     return out
 
 
@@ -474,7 +468,6 @@ def pauli_inner_plain(a, psi, xs, zs):
 # -- adjoint_rotation ---------------------------------------------------------------
 
 
-@_counted
 def adjoint_rotation(psi, lam, xs, zs, angles, phre, phim):
     """Reverse adjoint sweep over terms given in REVERSED application order.
 
@@ -501,8 +494,7 @@ def adjoint_rotation(psi, lam, xs, zs, angles, phre, phim):
     for t0, t1 in chunks:
         _launch("adjoint_rotation", lib.qsfh_adjoint_rotation, psi.data_ptr(), lam.data_ptr(), n,
                 *(t[t0:].data_ptr() for t in args), t1 - t0, partials.data_ptr(),
-                out[t0:].data_ptr(), _stream())
-    adjoint_rotation.launches += T
+                out[t0:].data_ptr(), _stream(), launches=t1 - t0)
     return out
 
 
@@ -560,7 +552,6 @@ def _check_tiles(xs, tiles, name: str):
         raise ValueError(f"{name}: a flip mask leaves its run's tile")
 
 
-@_counted
 def rotation_tile_runs(psi, xs, zs, angles, phre, phim, tiles):
     """psi <- exp(-i angles[T-1] P_{T-1}) ... exp(-i angles[0] P_0) psi, IN
     PLACE, over the consecutive tile runs ``tiles`` (a
@@ -568,8 +559,7 @@ def rotation_tile_runs(psi, xs, zs, angles, phre, phim, tiles):
     :func:`pauli_rotation`).  One launch per run: each run is one pass of
     the state through shared memory and registers.  The kernel reads the
     masks from the layout's tables; xs and zs serve the plain version.
-    The layout's fused groups each run as one closed-form pair rotation;
-    ``.fused_terms`` adds their terms a call and ``.passes`` its runs.
+    The layout's fused groups each run as one closed-form pair rotation.
     Returns psi.
     """
     if psi.device.type == "cpu":
@@ -580,10 +570,7 @@ def rotation_tile_runs(psi, xs, zs, angles, phre, phim, tiles):
     lib = _load()
     _launch("rotation_tile_runs", lib.qsfh_rotation_tile_runs, psi.data_ptr(), n, tiles.k, tiles.c,
             *_tile_tables(tiles, 0, len(tiles)), *(t.data_ptr() for t in tiles.tensors(psi.device)),
-            *(a.data_ptr() for a in args), _stream())
-    rotation_tile_runs.launches += len(tiles)
-    _count_fused(rotation_tile_runs, tiles)
-    _count_passes(rotation_tile_runs, tiles)
+            *(a.data_ptr() for a in args), _stream(), launches=len(tiles))
     return psi
 
 
@@ -594,13 +581,11 @@ def rotation_tile_runs_plain(psi, xs, zs, angles, phre, phim, tiles):
     return pauli_rotation_plain(psi, xs, zs, angles, phre, phim)
 
 
-@_counted
 def adjoint_tile_runs(psi, lam, xs, zs, angles, phre, phim, tiles):
     """The reverse adjoint sweep (terms in REVERSED order) over the
     consecutive tile runs ``tiles``: the contract of
     :func:`adjoint_rotation`, in one launch per run and one partial-sum
-    pass per chunk of runs whose partials fit ``SWEEP_PARTIALS_CAP``;
-    ``.fused_terms`` and ``.passes`` count as in :func:`rotation_tile_runs`.
+    pass per chunk of runs whose partials fit ``SWEEP_PARTIALS_CAP``.
     psi and lam are updated IN PLACE; returns v (complex, (T,)).
     """
     if psi.device.type == "cpu" and lam.device.type == "cpu":
@@ -626,10 +611,7 @@ def adjoint_tile_runs(psi, lam, xs, zs, angles, phre, phim, tiles):
         _launch("adjoint_tile_runs", lib.qsfh_adjoint_tile_runs, psi.data_ptr(), lam.data_ptr(), n,
                 tiles.k, tiles.c, *_tile_tables(tiles, r0, r1), *tables,
                 *(a.data_ptr() for a in args), partials.data_ptr(),
-                out[int(starts[r0]):].data_ptr(), _stream())
-    adjoint_tile_runs.launches += len(tiles)
-    _count_fused(adjoint_tile_runs, tiles)
-    _count_passes(adjoint_tile_runs, tiles)
+                out[int(starts[r0]):].data_ptr(), _stream(), launches=r1 - r0)
     return out
 
 
@@ -701,41 +683,15 @@ def _fold_count(psi) -> torch.Tensor:
     return _fold_counts[key]
 
 
-def _count_fused(fn, tiles):
-    """``fn.fused_terms`` and the recorder's counter ``<name>.fused_terms``
-    (``utils/profiling.py``) gain the terms a launch ran in closed form."""
-    fn.fused_terms += tiles.fused_terms
-    profiling.count(f"{fn.__name__}.fused_terms", tiles.fused_terms)
-
-
-def _count_passes(fn, tiles):
-    """``fn.passes`` and the recorder's counter ``<name>.passes`` gain the
-    passes a call's runs make over the state (one a run)."""
-    fn.passes += len(tiles)
-    profiling.count(f"{fn.__name__}.passes", len(tiles))
-
-
-def _count_prefetched(fn, tiles):
-    """``fn.prefetched_runs`` and the recorder's counter
-    ``<name>.prefetched_runs`` gain the runs of a resident launch whose
-    inputs were copied in and staged before their grid barrier: every run
-    but the first."""
-    fn.prefetched_runs += len(tiles) - 1
-    profiling.count(f"{fn.__name__}.prefetched_runs", len(tiles) - 1)
-
-
-@_counted
 def rotation_resident(psi, xs, zs, angles, phre, phim, tiles, blocks=None):
     """:func:`rotation_tile_runs` over the whole span ``tiles`` in ONE
     cooperative launch: G persistent blocks walk the runs in order over
     the L2-resident state, block b taking tiles b, b + G, ... of each run,
     with a grid barrier between runs (``blocks`` caps G; see
     :func:`resident_grid`).  A block copies in and stages run r + 1's
-    inputs while run r runs, behind a split-phase barrier;
-    ``.prefetched_runs`` adds those runs a launch (all but the first).  The
-    layout's fused groups each run as one closed-form pair rotation
-    (``streaming.fused_groups``); ``.fused_terms`` adds their terms a
-    launch.  In place; returns psi.
+    inputs while run r runs, behind a split-phase barrier.  The layout's
+    fused groups each run as one closed-form pair rotation
+    (``streaming.fused_groups``).  In place; returns psi.
     """
     if psi.device.type == "cpu":
         return rotation_resident_plain(psi, xs, zs, angles, phre, phim, tiles)
@@ -748,9 +704,6 @@ def rotation_resident(psi, xs, zs, angles, phre, phim, tiles, blocks=None):
             tiles.run_start.ctypes.data, *(t.data_ptr() for t in tiles.run_tensors(psi.device)),
             *(t.data_ptr() for t in tiles.tensors(psi.device)), *(a.data_ptr() for a in args),
             _barrier(psi).data_ptr(), _stream())
-    rotation_resident.launches += 1
-    _count_fused(rotation_resident, tiles)
-    _count_prefetched(rotation_resident, tiles)
     return psi
 
 
@@ -761,7 +714,6 @@ def rotation_resident_plain(psi, xs, zs, angles, phre, phim, tiles):
     return pauli_rotation_plain(psi, xs, zs, angles, phre, phim)
 
 
-@_counted
 def adjoint_resident(psi, lam, xs, zs, angles, phre, phim, tiles, blocks=None):
     """:func:`adjoint_tile_runs` over the whole span ``tiles`` (terms in
     REVERSED order) in ONE cooperative launch, as
@@ -769,9 +721,8 @@ def adjoint_resident(psi, lam, xs, zs, angles, phre, phim, tiles, blocks=None):
     partial of its own, and the launch sums each term's partials in a
     fixed order after a last grid barrier: the same bits whatever G.  A
     fused group reads every term's share at the group's end state (its
-    terms commute) and rotates back once; ``.prefetched_runs`` counts as
-    in :func:`rotation_resident`.  psi and lam are updated IN PLACE;
-    returns v (complex, (T,)).
+    terms commute) and rotates back once.  psi and lam are updated IN
+    PLACE; returns v (complex, (T,)).
     """
     if psi.device.type == "cpu" and lam.device.type == "cpu":
         return adjoint_resident_plain(psi, lam, xs, zs, angles, phre, phim, tiles)
@@ -793,9 +744,6 @@ def adjoint_resident(psi, lam, xs, zs, angles, phre, phim, tiles, blocks=None):
             *(t.data_ptr() for t in tiles.run_tensors(psi.device)),
             *(t.data_ptr() for t in tiles.tensors(psi.device)), *(a.data_ptr() for a in args),
             partials.data_ptr(), out.data_ptr(), _barrier(psi).data_ptr(), _stream())
-    adjoint_resident.launches += 1
-    _count_fused(adjoint_resident, tiles)
-    _count_prefetched(adjoint_resident, tiles)
     return out
 
 
@@ -810,7 +758,6 @@ def adjoint_resident_plain(psi, lam, xs, zs, angles, phre, phim, tiles):
 # -- xor_gather and the one-term rotation ------------------------------------------------
 
 
-@_counted
 def xor_gather(psi, x):
     """out[b] = psi[b ^ x] (a new tensor); ``x`` is a flat mask, an int or
     a one-element integer tensor on psi's device (read on the device, so
@@ -834,7 +781,6 @@ def xor_gather(psi, x):
     lib = _load()
     _launch("xor_gather", lib.qsfh_xor_gather, psi.data_ptr(), out.data_ptr(), n, mask_dev, mask,
             _stream())
-    xor_gather.launches += 1
     return out
 
 
@@ -892,11 +838,9 @@ def _rotation_out(psi, out, x, z, theta, phre, phim):
         args, keep = _scalar_args(psi, name, x, z, theta, phre, phim)
         _launch(name, lib.qsfh_pauli_rotation_out, psi.data_ptr(), out.data_ptr(), n, *args,
                 _stream())
-    pauli_rotation_out.launches += 1
     return out
 
 
-@_counted
 def pauli_rotation_out(psi, out, x, z, theta, phre, phim):
     """out <- exp(-i theta P) psi for ONE term, P psi[b] = (phre + i phim)
     (-1)^popc(b & z) psi[b ^ x]; psi is untouched.  One launch that reads
@@ -969,10 +913,9 @@ _FOLD_V, _FOLD_SCREEN, _FOLD_EXPECTATION = 0, 1, 2
 def _inner_tiles(name, a, psi, xs, zs, tiles, mode, cre=None, cim=None):
     """The inner-product tile kernel over ``tiles`` (a ``streaming.GroupTiles``
     of xs, zs) and its fold ``mode``: one launch per chunk of tiles whose
-    partials fit ``PARTIALS_CAP`` (counted by the caller's wrapper: returns
-    (result, launches)); the terms of masks that fit no tile
-    (``tiles.spill_index``) take :func:`pauli_inner` (counted there) and
-    are folded here in torch."""
+    partials fit ``PARTIALS_CAP`` (counted under ``name``); the terms of
+    masks that fit no tile (``tiles.spill_index``) take :func:`pauli_inner`
+    (counted there) and are folded here in torch."""
     n = _n_qubits(psi, name)
     if _n_qubits(a, name) != n:
         raise ValueError(f"{name}: states of different sizes")
@@ -989,7 +932,6 @@ def _inner_tiles(name, a, psi, xs, zs, tiles, mode, cre=None, cim=None):
         fre, fim, stride = _coefficient_planes(psi, cre, cim, T, name)
         shape = (T,) if mode == _FOLD_SCREEN else ()
         out = torch.empty(shape, dtype=torch.float32, device=psi.device)
-    launches = 0
     if tiles.n_tiles:
         if not INNER_TILE_MIN_BITS <= tiles.k <= min(n, INNER_TILE_MAX_BITS) or not 1 <= tiles.c:
             raise ValueError(f"{name}: tiles of {tiles.k} bits, {tiles.c} low; the kernel takes "
@@ -1011,7 +953,6 @@ def _inner_tiles(name, a, psi, xs, zs, tiles, mode, cre=None, cim=None):
                     int(tiles.item_start[-1]), t0, n_rows, most, positions, scratch.data_ptr(),
                     mode, fre.data_ptr(), fim.data_ptr(), stride, out.data_ptr(), bsum, count,
                     int(j > 0), _stream())
-            launches += 1
     elif mode == _FOLD_EXPECTATION:
         out.zero_()
     if tiles.spill_index.size:
@@ -1025,10 +966,9 @@ def _inner_tiles(name, a, psi, xs, zs, tiles, mode, cre=None, cim=None):
                 out[idx] = 2.0 * cv.imag
             else:
                 out += cv.real.sum()
-    return out, launches
+    return out
 
 
-@_counted
 def pauli_inner_grouped(a, psi, xs, zs, tiles):
     """:func:`pauli_inner` over items of terms covered by tiles of chosen
     bits: v in input term order.  ``tiles`` is a ``streaming.GroupTiles``
@@ -1043,9 +983,7 @@ def pauli_inner_grouped(a, psi, xs, zs, tiles):
     """
     if psi.device.type == "cpu" and a.device.type == "cpu":
         return pauli_inner_grouped_plain(a, psi, xs, zs, tiles)
-    out, launches = _inner_tiles("pauli_inner_grouped", a, psi, xs, zs, tiles, _FOLD_V)
-    pauli_inner_grouped.launches += launches
-    return out
+    return _inner_tiles("pauli_inner_grouped", a, psi, xs, zs, tiles, _FOLD_V)
 
 
 def pauli_inner_grouped_plain(a, psi, xs, zs, tiles):
@@ -1055,7 +993,6 @@ def pauli_inner_grouped_plain(a, psi, xs, zs, tiles):
     return pauli_inner_plain(a, psi, xs, zs)
 
 
-@_counted
 def expectation_grouped(psi, xs, zs, cre, cim, tiles):
     """E = sum_t Re(c_t <psi|P_t|psi>), c_t = cre_t + i cim_t, a 0-d real
     tensor: :func:`pauli_inner_grouped` with a = psi and the coefficients
@@ -1065,10 +1002,8 @@ def expectation_grouped(psi, xs, zs, cre, cim, tiles):
     """
     if psi.device.type == "cpu":
         return expectation_grouped_plain(psi, xs, zs, cre, cim, tiles)
-    out, launches = _inner_tiles("expectation_grouped", psi, psi, xs, zs, tiles,
-                                 _FOLD_EXPECTATION, cre, cim)
-    expectation_grouped.launches += launches
-    return out
+    return _inner_tiles("expectation_grouped", psi, psi, xs, zs, tiles, _FOLD_EXPECTATION,
+                        cre, cim)
 
 
 def expectation_grouped_plain(psi, xs, zs, cre, cim, tiles):
@@ -1079,7 +1014,6 @@ def expectation_grouped_plain(psi, xs, zs, cre, cim, tiles):
     return (torch.complex(cre, cim).to(v.dtype) * v).real.sum()
 
 
-@_counted
 def expectation_partner(a, psi, xs, zs, cre, cim, tiles):
     """E = sum_t Re(c_t <a|P_t|psi>) with a != psi, a 0-d real tensor: the
     fold of :func:`expectation_grouped` over two states (the kernel loads an
@@ -1090,10 +1024,8 @@ def expectation_partner(a, psi, xs, zs, cre, cim, tiles):
     """
     if psi.device.type == "cpu" and a.device.type == "cpu":
         return expectation_partner_plain(a, psi, xs, zs, cre, cim, tiles)
-    out, launches = _inner_tiles("expectation_partner", a, psi, xs, zs, tiles,
-                                 _FOLD_EXPECTATION, cre, cim)
-    expectation_partner.launches += launches
-    return out
+    return _inner_tiles("expectation_partner", a, psi, xs, zs, tiles, _FOLD_EXPECTATION,
+                        cre, cim)
 
 
 def expectation_partner_plain(a, psi, xs, zs, cre, cim, tiles):
@@ -1104,7 +1036,6 @@ def expectation_partner_plain(a, psi, xs, zs, cre, cim, tiles):
     return (torch.complex(cre, cim).to(v.dtype) * v).real.sum()
 
 
-@_counted
 def screen_grouped(w, psi, xs, zs, cre, cim, tiles):
     """2 Im(c_t <w|P_t|psi>) for every term, in input order (a real (T,)
     tensor): :func:`pauli_inner_grouped` with a = w and the coefficients
@@ -1112,9 +1043,7 @@ def screen_grouped(w, psi, xs, zs, cre, cim, tiles):
     """
     if psi.device.type == "cpu" and w.device.type == "cpu":
         return screen_grouped_plain(w, psi, xs, zs, cre, cim, tiles)
-    out, launches = _inner_tiles("screen_grouped", w, psi, xs, zs, tiles, _FOLD_SCREEN, cre, cim)
-    screen_grouped.launches += launches
-    return out
+    return _inner_tiles("screen_grouped", w, psi, xs, zs, tiles, _FOLD_SCREEN, cre, cim)
 
 
 def screen_grouped_plain(w, psi, xs, zs, cre, cim, tiles):
@@ -1143,7 +1072,6 @@ def _coefficient_planes(psi, cre, cim, n_terms: int, name: str):
     return cre, cim, cre.stride(0)
 
 
-@_counted
 def pauli_apply_grouped(psi, xs, zs, cre, cim, tiles):
     """:func:`pauli_apply` over items of terms covered by tiles of chosen
     bits (``tiles``: the ``streaming.GroupTiles`` of (xs, zs), the layout
@@ -1181,8 +1109,7 @@ def pauli_apply_grouped(psi, xs, zs, cre, cim, tiles):
                 tiles.tile_diag.ctypes.data,
                 *(t.data_ptr() for t in (start, term_d, order, jt, zt, xa, ehi, zout, dzin,
                                          dstart, dterm, dzout)),
-                cre.data_ptr(), cim.data_ptr(), stride, 0, _stream())
-        pauli_apply_grouped.launches += tiles.n_tiles
+                cre.data_ptr(), cim.data_ptr(), stride, 0, _stream(), launches=tiles.n_tiles)
     else:
         out.zero_()
     if tiles.spill_index.size:
@@ -1201,7 +1128,6 @@ def pauli_apply_grouped_plain(psi, xs, zs, cre, cim, tiles):
 # -- the float64 Rayleigh readout ---------------------------------------------------------
 
 
-@_counted
 def expectation_norm_f64(psi, xs, zs, cre, cim, starts):
     """[E, 0, N, 0], a float64 (4,) tensor: E = sum_t Re(c_t <psi|P_t|psi>),
     c_t = cre_t + i cim_t (float64), and N = <psi|psi>, of a complex64
@@ -1227,7 +1153,6 @@ def expectation_norm_f64(psi, xs, zs, cre, cim, starts):
     _launch(name, lib.qsfh_expectation_norm_f64, psi.data_ptr(), n, starts.shape[0] - 1,
             starts.data_ptr(), *(a.data_ptr() for a in args), partials.data_ptr(), out.data_ptr(),
             _stream())
-    expectation_norm_f64.launches += 1
     return out
 
 
@@ -1329,7 +1254,6 @@ def _readout64_args(tiles, n: int, device):
     return tiles._cache[key]
 
 
-@_counted
 def expectation_norm_f64_tiles(psi, xs, zs, cre, cim, tiles):
     """:func:`expectation_norm_f64` over the inner-product tiles: [E, 0, N,
     0], a float64 (4,) tensor, of a complex64 state, every product formed
@@ -1362,7 +1286,6 @@ def expectation_norm_f64_tiles(psi, xs, zs, cre, cim, tiles):
     _launch(name, lib.qsfh_expectation_f64_tiles, psi.data_ptr(), n, tiles.k, tiles.c, _SWIZZLE,
             *args, cre.data_ptr(), cim.data_ptr(), partials.data_ptr(), out.data_ptr(),
             _fold_count(psi).data_ptr(), _stream())
-    expectation_norm_f64_tiles.launches += 1
     if tiles.spill_index.size:
         idx, starts = _spill64(tiles, psi.device)
         out[:1] += expectation_norm_f64(psi, xs[idx], zs[idx], cre[idx], cim[idx], starts)[:1]
@@ -1426,7 +1349,6 @@ class Groups64:
                              f"{psi.device}")
 
 
-@_counted
 def rot64_groups(psi, groups: Groups64, theta_ext):
     """psi <- exp(-i theta_{G-1} M_{G-1}) ... exp(-i theta_0 M_0) psi IN
     PLACE (complex128), theta_g = theta_ext[gpidx[g]], M_g psi[b] = unit_g
@@ -1441,8 +1363,7 @@ def rot64_groups(psi, groups: Groups64, theta_ext):
     lib = _load()
     _launch(name, lib.qsfh_rot64_groups, psi.data_ptr(), n, g.n_groups, g.gx.data_ptr(),
             g.goff.data_ptr(), g.gflip.data_ptr(), g.gpidx.data_ptr(), g.zsub.data_ptr(),
-            g.wsub.data_ptr(), theta_ext.data_ptr(), _stream())
-    rot64_groups.launches += g.n_groups
+            g.wsub.data_ptr(), theta_ext.data_ptr(), _stream(), launches=g.n_groups)
     return psi
 
 
@@ -1475,7 +1396,6 @@ def rot64_groups_plain(psi, groups: Groups64, theta_ext):
     return psi
 
 
-@_counted
 def happly64(psi, xs, zs, cre, cim, scale: float = 1.0):
     """(out, stats): out = scale * sum_t (cre_t + i cim_t) s_t(b) psi[b ^
     xs_t] (complex128, a new tensor) and stats = [E, 0, N, 0] (float64), E =
@@ -1496,7 +1416,6 @@ def happly64(psi, xs, zs, cre, cim, scale: float = 1.0):
     _launch(name, lib.qsfh_happly64, psi.data_ptr(), out.data_ptr(), n, T,
             *(a.data_ptr() for a in args), float(scale), partials.data_ptr(), stats.data_ptr(),
             _stream())
-    happly64.launches += 1
     return out, stats
 
 
@@ -1532,7 +1451,6 @@ def _apply64_args(tiles, device):
     return tiles._cache[key]
 
 
-@_counted
 def happly64_tiles(psi, xs, zs, cre, cim, tiles, scale: float = 1.0):
     """:func:`happly64` over the application tiles: (out, stats), out =
     scale * sum_t (cre_t + i cim_t) s_t(b) psi[b ^ xs_t] (complex128, a new
@@ -1567,8 +1485,7 @@ def happly64_tiles(psi, xs, zs, cre, cim, tiles, scale: float = 1.0):
     _launch(name, lib.qsfh_happly64_tiles, psi.data_ptr(), out.data_ptr(), n, tiles.k, tiles.c,
             tiles.n_tiles, _apply64_args(tiles, psi.device), cre.data_ptr(), cim.data_ptr(),
             float(scale), partials.data_ptr(), stats.data_ptr(), _fold_count(psi).data_ptr(),
-            _stream())
-    happly64_tiles.launches += tiles.n_tiles
+            _stream(), launches=tiles.n_tiles)
     if tiles.spill_index.size:
         idx = _spill64(tiles, psi.device)[0]
         h, s = happly64(psi, xs[idx], zs[idx], cre[idx], cim[idx], scale)
@@ -1584,7 +1501,6 @@ def happly64_tiles_plain(psi, xs, zs, cre, cim, tiles, scale: float = 1.0):
     return happly64_plain(psi, xs, zs, cre, cim, scale)
 
 
-@_counted
 def adjoint64_groups(psi, lam, groups: Groups64, theta_ext):
     """The reverse sweep of :func:`rot64_groups`, in place on psi (the
     program's output) and lam (the cotangent): per group, last first,
@@ -1608,8 +1524,7 @@ def adjoint64_groups(psi, lam, groups: Groups64, theta_ext):
             g.gx.data_ptr(), g.goff.data_ptr(), g.gflip.data_ptr(), g.gpidx.data_ptr(),
             g.zsub.data_ptr(), g.wsub.data_ptr(), theta_ext.data_ptr(), g.n_params,
             g.param_off.data_ptr(), g.param_groups.data_ptr(), partials.data_ptr(), grad.data_ptr(),
-            _stream())
-    adjoint64_groups.launches += g.n_groups
+            _stream(), launches=g.n_groups)
     return grad
 
 
@@ -1684,7 +1599,6 @@ def _res64_args(psi, groups: Groups64, theta_ext, runs, name: str):
     return n, ptrs, tables
 
 
-@_counted
 def rot64_resident(psi, groups: Groups64, theta_ext, runs, blocks=None):
     """:func:`rot64_groups` over the tile runs ``runs``
     (``streaming.Group64Runs``) in ONE cooperative launch: the launch fills
@@ -1701,7 +1615,6 @@ def rot64_resident(psi, groups: Groups64, theta_ext, runs, blocks=None):
     _launch(name, lib.qsfh_rot64_resident, psi.data_ptr(), n, runs.k, len(runs), grid,
             resident64_threads(runs.k), runs.n_entries, runs.most_entries, runs.most_groups, ptrs,
             tables.data_ptr(), _barrier(psi).data_ptr(), _stream())
-    rot64_resident.launches += 1
     return psi
 
 
@@ -1712,7 +1625,6 @@ def rot64_resident_plain(psi, groups: Groups64, theta_ext, runs):
     return rot64_groups_plain(psi, groups, theta_ext)
 
 
-@_counted
 def adjoint64_resident(psi, lam, groups: Groups64, theta_ext, runs, blocks=None):
     """:func:`adjoint64_groups` over the tile runs ``runs`` in ONE
     cooperative launch (runs last first, groups last first within a run):
@@ -1736,7 +1648,6 @@ def adjoint64_resident(psi, lam, groups: Groups64, theta_ext, runs, blocks=None)
             grid, resident64_threads(runs.k), runs.n_entries, runs.most_entries, runs.most_groups,
             ptrs, tables.data_ptr(), partials.data_ptr(), g.n_params, g.param_off.data_ptr(),
             g.param_groups.data_ptr(), grad.data_ptr(), _barrier(psi).data_ptr(), _stream())
-    adjoint64_resident.launches += 1
     return grad
 
 
@@ -1804,26 +1715,11 @@ WRAPPERS = (pauli_rotation, pauli_apply, pauli_inner, adjoint_rotation,
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
-
-
-# the wrappers that also count the terms they run in closed form, those
-# that count their passes over the state, and those that count the runs
-# they stage a run ahead
-FUSED_WRAPPERS = (rotation_resident, adjoint_resident, rotation_tile_runs, adjoint_tile_runs)
-PASS_WRAPPERS = (rotation_tile_runs, adjoint_tile_runs)
-PREFETCH_WRAPPERS = (rotation_resident, adjoint_resident)
+    """Kernel launches under each wrapper's name since the last
+    :func:`reset_launch_counts` (every wrapper of ``WRAPPERS``, 0 where
+    nothing launched)."""
+    return {fn.__name__: _launches[fn.__name__] for fn in WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS:
-        fn.launches = 0
-    for fn in FUSED_WRAPPERS:
-        fn.fused_terms = 0
-    for fn in PASS_WRAPPERS:
-        fn.passes = 0
-    for fn in PREFETCH_WRAPPERS:
-        fn.prefetched_runs = 0
-
-
-reset_launch_counts()
+    _launches.clear()

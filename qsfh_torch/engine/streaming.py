@@ -173,25 +173,6 @@ INNER64_TILE_BITS = 12
 INNER64_TILE_LOW_BITS = 2
 APPLY64_TILE_LOW_BITS = 2
 
-def order_runs(xs, local_bits: int) -> List[Tuple[int, List[int]]]:
-    """Order-preserving run partition of a rotation-like term sequence.
-
-    Consecutive terms whose flip mask lies below bit ``local_bits`` merge
-    into one run; every block-crossing term is a run of one.  Returns
-    ``[(xh, [term indices])]`` with ``xh = x >> local_bits`` (0 for a
-    local run), the contract of the JAX package's ``_order_runs`` with
-    ``local_bits`` in place of ``LANE_BITS + bb``.
-    """
-    xh_all = (np.asarray(xs, np.uint64) >> np.uint64(local_bits)).astype(np.int64)
-    runs: list = []
-    for t, h in enumerate(xh_all):
-        h = int(h)
-        if h == 0 and runs and runs[-1][0] == 0:
-            runs[-1][1].append(t)
-        else:
-            runs.append((h, [t]))
-    return runs
-
 
 def _positions(mask: int) -> List[int]:
     return [b for b in range(mask.bit_length()) if mask >> b & 1]

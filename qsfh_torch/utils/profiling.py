@@ -16,16 +16,14 @@ One clock: the host's ``time.perf_counter_ns``.
   on the host clock by two anchors: an event recorded and synchronised at
   :func:`enable` and another at :func:`collect`, a device time mapped
   linearly between them.
-* :func:`count` adds to a named counter while the recorder is on (the
-  kernel wrappers count the terms they run in closed form).
 * :class:`PhaseTimer` sums the durations of named phases (``adapt.<name>``
   spans) for a driver's report: the counterpart of ``PhaseTimer`` in
   ``qsfh_tpu/utils/profiling.py``.
 
 The recorder is off by default.  Off, a span costs its two clock reads,
-:func:`device` and :func:`count` one flag check.  Whoever reads the trace calls
-:func:`enable`, runs the work and calls :func:`collect`; :func:`summarize`
-reduces what it returns.
+:func:`device` one flag check.  Whoever reads the trace calls :func:`enable`,
+runs the work and calls :func:`collect`; :func:`summarize` reduces what it
+returns.
 """
 
 from __future__ import annotations
@@ -46,7 +44,6 @@ _ids = itertools.count(1)
 _stack: List["span"] = []  # open spans, recorder on
 _spans: list = []  # closed spans: (name, id, parent, top, start_ns, end_ns, attrs)
 _device: list = []  # (name, span id, start event, end event)
-_counts: Dict[str, int] = defaultdict(int)  # counter name -> total
 _anchor = None  # (host ns, window ns, event, device index) of the last enable() / collect()
 _NULL = contextlib.nullcontext()
 _streams: dict = {}  # stream id -> torch.cuda.Stream, for the event records
@@ -91,17 +88,16 @@ def collect() -> dict:
     ``spans``: dicts of name, id, parent (0: none), top (the id of its
     top-level span), start_ns, end_ns and attrs.  ``device``: dicts of
     name, span (the innermost open span's id, 0: none), start_ns and end_ns
-    on the host clock.  ``counters``: each :func:`count` name's total.
-    ``anchor_ms``: each anchor's record-to-sync window; ``drift_ms``: the
-    host clock's seconds between the anchors less the device clock's, in ms
-    (None without a device)."""
-    global _anchor, _spans, _device, _counts
-    spans, dev, counts = _spans, _device, _counts
-    _spans, _device, _counts = [], [], defaultdict(int)
+    on the host clock.  ``anchor_ms``: each anchor's record-to-sync window;
+    ``drift_ms``: the host clock's seconds between the anchors less the
+    device clock's, in ms (None without a device)."""
+    global _anchor, _spans, _device
+    spans, dev = _spans, _device
+    _spans, _device = [], []
     out = dict(
         spans=[dict(name=n, id=i, parent=p, top=t, start_ns=a, end_ns=b, attrs=at)
                for n, i, p, t, a, b, at in spans],
-        device=[], counters=dict(counts), anchor_ms=[], drift_ms=None)
+        device=[], anchor_ms=[], drift_ms=None)
     first = _anchor
     last = _take_anchor() if first is not None else None
     _anchor = last if _on else None
@@ -210,12 +206,6 @@ def device(name: str):
     return _DeviceInterval(name) if _on else _NULL
 
 
-def count(name: str, n: int):
-    """Add ``n`` to the counter ``name`` (recorder on)."""
-    if _on:
-        _counts[name] += int(n)
-
-
 # -- reductions of a collected trace ----------------------------------------------
 
 
@@ -246,8 +236,7 @@ def summarize(trace: dict) -> dict:
     a span of that name was open (no device interval of the trace under
     it); per device interval name: count, device ms, and the idle ms
     between consecutive intervals of that name; the union of all device
-    intervals (``busy_ms``); the counters; the anchors' windows and the
-    drift."""
+    intervals (``busy_ms``); the anchors' windows and the drift."""
     dev = trace["device"]
     merged = _union((d["start_ns"], d["end_ns"]) for d in dev)
     starts = [a for a, _ in merged]
@@ -272,8 +261,7 @@ def summarize(trace: dict) -> dict:
             n=len(ivs), ms=1e-6 * sum(b - a for a, b in own),
             gap_ms=1e-6 * sum(idle(own[i][1], own[i + 1][0]) for i in range(len(own) - 1)))
     return dict(spans=spans, device=devices, busy_ms=1e-6 * sum(b - a for a, b in merged),
-                counters=dict(trace.get("counters", {})), anchor_ms=trace["anchor_ms"],
-                drift_ms=trace["drift_ms"])
+                anchor_ms=trace["anchor_ms"], drift_ms=trace["drift_ms"])
 
 
 # -- phase timers -------------------------------------------------------------------

@@ -12,6 +12,9 @@ the CPU.
   closed form, pinned.
 * Each fused group a register group of its own, every other term a plain
   code word; a layout without parameter indices fuses nothing.
+* What a launch does, from its layout on the engine's route: the flagship's
+  sweep one resident span of 609 runs each way, a 2x6 segment's tile runs
+  one pass a run with every double excitation fused.
 * An emulation: the tile kernels' walk written out in torch from the
   layout's tables alone, the fused groups as the kernels run them (the
   table of 2^R angles from the call's angles, each slot's pattern from
@@ -40,7 +43,7 @@ from qsfh_torch.algos.hva import hva_program_rot
 from qsfh_torch.algos.iqcc import IQCC
 from qsfh_torch.engine import kernels as K
 from qsfh_torch.engine import streaming
-from qsfh_torch.engine.compiled import CompiledCircuit
+from qsfh_torch.engine.compiled import CompiledCircuit, _tile_route
 from qsfh_torch.engine.state import parity
 from qsfh_torch.ops.dressing import dis_generators
 from qsfh_torch.ops.jw import jordan_wigner
@@ -206,6 +209,46 @@ def test_fused_groups_are_register_groups(segments, name):
             flags = np.flatnonzero(tiles.group_regs & streaming.FUSED_GROUP).tolist()
             assert flags == flagged  # exactly the fused groups' register words
             assert not (tiles.code[alone] >> 8).any()
+
+
+# -- what a launch does, read from its layout --------------------------------------------------
+
+
+@pytest.mark.parametrize("direction", [1, -1])
+def test_flagship_sweep_is_one_resident_span(segments, direction):
+    """The checkpoint's train segment on the engine's route at 18 qubits:
+    one span of 609 runs, every term in a tile, so a sweep is one resident
+    launch that stages 608 runs a run ahead (every run but the first)."""
+    seg = _segment(segments, "flagship")
+    layout, resident = _tile_route(seg, direction, 18)
+    assert resident and layout.n_single == 0 and len(layout.spans) == 1
+    tiles, t0, t1 = layout.spans[0]
+    assert (len(tiles), layout.n_runs, layout.passes, t0, t1) == (609, 609, 609, 0, len(seg))
+
+
+@pytest.fixture(scope="module")
+def segment_2x6(tmp_path_factory):
+    """(segment, operators): a 2x6 train segment of 60 seeded
+    simplified-pool operators and the Givens network (host arrays only)."""
+    a = ADAPT(n_epoch=0, threshold1=1e-2, threshold2=1e-2, x_dimension=2, y_dimension=6,
+              n_electrons=12, n_spin_up=6, n_spin_down=6, tunneling=1, coulomb=2,
+              ground_truth=False, plot=False, log_metrics=False, device="cpu",
+              results_root=str(tmp_path_factory.mktemp("r")))
+    idx = [int(i) for i in np.random.default_rng(23).choice(len(a.fermion_pool), 60,
+                                                             replace=False)]
+    return CompiledCircuit(a._ansatz_ops(idx) + a._net_ops, 24).segments[0], idx
+
+
+@pytest.mark.parametrize("direction", [1, -1])
+def test_2x6_tile_runs_one_pass_a_run(segment_2x6, direction):
+    """The 2x6 segment on the engine's route at 24 qubits: tile runs and no
+    term alone, so a call makes one launch and one pass over the state a
+    run; each double excitation of the ansatz is a fused group of 8 strings."""
+    seg, idx = segment_2x6
+    layout, resident = _tile_route(seg, direction, 24)
+    assert not resident and layout.n_single == 0
+    assert layout.passes == layout.n_runs == sum(len(t) for t, _, _ in layout.spans)
+    assert layout.fused_terms >= 8 * len(idx)
 
 
 # -- the emulation ----------------------------------------------------------------------------

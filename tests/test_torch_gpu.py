@@ -238,8 +238,7 @@ def test_rotation_resident(dev, n, k, c, blocks):
     K.rotation_resident(got, *args, tiles, blocks=blocks)
     K.rotation_resident_plain(ref, *args, tiles)
     torch.cuda.synchronize()
-    assert K.launch_counts()["rotation_resident"] == 1
-    assert K.rotation_resident.prefetched_runs == len(tiles) - 1
+    assert K.launch_counts()["rotation_resident"] == sum(K.launch_counts().values()) == 1
     assert K.resident_grid(psi, tiles, False, blocks) <= 1 << (n - k)
     assert _rel(got, ref) <= RTOL
     for other in (blocks, 3):
@@ -351,9 +350,11 @@ def _fused_against_plain(dev, seg, n, thetas, rng, unfused=False):
 def test_fused_groups_mixed_program(dev, n):
     """Every shape of fused group (tests/fused_programs.py) and terms alone,
     through the resident kernels at 18 qubits and the tile runs at 24,
-    against the per-term plain versions; the same bits twice; the resident
-    wrappers count the fused terms of each launch."""
+    against the per-term plain versions; the same bits twice; the launches
+    are those of the fused layouts: one a span (resident) or a run."""
     from fused_programs import mixed_segment
+
+    from qsfh_torch.engine.compiled import _tile_route
 
     rng = np.random.default_rng(n + 41)
     seg, n_params = mixed_segment(rng, n)
@@ -362,9 +363,17 @@ def test_fused_groups_mixed_program(dev, n):
         rng.uniform(-1.5, 1.5, n_params)), rng)
     assert 0 < layout.fused_terms < len(seg)
     assert max(errs) <= RTOL
-    resident = 2 if n <= 18 else 0  # two calls each way
-    assert K.rotation_resident.fused_terms == resident * layout.fused_terms
-    assert K.adjoint_resident.fused_terms == resident * layout.fused_terms
+    counts = K.launch_counts()
+    for direction, rot, alone in ((1, "rotation", "pauli_rotation"),
+                                  (-1, "adjoint", "adjoint_rotation")):  # two calls each way
+        fused, resident = _tile_route(seg, direction, n)
+        spans = sum(tiles is not None for tiles, _, _ in fused.spans)
+        assert resident == (n <= 18)
+        if resident:
+            assert (counts[f"{rot}_resident"], counts[f"{rot}_tile_runs"]) == (2 * spans, 0)
+        else:
+            assert (counts[f"{rot}_resident"], counts[f"{rot}_tile_runs"]) == (0, 2 * fused.n_runs)
+        assert counts[alone] == 2 * fused.n_single
 
 
 @pytest.fixture(scope="module")
@@ -393,15 +402,19 @@ def test_fused_groups_checkpoint_3x3(dev, checkpoint_3x3):
     against the per-term plain versions, at the checkpoint's angles: within
     1e-4 (the chip smoke test's gradient tolerance) and no further off than
     the same kernels with every term alone."""
+    from qsfh_torch.engine.compiled import _tile_route
+
     seg, thetas = checkpoint_3x3
     K.reset_launch_counts()
     layout, errs, alone = _fused_against_plain(dev, seg, 18, thetas, np.random.default_rng(3),
                                                unfused=True)
     assert max(errs) <= 1e-4 and all(e <= e1 for e, e1 in zip(errs, alone))
-    assert K.launch_counts()["rotation_resident"] == K.launch_counts()["adjoint_resident"] == 3
-    for fn in (K.rotation_resident, K.adjoint_resident):  # the unfused call adds nothing
-        assert fn.fused_terms == 2 * 13768 and fn.fused_terms / (2 * len(seg)) >= 0.95
-    assert K.rotation_tile_runs.fused_terms == K.adjoint_tile_runs.fused_terms == 0
+    counts = K.launch_counts()
+    assert counts["rotation_resident"] == counts["adjoint_resident"] == 3
+    assert counts["rotation_tile_runs"] == counts["adjoint_tile_runs"] == 0
+    for direction in (1, -1):  # the layouts the first two calls took each way
+        fused = _tile_route(seg, direction, 18)[0]
+        assert fused.fused_terms == 13768 and fused.fused_terms / len(seg) >= 0.95
 
 
 def test_resident_checkpoint_3x3(dev, checkpoint_3x3):
@@ -412,8 +425,8 @@ def test_resident_checkpoint_3x3(dev, checkpoint_3x3):
     vector within 1e-4 of its largest entry (as the test above: float32
     over 14,123 terms reads ~1.5e-5 there), bit-equal to rotation_tile_runs
     / adjoint_tile_runs over the same layout (the same staging and register
-    groups, one launch a run), and each launch counts its 608 prefetched
-    runs."""
+    groups, one launch a run): one launch a sweep, which stages 608 runs a
+    run ahead, against 609 of the tile runs."""
     from qsfh_torch.engine.compiled import _tile_route
 
     seg, thetas = checkpoint_3x3
@@ -444,18 +457,19 @@ def test_resident_checkpoint_3x3(dev, checkpoint_3x3):
     assert _rel(p.to(c128), pr) <= RTOL and _rel(l.to(c128), lr) <= RTOL
     assert torch.equal(got, tiled)
     assert torch.equal(v, tv) and torch.equal(p, tp) and torch.equal(l, tl)
-    assert K.rotation_resident.prefetched_runs == K.adjoint_resident.prefetched_runs == 608
+    counts = K.launch_counts()
+    assert counts["rotation_resident"] == counts["adjoint_resident"] == 1
+    assert counts["rotation_tile_runs"] == counts["adjoint_tile_runs"] == 609
 
 
 def test_tile_run_counters_checkpoint_2x6(dev, tmp_path):
     """The committed 2x6 checkpoint (portbench/data/adapt2x6_checkpoint.npz,
     24 qubits) through one forward pass and one adjoint sweep of its train
-    step: the tile-run wrappers count the layouts' fused terms and runs
-    (``.fused_terms``, ``.passes`` and the recorder's counters), the
-    resident wrappers nothing; most of the terms are fused."""
+    step: the tile-run wrappers launch once a run of the layouts (one pass
+    of the state each), the resident wrappers never; most of the terms are
+    fused."""
     from qsfh_torch.algos.adapt import ADAPT
     from qsfh_torch.engine.compiled import CompiledCircuit, _tile_route
-    from qsfh_torch.utils import profiling
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ck = np.load(os.path.join(root, "portbench", "data", "adapt2x6_checkpoint.npz"))
@@ -471,22 +485,13 @@ def test_tile_run_counters_checkpoint_2x6(dev, tmp_path):
     assert not resident and fwd.n_single == adj.n_single == 0
     th = torch.as_tensor(ck["param__t"], dtype=torch.float32, device=dev)
     K.reset_launch_counts()
-    profiling.enable()
-    try:
-        psi = raw["fwd_from"](a._initial_state(), th)
-        raw["adjoint"](psi, raw["cotangent"](psi), th)
-        torch.cuda.synchronize()
-        counters = profiling.collect()["counters"]
-    finally:
-        profiling.disable()
-    rot, adjt = K.rotation_tile_runs, K.adjoint_tile_runs
-    assert (rot.fused_terms, rot.passes) == (fwd.fused_terms, fwd.n_runs)
-    assert (adjt.fused_terms, adjt.passes) == (adj.fused_terms, adj.n_runs)
-    assert rot.passes == K.launch_counts()["rotation_tile_runs"]
-    assert K.rotation_resident.fused_terms == K.adjoint_resident.fused_terms == 0
-    for fn in (rot, adjt):
-        assert counters[f"{fn.__name__}.fused_terms"] == fn.fused_terms
-        assert counters[f"{fn.__name__}.passes"] == fn.passes
+    psi = raw["fwd_from"](a._initial_state(), th)
+    raw["adjoint"](psi, raw["cotangent"](psi), th)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["rotation_tile_runs"] == fwd.n_runs == fwd.passes
+    assert counts["adjoint_tile_runs"] == adj.n_runs == adj.passes
+    assert counts["rotation_resident"] == counts["adjoint_resident"] == 0
     # a double excitation is 8 strings in one fused group
     assert fwd.fused_terms == adj.fused_terms >= 8 * len(idx)
     assert fwd.fused_terms / len(seg) >= 0.5
@@ -1232,9 +1237,9 @@ def test_capture_with_the_recorder_on(dev, tmp_path, recorder, monkeypatch):
 
     launch, calls = K._launch, []
 
-    def counted(name, fn, *args):
+    def counted(name, fn, *args, **kw):
         calls.append((name, torch.cuda.is_current_stream_capturing()))
-        return launch(name, fn, *args)
+        return launch(name, fn, *args, **kw)
 
     monkeypatch.setattr(K, "_launch", counted)
     runner = FusedAdaptRunner(a, chunk_iters=4, verbose=False)

@@ -2,7 +2,7 @@
 
 Spans and their nesting, the recorder off, ``PhaseTimer``'s report, the
 fused runner's and the float64 engine's spans, the kernel library's one
-launch seam, the device intervals' placement on the host clock (with
+launch seam and its table of launches, the device intervals' placement on the host clock (with
 stand-in events: the card's own check is in ``tests/test_torch_gpu.py``)
 and the reductions of a trace.
 """
@@ -271,6 +271,55 @@ def test_launch_brackets_the_call_and_checks_its_code(monkeypatch):
         K._launch("probe_kernel", lambda: 7)
 
 
+# -- the launch table ----------------------------------------------------------------
+
+
+def test_launch_counts_its_launches_under_its_name():
+    """A launch whose call returns 0 adds its ``launches`` (1 by default)
+    under its name; the other wrappers stay at 0, every wrapper of
+    ``WRAPPERS`` is a key, and a call on the CPU (the plain version) counts
+    nothing."""
+    K.reset_launch_counts()
+    psi = torch.zeros(8, dtype=torch.complex64)
+    psi[0] = 1
+    one = torch.ones(1)
+    K.pauli_rotation(psi, torch.tensor([1]), torch.tensor([0]), one, one, 0 * one)
+    assert sum(K.launch_counts().values()) == 0
+    K._launch("rotation_tile_runs", lambda *args: 0, 1, 2, launches=609)
+    K._launch("rotation_tile_runs", lambda: 0)
+    K._launch("pauli_rotation_out", lambda: 0)
+    counts = K.launch_counts()
+    assert list(counts) == [fn.__name__ for fn in K.WRAPPERS] and len(counts) == 23
+    assert {k: v for k, v in counts.items() if v} == {"rotation_tile_runs": 610,
+                                                      "pauli_rotation_out": 1}
+    K.reset_launch_counts()
+
+
+def test_reset_launch_counts_zeroes_every_wrapper():
+    K.reset_launch_counts()
+    for fn in K.WRAPPERS:
+        K._launch(fn.__name__, lambda: 0, launches=3)
+    assert set(K.launch_counts().values()) == {3}
+    K.reset_launch_counts()
+    assert K.launch_counts() == {fn.__name__: 0 for fn in K.WRAPPERS}
+
+
+def test_failed_launch_counts_nothing(monkeypatch):
+    """A non-zero return code raises with the library's message and adds
+    nothing to the table."""
+
+    class Lib:
+        @staticmethod
+        def qsfh_error_string(rc):
+            return b"planted"
+
+    monkeypatch.setattr(K, "_lib", Lib())
+    K.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="adjoint_tile_runs: CUDA error 7: planted"):
+        K._launch("adjoint_tile_runs", lambda: 7, launches=5)
+    assert sum(K.launch_counts().values()) == 0
+
+
 # -- device intervals on the host clock, with stand-in events ----------------------
 
 
@@ -315,22 +364,6 @@ def test_device_interval_needs_an_anchor(recorder):
     with P.device("k"):
         pass
     assert P._device == []
-
-
-def test_counters(recorder):
-    """``count`` adds under its name while the recorder is on; ``collect``
-    returns the totals and clears them, ``summarize`` carries them."""
-    P.count("rotation_resident.fused_terms", 13768)
-    P.count("rotation_resident.fused_terms", 13768)
-    P.count("adjoint_resident.fused_terms", 7)
-    tr = P.collect()
-    assert tr["counters"] == {"rotation_resident.fused_terms": 27536,
-                              "adjoint_resident.fused_terms": 7}
-    assert P.summarize(tr)["counters"] == tr["counters"]
-    assert P.collect()["counters"] == {}
-    P.disable()
-    P.count("off", 1)  # off: nothing kept
-    assert P.collect()["counters"] == {}
 
 
 def test_summarize():

@@ -12,9 +12,8 @@ rotated states, 2e-5 on expectations, applications and adjoint
 gradients, 3e-5 on pool screening) and 1e-10 at complex128 against the
 JAX XLA scan.
 
-Host layouts: ``order_runs`` equals JAX ``_order_runs`` on the 2x6 rot
-segment (forward and reversed), the tile runs and groups cover the input
-in order, and an emulation of the grouped kernel's indexing reproduces
+Host layouts: the tile spans of the 2x6 rot segment (forward and
+reversed) and the groups cover the input in order, and an emulation of the grouped kernel's indexing reproduces
 ``pauli_inner_plain`` (the tile runs' emulation is in
 ``tests/test_torch_tiles.py``).
 """
@@ -45,7 +44,6 @@ from qsfh_torch.ops.jw import jordan_wigner
 from qsfh_torch.ops.pool import hubbard_interaction_pool_simplified
 
 N = 12
-LANE_BITS = 7
 TILE_K, TILE_C = 6, 2
 
 # the JAX stream tests' four-op program (tests/test_pallas.py:356-361)
@@ -102,14 +100,12 @@ def segment_2x6(tmp_path_factory):
 
 @pytest.mark.parametrize("bits", [13, 14])
 @pytest.mark.parametrize("direction", [1, -1])
-def test_order_runs_matches_jax(segment_2x6, bits, direction):
+def test_tile_spans_cover_every_term_in_order(segment_2x6, bits, direction):
+    """The layout's spans cover every term once, in order, per direction
+    and tile size."""
     _, seg = segment_2x6
-    xs = seg.data["xb"][::direction]
-    runs = streaming.order_runs(xs, bits)
-    assert runs == jpk._order_runs(xs, bits - LANE_BITS)
-    assert [t for _, idx in runs for t in idx] == list(range(len(xs)))
     layout = seg.tiles(direction, 24, bits, 5)
-    assert [t for _, t0, t1 in layout.spans for t in range(t0, t1)] == list(range(len(xs)))
+    assert [t for _, t0, t1 in layout.spans for t in range(t0, t1)] == list(range(len(seg)))
 
 
 def test_run_layout_counts_2x6(segment_2x6):

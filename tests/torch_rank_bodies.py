@@ -221,7 +221,7 @@ def u_ramp(tau):
     return 4.0 + 8.0 * tau
 
 
-def _counted(fn):
+def _with_collectives(fn):
     """(fn(), the collectives it made)."""
     comm.reset_counts()
     out = fn()
@@ -254,7 +254,7 @@ def evolution_cases(mesh, inp):
     psi0 = inp["psi0"]
 
     ev = TrotterEvolution(p, dt=0.05, order=2, dtype=c128, mesh=mesh)
-    (psi, rec), counts = _counted(lambda: ev.evolve(psi0, 20, obs))
+    (psi, rec), counts = _with_collectives(lambda: ev.evolve(psi0, 20, obs))
     psi_s, rec_s = ev.evolve(shard_statevector(torch.as_tensor(psi0), mesh), 20, obs)
     out["trotter"] = dict(state=_full(psi, mesh), H=rec["H"], counts=counts,
                           pair_runs=ev.program.exchanges,
@@ -277,7 +277,7 @@ def evolution_cases(mesh, inp):
 
     pi = _problem(inp["ite"])
     ite = ImaginaryTimeEvolution(pi, dbeta=0.05, order=2, dtype=c128, mesh=mesh)
-    (psi, rec), counts = _counted(lambda: ite.run(inp["ite_v"], n_steps=7, block=3))
+    (psi, rec), counts = _with_collectives(lambda: ite.run(inp["ite_v"], n_steps=7, block=3))
     out["ite"] = dict(state=_full(psi, mesh), counts=counts,
                       cross=len(ite.sharded_h.cross), **rec)
     thermal = ImaginaryTimeEvolution(pi, dbeta=0.05, order=4, dtype=c128, mesh=mesh)
@@ -290,7 +290,7 @@ def evolution_cases(mesh, inp):
     from qsfh_torch.parallel.shmap_engine import ShardedPauliEngine
 
     ham = ShardedObservable.of(ShardedPauliEngine(ps.n_qubits, mesh), ps.qubit_hamiltonian)
-    (a, b, n2), counts = _counted(lambda: lanczos_tridiagonal(
+    (a, b, n2), counts = _with_collectives(lambda: lanczos_tridiagonal(
         lambda v: ham.apply(v), torch.as_tensor(inp["lanczos_phi"]), 12, mesh=mesh,
         n_qubits=ps.n_qubits))
     out["lanczos"] = dict(alphas=a, betas=b, norm2=n2, counts=counts)
@@ -308,7 +308,7 @@ def evolution_cases(mesh, inp):
 
     ms = MultistartHVA(mesh_devices=mesh.size, device=mesh.device, dtype=c128,
                        **inp["multistart"])
-    res, counts = _counted(ms.run)
+    res, counts = _with_collectives(ms.run)
     out["multistart"] = dict(result=res, counts=counts,
                              leaves=len(ms.batch_params))
     lap("multistart")
