@@ -332,14 +332,17 @@ train step, host clock and profile) of the port in the checkout PARENT
 (loaded under another name) and of this one in one process, in rounds
 of parent, change, change, parent.
 
-``--sweeps`` runs phase 1 and then only the float32 resident sweeps
-(``rotation_resident``, ``adjoint_resident``) on the 1719-operator 3x3
-checkpoint's train segment, on its runs cut to one term each (a run's
-fixed cost) and on HVA 3x3 reps = 10: CUDA-event ms a launch and us a
-run, each result against the plain version and bit for bit against the
-tile-run kernels over the same layout; with ``--compare PARENT``, the
-parent's kernels in rounds of parent, change, change, parent, and bit for
-bit against them.
+``--sweeps`` runs phase 1 and then only the resident sweeps: float64
+(``rot64_resident``, ``adjoint64_resident``) on the 1719-operator 3x3
+checkpoint's polish program (521 runs) and on its runs cut to one group
+each (a run's fixed cost), each result against the plain version and
+against ``rot64_groups`` / ``adjoint64_groups``; float32
+(``rotation_resident``, ``adjoint_resident``) on the checkpoint's train
+segment, on its runs cut to one term each and on HVA 3x3 reps = 10, each
+result against the plain version and bit for bit against the tile-run
+kernels over the same layout.  CUDA-event ms a launch and us a run; with
+``--compare PARENT``, the parent's kernels in rounds of parent, change,
+change, parent, and bit for bit against them.
 
 ``--routes`` also times the per-term route, the resident route (at 18
 and 20 qubits) and the stream route at 18 (3x3), 20 (2x5) and 24 qubits
@@ -2327,7 +2330,7 @@ def phase_compare(parent, dev, tmp, out):
             f"{rows[f'{side} {lattice}']['train step_device_ms']:.3f} ms" for side in ports))
 
 
-# -- --sweeps: the float32 resident sweeps, launch by launch ---------------------------------
+# -- --sweeps: the resident sweeps, launch by launch -----------------------------------------
 
 SWEEP_ROUNDS = 6  # rounds of parent, change, change, parent (the change alone: one a round)
 SWEEP_REPS = 20  # launches a CUDA-event timing
@@ -2390,7 +2393,8 @@ def sweep_programs(dev):
 
 
 def phase_sweeps(dev, out, parent=None):
-    """--sweeps: ``rotation_resident`` and ``adjoint_resident`` on each of
+    """--sweeps: the float64 resident sweeps (:func:`sweeps64`), then
+    ``rotation_resident`` and ``adjoint_resident`` on each of
     :func:`sweep_programs`, one launch a span, CUDA-event ms a launch and
     us a run (the median of ``SWEEP_ROUNDS`` timings of ``SWEEP_REPS``
     launches), with the port in the checkout ``parent`` (loaded under
@@ -2423,6 +2427,7 @@ def phase_sweeps(dev, out, parent=None):
     order = ("parent", "change", "change", "parent") if parent else ("change",)
     rng = np.random.default_rng(24)
     rows = out.setdefault("sweeps", {})
+    sweeps64(dev, rows, ports, order)
     for label, n, ftiles, atiles, fwd, rev in sweep_programs(dev):
         states = []
         for _ in range(2):
@@ -2484,6 +2489,122 @@ def phase_sweeps(dev, out, parent=None):
                 f"{r['staged_runs']}")
         if parent:
             log(f"  {label}: bit-equal to the parent (state, v, psi, lam) "
+                f"{row['bit_equal_to_parent']}")
+        rows[label] = row
+
+
+def first_groups(prog):
+    """The float64 program ``prog``'s resident runs cut to their first
+    group, one run each (``max_groups=1``): the same passes over the state
+    with one group's work inside (a run's fixed cost), as (Groups64,
+    Group64Runs) on the program's device, read with its ``theta_ext``."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.engine import streaming
+    from qsfh_torch.engine.kernels import Groups64
+
+    sel = prog.runs.run_start[:-1].astype(np.int64)
+    goff = prog.goff.astype(np.int64)
+    terms = np.concatenate([np.arange(goff[g], goff[g + 1]) for g in sel])
+    sub_goff = np.concatenate([[0], np.cumsum(goff[sel + 1] - goff[sel])])
+    gpidx = prog.gpidx[sel].astype(np.int64)
+    rows = np.flatnonzero(gpidx >= 0)
+    by_param = rows[np.argsort(gpidx[rows], kind="stable")]
+    counts = np.bincount(gpidx[rows], minlength=prog.n_params)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int64).astype(np.int32),  # noqa: E731
+                                    device=prog.device)
+    groups = Groups64(
+        gx=i32(prog.gx[sel]), goff=i32(sub_goff), gflip=i32(prog.gflip[sel]),
+        gpidx=i32(np.where(gpidx < 0, prog.n_params, gpidx)), zsub=i32(prog.zsub[terms]),
+        wsub=torch.as_tensor(prog.wsub[terms], device=prog.device),
+        param_off=i32(np.concatenate([[0], np.cumsum(counts)])), param_groups=i32(by_param))
+    runs = streaming.Group64Runs(prog.gx[sel], sub_goff, prog.zsub[terms], prog.n, prog.runs.k,
+                                 prog.runs.c, max_groups=1)
+    return groups, runs
+
+
+def sweeps64(dev, rows, ports, order):
+    """--sweeps, float64: ``rot64_resident`` and ``adjoint64_resident`` of
+    each side in ``ports`` on the committed 3x3 checkpoint's float64
+    program (``Rot64Program.from_adapt``: 1931 groups in 521 runs) at its
+    angles and on the same runs cut to their first group
+    (:func:`first_groups`), CUDA-event ms a launch and us a run in rounds
+    of ``order``.  Each side's forward state is held bit for bit to
+    ``rot64_groups`` and within 1e-12 (2-norm) to the plain version, its
+    gradient within 1e-12 of max |g| to ``adjoint64_groups`` and to the
+    plain version; with a parent, the state, the gradient and the
+    adjoint's psi and lam are compared bit for bit with its kernels."""
+    import numpy as np
+    import torch
+
+    from qsfh_torch.algos.adapt import ADAPT
+    from qsfh_torch.engine import kernels as K
+    from qsfh_torch.native.statevec import Rot64Program
+    from qsfh_torch.ops.pool import hubbard_interaction_pool_extended
+
+    vqe = ADAPT(n_epoch=0, threshold1=1e-3, threshold2=1e-3, results_root=DEMO_ADAPT,
+                pool=hubbard_interaction_pool_extended(3, 3), device=dev,
+                dtype=torch.complex128, **ANALYSIS_3X3)
+    prog = Rot64Program.from_adapt(vqe)
+    th_ext = prog._angles(vqe.params_t.detach().cpu().numpy()).clone()
+    rng = np.random.default_rng(26)
+    states = []
+    for _ in range(2):
+        v = rng.standard_normal(1 << prog.n) + 1j * rng.standard_normal(1 << prog.n)
+        states.append(torch.as_tensor(v / np.linalg.norm(v), device=dev))
+    psi, lam = states
+    for label, (groups, runs) in (("3x3 float64 checkpoint", (prog.groups, prog.runs)),
+                                  ("3x3 float64 checkpoint, one group a run", first_groups(prog))):
+        ref = K.rot64_resident_plain(psi.clone(), groups, th_ext, runs)
+        g_ref = K.adjoint64_resident_plain(psi.clone(), lam.clone(), groups, th_ext, runs)
+        by_group = K.rot64_groups(psi.clone(), groups, th_ext)
+        g_groups = K.adjoint64_groups(psi.clone(), lam.clone(), groups, th_ext)
+        gmax = float(g_ref.abs().max())
+        got, row = {}, dict(groups=runs.n_groups, runs=len(runs), most_entries=runs.most_entries,
+                            most_groups=runs.most_groups, staged_runs=len(runs) - 1)
+        for side, Kx in ports.items():
+            state = Kx.rot64_resident(psi.clone(), groups, th_ext, runs)
+            p, l = psi.clone(), lam.clone()
+            g = Kx.adjoint64_resident(p, l, groups, th_ext, runs)
+            torch.cuda.synchronize()
+            got[side] = (state, g, p, l)
+            errs = dict(state=rel_err(state, ref), g=float((g - g_ref).abs().max()) / gmax,
+                        g_groups=float((g - g_groups).abs().max()) / gmax)
+            row[side] = dict(errors=errs, grid=Kx.resident64_grid(psi, runs, False),
+                             adjoint_grid=Kx.resident64_grid(psi, runs, True),
+                             groups_state_bit_equal=torch.equal(state, by_group),
+                             forward_ms=[], adjoint_ms=[])
+            if max(errs.values()) > 1e-12 or not row[side]["groups_state_bit_equal"]:
+                raise AssertionError(f"--sweeps {label} ({side}): {row[side]} against plain and "
+                                     "the per-group kernels")
+        if len(ports) > 1:
+            row["bit_equal_to_parent"] = [torch.equal(a, b)
+                                          for a, b in zip(got["parent"], got["change"])]
+        for _ in range(SWEEP_ROUNDS):
+            for side in order:
+                Kx = ports[side]
+                buf, p, l = psi.clone(), psi.clone(), lam.clone()
+                row[side]["forward_ms"].append(time_cuda(
+                    lambda: Kx.rot64_resident(buf, groups, th_ext, runs), reps=SWEEP_REPS,
+                    warmup=1))
+                row[side]["adjoint_ms"].append(time_cuda(
+                    lambda: Kx.adjoint64_resident(p, l, groups, th_ext, runs), reps=SWEEP_REPS,
+                    warmup=1))
+        for side in ports:
+            r = row[side]
+            for what in ("forward", "adjoint"):
+                ms = sorted(r[f"{what}_ms"])
+                r[f"{what}_median_ms"] = ms[len(ms) // 2]
+                r[f"{what}_us_per_run"] = 1e3 * r[f"{what}_median_ms"] / len(runs)
+            log(f"  {label} ({side}): forward {r['forward_median_ms']:.4f} ms "
+                f"({r['forward_us_per_run']:.3f} us a run of {len(runs)}, {r['grid']} blocks), "
+                f"adjoint {r['adjoint_median_ms']:.4f} ms ({r['adjoint_us_per_run']:.3f} us a "
+                f"run, {r['adjoint_grid']} blocks); errors {r['errors']}; state bit-equal to "
+                f"rot64_groups {r['groups_state_bit_equal']}; runs staged a run ahead "
+                f"{row['staged_runs']}")
+        if len(ports) > 1:
+            log(f"  {label}: bit-equal to the parent (state, g, psi, lam) "
                 f"{row['bit_equal_to_parent']}")
         rows[label] = row
 
@@ -7480,8 +7601,8 @@ def main():
     parser.add_argument("--tiles", action="store_true",
                         help="time the resident and tile kernels over other tile shapes")
     parser.add_argument("--sweeps", action="store_true",
-                        help="the card phase and the float32 resident sweeps only (with "
-                             "--compare, the parent's in turns)")
+                        help="the card phase and the float64 and float32 resident sweeps only "
+                             "(with --compare, the parent's in turns)")
     parser.add_argument("--mesh-only", action="store_true",
                         help="the card phase and the sharded engine's phase only (a quick check "
                              "of qsfh_torch.parallel; no kernels line)")
@@ -7507,7 +7628,7 @@ def main():
     smi = phase_card()
     tmp = tempfile.mkdtemp(prefix="qsfh_torch_smoke_")
     if args.sweeps:
-        log("the float32 resident sweeps (CUDA events, median of "
+        log("the float64 and float32 resident sweeps (CUDA events, median of "
             f"{SWEEP_ROUNDS} timings of {SWEEP_REPS} launches):")
         out = dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi, torch=torch.__version__)
         phase_sweeps(dev, out, args.compare)

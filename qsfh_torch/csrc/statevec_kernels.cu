@@ -1069,39 +1069,24 @@ adjoint_tile_run_kernel(float2* __restrict__ psi, float2* __restrict__ lam, int 
 // threads in all) and one grid barrier per run.
 // ---------------------------------------------------------------------------
 
-// A barrier across the blocks of a cooperative launch.  Block 0 adds
-// 2^31 - (G - 1) to the counter and every other block 1, so the top bit
-// flips once all G have arrived and the low bits return to 0: one zeroed
-// word serves every barrier of every launch on a stream.
-__device__ __forceinline__ void grid_sync(unsigned int* count) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned int add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1u) : 1u;
-    __threadfence();
-    const unsigned int old = atomicAdd(count, add);
-    unsigned int now;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(now) : "l"(count) : "memory");
-    } while (((old ^ now) & 0x80000000u) == 0u);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 __device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
   unsigned int v;
   asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
-// grid_sync's word and protocol in two halves, for the float32 resident
-// kernels.  arrive(): after a block barrier, thread 0 releases the block's
-// stores with one reduction that returns nothing (red.release: no separate
-// fence, and no returned value to wait for); wait(): thread 0 polls
-// (acquire) until the top bit flips, then a block barrier.  Work between
-// the two overlaps the other blocks' arrivals.  Thread 0 reads the top bit
-// once at the launch's start: no barrier of the launch completes before
-// this block arrives, so that bit is the phase, and each barrier flips it.
+// A barrier across the blocks of a cooperative launch, in two halves, for
+// the resident kernels.  Block 0 adds 2^31 - (G - 1) to the counter and
+// every other block 1, so the top bit flips once all G have arrived and the
+// low bits return to 0: one zeroed word serves every barrier of every
+// launch on a stream.  arrive(): after a block barrier, thread 0 releases
+// the block's stores with one reduction that returns nothing (red.release:
+// no separate fence, and no returned value to wait for); wait(): thread 0
+// polls (acquire) until the top bit flips, then a block barrier.  Work
+// between the two overlaps the other blocks' arrivals.  Thread 0 reads the
+// top bit once at the launch's start: no barrier of the launch completes
+// before this block arrives, so that bit is the phase, and each barrier
+// flips it.
 struct SplitBarrier {
   unsigned int* count;
   unsigned int phase;  // thread 0's: the top bit until the next barrier completes
@@ -2732,9 +2717,22 @@ adjoint64_fold_kernel(const double* __restrict__ partials, int n_blocks,
 // another SM wrote, and L1 is not coherent across SMs), applies the run's
 // groups in order with a block barrier between groups (a thread per pair
 // (i, i ^ x) of the tile, as rot64_group_kernel has a thread per pair of the
-// state), and stores the tile back; grid_sync between runs.  An 18-qubit
-// state (4 MiB, psi and lam 8 MiB) stays in the 50 MB L2 throughout, so a
-// group costs a shared-memory pass in place of a launch and an L2 pass.
+// state), and stores the tile back.  An 18-qubit state (4 MiB, psi and lam
+// 8 MiB) stays in the 50 MB L2 throughout, so a group costs a shared-memory
+// pass in place of a launch and an L2 pass.
+//
+// The run loop is pipelined as the float32 resident kernels' is: only the
+// state's round trip lies between two runs.  What a run needs besides the
+// state is made ready a run ahead, in the one of two stage buffers in
+// shared memory (Res64Run) that the current run does not use: at the start
+// of a run, after its first tile's copy is issued, the block reads the
+// next run's bounds and copies its group records and table slices in with
+// cp.async while this run's tile arrives and its groups run; after storing
+// its last tile the block arrives at the split-phase grid barrier
+// (SplitBarrier), forms its first tile of the next run (outer bits, copy
+// map, each group's outer pattern) from that buffer, and only then waits.
+// A block's further tiles of a run form their patterns while their copy is
+// in flight.  A span of one run has nothing to prefetch.
 //
 // Tables.  A group's phase masks z_k span a GF(2) space of rank R <= S (R
 // = 4 for the 8-term groups of a double excitation): with a basis zb_j of
@@ -2747,9 +2745,9 @@ adjoint64_fold_kernel(const double* __restrict__ partials, int n_blocks,
 // thread over the grid, the angle read from theta_ext on the device), and a
 // block copies a run's slice (contiguous, the groups being in order) and the
 // run's group records (flip mask and basis in tile coordinates, partner
-// map, table base; built by the host) into shared memory beside its first
-// tile of the run, so a group's pass reads only shared memory.  The outer
-// bits' pattern of each group is formed once a tile.  Each entry's sincos is
+// map, table base; built by the host) into a stage buffer a run ahead, so a
+// group's pass reads only shared memory.  The outer bits' pattern of each
+// group is formed once a tile.  Each entry's sincos is
 // computed once a call, where computing the tables in the block would
 // repeat them for every block and run; no launch besides.  The partner's
 // index is q ^ pxor (bit j of pxor = parity(x & zb_j): all ones where the
@@ -2767,10 +2765,10 @@ adjoint64_fold_kernel(const double* __restrict__ partials, int n_blocks,
 //
 // Bound at 18 qubits (1931 groups): the float64 arithmetic (0.09 / 0.25 ms
 // forward / adjoint at 34 TFLOP/s), not bytes (one L2 pass of the state per
-// run).  In practice (PERF.md) a run's fixed cost (the grid barrier, the
-// tile copies through L2, the staging; ~5-7 us) takes ~60% of a pass over
-// the 3x3 checkpoint's 521 runs, and the pairs' shared-memory traffic (4
-// amplitudes and 2 table entries a pair, the adjoint twice that) the rest.
+// run).  In practice (PERF.md rows 14 and 16) a run's fixed cost (the grid
+// barrier and the tile copies through L2) takes most of a pass over the 3x3
+// checkpoint's 521 runs, and the pairs' shared-memory traffic (4 amplitudes
+// and 2 table entries a pair, the adjoint twice that) the rest.
 // ---------------------------------------------------------------------------
 constexpr int kRes64MinBits = 6;          // streaming.RESIDENT64_MIN_BITS: a warp of pairs
 constexpr int kRes64MaxBits = 12;         // streaming.RESIDENT64_MAX_BITS
@@ -2846,23 +2844,6 @@ __device__ __forceinline__ void res64_load(double2* tile, const double2* __restr
 __device__ __forceinline__ void res64_store(const double2* tile, double2* __restrict__ g,
                                             const Tile64Map& map) {
   for (int s = 0; s < map.slots; ++s) g[map.global(s)] = tile[threadIdx.x + s * blockDim.x];
-}
-
-// The run's group records and tables, from the layout and the launch's
-// table array into shared memory (asynchronously; the caller commits and
-// waits): `planes` of the cos, sin and r planes (2 forward, 3 adjoint), each
-// staged at stride `most` doubles.
-__device__ __forceinline__ void res64_stage(const Res64Layout& L, int g0, int g1,
-                                            const double* __restrict__ tab, int n_entries,
-                                            int planes, int32_t* srec, double* stab, int most) {
-  const int words = (g1 - g0) * kRes64Rec;  // a multiple of 4: 16-byte pieces
-  for (int m = 4 * threadIdx.x; m < words; m += 4 * blockDim.x)
-    cp_async16(srec + m, L.grec + static_cast<size_t>(g0) * kRes64Rec + m);
-  const int e0 = L.toff[g0], E = L.toff[g1] - e0;  // both even: 16-byte pieces
-  for (int m = 2 * threadIdx.x; m < planes * E; m += 2 * blockDim.x) {
-    const int plane = m / E, e = m - plane * E;
-    cp_async16(stab + plane * most + e, tab + static_cast<size_t>(plane) * n_entries + e0 + e);
-  }
 }
 
 // Each group's pattern of the tile's outer bits, q0 bit j = parity(outer &
@@ -2979,21 +2960,78 @@ __device__ __forceinline__ double adjoint64_tile_group(double2* pt, double2* lt,
   return acc;
 }
 
-// Shared memory of a launch: the tile(s), the largest run's table planes
-// (cos and sin; r for the adjoint), group records and outer patterns, and
-// the adjoint's per-warp sums.  Every piece a multiple of 16 bytes.
+// One of a float64 resident block's two stage buffers: the run's header
+// (kRes64Header words: its first group, its groups, its tile mask; the
+// fourth pads the records to 16 bytes), its group records, then its table
+// planes (cos, sin; r for the adjoint) at stride most_entries.  Pointer
+// arithmetic from the buffer's base alone, so the compiler keeps them in
+// shared memory.
+constexpr int kRes64Header = 4;  // int32 words
+
+__host__ __device__ constexpr size_t res64_buffer_bytes(int planes, int most_entries,
+                                                        int most_groups) {
+  return sizeof(int32_t) * (kRes64Header + static_cast<size_t>(most_groups) * kRes64Rec) +
+         sizeof(double) * planes * static_cast<size_t>(most_entries);
+}
+
+struct Res64Run {
+  int32_t* hdr;
+  __device__ __forceinline__ explicit Res64Run(unsigned char* base)
+      : hdr(reinterpret_cast<int32_t*>(base)) {}
+  __device__ __forceinline__ int g0() const { return hdr[0]; }
+  __device__ __forceinline__ int n_groups() const { return hdr[1]; }
+  __device__ __forceinline__ uint32_t mask() const { return static_cast<uint32_t>(hdr[2]); }
+  __device__ __forceinline__ int32_t* srec() const { return hdr + kRes64Header; }
+  __device__ __forceinline__ double* stab(int most_groups) const {
+    return reinterpret_cast<double*>(srec() + most_groups * kRes64Rec);
+  }
+};
+
+// Shared memory of a launch (streaming.resident64_smem): the tile(s), two
+// stage buffers for the largest run, the outer patterns of the block's
+// tile and the adjoint's per-warp sums.  Every piece a multiple of 16 bytes.
 struct Res64Smem {
-  size_t stab, srec, sq0, wsum, total;
+  size_t stage, stride, sq0, wsum, total;
   __host__ __device__ Res64Smem(bool adjoint, int k, int threads, int most_entries,
                                 int most_groups) {
-    const size_t tile = sizeof(double2) << k;
-    stab = (adjoint ? 2 : 1) * tile;
-    srec = stab + (adjoint ? 3 : 2) * static_cast<size_t>(most_entries) * sizeof(double);
-    sq0 = srec + static_cast<size_t>(most_groups) * kRes64Rec * sizeof(int32_t);
+    stage = (adjoint ? 2 : 1) * (sizeof(double2) << k);
+    stride = res64_buffer_bytes(adjoint ? 3 : 2, most_entries, most_groups);
+    sq0 = stage + 2 * stride;
     wsum = sq0 + ((static_cast<size_t>(most_groups) * sizeof(uint32_t) + 15) & ~size_t(15));
     total = wsum + (adjoint ? static_cast<size_t>(threads / 32) * most_groups * sizeof(double) : 0);
   }
+  // the buffer of the i-th run the block walks
+  __device__ __forceinline__ Res64Run run(unsigned char* smem, int i) const {
+    return Res64Run(smem + stage + (i & 1) * stride);
+  }
 };
+
+// Run r's header (thread 0), group records and table slices (every thread,
+// by cp.async through L2: the caller commits and waits) into buffer b:
+// `planes` of the cos, sin and r planes (2 forward, 3 adjoint).  The table
+// array is filled before the launch's first barrier and not written after
+// it.  Every thread reads the bounds (the same words: one transaction a
+// warp).
+__device__ __forceinline__ void res64_fetch(const Res64Run& b, const Res64Layout& L, int r,
+                                            const double* __restrict__ tab, int n_entries,
+                                            int planes, int most_entries, int most_groups) {
+  const int g0 = __ldg(L.run_start + r), g1 = __ldg(L.run_start + r + 1);
+  if (threadIdx.x == 0) {
+    b.hdr[0] = g0;
+    b.hdr[1] = g1 - g0;
+    b.hdr[2] = __ldg(L.run_mask + r);
+  }
+  const int words = (g1 - g0) * kRes64Rec;  // a multiple of 4: 16-byte pieces
+  for (int m = 4 * threadIdx.x; m < words; m += 4 * blockDim.x)
+    cp_async16(b.srec() + m, L.grec + static_cast<size_t>(g0) * kRes64Rec + m);
+  const int e0 = __ldg(L.toff + g0), E = __ldg(L.toff + g1) - e0;  // both even: 16-byte pieces
+  double* stab = b.stab(most_groups);
+  for (int m = 2 * threadIdx.x; m < planes * E; m += 2 * blockDim.x) {
+    const int plane = m / E, e = m - plane * E;
+    cp_async16(stab + plane * most_entries + e,
+               tab + static_cast<size_t>(plane) * n_entries + e0 + e);
+  }
+}
 
 __global__ void __launch_bounds__(kRes64MaxThreads)
 rot64_resident_kernel(double2* __restrict__ psi, int n, int k, int n_runs, int n_entries,
@@ -3002,26 +3040,43 @@ rot64_resident_kernel(double2* __restrict__ psi, int n, int k, int n_runs, int n
   extern __shared__ __align__(16) unsigned char smem[];
   const Res64Smem lay(false, k, blockDim.x, most_entries, most_groups);
   double2* tile = reinterpret_cast<double2*>(smem);
-  double* stab = reinterpret_cast<double*>(smem + lay.stab);  // cos, sin planes
-  int32_t* srec = reinterpret_cast<int32_t*>(smem + lay.srec);
   uint32_t* sq0 = reinterpret_cast<uint32_t*>(smem + lay.sq0);
-  res64_fill_tables(L, n_entries, tables);
-  grid_sync(barrier);
   const uint32_t n_tiles = 1u << (n - k), all = (1u << n) - 1u;
+  SplitBarrier bar(barrier);
+  res64_fill_tables(L, n_entries, tables);
+  bar.arrive();
+  bar.wait();
+  const Res64Run first = lay.run(smem, 0);
+  res64_fetch(first, L, 0, tables, n_entries, 2, most_entries, most_groups);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  // the block's first tile of the next run (here run 0): its outer bits, copy map and patterns
+  uint32_t outer = deposit(blockIdx.x, all & ~first.mask());
+  Tile64Map map(k, outer, first.mask());
+  res64_outer_patterns(first.srec(), first.n_groups(), outer, sq0);
+  __syncthreads();
   for (int r = 0; r < n_runs; ++r) {
-    const int g0 = L.run_start[r], g1 = L.run_start[r + 1];
-    const uint32_t mask = static_cast<uint32_t>(L.run_mask[r]);
-    for (uint32_t o = blockIdx.x; o < n_tiles; o += gridDim.x) {
-      const uint32_t outer = deposit(o, all & ~mask);
-      const Tile64Map map(k, outer, mask);
+    const Res64Run cur = lay.run(smem, r), nxt = lay.run(smem, r + 1);
+    const int ng = cur.n_groups();
+    const uint32_t mask = cur.mask();
+    const int32_t* srec = cur.srec();
+    const double* stab = cur.stab(most_groups);  // cos, sin planes
+    for (uint32_t o = blockIdx.x;;) {
       res64_load(tile, psi, map);
-      if (o == blockIdx.x) res64_stage(L, g0, g1, tables, n_entries, 2, srec, stab, most_entries);
       cp_async_commit();
-      cp_async_wait_all();
+      if (o != blockIdx.x) {
+        res64_outer_patterns(srec, ng, outer, sq0);
+        cp_async_wait_all();
+      } else if (r + 1 < n_runs) {  // run r + 1's inputs, in flight while run r computes
+        res64_fetch(nxt, L, r + 1, tables, n_entries, 2, most_entries, most_groups);
+        cp_async_commit();
+        cp_async_wait_prior();
+      } else {
+        cp_async_wait_all();
+      }
       __syncthreads();
-      res64_outer_patterns(srec, g1 - g0, outer, sq0);
-      __syncthreads();
-      for (int m = 0; m < g1 - g0; ++m) {
+      for (int m = 0; m < ng; ++m) {
         const int32_t* rec = srec + m * kRes64Rec;
         const double *tc = stab + rec[2], *ts = tc + most_entries;
         const int rank = rec[3];
@@ -3031,8 +3086,19 @@ rot64_resident_kernel(double2* __restrict__ psi, int n, int k, int n_runs, int n
         __syncthreads();
       }
       res64_store(tile, psi, map);
+      o += gridDim.x;
+      if (o >= n_tiles) break;
+      outer = deposit(o, all & ~mask);
+      map = Tile64Map(k, outer, mask);
     }
-    if (r + 1 < n_runs) grid_sync(barrier);
+    if (r + 1 < n_runs) {
+      cp_async_wait_all();  // this thread's copies of run r + 1's inputs, before arrive's barrier
+      bar.arrive();
+      outer = deposit(blockIdx.x, all & ~nxt.mask());
+      map = Tile64Map(k, outer, nxt.mask());
+      res64_outer_patterns(nxt.srec(), nxt.n_groups(), outer, sq0);
+      bar.wait();
+    }
   }
 }
 
@@ -3054,29 +3120,46 @@ adjoint64_resident_kernel(double2* __restrict__ psi, double2* __restrict__ lam, 
   const Res64Smem lay(true, k, blockDim.x, most_entries, most_groups);
   double2* pt = reinterpret_cast<double2*>(smem);
   double2* lt = pt + (1u << k);
-  double* stab = reinterpret_cast<double*>(smem + lay.stab);  // cos, sin, r planes
-  int32_t* srec = reinterpret_cast<int32_t*>(smem + lay.srec);
   uint32_t* sq0 = reinterpret_cast<uint32_t*>(smem + lay.sq0);
   double* wsum = reinterpret_cast<double*>(smem + lay.wsum);  // [warp][group of the run]
-  res64_fill_tables(L, n_entries, tables);
-  grid_sync(barrier);
   const uint32_t n_tiles = 1u << (n - k), all = (1u << n) - 1u;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
-  for (int r = n_runs - 1; r >= 0; --r) {
-    const int g0 = L.run_start[r], g1 = L.run_start[r + 1];
-    const uint32_t mask = static_cast<uint32_t>(L.run_mask[r]);
-    for (uint32_t o = blockIdx.x; o < n_tiles; o += gridDim.x) {
-      const uint32_t outer = deposit(o, all & ~mask);
-      const Tile64Map map(k, outer, mask);
+  SplitBarrier bar(barrier);
+  res64_fill_tables(L, n_entries, tables);
+  bar.arrive();
+  bar.wait();
+  // the runs last first: the i-th the block walks is run n_runs - 1 - i
+  const Res64Run first = lay.run(smem, 0);
+  res64_fetch(first, L, n_runs - 1, tables, n_entries, 3, most_entries, most_groups);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t outer = deposit(blockIdx.x, all & ~first.mask());
+  Tile64Map map(k, outer, first.mask());
+  res64_outer_patterns(first.srec(), first.n_groups(), outer, sq0);
+  __syncthreads();
+  for (int i = 0; i < n_runs; ++i) {
+    const Res64Run cur = lay.run(smem, i), nxt = lay.run(smem, i + 1);
+    const int g0 = cur.g0(), ng = cur.n_groups();
+    const uint32_t mask = cur.mask();
+    const int32_t* srec = cur.srec();
+    const double* stab = cur.stab(most_groups);  // cos, sin, r planes
+    for (uint32_t o = blockIdx.x;;) {
       res64_load(pt, psi, map);
       res64_load(lt, lam, map);
-      if (o == blockIdx.x) res64_stage(L, g0, g1, tables, n_entries, 3, srec, stab, most_entries);
       cp_async_commit();
-      cp_async_wait_all();
+      if (o != blockIdx.x) {
+        res64_outer_patterns(srec, ng, outer, sq0);
+        cp_async_wait_all();
+      } else if (i + 1 < n_runs) {  // the next run's inputs, in flight while this one computes
+        res64_fetch(nxt, L, n_runs - 2 - i, tables, n_entries, 3, most_entries, most_groups);
+        cp_async_commit();
+        cp_async_wait_prior();
+      } else {
+        cp_async_wait_all();
+      }
       __syncthreads();  // also: the previous tile's partials have read wsum
-      res64_outer_patterns(srec, g1 - g0, outer, sq0);
-      __syncthreads();
-      for (int m = g1 - g0 - 1; m >= 0; --m) {
+      for (int m = ng - 1; m >= 0; --m) {
         const int32_t* rec = srec + m * kRes64Rec;
         const double *tc = stab + rec[2], *ts = tc + most_entries, *tr = ts + most_entries;
         const int rank = rec[3];
@@ -3088,15 +3171,26 @@ adjoint64_resident_kernel(double2* __restrict__ psi, double2* __restrict__ lam, 
         if (lane == 0) wsum[warp * most_groups + m] = acc;
         __syncthreads();
       }
-      for (int m = threadIdx.x; m < g1 - g0; m += blockDim.x) {  // the tile's partials
+      for (int m = threadIdx.x; m < ng; m += blockDim.x) {  // the tile's partials
         double s = 0.0;
         for (int w = 0; w < n_warps; ++w) s += wsum[w * most_groups + m];
         partials[static_cast<size_t>(g0 + m) * n_tiles + o] = s;
       }
       res64_store(pt, psi, map);
       res64_store(lt, lam, map);
+      o += gridDim.x;
+      if (o >= n_tiles) break;
+      outer = deposit(o, all & ~mask);
+      map = Tile64Map(k, outer, mask);
     }
-    grid_sync(barrier);
+    cp_async_wait_all();  // this thread's copies of the next run's inputs, before arrive's barrier
+    bar.arrive();         // the next run, or the partials before the fold below
+    if (i + 1 < n_runs) {
+      outer = deposit(blockIdx.x, all & ~nxt.mask());
+      map = Tile64Map(k, outer, nxt.mask());
+      res64_outer_patterns(nxt.srec(), nxt.n_groups(), outer, sq0);
+    }
+    bar.wait();
   }
   // grad[j] = its groups ascending, each group's tiles in order; a warp a
   // parameter; the rows were written by other SMs, so they are read via L2

@@ -1561,20 +1561,13 @@ def adjoint64_groups_plain(psi, lam, groups: Groups64, theta_ext):
     return grad.to(psi.device)
 
 
-def resident64_threads(k: int) -> int:
-    """Threads of a float64 resident block at tiles of k bits:
-    ``streaming.RESIDENT64_THREADS`` capped at the tile's pairs, and at
-    least an eighth of its slots (a thread copies at most 8)."""
-    return max(min(streaming.RESIDENT64_THREADS, 1 << (k - 1)), 1 << (k - 3))
-
-
 def resident64_grid(psi, runs, adjoint: bool, blocks=None) -> int:
     """Blocks G of a float64 resident launch on psi's card: the kernel's
     co-resident capacity at the layout's tile shape and largest run
     (cached per device and shape), capped at the tiles of a run and at
     ``blocks``, as :func:`resident_grid`."""
     n = _n_qubits(psi, "resident64_grid", torch.complex128)
-    threads = resident64_threads(runs.k)
+    threads = streaming.resident64_threads(runs.k)
     return _cooperative_grid(
         n, runs.k,
         (psi.device.index, "f64", bool(adjoint), runs.k, threads, runs.most_entries,
@@ -1604,17 +1597,19 @@ def rot64_resident(psi, groups: Groups64, theta_ext, runs, blocks=None):
     (``streaming.Group64Runs``) in ONE cooperative launch: the launch fills
     the groups' tables, then G persistent blocks walk the runs in order
     over the L2-resident state, block b taking tiles b, b + G, ... of each
-    run, with a grid barrier between runs (``blocks`` caps G; see
-    :func:`resident64_grid`).  In place; returns psi."""
+    run, with a grid barrier between runs, each run's groups and tables
+    staged a run ahead (``len(runs) - 1`` runs a launch; ``blocks`` caps G;
+    see :func:`resident64_grid`).  In place; returns psi."""
     if psi.device.type == "cpu":
         return rot64_resident_plain(psi, groups, theta_ext, runs)
     name = "rot64_resident"
     n, ptrs, tables = _res64_args(psi, groups, theta_ext, runs, name)
     grid = resident64_grid(psi, runs, False, blocks)
+    threads = streaming.resident64_threads(runs.k)
     lib = _load()
-    _launch(name, lib.qsfh_rot64_resident, psi.data_ptr(), n, runs.k, len(runs), grid,
-            resident64_threads(runs.k), runs.n_entries, runs.most_entries, runs.most_groups, ptrs,
-            tables.data_ptr(), _barrier(psi).data_ptr(), _stream())
+    _launch(name, lib.qsfh_rot64_resident, psi.data_ptr(), n, runs.k, len(runs), grid, threads,
+            runs.n_entries, runs.most_entries, runs.most_groups, ptrs, tables.data_ptr(),
+            _barrier(psi).data_ptr(), _stream())
     return psi
 
 
@@ -1643,10 +1638,11 @@ def adjoint64_resident(psi, lam, groups: Groups64, theta_ext, runs, blocks=None)
     partials = torch.empty((g.n_groups, 1 << (n - runs.k)), dtype=torch.float64,
                            device=psi.device)
     grad = torch.empty(g.n_params, dtype=torch.float64, device=psi.device)
+    threads = streaming.resident64_threads(runs.k)
     lib = _load()
     _launch(name, lib.qsfh_adjoint64_resident, psi.data_ptr(), lam.data_ptr(), n, runs.k, len(runs),
-            grid, resident64_threads(runs.k), runs.n_entries, runs.most_entries, runs.most_groups,
-            ptrs, tables.data_ptr(), partials.data_ptr(), g.n_params, g.param_off.data_ptr(),
+            grid, threads, runs.n_entries, runs.most_entries, runs.most_groups, ptrs,
+            tables.data_ptr(), partials.data_ptr(), g.n_params, g.param_off.data_ptr(),
             g.param_groups.data_ptr(), grad.data_ptr(), _barrier(psi).data_ptr(), _stream())
     return grad
 

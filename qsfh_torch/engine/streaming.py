@@ -77,11 +77,17 @@ RESIDENT_TILE_LOW_BITS = 3
 # with chip_smoke.py's polish phase on an NVIDIA H100 80GB HBM3 at 700 W
 # (value_and_grad, ms): 11 / 1 (521 runs) 10.03, 11 / 0 (488) 10.55,
 # 11 / 2 (553) 10.07, 11 / 3 (609) 10.81, 12 / 1 (424, 64 blocks) 11.58,
-# 10 / 1 (639) 11.24; the table budget closes no run at any of them.
+# 10 / 1 (639) 11.24; the table budget closes no run at any of them.  A
+# block stages the next run beside the current one, so where two stage
+# buffers of RESIDENT64_RUN_ENTRIES would not fit beside the tiles (12
+# bits) a run takes fewer entries (resident64_run_entries).
 RESIDENT64_TILE_BITS = 11
 RESIDENT64_TILE_LOW_BITS = 1
 RESIDENT64_RUN_ENTRIES = 2048
 RESIDENT64_RUN_GROUPS = 128
+# the shared memory a block may take (the kernels' kMaxDynamicSmem: the
+# H100's opt-in per block)
+RESIDENT64_SMEM = 232448
 # tile shapes the kernels take: a warp of pair threads at least, two 64 KiB
 # complex128 tiles at most
 RESIDENT64_MIN_BITS = 6
@@ -599,7 +605,10 @@ class Group64Runs:
     (all ones where the group's unit is i, else 0).  The kernels read a
     record per group, ``grec`` (``RESIDENT64_RECORD`` words: xt, pxor, the
     table's base in its run's tables, rank, zbt and zb padded to 8 each).
-    Raises ValueError where a group fits no tile (:func:`group_runs_fit`).
+    A run holds at most ``max_groups`` groups and ``max_entries`` table
+    entries, the latter cut to :func:`resident64_run_entries` (the kernels
+    stage the next run beside the current one).  Raises ValueError where a
+    group fits no tile (:func:`group_runs_fit`).
     """
 
     def __init__(self, gx, goff, zsub, n: int, k: int, c: int,
@@ -617,6 +626,7 @@ class Group64Runs:
             csub.extend(coef)
             pxor.append(sum((bin(x & z).count("1") & 1) << j for j, z in enumerate(basis)))
             entries.append(max(2, 1 << len(basis)))
+        max_entries = min(max_entries, resident64_run_entries(k, max_groups))
         runs = order_group_runs(self.gx, entries, k, c, max_entries, max_groups)
         if n < k or runs is None:
             raise ValueError(f"a group of the program fits no {k}-bit tile of {n} qubits")
@@ -695,6 +705,36 @@ class Group64Runs:
                 for a in (self.run_start, self.run_mask, self.grec, self.toff, self.tgroup,
                           self.csub))
         return self._cache[key]
+
+
+def resident64_threads(k: int) -> int:
+    """Threads of a float64 resident block at tiles of k bits:
+    ``RESIDENT64_THREADS`` capped at the tile's pairs, and at least an
+    eighth of its slots (a thread copies at most 8)."""
+    return max(min(RESIDENT64_THREADS, 1 << (k - 1)), 1 << (k - 3))
+
+
+def resident64_smem(adjoint: bool, k: int, most_entries: int, most_groups: int) -> int:
+    """Bytes of shared memory a float64 resident block takes at tiles of k
+    bits for a largest run of ``most_entries`` table entries and
+    ``most_groups`` groups (the kernels' ``Res64Smem``): its tile (psi and
+    lam for the adjoint), two stage buffers (a 16-byte header, the group
+    records, the cos and sin table planes, and r for the adjoint), the
+    groups' outer patterns and the adjoint's per-warp sums."""
+    planes = 3 if adjoint else 2
+    buffer = 16 + 4 * RESIDENT64_RECORD * most_groups + 8 * planes * most_entries
+    patterns = -(-4 * most_groups // 16) * 16
+    sums = 8 * (resident64_threads(k) // 32) * most_groups if adjoint else 0
+    return ((2 if adjoint else 1) << (k + 4)) + 2 * buffer + patterns + sums
+
+
+def resident64_run_entries(k: int, max_groups: int = RESIDENT64_RUN_GROUPS) -> int:
+    """The table entries a run at tiles of k bits may hold:
+    ``RESIDENT64_RUN_ENTRIES``, or, where the adjoint's block (the larger)
+    would then pass ``RESIDENT64_SMEM``, what each of its two stage buffers
+    holds of the room its tiles, patterns and sums leave (an even count)."""
+    spare = RESIDENT64_SMEM - resident64_smem(True, k, 0, max_groups)
+    return min(RESIDENT64_RUN_ENTRIES, spare // (2 * 8 * 3) // 2 * 2)
 
 
 def group_runs_fit(gx, n: int, k: int, c: int) -> bool:

@@ -1036,7 +1036,7 @@ def _random_group_program(n, dev, seed, n_ops=40, n_params=12, **kw):
     return make, th, psi0
 
 
-@pytest.mark.parametrize("n,k", [(12, 8), (14, 9)])
+@pytest.mark.parametrize("n,k", [(12, 8), (14, 9), (12, 6)])
 def test_float64_resident_kernels(dev, n, k):
     """``rot64_resident`` and ``adjoint64_resident`` on random group
     programs at n = 12 and 14 over tiles of k bits (many tiles and runs):
@@ -1044,7 +1044,8 @@ def test_float64_resident_kernels(dev, n, k):
     relative, E within 1e-12, the gradient within 1e-12 of max |g|),
     against the per-group kernels (the same state bits: the pair arithmetic
     is shared; the gradient within 1e-13 of max |g|), one launch each way a
-    call, two calls and a grid of 3 blocks the same bits."""
+    call, two calls and a grid of 3 blocks (several tiles a block, each
+    forming its own patterns; at 6 bits 64 tiles a run) the same bits."""
     make, th, psi0 = _random_group_program(n, dev, seed=n, tile_bits=k, low_bits=1)
     prog, groups, plain = make(), make(route="groups"), make(impl=K.PLAIN)
     assert prog.route == "resident" and len(prog.runs) > 2 and (prog.gx == 0).any()
@@ -1069,12 +1070,119 @@ def test_float64_resident_kernels(dev, n, k):
     few = K.rot64_resident(prog._state(psi0), prog.groups, th_ext, prog.runs, blocks=3)
     lam = 2.0 * prog.h_apply(psi)
     g_full = K.adjoint64_resident(psi.clone(), lam.clone(), prog.groups, th_ext, prog.runs)
-    g_few = K.adjoint64_resident(psi.clone(), lam.clone(), prog.groups, th_ext, prog.runs,
-                                 blocks=3)
+    p_few, l_few = psi.clone(), lam.clone()
+    g_few = K.adjoint64_resident(p_few, l_few, prog.groups, th_ext, prog.runs, blocks=3)
+    p_full, l_full = psi.clone(), lam.clone()
+    K.adjoint64_resident(p_full, l_full, prog.groups, th_ext, prog.runs)
     torch.cuda.synchronize()
     assert torch.equal(few, psi) and torch.equal(g_full, g_few)
+    assert torch.equal(p_few, p_full) and torch.equal(l_few, l_full)
     with pytest.raises(TypeError):
         K.rot64_resident(psi.to(torch.complex64), prog.groups, th_ext, prog.runs)
+
+
+def test_float64_resident_one_run(dev):
+    """A program whose groups all fit one run (tiles of all 10 qubits: one
+    tile, one block): nothing to stage ahead; the state bits of the
+    per-group kernels and the gradient within 1e-13 of max |g|."""
+    make, th, psi0 = _random_group_program(10, dev, seed=3, n_ops=3, tile_bits=10, low_bits=1)
+    prog, groups = make(), make(route="groups")
+    assert prog.route == "resident" and len(prog.runs) == 1
+    psi = prog.apply(th, psi0)
+    e, g = prog.value_and_grad(th, psi0)
+    psi_g = groups.apply(th, psi0)
+    e_g, g_g = groups.value_and_grad(th, psi0)
+    torch.cuda.synchronize()
+    assert torch.equal(psi, psi_g)
+    assert abs(e - e_g) <= 1e-13 * abs(e_g) and np.abs(g - g_g).max() <= 1e-13 * np.abs(g_g).max()
+
+
+def test_float64_resident_staging_budget(dev):
+    """Groups of rank 8 (256 table entries each) at 14 qubits over tiles of
+    12 bits: the runs close on ``streaming.resident64_run_entries`` (two
+    stage buffers beside the adjoint's 128 KiB of tiles), both kernels
+    launch at that shared memory, and they give the state bits of the
+    per-group kernels and the gradient within 1e-13 of max |g|."""
+    from qsfh_torch.engine import streaming
+    from qsfh_torch.native.statevec import Rot64Program
+
+    n, G, P = 14, 24, 6
+    rng = np.random.default_rng(12)
+    j = np.tile(np.arange(8), G)
+    # flip bits 0-2, phase bits 3-13 (even parity: real phases), a unit phase bit a term
+    seg = dict(xb=np.repeat(rng.choice([0b110, 0b101, 0b11], G), 8).astype(np.uint32),
+               zb=((1 << (3 + j)) | (rng.integers(0, 8, 8 * G) << 11)).astype(np.uint32),
+               scale=rng.normal(0.0, 0.5, 8 * G), pidx=np.repeat(np.arange(G) % P, 8),
+               phre=rng.choice([-1.0, 1.0], 8 * G), phim=np.zeros(8 * G))
+    T = 30
+    h = (rng.integers(0, 1 << n, size=T).astype(np.uint32),
+         rng.integers(0, 1 << n, size=T).astype(np.uint32), rng.normal(size=T), np.zeros(T))
+    th = rng.normal(0.0, 0.5, P)
+    psi0 = _state(rng, n)
+    prog = Rot64Program(n, seg, h, P, device=dev, tile_bits=12, low_bits=1)
+    groups = Rot64Program(n, seg, h, P, device=dev, route="groups")
+    runs = prog.runs
+    assert prog.route == "resident" and len(runs) > 2
+    assert runs.most_entries + 256 > streaming.resident64_run_entries(12) >= runs.most_entries
+    psi = prog.apply(th, psi0)
+    e, g = prog.value_and_grad(th, psi0)
+    psi_g = groups.apply(th, psi0)
+    e_g, g_g = groups.value_and_grad(th, psi0)
+    torch.cuda.synchronize()
+    assert torch.equal(psi, psi_g)
+    assert abs(e - e_g) <= 1e-13 * abs(e_g) and np.abs(g - g_g).max() <= 1e-13 * np.abs(g_g).max()
+
+
+@pytest.fixture(scope="module")
+def polish_3x3():
+    """(program, angles) of the committed 1719-operator 3x3 checkpoint's
+    float64 polish program on the card (1931 groups in 521 resident
+    runs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from qsfh_torch.algos.adapt import ADAPT
+    from qsfh_torch.native.statevec import Rot64Program
+    from qsfh_torch.ops.pool import hubbard_interaction_pool_extended
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    a = ADAPT(pool=hubbard_interaction_pool_extended(3, 3), n_epoch=0, threshold1=1e-3,
+              threshold2=1e-3, x_dimension=3, y_dimension=3, n_electrons=9, n_spin_up=5,
+              n_spin_down=4, tunneling=1, coulomb=6, degenerate_subspace=4, load_model=True,
+              plot=False, log_metrics=False, device="cuda", dtype=torch.complex128,
+              results_root=os.path.join(root, "benchmarks", "demo_3x3"))
+    return Rot64Program.from_adapt(a), a.params_t.detach().cpu().numpy()
+
+
+def test_float64_resident_checkpoint_3x3(dev, polish_3x3):
+    """The checkpoint's float64 program at its angles, both ways (521 runs,
+    520 staged a run ahead a launch): the state bits of ``rot64_groups``,
+    the gradient within 1e-12 of max |g| of ``adjoint64_groups``, and the
+    same bits (state, gradient, the adjoint's psi and lam) on a second call
+    and at ``blocks=3`` (several tiles a block) as at the full grid."""
+    prog, x0 = polish_3x3
+    runs = prog.runs
+    assert prog.route == "resident" and len(runs) == 521
+    th_ext = prog._angles(x0).clone()
+    rng = np.random.default_rng(26)
+    psi = torch.as_tensor(_state(rng, 18), device=dev)
+    lam = torch.as_tensor(_state(rng, 18), device=dev)
+    K.reset_launch_counts()
+    states, sweeps = [], []
+    for blocks in (None, None, 3):
+        states.append(K.rot64_resident(psi.clone(), prog.groups, th_ext, runs, blocks=blocks))
+        p, l = psi.clone(), lam.clone()
+        sweeps.append((K.adjoint64_resident(p, l, prog.groups, th_ext, runs, blocks=blocks), p, l))
+    by_group = K.rot64_groups(psi.clone(), prog.groups, th_ext)
+    g_groups = K.adjoint64_groups(psi.clone(), lam.clone(), prog.groups, th_ext)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["rot64_resident"] == counts["adjoint64_resident"] == 3
+    assert K.resident64_grid(psi, runs, False) > 3 and K.resident64_grid(psi, runs, True) > 3
+    assert torch.equal(states[0], by_group)
+    assert float((sweeps[0][0] - g_groups).abs().max()) <= 1e-12 * float(g_groups.abs().max())
+    for state, sweep in zip(states[1:], sweeps[1:]):
+        assert torch.equal(state, states[0])
+        assert all(torch.equal(a, b) for a, b in zip(sweep, sweeps[0]))
 
 
 def _fused_adapt(dev, tmp_path):

@@ -8,7 +8,9 @@ A CUDA kernel has no CPU mode, so these tests hold what surrounds it:
 * (a) the layout of the committed 3x3 checkpoint (1931 groups): every
   group's flip mask inside its run's tile bits, the runs covering the
   groups in order, each group's GF(2) basis reproducing its phase masks,
-  the table budget, and the run count at the shipped tile shape;
+  the table budget, and the run count at the shipped tile shape; runs
+  that close on the staging budget, whose two stage buffers fit beside
+  the tiles at 11 and 12 bits;
 * (b) a torch emulation of the kernels' tile walk built from the layout
   alone (gather and scatter indices from the run masks, each group's
   pattern from its tile-coordinate basis and the tile's outer bits, its
@@ -127,6 +129,48 @@ def test_group_runs_close_on_budget_and_cap(checkpoint):
     assert streaming.order_group_runs(prog.gx, [300] * prog.G, 11, 1, 256, 64) is None
     with pytest.raises(ValueError, match="fits no"):
         streaming.Group64Runs(prog.gx, prog.goff, prog.zsub, 18, 11, 1, max_entries=64)
+
+
+def test_checkpoint_stages_a_run_ahead(checkpoint):
+    """The checkpoint keeps its 521 runs (568 table entries and 46 groups
+    at most) under the staging budget: a launch stages 520 runs ahead, and
+    both blocks hold two stage buffers within the shared memory a block
+    may take."""
+    runs = checkpoint.runs
+    assert (len(runs), runs.most_entries, runs.most_groups) == (521, 568, 46)
+    assert len(runs) - 1 == 520
+    for adjoint in (False, True):
+        assert streaming.resident64_smem(adjoint, runs.k, runs.most_entries,
+                                         runs.most_groups) <= streaming.RESIDENT64_SMEM
+
+
+@pytest.mark.parametrize("k", [11, 12])
+def test_runs_close_on_the_staging_budget(k):
+    """Groups of rank 8 (256 table entries each) on one flip mask fill a
+    run's tables: at 11 bits the runs close on RESIDENT64_RUN_ENTRIES; at
+    12, where two stage buffers of that many entries would not fit beside
+    the adjoint's psi and lam tiles, on the fewer entries of
+    resident64_run_entries, so that both blocks fit."""
+    n, G = 14, 40
+    gx = np.full(G, 0b110, np.int64)
+    goff = np.arange(0, 8 * (G + 1), 8)
+    rng = np.random.default_rng(k)
+    zsub = (1 << (3 + np.tile(np.arange(8), G))) | (rng.integers(0, 8, 8 * G) << 11)
+    runs = streaming.Group64Runs(gx, goff, zsub, n, k, 1)
+    runs.check("budget")
+    budget = streaming.resident64_run_entries(k)
+    assert (np.diff(runs.bstart) == 8).all() and runs.n_entries == 256 * G
+    assert runs.most_entries <= budget < runs.most_entries + 256  # the runs reach the budget
+    assert len(runs) == -(-G // (budget // 256))
+    for adjoint in (False, True):
+        assert streaming.resident64_smem(adjoint, k, runs.most_entries,
+                                         runs.most_groups) <= streaming.RESIDENT64_SMEM
+    full = streaming.resident64_smem(True, k, streaming.RESIDENT64_RUN_ENTRIES,
+                                     streaming.RESIDENT64_RUN_GROUPS)
+    if k == 11:
+        assert budget == streaming.RESIDENT64_RUN_ENTRIES and full <= streaming.RESIDENT64_SMEM
+    else:
+        assert budget < streaming.RESIDENT64_RUN_ENTRIES and full > streaming.RESIDENT64_SMEM
 
 
 def test_group_basis_is_greedy_in_term_order():
